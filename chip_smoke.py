@@ -28,7 +28,25 @@ Phases (each one that fails raises, and the script exits non-zero):
    kernel must have been launched exactly ``n_layer x decode steps``
    times.  A second, timed run gives tokens/s, decode-step ms and TTFT;
    a shorter int8-cache run follows.
-5. One JSON line listing each kernel: launches on the main path, max
+3b. The flash-attention kernels K1 (forward), K2 (dq) and K3 (dk/dv)
+   against their plain versions at the training shapes (B=32, H=8,
+   T=256, D=64, ragged key masks): not causal, causal and cross
+   (Tq != Tk), dropout 0 and 0.1, plus an all-masked row at a length
+   that is not a multiple of 128.  Then each kernel, its plain version
+   and the library yardstick (``scaled_dot_product_attention`` forward,
+   and its autograd backward, on the same inputs without dropout) are
+   timed with CUDA events beside the bound.
+5. The training slice: Transformer-base through Program ->
+   append_backward -> Executor.run with ``attention_impl="pallas"``.
+   First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
+   step on the card and one on the CPU from the same copied starting
+   values: the loss and every parameter gradient must agree.  Then the
+   full model (6+6 layers, d_model 512, vocab 32000, T=256, B=32,
+   dropout 0.1) trains 12 steps on one seeded batch: the loss must stay
+   finite, K1, K2 and K3 must each launch exactly 18 times a step, and
+   no gradient may re-run its forward.  Step ms, tokens/s, peak memory
+   and one profiled step follow.
+6. One JSON line listing each kernel: launches on the main path, max
    error, its time, the plain version's, the library call's and the
    bound.
 
@@ -65,6 +83,21 @@ KERNEL_TOL = {"float32": 1e-5, "int8": 1e-5}
 # paged decode vs the full causal re-forward: same weights and math,
 # different matmul shapes and summation orders over 6 layers
 LOGITS_TOL = 1e-3
+# flash kernels vs their plain versions (|d| <= atol + rtol * |ref|):
+# float32 sums over at most 320 keys in different orders; the gradients
+# are sums of products of those, hence the wider bound
+FLASH_FWD_TOL = (2e-5, 1e-5)
+FLASH_GRAD_TOL = (1e-4, 1e-4)
+# one training step, card vs CPU, per parameter gradient:
+# max|d| <= TRAIN_GRAD_TOL * max|ref| (float32 GEMMs and reductions in
+# other orders through 2 layers, a 32000-way softmax and the backward)
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-5          # relative
+TRAIN = dict(src_vocab=32000, tgt_vocab=32000, max_len=256, d_model=512,
+             n_head=8, d_ffn=2048, n_layer=6, dropout=0.1,
+             attention_impl="pallas")
+TRAIN_B, TRAIN_STEPS = 32, 12
+FLASH_TIME_SHAPE = (32, 8, 256, 64)   # B, H, T, D of the training path
 
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
@@ -458,6 +491,393 @@ def run_slice(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_inputs(dev, B, H, Tq, Tk, D, seed, all_masked=False):
+    """Random q/k/v/dO, a ragged [B, Tk] key mask (each row keeps a
+    prefix of 1..Tk keys, as padded batches do) and an int32 seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, Tq, D, generator=g, device=dev)
+    k = torch.randn(B, H, Tk, D, generator=g, device=dev)
+    v = torch.randn(B, H, Tk, D, generator=g, device=dev)
+    do = torch.randn(B, H, Tq, D, generator=g, device=dev)
+    lens = torch.randint(1, Tk + 1, (B,), generator=g, device=dev)
+    mask = (torch.arange(Tk, device=dev)[None] < lens[:, None]).float()
+    if all_masked:
+        mask[-1] = 0.0
+    seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32, device=dev)
+    return dict(q=q, k=k, v=v, do=do, mask=mask, seed=seed_t)
+
+
+def flash_run(A, x, causal, rate):
+    """K1, then K2 and K3 on its LSE; returns every output."""
+    out, lse = A.flash_attention_fwd(x["q"], x["k"], x["v"], x["mask"],
+                                     causal, None, rate, x["seed"])
+    delta = A.flash_attention_delta(out, x["do"])
+    dq = A.flash_attention_bwd_dq(x["q"], x["k"], x["v"], x["mask"], lse,
+                                  delta, x["do"], causal, None, rate,
+                                  x["seed"])
+    dk, dv = A.flash_attention_bwd_dkv(x["q"], x["k"], x["v"], x["mask"],
+                                       lse, delta, x["do"], causal, None,
+                                       rate, x["seed"])
+    return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+
+
+def flash_plain(A, x, causal, rate):
+    out, lse = A.flash_attention_ref(x["q"], x["k"], x["v"], x["mask"],
+                                     causal, None, rate, x["seed"])
+    dq, dk, dv = A.flash_attention_bwd_ref(x["q"], x["k"], x["v"],
+                                           x["mask"], out, lse, x["do"],
+                                           causal, None, rate, x["seed"])
+    return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+
+
+def worst(got, ref, tol) -> float:
+    """max |got - ref|; raises when any element exceeds atol + rtol|ref|."""
+    atol, rtol = tol
+    d = (got - ref).abs()
+    if not torch.isfinite(got).all() or \
+            (d > atol + rtol * ref.abs()).any():
+        raise AssertionError(f"max |d| {d.max().item()} beyond "
+                             f"{atol} + {rtol} |ref|")
+    return d.max().item()
+
+
+FLASH_CASES = {  # name: (B, H, Tq, Tk, D, causal, rate, all-masked row)
+    "self": (32, 8, 256, 256, 64, False, 0.0, False),
+    "self_dropout": (32, 8, 256, 256, 64, False, 0.1, False),
+    "causal_dropout": (32, 8, 256, 256, 64, True, 0.1, False),
+    "cross_tk320_dropout": (32, 8, 256, 320, 64, False, 0.1, False),
+    "causal_t200_all_masked_row": (4, 8, 200, 200, 64, True, 0.1, True),
+}
+
+
+def flash_work(x, causal) -> dict:
+    """The least work of one call of each kernel on these inputs: the
+    (query, key) pairs the data needs (unmasked keys, causal-allowed),
+    4 / 6 / 8 float32 operations per pair per head dim for K1 / K2 / K3,
+    and each input read once, each output written once."""
+    B, H, Tq, D = x["q"].shape
+    Tk = x["k"].shape[2]
+    valid = x["mask"] > 0                                     # [B, Tk]
+    if causal:
+        allowed = (torch.arange(Tq, device=valid.device)[:, None]
+                   >= torch.arange(Tk, device=valid.device)[None])
+        pairs = int((allowed[None] & valid[:, None]).sum().item()) * H
+    else:
+        pairs = int(valid.sum().item()) * Tq * H
+    f4 = 4
+    qb = B * H * Tq * D * f4
+    kb = B * H * Tk * D * f4
+    rowb = B * H * Tq * f4
+    maskb = B * Tk * f4
+    rows = {
+        "fwd": (4 * D * pairs, qb + 2 * kb + maskb + qb + rowb),
+        "bwd_dq": (6 * D * pairs, 2 * qb + 2 * kb + maskb + 2 * rowb + qb),
+        "bwd_dkv": (8 * D * pairs, 2 * qb + 2 * kb + maskb + 2 * rowb
+                    + 2 * kb),
+    }
+    out = {}
+    for name, (ops, nbytes) in rows.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        out[name] = {"ops": ops, "bytes": nbytes,
+                     "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def time_flash(A, dev, causal, rate) -> dict:
+    """Kernel, plain and library times at the main path's shape, cycling
+    input sets so each launch reads its K/V from device memory."""
+    import torch.nn.functional as F
+    B, H, T, D = FLASH_TIME_SHAPE
+    one = flash_inputs(dev, B, H, T, T, D, seed=40)
+    set_bytes = sum(one[n].numel() * 4 for n in ("q", "k", "v", "do"))
+    n_sets = max(2, math.ceil(2 * L2_BYTES / set_bytes))
+    sets = [flash_inputs(dev, B, H, T, T, D, seed=41 + i)
+            for i in range(n_sets)]
+    for s in sets:
+        s["out"], s["lse"] = A.flash_attention_fwd(
+            s["q"], s["k"], s["v"], s["mask"], causal, None, rate, s["seed"])
+        s["delta"] = A.flash_attention_delta(s["out"], s["do"])
+        s["bias"] = s["mask"][:, None, None, :] > 0
+        if causal:
+            tri = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+            s["bias"] = s["bias"] & tri
+    args = lambda s: (s["q"], s["k"], s["v"], s["mask"])  # noqa: E731
+    res = {
+        "fwd": time_ms(lambda s: A.flash_attention_fwd(
+            *args(s), causal, None, rate, s["seed"]), sets, iters=100),
+        "bwd_dq": time_ms(lambda s: A.flash_attention_bwd_dq(
+            *args(s), s["lse"], s["delta"], s["do"], causal, None, rate,
+            s["seed"]), sets, iters=100),
+        "bwd_dkv": time_ms(lambda s: A.flash_attention_bwd_dkv(
+            *args(s), s["lse"], s["delta"], s["do"], causal, None, rate,
+            s["seed"]), sets, iters=100),
+    }
+    plain = {
+        "fwd": time_ms(lambda s: A.flash_attention_ref(
+            *args(s), causal, None, rate, s["seed"]), sets, iters=10),
+        "bwd_dq": time_ms(lambda s: A._bwd_ref(
+            *args(s), s["lse"], s["delta"], s["do"], causal, D ** -0.5,
+            rate, s["seed"], True, False), sets, iters=10),
+        "bwd_dkv": time_ms(lambda s: A._bwd_ref(
+            *args(s), s["lse"], s["delta"], s["do"], causal, D ** -0.5,
+            rate, s["seed"], False, True), sets, iters=10),
+    }
+    # library yardstick (never called by the port): SDPA forward, and the
+    # autograd backward of one SDPA call (dq, dk and dv together)
+    lib_fwd = time_ms(lambda s: F.scaled_dot_product_attention(
+        s["q"], s["k"], s["v"], attn_mask=s["bias"]), sets, iters=100)
+    for s in sets:
+        s["leaves"] = [s[n].clone().requires_grad_(True)
+                       for n in ("q", "k", "v")]
+        s["sdpa"] = F.scaled_dot_product_attention(
+            *s["leaves"], attn_mask=s["bias"])
+    lib_bwd = time_ms(lambda s: torch.autograd.grad(
+        s["sdpa"], s["leaves"], s["do"], retain_graph=True), sets, iters=50)
+    work = flash_work(one, causal)
+    return {n: {"ms": res[n], "plain_ms": plain[n],
+                "library_ms": lib_fwd if n == "fwd" else lib_bwd,
+                "input_sets": n_sets, **work[n]} for n in res}
+
+
+def check_and_time_flash(dev) -> dict:
+    from paddle_tpu_torch.kernels import attention as A
+    errs = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    for i, (name, (B, H, Tq, Tk, D, causal, rate, all_masked)) in \
+            enumerate(FLASH_CASES.items()):
+        x = flash_inputs(dev, B, H, Tq, Tk, D, seed=i + 1,
+                         all_masked=all_masked)
+        got = flash_run(A, x, causal, rate)
+        torch.cuda.synchronize()
+        ref = flash_plain(A, x, causal, rate)
+        e = {"fwd": max(worst(got["out"], ref["out"], FLASH_FWD_TOL),
+                        worst(got["lse"], ref["lse"], FLASH_FWD_TOL)),
+             "bwd_dq": worst(got["dq"], ref["dq"], FLASH_GRAD_TOL),
+             "bwd_dkv": max(worst(got["dk"], ref["dk"], FLASH_GRAD_TOL),
+                            worst(got["dv"], ref["dv"], FLASH_GRAD_TOL))}
+        log(f"  {name} B={B} H={H} Tq={Tq} Tk={Tk} D={D} causal={causal} "
+            f"dropout={rate}: max|kernel - plain| out/lse {e['fwd']!r}, "
+            f"dq {e['bwd_dq']!r}, dk/dv {e['bwd_dkv']!r} (tolerance "
+            f"{FLASH_FWD_TOL} / {FLASH_GRAD_TOL} as atol, rtol)")
+        for n in errs:
+            errs[n] = max(errs[n], e[n])
+        del x, got, ref
+    out = {"max_abs_err": errs}
+    for label, causal in (("self_dropout", False), ("causal_dropout", True)):
+        t = time_flash(A, dev, causal, 0.1)
+        out[label] = t
+        for n, r in t.items():
+            log(f"  {label} {n}: kernel {r['ms']!r} ms, plain "
+                f"{r['plain_ms']!r} ms, sdpa {r['library_ms']!r} ms, bound "
+                f"{r['bound_ms']!r} ms ({r['bound_by']}, {r['ops']} ops, "
+                f"{r['bytes']} bytes)")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Transformer training through Program -> Executor.run
+# ---------------------------------------------------------------------------
+
+def build_transformer(cfg: dict, seed: int = 3):
+    """The port's Transformer training program (models/transformer.py):
+    (main, startup, avg_cost, sorted parameter names)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import transformer
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = transformer.build(**cfg)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def train_feed(B: int, T: int, vocab: int, seed: int) -> dict:
+    """One seeded batch: token ids and ragged [B, T] masks (each row a
+    prefix of T/2..T tokens), as bench.py makes its data."""
+    rs = np.random.RandomState(seed)
+    m = np.zeros((B, T), "float32")
+    for b in range(B):
+        m[b, : rs.randint(T // 2, T + 1)] = 1
+    return {"src_ids": rs.randint(0, vocab, (B, T)).astype("int64"),
+            "tgt_ids": rs.randint(0, vocab, (B, T)).astype("int64"),
+            "lbl_ids": rs.randint(0, vocab, (B, T)).astype("int64"),
+            "src_mask": m, "tgt_mask": m.copy()}
+
+
+def flash_launches(A) -> tuple:
+    return (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches)
+
+
+def reset_flash_launches(A) -> None:
+    A.flash_attention_fwd.launches = 0
+    A.flash_attention_bwd_dq.launches = 0
+    A.flash_attention_bwd_dkv.launches = 0
+
+
+def check_train_step_against_cpu(dev) -> dict:
+    """One step of a 2-layer full-width program (B=4, T=64, dropout 0)
+    on the card and on the CPU from the same copied starting values:
+    the loss and every parameter gradient agree (the kernels against
+    their plain versions through append_backward)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import attention as A
+    cfg = dict(TRAIN, n_layer=2, max_len=64, dropout=0.0)
+    main, startup, loss, params = build_transformer(cfg)
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    feed = train_feed(4, 64, cfg["tgt_vocab"], seed=5)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        n0 = flash_launches(A)
+        out[name] = fluid.Executor(device).run(main, feed=feed,
+                                               fetch_list=fetch, scope=scope)
+        out[name + "_launches"] = tuple(
+            b - a for a, b in zip(n0, flash_launches(A)))
+    # one launch per attention block: encoder self, decoder self, cross
+    want = 3 * cfg["n_layer"] if torch.device(dev).type == "cuda" else 0
+    if out["gpu_launches"] != (want,) * 3 or \
+            out["cpu_launches"] != (0, 0, 0):
+        raise AssertionError(f"flash launches card {out['gpu_launches']}, "
+                             f"CPU {out['cpu_launches']}; expected {want} "
+                             f"each on the card and none on the CPU")
+    l_cpu, l_gpu = float(out["cpu"][0]), float(out["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not math.isfinite(l_gpu) or loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"loss card {l_gpu} vs CPU {l_cpu}")
+    ratios = {}
+    for name, g, r in zip(params, out["gpu"][1:], out["cpu"][1:]):
+        scale = float(np.abs(r).max())
+        ratios[name] = float(np.abs(g - r).max()) / max(scale, 1e-30)
+        if not np.isfinite(g).all() or ratios[name] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: max|d| / max|ref| = "
+                                 f"{ratios[name]} > {TRAIN_GRAD_TOL}")
+    worst_p = max(ratios, key=ratios.get)
+    log(f"  2-layer step, card vs CPU: loss {l_gpu!r} vs {l_cpu!r} (rel "
+        f"{loss_rel!r}), {len(params)} gradients, worst max|d|/max|ref| "
+        f"{ratios[worst_p]!r} ({worst_p}; tolerance {TRAIN_GRAD_TOL})")
+    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+            "n_grads": len(params), "worst_grad_ratio": ratios[worst_p],
+            "worst_grad_param": worst_p}
+
+
+def profile_step(exe, main, feed, loss) -> dict:
+    """One training step under the torch profiler: device busy time over
+    its window, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss])
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return {"device_busy": "not measured"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    total = sum(t for t, _ in by_name.values())
+    flash = {k: sum(t for n, (t, _) in by_name.items() if k in n)
+             for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall * 1e3, "device_window_ms": window / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / window,
+            "kernels_launched": len(events),
+            "kernel_ms_total": total / 1e3,
+            "flash_ms": {k: v / 1e3 for k, v in flash.items()},
+            "flash_share_of_kernel_time": sum(flash.values()) / total,
+            "top_kernels": [{"name": n[:120], "ms": t / 1e3, "count": c}
+                            for n, (t, c) in top]}
+
+
+def run_training(dev, card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import attention as A
+    out = {"parity": check_train_step_against_cpu(dev)}
+    t0 = time.perf_counter()
+    main, startup, loss, params = build_transformer(TRAIN)
+    n_ops = len(main.global_block.ops)
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(scope.find_var(p).numel() for p in params)
+    log(f"  Transformer-base program: {n_ops} ops, {n_params} parameters, "
+        f"built and initialized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    feed = train_feed(TRAIN_B, TRAIN["max_len"], TRAIN["tgt_vocab"], seed=11)
+    torch.cuda.reset_peak_memory_stats()
+    lowering.grad_recomputes = 0
+    reset_flash_launches(A)
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(l))
+    launches = flash_launches(A)
+    recomputes = lowering.grad_recomputes
+    # 18 a step at 6+6 layers: encoder self, decoder self and cross
+    want = (3 * TRAIN["n_layer"] * TRAIN_STEPS
+            if torch.device(dev).type == "cuda" else 0)
+    log(f"  {TRAIN_STEPS} steps: launches K1/K2/K3 {launches} (expected "
+        f"{want} each), grad recomputes {recomputes}")
+    if launches != (want, want, want) or recomputes != 0:
+        raise AssertionError(f"flash launches {launches} (want {want} each),"
+                             f" grad recomputes {recomputes} (want 0)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    steady = step_ms[2:]
+    med = float(np.median(steady))
+    tokens = TRAIN_B * TRAIN["max_len"]
+    out.update({
+        "ops": n_ops, "parameters": n_params, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+        "target_tokens_per_s": tokens / (med / 1e3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "grad_recomputes": recomputes})
+    log(f"  training [{card}]: step ms median {med!r} (steps 3..{TRAIN_STEPS}"
+        f", all {[round(x, 2) for x in step_ms]}), target tokens/s "
+        f"{out['target_tokens_per_s']!r}, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, max memory allocated "
+        f"{out['max_memory_allocated']} bytes")
+    with fluid.scope_guard(scope):
+        prof = profile_step(exe, main, feed, loss)
+    out["profile"] = prof
+    log(f"  profiled step [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -487,10 +907,16 @@ def main() -> int:
     log("== phase 3: kernels against their plain versions")
     kern = check_and_time_paged_attention(dev)
 
+    log("== phase 3b: flash-attention kernels against their plain versions")
+    flash = check_and_time_flash(dev)
+
     log("== phase 4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
-    log("== phase 5: kernels")
+    log("== phase 5: Transformer-base training through Executor.run")
+    train = run_training(dev, card)
+
+    log("== phase 6: kernels")
     rows = []
     for dtype, key in (("float32", "float32"), ("int8", "int8")):
         k = kern[dtype]
@@ -503,11 +929,25 @@ def main() -> int:
             "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
+    names = {"fwd": ("flash_attn_fwd", "flash_attn_fwd.cu", 226, 0),
+             "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 459, 1),
+             "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 507, 2)}
+    for key, (name, src, line, i) in names.items():
+        t = flash["self_dropout"][key]   # the main path's most common shape
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"paddle_tpu/kernels/attention.py:{line}",
+            "launches": train["launches"][i],
+            "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built,
-                   "kernels": kern, "slice": e2e,
+                   "kernels": kern, "flash": flash, "slice": e2e,
+                   "training": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

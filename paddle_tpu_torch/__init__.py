@@ -4,13 +4,42 @@ It grows beside the JAX package, slice by slice, and imports nothing of
 it.  Every TPU kernel on a ported path becomes a hand-written CUDA
 kernel for Hopper (``kernels/csrc``), held against its plain PyTorch
 version.  Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (or ``CPUPlace()``).
+
+Two paths are ported: the decode serving plane (``decode``), and
+training a Program — built with ``layers``, differentiated by
+``append_backward``/``optimizer.minimize`` and run by
+``Executor.run`` — as far as the Transformer (``models.transformer``)
+on its ``fused_attention`` op::
+
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()              # cuda:0
+    exe.run(startup)
+    loss, = exe.run(main, feed=..., fetch_list=[avg_cost])
 """
 from __future__ import annotations
 
 from . import platform  # noqa: F401
-from .core.executor import Executor  # noqa: F401
+from . import ops  # noqa: F401  (registers the op rules)
+from . import clip, initializer, regularizer  # noqa: F401
+from . import layers, optimizer  # noqa: F401
+from . import executor, framework  # noqa: F401
+from .core import unique_name  # noqa: F401
+from .core.backward import append_backward  # noqa: F401
+from .core.executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.program import (  # noqa: F401
+    Program,
+    default_main_program,
+    default_startup_program,
+    program_guard,
+)
+from .param_attr import ParamAttr  # noqa: F401
+from .platform import CPUPlace, CUDAPlace  # noqa: F401
 from . import decode  # noqa: F401
 
-__all__ = ["Executor", "decode", "get_flags", "platform", "set_flags"]
+__all__ = ["CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
+           "Scope", "append_backward", "decode", "default_main_program",
+           "default_startup_program", "get_flags", "global_scope",
+           "initializer", "layers", "optimizer", "platform",
+           "program_guard", "scope_guard", "set_flags", "unique_name"]

@@ -1,25 +1,37 @@
-"""Executor: the callable dispatch of the decode plane.
+"""Executor: runs Programs, and the callable dispatch of the decode plane.
 
-The port of ``Executor.run_callable`` from ``paddle_tpu/core/executor.py``
-(the Program-running half of the executor comes with a later slice).
+The port of ``paddle_tpu/core/executor.py``.
+
+``Executor.run(program, feed, fetch_list, scope)`` runs block 0 of a
+Program with the reference's semantics: feeds are moved to the
+executor's device in their declared dtypes, every other variable an op
+reads comes from the scope (a missing one raises, asking for the
+startup program), the block runs op by op through the registry
+(``core/lowering.py``), persistable variables the block writes go back
+to the scope, and the fetches come back as numpy arrays.  A persistable
+that already holds a tensor of the same shape, dtype and device is
+written IN PLACE (``copy_``), as ``run_callable`` updates its state; the
+reference instead donates the old buffer to XLA and stores the new one.
+The plan (dataflow analysis and grad pairing) is cached per program
+version, feed names and fetch names; constants the rules make on the
+device (literal tables, optimizer scalars) are cached per executor.  The reference's jit cache,
+segmented host ops, numerics guard, compile cache, ``LazyFetch``,
+``run_steps`` and ``warm_start`` are not ported yet.
 
 ``run_callable(key, build_fn, feed, state, const)`` builds
 ``build_fn()`` once per key, moves the host feeds to the executor's
 device, and runs the built function under ``torch.inference_mode()``.
 Calls and builds are counted as ``executor.steps`` /
 ``executor.cache_misses`` / ``executor.cache_hits`` in the port's
-stats registry, like the reference's.
-
-``state`` is updated IN PLACE by the function: it stands in for XLA
-buffer donation, where the reference consumes the old state buffers
-and returns new ones.  The same state tensors come back, so a caller
-written against the reference (``outs, new_state = ...``) keeps
-working, and the paged KV cache never leaves the device or is copied.
-PyTorch runs eagerly, so there is no compile step to cache: what the
-key caches is the built function.
+stats registry, like the reference's.  ``state`` is updated IN PLACE
+by the function: it stands in for XLA buffer donation.  The same state
+tensors come back, so a caller written against the reference
+(``outs, new_state = ...``) keeps working, and the paged KV cache never
+leaves the device or is copied.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,14 +39,92 @@ import torch
 
 from ..observability import stats as _obs_stats
 from ..platform import get_device
+from .lowering import analyze_block, lower_ops
+from .program import Program, Variable, default_main_program
+from .registry import LowerContext
+from .types import np_dtype
+
+RNG_STATE_VAR = "@RNG_STATE@"
+
+
+class Scope:
+    """Name → value map with parent fallback (scope.h:41).  Values are
+    torch tensors on the device of the executor that wrote them."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self.vars: Dict[str, object] = {}
+        self.parent = parent
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s.vars:
+                return s.vars[name]
+            s = s.parent
+        return None
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var(name) is not None
+
+    def set_var(self, name: str, value) -> None:
+        self.vars[name] = value
+
+    def load_numpy(self, arrays: Dict[str, np.ndarray],
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> None:
+        """Put host arrays into this scope as tensors on ``device``
+        (``cuda:0`` by default), copied, never regenerated: how a run
+        starts from another run's (or the JAX reference's) values."""
+        dev = get_device(device)
+        for name, arr in arrays.items():
+            t = torch.from_numpy(np.array(arr, copy=True))
+            self.vars[name] = t.to(dev)
+
+    def to_numpy(self, names: Optional[Sequence[str]] = None
+                 ) -> Dict[str, np.ndarray]:
+        """Host copies of the named tensors (every local tensor when
+        ``names`` is None)."""
+        names = [n for n, v in self.vars.items()
+                 if isinstance(v, torch.Tensor)] if names is None else names
+        return {n: _to_numpy(self.find_var(n)) for n in names}
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    global _global_scope
+    saved = _global_scope
+    _global_scope = scope
+    try:
+        yield
+    finally:
+        _global_scope = saved
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return np.array(v.detach().cpu(), copy=True)
+    return np.array(v, copy=True)
 
 
 class Executor:
-    """Dispatches built callables on one device (module doc)."""
+    """Runs Programs and built callables on one device (module doc).
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None):
-        self.device = get_device(device)
+    ``place``: ``None`` (``cuda:0``), a ``CUDAPlace``/``CPUPlace``, a
+    device string or a ``torch.device``."""
+
+    def __init__(self, place=None):
+        self.device = get_device(place)
+        self.place = place
         self._cache: Dict[str, Callable] = {}
+        self._plans: Dict[tuple, object] = {}
+        self._consts: Dict[tuple, torch.Tensor] = {}
         sc = _obs_stats.scope("executor")
         self._steps = sc.counter("steps", "dispatches run")
         self._misses = sc.counter(
@@ -42,11 +132,86 @@ class Executor:
         self._hits = sc.counter("cache_hits",
                                 "dispatches of an already-built key")
 
-    def _to_device(self, v) -> torch.Tensor:
+    def _to_device(self, v, var: Optional[Variable] = None) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
             return v.to(self.device, non_blocking=True)
-        return torch.as_tensor(np.asarray(v), device=self.device)
+        arr = np.asarray(v)
+        if var is not None and var.dtype is not None:
+            arr = arr.astype(np_dtype(var.dtype), copy=False)
+        return torch.as_tensor(arr, device=self.device)
 
+    # -- Program runs --------------------------------------------------------
+    def run(self, program: Optional[Program] = None,
+            feed: Optional[Dict[str, object]] = None,
+            fetch_list: Optional[Sequence] = None,
+            scope: Optional[Scope] = None, return_numpy: bool = True):
+        """Run block 0 of ``program`` (module doc); returns the fetches,
+        numpy arrays when ``return_numpy`` else tensors."""
+        program = program if program is not None else default_main_program()
+        feed = feed or {}
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        scope = scope or global_scope()
+        feed_names = sorted(feed)
+        key = (program._uid, program._version, tuple(feed_names),
+               tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = analyze_block(program, 0, feed_names,
+                                                    fetch_names)
+        block = program.global_block
+        env: Dict[str, object] = {}
+        for n in feed_names:
+            env[n] = self._to_device(feed[n], block.var_or_none(n))
+        for n in plan.state_reads:
+            env[n] = self._state_val(scope, block, n)
+        ctx = LowerContext(block=block, device=self.device,
+                           base_seed=program.random_seed,
+                           generator=self._generator(scope, program),
+                           consts=self._consts)
+        with torch.no_grad():
+            lower_ops(ctx, program, block, env, plan)
+        fetches = [env[n] for n in fetch_names]
+        out = ([_to_numpy(v) for v in fetches] if return_numpy
+               else list(fetches))
+        for name in plan.persist_writes:
+            self._write_state(scope, name, env[name])
+        if plan.has_stateful:
+            scope.set_var(RNG_STATE_VAR, ctx._generator)
+        self._steps.inc()
+        return out
+
+    def _generator(self, scope: Scope, program: Program) -> torch.Generator:
+        g = scope.find_var(RNG_STATE_VAR)
+        if isinstance(g, torch.Generator) and g.device == self.device:
+            return g
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(program.random_seed or 0))
+        return g
+
+    def _state_val(self, scope: Scope, block, name: str) -> torch.Tensor:
+        val = scope.find_var(name)
+        if val is None:
+            raise RuntimeError(
+                f"variable {name!r} is not initialized in the scope — run "
+                f"the startup program first "
+                f"(fluid.default_startup_program())")
+        if isinstance(val, torch.Tensor) and val.device == self.device:
+            return val
+        t = self._to_device(val, block.var_or_none(name))
+        scope.set_var(name, t)
+        return t
+
+    def _write_state(self, scope: Scope, name: str, val) -> None:
+        old = scope.vars.get(name)
+        if (isinstance(old, torch.Tensor) and isinstance(val, torch.Tensor)
+                and old is not val and old.shape == val.shape
+                and old.dtype == val.dtype and old.device == val.device):
+            old.copy_(val)
+        else:
+            scope.set_var(name, val)
+
+    # -- callable dispatch (decode plane) -----------------------------------
     def run_callable(self, key: str, build_fn, feed: Sequence,
                      state: Sequence = (), const: Sequence = ()
                      ) -> Tuple[List, List]:
@@ -68,4 +233,5 @@ class Executor:
         return outs, state
 
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "RNG_STATE_VAR", "Scope", "global_scope",
+           "scope_guard"]

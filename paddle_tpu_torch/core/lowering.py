@@ -1,0 +1,299 @@
+"""Block interpreter: a Program block run op by op through the registry.
+
+The port of ``paddle_tpu/core/lowering.py``.  ``analyze_block`` finds a
+block's external reads (scope state) and persistable writes exactly as
+the reference does; ``lower_ops`` then runs every op's rule eagerly on
+torch tensors.  There is no jit: the reference's ``build_block_fn`` is
+the plan plus one interpreter pass (``Executor.run``).  The reference's
+two peephole hooks (the fused sparse gather and the int8 ``mul``) are
+absent here: their kernels are not ported yet, so those ops take their
+plain rules.
+
+Gradients.  Eager PyTorch has no common-subexpression pass, so the
+reference's default grad (re-trace the forward under ``jax.vjp`` and
+let XLA merge it with the original) would run every forward twice.
+Instead the plan pairs each grad op ``<type>_grad`` with its forward op
+once per program, by the forward input and output names the grad op
+carries (``core/backward.py`` copies them verbatim), and adds nothing
+to the program, so a program the reference built runs unchanged:
+
+- a paired forward op runs under ``torch.enable_grad()`` on leaf copies
+  of the inputs whose gradients its grad op asks for, and keeps its
+  autograd graph (the op's *tape*);
+- the grad op calls ``torch.autograd.grad`` on that graph with the
+  incoming cotangents; a missing cotangent counts as zeros, as the
+  reference's ``make_cot`` does;
+- a grad op whose forward left no tape re-runs the forward on fresh
+  leaves (``torch.func``-style re-execution) and adds one to
+  :data:`grad_recomputes`;
+- ops with an explicit grad rule (dropout, cast) keep theirs and run
+  their forward without a tape.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from . import registry
+from .program import EMPTY_VAR, Block, Program
+from .registry import GRAD_OP_SUFFIX, LowerContext, is_float_tensor
+
+# ops handled by the executor itself, not lowered
+SKIP_OPS = ("feed", "fetch")
+
+# grad ops computed by re-running their forward (no tape); the
+# Transformer training step keeps this at 0
+grad_recomputes = 0
+
+
+@dataclass
+class BlockPlan:
+    """Static dataflow summary of one block, plus the grad pairing."""
+
+    block_idx: int
+    feed_names: tuple
+    fetch_names: tuple
+    state_reads: List[str] = field(default_factory=list)     # scope vars read
+    persist_writes: List[str] = field(default_factory=list)  # scope vars written
+    has_stateful: bool = False
+    # grad op index -> index of its forward op
+    grad_fwd: Dict[int, int] = field(default_factory=dict)
+    # forward op index -> [(input slot, position)] whose grads are asked for
+    taped: Dict[int, List[Tuple[str, int]]] = field(default_factory=dict)
+    # forward op index -> index of the last grad op that reads its tape
+    tape_last_use: Dict[int, int] = field(default_factory=dict)
+
+
+def _is_grad_op(op) -> bool:
+    return op.type.endswith(GRAD_OP_SUFFIX) and not registry.has(op.type)
+
+
+def _base_type(op) -> str:
+    return op.type[: -len(GRAD_OP_SUFFIX)]
+
+
+def _fwd_key(op) -> tuple:
+    # backward.py builds the grad op's inputs as {**ins, **outs, grads}
+    d = {**op.inputs, **op.outputs}
+    return (op.type, tuple(sorted((s, tuple(n)) for s, n in d.items())))
+
+
+def _grad_key(op) -> tuple:
+    d = {s: n for s, n in op.inputs.items() if not s.endswith("@GRAD")}
+    return (_base_type(op), tuple(sorted((s, tuple(n))
+                                         for s, n in d.items())))
+
+
+def _wanted_grads(op) -> List[Tuple[str, int]]:
+    """(forward input slot, position) pairs a grad op writes."""
+    out = []
+    for slot, names in op.outputs.items():
+        if not slot.endswith("@GRAD"):
+            continue
+        for j, n in enumerate(names):
+            if n and n != EMPTY_VAR:
+                out.append((slot[: -len("@GRAD")], j))
+    return out
+
+
+def pair_grad_ops(block: Block, plan: BlockPlan) -> None:
+    """Pair every grad op without a custom rule with the latest earlier
+    forward op of the same type and the same input/output names."""
+    last_fwd: Dict[tuple, int] = {}
+    for pos, op in enumerate(block.ops):
+        if op.type in SKIP_OPS:
+            continue
+        if not _is_grad_op(op):
+            last_fwd[_fwd_key(op)] = pos
+            continue
+        base = _base_type(op)
+        if not registry.has(base) or registry.get(base).grad is not None:
+            continue
+        fwd = last_fwd.get(_grad_key(op))
+        if fwd is None:
+            continue
+        plan.grad_fwd[pos] = fwd
+        wanted = plan.taped.setdefault(fwd, [])
+        for w in _wanted_grads(op):
+            if w not in wanted:
+                wanted.append(w)
+        plan.tape_last_use[fwd] = pos
+
+
+def analyze_block(program: Program, block_idx: int, feed_names: Sequence[str],
+                  fetch_names: Sequence[str]) -> BlockPlan:
+    plan = BlockPlan(block_idx, tuple(feed_names), tuple(fetch_names))
+    seen_reads = set()
+    persist_written = set()
+    block = program.blocks[block_idx]
+    if any(op.sub_block_ids for op in block.ops):
+        raise NotImplementedError(
+            "control-flow sub-blocks are not ported yet")
+
+    def is_persistable(name: str) -> bool:
+        v = block.var_or_none(name)
+        return bool(v and v.persistable)
+
+    defined = set(feed_names)
+    for op in block.ops:
+        if op.type in SKIP_OPS:
+            continue
+        base = _base_type(op) if _is_grad_op(op) else op.type
+        if registry.has(base) and registry.get(base).stateful:
+            plan.has_stateful = True
+        for n in op.input_arg_names():
+            if n and n != EMPTY_VAR and n not in defined and n not in seen_reads:
+                seen_reads.add(n)
+                plan.state_reads.append(n)
+        for n in op.output_arg_names():
+            if not n or n == EMPTY_VAR:
+                continue
+            defined.add(n)
+            if is_persistable(n) and n not in persist_written:
+                persist_written.add(n)
+                plan.persist_writes.append(n)
+
+    # fetches of vars never touched by ops must still come from scope
+    defined_or_read = seen_reads | set(feed_names)
+    for op in block.ops:
+        defined_or_read |= set(op.output_arg_names())
+    for n in fetch_names:
+        if n not in defined_or_read and n not in seen_reads:
+            seen_reads.add(n)
+            plan.state_reads.append(n)
+    pair_grad_ops(block, plan)
+    return plan
+
+
+def _gather_ins(op, env: Dict) -> Dict:
+    ins = {}
+    for slot, names in op.inputs.items():
+        if slot.endswith("@GRAD"):
+            # grad slots keep positional alignment; missing grads → None
+            vals = [env.get(n) if n and n != EMPTY_VAR else None
+                    for n in names]
+            if any(v is not None for v in vals):
+                ins[slot] = vals
+        else:
+            vals = [env[n] for n in names if n and n != EMPTY_VAR]
+            if vals:
+                ins[slot] = vals
+    return ins
+
+
+def _run_with_leaves(opdef, ctx, ins, attrs, wanted):
+    """Run a forward rule under autograd with leaf copies of the wanted
+    float inputs; returns (leaves {(slot, j): leaf}, outs)."""
+    ins = {s: list(v) for s, v in ins.items()}
+    leaves = {}
+    for slot, j in wanted:
+        vals = ins.get(slot)
+        if slot in opdef.no_grad_slots or vals is None or j >= len(vals) \
+                or not is_float_tensor(vals[j]):
+            continue
+        leaf = vals[j].detach().requires_grad_(True)
+        vals[j] = leaf
+        leaves[(slot, j)] = leaf
+    with torch.enable_grad():
+        outs = opdef.lower(ctx, ins, attrs)
+    return leaves, outs
+
+
+def _grads_from_graph(leaves, outs, ins, retain: bool) -> Dict:
+    """``torch.autograd.grad`` of the recorded outputs against their
+    cotangents (``<slot>@GRAD`` in ``ins``); outputs without one are
+    left out, which is a zero cotangent."""
+    ys, gs = [], []
+    for slot, vals in outs.items():
+        g_list = ins.get(slot + "@GRAD")
+        if not g_list:
+            continue
+        for j, y in enumerate(vals):
+            if j >= len(g_list) or g_list[j] is None:
+                continue
+            if not isinstance(y, torch.Tensor) or not y.requires_grad:
+                continue
+            g = g_list[j]
+            ys.append(y)
+            gs.append(g.to(y.dtype) if g.dtype != y.dtype else g)
+    keys = list(leaves)
+    if ys and keys:
+        grads = torch.autograd.grad(ys, [leaves[k] for k in keys], gs,
+                                    allow_unused=True, retain_graph=retain)
+    else:
+        grads = [None] * len(keys)
+    by_slot: Dict[str, Dict[int, torch.Tensor]] = {}
+    for (slot, j), g in zip(keys, grads):
+        if g is None:
+            g = torch.zeros_like(leaves[(slot, j)])
+        by_slot.setdefault(slot + "@GRAD", {})[j] = g.detach()
+    return {s: [d.get(j) for j in range(max(d) + 1)]
+            for s, d in by_slot.items()}
+
+
+def _recompute_grad(base, ctx, ins, op) -> Dict:
+    """Grad of an op whose forward left no tape: run the forward again
+    on fresh leaves (counted in :data:`grad_recomputes`)."""
+    global grad_recomputes
+    grad_recomputes += 1
+    fwd_out = set(op.attrs.get("__fwd_out_slots__", ()))
+    if base.output_slots:
+        fwd_out |= set(base.output_slots)
+    fwd_ins = {s: v for s, v in ins.items()
+               if not s.endswith("@GRAD") and s not in fwd_out
+               and (base.input_slots is None or s in base.input_slots)}
+    attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
+    leaves, outs = _run_with_leaves(base, ctx, fwd_ins, attrs,
+                                    _wanted_grads(op))
+    return _grads_from_graph(leaves, outs, ins, retain=False)
+
+
+def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
+              plan: BlockPlan) -> Dict:
+    """Run every op in ``block`` through its rule, mutating env."""
+    tapes: Dict[int, tuple] = {}
+    for pos, op in enumerate(block.ops):
+        if op.type in SKIP_OPS:
+            continue
+        ins = _gather_ins(op, env)
+        try:
+            if _is_grad_op(op):
+                base = registry.get(_base_type(op))
+                fwd = plan.grad_fwd.get(pos)
+                if base.grad is not None:
+                    outs = base.grad(ctx, ins, op.attrs)
+                elif fwd is not None and fwd in tapes:
+                    last = plan.tape_last_use[fwd] == pos
+                    leaves, fouts = (tapes.pop(fwd) if last
+                                     else tapes[fwd])
+                    outs = _grads_from_graph(leaves, fouts, ins,
+                                             retain=not last)
+                else:
+                    outs = _recompute_grad(base, ctx, ins, op)
+            else:
+                opdef = registry.get(op.type)
+                wanted = plan.taped.get(pos)
+                if wanted:
+                    leaves, outs = _run_with_leaves(opdef, ctx, ins,
+                                                    op.attrs, wanted)
+                    tapes[pos] = (leaves, outs)
+                else:
+                    outs = opdef.lower(ctx, ins, op.attrs)
+        except Exception as e:
+            raise type(e)(f"while lowering op {op!r} in block {block.idx}: "
+                          f"{e}") from e
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot)
+            if vals is None:
+                continue
+            for name, val in zip(names, vals):
+                if name and name != EMPTY_VAR and val is not None:
+                    env[name] = (val.detach() if isinstance(val, torch.Tensor)
+                                 else val)
+    return env
+
+
+__all__ = ["BlockPlan", "SKIP_OPS", "analyze_block", "grad_recomputes",
+           "lower_ops", "pair_grad_ops"]

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels._hash import finalize, mul32, u32
 from ..kernels.attention import decode_attention
 from ..kernels.quant import QMAX, SCALE_EPS, kv_head_amax, kv_quantize
 from ..platform import get_device
@@ -47,7 +48,6 @@ NEG_INF = -1e30
 # top-k ceiling of the sampling epilogue: per-slot k varies at runtime
 # under it (a fixed shape, as in the reference)
 TOPK_MAX = 64
-_M32 = 0xFFFFFFFF
 
 Device = Optional[Union[str, torch.device]]
 
@@ -386,32 +386,19 @@ class TransformerLM(nn.Module):
         return _sample(logits, seeds, steps, temperature, top_k), logits
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32): split in 16-bit
-    halves so no int64 product overflows."""
-    lo = (x & 0xFFFF) * c
-    hi = (((x >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
 def _hash_uniform(seeds, steps, kk: int) -> torch.Tensor:
     """Counter-hash uniforms in (0, 1): one murmur-style mix per
     (request seed, token index, candidate lane), keyed per request, so
     a seeded stream replays bit for bit whatever slot it lands on.
     The reference mixes in uint32; this does the same arithmetic in
     int64 masked to 32 bits after every step."""
-    seeds = seeds.long() & _M32
-    steps = steps.long() & _M32
+    seeds = u32(seeds)
+    steps = u32(steps)
     lane = torch.arange(kk, dtype=torch.int64, device=seeds.device)[None]
-    x = (_mul32(seeds[:, None], 0x9E3779B1)
-         ^ _mul32(steps[:, None], 0x85EBCA77)
-         ^ _mul32(lane, 0xC2B2AE3D))
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    u = (x >> 8).to(torch.int32).float() * (1.0 / (1 << 24))
+    x = (mul32(seeds[:, None], 0x9E3779B1)
+         ^ mul32(steps[:, None], 0x85EBCA77)
+         ^ mul32(lane, 0xC2B2AE3D))
+    u = (finalize(x) >> 8).to(torch.int32).float() * (1.0 / (1 << 24))
     return torch.clamp(u, 1e-7, 1.0 - 1e-7)
 
 

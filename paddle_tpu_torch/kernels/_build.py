@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/<name>.cu`` is a self-contained source with a plain C
-interface.  At first use it is compiled with ``nvcc`` for Hopper
+Every ``csrc/<name>.cu`` is a source with a plain C interface (it may
+include the shared headers ``csrc/*.cuh``).  At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/lib<name>.so`` beside this file, and loaded
 with ``ctypes``; the wrapper in the kernel's module declares the
 function's argument types and passes tensor pointers, ints and
@@ -64,9 +64,13 @@ def lib_path(name: str) -> str:
 
 
 def _current(name: str) -> bool:
-    out, src = lib_path(name), os.path.join(CSRC_DIR, f"{name}.cu")
+    """The library exists and is newer than its source and every shared
+    header (``csrc/*.cuh``)."""
+    out = lib_path(name)
+    deps = [os.path.join(CSRC_DIR, f"{name}.cu"),
+            *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
     return (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src))
+            and os.path.getmtime(out) >= max(map(os.path.getmtime, deps)))
 
 
 def _start(name: str):

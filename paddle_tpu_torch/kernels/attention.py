@@ -14,15 +14,38 @@ found through the slot's row of ``block_tables``.
   for CUDA tensors.  There is no fallback: a CUDA tensor goes to the
   kernel, and a build or launch failure raises.  Each launch adds one
   to ``decode_attention.launches``.
+
+Flash attention (``flash_attention``, ``_pallas_fwd``/``_pallas_bwd``
+and ``mha_xla`` in the reference) is the training path's hot op:
+
+- :func:`flash_attention_ref` and :func:`flash_attention_bwd_ref` are
+  the plain PyTorch versions of the forward (out and the base-2 LSE)
+  and the backward (dq, dk, dv).  They compute over the reference's
+  padded frame, so the dropout bits and the rows whose keys are all
+  masked match ``_pallas_fwd``/``_pallas_bwd``.
+- :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq` and
+  :func:`flash_attention_bwd_dkv` take those plain versions for CPU
+  tensors and launch the CUDA kernels ``csrc/flash_attn_fwd.cu`` and
+  ``csrc/flash_attn_bwd.cu`` for CUDA tensors, or raise; each launch
+  adds one to the wrapper's ``launches``.
+- :func:`flash_attention` is one ``torch.autograd.Function`` over the
+  three: the forward saves (q, k, v, mask, seed, out, lse), so the
+  backward launches only the two backward kernels, with
+  ``delta = rowsum(dO * O)`` taken by a float32 torch reduction.
+- :func:`mha_ref` is the port of ``mha_xla`` (the plain softmax chain
+  with the ``_hash_dropout`` bits), the op's ``impl="xla"``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from ._hash import C3, C4, C5, COL_MUL, M32, ROW_MUL, dropout_multiplier, \
+    mul32, u32
 
 NEG_INF = -1e30
 # int8 KV dequant factor: quantized cache blocks store
@@ -177,5 +200,436 @@ def decode_attention(q, k_cache, v_cache, block_tables, context_lens,
 decode_attention.launches = 0
 
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "decode_attention",
-           "paged_attention_ref"]
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634  # the kernels run softmax in exp2 units
+FLASH_MAX_HEAD_DIM = 128     # 4 lanes x 32 registers per row
+
+
+def resolve_blocks(Tq: int, Tk: int) -> Tuple[int, int]:
+    """The reference's logical tile sizes (``_resolve_blocks`` with its
+    defaults): they fix which tiles a causal row visits and key the
+    dropout bits, whatever tiling a kernel computes on."""
+    bq = 1024 if Tq >= 1024 else (512 if Tq >= 512 else 128)
+    bk = 1024 if Tk >= 1024 else (512 if Tk >= 512 else 128)
+    return bq, bk
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _scale_log2(sm_scale: float) -> float:
+    """float32(sm_scale * log2 e): the q pre-scale of every kernel."""
+    return float(torch.tensor(sm_scale * LOG2E, dtype=torch.float32))
+
+
+def _visits(Tq: int, Tk: int, causal: bool, device):
+    """(key_end [Tq], row_begin [Tk]): the forward and dq visit keys
+    [0, key_end[row]); dk/dv visit rows [row_begin[key], Tq).  Both
+    follow the reference's logical tiles (its causal tile skipping and
+    the clamped ``_first_qb``)."""
+    bq, bk = resolve_blocks(Tq, Tk)
+    nqb, nkb = -(-Tq // bq), -(-Tk // bk)
+    rows = torch.arange(Tq, device=device)
+    keys = torch.arange(Tk, device=device)
+    if not causal:
+        return (torch.full((Tq,), nkb * bk, device=device),
+                torch.zeros(Tk, dtype=torch.long, device=device))
+    last = torch.clamp(((rows // bq + 1) * bq - 1) // bk, max=nkb - 1)
+    first = torch.clamp((keys // bk) * bk // bq, max=nqb - 1)
+    return (last + 1) * bk, first * bq
+
+
+def _padded_scores(q, k, kv_mask, causal: bool, sm_scale: float):
+    """Scores in exp2 units over the reference's padded key frame
+    [B, H, Tq, Tk_p]: masked keys, padding keys and causal positions
+    score the finite NEG_INF."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    _, bk = resolve_blocks(Tq, Tk)
+    Tk_p = _round_up(Tk, bk)
+    qs = q.float() * _scale_log2(sm_scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    s = torch.nn.functional.pad(s, (0, Tk_p - Tk), value=NEG_INF)
+    valid = torch.zeros(B, Tk_p, dtype=torch.bool, device=q.device)
+    valid[:, :Tk] = True if kv_mask is None else kv_mask > 0
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    if causal:
+        kpos = torch.arange(Tk_p, device=q.device)
+        qpos = torch.arange(Tq, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    return s
+
+
+def tile_dropout_ref(seed, B: int, H: int, Tq: int, Tk: int, rate: float,
+                     device) -> torch.Tensor:
+    """The reference's ``_tile_dropout`` bits for every (row, key) of
+    the padded frame: [B, H, Tq, Tk_p] float32 multipliers, hashed from
+    (seed, batch*head, q-tile, k-tile, row and column in the tile)."""
+    bq, bk = resolve_blocks(Tq, Tk)
+    Tk_p = _round_up(Tk, bk)
+    rows = torch.arange(Tq, dtype=torch.int64, device=device)
+    cols = torch.arange(Tk_p, dtype=torch.int64, device=device)
+    bh = torch.arange(B * H, dtype=torch.int64,
+                      device=device).reshape(B, H, 1, 1)
+    x = mul32(rows % bq, ROW_MUL)[:, None] ^ mul32(cols % bk, COL_MUL)[None]
+    s = (torch.zeros((), dtype=torch.int64, device=device) if seed is None
+         else u32(seed.reshape(-1)[0]))
+    salt = (s + mul32(bh, C3) + mul32(rows // bq, C4)[:, None]
+            + mul32(cols // bk, C5)[None]) & M32
+    return dropout_multiplier(x ^ salt, rate)
+
+
+def flash_attention_ref(q, k, v, kv_mask=None, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, seed=None):
+    """Plain flash-attention forward: (out [B, H, Tq, D], lse [B*H, Tq]
+    base 2, +1e30 where the softmax mass is 0), as ``_pallas_fwd``."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(D))
+    s = _padded_scores(q, k, kv_mask, causal, sm_scale)
+    key_end, _ = _visits(Tq, Tk, causal, q.device)
+    visit = torch.arange(s.shape[-1], device=q.device)[None] < key_end[:, None]
+    m = s.masked_fill(~visit, -math.inf).amax(dim=-1, keepdim=True)
+    p = torch.where(visit, torch.exp2(s - m), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1)
+    if dropout_rate > 0.0:
+        p = p * tile_dropout_ref(seed, B, H, Tq, Tk, dropout_rate, q.device)
+    out = torch.einsum("bhqk,bhkd->bhqd", p[..., :Tk], v.float())
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log2(torch.clamp(l, min=1e-30)),
+                      torch.full((), 1e30, device=q.device))
+    return out.to(q.dtype), lse.reshape(B * H, Tq)
+
+
+def flash_attention_delta(out, do) -> torch.Tensor:
+    """delta = rowsum(dO * O) in float32, [B*H, Tq] (computed outside the
+    backward kernels, as the reference does)."""
+    B, H, Tq, _ = out.shape
+    return (do.float() * out.float()).sum(dim=-1).reshape(B * H, Tq)
+
+
+def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
+             dropout_rate, seed, want_dq: bool, want_dkv: bool):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    s = _padded_scores(q, k, kv_mask, causal, sm_scale)[..., :Tk]
+    p = torch.exp2(s - lse.reshape(B, H, Tq, 1))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    drop = None
+    if dropout_rate > 0.0:
+        drop = tile_dropout_ref(seed, B, H, Tq, Tk, dropout_rate,
+                                q.device)[..., :Tk]
+        dp = dp * drop
+    ds = p * (dp - delta.reshape(B, H, Tq, 1))
+    key_end, row_begin = _visits(Tq, Tk, causal, q.device)
+    zero = torch.zeros((), device=q.device)
+    dq = dk = dv = None
+    if want_dq:
+        vis = torch.arange(Tk, device=q.device)[None] < key_end[:, None]
+        dq = torch.einsum("bhqk,bhkd->bhqd", torch.where(vis, ds, zero),
+                          k.float()) * sm_scale
+        dq = dq.to(q.dtype)
+    if want_dkv:
+        vis = torch.arange(Tq, device=q.device)[:, None] >= row_begin[None]
+        pd = p if drop is None else p * drop
+        dv = torch.einsum("bhqk,bhqd->bhkd", torch.where(vis, pd, zero),
+                          do.float()).to(v.dtype)
+        dk = torch.einsum("bhqk,bhqd->bhkd", torch.where(vis, ds, zero),
+                          q.float()) * sm_scale
+        dk = dk.to(k.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, do,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_rate: float = 0.0, seed=None,
+                            delta=None):
+    """Plain flash-attention backward: (dq, dk, dv), as ``_pallas_bwd``.
+    ``lse`` is the forward's [B*H, Tq]; ``delta`` ([B*H, Tq]) defaults to
+    rowsum(dO * O)."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    if delta is None:
+        delta = flash_attention_delta(out, do)
+    return _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
+                    dropout_rate, seed, True, True)
+
+
+_FLASH_FWD, _FLASH_BWD = "flash_attn_fwd", "flash_attn_bwd"
+_PTR = ctypes.c_void_p
+_FWD_ARGS = [_PTR] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
+    [ctypes.c_int] * 3 + [_PTR]
+_DQ_ARGS = [_PTR] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
+    [ctypes.c_int] * 3 + [_PTR]
+_DKV_ARGS = [_PTR] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
+    [ctypes.c_int] * 3 + [_PTR]
+
+
+def _flash_fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _raise_launch(lib: str, name: str, err: int):
+    fn = getattr(_build.load(lib), f"{lib}_error_string")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    raise RuntimeError(f"{name} launch failed: {fn(err).decode()} "
+                       f"(cudaError {err})")
+
+
+def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
+    """What the flash kernels take; anything else raises (no fallback)."""
+    tensors = {"q": q, "k": k, "v": v, **extra}
+    if kv_mask is not None:
+        tensors["kv_mask"] = kv_mask
+    if seed is not None:
+        tensors["seed"] = seed
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        want = torch.int32 if name == "seed" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"flash attention kernel: {name} must be "
+                            f"{want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash attention kernel: {name} must be "
+                             "contiguous")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, Tq, D], got {tuple(q.shape)}")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if k.shape != (B, H, Tk, D) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if kv_mask is not None and kv_mask.shape != (B, Tk):
+        raise ValueError(f"kv_mask must be [B, Tk] = [{B}, {Tk}], got "
+                         f"{tuple(kv_mask.shape)}")
+    if seed is not None and seed.numel() != 1:
+        raise ValueError("the dropout seed is one int32 value")
+    if D > FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} exceeds the kernels' "
+                         f"{FLASH_MAX_HEAD_DIM}")
+    if Tq == 0 or Tk == 0:
+        raise ValueError("empty sequence")
+
+
+def _common(q, k, causal, sm_scale, dropout_rate):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    bq, bk = resolve_blocks(Tq, Tk)
+    rate = float(dropout_rate or 0.0)
+    keep = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    return (B, H, Tq, Tk, D, int(bool(causal)), _scale_log2(sm_scale),
+            rate, keep, bq, bk)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_bwd_shapes(q, lse, delta, do) -> None:
+    B, H, Tq, _ = q.shape
+    if do.shape != q.shape or lse.numel() != B * H * Tq or \
+            delta.numel() != B * H * Tq:
+        raise ValueError("do must match q; lse and delta hold B*H*Tq "
+                         "values")
+
+
+def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, seed=None):
+    """Flash-attention forward: (out [B, H, Tq, D], lse [B*H, Tq]).
+
+    q: [B, H, Tq, D], k/v: [B, H, Tk, D] float32; kv_mask: [B, Tk] 1/0
+    float32 or None; seed: int32 tensor of one value (the dropout seed)
+    or None.  CPU tensors take :func:`flash_attention_ref`; CUDA tensors
+    launch ``flash_attn_fwd`` on the current stream, or raise."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, kv_mask, causal, sm_scale,
+                                   dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_flash(q, k, v, kv_mask, seed)
+    B, H, Tq, Tk, D, c, sl2, rate, keep, bq, bk = _common(
+        q, k, causal, sm_scale, dropout_rate)
+    out = torch.empty_like(q)
+    lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
+    fn = _flash_fn(_FLASH_FWD, "flash_attn_fwd", _FWD_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             _ptr(seed), out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D, c,
+             sl2, rate, keep, bq, bk, q.device.index, stream)
+    if err != 0:
+        _raise_launch(_FLASH_FWD, "flash_attn_fwd", err)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
+                           causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           dropout_rate: float = 0.0, seed=None):
+    """dq of flash attention from the forward's ``lse`` and ``delta``
+    ([B*H, Tq] each; ring attention passes its global ones).  CPU
+    tensors take the plain version; CUDA tensors launch
+    ``flash_attn_bwd_dq``, or raise."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
+                        dropout_rate, seed, True, False)[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_flash(q, k, v, kv_mask, seed, lse=lse, delta=delta, do=do)
+    _check_bwd_shapes(q, lse, delta, do)
+    B, H, Tq, Tk, D, c, sl2, rate, keep, bq, bk = _common(
+        q, k, causal, sm_scale, dropout_rate)
+    dq = torch.empty_like(q)
+    fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dq", _DQ_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), B, H, Tq, Tk, D, c, sl2, float(sm_scale), rate,
+             keep, bq, bk, q.device.index, stream)
+    if err != 0:
+        _raise_launch(_FLASH_BWD, "flash_attn_bwd_dq", err)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            dropout_rate: float = 0.0, seed=None):
+    """(dk, dv) of flash attention (as :func:`flash_attention_bwd_dq`);
+    CUDA tensors launch ``flash_attn_bwd_dkv``, or raise."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        _, dk, dv = _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal,
+                             sm_scale, dropout_rate, seed, False, True)
+        return dk, dv
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_flash(q, k, v, kv_mask, seed, lse=lse, delta=delta, do=do)
+    _check_bwd_shapes(q, lse, delta, do)
+    B, H, Tq, Tk, D, c, sl2, rate, keep, bq, bk = _common(
+        q, k, causal, sm_scale, dropout_rate)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dkv", _DKV_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, c, sl2,
+             float(sm_scale) / sl2, rate, keep, bq, bk, q.device.index,
+             stream)
+    if err != 0:
+        _raise_launch(_FLASH_BWD, "flash_attn_bwd_dkv", err)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward K1; backward K2 and K3 on the saved (q, k, v, mask, seed,
+    out, lse), with no re-run of the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, seed, causal, sm_scale,
+                dropout_rate):
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, sm_scale,
+                                       dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
+        ctx.args = (causal, sm_scale, dropout_rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
+        causal, sm_scale, rate = ctx.args
+        do = do.contiguous()
+        delta = flash_attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
+                                    causal, sm_scale, rate, seed)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
+                                         causal, sm_scale, rate, seed)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, kv_mask=None, causal: bool = False,
+                    sm_scale: Optional[float] = None,
+                    dropout_rate: float = 0.0, dropout_seed=None):
+    """Differentiable flash attention (module doc): q [B, H, Tq, D],
+    k/v [B, H, Tk, D], kv_mask [B, Tk] 1/0 or None, dropout_seed an
+    int32 tensor of one value (vary it per step) or None."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    return FlashAttentionFn.apply(q, k, v, kv_mask, dropout_seed,
+                                  bool(causal), float(sm_scale),
+                                  float(dropout_rate or 0.0))
+
+
+def hash_dropout_ref(seed, shape, rate: float, device=None) -> torch.Tensor:
+    """The reference's ``_hash_dropout`` multiplier [B, H, Tq, Tk] for
+    the plain attention chain, keyed by (seed, element coords); the
+    reference's salt, a ring-attention shard offset, is 0 here."""
+    B, H, Tq, Tk = shape
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    x = mul32(ar(Tq), ROW_MUL)[:, None] ^ mul32(ar(Tk), COL_MUL)[None]
+    bh = (mul32(ar(B), C3)[:, None] + mul32(ar(H), C4)[None]) & M32
+    s = (torch.zeros((), dtype=torch.int64, device=device) if seed is None
+         else u32(seed.reshape(-1)[0]))
+    return dropout_multiplier(x[None, None] ^ bh[:, :, None, None] ^ s,
+                              rate)
+
+
+def mha_ref(q, k, v, kv_mask=None, causal: bool = False,
+            sm_scale: Optional[float] = None, dropout_rate: float = 0.0,
+            dropout_seed=None):
+    """Plain attention, the port of ``mha_xla``: q,k,v [B, H, T, D],
+    kv_mask [B, Tk] 1/0 → [B, H, Tq, D]; attention-probability dropout
+    from :func:`hash_dropout_ref` bits."""
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    if kv_mask is not None:
+        s = s.masked_fill(~(kv_mask[:, None, None, :] > 0), NEG_INF)
+    if causal:
+        qi = torch.arange(q.shape[2], device=q.device)[:, None]
+        ki = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = s.masked_fill(qi < ki, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate and dropout_rate > 0.0:
+        p = p * hash_dropout_ref(dropout_seed, tuple(p.shape), dropout_rate,
+                                 device=q.device)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+__all__ = ["FLASH_MAX_HEAD_DIM", "FlashAttentionFn", "LOG2E",
+           "MAX_HEAD_DIM", "NEG_INF", "decode_attention", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_ref", "flash_attention_delta",
+           "flash_attention_fwd", "flash_attention_ref", "hash_dropout_ref",
+           "mha_ref", "paged_attention_ref", "resolve_blocks",
+           "tile_dropout_ref"]

@@ -1,0 +1,146 @@
+// Shared pieces of the flash-attention kernels for Hopper (sm_90a):
+// flash_attn_fwd.cu (forward) and flash_attn_bwd.cu (dq; dk and dv).
+//
+// Conventions the three kernels keep exactly, because the JAX package's
+// Pallas kernels (paddle_tpu/kernels/attention.py _flash_fwd_kernel,
+// _flash_bwd_dq_kernel, _flash_bwd_dkv_kernel) define them:
+//
+// - Scores are in exp2 units: q is pre-scaled by scale_log2 =
+//   float(sm_scale * log2(e)), softmax uses exp2, and the saved LSE is
+//   base 2.  A masked score is the FINITE -1e30, not -inf: a row whose
+//   keys are all masked averages V uniformly instead of giving NaN.
+// - Which (row, key) pairs a kernel visits follows the reference's
+//   LOGICAL tiles (bq_ref x bk_ref from _resolve_blocks), not this
+//   kernel's own tiling: with causal masking the forward and dq visit the
+//   keys of the k-tiles up to the causal frontier of the row's q-tile,
+//   and dk/dv visit the rows of the q-tiles from _first_qb of the key's
+//   k-tile on.  Only an all-masked row can tell the difference, but that
+//   row is where the reference's output is defined by its tiling.
+// - Dropout bits are the reference's tile hash (_tile_dropout) of
+//   (seed, batch*head, q-tile, k-tile, row and column inside the tile),
+//   in native wrapping uint32 arithmetic; the softmax mass l sums the
+//   probabilities BEFORE dropout.
+// - Keys past Tk (the reference pads K/V to a multiple of bk_ref with
+//   zero rows and masks them) are never read: their contribution is
+//   added in closed form where it is not zero (the softmax mass of an
+//   all-masked row in the forward).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;
+
+// A row of D <= 128 values is spread over LPR = ceil(D / 32) adjacent
+// lanes, 32 values each.  Lane `sub` of a row holds the values
+//   d = ((e / 4) * LPR + sub) * 4 + e % 4,   e = 0 .. 31,
+// so the LPR lanes of a row read neighbouring 16-byte words of a
+// shared-memory row (no bank conflict) with float4 loads.
+template <int LPR>
+__device__ __forceinline__ int dim_of(int e, int sub) {
+  return ((e >> 2) * LPR + sub) * 4 + (e & 3);
+}
+
+template <int LPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// dot of the lane's 32 register values with its part of a shared row
+template <int LPR>
+__device__ __forceinline__ float dot_row(const float (&a)[32],
+                                         const float* __restrict__ srow,
+                                         int sub) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(srow + (i * LPR + sub) * 4);
+    acc = fmaf(a[4 * i + 0], b.x, acc);
+    acc = fmaf(a[4 * i + 1], b.y, acc);
+    acc = fmaf(a[4 * i + 2], b.z, acc);
+    acc = fmaf(a[4 * i + 3], b.w, acc);
+  }
+  return acc;
+}
+
+// a += w * (the lane's part of a shared row)
+template <int LPR>
+__device__ __forceinline__ void axpy_row(float (&a)[32], float w,
+                                         const float* __restrict__ srow,
+                                         int sub) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 b = *reinterpret_cast<const float4*>(srow + (i * LPR + sub) * 4);
+    a[4 * i + 0] = fmaf(w, b.x, a[4 * i + 0]);
+    a[4 * i + 1] = fmaf(w, b.y, a[4 * i + 1]);
+    a[4 * i + 2] = fmaf(w, b.z, a[4 * i + 2]);
+    a[4 * i + 3] = fmaf(w, b.w, a[4 * i + 3]);
+  }
+}
+
+// the reference's _finalize_dropout mix, then keep iff the top 24 bits
+// as a uniform in [0, 1) are >= rate
+__device__ __forceinline__ float drop_mult(uint32_t seed, int bh, int row,
+                                           int key, int bq, int bk,
+                                           float rate, float keep_scale) {
+  const uint32_t qi = static_cast<uint32_t>(row / bq);
+  const uint32_t r = static_cast<uint32_t>(row) - qi * bq;
+  const uint32_t kb = static_cast<uint32_t>(key / bk);
+  const uint32_t c = static_cast<uint32_t>(key) - kb * bk;
+  uint32_t x = (r * 0x9E3779B1u) ^ (c * 0x85EBCA77u);
+  x ^= seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du + qi * 0x27D4EB2Fu +
+       kb * 0x165667B1u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  const float u = static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+  return u >= rate ? keep_scale : 0.0f;
+}
+
+// end (exclusive) of the keys the forward and dq visit for `row`
+__device__ __forceinline__ int key_end(int row, int Tk, int causal, int bq,
+                                       int bk) {
+  const int nkb = (Tk + bk - 1) / bk;
+  if (!causal) return nkb * bk;
+  const int last = min(((row / bq + 1) * bq - 1) / bk, nkb - 1);
+  return (last + 1) * bk;
+}
+
+// first row dk/dv visit for `key` (the reference's _first_qb, clamped)
+__device__ __forceinline__ int row_begin(int key, int Tq, int causal, int bq,
+                                         int bk) {
+  if (!causal) return 0;
+  const int nqb = (Tq + bq - 1) / bq;
+  return min((key / bk) * bk / bq, nqb - 1) * bq;
+}
+
+struct Args {
+  const float* q;        // [B, H, Tq, D]
+  const float* k;        // [B, H, Tk, D]
+  const float* v;        // [B, H, Tk, D]
+  const float* mask;     // [B, Tk] 1/0 validity, or null (all valid)
+  const int32_t* seed;   // [1] dropout seed, or null (0)
+  const float* dout;     // [B, H, Tq, D] (backward)
+  const float* lse;      // [B*H, Tq] base-2 LSE (backward input)
+  const float* delta;    // [B*H, Tq] rowsum(dO * O) (backward)
+  float* out;            // forward: O [B, H, Tq, D]; dq: dQ
+  float* out_lse;        // forward: LSE [B*H, Tq]
+  float* dk;             // [B, H, Tk, D]
+  float* dv;             // [B, H, Tk, D]
+  int B, H, Tq, Tk, D;
+  int causal;
+  float scale_log2;      // float(sm_scale * log2(e))
+  float grad_scale;      // dq: sm_scale; dk: sm_scale / scale_log2
+  float rate;            // dropout rate (0: off)
+  float keep_scale;      // float(1 / (1 - rate))
+  int bq, bk;            // the reference's logical tile sizes
+};
+
+}  // namespace flash

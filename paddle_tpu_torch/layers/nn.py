@@ -1,0 +1,345 @@
+"""Layer DSL: functions that append ops to the current program block.
+
+The part of ``paddle_tpu/layers/nn.py`` that the Transformer and the
+fc/SGD drive call, copied unchanged: the same calls build the same
+program, byte for byte (``Program.serialize``).  Padded sequences carry
+their ``<name>@LEN`` companion as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..core.program import Variable
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+
+
+def seq_len_var(x: Variable) -> Optional[Variable]:
+    """Companion length var of a padded sequence batch, if declared."""
+    b = x.block
+    while b is not None:
+        if x.name in b.seq_len_map:
+            return b.var_or_none(b.seq_len_map[x.name])
+        b = b.parent_block
+    return x.block.var_or_none(x.name + "@LEN")
+
+
+def seq_len2_var(x: Variable) -> Optional[Variable]:
+    """Inner (level-2) [B, S] lengths companion of a padded-nested batch."""
+    b = x.block
+    while b is not None:
+        if x.name in getattr(b, "seq_len2_map", {}):
+            return b.var_or_none(b.seq_len2_map[x.name])
+        b = b.parent_block
+    return x.block.var_or_none(x.name + "@LEN2")
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected (reference nn.py fc): mul + (sum) + bias + act."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = param_attr if isinstance(param_attr, (list, tuple)) else [param_attr] * len(inputs)
+    mul_results = []
+    for inp, pattr in zip(inputs, param_attrs):
+        in_features = int(np.prod(inp.shape[num_flatten_dims:]))
+        w = helper.create_parameter(pattr, [in_features, size], dtype)
+        out_shape = tuple(inp.shape[:num_flatten_dims]) + (size,)
+        tmp = helper.create_variable_for_type_inference(dtype, shape=out_shape)
+        helper.append_op(
+            "mul", {"X": [inp], "Y": [w]}, {"Out": [tmp]},
+            {"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype, shape=mul_results[0].shape)
+        helper.append_op("sum", {"X": mul_results}, {"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    out = helper.append_activation(pre_act)
+    first = inputs[0]
+    if num_flatten_dims >= 2:
+        _propagate_lod(out, first)
+    return out
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32", name=None):
+    """Embedding lookup (reference nn.py:272).  ``is_sparse`` makes the
+    gradient a SelectedRows row-slice pair (no dense [V, D] grad is ever
+    materialised); ``is_distributed`` marks the table for the pserver
+    transpiler's sharded-table path."""
+    if is_distributed and not is_sparse:
+        raise ValueError(
+            "embedding(is_distributed=True) requires is_sparse=True: the "
+            "sharded-table gradient travels as a SelectedRows row slice "
+            "(reference nn.py:272 remote-prefetch path)")
+    helper = LayerHelper("embedding", name=name)
+    w = helper.create_parameter(param_attr, size, dtype)
+    out_shape = tuple(input.shape[:-1] if input.shape[-1] == 1 else input.shape) + (size[1],)
+    out = helper.create_variable_for_type_inference(dtype, shape=out_shape)
+    # negative padding_idx counts from the end (reference nn.py:292:
+    # kNoPadding if None else idx if idx >= 0 else size[0] + idx)
+    if padding_idx is None:
+        padding_idx = -1  # kNoPadding sentinel
+    elif padding_idx < 0:
+        padding_idx = size[0] + padding_idx
+    helper.append_op(
+        "lookup_table", {"W": [w], "Ids": [input]}, {"Out": [out]},
+        {"is_sparse": is_sparse, "is_distributed": is_distributed,
+         "padding_idx": padding_idx},
+    )
+    _propagate_lod(out, input)
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", act=act, name=name)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, norm_shape, "float32",
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(bias_attr, norm_shape, "float32", is_bias=True)
+        inputs["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    mean = helper.create_variable_for_type_inference(
+        "float32", shape=input.shape[:begin_norm_axis])
+    var = helper.create_variable_for_type_inference(
+        "float32", shape=input.shape[:begin_norm_axis])
+    helper.append_op(
+        "layer_norm", inputs, {"Y": [out], "Mean": [mean], "Variance": [var]},
+        {"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    mask = helper.create_variable_for_type_inference(
+        x.dtype, shape=x.shape, stop_gradient=True)
+    helper.append_op(
+        "dropout", {"X": [x]}, {"Out": [out], "Mask": [mask]},
+        {"dropout_prob": dropout_prob, "is_test": is_test,
+         "seed": seed or 0, "dropout_implementation": dropout_implementation},
+    )
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, shape=input.shape)
+    helper.append_op("softmax", {"X": [input]}, {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    sm = helper.create_variable_for_type_inference(logits.dtype, shape=logits.shape)
+    loss_shape = tuple(logits.shape[:-1]) + (1,)
+    loss = helper.create_variable_for_type_inference(logits.dtype, shape=loss_shape)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        {"Logits": [logits], "Label": [label]},
+        {"Softmax": [sm], "Loss": [loss]},
+        {"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype, shape=input.shape)
+    helper.append_op("square_error_cost", {"X": [input], "Y": [label]}, {"Out": [out]})
+    return out
+
+
+def _unary(op_type, x, helper_name=None, attrs=None, out_shape=None, out_dtype=None):
+    helper = LayerHelper(helper_name or op_type)
+    out = helper.create_variable_for_type_inference(
+        out_dtype or x.dtype, shape=out_shape if out_shape is not None else x.shape)
+    helper.append_op(op_type, {"X": [x]}, {"Out": [out]}, attrs or {})
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    new_shape = list(shape)
+    known = [s for s in new_shape if s > 0]
+    resolved = []
+    for i, s in enumerate(new_shape):
+        resolved.append(x.shape[i] if s == 0 else s)
+    if -1 in resolved:
+        total = int(np.prod([s for s in x.shape if s != -1]))
+        # keep -1 symbolic when the input batch is symbolic
+        pass
+    helper = LayerHelper("reshape", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=tuple(resolved))
+    helper.append_op("reshape", {"X": [x]}, {"Out": [out]}, {"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    out_shape = tuple(x.shape[p] for p in perm)
+    return _unary("transpose", x, attrs={"axis": list(perm)}, out_shape=out_shape)
+
+
+def squeeze(input, axes, name=None):
+    shp = [s for i, s in enumerate(input.shape) if i not in axes]
+    return _unary("squeeze", input, attrs={"axes": list(axes)}, out_shape=tuple(shp))
+
+
+def unsqueeze(input, axes, name=None):
+    shp = list(input.shape)
+    for ax in sorted(axes):
+        shp.insert(ax, 1)
+    return _unary("unsqueeze", input, attrs={"axes": list(axes)}, out_shape=tuple(shp))
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if transpose_x and len(xs) > 1:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) > 1:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    batch = xs[:-2] if len(xs) > 2 else (ys[:-2] if len(ys) > 2 else [])
+    out_shape = tuple(batch) + (xs[-2] if len(xs) > 1 else 1, ys[-1])
+    if len(xs) == 1:
+        out_shape = (ys[-1],)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=out_shape)
+    helper.append_op(
+        "matmul", {"X": [x], "Y": [y]}, {"Out": [out]},
+        {"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": alpha},
+    )
+    return out
+
+
+def cast(x, dtype):
+    return _unary("cast", x, attrs={"out_dtype": dtype}, out_dtype=dtype)
+
+
+def _binary(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
+    shp = x.shape if len(x.shape) >= len(y.shape) else y.shape
+    out = helper.create_variable_for_type_inference(x.dtype, shape=shp)
+    helper.append_op(op_type, {"X": [x], "Y": [y]}, {"Out": [out]}, {"axis": axis})
+    return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_min", x, y, axis, act, name)
+
+
+def _reduce_shape(x, dim, keep_dim):
+    if dim is None:
+        return () if not keep_dim else tuple(1 for _ in x.shape)
+    dims = [d % len(x.shape) for d in (dim if isinstance(dim, (list, tuple)) else [dim])]
+    if keep_dim:
+        return tuple(1 if i in dims else s for i, s in enumerate(x.shape))
+    return tuple(s for i, s in enumerate(x.shape) if i not in dims)
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=_reduce_shape(input, dim, keep_dim))
+    attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
+    if dim is not None:
+        attrs["dim"] = list(dim) if isinstance(dim, (list, tuple)) else [dim]
+    helper.append_op(op_type, {"X": [input]}, {"Out": [out]}, attrs)
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def mean(x, name=None):
+    return _unary("mean", x, out_shape=())
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(
+        "scale", {"X": [x]}, {"Out": [out]},
+        {"scale": scale, "bias": bias, "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
+
+
+def _alias_len(var, seq_len):
+    """Register seq_len as var's companion length var."""
+    var.block.seq_len_map[var.name] = seq_len.name
+
+
+def _propagate_lod(out, x):
+    """Carry BOTH length companions and the lod_level through a
+    shape-preserving layer (embedding/fc/elementwise...): without this,
+    a nested ids -> embedding -> sequence_pool pipeline would silently
+    fall back to the level-1 path with outer lengths applied to the
+    sentence axis."""
+    sl = seq_len_var(x)
+    if sl is not None:
+        _alias_len(out, sl)
+    if getattr(x, "lod_level", 0) == 2:
+        sl2 = seq_len2_var(x)
+        if sl2 is not None:
+            out.block.seq_len2_map[out.name] = sl2.name
+            out.lod_level = 2
+
+
+__all__ = [
+    "cast",
+    "dropout",
+    "elementwise_add",
+    "elementwise_div",
+    "elementwise_min",
+    "elementwise_mul",
+    "embedding",
+    "fc",
+    "layer_norm",
+    "matmul",
+    "mean",
+    "reduce_sum",
+    "reshape",
+    "scale",
+    "seq_len2_var",
+    "seq_len_var",
+    "softmax",
+    "softmax_with_cross_entropy",
+    "square_error_cost",
+    "squeeze",
+    "transpose",
+    "unsqueeze",
+]

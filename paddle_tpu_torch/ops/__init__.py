@@ -1,0 +1,9 @@
+"""Op rules of the port, registered on import (one module per family,
+as in the JAX package)."""
+from . import (  # noqa: F401
+    attention_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    tensor_ops,
+)

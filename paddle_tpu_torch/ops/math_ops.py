@@ -1,0 +1,128 @@
+"""Math op rules: elementwise (with axis-broadcast), relu, pow,
+reductions, ``mul``, ``scale``, ``sum``, ``cast``, ``mean``.
+
+The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
+Transformer's training program and the fc/SGD drive use.  Each rule is
+plain PyTorch; ``mul`` is a torch matrix product, as the reference left
+its matmuls to XLA.  Scalars from attrs enter as float32 values of the
+tensor's dtype, as the reference's ``jnp.asarray(v, x.dtype)`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register, register_grad
+from ._util import torch_dtype
+
+
+def broadcast_y(x, y, axis: int):
+    """The reference's axis-broadcast (elementwise_op_function.h): Y
+    aligns with X's dims starting at ``axis``; -1 aligns trailing dims."""
+    if x.shape == y.shape:
+        return y
+    if axis == -1 or axis is None:
+        return y  # trailing alignment == numpy broadcasting
+    new_shape = [1] * x.dim()
+    for i, s in enumerate(y.shape):
+        new_shape[axis + i] = s
+    return y.reshape(new_shape)
+
+
+def _ew(fn):
+    def lower(ctx, ins, attrs):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [fn(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+    return lower
+
+
+register("elementwise_add")(_ew(torch.add))
+register("elementwise_mul")(_ew(torch.mul))
+register("elementwise_div")(_ew(torch.div))
+register("elementwise_min")(_ew(torch.minimum))
+
+
+@register("relu")
+def _relu(ctx, ins, attrs):
+    return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
+
+
+def _reduce(fn):
+    def lower(ctx, ins, attrs):
+        x = ins["X"][0]
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            out = fn(x)
+            if keep:
+                out = out.reshape([1] * x.dim())
+            return {"Out": [out]}
+        dim = attrs.get("dim", [0])
+        axes = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+        return {"Out": [fn(x, dim=axes, keepdim=keep)]}
+    return lower
+
+
+register("reduce_sum")(_reduce(torch.sum))
+
+
+@register("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [torch.mean(ins["X"][0])]}
+
+
+def flatten_to_2d(x, num_col_dims: int):
+    lead = 1
+    for s in x.shape[:num_col_dims]:
+        lead *= s
+    return x.reshape(lead, -1)
+
+
+@register("mul")
+def _mul(ctx, ins, attrs):
+    """mul_op.cc: X flattened to 2-D at ``x_num_col_dims``, Y at
+    ``y_num_col_dims``; the FC core."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    out = torch.matmul(flatten_to_2d(x, xnc), flatten_to_2d(y, ync))
+    return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+@register("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    scale = attrs.get("scale", 1.0)
+    bias = attrs.get("bias", 0.0)
+    if not x.is_floating_point():
+        scale, bias = int(scale), int(bias)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * scale + bias]}
+    return {"Out": [(x + bias) * scale]}
+
+
+@register("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register("cast", no_grad_slots=())
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_grad("cast")
+def _cast_grad(ctx, ins, attrs):
+    g = ins["Out@GRAD"][0]
+    x = ins["X"][0]
+    return {"X@GRAD": [g.to(x.dtype)]}
+
+
+__all__ = ["broadcast_y", "flatten_to_2d"]

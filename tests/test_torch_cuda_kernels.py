@@ -104,3 +104,97 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         A.decode_attention(**dict(inp, block_tables=inp["block_tables"]
                                   .cpu()))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K1 forward, K2 dq, K3 dk/dv)
+# ---------------------------------------------------------------------------
+
+FWD_TOL = dict(rtol=1e-5, atol=2e-5)    # float32, different sum orders
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _flash_inputs(dev, B, H, Tq, Tk, D, seed=0, all_masked=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, Tq, D, generator=g, device=dev)
+    k = torch.randn(B, H, Tk, D, generator=g, device=dev)
+    v = torch.randn(B, H, Tk, D, generator=g, device=dev)
+    do = torch.randn(B, H, Tq, D, generator=g, device=dev)
+    mask = (torch.rand(B, Tk, generator=g, device=dev) > 0.25).float()
+    mask[:, 0] = 1.0
+    if all_masked:
+        mask[-1] = 0.0
+    return q, k, v, do, mask
+
+
+def _flash_check(dev, B, H, Tq, Tk, D, causal, rate=0.0, seed=0,
+                 all_masked=False):
+    q, k, v, do, mask = _flash_inputs(dev, B, H, Tq, Tk, D, seed,
+                                      all_masked)
+    s = torch.tensor([12345 + seed], dtype=torch.int32, device=dev)
+    n = (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
+         A.flash_attention_bwd_dkv.launches)
+    out, lse = A.flash_attention_fwd(q, k, v, mask, causal, None, rate, s)
+    delta = A.flash_attention_delta(out, do)
+    dq = A.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal,
+                                  None, rate, s)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                       causal, None, rate, s)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    o_ref, l_ref = A.flash_attention_ref(q, k, v, mask, causal, None, rate, s)
+    dq_r, dk_r, dv_r = A.flash_attention_bwd_ref(q, k, v, mask, o_ref, l_ref,
+                                                 do, causal, None, rate, s)
+    torch.testing.assert_close(out, o_ref, **FWD_TOL)
+    torch.testing.assert_close(lse, l_ref, **FWD_TOL)
+    for a, b in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    return dk, dv
+
+
+@pytest.mark.parametrize("T", [1, 17, 255, 512])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernels_match_plain(dev, D, T):
+    _flash_check(dev, 2, 3, T, T, D, causal=(T % 2 == 1), seed=D + T)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_dropout_and_all_masked_row(dev, causal):
+    _flash_check(dev, 2, 2, 200, 200, 64, causal, rate=0.1, seed=3,
+                 all_masked=True)
+
+
+def test_flash_kernels_cross_length_causal(dev):
+    """Tk > Tq causal: keys wholly above the frontier get zero dk/dv."""
+    dk, dv = _flash_check(dev, 1, 2, 128, 300, 48, causal=True, seed=4)
+    assert torch.count_nonzero(dk[:, :, 128:]) == 0
+    assert torch.count_nonzero(dv[:, :, 128:]) == 0
+
+
+def test_flash_autograd_on_a_side_stream(dev):
+    q, k, v, do, mask = _flash_inputs(dev, 2, 2, 64, 64, 64, seed=6)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(A.flash_attention(*leaves, mask, True),
+                              leaves, do)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = torch.autograd.grad(A.flash_attention(*leaves, mask, True),
+                                  leaves, do)
+    side.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(dev):
+    q, k, v, do, mask = _flash_inputs(dev, 1, 2, 16, 16, 32)
+    with pytest.raises(TypeError):
+        A.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q.transpose(2, 3), k, v, mask)
+    with pytest.raises(ValueError):
+        big = torch.zeros(1, 1, 4, 160, device=dev)
+        A.flash_attention_fwd(big, big, big)
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, k, v, mask.cpu())

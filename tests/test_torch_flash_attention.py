@@ -1,0 +1,172 @@
+"""The port's plain flash attention (the CPU path of kernels K1–K3)
+against the JAX package's Pallas kernels, run in interpret mode as
+tests/test_attention.py runs them: out and the base-2 LSE from
+``_pallas_fwd``, dq/dk/dv from ``_pallas_bwd``, dropout bits included.
+
+Tolerances: both sides compute in float32 over at most a few hundred
+keys of O(1) values, in different summation orders, so out/lse agree
+to about 1e-6 and the gradients (sums of products of those) to about
+1e-5; the bounds below leave a few-fold margin.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.kernels import attention as JA
+from paddle_tpu_torch.kernels import attention as TA
+
+FWD_TOL = dict(rtol=1e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# name -> (B, H, Tq, Tk, D, causal, dropout rate, all-masked batch row)
+CASES = {
+    "noncausal": (2, 2, 64, 64, 16, False, 0.0, False),
+    "causal": (2, 2, 64, 64, 16, True, 0.0, False),
+    "ragged_multi_tile": (1, 2, 160, 160, 16, True, 0.0, False),
+    "cross_tk_gt_tq_causal": (1, 2, 128, 256, 16, True, 0.0, False),
+    "all_masked_row": (2, 2, 40, 40, 8, False, 0.0, True),
+    "all_masked_row_causal": (2, 2, 40, 40, 8, True, 0.0, True),
+    "dropout": (2, 2, 48, 48, 16, False, 0.1, False),
+    "dropout_causal_multi_tile": (1, 2, 140, 140, 8, True, 0.1, False),
+}
+
+
+def _inputs(B, H, Tq, Tk, D, all_masked, seed):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, H, Tq, D).astype("float32")
+    k = rs.randn(B, H, Tk, D).astype("float32")
+    v = rs.randn(B, H, Tk, D).astype("float32")
+    g = rs.randn(B, H, Tq, D).astype("float32")
+    mask = (rs.rand(B, Tk) > 0.25).astype("float32")
+    mask[:, 0] = 1.0
+    if all_masked:
+        mask[-1] = 0.0
+    return q, k, v, g, mask
+
+
+def _reference(name):
+    B, H, Tq, Tk, D, causal, rate, all_masked = CASES[name]
+    q, k, v, g, mask = _inputs(B, H, Tq, Tk, D, all_masked,
+                               seed=len(name))
+    seed = np.array([1234567], "int32")
+    js = jnp.asarray(seed)
+    out, lse = JA._pallas_fwd(q, k, v, mask, causal, None, rate, js,
+                              interpret=True)
+    dq, dk, dv = JA._pallas_bwd(q, k, v, mask, out, lse, g, causal, None,
+                                rate, js, interpret=True)
+    lse = np.asarray(lse)[:, 0, :Tq]
+    return dict(inputs=(q, k, v, g, mask, seed), causal=causal, rate=rate,
+                out=np.asarray(out), lse=lse, dq=np.asarray(dq),
+                dk=np.asarray(dk), dv=np.asarray(dv))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _reference(name)
+        return cache[name]
+    return get
+
+
+def _port(r):
+    q, k, v, g, mask, seed = (torch.from_numpy(x) for x in r["inputs"])
+    out, lse = TA.flash_attention_ref(q, k, v, mask, r["causal"], None,
+                                      r["rate"], seed)
+    dq, dk, dv = TA.flash_attention_bwd_ref(q, k, v, mask, out, lse, g,
+                                            r["causal"], None, r["rate"],
+                                            seed)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_flash_matches_pallas_interpret(refs, name):
+    r = refs(name)
+    got = _port(r)
+    for key in ("out", "lse"):
+        np.testing.assert_allclose(got[key].numpy(), r[key], err_msg=key,
+                                   **FWD_TOL)
+    for key in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(got[key].numpy(), r[key], err_msg=key,
+                                   **GRAD_TOL)
+
+
+def test_cross_length_keys_past_frontier_get_zero_grad(refs):
+    """The pin of test_pallas_bwd_cross_length_causal: a k-block wholly
+    above the causal frontier (Tk > Tq) gets exactly zero dk/dv."""
+    got = _port(refs("cross_tk_gt_tq_causal"))
+    assert torch.count_nonzero(got["dk"][:, :, 128:]) == 0
+    assert torch.count_nonzero(got["dv"][:, :, 128:]) == 0
+
+
+def test_all_masked_row_averages_padded_values(refs):
+    """A row whose keys are all masked averages V over the reference's
+    padded key frame (zero rows past Tk), finite, never NaN."""
+    r = refs("all_masked_row")
+    got = _port(r)
+    v = r["inputs"][2]
+    want = v[-1].sum(axis=1) / 128.0          # Tk=40 padded to 128
+    np.testing.assert_allclose(got["out"][-1, :, 0].numpy(), want,
+                               **FWD_TOL)
+    assert torch.isfinite(got["dq"]).all()
+
+
+def test_dropout_bits_equal_the_tile_hash():
+    """The plain tile hash reproduces _tile_dropout bit for bit on one
+    logical tile (here a 128 x 128 tile of a T=200 frame)."""
+    rate, seed = 0.3, np.array([-5], "int32")
+    bh, qi, kb = 3, 1, 1
+    ref = np.asarray(JA._tile_dropout(jnp.asarray(seed), bh, qi, kb,
+                                      (128, 128), rate))
+    full = TA.tile_dropout_ref(torch.from_numpy(seed), 2, 2, 200, 200, rate,
+                               "cpu")
+    got = full[1, 1, 128:256, 128:256].numpy()        # bh 3 = (1, 1)
+    np.testing.assert_array_equal(got[:72], ref[:72])
+
+
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.0),
+                                         (False, 0.2), (True, 0.2)])
+def test_mha_ref_matches_mha_xla(causal, rate):
+    B, H, T, D = 2, 3, 24, 8
+    q, k, v, g, mask = _inputs(B, H, T, T, D, False, seed=5)
+    seed = np.array([99], "int32")
+    ref = np.asarray(JA.mha_xla(q, k, v, mask, causal, None,
+                                dropout_rate=rate,
+                                dropout_seed=jnp.asarray(seed)))
+    got = TA.mha_ref(torch.from_numpy(q), torch.from_numpy(k),
+                     torch.from_numpy(v), torch.from_numpy(mask), causal,
+                     None, rate, torch.from_numpy(seed))
+    np.testing.assert_allclose(got.numpy(), ref, **FWD_TOL)
+
+
+def test_hash_dropout_bits_equal():
+    shape, rate = (2, 3, 8, 16), 0.25
+    seed = np.array([2 ** 31 - 7], "int32")
+    ref = np.asarray(JA._hash_dropout(jnp.asarray(seed).reshape(()), 0,
+                                      shape, rate))
+    got = TA.hash_dropout_ref(torch.from_numpy(seed), shape, rate)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_autograd_function_uses_saved_lse_on_cpu():
+    """flash_attention's backward on the CPU equals the plain backward
+    from the saved forward, and launches no kernel."""
+    q, k, v, g, mask = _inputs(1, 2, 20, 20, 8, False, seed=9)
+    q, k, v, g, mask = (torch.from_numpy(x) for x in (q, k, v, g, mask))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (TA.flash_attention_fwd.launches,
+              TA.flash_attention_bwd_dq.launches,
+              TA.flash_attention_bwd_dkv.launches)
+    out = TA.flash_attention(*leaves, mask, True)
+    grads = torch.autograd.grad(out, leaves, g)
+    o_ref, lse = TA.flash_attention_ref(q, k, v, mask, True)
+    want = TA.flash_attention_bwd_ref(q, k, v, mask, o_ref, lse, g, True)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b)
+    assert (TA.flash_attention_fwd.launches,
+            TA.flash_attention_bwd_dq.launches,
+            TA.flash_attention_bwd_dkv.launches) == before

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, and
 not ``chip_smoke.py``, imports JAX or the JAX package, and importing the
-port's decode plane loads neither.  ``chip_smoke.py`` refuses to report
+port's decode plane or its Program stack (the copied pure-Python IR
+modules included) loads neither.  ``chip_smoke.py`` refuses to report
 a result without a CUDA device."""
 import ast
 import os
@@ -27,11 +28,28 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "paddle_tpu")
 
 
+# the Program stack: copied pure-Python modules and ported ones
+PROGRAM_MODULES = [
+    "core/types.py", "core/unique_name.py", "core/program.py",
+    "core/backward.py", "core/registry.py", "core/lowering.py",
+    "core/executor.py", "param_attr.py", "initializer.py",
+    "layer_helper.py", "clip.py", "regularizer.py", "framework.py",
+    "executor.py", "optimizer.py", "layers/io.py", "layers/nn.py",
+    "layers/tensor.py", "layers/learning_rate_scheduler.py",
+    "ops/math_ops.py", "ops/tensor_ops.py", "ops/nn_ops.py",
+    "ops/optimizer_ops.py", "ops/attention_ops.py",
+    "models/transformer.py", "kernels/_hash.py",
+]
+
+
 def test_port_files_exist():
     files = _port_files()
-    assert len(files) >= 15
-    assert os.path.exists(os.path.join(PORT, "kernels", "csrc",
-                                       "paged_decode_attn.cu"))
+    assert len(files) >= 45
+    for src in ("paged_decode_attn.cu", "flash_attn_fwd.cu",
+                "flash_attn_bwd.cu", "flash_attn_common.cuh"):
+        assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
+    for mod in PROGRAM_MODULES:
+        assert os.path.join(PORT, mod) in files, mod
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -56,9 +74,12 @@ def test_no_jax_or_paddle_tpu_import(path):
 
 
 def test_importing_the_port_loads_no_jax():
+    mods = ", ".join(
+        "paddle_tpu_torch." + m[:-3].replace("/", ".")
+        for m in PROGRAM_MODULES)
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.decode, "
             "paddle_tpu_torch.kernels.attention, "
-            "paddle_tpu_torch.kernels._build\n"
+            f"paddle_tpu_torch.kernels._build, {mods}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(bad)\n"
