@@ -5,7 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each one that fails raises, and the script exits non-zero):
+Phases, in the order they run: 1, 2, 3, 3b, 3c, 4, 5, 7, 6 (each one
+that fails raises, and the script exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -46,8 +47,26 @@ Phases (each one that fails raises, and the script exits non-zero):
    finite, K1, K2 and K3 must each launch exactly 18 times a step, and
    no gradient may re-run its forward.  Step ms, tokens/s, peak memory
    and one profiled step follow.
-6. One JSON line listing each kernel: launches on the main path, max
-   error, its time, the plain version's, the library call's and the
+3c. The fused LSTM kernels K6 (forward) and K7 (backward) against their
+   plain versions at the stacked LSTM's bench shape (B=128, T=128,
+   H=512), with ragged lengths 16..128 and with full lengths, and at an
+   odd shape.  Then each kernel, its plain version and the library
+   yardstick (cuDNN through ``torch.nn.LSTM``, forward and its autograd
+   backward, full lengths; cuDNN computes the input projection inside,
+   so the port's ``mul`` + bias + K6, and their grads + K7, are timed
+   beside it) are timed with CUDA events beside the bound.
+7. The stacked-LSTM slice: ``models/stacked_lstm.py`` (dict 30000, emb
+   512, hid 512, 3 layers, the middle one reversed, Adam) through
+   ``layers.data(lod_level=1)`` -> ``Adam.minimize`` -> Executor.run.
+   First one step at full width with a small ragged batch (B=8, T=32) on
+   the card and on the CPU from the same copied starting values: the
+   loss and every parameter gradient must agree.  Then the bench
+   configuration (B=128, T=128, ragged ``words@LEN`` from a seed) trains
+   12 steps on one batch: the loss must stay finite, K6 and K7 must each
+   launch exactly 3 times a step, and no gradient may re-run its
+   forward.  Step ms, tokens/s, peak memory and one profiled step follow.
+6. (last) One JSON line listing each kernel: launches on the main path,
+   max error, its time, the plain version's, the library call's and the
    bound.
 
 The last line of standard output is
@@ -98,6 +117,16 @@ TRAIN = dict(src_vocab=32000, tgt_vocab=32000, max_len=256, d_model=512,
              attention_impl="pallas")
 TRAIN_B, TRAIN_STEPS = 32, 12
 FLASH_TIME_SHAPE = (32, 8, 256, 64)   # B, H, T, D of the training path
+
+# K6/K7 vs their plain versions on the same inputs: float32 sums over H
+# (and over B*T for dW) in other orders, carried through T steps
+LSTM_FWD_ATOL = 1e-4
+LSTM_GRAD_REL = 1e-3           # max|d| <= LSTM_GRAD_REL * max|ref|
+LSTM_TIME_SHAPE = (128, 128, 512)   # B, T, H of the stacked LSTM's bench
+LSTM_TRAIN = dict(dict_dim=30000, class_dim=2, emb_dim=512, hid_dim=512,
+                  stacked_num=3, lr=0.002)
+LSTM_B, LSTM_T, LSTM_STEPS = 128, 128, 12
+LSTM_SHORTEST = 16             # ragged batches keep 16..T steps a row
 
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
@@ -680,6 +709,182 @@ def check_and_time_flash(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the fused LSTM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def lstm_inputs(dev, B, T, H, seed, lo=None):
+    """Random xproj, w (scaled 1/sqrt(H)), h0/c0, cotangents dhs/dcs and a
+    [B, T] mask whose rows keep a prefix of lo..T steps (all T when lo is
+    None)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xproj = torch.randn(B, T, 4 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(H, 4 * H, generator=g, device=dev) / math.sqrt(H)
+    h0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    c0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    lens = (torch.full((B,), T, device=dev) if lo is None else
+            torch.randint(lo, T + 1, (B,), generator=g, device=dev))
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    dhs = torch.randn(B, T, H, generator=g, device=dev)
+    dcs = torch.randn(B, T, H, generator=g, device=dev)
+    return dict(args=(xproj, w, h0, c0, mask), dhs=dhs, dcs=dcs)
+
+
+def lstm_work(x) -> dict:
+    """The least work of K6 and K7 on these inputs: 2 * H * 4H float32
+    operations per live (row, step) for K6, three times that for K7
+    (gate recompute, dh_prev and dW; a masked step needs none), and each
+    input read once, each output written once."""
+    xproj = x["args"][0]
+    B, T, H4 = xproj.shape
+    H = H4 // 4
+    live = int(x["args"][4].sum().item())
+    f4 = 4
+    xb, wb, sb = B * T * H4 * f4, H * H4 * f4, B * H * f4
+    mb, hb = B * T * f4, B * T * H * f4
+    rows = {"fwd": (2 * live * H * H4, xb + wb + 2 * sb + mb + 2 * hb),
+            "bwd": (6 * live * H * H4,
+                    xb + wb + 2 * sb + mb + 4 * hb + xb + wb + 2 * sb)}
+    out = {}
+    for name, (ops, nbytes) in rows.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        out[name] = {"ops": ops, "bytes": nbytes, "live_steps": live,
+                     "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+LSTM_CASES = {  # name: (B, T, H, shortest row or None for full lengths)
+    "bench_ragged": (128, 128, 512, LSTM_SHORTEST),
+    "bench_full": (128, 128, 512, None),
+    "odd": (3, 17, 40, 1),
+}
+
+
+def time_cudnn(dev, B, T, H, tf32: bool) -> dict:
+    """The library yardstick, never called by the port: one cuDNN LSTM
+    layer (``torch.nn.LSTM``) over a [B, T, H] input, forward and its
+    autograd backward (input, weights), full lengths."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        lstm = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+        x = torch.randn(B, T, H, device=dev, requires_grad=True)
+        dy = torch.randn(B, T, H, device=dev)
+        fwd = time_ms(lambda _: lstm(x), [None], iters=20)
+        wrt = [x, *lstm.parameters()]
+        both = time_ms(lambda _: torch.autograd.grad(lstm(x)[0], wrt, dy),
+                       [None], iters=20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    # the backward alone: forward + backward less the forward
+    return {"fwd": fwd, "bwd": both - fwd}
+
+
+def time_lstm(R, dev) -> dict:
+    """K6/K7 and their plain versions at the bench shape with ragged
+    lengths (the training path's data), K6/K7 at full lengths beside
+    cuDNN, and the port's whole layer at full lengths (x @ Wx + b then
+    K6; K7 then the projection's dWx, dx and db) beside cuDNN, which
+    computes the input projection inside.  xproj alone is 134 MB, past
+    the 50 MB L2, so no input cycling is needed."""
+    B, T, H = LSTM_TIME_SHAPE
+    out = {}
+    for label, lo in (("ragged", LSTM_SHORTEST), ("full", None)):
+        x = lstm_inputs(dev, B, T, H, seed=70, lo=lo)
+        a, dhs, dcs = x["args"], x["dhs"], x["dcs"]
+        hs, cs = R.lstm_fused(*a)
+        work = lstm_work(x)
+        work["fwd"]["ms"] = time_ms(lambda _: R.lstm_fused(*a), [None],
+                                    iters=20)
+        work["bwd"]["ms"] = time_ms(lambda _: R.lstm_fused_grad(
+            *a, hs, cs, dhs, dcs), [None], iters=20)
+        if label == "ragged":
+            work["fwd"]["plain_ms"] = time_ms(lambda _: R.lstm_ref(*a),
+                                              [None], iters=3)
+            work["bwd"]["plain_ms"] = time_ms(lambda _: R.lstm_grad_ref(
+                *a, hs, cs, dhs, dcs), [None], iters=3)
+        out[label] = work
+    # the whole layer: projection + K6, and K7 + the projection's grads
+    g = torch.Generator(device=dev).manual_seed(71)
+    xin = torch.randn(B, T, H, generator=g, device=dev)
+    wx = torch.randn(H, 4 * H, generator=g, device=dev) / math.sqrt(H)
+    bias = torch.randn(4 * H, generator=g, device=dev) * 0.1
+    w = torch.randn(H, 4 * H, generator=g, device=dev) / math.sqrt(H)
+    zeros = torch.zeros(B, H, device=dev)
+    ones = torch.ones(B, T, device=dev)
+    dy = torch.randn(B, T, H, generator=g, device=dev)
+    dc = torch.zeros(B, T, H, device=dev)
+
+    def layer_fwd(_):
+        xp = (xin.reshape(-1, H) @ wx + bias).reshape(B, T, 4 * H)
+        return xp, R.lstm_fused(xp, w, zeros, zeros, ones)
+
+    xp, (hs, cs) = layer_fwd(None)
+
+    def layer_bwd(_):
+        dxp = R.lstm_fused_grad(xp, w, zeros, zeros, ones, hs, cs, dy,
+                                dc)[0].reshape(-1, 4 * H)
+        return (xin.reshape(-1, H).t() @ dxp, dxp @ wx.t(), dxp.sum(0))
+
+    layer = {"fwd": time_ms(layer_fwd, [None], iters=20),
+             "bwd": time_ms(layer_bwd, [None], iters=20)}
+    cudnn = time_cudnn(dev, B, T, H, tf32=False)
+    cudnn_tf32 = time_cudnn(dev, B, T, H, tf32=True)
+    for k in ("fwd", "bwd"):
+        for label in ("ragged", "full"):
+            out[label][k]["library_ms"] = cudnn[k]
+        out["full"][k].update(port_layer_ms=layer[k],
+                              library_tf32_ms=cudnn_tf32[k])
+    return out
+
+
+def check_and_time_lstm(dev) -> dict:
+    from paddle_tpu_torch.kernels import rnn as R
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for i, (name, (B, T, H, lo)) in enumerate(LSTM_CASES.items()):
+        x = lstm_inputs(dev, B, T, H, seed=60 + i, lo=lo)
+        a = x["args"]
+        hs, cs = R.lstm_fused(*a)
+        grads = R.lstm_fused_grad(*a, hs, cs, x["dhs"], x["dcs"])
+        torch.cuda.synchronize()
+        ref_h, ref_c = R.lstm_ref(*a)
+        # the plain backward on the kernel's own hs/cs: K7 checked alone
+        ref_g = R.lstm_grad_ref(*a, hs, cs, x["dhs"], x["dcs"])
+        e_f = max((hs - ref_h).abs().max().item(),
+                  (cs - ref_c).abs().max().item())
+        if not (math.isfinite(e_f) and e_f <= LSTM_FWD_ATOL):
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{name}: {e_f} > {LSTM_FWD_ATOL}")
+        e_b, worst_ratio = 0.0, 0.0
+        for gname, got, ref in zip(("dxproj", "dw", "dh0", "dc0"), grads,
+                                   ref_g):
+            d = (got - ref).abs().max().item()
+            ratio = d / max(ref.abs().max().item(), 1e-30)
+            if not (torch.isfinite(got).all() and ratio <= LSTM_GRAD_REL):
+                raise AssertionError(
+                    f"K7 {gname} disagrees with its plain version at {name}"
+                    f": max|d| / max|ref| = {ratio} > {LSTM_GRAD_REL}")
+            e_b, worst_ratio = max(e_b, d), max(worst_ratio, ratio)
+        log(f"  {name} B={B} T={T} H={H}: max|kernel - plain| hs/cs "
+            f"{e_f!r} (tolerance {LSTM_FWD_ATOL}), gradients {e_b!r} "
+            f"(worst max|d|/max|ref| {worst_ratio!r}, tolerance "
+            f"{LSTM_GRAD_REL})")
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"],
+                                                            e_b)
+        del x, hs, cs, grads, ref_h, ref_c, ref_g
+    out = {"max_abs_err": errs, **time_lstm(R, dev)}
+    for label in ("ragged", "full"):
+        for n, r in out[label].items():
+            extra = "".join(f", {k} {r[k]!r} ms" for k in (
+                "plain_ms", "port_layer_ms", "library_tf32_ms") if k in r)
+            log(f"  {label} {n}: kernel {r['ms']!r} ms, cuDNN (TF32 off) "
+                f"{r['library_ms']!r} ms{extra}, bound {r['bound_ms']!r} ms "
+                f"({r['bound_by']}, {r['ops']} ops, {r['bytes']} bytes)")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: Transformer training through Program -> Executor.run
 # ---------------------------------------------------------------------------
 
@@ -770,9 +975,11 @@ def check_train_step_against_cpu(dev) -> dict:
             "worst_grad_param": worst_p}
 
 
-def profile_step(exe, main, feed, loss) -> dict:
+def profile_step(exe, main, feed, loss, focus) -> dict:
     """One training step under the torch profiler: device busy time over
-    its window, and the kernels with the most device time."""
+    its window, the device time of the kernels whose names contain each
+    of ``focus`` and their share, and the kernels with the most device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -798,17 +1005,16 @@ def profile_step(exe, main, feed, loss) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     total = sum(t for t, _ in by_name.values())
-    flash = {k: sum(t for n, (t, _) in by_name.items() if k in n)
-             for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel")}
+    named = {k: sum(t for n, (t, _) in by_name.items() if k in n)
+             for k in focus}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall * 1e3, "device_window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / window,
             "kernels_launched": len(events),
             "kernel_ms_total": total / 1e3,
-            "flash_ms": {k: v / 1e3 for k, v in flash.items()},
-            "flash_share_of_kernel_time": sum(flash.values()) / total,
+            "focus_ms": {k: v / 1e3 for k, v in named.items()},
+            "focus_share_of_kernel_time": sum(named.values()) / total,
             "top_kernels": [{"name": n[:120], "ms": t / 1e3, "count": c}
                             for n, (t, c) in top]}
 
@@ -867,7 +1073,154 @@ def run_training(dev, card: str) -> dict:
         f"{losses[-1]!r}, max memory allocated "
         f"{out['max_memory_allocated']} bytes")
     with fluid.scope_guard(scope):
-        prof = profile_step(exe, main, feed, loss)
+        prof = profile_step(exe, main, feed, loss,
+                            ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel"))
+    out["profile"] = prof
+    log(f"  profiled step [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: stacked-LSTM training through Program -> Executor.run
+# ---------------------------------------------------------------------------
+
+def build_stacked_lstm(seed: int = 3):
+    """The port's stacked-LSTM training program (models/stacked_lstm.py):
+    (main, startup, avg_cost, sorted parameter names)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import stacked_lstm
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = stacked_lstm.build(**LSTM_TRAIN)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def lstm_feed(B: int, T: int, seed: int, shortest: int) -> dict:
+    """One seeded batch: word ids [B, T, 1], ragged lengths
+    shortest..T (``words@LEN``) and binary labels."""
+    rs = np.random.RandomState(seed)
+    return {"words": rs.randint(0, LSTM_TRAIN["dict_dim"], (B, T, 1))
+            .astype("int64"),
+            "words@LEN": rs.randint(shortest, T + 1, B).astype("int64"),
+            "label": rs.randint(0, LSTM_TRAIN["class_dim"], (B, 1))
+            .astype("int64")}
+
+
+def lstm_launches(R) -> tuple:
+    return R.lstm_fused.launches, R.lstm_fused_grad.launches
+
+
+def check_lstm_step_against_cpu(dev) -> dict:
+    """One step of the full-width stacked LSTM with a small ragged batch
+    (B=8, T=32, a length-1 row) on the card and on the CPU from the same
+    copied starting values: the loss and every parameter gradient agree
+    (K6/K7 against their plain versions through append_backward)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import rnn as R
+    main, startup, loss, params = build_stacked_lstm()
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    feed = lstm_feed(8, 32, seed=5, shortest=1)
+    feed["words@LEN"][0] = 1
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        n0 = lstm_launches(R)
+        out[name] = fluid.Executor(device).run(main, feed=feed,
+                                               fetch_list=fetch, scope=scope)
+        out[name + "_launches"] = tuple(
+            b - a for a, b in zip(n0, lstm_launches(R)))
+    n_lstm = LSTM_TRAIN["stacked_num"]
+    if out["gpu_launches"] != (n_lstm, n_lstm) or \
+            out["cpu_launches"] != (0, 0):
+        raise AssertionError(f"K6/K7 launches card {out['gpu_launches']}, "
+                             f"CPU {out['cpu_launches']}; expected {n_lstm} "
+                             f"each on the card and none on the CPU")
+    l_cpu, l_gpu = float(out["cpu"][0]), float(out["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not math.isfinite(l_gpu) or loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"loss card {l_gpu} vs CPU {l_cpu}")
+    ratios = {}
+    for name, g, r in zip(params, out["gpu"][1:], out["cpu"][1:]):
+        scale = float(np.abs(r).max())
+        ratios[name] = float(np.abs(g - r).max()) / max(scale, 1e-30)
+        if not np.isfinite(g).all() or ratios[name] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: max|d| / max|ref| = "
+                                 f"{ratios[name]} > {TRAIN_GRAD_TOL}")
+    worst_p = max(ratios, key=ratios.get)
+    log(f"  full-width step B=8 T=32, card vs CPU: loss {l_gpu!r} vs "
+        f"{l_cpu!r} (rel {loss_rel!r}), {len(params)} gradients, worst "
+        f"max|d|/max|ref| {ratios[worst_p]!r} ({worst_p}; tolerance "
+        f"{TRAIN_GRAD_TOL})")
+    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+            "n_grads": len(params), "worst_grad_ratio": ratios[worst_p],
+            "worst_grad_param": worst_p}
+
+
+def run_stacked_lstm(dev, card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import rnn as R
+    out = {"parity": check_lstm_step_against_cpu(dev)}
+    t0 = time.perf_counter()
+    main, startup, loss, params = build_stacked_lstm()
+    n_ops = len(main.global_block.ops)
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(scope.find_var(p).numel() for p in params)
+    log(f"  stacked-LSTM program: {n_ops} ops, {n_params} parameters, built "
+        f"and initialized on the card in {time.perf_counter() - t0:.1f} s")
+    feed = lstm_feed(LSTM_B, LSTM_T, seed=11, shortest=LSTM_SHORTEST)
+    torch.cuda.reset_peak_memory_stats()
+    lowering.grad_recomputes = 0
+    R.lstm_fused.launches = R.lstm_fused_grad.launches = 0
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(LSTM_STEPS):
+            t = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(l))
+    launches = lstm_launches(R)
+    recomputes = lowering.grad_recomputes
+    want = LSTM_TRAIN["stacked_num"] * LSTM_STEPS
+    log(f"  {LSTM_STEPS} steps: launches K6/K7 {launches} (expected {want} "
+        f"each), grad recomputes {recomputes}")
+    if launches != (want, want) or recomputes != 0:
+        raise AssertionError(f"K6/K7 launches {launches} (want {want} each), "
+                             f"grad recomputes {recomputes} (want 0)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    med = float(np.median(step_ms[2:]))
+    tokens = LSTM_B * LSTM_T
+    out.update({
+        "ops": n_ops, "parameters": n_params, "steps": LSTM_STEPS,
+        "live_tokens": int(feed["words@LEN"].sum()),
+        "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / (med / 1e3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "grad_recomputes": recomputes})
+    log(f"  training [{card}]: step ms median {med!r} (steps 3..{LSTM_STEPS}"
+        f", all {[round(x, 2) for x in step_ms]}), tokens/s (padding "
+        f"counted) {out['tokens_per_s']!r}, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, max memory allocated "
+        f"{out['max_memory_allocated']} bytes")
+    with fluid.scope_guard(scope):
+        prof = profile_step(exe, main, feed, loss,
+                            ("lstm_fwd_kernel", "lstm_bwd_kernel"))
     out["profile"] = prof
     log(f"  profiled step [{card}]: " + json.dumps(
         {k: v for k, v in prof.items() if k != "top_kernels"}))
@@ -910,11 +1263,17 @@ def main() -> int:
     log("== phase 3b: flash-attention kernels against their plain versions")
     flash = check_and_time_flash(dev)
 
+    log("== phase 3c: fused LSTM kernels against their plain versions")
+    lstm_k = check_and_time_lstm(dev)
+
     log("== phase 4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
     log("== phase 5: Transformer-base training through Executor.run")
     train = run_training(dev, card)
+
+    log("== phase 7: stacked-LSTM training through Executor.run")
+    lstm_train = run_stacked_lstm(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -942,12 +1301,23 @@ def main() -> int:
             "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
+        t = lstm_k["ragged"][key]   # the training path's ragged lengths
+        rows.append({
+            "name": f"lstm_{key}", "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/lstm_{key}.cu",
+            "replaces": f"paddle_tpu/kernels/rnn.py:{line}",
+            "launches": lstm_train["launches"][i],
+            "max_abs_err": lstm_k["max_abs_err"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built,
-                   "kernels": kern, "flash": flash, "slice": e2e,
-                   "training": train,
+                   "kernels": kern, "flash": flash, "lstm": lstm_k,
+                   "slice": e2e, "training": train,
+                   "lstm_training": lstm_train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,0 +1,165 @@
+// Shared pieces of the fused LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+//
+// Both kernels run one persistent grid for the whole sequence, launched
+// with cudaLaunchCooperativeKernel so that every block is resident at
+// once, and step through time with a grid-wide barrier between steps.
+// Block x owns kUnits consecutive hidden units j0 = x * kUnits .. j0 + 3
+// and the kCols = 4 * kUnits gate columns of W that feed them (the i, f,
+// g and o columns of each unit).  Column c of a block's slice is gate
+// c / kUnits of unit c % kUnits.
+//
+// Float32 throughout (FFMA on the CUDA cores, no tensor cores), as the
+// reference keeps h, c and every product in float32.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lstm {
+
+constexpr int kUnits = 4;                  // hidden units a block owns
+constexpr int kCols = 4 * kUnits;          // gate columns of those units
+constexpr int kRows = 128;                 // batch rows per chunk
+constexpr int kSplit = 2;                  // threads per row (reduction split)
+constexpr int kThreads = kRows * kSplit;   // threads per block
+constexpr int kTile = 32;                  // reduction depth of a staged tile
+constexpr int kTileStride = kTile + 1;     // padded row of a staged tile
+constexpr int kTileFloats = kRows * kTileStride;
+
+// return codes besides a cudaError_t (kernels/rnn.py raises ValueError)
+constexpr int kSmemOver = -1;
+constexpr int kNotResident = -2;
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Grid-wide barrier on a counter the host zeroed before the launch: the
+// n-th barrier waits until the counter reaches n * gridDim.x.  Only safe
+// when every block is resident (a cooperative launch guarantees it).  A
+// barrier that has not opened after 20 s traps, so a fault ends the
+// kernel with an error instead of hanging the card.
+__device__ __forceinline__ void grid_sync(unsigned int* count, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    unsigned long long t0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    while (true) {
+      unsigned int seen;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
+      if (static_cast<int>(seen - target) >= 0) break;
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (now - t0 > 20000000000ull) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// acc[0:NC] = sum_k A[b0 + r][k] * Ws[k][0:NC] for this thread's row r of
+// a chunk of kRows batch rows, over its half (ks) of every kTile-deep
+// tile; reduce_split() then adds the two halves.  A row b of A starts at
+// A + b * stride and holds K values; it is read through L2 only (__ldcg),
+// since the kernels read rows other blocks wrote in the same launch.  Ws
+// is shared memory, [round_up(K, kTile)][NC], zero past row K.  Every
+// thread of the block must call it.
+template <int NC>
+__device__ __forceinline__ void rows_times_slice(const float* A, size_t stride, int B,
+                                                 int b0, int K, const float* Ws,
+                                                 float* tile, float (&acc)[NC]) {
+  const int tid = threadIdx.x;
+  const int r = tid % kRows;
+  const int ks = tid / kRows;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < kRows * kTile; idx += kThreads) {
+      const int rr = idx / kTile;
+      const int kk = idx - rr * kTile;
+      const int b = b0 + rr;
+      const int k = k0 + kk;
+      tile[rr * kTileStride + kk] =
+          (b < B && k < K) ? __ldcg(A + static_cast<size_t>(b) * stride + k) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kTile / kSplit; ++q) {
+      const int kk = ks * (kTile / kSplit) + q;
+      const float a = tile[r * kTileStride + kk];
+      const float4* w4 = reinterpret_cast<const float4*>(Ws + (k0 + kk) * NC);
+#pragma unroll
+      for (int c = 0; c < NC / 4; ++c) {
+        const float4 w = w4[c];
+        acc[4 * c + 0] = fmaf(a, w.x, acc[4 * c + 0]);
+        acc[4 * c + 1] = fmaf(a, w.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(a, w.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(a, w.w, acc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+// Adds the second half's partial sums into the first half's (threads with
+// ks == 0 hold the row's total afterwards).  Reuses the staging tile.
+template <int NC>
+__device__ __forceinline__ void reduce_split(float* tile, float (&acc)[NC]) {
+  const int r = threadIdx.x % kRows;
+  const int ks = threadIdx.x / kRows;
+  __syncthreads();  // the last tile is no longer read
+  if (ks == 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tile[r * (NC + 1) + c] = acc[c];
+  }
+  __syncthreads();
+  if (ks == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] += tile[r * (NC + 1) + c];
+  }
+}
+
+// Ws[k][c] = w[k][gate(c) * H + j0 + unit(c)] for k < H and a unit < H,
+// else 0; Ws has round_up(H, kTile) rows.
+__device__ __forceinline__ void load_w_slice(const float* w, int H, int j0, float* Ws) {
+  const int Hp = round_up(H, kTile);
+  for (int idx = threadIdx.x; idx < Hp * kCols; idx += kThreads) {
+    const int k = idx / kCols;
+    const int c = idx - k * kCols;
+    const int j = j0 + c % kUnits;
+    Ws[idx] = (k < H && j < H) ? w[static_cast<size_t>(k) * 4 * H + (c / kUnits) * H + j]
+                               : 0.0f;
+  }
+}
+
+// Checks that the launch can run (shared memory a block, every block
+// resident) and launches `kernel` cooperatively with the one argument
+// `args`; returns 0, kSmemOver, kNotResident or a cudaError_t.
+template <typename Args>
+int launch_cooperative(void (*kernel)(const Args), const Args& args, int grid,
+                       size_t smem, int device, cudaStream_t stream) {
+  int smem_max = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                           device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_max)) return kSmemOver;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * sms < grid) return kNotResident;
+  void* argv[] = {const_cast<Args*>(&args)};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kThreads),
+                                    argv, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lstm

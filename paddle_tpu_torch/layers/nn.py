@@ -1,9 +1,10 @@
 """Layer DSL: functions that append ops to the current program block.
 
-The part of ``paddle_tpu/layers/nn.py`` that the Transformer and the
-fc/SGD drive call, copied unchanged: the same calls build the same
-program, byte for byte (``Program.serialize``).  Padded sequences carry
-their ``<name>@LEN`` companion as in the reference.
+The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
+stacked LSTM and the fc/SGD drive call, copied unchanged: the same
+calls build the same program, byte for byte (``Program.serialize``).
+Padded sequences carry their ``<name>@LEN`` companion as in the
+reference.
 """
 from __future__ import annotations
 
@@ -146,6 +147,17 @@ def softmax(input, axis=-1, use_cudnn=False, name=None):
     return out
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out_shape = tuple(input.shape[:-1]) + (1,)
+    out = helper.create_variable_for_type_inference(input.dtype, shape=out_shape)
+    helper.append_op(
+        "cross_entropy", {"X": [input], "Label": [label]}, {"Y": [out]},
+        {"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False):
@@ -169,6 +181,28 @@ def square_error_cost(input, label):
     out = helper.create_variable_for_type_inference(input.dtype, shape=input.shape)
     helper.append_op("square_error_cost", {"X": [input], "Y": [label]}, {"Out": [out]})
     return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy (reference layers/metric_op.py accuracy)."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(
+        input.dtype, shape=tuple(input.shape[:-1]) + (k,))
+    topk_idx = helper.create_variable_for_type_inference(
+        "int64", shape=tuple(input.shape[:-1]) + (k,), stop_gradient=True)
+    helper.append_op("top_k", {"X": [input]},
+                     {"Out": [topk_out], "Indices": [topk_idx]}, {"k": k})
+    acc = helper.create_variable_for_type_inference("float32", shape=(), stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        "int32", shape=(), stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        "int32", shape=(), stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        {"Out": [topk_out], "Indices": [topk_idx], "Label": [label]},
+        {"Accuracy": [acc], "Correct": [correct], "Total": [total]},
+    )
+    return acc
 
 
 def _unary(op_type, x, helper_name=None, attrs=None, out_shape=None, out_dtype=None):
@@ -230,6 +264,15 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
         {"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": alpha},
     )
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shp = tuple(input.shape[:-1]) + (k,)
+    vals = helper.create_variable_for_type_inference(input.dtype, shape=shp)
+    idx = helper.create_variable_for_type_inference("int64", shape=shp, stop_gradient=True)
+    helper.append_op("top_k", {"X": [input]}, {"Out": [vals], "Indices": [idx]}, {"k": k})
+    return vals, idx
 
 
 def cast(x, dtype):
@@ -298,6 +341,46 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=False, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None,
+                 seq_len=None):
+    """LSTM over a padded sequence batch (reference nn.py dynamic_lstm).
+
+    ``input``: [B, T, 4H] pre-projected gates (x·Wx + b, make with
+    fc(num_flatten_dims=2)); ``size`` = 4H.  Returns (hidden [B,T,H],
+    cell [B,T,H]).  Lengths come from ``seq_len`` or the companion
+    ``<name>@LEN`` var of ``input``.
+    """
+    helper = LayerHelper("lstm", name=name)
+    H = size // 4
+    w = helper.create_parameter(param_attr, [H, 4 * H], dtype)
+    b = helper.create_parameter(bias_attr, [4 * H], dtype, is_bias=True)
+    biased = elementwise_add(input, b, axis=2)
+    B, T = input.shape[0], input.shape[1]
+    hidden = helper.create_variable_for_type_inference(dtype, shape=(B, T, H))
+    cell = helper.create_variable_for_type_inference(dtype, shape=(B, T, H))
+    last_h = helper.create_variable_for_type_inference(dtype, shape=(B, H))
+    last_c = helper.create_variable_for_type_inference(dtype, shape=(B, H))
+    ins = {"Input": [biased], "Weight": [w]}
+    sl = seq_len or seq_len_var(input)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    if h_0 is not None:
+        ins["H0"] = [h_0]
+    if c_0 is not None:
+        ins["C0"] = [c_0]
+    helper.append_op(
+        "lstm", ins,
+        {"Hidden": [hidden], "Cell": [cell], "LastH": [last_h], "LastC": [last_c]},
+        {"is_reverse": is_reverse},
+    )
+    if sl is not None:
+        _alias_len(hidden, sl)
+    return hidden, cell
+
+
 def _alias_len(var, seq_len):
     """Register seq_len as var's companion length var."""
     var.block.seq_len_map[var.name] = seq_len.name
@@ -319,8 +402,51 @@ def _propagate_lod(out, x):
             out.lod_level = 2
 
 
+def _seq_op(op_type, input, attrs=None, out_shape=None, pool=False, name=None):
+    """Sequence-op layer shim.  Nested (lod_level 2) inputs route their
+    inner [B, S] lengths through the op's "SeqLen2" slot (the port's
+    sequence_pool raises for it until nested batches are ported); pooling
+    then REMOVES the inner level, so the result is a level-1 sequence
+    whose companion is the OUTER lengths."""
+    helper = LayerHelper(op_type, name=name)
+    sl = seq_len_var(input)
+    sl2 = seq_len2_var(input)
+    nested = getattr(input, "lod_level", 0) == 2 and sl2 is not None
+    if nested and pool and out_shape is None:
+        out_shape = tuple(input.shape[:2]) + tuple(input.shape[3:])
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=out_shape if out_shape is not None else input.shape)
+    ins = {"X": [input]}
+    if sl is not None and not nested:
+        ins["SeqLen"] = [sl]
+    if sl2 is not None:
+        ins["SeqLen2"] = [sl2]
+    helper.append_op(op_type, ins, {"Out": [out]}, attrs or {})
+    if nested:
+        out.lod_level = 1 if pool else 2
+        if sl is not None:
+            _alias_len(out, sl)       # outer lengths survive either way
+        if not pool and sl2 is not None:
+            out.block.seq_len2_map[out.name] = sl2.name
+    elif not pool and sl is not None:
+        _alias_len(out, sl)
+    return out
+
+
+def sequence_pool(input, pool_type, name=None):
+    if getattr(input, "lod_level", 0) == 2:
+        return _seq_op("sequence_pool", input,
+                       {"pooltype": pool_type.upper()}, pool=True, name=name)
+    out_shape = (input.shape[0],) + tuple(input.shape[2:])
+    return _seq_op("sequence_pool", input, {"pooltype": pool_type.upper()},
+                   out_shape=out_shape, pool=True, name=name)
+
+
 __all__ = [
+    "accuracy",
     "cast",
+    "cross_entropy",
+    "dynamic_lstm",
     "dropout",
     "elementwise_add",
     "elementwise_div",
@@ -336,10 +462,12 @@ __all__ = [
     "scale",
     "seq_len2_var",
     "seq_len_var",
+    "sequence_pool",
     "softmax",
     "softmax_with_cross_entropy",
     "square_error_cost",
     "squeeze",
+    "topk",
     "transpose",
     "unsqueeze",
 ]

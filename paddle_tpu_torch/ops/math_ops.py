@@ -1,11 +1,12 @@
 """Math op rules: elementwise (with axis-broadcast), relu, pow,
-reductions, ``mul``, ``scale``, ``sum``, ``cast``, ``mean``.
+softmax, reductions, ``mul``, ``scale``, ``sum``, ``cast``, ``mean``.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
-Transformer's training program and the fc/SGD drive use.  Each rule is
-plain PyTorch; ``mul`` is a torch matrix product, as the reference left
-its matmuls to XLA.  Scalars from attrs enter as float32 values of the
-tensor's dtype, as the reference's ``jnp.asarray(v, x.dtype)`` does.
+Transformer's and the stacked LSTM's training programs and the fc/SGD
+drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
+product, as the reference left its matmuls to XLA.  Scalars from attrs
+enter as float32 values of the tensor's dtype, as the reference's
+``jnp.asarray(v, x.dtype)`` does.
 """
 from __future__ import annotations
 
@@ -49,6 +50,11 @@ def _relu(ctx, ins, attrs):
 @register("pow")
 def _pow(ctx, ins, attrs):
     return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
+
+
+@register("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
 def _reduce(fn):

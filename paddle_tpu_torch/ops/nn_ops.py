@@ -1,14 +1,16 @@
-"""Neural-net op rules: layer_norm and the losses.
+"""Neural-net op rules: layer_norm, the losses, accuracy and the lstm.
 
 The port of the part of ``paddle_tpu/ops/nn_ops.py`` that the
-Transformer's training program and the fc/SGD drive use.  Statistics
-are taken in at least float32, as the reference's ``_stat_dtype``.
+Transformer's and the stacked LSTM's training programs and the fc/SGD
+drive use.  Statistics are taken in at least float32, as the
+reference's ``_stat_dtype``.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register
+from ..core.registry import register, register_grad
+from ..kernels import rnn as _rnn
 
 
 def _stat_dtype(x):
@@ -43,6 +45,20 @@ def _squeeze_label(label):
     return label
 
 
+@register("cross_entropy", no_grad_slots=("Label",))
+def _cross_entropy(ctx, ins, attrs):
+    """-log(p + 1e-8) of the label's probability (hard labels) or
+    -sum(label * log(p + 1e-8)) (soft labels)."""
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        li = _squeeze_label(label).long()
+        loss = -torch.log(x.gather(-1, li.unsqueeze(-1)) + eps)
+    return {"Y": [loss]}
+
+
 @register("softmax_with_cross_entropy", no_grad_slots=("Label",))
 def _softmax_xent(ctx, ins, attrs):
     logits, label = ins["Logits"][0], ins["Label"][0]
@@ -65,3 +81,115 @@ def _softmax_xent(ctx, ins, attrs):
 def _square_error_cost(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     return {"Out": [torch.square(x - y)]}
+
+
+@register("accuracy", no_grad_slots=("Out", "Indices", "Label"))
+def _accuracy(ctx, ins, attrs):
+    """accuracy_op.cc: the share of rows whose label is among the top-k
+    Indices; Correct and Total are int32."""
+    idx = ins["Indices"][0]
+    label = _squeeze_label(ins["Label"][0])
+    correct = (idx == label.unsqueeze(-1)).any(dim=-1)
+    num_correct = correct.sum(dtype=torch.int32)
+    total = torch.full((), idx.shape[0], dtype=torch.int32, device=idx.device)
+    acc = num_correct.float() / total.float()
+    return {"Accuracy": [acc], "Correct": [num_correct], "Total": [total]}
+
+
+# ---------------------------------------------------------------------------
+# lstm over a padded batch + length mask (gate order i, f, g, o)
+# ---------------------------------------------------------------------------
+
+def _length_mask(seq_len, B: int, T: int, dtype, device):
+    if seq_len is None:
+        return torch.ones(B, T, dtype=dtype, device=device)
+    t = torch.arange(T, device=device)[None, :]
+    return (t < seq_len[:, None]).to(dtype)
+
+
+def _lstm_inputs(ins):
+    """(xproj, w, h0, c0, mask [B, T] float32) of an lstm op."""
+    xproj, w = ins["Input"][0], ins["Weight"][0]
+    B, T, H4 = xproj.shape
+    H = H4 // 4
+
+    def state(slot):
+        if ins.get(slot):
+            return ins[slot][0].to(xproj.dtype).contiguous()
+        return torch.zeros(B, H, dtype=xproj.dtype, device=xproj.device)
+
+    seq_len = ins["SeqLen"][0] if ins.get("SeqLen") else None
+    mask = _length_mask(seq_len, B, T, torch.float32, xproj.device)
+    return xproj, w.contiguous(), state("H0"), state("C0"), mask
+
+
+def _use_kernel(attrs) -> bool:
+    """``use_pallas_kernel`` keeps the reference's meaning as the
+    caller's choice: False takes the plain scan on any device; absent or
+    True takes K6/K7 (their plain versions for CPU tensors)."""
+    return attrs.get("use_pallas_kernel", None) is not False
+
+
+@register("lstm", no_grad_slots=("SeqLen",))
+def _lstm(ctx, ins, attrs):
+    """Fused LSTM over a padded batch (lstm_op.cc; the reference's
+    ``_lstm``).  Inputs: Input [B, T, 4H] (x·Wx + b, made by the layer),
+    Weight [H, 4H], optional H0/C0 [B, H] and SeqLen [B].  Outputs:
+    Hidden and Cell [B, T, H], LastH and LastC [B, H].  ``is_reverse``
+    flips the whole padded time axis, masked steps included; LastH/LastC
+    are the states of the last step of the flipped (scan) order."""
+    xproj, w, h0, c0, mask = _lstm_inputs(ins)
+    reverse = attrs.get("is_reverse", False)
+    if reverse:
+        xproj, mask = torch.flip(xproj, [1]), torch.flip(mask, [1])
+    run = _rnn.lstm_fused if _use_kernel(attrs) else _rnn.lstm_ref
+    hs, cs = run(xproj.contiguous(), w, h0, c0, mask.contiguous())
+    h_last, c_last = hs[:, -1], cs[:, -1]
+    if reverse:
+        hs, cs = torch.flip(hs, [1]), torch.flip(cs, [1])
+    return {"Hidden": [hs], "Cell": [cs], "LastH": [h_last],
+            "LastC": [c_last]}
+
+
+@register_grad("lstm")
+def _lstm_grad(ctx, ins, attrs):
+    """Explicit lstm backward from the saved Hidden/Cell (no forward
+    re-run): K7, or the plain backward when ``use_pallas_kernel`` is
+    False.  Missing cotangents count as zeros; LastH/LastC cotangents
+    fold into the last scan-domain step."""
+    xproj, w, h0, c0, mask = _lstm_inputs(ins)
+    hs, cs = ins["Hidden"][0], ins["Cell"][0]
+
+    def cot(slot):
+        g = ins.get(slot)
+        if g and g[0] is not None:
+            return g[0].float()
+        return None
+
+    zeros = torch.zeros_like(hs, dtype=torch.float32)
+    dhs = cot("Hidden@GRAD")
+    dcs = cot("Cell@GRAD")
+    dhs = zeros if dhs is None else dhs
+    dcs = zeros if dcs is None else dcs
+    if attrs.get("is_reverse", False):
+        xproj, mask, hs, cs, dhs, dcs = (torch.flip(v, [1]) for v in
+                                         (xproj, mask, hs, cs, dhs, dcs))
+    last_h, last_c = cot("LastH@GRAD"), cot("LastC@GRAD")
+    if last_h is not None:
+        dhs = dhs.clone()
+        dhs[:, -1] += last_h
+    if last_c is not None:
+        dcs = dcs.clone()
+        dcs[:, -1] += last_c
+    run = _rnn.lstm_fused_grad if _use_kernel(attrs) else _rnn.lstm_grad_ref
+    dxs, dw, dh0, dc0 = run(
+        xproj.contiguous(), w, h0, c0, mask.contiguous(), hs.contiguous(),
+        cs.contiguous(), dhs.contiguous(), dcs.contiguous())
+    if attrs.get("is_reverse", False):
+        dxs = torch.flip(dxs, [1])
+    outs = {"Input@GRAD": [dxs], "Weight@GRAD": [dw]}
+    if ins.get("H0"):
+        outs["H0@GRAD"] = [dh0]
+    if ins.get("C0"):
+        outs["C0@GRAD"] = [dc0]
+    return outs

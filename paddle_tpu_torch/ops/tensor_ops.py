@@ -1,9 +1,10 @@
 """Tensor manipulation / creation op rules.
 
 The port of the part of ``paddle_tpu/ops/tensor_ops.py`` that the
-Transformer's training program uses: reshape, transpose,
-squeeze/unsqueeze, the dense ``lookup_table``, assign_value,
-fill_constant, increment, the random initializers and dropout.  Random
+Transformer's and the stacked LSTM's training programs use: reshape,
+transpose, squeeze/unsqueeze, the dense ``lookup_table``, top_k,
+assign_value, fill_constant, increment, the random initializers and
+dropout.  Random
 ops draw from ``torch.Generator`` objects the context hands out
 (``core/registry.py``); they give other bits than the reference's
 threefry keys, so a comparison starts both from copied values.
@@ -85,6 +86,16 @@ def _lookup_table_grad(ctx, ins, attrs):
     rows = ids.reshape(-1)
     vals = gout.reshape((-1,) + tuple(gout.shape[ids.dim():])).to(w.dtype)
     return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+
+
+@register("top_k", no_grad_slots=("X",))
+def _top_k(ctx, ins, attrs):
+    """The k largest values along the last axis and their int64 indices.
+    A stable descending sort puts the lower index first among equal
+    values, as ``lax.top_k`` does (``torch.topk`` promises no order)."""
+    k = attrs["k"]
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k].to(torch.int64)]}
 
 
 @register("assign_value")

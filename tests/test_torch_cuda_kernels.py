@@ -10,12 +10,18 @@ card's machine needs no JAX: this file imports none).  ``chip_smoke.py``
 checks the kernels at the main path's shapes; these cover the edges:
 head dims that are not a multiple of 32, one-token blocks, the largest
 head dim, many slots, context lengths past the block table, an empty
-context, and a launch on a side stream.
+context, and a launch on a side stream; for the flash kernels, odd
+lengths, dropout and all-masked rows; for the LSTM kernels, batches
+past one 128-row chunk, hidden sizes that are not a multiple of 4 or
+32, all-masked rows, the op's reversed path and the shapes past what a
+card can hold.
 """
 import pytest
 import torch
 
+from paddle_tpu_torch.core import registry as t_registry
 from paddle_tpu_torch.kernels import attention as A
+from paddle_tpu_torch.kernels import rnn as R
 from paddle_tpu_torch.kernels.quant import kv_quantize
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +204,142 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
         A.flash_attention_fwd(big, big, big)
     with pytest.raises(ValueError):
         A.flash_attention_fwd(q, k, v, mask.cpu())
+
+
+# ---------------------------------------------------------------------------
+# fused LSTM (K6 forward, K7 backward)
+# ---------------------------------------------------------------------------
+
+# forward: float32 sums over H in another order, carried through T steps;
+# backward: max|d| <= LSTM_GRAD_REL * max|ref| (sums over B*T for dW)
+LSTM_FWD_ATOL = 1e-4
+LSTM_GRAD_REL = 1e-3
+
+
+def _lstm_inputs(dev, B, T, H, seed=0, masked=True, all_masked=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xproj = torch.randn(B, T, 4 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(H, 4 * H, generator=g, device=dev) / H ** 0.5
+    h0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    c0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    lens = (torch.randint(1, T + 1, (B,), generator=g, device=dev) if masked
+            else torch.full((B,), T, device=dev))
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    if all_masked:
+        mask[-1] = 0.0
+    dhs = torch.randn(B, T, H, generator=g, device=dev)
+    dcs = torch.randn(B, T, H, generator=g, device=dev)
+    return (xproj, w, h0, c0, mask), dhs, dcs
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+LSTM_SHAPES = {   # B, T, H
+    "b1_t1_h8": (1, 1, 8),
+    "b3_t17_h40": (3, 17, 40),
+    "b5_t6_h37": (5, 6, 37),
+    "b200_t9_h40": (200, 9, 40),
+    "b3_t128_h512": (3, 128, 512),
+    "b128_t128_h512": (128, 128, 512),
+}
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["ragged", "full"])
+@pytest.mark.parametrize("shape", list(LSTM_SHAPES), ids=list(LSTM_SHAPES))
+def test_lstm_kernels_match_plain(dev, shape, masked):
+    B, T, H = LSTM_SHAPES[shape]
+    args, dhs, dcs = _lstm_inputs(dev, B, T, H, seed=B + T + H,
+                                  masked=masked, all_masked=masked)
+    n = (R.lstm_fused.launches, R.lstm_fused_grad.launches)
+    hs, cs = R.lstm_fused(*args)
+    grads = R.lstm_fused_grad(*args, hs, cs, dhs, dcs)
+    torch.cuda.synchronize()
+    assert (R.lstm_fused.launches, R.lstm_fused_grad.launches) == \
+        (n[0] + 1, n[1] + 1)
+    hs_r, cs_r = R.lstm_ref(*args)
+    assert (hs - hs_r).abs().max().item() <= LSTM_FWD_ATOL
+    assert (cs - cs_r).abs().max().item() <= LSTM_FWD_ATOL
+    ref = R.lstm_grad_ref(*args, hs, cs, dhs, dcs)
+    for name, a, b in zip(("dxproj", "dw", "dh0", "dc0"), grads, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= LSTM_GRAD_REL, name
+    if masked:   # the all-masked row keeps h0 and takes no gate gradient
+        assert torch.equal(hs[-1], args[2][-1].expand(T, H))
+        assert torch.count_nonzero(grads[0][-1]).item() == 0
+
+
+def test_lstm_backward_is_deterministic(dev):
+    args, dhs, dcs = _lstm_inputs(dev, 64, 32, 128, seed=9)
+    hs, cs = R.lstm_fused(*args)
+    a = R.lstm_fused_grad(*args, hs, cs, dhs, dcs)
+    b = R.lstm_fused_grad(*args, hs, cs, dhs, dcs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_op_kernel_path_matches_plain_scan(dev, reverse):
+    """The op and its grad rule on the card: K6/K7 (attr absent) against
+    the plain scan (use_pallas_kernel False), with ragged lengths, the
+    whole-axis flip of is_reverse and a LastH cotangent."""
+    B, T, H = 6, 11, 40
+    args, dhs, _ = _lstm_inputs(dev, B, T, H, seed=21)
+    xproj, w = args[0], args[1]
+    lens = torch.tensor([11, 1, 5, 0, 7, 3], dtype=torch.int32, device=dev)
+    ins = {"Input": [xproj], "Weight": [w], "SeqLen": [lens]}
+    op = t_registry.get("lstm")
+    outs = {}
+    for name, attrs in (("kernel", {"is_reverse": reverse}),
+                        ("plain", {"is_reverse": reverse,
+                                   "use_pallas_kernel": False})):
+        fwd = op.lower(None, ins, attrs)
+        gin = {**ins, **fwd, "Hidden@GRAD": [dhs],
+               "LastH@GRAD": [dhs[:, 0] * 0.5]}
+        outs[name] = (fwd, op.grad(None, gin, attrs))
+    (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
+    for slot in ("Hidden", "Cell", "LastH", "LastC"):
+        assert (fk[slot][0] - fp[slot][0]).abs().max().item() <= \
+            LSTM_FWD_ATOL, slot
+    for slot in ("Input@GRAD", "Weight@GRAD"):
+        assert _rel(gk[slot][0], gp[slot][0]) <= LSTM_GRAD_REL, slot
+
+
+def test_lstm_kernels_on_a_side_stream(dev):
+    args, dhs, dcs = _lstm_inputs(dev, 16, 20, 64, seed=13)
+    hs, cs = R.lstm_fused(*args)
+    grads = R.lstm_fused_grad(*args, hs, cs, dhs, dcs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hs2, cs2 = R.lstm_fused(*args)
+        grads2 = R.lstm_fused_grad(*args, hs2, cs2, dhs, dcs)
+    side.synchronize()
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+
+
+def test_lstm_kernels_refuse_what_they_do_not_take(dev):
+    args, dhs, dcs = _lstm_inputs(dev, 2, 3, 8)
+    xproj, w, h0, c0, mask = args
+    with pytest.raises(TypeError):
+        R.lstm_fused(xproj.double(), w, h0, c0, mask)
+    with pytest.raises(ValueError):
+        R.lstm_fused(xproj.transpose(0, 1).contiguous().transpose(0, 1), w,
+                     h0, c0, mask)
+    with pytest.raises(ValueError):
+        R.lstm_fused(xproj, w, h0, c0, mask.cpu())
+    with pytest.raises(ValueError):
+        R.lstm_fused(xproj, w[:, :8], h0, c0, mask)
+    hs, cs = R.lstm_fused(*args)
+    with pytest.raises(ValueError):
+        R.lstm_fused_grad(*args, hs, cs, dhs.transpose(1, 2), dcs)
+    # past the shared memory or the co-residency a card offers
+    big, _, _ = _lstm_inputs(dev, 1, 1, 2048)
+    with pytest.raises(ValueError, match="resident|shared memory"):
+        R.lstm_fused(*big)
+    zeros = torch.zeros(1, 1, 2048, device=dev)
+    with pytest.raises(ValueError, match="resident|shared memory"):
+        R.lstm_fused_grad(*big, zeros, zeros, zeros, zeros)

@@ -37,8 +37,9 @@ PROGRAM_MODULES = [
     "executor.py", "optimizer.py", "layers/io.py", "layers/nn.py",
     "layers/tensor.py", "layers/learning_rate_scheduler.py",
     "ops/math_ops.py", "ops/tensor_ops.py", "ops/nn_ops.py",
-    "ops/optimizer_ops.py", "ops/attention_ops.py",
-    "models/transformer.py", "kernels/_hash.py",
+    "ops/optimizer_ops.py", "ops/attention_ops.py", "ops/sequence_ops.py",
+    "models/transformer.py", "models/stacked_lstm.py", "kernels/_hash.py",
+    "kernels/rnn.py",
 ]
 
 
@@ -46,7 +47,8 @@ def test_port_files_exist():
     files = _port_files()
     assert len(files) >= 45
     for src in ("paged_decode_attn.cu", "flash_attn_fwd.cu",
-                "flash_attn_bwd.cu", "flash_attn_common.cuh"):
+                "flash_attn_bwd.cu", "flash_attn_common.cuh",
+                "lstm_fwd.cu", "lstm_bwd.cu", "lstm_common.cuh"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
     for mod in PROGRAM_MODULES:
         assert os.path.join(PORT, mod) in files, mod

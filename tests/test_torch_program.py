@@ -175,8 +175,11 @@ def test_unported_ops_raise():
             exe.run(main, feed=feed, fetch_list=[out])
 
     with pytest.raises(KeyError, match="no lowering registered"):
-        run(lambda: tfluid.layers.softmax(tfluid.layers.data("x", [4])),
-            {"x": np.zeros((2, 4), "float32")})
+        run(lambda: tfluid.layers.matmul(tfluid.layers.data("x", [4]),
+                                         tfluid.layers.data("y", [4]),
+                                         transpose_y=True),
+            {"x": np.zeros((2, 4), "float32"),
+             "y": np.zeros((2, 4), "float32")})
     with pytest.raises(NotImplementedError):
         run(lambda: tfluid.layers.embedding(
             tfluid.layers.data("ids", [1], dtype="int64"), [10, 4],

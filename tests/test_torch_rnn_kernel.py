@@ -1,0 +1,176 @@
+"""The port's fused LSTM (K6/K7 plain versions and the ``lstm`` op)
+against the JAX reference on the same numpy inputs.
+
+The reference's Pallas kernels run in interpret mode on the CPU, as its
+own ``tests/test_rnn_kernel.py`` runs them; the JAX scan is the XLA
+lowering's math.  Tolerances are the reference tests' own: 1e-5 for the
+forward, 2e-4 for the gradients (float32 in two frameworks, different
+summation orders through the recurrence).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jfluid
+import paddle_tpu_torch as tfluid
+from paddle_tpu.core import unique_name as j_unique
+from paddle_tpu.core.executor import Executor as JExecutor
+from paddle_tpu.core.executor import Scope as JScope
+from paddle_tpu.core.executor import scope_guard as j_scope_guard
+from paddle_tpu.core.program import Program as JProgram
+from paddle_tpu.core.program import program_guard as j_guard
+from paddle_tpu.kernels import rnn as R
+from paddle_tpu.layer_helper import LayerHelper as JHelper
+from paddle_tpu.layers.nn import seq_len_var as j_seq_len_var
+from paddle_tpu_torch.core import lowering as t_lowering
+from paddle_tpu_torch.core import unique_name as t_unique
+from paddle_tpu_torch.core.program import Program as TProgram
+from paddle_tpu_torch.core.program import program_guard as t_guard
+from paddle_tpu_torch.kernels import rnn as TR
+from paddle_tpu_torch.layer_helper import LayerHelper as THelper
+from paddle_tpu_torch.layers.nn import seq_len_var as t_seq_len_var
+
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _scan(xproj, w, h0, c0, mask):
+    """jnp scan with the math of the reference's XLA lstm lowering."""
+    xs = jnp.swapaxes(xproj, 0, 1)
+    ms = jnp.swapaxes(mask, 0, 1)[..., None]
+
+    def step(carry, inp):
+        h, c = carry
+        x_t, m_t = inp
+        i, f, g, o = jnp.split(x_t + jnp.matmul(h, w), 4, axis=-1)
+        i, f, o = jax.nn.sigmoid(i), jax.nn.sigmoid(f), jax.nn.sigmoid(o)
+        c_new = f * c + i * jnp.tanh(g)
+        h_new = o * jnp.tanh(c_new)
+        c_new = m_t * c_new + (1 - m_t) * c
+        h_new = m_t * h_new + (1 - m_t) * h
+        return (h_new, c_new), (h_new, c_new)
+
+    _, (hs, cs) = jax.lax.scan(step, (h0, c0), (xs, ms))
+    return jnp.swapaxes(hs, 0, 1), jnp.swapaxes(cs, 0, 1)
+
+
+def _data(masked, B=4, T=6, H=16, seed=3):
+    rs = np.random.RandomState(seed)
+    xproj = rs.randn(B, T, 4 * H).astype("float32") * 0.5
+    w = rs.randn(H, 4 * H).astype("float32") * 0.3
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    c0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(1, T + 1, (B,)) if masked else np.full((B,), T)
+    lens[0] = 1
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    return xproj, w, h0, c0, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_lstm_ref_matches_pallas_forward_and_scan(masked):
+    args = _data(masked)
+    hs, cs = TR.lstm_ref(*_t(*args))
+    hs_p, cs_p = R.lstm_fused(*map(jnp.asarray, args), True)
+    hs_s, cs_s = _scan(*map(jnp.asarray, args))
+    for got, want in ((hs, hs_p), (cs, cs_p), (hs, hs_s), (cs, cs_s)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_lstm_grad_ref_matches_pallas_backward(masked):
+    """The cotangents of loss = |hs|^2 + 0.5|cs|^2, as the reference's
+    test_fused_lstm_grads_match_scan feeds them."""
+    args = _data(masked, seed=4)
+    hs, cs = R.lstm_fused(*map(jnp.asarray, args), True)
+    want = R.lstm_fused_grad(*map(jnp.asarray, args), hs, cs, 2.0 * hs,
+                             1.0 * cs, True)
+    hs_n, cs_n = np.asarray(hs), np.asarray(cs)
+    got = TR.lstm_grad_ref(*_t(*args, hs_n, cs_n, 2.0 * hs_n, cs_n.copy()))
+    for name, a, b in zip(["dx", "dw", "dh0", "dc0"], got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    args = _t(*_data(True, seed=5))
+    n = (TR.lstm_fused.launches, TR.lstm_fused_grad.launches)
+    hs, cs = TR.lstm_fused(*args)
+    ref = TR.lstm_ref(*args)
+    assert torch.equal(hs, ref[0]) and torch.equal(cs, ref[1])
+    g = TR.lstm_fused_grad(*args, hs, cs, hs, cs)
+    for a, b in zip(g, TR.lstm_grad_ref(*args, hs, cs, hs, cs)):
+        assert torch.equal(a, b)
+    assert (TR.lstm_fused.launches, TR.lstm_fused_grad.launches) == n
+
+
+B, T, H = 4, 5, 8
+LENS = np.array([5, 3, 1, 4], "int64")
+
+
+def _lstm_program(fluid, Program, guard, unique, Helper, seq_len_var,
+                  reverse, use_kernel):
+    prog, startup = Program(), Program()
+    prog.random_seed = startup.random_seed = 7
+    with guard(prog, startup), unique.guard():
+        d = fluid.layers.data("x", [T, 4 * H], lod_level=1,
+                              stop_gradient=False)
+        helper = Helper("lstm")
+        w = helper.create_parameter("w", (H, 4 * H), "float32")
+        outs = {s: helper.create_variable_for_type_inference(
+                    "float32", shape=shp)
+                for s, shp in (("Hidden", (B, T, H)), ("Cell", (B, T, H)),
+                               ("LastH", (B, H)), ("LastC", (B, H)))}
+        attrs = {"is_reverse": reverse}
+        if use_kernel is not None:
+            attrs["use_pallas_kernel"] = use_kernel
+        helper.append_op(
+            "lstm", {"Input": [d], "Weight": [w], "SeqLen": [seq_len_var(d)]},
+            {s: [v] for s, v in outs.items()}, attrs)
+        loss = fluid.layers.elementwise_add(
+            fluid.layers.mean(outs["Hidden"]), fluid.layers.mean(outs["LastH"]))
+        fluid.append_backward(loss)
+    fetch = [outs["Hidden"].name, outs["Cell"].name, outs["LastH"].name,
+             outs["LastC"].name, "w@GRAD", "x@GRAD"]
+    return prog, startup, fetch
+
+
+@pytest.mark.parametrize("use_kernel", [True, None, False],
+                         ids=["pallas", "default", "scan"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_op_in_program_matches_reference(reverse, use_kernel):
+    """The lstm op and its explicit grad inside a program, ragged lengths
+    (one row of length 1) with the LastH cotangent: the port against the
+    reference run with the same ``use_pallas_kernel`` (True is the
+    Pallas kernels in interpret mode; absent and False its XLA scan)."""
+    x = np.random.RandomState(6).randn(B, T, 4 * H).astype("float32") * 0.3
+    feed = {"x": x, "x@LEN": LENS}
+    prog, startup, fetch = _lstm_program(
+        jfluid, JProgram, j_guard, j_unique, JHelper, j_seq_len_var, reverse,
+        use_kernel)
+    exe, scope = JExecutor(), JScope()
+    with j_scope_guard(scope):
+        exe.run(startup)
+        init = {"w": np.array(scope.find_var("w"))}
+        want = exe.run(prog, feed=feed, fetch_list=fetch)
+
+    prog, _, fetch = _lstm_program(
+        tfluid, TProgram, t_guard, t_unique, THelper, t_seq_len_var, reverse,
+        use_kernel)
+    scope = tfluid.Scope()
+    scope.load_numpy(init, device="cpu")
+    n = (TR.lstm_fused.launches, TR.lstm_fused_grad.launches,
+         t_lowering.grad_recomputes)
+    got = tfluid.Executor("cpu").run(prog, feed=feed, fetch_list=fetch,
+                                     scope=scope)
+    assert (TR.lstm_fused.launches, TR.lstm_fused_grad.launches,
+            t_lowering.grad_recomputes) == n
+    for name, a, b in zip(fetch[:4], got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **FWD_TOL)
+    for name, a, b in zip(fetch[4:], got[4:], want[4:]):
+        np.testing.assert_allclose(a, b, err_msg=name, **GRAD_TOL)
