@@ -5,8 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in the order they run: 1, 2, 3, 3b, 3c, 4, 5, 7, 6 (each one
-that fails raises, and the script exits non-zero):
+Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 4, 5, 7, 8, 6 (each
+one that fails raises, and the script exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -55,6 +55,19 @@ that fails raises, and the script exits non-zero):
    backward, full lengths; cuDNN computes the input projection inside,
    so the port's ``mul`` + bias + K6, and their grads + K7, are timed
    beside it) are timed with CUDA events beside the bound.
+3d. The sparse-embedding kernels K9 (the multi-table gather) and K10
+   (the row-wise lazy update) against their plain versions, bit for bit,
+   at DeepFM's bench shape (2048 x 26 ids from randint(0, 1e6) with
+   seed 0, field 1 repeating field 0; tables [1e6, 10] and [1e6, 1])
+   and at an odd shape (H=23, D=5, n=17): K9 with out-of-range ids (NaN
+   rows) and an empty batch; K10 for Adam, momentum (plain and
+   Nesterov) and adagrad, with rows the batch does not touch unchanged,
+   plus a dyadic case that must be exact.  Then each kernel, its plain
+   version and a library yardstick the port never calls
+   (``F.embedding`` per table; ``torch.optim.SparseAdam.step`` on a
+   coalesced gradient of the same rows) are timed with CUDA events,
+   cycling 32 id batches, beside the byte bound and the 32-byte-sector
+   bound.
 7. The stacked-LSTM slice: ``models/stacked_lstm.py`` (dict 30000, emb
    512, hid 512, 3 layers, the middle one reversed, Adam) through
    ``layers.data(lod_level=1)`` -> ``Adam.minimize`` -> Executor.run.
@@ -65,6 +78,18 @@ that fails raises, and the script exits non-zero):
    12 steps on one batch: the loss must stay finite, K6 and K7 must each
    launch exactly 3 times a step, and no gradient may re-run its
    forward.  Step ms, tokens/s, peak memory and one profiled step follow.
+8. The DeepFM slice: ``models/deepfm.py`` (13 dense features, 26 sparse
+   fields into ``ctr.sparse_emb`` [1e6, 10] and ``ctr.sparse_w1`` [1e6,
+   1] with ``is_sparse=True``, MLP 400-400-400, Adam lr 1e-4) through
+   ``Adam.minimize`` -> Executor.run with ``FLAGS_sparse_fused_kernel``
+   on.  First one step at full width with B=64 on the card and on the
+   CPU from the same copied starting values: the loss, every gradient,
+   and both tables and their moments after the step agree.  Then the
+   bench configuration (B=2048, one seeded batch) trains 12 steps: the
+   loss must stay finite, K9 must launch once a step and K10 twice, and
+   no gradient may re-run its forward.  The same 12 steps with the flag
+   off (the masked-dense update) must give the same tables.  Step ms,
+   samples/s, peak memory and one profiled step follow for both.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound.
@@ -127,6 +152,25 @@ LSTM_TRAIN = dict(dict_dim=30000, class_dim=2, emb_dim=512, hid_dim=512,
                   stacked_num=3, lr=0.002)
 LSTM_B, LSTM_T, LSTM_STEPS = 128, 128, 12
 LSTM_SHORTEST = 16             # ragged batches keep 16..T steps a row
+
+# K9 is a copy and K10's float32 math is written without FMA contraction
+# in the plain version's order: both must equal their plain versions bit
+# for bit (0 ulp)
+SPARSE_ULP = 0
+SPARSE_ROWS, SPARSE_FIELDS, SPARSE_EMBED = 1_000_000, 26, 10
+DEEPFM = dict(dense_dim=13, sparse_fields=SPARSE_FIELDS,
+              sparse_dim=SPARSE_ROWS, embed_dim=SPARSE_EMBED, lr=1e-4)
+DEEPFM_B, DEEPFM_STEPS, DEEPFM_PARITY_B = 2048, 12, 64
+DEEPFM_TABLES = ("ctr.sparse_emb", "ctr.sparse_w1")
+# the tables after one step, card vs CPU: max|d| <= DEEPFM_TABLE_TOL *
+# max|update|.  Adam's first step is lr_eff * 0.1 g / (0.0316 |g| + eps),
+# which magnifies the gradients' float32 noise near g = 0 by up to
+# 0.1 lr_eff / eps
+DEEPFM_TABLE_TOL = 1e-2
+# flag on vs off after 12 steps (rtol, atol): the reference's own bound
+# for the fused and masked-dense paths (tests/test_sparse.py)
+DEEPFM_FLAG_TOL = (1e-6, 1e-7)
+SPARSE_TIME_SETS = 32          # id batches cycled so rows come from HBM
 
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
@@ -226,6 +270,31 @@ def time_ms(fn, sets, iters=300) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, sets, iters=100, name=None) -> float:
+    """Mean device time per call over ``iters`` calls (after warm-up):
+    the duration of the CUDA kernels and copies the torch profiler
+    records, only those whose name contains ``name`` when given.  Unlike
+    ``time_ms`` it does not count the device waiting for the host, which
+    is most of the time for a kernel of a few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(5):
+        fn(sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(sets[i % len(sets)])
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (name is None or name in e.name)]
+    if not spans:
+        raise AssertionError(f"the profiler recorded no device time for "
+                             f"{name or 'the call'}")
+    return sum(spans) / iters / 1e3
+
+
 def check_and_time_paged_attention(dev) -> dict:
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import attention as A
@@ -272,6 +341,303 @@ def check_and_time_paged_attention(dev) -> dict:
             f"{plain_ms!r} ms, sdpa {lib_ms!r} ms, bound {w['bound_ms']!r} "
             f"ms ({w['bound_by']}, {w['bytes']} bytes)")
         del sets, dense
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the sparse-embedding kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def sparse_ids(seed):
+    """A DeepFM id batch as bench.py makes it (randint(0, sparse_dim)
+    from a seed), with forced duplicates: field 1 repeats field 0."""
+    ids = np.random.RandomState(seed).randint(
+        0, SPARSE_ROWS, (DEEPFM_B, SPARSE_FIELDS))
+    ids[:, 1] = ids[:, 0]
+    return ids.astype("int64")
+
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def max_ulps(a, b) -> int:
+    """Largest distance in float32 units in the last place (NaN rows
+    must match as NaN)."""
+    if a.shape != b.shape or not torch.equal(torch.isnan(a),
+                                             torch.isnan(b)):
+        return 1 << 31
+    if a.numel() == 0:
+        return 0
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    # map the sign-magnitude bits onto a monotone integer line
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = (ia - ib).abs()
+    return int(d[~torch.isnan(a)].max().item()) if d.numel() else 0
+
+
+def abs_err(a, b) -> float:
+    finite = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[finite] - b[finite]).abs().max().item()) \
+        if finite.any() else 0.0
+
+
+def sectors(rows, width: int) -> int:
+    """32-byte sectors the float32 rows ``rows`` of a [H, width] table
+    span (each counted once)."""
+    start = rows.long() * width * 4
+    first, last = start // 32, (start + width * 4 - 1) // 32
+    spans = [first + k for k in range(int((last - first).max()) + 1)]
+    keep = torch.cat([s[s <= last] for s in spans])
+    return int(torch.unique(keep).numel())
+
+
+def bound(nbytes, ops) -> dict:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def gather_work(tables, ids) -> dict:
+    """K9's least work on these ids: the ids read, each touched row of
+    each table read once, the outputs written; and the same with the
+    touched rows counted as the 32-byte sectors they span."""
+    n = ids.numel()
+    uniq = torch.unique(ids)
+    rows_b = sum(uniq.numel() * t.shape[1] * 4 for t in tables)
+    out_b = sum(n * t.shape[1] * 4 for t in tables)
+    sec_b = sum(sectors(uniq, t.shape[1]) * 32 for t in tables)
+    w = bound(8 * n + rows_b + out_b, 0)
+    w["sector_bytes"] = 8 * n + sec_b + out_b
+    w["sector_bound_ms"] = w["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+    return w
+
+
+UPDATE_OPS = {"adam": 14, "momentum": 4, "adagrad": 7}   # per element
+
+
+def update_work(ids, width, kind, n_tables) -> dict:
+    """K10's least work: ids and values read once, each touched row of
+    each table read and written once; the merge's adds plus the math per
+    unique element; and the sector count of the touched rows."""
+    n = ids.numel()
+    uniq = torch.unique(ids)
+    u = uniq.numel()
+    nbytes = 8 * n + n * width * 4 + 2 * n_tables * u * width * 4
+    ops = (n - u) * width + UPDATE_OPS[kind] * u * width
+    w = bound(nbytes, ops)
+    w["unique_rows"] = u
+    w["sector_bytes"] = (8 * n + n * width * 4
+                         + 2 * n_tables * sectors(uniq, width) * 32)
+    w["sector_bound_ms"] = w["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+    return w
+
+
+SPARSE_HYPER = {"adam": dict(beta1=0.9, beta2=0.999, eps=1e-8),
+                "momentum": dict(mu=0.9, nesterov=False),
+                "nesterov": dict(mu=0.9, nesterov=True),
+                "adagrad": dict(eps=1e-6)}
+
+
+def update_tables(kind, H, D, g):
+    """Random tables for ``kind``: p, then the moments (m2 and the
+    adagrad moment non-negative)."""
+    p = torch.randn(H, D, generator=g, device=g.device) * 0.01
+    m1 = torch.randn(H, D, generator=g, device=g.device) * 1e-3
+    m2 = torch.rand(H, D, generator=g, device=g.device) * 1e-6
+    return {"adam": [p, m1, m2], "momentum": [p, m1], "nesterov": [p, m1],
+            "adagrad": [p, m2]}[kind]
+
+
+def check_update(S, sr, tables, lr, kind) -> tuple:
+    """K10 and its plain version on copies of ``tables``: bit-equal, and
+    the rows the batch does not touch unchanged.  Returns (ulps, abs)."""
+    base = "momentum" if kind == "nesterov" else kind
+    got = [t.clone() for t in tables]
+    S.rowwise_update(sr, got, lr, base, **SPARSE_HYPER[kind])
+    torch.cuda.synchronize()
+    want = [t.clone() for t in tables]
+    S.rowwise_update_ref(*S._sorted_segments(sr.rows, sr.values, sr.height),
+                         want, lr, base, **SPARSE_HYPER[kind])
+    H = tables[0].shape[0]
+    touched = torch.zeros(H, dtype=torch.bool, device=lr.device)
+    touched[torch.where(sr.rows < 0, sr.rows + H, sr.rows)] = True
+    ulps = max(max_ulps(a, b) for a, b in zip(got, want))
+    err = max(abs_err(a, b) for a, b in zip(got, want))
+    for a, t in zip(got, tables):
+        if not torch.equal(a[~touched], t[~touched]):
+            raise AssertionError(f"K10 ({kind}) wrote rows the batch does "
+                                 "not touch")
+    if ulps > SPARSE_ULP:
+        raise AssertionError(f"K10 ({kind}) differs from its plain version "
+                             f"by {ulps} ulp > {SPARSE_ULP}")
+    return ulps, err
+
+
+def check_dyadic(S, dev) -> None:
+    """Integer-valued inputs, power-of-two lr and mu: every operation is
+    exact, so K10 must equal a float64 walk over the batch."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    rs = np.random.RandomState(4)
+    H, D = 23, 5
+    rows = rs.randint(0, H, 9)
+    rows[1] = rows[0]
+    vals = rs.randint(-8, 8, (9, D)).astype("float32")
+    p = rs.randint(-16, 16, (H, D)).astype("float32")
+    v = rs.randint(-16, 16, (H, D)).astype("float32")
+    tp = torch.tensor(p, device=dev)
+    tv = torch.tensor(v, device=dev)
+    S.rowwise_update(SelectedRows(torch.tensor(rows, device=dev),
+                                  torch.tensor(vals, device=dev), H),
+                     [tp, tv], torch.tensor(0.5, device=dev), "momentum",
+                     mu=0.5, nesterov=False)
+    pr, vr, merged = p.astype("float64"), v.astype("float64"), {}
+    for r, g in zip(rows, vals):
+        merged[int(r)] = merged.get(int(r), 0) + g.astype("float64")
+    for r, g in merged.items():
+        vr[r] = 0.5 * vr[r] + g
+        pr[r] = pr[r] - 0.5 * vr[r]
+    if not (np.array_equal(tp.cpu().numpy(), pr)
+            and np.array_equal(tv.cpu().numpy(), vr)):
+        raise AssertionError("K10 is not exact on dyadic inputs")
+
+
+def time_sparse(S, dev) -> dict:
+    """K9 and K10 (Adam on both DeepFM tables) at the bench shape,
+    cycling SPARSE_TIME_SETS id batches so the touched rows come from
+    device memory; beside their plain versions and the library
+    yardsticks (F.embedding per table; torch.optim.SparseAdam.step on a
+    coalesced gradient of the same rows), which the port never calls.
+    ``ms``/``plain_ms``/``library_ms`` are device time per call
+    (``device_ms``: the kernel alone, and every kernel of the plain and
+    library calls); the ``*_wall_ms`` figures are CUDA-event times of a
+    loop of calls, which the host's launch rate paces at these sizes."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    g = torch.Generator(device=dev).manual_seed(21)
+    H, D = SPARSE_ROWS, SPARSE_EMBED
+    emb = torch.randn(H, D, generator=g, device=dev) * 0.01
+    w1 = torch.randn(H, 1, generator=g, device=dev) * 0.01
+    ids = [torch.tensor(sparse_ids(100 + i), device=dev)
+           for i in range(SPARSE_TIME_SETS)]
+    w = gather_work([emb, w1], ids[0])
+    kernel = lambda x: S.fused_gather([emb, w1], x)  # noqa: E731
+    plain = lambda x: S.fused_gather_ref([emb, w1], x)  # noqa: E731
+    lib = lambda x: (F.embedding(x, emb), F.embedding(x, w1))  # noqa: E731
+    w.update(ms=device_ms(kernel, ids, name="sparse_gather_kernel"),
+             plain_ms=device_ms(plain, ids), library_ms=device_ms(lib, ids),
+             wall_ms=time_ms(kernel, ids), plain_wall_ms=time_ms(
+                 plain, ids, iters=50), library_wall_ms=time_ms(lib, ids))
+    out = {"gather": w}
+    lr = torch.tensor(1e-4, device=dev)
+    hyper = SPARSE_HYPER["adam"]
+    for name, width in (("update_emb", D), ("update_w1", 1)):
+        tabs = update_tables("adam", H, width, g)
+        srs = [SelectedRows(x.reshape(-1), torch.randn(
+            x.numel(), width, generator=g, device=dev) * 1e-3, H)
+            for x in ids]
+        segs = [S._sorted_segments(s.rows, s.values, H) for s in srs]
+        param = torch.nn.Parameter(tabs[0].clone())
+        opt = torch.optim.SparseAdam([param], lr=1e-4)
+        grads = [torch.sparse_coo_tensor(s.rows[None], s.values,
+                                         (H, width),
+                                         check_invariants=True).coalesce()
+                 for s in srs]
+
+        def lib_step(gr):
+            param.grad = gr
+            opt.step()
+        kernel = lambda sg: S.rowwise_update_sorted(  # noqa: E731
+            *sg, tabs, lr, "adam", **hyper)
+        wrapper = lambda s: S.rowwise_update(  # noqa: E731
+            s, tabs, lr, "adam", **hyper)
+        plain = lambda sg: S.rowwise_update_ref(  # noqa: E731
+            *sg, tabs, lr, "adam", **hyper)
+        w = update_work(ids[0], width, "adam", 3)
+        w.update(ms=device_ms(kernel, segs, name="sparse_update_kernel"),
+                 with_sort_ms=device_ms(wrapper, srs),
+                 plain_ms=device_ms(plain, segs, iters=20),
+                 library_ms=device_ms(lib_step, grads),
+                 wall_ms=time_ms(kernel, segs),
+                 with_sort_wall_ms=time_ms(wrapper, srs),
+                 plain_wall_ms=time_ms(plain, segs, iters=20),
+                 library_wall_ms=time_ms(lib_step, grads, iters=100))
+        out[name] = w
+        del tabs, srs, segs, grads, param, opt
+    return out
+
+
+def check_and_time_sparse(dev) -> dict:
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+    g = torch.Generator(device=dev).manual_seed(20)
+    err = {"gather": 0.0, "update": 0.0}
+    # K9: the bench batch, with out-of-range ids, an odd shape, empty
+    emb = torch.randn(SPARSE_ROWS, SPARSE_EMBED, generator=g, device=dev)
+    w1 = torch.randn(SPARSE_ROWS, 1, generator=g, device=dev)
+    bench = torch.tensor(sparse_ids(0), device=dev)
+    bad = bench.clone()
+    bad[0, :6] = torch.tensor([-1, -SPARSE_ROWS, SPARSE_ROWS,
+                               -SPARSE_ROWS - 1, 1 << 40, SPARSE_ROWS - 1])
+    odd = [torch.randn(23, 5, generator=g, device=dev),
+           torch.randn(23, 1, generator=g, device=dev)]
+    odd_ids = torch.randint(-30, 30, (17,), generator=g, device=dev)
+    cases = {"bench": ([emb, w1], bench), "out_of_range": ([emb, w1], bad),
+             "odd": (odd, odd_ids),
+             "empty": (odd, torch.zeros(0, dtype=torch.int64, device=dev))}
+    for name, (tabs, ids) in cases.items():
+        n0 = S.fused_gather.launches
+        got = S.fused_gather(tabs, ids)
+        torch.cuda.synchronize()
+        want = S.fused_gather_ref(tabs, ids)
+        if S.fused_gather.launches - n0 != (1 if ids.numel() else 0):
+            raise AssertionError(f"K9 launches at {name}")
+        for a, b in zip(got, want):
+            if not bits_equal(a, b):
+                raise AssertionError(f"K9 differs from its plain version at "
+                                     f"{name}: {max_ulps(a, b)} ulp")
+            err["gather"] = max(err["gather"], abs_err(a, b))
+        log(f"  K9 {name} n={ids.numel()} tables "
+            f"{[tuple(t.shape) for t in tabs]}: bit-equal to the plain "
+            f"version")
+    del emb, w1
+    # K10: every math variant at the bench shape and an odd one
+    lr = torch.tensor(1e-4, device=dev)
+    for kind in ("adam", "momentum", "nesterov", "adagrad"):
+        for name, (H, D, ids) in {
+                "bench": (SPARSE_ROWS, SPARSE_EMBED, bench.reshape(-1)),
+                "bench_w1": (SPARSE_ROWS, 1, bench.reshape(-1)),
+                "odd": (23, 5, torch.randint(-23, 23, (17,), generator=g,
+                                             device=dev))}.items():
+            vals = torch.randn(ids.numel(), D, generator=g, device=dev) \
+                * 1e-3
+            tabs = update_tables(kind, H, D, g)
+            ulps, e = check_update(S, SelectedRows(ids, vals, H), tabs, lr,
+                                   kind)
+            err["update"] = max(err["update"], e)
+            log(f"  K10 {kind} {name} n={ids.numel()} table [{H}, {D}]: "
+                f"{ulps} ulp from the plain version, untouched rows "
+                f"unchanged")
+            del tabs, vals
+    check_dyadic(S, dev)
+    log("  K10 dyadic momentum: exact")
+    out = {"max_abs_err": err, **time_sparse(S, dev)}
+    for n in ("gather", "update_emb", "update_w1"):
+        r = out[n]
+        extra = (f", with the sort {r['with_sort_ms']!r} ms (wall "
+                 f"{r['with_sort_wall_ms']!r})" if "with_sort_ms" in r
+                 else "")
+        log(f"  {n} device ms: kernel {r['ms']!r}{extra}, plain "
+            f"{r['plain_ms']!r}, library {r['library_ms']!r}; bound "
+            f"{r['bound_ms']!r} ({r['bound_by']}, {r['bytes']} bytes), "
+            f"sector bound {r['sector_bound_ms']!r} ({r['sector_bytes']} "
+            f"bytes); wall ms per call in a loop: kernel {r['wall_ms']!r},"
+            f" plain {r['plain_wall_ms']!r}, library "
+            f"{r['library_wall_ms']!r}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -979,16 +1345,29 @@ def profile_step(exe, main, feed, loss, focus) -> dict:
     """One training step under the torch profiler: device busy time over
     its window, the device time of the kernels whose names contain each
     of ``focus`` and their share, and the kernels with the most device
-    time."""
+    time.  One more step runs first inside the same profiler session and
+    is left out (the device events from the moment the measured step's
+    ``record_function`` span opens are kept): a session can drop its
+    first device event, which would otherwise be the step's first
+    kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[loss])
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        torch.cuda.synchronize()
+        with record_function("chip_smoke.profiled_step"):
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss])
+            wall = time.perf_counter() - t0
+    # the span itself also shows on the device's timeline (a user
+    # annotation): it marks the start and is no kernel
+    marks = [e.time_range.start for e in prof.events()
+             if e.name == "chip_smoke.profiled_step"]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name != "chip_smoke.profiled_step"
+              and marks and e.time_range.start >= min(marks)]
     if not events:
         return {"device_busy": "not measured"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -1231,6 +1610,219 @@ def run_stacked_lstm(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: DeepFM sparse-embedding training through Executor.run
+# ---------------------------------------------------------------------------
+
+def build_deepfm(seed: int = 3):
+    """The port's DeepFM training program (models/deepfm.py): (main,
+    startup, avg_cost, sorted parameter names)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import deepfm
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = deepfm.build(**DEEPFM)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def deepfm_feed(B: int, seed: int) -> dict:
+    """One seeded batch as bench.py makes DeepFM's (dense randn, ids
+    randint(0, sparse_dim), labels randint(0, 2))."""
+    rs = np.random.RandomState(seed)
+    return {"dense": rs.randn(B, DEEPFM["dense_dim"]).astype("float32"),
+            "sparse": rs.randint(0, SPARSE_ROWS, (B, SPARSE_FIELDS))
+            .astype("int64"),
+            "label": rs.randint(0, 2, (B, 1)).astype("float32")}
+
+
+def sparse_launches(S) -> tuple:
+    return S.fused_gather.launches, S.rowwise_update.launches
+
+
+def table_state(names) -> list:
+    """The tables and their Adam moments and powers."""
+    return sorted(n for n in names if n.startswith(DEEPFM_TABLES))
+
+
+def ratio(got, ref) -> float:
+    return float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()),
+                                                1e-30)
+
+
+def check_deepfm_step_against_cpu(dev) -> dict:
+    """One flag-on step at full width (sparse_dim 1e6, B=64) on the card
+    and on the CPU from the same copied starting values: the loss, every
+    gradient, and both tables and their moments after the step agree."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+    main, startup, loss, params = build_deepfm()
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    state = table_state(values)
+    feed = deepfm_feed(DEEPFM_PARITY_B, seed=5)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    out = {}
+    fluid.set_flags({"sparse_fused_kernel": True})
+    try:
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            scope = fluid.Scope()
+            scope.load_numpy(values, device=device)
+            n0 = sparse_launches(S)
+            res = fluid.Executor(device).run(main, feed=feed,
+                                             fetch_list=fetch, scope=scope)
+            out[name + "_launches"] = tuple(
+                b - a for a, b in zip(n0, sparse_launches(S)))
+            out[name] = [r.values.cpu().numpy()
+                         if isinstance(r, SelectedRows) else r for r in res]
+            out[name + "_rows"] = [r.rows.cpu().numpy() for r in res
+                                   if isinstance(r, SelectedRows)]
+            out[name + "_state"] = scope.to_numpy(state)
+    finally:
+        fluid.set_flags({"sparse_fused_kernel": False})
+    # one K9 launch for both tables, one K10 launch per table
+    want = (1, 2) if torch.device(dev).type == "cuda" else (0, 0)
+    if out["gpu_launches"] != want or out["cpu_launches"] != (0, 0):
+        raise AssertionError(f"K9/K10 launches card {out['gpu_launches']}, "
+                             f"CPU {out['cpu_launches']}; expected {want} on"
+                             f" the card and none on the CPU")
+    if not all(np.array_equal(a, b) for a, b in zip(out["gpu_rows"],
+                                                    out["cpu_rows"])):
+        raise AssertionError("sparse gradient rows differ card vs CPU")
+    l_cpu, l_gpu = float(out["cpu"][0]), float(out["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not math.isfinite(l_gpu) or loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"loss card {l_gpu} vs CPU {l_cpu}")
+    ratios = {}
+    for name, g, r in zip(params, out["gpu"][1:], out["cpu"][1:]):
+        ratios[name] = ratio(g, r)
+        if not np.isfinite(g).all() or ratios[name] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: max|d| / max|ref| = "
+                                 f"{ratios[name]} > {TRAIN_GRAD_TOL}")
+    state_ratios = {}
+    for name in state:
+        got, ref = out["gpu_state"][name], out["cpu_state"][name]
+        if name in DEEPFM_TABLES:
+            upd = ref - values[name]
+            state_ratios[name] = ratio(got - values[name], upd)
+            tol = DEEPFM_TABLE_TOL
+        else:
+            state_ratios[name] = ratio(got, ref)
+            tol = TRAIN_GRAD_TOL
+        if not np.isfinite(got).all() or state_ratios[name] > tol:
+            raise AssertionError(f"{name} after the step: {state_ratios[name]}"
+                                 f" > {tol}")
+    worst_p = max(ratios, key=ratios.get)
+    log(f"  full-width step B={DEEPFM_PARITY_B}, card vs CPU: loss "
+        f"{l_gpu!r} vs {l_cpu!r} (rel {loss_rel!r}), {len(params)} "
+        f"gradients, worst max|d|/max|ref| {ratios[worst_p]!r} ({worst_p}; "
+        f"tolerance {TRAIN_GRAD_TOL}); tables and moments "
+        f"{json.dumps(state_ratios)} (tables: max|d| / max|update|, "
+        f"tolerance {DEEPFM_TABLE_TOL}; moments {TRAIN_GRAD_TOL})")
+    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+            "n_grads": len(params), "worst_grad_ratio": ratios[worst_p],
+            "worst_grad_param": worst_p, "state_ratios": state_ratios}
+
+
+def train_deepfm(exe, main, loss, feed, scope, flag: bool) -> dict:
+    """DEEPFM_STEPS steps with FLAGS_sparse_fused_kernel = ``flag`` and
+    the launch counts set to 0 just before and read just after."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import sparse as S
+    fluid.set_flags({"sparse_fused_kernel": flag})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lowering.grad_recomputes = 0
+    S.fused_gather.launches = S.rowwise_update.launches = 0
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(DEEPFM_STEPS):
+            t = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(l))
+    launches = sparse_launches(S)
+    recomputes = lowering.grad_recomputes
+    on_card = torch.device(exe.device).type == "cuda"
+    want = (DEEPFM_STEPS, 2 * DEEPFM_STEPS) if flag and on_card else (0, 0)
+    log(f"  flag {'on' if flag else 'off'}, {DEEPFM_STEPS} steps: launches "
+        f"K9/K10 {launches} (expected {want}), grad recomputes {recomputes}")
+    if launches != want or recomputes != 0:
+        raise AssertionError(f"K9/K10 launches {launches} (want {want}), "
+                             f"grad recomputes {recomputes} (want 0)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    med = float(np.median(step_ms[2:]))
+    return {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "samples_per_s": DEEPFM_B / (med / 1e3),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches, "grad_recomputes": recomputes}
+
+
+def run_deepfm(dev, card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    out = {"parity": check_deepfm_step_against_cpu(dev)}
+    t0 = time.perf_counter()
+    main, startup, loss, params = build_deepfm()
+    n_ops = len(main.global_block.ops)
+    exe = fluid.Executor(dev)
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    start = init.to_numpy()
+    del init
+    n_params = sum(start[p].size for p in params)
+    log(f"  DeepFM program: {n_ops} ops, {n_params} parameters, built and "
+        f"initialized on the card in {time.perf_counter() - t0:.1f} s")
+    feed = deepfm_feed(DEEPFM_B, seed=0)
+    state = table_state(start)
+    tables = {}
+    try:
+        for flag in (True, False):
+            scope = fluid.Scope()
+            scope.load_numpy(start, device=dev)
+            run = train_deepfm(exe, main, loss, feed, scope, flag)
+            tables[flag] = scope.to_numpy(state)
+            key = "fused" if flag else "masked_dense"
+            log(f"  training, {key} [{card}]: step ms median "
+                f"{run['step_ms_median']!r} (steps 3..{DEEPFM_STEPS}, all "
+                f"{[round(x, 2) for x in run['step_ms']]}), samples/s "
+                f"{run['samples_per_s']!r}, loss {run['losses'][0]!r} -> "
+                f"{run['losses'][-1]!r}, max memory allocated "
+                f"{run['max_memory_allocated']} bytes")
+            with fluid.scope_guard(scope):
+                run["profile"] = profile_step(
+                    exe, main, feed, loss,
+                    ("sparse_gather_kernel", "sparse_update_kernel"))
+            prof = run["profile"]
+            log(f"  profiled step, {key} [{card}]: " + json.dumps(
+                {k: v for k, v in prof.items() if k != "top_kernels"}))
+            for k in prof.get("top_kernels", []):
+                log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+            out[key] = run
+            del scope
+    finally:
+        fluid.set_flags({"sparse_fused_kernel": False})
+    rtol, atol = DEEPFM_FLAG_TOL
+    diffs = {}
+    for name in state:
+        a, b = tables[True][name], tables[False][name]
+        diffs[name] = float(np.abs(a - b).max())
+        if name in DEEPFM_TABLES and not np.allclose(a, b, rtol=rtol,
+                                                     atol=atol):
+            raise AssertionError(f"{name}: flag on and off differ by "
+                                 f"{diffs[name]} (rtol {rtol}, atol {atol})")
+    log(f"  flag on vs off after {DEEPFM_STEPS} steps, max|d|: "
+        f"{json.dumps(diffs)} (tables within rtol {rtol}, atol {atol})")
+    out.update({"ops": n_ops, "parameters": n_params,
+                "flag_on_vs_off_max_abs": diffs})
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -1266,6 +1858,9 @@ def main() -> int:
     log("== phase 3c: fused LSTM kernels against their plain versions")
     lstm_k = check_and_time_lstm(dev)
 
+    log("== phase 3d: sparse-embedding kernels against their plain versions")
+    sparse_k = check_and_time_sparse(dev)
+
     log("== phase 4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
@@ -1274,6 +1869,9 @@ def main() -> int:
 
     log("== phase 7: stacked-LSTM training through Executor.run")
     lstm_train = run_stacked_lstm(dev, card)
+
+    log("== phase 8: DeepFM sparse-embedding training through Executor.run")
+    deepfm_train = run_deepfm(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -1311,13 +1909,27 @@ def main() -> int:
             "max_abs_err": lstm_k["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K10 at the larger table's shape ([1e6, 10], Adam), one launch
+    for name, key, line, i in (("sparse_gather", "gather", 176, 0),
+                               ("sparse_update", "update_emb", 256, 1)):
+        t = sparse_k[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": f"paddle_tpu/kernels/sparse.py:{line}",
+            "launches": deepfm_train["fused"]["launches"][i],
+            "max_abs_err": sparse_k["max_abs_err"][key.split("_")[0]],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built,
                    "kernels": kern, "flash": flash, "lstm": lstm_k,
-                   "slice": e2e, "training": train,
+                   "sparse": sparse_k, "slice": e2e, "training": train,
                    "lstm_training": lstm_train,
+                   "deepfm_training": deepfm_train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

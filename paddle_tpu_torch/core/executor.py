@@ -8,10 +8,12 @@ executor's device in their declared dtypes, every other variable an op
 reads comes from the scope (a missing one raises, asking for the
 startup program), the block runs op by op through the registry
 (``core/lowering.py``), persistable variables the block writes go back
-to the scope, and the fetches come back as numpy arrays.  A persistable
-that already holds a tensor of the same shape, dtype and device is
-written IN PLACE (``copy_``), as ``run_callable`` updates its state; the
-reference instead donates the old buffer to XLA and stores the new one.
+to the scope, and the fetches come back as numpy arrays (a fetched
+``SelectedRows`` gradient as itself).  A persistable that already holds
+a tensor of the same shape, dtype and device is written IN PLACE
+(``copy_``, skipped when a rule already updated that very storage), as
+``run_callable`` updates its state; the reference instead donates the
+old buffer to XLA and stores the new one.
 The plan (dataflow analysis and grad pairing) is cached per program
 version, feed names and fetch names; constants the rules make on the
 device (literal tables, optimizer scalars) are cached per executor.  The reference's jit cache,
@@ -42,6 +44,7 @@ from ..platform import get_device
 from .lowering import analyze_block, lower_ops
 from .program import Program, Variable, default_main_program
 from .registry import LowerContext
+from .selected_rows import SelectedRows
 from .types import np_dtype
 
 RNG_STATE_VAR = "@RNG_STATE@"
@@ -107,7 +110,11 @@ def scope_guard(scope: Scope):
         _global_scope = saved
 
 
-def _to_numpy(v) -> np.ndarray:
+def _to_numpy(v):
+    """A host copy of a fetched tensor; a ``SelectedRows`` is returned
+    as it is, as the reference's executor returns it."""
+    if isinstance(v, SelectedRows):
+        return v
     if isinstance(v, torch.Tensor):
         return np.array(v.detach().cpu(), copy=True)
     return np.array(v, copy=True)
@@ -207,7 +214,12 @@ class Executor:
         if (isinstance(old, torch.Tensor) and isinstance(val, torch.Tensor)
                 and old is not val and old.shape == val.shape
                 and old.dtype == val.dtype and old.device == val.device):
-            old.copy_(val)
+            # a rule that updated the tensor in place (the sparse
+            # optimizers' K10) returns it again, under a new tensor
+            # object (the interpreter's detach): nothing to copy
+            if (old.data_ptr() != val.data_ptr()
+                    or old.stride() != val.stride()):
+                old.copy_(val)
         else:
             scope.set_var(name, val)
 

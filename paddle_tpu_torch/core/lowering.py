@@ -4,10 +4,14 @@ The port of ``paddle_tpu/core/lowering.py``.  ``analyze_block`` finds a
 block's external reads (scope state) and persistable writes exactly as
 the reference does; ``lower_ops`` then runs every op's rule eagerly on
 torch tensors.  There is no jit: the reference's ``build_block_fn`` is
-the plan plus one interpreter pass (``Executor.run``).  The reference's
-two peephole hooks (the fused sparse gather and the int8 ``mul``) are
-absent here: their kernels are not ported yet, so those ops take their
-plain rules.
+the plan plus one interpreter pass (``Executor.run``).  Of the
+reference's two peephole hooks, the fused sparse gather is here: with
+``FLAGS_sparse_fused_kernel`` on, sparse ``lookup_table`` ops that share
+one Ids input are gathered by one K9 launch
+(``kernels/sparse.py: plan_lookup_fusion``).  The int8 ``mul`` hook is
+absent until its kernel (K5) is ported, so ``mul`` takes its plain
+rule.  A value that is not a tensor (a ``SelectedRows`` gradient)
+passes through the environment untouched.
 
 Gradients.  Eager PyTorch has no common-subexpression pass, so the
 reference's default grad (re-trace the forward under ``jax.vjp`` and
@@ -36,6 +40,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..kernels import sparse as _sparse_kernels
 from . import registry
 from .program import EMPTY_VAR, Block, Program
 from .registry import GRAD_OP_SUFFIX, LowerContext, is_float_tensor
@@ -254,8 +259,13 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
               plan: BlockPlan) -> Dict:
     """Run every op in ``block`` through its rule, mutating env."""
     tapes: Dict[int, tuple] = {}
+    fusion = (_sparse_kernels.plan_lookup_fusion(block)
+              if _sparse_kernels.enabled_for(ctx) else None)
     for pos, op in enumerate(block.ops):
         if op.type in SKIP_OPS:
+            continue
+        if fusion is not None and fusion.covers(pos) and fusion.lower(pos,
+                                                                      env):
             continue
         ins = _gather_ins(op, env)
         try:

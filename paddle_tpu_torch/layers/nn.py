@@ -1,7 +1,8 @@
 """Layer DSL: functions that append ops to the current program block.
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
-stacked LSTM and the fc/SGD drive call, copied unchanged: the same
+stacked LSTM, DeepFM and the fc/SGD drive call, copied unchanged (and
+``square``, which the reference generates in ``layers/ops.py``): the same
 calls build the same program, byte for byte (``Program.serialize``).
 Padded sequences carry their ``<name>@LEN`` companion as in the
 reference.
@@ -183,6 +184,15 @@ def square_error_cost(input, label):
     return out
 
 
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        {"X": [x], "Label": [label]}, {"Out": [out]})
+    return out
+
+
 def accuracy(input, label, k=1, correct=None, total=None):
     """Top-k accuracy (reference layers/metric_op.py accuracy)."""
     helper = LayerHelper("accuracy")
@@ -232,6 +242,24 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
 def transpose(x, perm, name=None):
     out_shape = tuple(x.shape[p] for p in perm)
     return _unary("transpose", x, attrs={"axis": list(perm)}, out_shape=out_shape)
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    shp = list(input[0].shape)
+    shp[axis] = sum(int(v.shape[axis]) for v in input)
+    out = helper.create_variable_for_type_inference(input[0].dtype, shape=tuple(shp))
+    helper.append_op("concat", {"X": input}, {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def square(x, name=None, **attrs):
+    """square activation (the reference's generated ``layers/ops.py``
+    wrapper)."""
+    helper = LayerHelper("square", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op("square", {"X": [x]}, {"Out": [out]}, attrs)
+    return out
 
 
 def squeeze(input, axes, name=None):
@@ -289,6 +317,10 @@ def _binary(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
@@ -445,6 +477,7 @@ def sequence_pool(input, pool_type, name=None):
 __all__ = [
     "accuracy",
     "cast",
+    "concat",
     "cross_entropy",
     "dynamic_lstm",
     "dropout",
@@ -452,6 +485,7 @@ __all__ = [
     "elementwise_div",
     "elementwise_min",
     "elementwise_mul",
+    "elementwise_sub",
     "embedding",
     "fc",
     "layer_norm",
@@ -463,8 +497,10 @@ __all__ = [
     "seq_len2_var",
     "seq_len_var",
     "sequence_pool",
+    "sigmoid_cross_entropy_with_logits",
     "softmax",
     "softmax_with_cross_entropy",
+    "square",
     "square_error_cost",
     "squeeze",
     "topk",

@@ -1,2 +1,2 @@
 """Models of the port (``paddle_tpu/models``, in part)."""
-from . import stacked_lstm, transformer  # noqa: F401
+from . import deepfm, stacked_lstm, transformer  # noqa: F401

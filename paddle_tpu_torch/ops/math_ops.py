@@ -1,9 +1,10 @@
-"""Math op rules: elementwise (with axis-broadcast), relu, pow,
-softmax, reductions, ``mul``, ``scale``, ``sum``, ``cast``, ``mean``.
+"""Math op rules: elementwise (with axis-broadcast), relu, square,
+pow, softmax, reductions, ``mul``, ``scale``, ``sum``, ``cast``,
+``mean``.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
-Transformer's and the stacked LSTM's training programs and the fc/SGD
-drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
+Transformer's, the stacked LSTM's and DeepFM's training programs and
+the fc/SGD drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
 product, as the reference left its matmuls to XLA.  Scalars from attrs
 enter as float32 values of the tensor's dtype, as the reference's
 ``jnp.asarray(v, x.dtype)`` does.
@@ -37,6 +38,7 @@ def _ew(fn):
 
 
 register("elementwise_add")(_ew(torch.add))
+register("elementwise_sub")(_ew(torch.sub))
 register("elementwise_mul")(_ew(torch.mul))
 register("elementwise_div")(_ew(torch.div))
 register("elementwise_min")(_ew(torch.minimum))
@@ -45,6 +47,11 @@ register("elementwise_min")(_ew(torch.minimum))
 @register("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register("square")
+def _square(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0])]}
 
 
 @register("pow")

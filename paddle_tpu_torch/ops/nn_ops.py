@@ -1,8 +1,8 @@
 """Neural-net op rules: layer_norm, the losses, accuracy and the lstm.
 
 The port of the part of ``paddle_tpu/ops/nn_ops.py`` that the
-Transformer's and the stacked LSTM's training programs and the fc/SGD
-drive use.  Statistics are taken in at least float32, as the
+Transformer's, the stacked LSTM's and DeepFM's training programs and
+the fc/SGD drive use.  Statistics are taken in at least float32, as the
 reference's ``_stat_dtype``.
 """
 from __future__ import annotations
@@ -81,6 +81,17 @@ def _softmax_xent(ctx, ins, attrs):
 def _square_error_cost(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     return {"Out": [torch.square(x - y)]}
+
+
+@register("sigmoid_cross_entropy_with_logits", no_grad_slots=("Label",))
+def _sce_logits(ctx, ins, attrs):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), elementwise; the max
+    is ``torch.maximum``, whose gradient splits a tie as ``jnp.maximum``
+    does."""
+    x, label = ins["X"][0], ins["Label"][0]
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    return {"Out": [loss]}
 
 
 @register("accuracy", no_grad_slots=("Out", "Indices", "Label"))

@@ -1,10 +1,11 @@
 """Tensor manipulation / creation op rules.
 
 The port of the part of ``paddle_tpu/ops/tensor_ops.py`` that the
-Transformer's and the stacked LSTM's training programs use: reshape,
-transpose, squeeze/unsqueeze, the dense ``lookup_table``, top_k,
-assign_value, fill_constant, increment, the random initializers and
-dropout.  Random
+Transformer's, the stacked LSTM's and DeepFM's training programs use:
+reshape, transpose, squeeze/unsqueeze, concat, ``lookup_table`` (its
+gradient dense, or a ``SelectedRows`` with ``is_sparse``), top_k,
+assign, assign_value, fill_constant, increment, the random initializers
+and dropout.  Random
 ops draw from ``torch.Generator`` objects the context hands out
 (``core/registry.py``); they give other bits than the reference's
 threefry keys, so a comparison starts both from copied values.
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.registry import register, register_grad
+from ..core.selected_rows import SelectedRows, take_rows
 from ..core.types import np_dtype
 from ._util import torch_dtype
 
@@ -58,15 +60,15 @@ def _ids(ids):
 
 @register("lookup_table", no_grad_slots=("Ids",))
 def _lookup_table(ctx, ins, attrs):
-    """Embedding gather (lookup_table_op.cc): Ids may carry a trailing
-    [..., 1] dim; padding_idx rows produce zeros.  The sparse
-    (SelectedRows) gradient is not ported yet."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table(is_sparse=True): the SelectedRows gradient is "
-            "not ported yet; build the embedding with is_sparse=False")
-    w, ids = ins["W"][0], _ids(ins["Ids"][0]).long()
-    out = w[ids]
+    """Embedding gather (lookup_table_op.cc) with ``jnp.take``'s rule:
+    ids in [-H, 0) wrap, other out-of-range ids give a NaN row (a float
+    table) or the clamped edge row (an integer one), with no device
+    assert.  Ids may carry a trailing [..., 1] dim; padding_idx rows
+    produce zeros.  With ``FLAGS_sparse_fused_kernel`` on, sparse
+    lookups sharing their ids are gathered by K9 instead
+    (``core/lowering.py``)."""
+    w, ids = ins["W"][0], _ids(ins["Ids"][0])
+    out = take_rows(w, ids)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (ids != pad).unsqueeze(-1).to(out.dtype)
@@ -75,9 +77,12 @@ def _lookup_table(ctx, ins, attrs):
 
 @register_grad("lookup_table")
 def _lookup_table_grad(ctx, ins, attrs):
-    """W-grad of the dense gather: the cotangent rows added into a zero
-    table at the looked-up ids (the reference's ``.at[rows].add``)."""
-    ids = _ids(ins["Ids"][0]).long()
+    """W-grad of the gather.  With ``is_sparse`` it is a SelectedRows
+    {flattened ids, cotangent rows} pair and the [height, D] gradient is
+    never built; otherwise the cotangent rows are added into a zero
+    table as the reference's ``.at[rows].add`` does: ids in [-H, 0)
+    wrap and other out-of-range rows are dropped."""
+    ids = _ids(ins["Ids"][0])
     gout = ins["Out@GRAD"][0]
     w = ins["W"][0]
     pad = attrs.get("padding_idx", -1)
@@ -85,7 +90,22 @@ def _lookup_table_grad(ctx, ins, attrs):
         gout = gout * (ids != pad).unsqueeze(-1).to(gout.dtype)
     rows = ids.reshape(-1)
     vals = gout.reshape((-1,) + tuple(gout.shape[ids.dim():])).to(w.dtype)
-    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+    sr = SelectedRows(rows, vals, w.shape[0])
+    if attrs.get("is_sparse", False):
+        return {"W@GRAD": [sr]}
+    return {"W@GRAD": [sr.to_dense()]}
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register("assign")
+def _assign(ctx, ins, attrs):
+    """A copy: the sparse optimizers update tables in place, so an
+    assigned value must not alias its source."""
+    return {"Out": [ins["X"][0].clone()]}
 
 
 @register("top_k", no_grad_slots=("X",))

@@ -1,9 +1,10 @@
 """Optimizers: append_backward + per-parameter optimizer ops.
 
-The ``Optimizer`` base, ``SGD`` and ``Adam`` of ``paddle_tpu/optimizer.py``,
-copied unchanged: ``minimize`` = append_backward → gradient clip →
-regularization → one optimizer op per parameter plus accumulator vars
-and LR ops (their rules are in ``ops/optimizer_ops.py``).
+The ``Optimizer`` base, ``SGD``, ``Momentum``, ``Adagrad`` and ``Adam``
+of ``paddle_tpu/optimizer.py``, copied unchanged: ``minimize`` =
+append_backward → gradient clip → regularization → one optimizer op per
+parameter plus accumulator vars and LR ops (their rules are in
+``ops/optimizer_ops.py``).
 """
 from __future__ import annotations
 
@@ -144,6 +145,53 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return self._opt_op(
+            block, "momentum",
+            {"Param": [p], "Grad": [g], "Velocity": [v],
+             "LearningRate": [self._create_param_lr(p)]},
+            {"ParamOut": [p], "VelocityOut": [v]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
+class AdagradOptimizer(Optimizer):
+    type = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return self._opt_op(
+            block, "adagrad",
+            {"Param": [p], "Grad": [g], "Moment": [m],
+             "LearningRate": [self._create_param_lr(p)]},
+            {"ParamOut": [p], "MomentOut": [m]},
+            {"epsilon": self._epsilon},
+        )
+
+
 class AdamOptimizer(Optimizer):
     type = "adam"
 
@@ -182,6 +230,10 @@ class AdamOptimizer(Optimizer):
 
 # reference-compatible aliases (optimizer.py tail)
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
 
-__all__ = ["Adam", "AdamOptimizer", "Optimizer", "SGD", "SGDOptimizer"]
+__all__ = ["Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer",
+           "Momentum", "MomentumOptimizer", "Optimizer", "SGD",
+           "SGDOptimizer"]

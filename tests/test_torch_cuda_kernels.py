@@ -14,7 +14,10 @@ context, and a launch on a side stream; for the flash kernels, odd
 lengths, dropout and all-masked rows; for the LSTM kernels, batches
 past one 128-row chunk, hidden sizes that are not a multiple of 4 or
 32, all-masked rows, the op's reversed path and the shapes past what a
-card can hold.
+card can hold; for the sparse kernels (K9, K10), an empty batch, every
+id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
+bit against the plain versions, and no fallback when the kernel library
+is missing.
 """
 import pytest
 import torch
@@ -343,3 +346,165 @@ def test_lstm_kernels_refuse_what_they_do_not_take(dev):
     zeros = torch.zeros(1, 1, 2048, device=dev)
     with pytest.raises(ValueError, match="resident|shared memory"):
         R.lstm_fused_grad(*big, zeros, zeros, zeros, zeros)
+
+
+# ---------------------------------------------------------------------------
+# K9 (fused multi-table gather) and K10 (row-wise lazy update)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, NaN rows included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _sparse_case(dev, H, D, n, seed=0, lo=0, hi=None, dup=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hi = H if hi is None else hi
+    ids = torch.randint(lo, hi, (n,), generator=g, device=dev)
+    if dup is not None:
+        ids[:] = dup
+    vals = torch.randn(n, D, generator=g, device=dev)
+    p = torch.randn(H, D, generator=g, device=dev)
+    m = torch.randn(H, D, generator=g, device=dev)
+    m2 = torch.rand(H, D, generator=g, device=dev)
+    return ids, vals, p, m, m2
+
+
+GATHER_CASES = {   # H, D (second table width 1), n, id range
+    "in_range": (1000, 10, 4096, 0, 1000),
+    "out_of_range": (50, 7, 300, -60, 60),
+    "ids_at_the_edges": (13, 3, 4, None, None),
+    "three_rows": (3, 1, 17, -3, 3),
+    "empty": (20, 4, 0, 0, 20),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_sparse_gather_matches_plain_bitwise(dev, case):
+    from paddle_tpu_torch.kernels import sparse as S
+    H, D, n, lo, hi = GATHER_CASES[case]
+    if lo is None:
+        ids = torch.tensor([H - 1, -H, H, -H - 1], device=dev)
+    else:
+        ids = _sparse_case(dev, H, D, n, lo=lo, hi=hi)[0]
+    tabs = [torch.randn(H, D, device=dev), torch.randn(H, 1, device=dev)]
+    before = S.fused_gather.launches
+    got = S.fused_gather(tabs, ids.reshape(-1, 1) if n else ids)
+    torch.cuda.synchronize()
+    assert S.fused_gather.launches == before + (1 if ids.numel() else 0)
+    want = S.fused_gather_ref(tabs, ids.reshape(-1, 1) if n else ids)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+
+
+UPDATE_CASES = {   # H, D, n, id range, every id the same
+    "bench_width": (1000, 10, 4096, 0, 1000, None),
+    "d1": (1000, 1, 4096, 0, 1000, None),
+    "every_id_the_same": (40, 5, 513, 0, 40, 7),
+    "wrapped_and_edge_ids": (23, 5, 17, -23, 23, None),
+    "three_rows": (3, 2, 65, 0, 3, None),
+}
+
+
+@pytest.mark.parametrize("kind", ["adam", "momentum", "nesterov",
+                                  "adagrad"])
+@pytest.mark.parametrize("case", list(UPDATE_CASES))
+def test_sparse_update_matches_plain_bitwise(dev, case, kind):
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+    H, D, n, lo, hi, dup = UPDATE_CASES[case]
+    ids, vals, p, m, m2 = _sparse_case(dev, H, D, n, seed=3, lo=lo, hi=hi,
+                                       dup=dup)
+    hyper = {"adam": dict(beta1=0.9, beta2=0.999, eps=1e-8),
+             "momentum": dict(mu=0.9, nesterov=False),
+             "nesterov": dict(mu=0.9, nesterov=True),
+             "adagrad": dict(eps=1e-6)}[kind]
+    base = "momentum" if kind == "nesterov" else kind
+    tabs = {"adam": [p, m, m2], "momentum": [p, m], "adagrad": [p, m2]}[base]
+    lr = torch.tensor(0.01, device=dev)
+    sr = SelectedRows(ids, vals, H)
+    got = [t.clone() for t in tabs]
+    before = S.rowwise_update.launches
+    S.rowwise_update(sr, got, lr, base, **hyper)
+    torch.cuda.synchronize()
+    assert S.rowwise_update.launches == before + 1
+    want = [t.clone() for t in tabs]
+    S.rowwise_update_ref(*S._sorted_segments(ids, vals, H), want, lr, base,
+                         **hyper)
+    touched = torch.zeros(H, dtype=torch.bool, device=dev)
+    touched[torch.where(ids < 0, ids + H, ids)] = True
+    for a, b, t in zip(got, want, tabs):
+        assert _bits_equal(a, b)
+        assert torch.equal(a[~touched], t[~touched])
+
+
+def test_sparse_update_empty_batch_launches_nothing(dev):
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+    p = torch.randn(9, 4, device=dev)
+    tabs = [p.clone(), p.clone(), p.clone()]
+    sr = SelectedRows(torch.zeros(0, dtype=torch.int64, device=dev),
+                      torch.zeros(0, 4, device=dev), 9)
+    before = S.rowwise_update.launches
+    S.fused_adam(*tabs, sr, torch.tensor(0.1, device=dev), 0.9, 0.999, 1e-8)
+    assert S.rowwise_update.launches == before
+    for t in tabs:
+        assert torch.equal(t, p)
+
+
+def test_sparse_kernels_never_fall_back(dev, monkeypatch):
+    """A CUDA tensor goes to the kernel or raises: with the library
+    missing, neither wrapper runs its plain version."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+
+    def missing(name):
+        raise FileNotFoundError(f"no kernel library {name}")
+
+    monkeypatch.setattr(S._build, "load", missing)
+    ids, vals, p, m, m2 = _sparse_case(dev, 30, 4, 10)
+    with pytest.raises(FileNotFoundError):
+        S.fused_gather([p], ids)
+    with pytest.raises(FileNotFoundError):
+        S.fused_adam(p, m, m2, SelectedRows(ids, vals, 30),
+                     torch.tensor(0.1, device=dev), 0.9, 0.999, 1e-8)
+
+
+def test_sparse_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.kernels import sparse as S
+    ids, vals, p, m, m2 = _sparse_case(dev, 30, 4, 10)
+    with pytest.raises(TypeError):
+        S.fused_gather([p.double()], ids)
+    with pytest.raises(ValueError):
+        S.fused_gather([p.t()], ids)
+    with pytest.raises(ValueError):
+        S.fused_gather([p] * 5, ids)
+    with pytest.raises(ValueError):
+        S.fused_gather([p.cpu()], ids)
+    sr = SelectedRows(ids, vals, 30)
+    with pytest.raises(ValueError):
+        S.rowwise_update(sr, [p, m[:, :2]], torch.tensor(0.1, device=dev),
+                         "momentum", mu=0.9, nesterov=False)
+    with pytest.raises(ValueError):
+        S.rowwise_update(sr, [p, m], torch.tensor(0.1), "momentum", mu=0.9,
+                         nesterov=False)
+
+
+def test_dense_grad_and_mask_sums_in_order_on_the_card(dev):
+    """The masked-dense path's one scatter sums each row's duplicates in
+    their batch order on the card too (no atomics), bit for bit as the
+    CPU's serial scatter: so the flag-off update is the same in every
+    run and equals the fused one."""
+    from paddle_tpu_torch.core.selected_rows import (SelectedRows,
+                                                     dense_grad_and_mask)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n, H = 20000, 50
+    rows = torch.randint(-H, H, (n,), generator=g)
+    vals = torch.randn(n, 3, generator=g) * 10.0 ** torch.randint(
+        -6, 6, (n, 1), generator=g).float()
+    want = dense_grad_and_mask(SelectedRows(rows, vals, H))
+    got = dense_grad_and_mask(SelectedRows(rows.to(dev), vals.to(dev), H))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -180,7 +180,13 @@ def test_unported_ops_raise():
                                          transpose_y=True),
             {"x": np.zeros((2, 4), "float32"),
              "y": np.zeros((2, 4), "float32")})
-    with pytest.raises(NotImplementedError):
-        run(lambda: tfluid.layers.embedding(
-            tfluid.layers.data("ids", [1], dtype="int64"), [10, 4],
-            is_sparse=True), {"ids": np.zeros((2, 1), "int64")})
+    with pytest.raises(NotImplementedError, match="nested"):
+        run(lambda: tfluid.layers.sequence_pool(
+            tfluid.layers.data("w", [1], lod_level=2), "sum"),
+            {"w": np.zeros((2, 3, 4, 1), "float32"),
+             "w@LEN": np.array([3, 2], "int64"),
+             "w@LEN2": np.ones((2, 3), "int64")})
+    # a sparse embedding runs (its gradient is a SelectedRows)
+    run(lambda: tfluid.layers.embedding(
+        tfluid.layers.data("ids", [1], dtype="int64"), [10, 4],
+        is_sparse=True), {"ids": np.zeros((2, 1), "int64")})
