@@ -5,8 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 4, 5, 7, 8, 6 (each
-one that fails raises, and the script exits non-zero):
+Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 7, 8, 9, 6
+(each one that fails raises, and the script exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -68,6 +68,15 @@ one that fails raises, and the script exits non-zero):
    coalesced gradient of the same rows) are timed with CUDA events,
    cycling 32 id batches, beside the byte bound and the 32-byte-sector
    bound.
+3e. The fused GRU kernels K8a (forward) and K8b (backward) against
+   their plain versions at machine translation's shape (B=64, T=32,
+   H=256) with full and ragged (8..32) lengths, at an odd shape (B=5,
+   T=7, H=96) and at T=1; the backward must be bit-identical on a rerun.
+   The ``gru`` op with ``is_reverse``, H0 and a LastH cotangent runs
+   K8a/K8b against its plain scan at the path's shape.  Then each
+   kernel's device time (torch profiler), its plain version and cuDNN's
+   GRU (``torch.nn.GRU``, TF32 off; a different function: it applies the
+   reset gate after the recurrent product) are set beside the bound.
 7. The stacked-LSTM slice: ``models/stacked_lstm.py`` (dict 30000, emb
    512, hid 512, 3 layers, the middle one reversed, Adam) through
    ``layers.data(lod_level=1)`` -> ``Adam.minimize`` -> Executor.run.
@@ -90,6 +99,18 @@ one that fails raises, and the script exits non-zero):
    no gradient may re-run its forward.  The same 12 steps with the flag
    off (the masked-dense update) must give the same tables.  Step ms,
    samples/s, peak memory and one profiled step follow for both.
+9. The machine-translation slice: ``models/machine_translation.py`` at
+   its defaults (vocab 10000/10000, emb 256, hid 256, T=32; a bi-GRU
+   encoder of two ``gru`` ops and a ``static_rnn`` attention decoder of
+   33 ops a step, Adam) through ``Adam.minimize`` -> Executor.run.
+   First one step at full width with B=8 on the card and on the CPU
+   from the same copied starting values: the loss and every parameter
+   gradient agree, the ``dec.*`` ones that only ``static_rnn_grad``
+   reaches included.  Then B=64 with ragged source and target masks
+   (8..32 tokens) trains 12 steps on one batch: the loss must stay
+   finite and fall, K8a and K8b must each launch exactly twice a step,
+   and no gradient may re-run its forward.  Step ms, tokens/s, peak
+   memory and one profiled step follow.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound.
@@ -171,6 +192,20 @@ DEEPFM_TABLE_TOL = 1e-2
 # for the fused and masked-dense paths (tests/test_sparse.py)
 DEEPFM_FLAG_TOL = (1e-6, 1e-7)
 SPARSE_TIME_SETS = 32          # id batches cycled so rows come from HBM
+
+# K8a/K8b are held to K6/K7's tolerances (LSTM_FWD_ATOL, LSTM_GRAD_REL):
+# the same float32 sums through the same kind of recurrence
+GRU_CASES = {  # name: (B, T, H, shortest row or None for full lengths)
+    "mt_full": (64, 32, 256, None),
+    "mt_ragged": (64, 32, 256, 8),
+    "odd": (5, 7, 96, 1),
+    "t1": (3, 1, 64, None),
+}
+GRU_TIME_SHAPE = (64, 32, 256)    # B, T, H of machine translation's path
+MT_TRAIN = dict(src_vocab=10000, tgt_vocab=10000, emb_dim=256, hid=256,
+                max_len=32)       # models/machine_translation.py defaults
+MT_B, MT_STEPS, MT_PARITY_B = 64, 12, 8
+MT_SHORTEST = 8                # ragged masks keep 8..T tokens a row
 
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
@@ -637,6 +672,189 @@ def check_and_time_sparse(dev) -> dict:
             f"bytes); wall ms per call in a loop: kernel {r['wall_ms']!r},"
             f" plain {r['plain_wall_ms']!r}, library "
             f"{r['library_wall_ms']!r}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the fused GRU kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def gru_inputs(dev, B, T, H, seed, lo=None):
+    """Random xproj, w (scaled 1/sqrt(H)), h0, the cotangent dhs and a
+    [B, T] mask whose rows keep a prefix of lo..T steps (all T when lo is
+    None)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xproj = torch.randn(B, T, 3 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(H, 3 * H, generator=g, device=dev) / math.sqrt(H)
+    h0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    lens = (torch.full((B,), T, device=dev) if lo is None else
+            torch.randint(lo, T + 1, (B,), generator=g, device=dev))
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    dhs = torch.randn(B, T, H, generator=g, device=dev)
+    return dict(args=(xproj, w, h0, mask), dhs=dhs, lens=lens)
+
+
+def gru_work(x) -> dict:
+    """The least work of K8a and K8b on these inputs, per live (row,
+    step) (a masked step needs none): K8a the two products h·w_uz and
+    (r ⊙ h)·w_c, 2·H·3H operations; K8b the gate recompute (2·H·3H),
+    drh = db·w_c^T (2·H·H), da·w_uz^T (2·2H·H) and dW (2·H·3H), 18·H²;
+    each input read once and each output written once."""
+    xproj = x["args"][0]
+    B, T, H3 = xproj.shape
+    H = H3 // 3
+    live = int(x["args"][3].sum().item())
+    f4 = 4
+    xb, wb, sb = B * T * H3 * f4, H * H3 * f4, B * H * f4
+    mb, hb = B * T * f4, B * T * H * f4
+    rows = {"fwd": (2 * live * H * H3, xb + wb + sb + mb + hb),
+            "bwd": (18 * live * H * H,
+                    xb + wb + sb + mb + 2 * hb + xb + wb + sb)}
+    out = {}
+    for name, (ops, nbytes) in rows.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        out[name] = {"ops": ops, "bytes": nbytes, "live_steps": live,
+                     "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def time_cudnn_gru(dev, B, T, H) -> dict:
+    """The library yardstick, never called by the port: one cuDNN GRU
+    layer (``torch.nn.GRU``, TF32 off) over a [B, T, H] input, forward
+    and its autograd backward (input, weights), full lengths, device
+    time.  It computes a different function: cuDNN applies the reset
+    gate after the recurrent product, r ⊙ (W_hn h + b_hn), where the
+    reference applies it before, (r ⊙ h) W_c; and it projects the input
+    inside."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
+        x = torch.randn(B, T, H, device=dev, requires_grad=True)
+        dy = torch.randn(B, T, H, device=dev)
+        wrt = [x, *gru.parameters()]
+        fwd = device_ms(lambda _: gru(x), [None], iters=20)
+        both = device_ms(lambda _: torch.autograd.grad(gru(x)[0], wrt, dy),
+                         [None], iters=20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return {"fwd": fwd, "bwd": both - fwd}
+
+
+def time_gru(R, dev) -> dict:
+    """K8a/K8b at machine translation's shape with ragged lengths 8..32:
+    device time from the profiler (``device_ms``) and wall per call from
+    CUDA events, the plain versions (CUDA events) and cuDNN's GRU (a
+    different function, device time) beside the bound."""
+    B, T, H = GRU_TIME_SHAPE
+    x = gru_inputs(dev, B, T, H, seed=80, lo=MT_SHORTEST)
+    a, dhs = x["args"], x["dhs"]
+    hs = R.gru_fused(*a)
+    work = gru_work(x)
+    runs = {"fwd": (lambda _: R.gru_fused(*a), lambda _: R.gru_ref(*a),
+                    "gru_fwd_kernel"),
+            "bwd": (lambda _: R.gru_fused_grad(*a, hs, dhs),
+                    lambda _: R.gru_grad_ref(*a, hs, dhs), "gru_bwd_kernel")}
+    cudnn = time_cudnn_gru(dev, B, T, H)
+    for k, (kernel, plain, name) in runs.items():
+        work[k].update(ms=device_ms(kernel, [None], iters=20, name=name),
+                       wall_ms=time_ms(kernel, [None], iters=20),
+                       plain_ms=time_ms(plain, [None], iters=3),
+                       library_ms=cudnn[k])
+    return work
+
+
+def check_gru_op_reversed(R, dev) -> float:
+    """The gru op and its grad rule on the card at the path's shape with
+    ``is_reverse``, ragged lengths, H0 and a LastH cotangent: K8a/K8b
+    (attr absent) against the plain scan (``use_pallas_kernel`` False).
+    Returns the worst max|d|/max|ref| of the gradients."""
+    from paddle_tpu_torch.core import registry
+    B, T, H = GRU_TIME_SHAPE
+    x = gru_inputs(dev, B, T, H, seed=81, lo=MT_SHORTEST)
+    xproj, w, h0, _ = x["args"]
+    ins = {"Input": [xproj], "Weight": [w], "H0": [h0],
+           "SeqLen": [x["lens"].int()]}
+    op = registry.get("gru")
+    n = (R.gru_fused.launches, R.gru_fused_grad.launches)
+    outs = {}
+    for name, attrs in (("kernel", {"is_reverse": True}),
+                        ("plain", {"is_reverse": True,
+                                   "use_pallas_kernel": False})):
+        fwd = op.lower(None, ins, attrs)
+        gin = {**ins, **fwd, "Hidden@GRAD": [x["dhs"]],
+               "LastH@GRAD": [x["dhs"][:, 0] * 0.5]}
+        outs[name] = (fwd, op.grad(None, gin, attrs))
+    if (R.gru_fused.launches, R.gru_fused_grad.launches) != (n[0] + 1,
+                                                             n[1] + 1):
+        raise AssertionError("the reversed gru op did not launch K8a/K8b")
+    (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
+    for slot in ("Hidden", "LastH"):
+        e = (fk[slot][0] - fp[slot][0]).abs().max().item()
+        if not (math.isfinite(e) and e <= LSTM_FWD_ATOL):
+            raise AssertionError(f"reversed gru op {slot}: {e} > "
+                                 f"{LSTM_FWD_ATOL}")
+    worst = 0.0
+    for slot in ("Input@GRAD", "Weight@GRAD", "H0@GRAD"):
+        ref = gp[slot][0]
+        ratio = ((gk[slot][0] - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30)).item()
+        if not ratio <= LSTM_GRAD_REL:
+            raise AssertionError(f"reversed gru op {slot}: max|d|/max|ref| "
+                                 f"{ratio} > {LSTM_GRAD_REL}")
+        worst = max(worst, ratio)
+    return worst
+
+
+def check_and_time_gru(dev) -> dict:
+    from paddle_tpu_torch.kernels import rnn as R
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for i, (name, (B, T, H, lo)) in enumerate(GRU_CASES.items()):
+        x = gru_inputs(dev, B, T, H, seed=70 + i, lo=lo)
+        a, dhs = x["args"], x["dhs"]
+        hs = R.gru_fused(*a)
+        grads = R.gru_fused_grad(*a, hs, dhs)
+        again = R.gru_fused_grad(*a, hs, dhs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(grads, again)):
+            raise AssertionError(f"K8b is not bit-identical on a rerun at "
+                                 f"{name}")
+        e_f = (hs - R.gru_ref(*a)).abs().max().item()
+        if not (math.isfinite(e_f) and e_f <= LSTM_FWD_ATOL):
+            raise AssertionError(f"K8a disagrees with its plain version at "
+                                 f"{name}: {e_f} > {LSTM_FWD_ATOL}")
+        # the plain backward on the kernel's own hs: K8b checked alone
+        e_b, worst_ratio = 0.0, 0.0
+        for gname, got, ref in zip(("dxproj", "dw", "dh0"), grads,
+                                   R.gru_grad_ref(*a, hs, dhs)):
+            d = (got - ref).abs().max().item()
+            ratio = d / max(ref.abs().max().item(), 1e-30)
+            if not (torch.isfinite(got).all() and ratio <= LSTM_GRAD_REL):
+                raise AssertionError(
+                    f"K8b {gname} disagrees with its plain version at {name}"
+                    f": max|d| / max|ref| = {ratio} > {LSTM_GRAD_REL}")
+            e_b, worst_ratio = max(e_b, d), max(worst_ratio, ratio)
+        log(f"  {name} B={B} T={T} H={H}: max|kernel - plain| hs {e_f!r} "
+            f"(tolerance {LSTM_FWD_ATOL}), gradients {e_b!r} (worst "
+            f"max|d|/max|ref| {worst_ratio!r}, tolerance {LSTM_GRAD_REL}); "
+            f"backward bit-identical on a rerun")
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"],
+                                                            e_b)
+    rev = check_gru_op_reversed(R, dev)
+    B, T, H = GRU_TIME_SHAPE
+    log(f"  gru op, is_reverse, H0, B={B} T={T} H={H} ragged: kernel vs "
+        f"plain scan, worst gradient max|d|/max|ref| {rev!r}")
+    out = {"max_abs_err": errs, "reversed_op_grad_ratio": rev,
+           **time_gru(R, dev)}
+    for n in ("fwd", "bwd"):
+        r = out[n]
+        log(f"  {n}: kernel {r['ms']!r} ms of device time ({r['wall_ms']!r} "
+            f"ms a call by CUDA events), plain {r['plain_ms']!r} ms, cuDNN "
+            f"GRU (TF32 off; a different function, reset after the product) "
+            f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}, {r['ops']} ops, {r['bytes']} bytes)")
     torch.cuda.empty_cache()
     return out
 
@@ -1823,6 +2041,162 @@ def run_deepfm(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: machine-translation training through Executor.run
+# ---------------------------------------------------------------------------
+
+def build_mt(seed: int = 3):
+    """The port's machine-translation training program
+    (models/machine_translation.py at its defaults): (main, startup,
+    avg_cost, sorted parameter names)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, loss = machine_translation.build(**MT_TRAIN)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def mt_feed(B: int, seed: int) -> dict:
+    """One seeded batch: source, target and label ids and ragged [B, T]
+    source and target masks (each row a prefix of 8..T tokens)."""
+    rs = np.random.RandomState(seed)
+    T, V = MT_TRAIN["max_len"], MT_TRAIN["tgt_vocab"]
+    t = np.arange(T)[None, :]
+    masks = [(t < rs.randint(MT_SHORTEST, T + 1, (B, 1))).astype("float32")
+             for _ in range(2)]
+    return {"src_ids": rs.randint(0, V, (B, T)).astype("int64"),
+            "tgt_ids": rs.randint(0, V, (B, T)).astype("int64"),
+            "lbl_ids": rs.randint(0, V, (B, T)).astype("int64"),
+            "src_mask": masks[0], "tgt_mask": masks[1]}
+
+
+def gru_launches(R) -> tuple:
+    return R.gru_fused.launches, R.gru_fused_grad.launches
+
+
+def check_mt_step_against_cpu(dev) -> dict:
+    """One step of the full-width machine-translation program with a
+    small ragged batch (B=8) on the card and on the CPU from the same
+    copied starting values: the loss and every parameter gradient agree,
+    the dec.* ones included, which only static_rnn_grad reaches (K8a/K8b
+    and the sub-block tape against the plain versions)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import rnn as R
+    main, startup, loss, params = build_mt()
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    feed = mt_feed(MT_PARITY_B, seed=5)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        n0 = gru_launches(R)
+        out[name] = fluid.Executor(device).run(main, feed=feed,
+                                               fetch_list=fetch, scope=scope)
+        out[name + "_launches"] = tuple(
+            b - a for a, b in zip(n0, gru_launches(R)))
+    if out["gpu_launches"] != (2, 2) or out["cpu_launches"] != (0, 0):
+        raise AssertionError(f"K8a/K8b launches card {out['gpu_launches']}, "
+                             f"CPU {out['cpu_launches']}; expected 2 each on "
+                             f"the card and none on the CPU")
+    l_cpu, l_gpu = float(out["cpu"][0]), float(out["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not math.isfinite(l_gpu) or loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"loss card {l_gpu} vs CPU {l_cpu}")
+    ratios = {}
+    for name, g, r in zip(params, out["gpu"][1:], out["cpu"][1:]):
+        scale = float(np.abs(r).max())
+        ratios[name] = float(np.abs(g - r).max()) / max(scale, 1e-30)
+        if not (scale > 0 and np.isfinite(g).all()
+                and ratios[name] <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"gradient of {name}: max|ref| {scale}, "
+                                 f"max|d| / max|ref| = {ratios[name]} "
+                                 f"(tolerance {TRAIN_GRAD_TOL})")
+    worst_p = max(ratios, key=ratios.get)
+    dec = [p for p in params if p.startswith("dec.")]
+    worst_dec = max(dec, key=ratios.get)
+    log(f"  full-width step B={MT_PARITY_B} T={MT_TRAIN['max_len']}, card "
+        f"vs CPU: loss {l_gpu!r} vs {l_cpu!r} (rel {loss_rel!r}), "
+        f"{len(params)} gradients, all non-zero, worst max|d|/max|ref| "
+        f"{ratios[worst_p]!r} ({worst_p}; tolerance {TRAIN_GRAD_TOL}); "
+        f"{len(dec)} dec.* gradients through static_rnn_grad, worst "
+        f"{ratios[worst_dec]!r} ({worst_dec})")
+    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+            "n_grads": len(params), "grad_ratios": ratios,
+            "worst_grad_ratio": ratios[worst_p], "worst_grad_param": worst_p}
+
+
+def run_machine_translation(dev, card: str) -> dict:
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import rnn as R
+    out = {"parity": check_mt_step_against_cpu(dev)}
+    t0 = time.perf_counter()
+    main, startup, loss, params = build_mt()
+    n_ops = [len(b.ops) for b in main.blocks]
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(scope.find_var(p).numel() for p in params)
+    log(f"  machine-translation program: {n_ops} ops (top-level block, "
+        f"decoder step), {n_params} parameters, built and initialized on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    feed = mt_feed(MT_B, seed=11)
+    torch.cuda.reset_peak_memory_stats()
+    lowering.grad_recomputes = 0
+    R.gru_fused.launches = R.gru_fused_grad.launches = 0
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(MT_STEPS):
+            t = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(l))
+    launches = gru_launches(R)
+    recomputes = lowering.grad_recomputes
+    want = 2 * MT_STEPS         # the two encoder directions a step
+    log(f"  {MT_STEPS} steps: launches K8a/K8b {launches} (expected {want} "
+        f"each), grad recomputes {recomputes}")
+    if launches != (want, want) or recomputes != 0:
+        raise AssertionError(f"K8a/K8b launches {launches} (want {want} "
+                             f"each), grad recomputes {recomputes} (want 0)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: "
+                             f"{losses}")
+    med = float(np.median(step_ms[2:]))
+    tokens = MT_B * MT_TRAIN["max_len"]
+    out.update({
+        "ops": n_ops, "parameters": n_params, "steps": MT_STEPS,
+        "live_target_tokens": int(feed["tgt_mask"].sum()),
+        "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": tokens / (med / 1e3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "grad_recomputes": recomputes})
+    log(f"  training [{card}]: step ms median {med!r} (steps 3..{MT_STEPS}"
+        f", all {[round(x, 2) for x in step_ms]}), tokens/s (padding "
+        f"counted) {out['tokens_per_s']!r}, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, max memory allocated "
+        f"{out['max_memory_allocated']} bytes")
+    with fluid.scope_guard(scope):
+        prof = profile_step(exe, main, feed, loss,
+                            ("gru_fwd_kernel", "gru_bwd_kernel"))
+    out["profile"] = prof
+    log(f"  profiled step [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -1861,6 +2235,9 @@ def main() -> int:
     log("== phase 3d: sparse-embedding kernels against their plain versions")
     sparse_k = check_and_time_sparse(dev)
 
+    log("== phase 3e: fused GRU kernels against their plain versions")
+    gru_k = check_and_time_gru(dev)
+
     log("== phase 4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
@@ -1872,6 +2249,9 @@ def main() -> int:
 
     log("== phase 8: DeepFM sparse-embedding training through Executor.run")
     deepfm_train = run_deepfm(dev, card)
+
+    log("== phase 9: machine-translation training through Executor.run")
+    mt_train = run_machine_translation(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -1922,14 +2302,27 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # K8a/K8b at the path's shape and ragged lengths; library: cuDNN's
+    # GRU, a different function (reset after the product)
+    for i, (key, line) in enumerate((("fwd", 272), ("bwd", 288))):
+        t = gru_k[key]
+        rows.append({
+            "name": f"gru_{key}", "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/gru_{key}.cu",
+            "replaces": f"paddle_tpu/kernels/rnn.py:{line}",
+            "launches": mt_train["launches"][i],
+            "max_abs_err": gru_k["max_abs_err"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built,
                    "kernels": kern, "flash": flash, "lstm": lstm_k,
-                   "sparse": sparse_k, "slice": e2e, "training": train,
-                   "lstm_training": lstm_train,
+                   "sparse": sparse_k, "gru": gru_k, "slice": e2e,
+                   "training": train, "lstm_training": lstm_train,
                    "deepfm_training": deepfm_train,
+                   "mt_training": mt_train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -2,12 +2,15 @@
 
 The port of ``paddle_tpu/core/lowering.py``.  ``analyze_block`` finds a
 block's external reads (scope state) and persistable writes exactly as
-the reference does; ``lower_ops`` then runs every op's rule eagerly on
-torch tensors.  There is no jit: the reference's ``build_block_fn`` is
-the plan plus one interpreter pass (``Executor.run``).  Of the
-reference's two peephole hooks, the fused sparse gather is here: with
-``FLAGS_sparse_fused_kernel`` on, sparse ``lookup_table`` ops that share
-one Ids input are gathered by one K9 launch
+the reference does, walking control-flow sub-blocks; ``lower_ops`` then
+runs every op's rule eagerly on torch tensors, and sends the ops in
+``CONTROL_FLOW_OPS`` to their handlers (``ops/control_flow_ops.py``),
+which run their sub-block through :func:`run_block`.  There is no jit:
+the reference's ``build_block_fn`` is the plan plus one interpreter
+pass (``Executor.run``).  Of the reference's two peephole hooks, the
+fused sparse gather is here: with ``FLAGS_sparse_fused_kernel`` on,
+sparse ``lookup_table`` ops of the top-level block that share one Ids
+input are gathered by one K9 launch
 (``kernels/sparse.py: plan_lookup_fusion``).  The int8 ``mul`` hook is
 absent until its kernel (K5) is ported, so ``mul`` takes its plain
 rule.  A value that is not a tensor (a ``SelectedRows`` gradient)
@@ -35,12 +38,14 @@ to the program, so a program the reference built runs unchanged:
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ..kernels import sparse as _sparse_kernels
+from ..ops.control_flow_ops import CONTROL_FLOW_OPS
 from . import registry
 from .program import EMPTY_VAR, Block, Program
 from .registry import GRAD_OP_SUFFIX, LowerContext, is_float_tensor
@@ -133,32 +138,39 @@ def analyze_block(program: Program, block_idx: int, feed_names: Sequence[str],
     seen_reads = set()
     persist_written = set()
     block = program.blocks[block_idx]
-    if any(op.sub_block_ids for op in block.ops):
-        raise NotImplementedError(
-            "control-flow sub-blocks are not ported yet")
 
-    def is_persistable(name: str) -> bool:
-        v = block.var_or_none(name)
+    def is_persistable(blk: Block, name: str) -> bool:
+        v = blk.var_or_none(name)
         return bool(v and v.persistable)
 
-    defined = set(feed_names)
-    for op in block.ops:
-        if op.type in SKIP_OPS:
-            continue
-        base = _base_type(op) if _is_grad_op(op) else op.type
-        if registry.has(base) and registry.get(base).stateful:
-            plan.has_stateful = True
-        for n in op.input_arg_names():
-            if n and n != EMPTY_VAR and n not in defined and n not in seen_reads:
-                seen_reads.add(n)
-                plan.state_reads.append(n)
-        for n in op.output_arg_names():
-            if not n or n == EMPTY_VAR:
+    def walk(blk: Block, defined: set):
+        for op in blk.ops:
+            if op.type in SKIP_OPS:
                 continue
-            defined.add(n)
-            if is_persistable(n) and n not in persist_written:
-                persist_written.add(n)
-                plan.persist_writes.append(n)
+            base = _base_type(op) if _is_grad_op(op) else op.type
+            if registry.has(base) and registry.get(base).stateful:
+                plan.has_stateful = True
+            for n in op.input_arg_names():
+                if n and n != EMPTY_VAR and n not in defined \
+                        and n not in seen_reads:
+                    seen_reads.add(n)
+                    plan.state_reads.append(n)
+            # names a control-flow op binds inside its sub-block (step
+            # inputs, memories, loop carries) are not scope reads
+            inner = set(op.attr("carry_vars", ()) or ())
+            inner |= set(op.attr("step_input_vars", ()) or ())
+            inner |= {m[0] for m in (op.attr("memories", ()) or ())}
+            for sub in op.sub_block_ids:
+                walk(program.blocks[sub], set(defined) | inner)
+            for n in op.output_arg_names():
+                if not n or n == EMPTY_VAR:
+                    continue
+                defined.add(n)
+                if is_persistable(blk, n) and n not in persist_written:
+                    persist_written.add(n)
+                    plan.persist_writes.append(n)
+
+    walk(block, set(feed_names))
 
     # fetches of vars never touched by ops must still come from scope
     defined_or_read = seen_reads | set(feed_names)
@@ -188,7 +200,14 @@ def _gather_ins(op, env: Dict) -> Dict:
     return ins
 
 
-def _run_with_leaves(opdef, ctx, ins, attrs, wanted):
+def _rule(program: Program, op, env: Dict, opdef):
+    """The forward rule of ``op``: a control-flow op's from its handler,
+    any other op's from the registry."""
+    make = CONTROL_FLOW_OPS.get(opdef.type)
+    return make(program, op, env) if make is not None else opdef.lower
+
+
+def _run_with_leaves(opdef, rule, ctx, ins, attrs, wanted):
     """Run a forward rule under autograd with leaf copies of the wanted
     float inputs; returns (leaves {(slot, j): leaf}, outs)."""
     ins = {s: list(v) for s, v in ins.items()}
@@ -202,7 +221,7 @@ def _run_with_leaves(opdef, ctx, ins, attrs, wanted):
         vals[j] = leaf
         leaves[(slot, j)] = leaf
     with torch.enable_grad():
-        outs = opdef.lower(ctx, ins, attrs)
+        outs = rule(ctx, ins, attrs)
     return leaves, outs
 
 
@@ -238,7 +257,7 @@ def _grads_from_graph(leaves, outs, ins, retain: bool) -> Dict:
             for s, d in by_slot.items()}
 
 
-def _recompute_grad(base, ctx, ins, op) -> Dict:
+def _recompute_grad(base, rule, ctx, ins, op) -> Dict:
     """Grad of an op whose forward left no tape: run the forward again
     on fresh leaves (counted in :data:`grad_recomputes`)."""
     global grad_recomputes
@@ -250,7 +269,7 @@ def _recompute_grad(base, ctx, ins, op) -> Dict:
                if not s.endswith("@GRAD") and s not in fwd_out
                and (base.input_slots is None or s in base.input_slots)}
     attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
-    leaves, outs = _run_with_leaves(base, ctx, fwd_ins, attrs,
+    leaves, outs = _run_with_leaves(base, rule, ctx, fwd_ins, attrs,
                                     _wanted_grads(op))
     return _grads_from_graph(leaves, outs, ins, retain=False)
 
@@ -281,16 +300,20 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
                     outs = _grads_from_graph(leaves, fouts, ins,
                                              retain=not last)
                 else:
-                    outs = _recompute_grad(base, ctx, ins, op)
+                    # a control-flow grad op carries its forward's attrs
+                    # and inputs, so the handler serves it too
+                    rule = _rule(program, op, env, base)
+                    outs = _recompute_grad(base, rule, ctx, ins, op)
             else:
                 opdef = registry.get(op.type)
+                rule = _rule(program, op, env, opdef)
                 wanted = plan.taped.get(pos)
                 if wanted:
-                    leaves, outs = _run_with_leaves(opdef, ctx, ins,
+                    leaves, outs = _run_with_leaves(opdef, rule, ctx, ins,
                                                     op.attrs, wanted)
                     tapes[pos] = (leaves, outs)
                 else:
-                    outs = opdef.lower(ctx, ins, op.attrs)
+                    outs = rule(ctx, ins, op.attrs)
         except Exception as e:
             raise type(e)(f"while lowering op {op!r} in block {block.idx}: "
                           f"{e}") from e
@@ -305,5 +328,34 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
     return env
 
 
+def run_block(ctx: LowerContext, program: Program, block: Block,
+              env: Dict) -> Dict:
+    """Run the ops of a control-flow sub-block through their rules,
+    mutating ``env``, and keep autograd's graph: unlike
+    :func:`lower_ops` it stores what the rules return as it is, so
+    gradients reach the values the caller bound in ``env``.  The rules
+    see a context whose ``block`` is the sub-block, so the recurrent
+    cells take their plain, differentiable versions there
+    (``ops/nn_ops.py: _use_kernel``); the K9 lookup peephole is planned
+    for the top-level block only.  A sub-block holds forward ops only:
+    ``append_backward`` differentiates a control-flow op as a whole."""
+    sub_ctx = copy.copy(ctx)
+    sub_ctx.block = block
+    for op in block.ops:
+        if op.type in SKIP_OPS:
+            continue
+        try:
+            rule = _rule(program, op, env, registry.get(op.type))
+            outs = rule(sub_ctx, _gather_ins(op, env), op.attrs)
+        except Exception as e:
+            raise type(e)(f"while lowering op {op!r} in block {block.idx}: "
+                          f"{e}") from e
+        for slot, names in op.outputs.items():
+            for name, val in zip(names, outs.get(slot, ())):
+                if name and name != EMPTY_VAR and val is not None:
+                    env[name] = val
+    return env
+
+
 __all__ = ["BlockPlan", "SKIP_OPS", "analyze_block", "grad_recomputes",
-           "lower_ops", "pair_grad_ops"]
+           "lower_ops", "pair_grad_ops", "run_block"]

@@ -1,4 +1,5 @@
-// Shared pieces of the fused LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// Shared pieces of the fused recurrent kernels (lstm_fwd.cu, lstm_bwd.cu,
+// and through gru_common.cuh gru_fwd.cu, gru_bwd.cu).
 //
 // Both kernels run one persistent grid for the whole sequence, launched
 // with cudaLaunchCooperativeKernel so that every block is resident at

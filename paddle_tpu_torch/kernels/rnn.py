@@ -1,30 +1,36 @@
-"""Fused LSTM: the whole-sequence forward and backward of the ``lstm`` op.
+"""Fused LSTM and GRU: the whole-sequence forward and backward of the
+``lstm`` and ``gru`` ops.
 
-The port of the LSTM half of ``paddle_tpu/kernels/rnn.py``
-(``_lstm_fwd_kernel``/``lstm_fused`` and ``_lstm_bwd_kernel``/
-``lstm_fused_grad``).  Everything is batch-major: xproj [B, T, 4H]
-(x·Wx + b, gates in the order i, f, g, o), the recurrent weight w
-[H, 4H], the initial state h0/c0 [B, H], the length mask [B, T] (1.0 =
-a live step), and the states hs/cs [B, T, H].
+The port of ``paddle_tpu/kernels/rnn.py`` (``_lstm_fwd_kernel``/
+``lstm_fused``, ``_lstm_bwd_kernel``/``lstm_fused_grad``,
+``_gru_fwd_kernel``/``gru_fused`` and ``_gru_bwd_kernel``/
+``gru_fused_grad``).  Everything is batch-major: xproj [B, T, nH]
+(x·Wx + b; LSTM gates in the order i, f, g, o, n = 4; GRU gates
+[update | reset | candidate], n = 3), the recurrent weight w [H, nH],
+the initial state h0 (and the LSTM's c0) [B, H], the length mask
+[B, T] (1.0 = a live step), and the states hs (and cs) [B, T, H].
 
-- :func:`lstm_ref` and :func:`lstm_grad_ref` are the plain PyTorch
-  versions: time loops with the exact math of the reference kernels.
-  h and c are carried in float32; a masked step passes h and c through
-  unchanged; the backward recomputes the gates from hs[t-1] (h0 at
-  t = 0) and folds (1 - m) into the carries, so gradients flow straight
-  through masked steps.  They are what the CPU runs and what the
-  kernels are held against on the card.
-- :func:`lstm_fused` and :func:`lstm_fused_grad` take the plain versions
-  for CPU tensors and launch the hand-written CUDA kernels
-  ``csrc/lstm_fwd.cu`` (K6) and ``csrc/lstm_bwd.cu`` (K7) for CUDA
-  tensors.  There is no fallback: a CUDA tensor goes to the kernel, and
-  a shape the kernel cannot hold, a build failure or a launch failure
-  raises.  Each launch adds one to the wrapper's ``launches``.
+- :func:`lstm_ref`, :func:`lstm_grad_ref`, :func:`gru_ref` and
+  :func:`gru_grad_ref` are the plain PyTorch versions: time loops with
+  the exact math of the reference kernels.  States are carried in
+  float32; a masked step passes them through unchanged; the backward
+  recomputes the gates from hs[t-1] (h0 at t = 0) and folds (1 - m)
+  into the carries, so gradients flow straight through masked steps.
+  They are what the CPU runs and what the kernels are held against on
+  the card.
+- :func:`lstm_fused`, :func:`lstm_fused_grad`, :func:`gru_fused` and
+  :func:`gru_fused_grad` take the plain versions for CPU tensors and
+  launch the hand-written CUDA kernels ``csrc/lstm_fwd.cu`` (K6),
+  ``csrc/lstm_bwd.cu`` (K7), ``csrc/gru_fwd.cu`` (K8a) and
+  ``csrc/gru_bwd.cu`` (K8b) for CUDA tensors.  There is no fallback: a
+  CUDA tensor goes to the kernel, and a shape the kernel cannot hold, a
+  build failure or a launch failure raises.  Each launch adds one to
+  the wrapper's ``launches``.
 
-The reference's ``lstm_supported`` gate (H % 128, B % 8) follows TPU
-tiles and is not carried over: the kernels take any B, T, H >= 1 whose
-grid can be resident on the card at once, and raise ``ValueError``
-naming the limit otherwise.
+The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
+B % 8) follow TPU tiles and are not carried over: the kernels take any
+B, T, H >= 1 whose grid can be resident on the card at once, and raise
+``ValueError`` naming the limit otherwise.
 """
 from __future__ import annotations
 
@@ -35,10 +41,15 @@ import torch
 from . import _build
 
 _FWD, _BWD = "lstm_fwd", "lstm_bwd"
+_GRU_FWD, _GRU_BWD = "gru_fwd", "gru_bwd"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FWD_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 _BWD_ARGS = [_PTR] * 14 + [_INT] * 4 + [_PTR]
+_GRU_FWD_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
+_GRU_BWD_ARGS = [_PTR] * 11 + [_INT] * 4 + [_PTR]
+# hidden units one block of every recurrent kernel owns (lstm_common.cuh)
+_UNITS = 4
 # codes the C entry points return besides a cudaError_t
 _SMEM_OVER, _NOT_RESIDENT = -1, -2
 
@@ -125,9 +136,10 @@ def _raise_launch(lib: str, err: int, B: int, H: int):
             "bytes of shared memory a block, more than the card allows")
     if err == _NOT_RESIDENT:
         raise ValueError(
-            f"{lib} kernel: H={H} needs {-(-H // 4)} blocks resident at "
-            f"once (4 hidden units each, {_smem_bytes(lib, B, H)} bytes "
-            "of shared memory a block), more than the card holds")
+            f"{lib} kernel: H={H} needs {-(-H // _UNITS)} blocks resident "
+            f"at once ({_UNITS} hidden units each, "
+            f"{_smem_bytes(lib, B, H)} bytes of shared memory a block), "
+            "more than the card holds")
     fn = getattr(_build.load(lib), f"{lib}_error_string")
     fn.argtypes = [_INT]
     fn.restype = ctypes.c_char_p
@@ -135,31 +147,34 @@ def _raise_launch(lib: str, err: int, B: int, H: int):
                        f"(cudaError {err})")
 
 
-def _check(xproj, w, h0, c0, mask, **extra) -> None:
-    """What the kernels take; anything else raises (no fallback)."""
-    tensors = {"xproj": xproj, "w": w, "h0": h0, "c0": c0, "mask": mask,
-               **extra}
+def _check(cell: str, n_gates: int, xproj, w, mask, states,
+           **extra) -> None:
+    """What the kernels take; anything else raises (no fallback).
+    ``states`` are the [B, H] initial states, ``extra`` the [B, T, H]
+    ones."""
+    tensors = {"xproj": xproj, "w": w, "mask": mask, **states, **extra}
     for name, t in tensors.items():
         if t.device != xproj.device:
             raise ValueError(f"{name} is on {t.device}, xproj on "
                              f"{xproj.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"lstm kernel: {name} must be float32, got "
+            raise TypeError(f"{cell} kernel: {name} must be float32, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"lstm kernel: {name} must be contiguous")
-    if xproj.dim() != 3 or xproj.shape[2] % 4:
-        raise ValueError(f"xproj must be [B, T, 4H], got "
+            raise ValueError(f"{cell} kernel: {name} must be contiguous")
+    if xproj.dim() != 3 or xproj.shape[2] % n_gates:
+        raise ValueError(f"xproj must be [B, T, {n_gates}H], got "
                          f"{tuple(xproj.shape)}")
-    B, T, H4 = xproj.shape
-    H = H4 // 4
+    B, T, HN = xproj.shape
+    H = HN // n_gates
     if B < 1 or T < 1 or H < 1:
-        raise ValueError(f"empty lstm input {tuple(xproj.shape)}")
-    want = {"w": (H, H4), "h0": (B, H), "c0": (B, H), "mask": (B, T)}
+        raise ValueError(f"empty {cell} input {tuple(xproj.shape)}")
+    want = {"w": (H, HN), "mask": (B, T)}
+    want.update({n: (B, H) for n in states})
     want.update({n: (B, T, H) for n in extra})
     for name, shape in want.items():
         if tuple(tensors[name].shape) != shape:
-            raise ValueError(f"lstm kernel: {name} must be {list(shape)}, "
+            raise ValueError(f"{cell} kernel: {name} must be {list(shape)}, "
                              f"got {list(tensors[name].shape)}")
 
 
@@ -172,7 +187,7 @@ def lstm_fused(xproj, w, h0, c0, mask):
         return lstm_ref(xproj, w, h0, c0, mask)
     if xproj.device.type != "cuda":
         raise ValueError(f"lstm_fused: unsupported device {xproj.device}")
-    _check(xproj, w, h0, c0, mask)
+    _check("lstm", 4, xproj, w, mask, {"h0": h0, "c0": c0})
     B, T, H4 = xproj.shape
     H = H4 // 4
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xproj.device)
@@ -200,7 +215,8 @@ def lstm_fused_grad(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
     if xproj.device.type != "cuda":
         raise ValueError(f"lstm_fused_grad: unsupported device "
                          f"{xproj.device}")
-    _check(xproj, w, h0, c0, mask, hs=hs, cs=cs, dhs=dhs, dcs=dcs)
+    _check("lstm", 4, xproj, w, mask, {"h0": h0, "c0": c0}, hs=hs, cs=cs,
+           dhs=dhs, dcs=dcs)
     B, T, H4 = xproj.shape
     H = H4 // 4
     dxproj = torch.empty_like(xproj)
@@ -224,4 +240,127 @@ def lstm_fused_grad(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
 lstm_fused.launches = 0
 lstm_fused_grad.launches = 0
 
-__all__ = ["lstm_fused", "lstm_fused_grad", "lstm_grad_ref", "lstm_ref"]
+
+# ---------------------------------------------------------------------------
+# GRU: gates [update | reset | candidate]; the candidate's product takes
+# r ⊙ h, so h_t = u ⊙ h + (1 - u) ⊙ tanh(x_c + (r ⊙ h) @ w_c)
+# ---------------------------------------------------------------------------
+
+def _gru_gates(x_t, h, w):
+    """Post-activation (u, r, c) of one step, float32."""
+    H = h.shape[-1]
+    a = x_t[:, :2 * H].float() + torch.matmul(h.to(w.dtype),
+                                              w[:, :2 * H]).float()
+    u, r = torch.sigmoid(a[:, :H]), torch.sigmoid(a[:, H:])
+    b = x_t[:, 2 * H:].float() + torch.matmul((r * h).to(w.dtype),
+                                              w[:, 2 * H:]).float()
+    return u, r, torch.tanh(b)
+
+
+def gru_ref(xproj, w, h0, mask):
+    """Plain GRU forward (``_gru_fwd_kernel``): hs [B, T, H]."""
+    h = h0.float()
+    hs = []
+    for t in range(xproj.shape[1]):
+        u, _, c = _gru_gates(xproj[:, t], h, w)
+        h_new = u * h + (1.0 - u) * c
+        m = mask[:, t, None].float()
+        h = m * h_new + (1.0 - m) * h
+        hs.append(h.to(xproj.dtype))
+    return torch.stack(hs, 1)
+
+
+def gru_grad_ref(xproj, w, h0, mask, hs, dhs):
+    """Plain GRU backward (``_gru_bwd_kernel``): (dxproj [B, T, 3H],
+    dw [H, 3H], dh0 [B, H])."""
+    B, T, H3 = xproj.shape
+    H = H3 // 3
+    dev = xproj.device
+    dh = torch.zeros(B, H, dtype=torch.float32, device=dev)
+    dw = torch.zeros(H, H3, dtype=torch.float32, device=dev)
+    wd = w.float()
+    w_uz, w_c = wd[:, :2 * H], wd[:, 2 * H:]
+    dxs = [None] * T
+    for t in reversed(range(T)):
+        h_prev = (h0 if t == 0 else hs[:, t - 1]).float()
+        u, r, c = _gru_gates(xproj[:, t], h_prev, w)
+        m = mask[:, t, None].float()
+        dh_total = dhs[:, t].float() + dh
+        din = m * dh_total
+        du = din * (h_prev - c)
+        dh_prev = din * u + (1.0 - m) * dh_total
+        db = din * (1.0 - u) * (1.0 - c * c)
+        drh = torch.matmul(db, w_c.t())
+        dr = drh * h_prev
+        dh_prev = dh_prev + drh * r
+        da = torch.cat([du * u * (1.0 - u), dr * r * (1.0 - r)], dim=-1)
+        dh = dh_prev + torch.matmul(da, w_uz.t())
+        dxs[t] = torch.cat([da, db], dim=-1).to(xproj.dtype)
+        dw = dw + torch.cat([torch.matmul(h_prev.t(), da),
+                             torch.matmul((r * h_prev).t(), db)], dim=-1)
+    return torch.stack(dxs, 1), dw.to(w.dtype), dh.to(xproj.dtype)
+
+
+def gru_fused(xproj, w, h0, mask):
+    """Whole-sequence GRU forward (module doc): hs [B, T, H].
+
+    CPU tensors take :func:`gru_ref`; CUDA tensors launch K8a on the
+    current stream, or raise."""
+    if xproj.device.type == "cpu":
+        return gru_ref(xproj, w, h0, mask)
+    if xproj.device.type != "cuda":
+        raise ValueError(f"gru_fused: unsupported device {xproj.device}")
+    _check("gru", 3, xproj, w, mask, {"h0": h0})
+    B, T, H3 = xproj.shape
+    H = H3 // 3
+    hs = torch.empty(B, T, H, dtype=torch.float32, device=xproj.device)
+    rh = torch.empty(B, H, dtype=torch.float32, device=xproj.device)
+    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    fn = _kernel_fn(_GRU_FWD, _GRU_FWD_ARGS)
+    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
+             hs.data_ptr(), rh.data_ptr(), barrier.data_ptr(), B, T, H,
+             xproj.device.index, stream)
+    if err != 0:
+        _raise_launch(_GRU_FWD, err, B, H)
+    gru_fused.launches += 1
+    return hs
+
+
+def gru_fused_grad(xproj, w, h0, mask, hs, dhs):
+    """Backward of :func:`gru_fused` from the saved hs and the cotangent
+    dhs [B, T, H]: (dxproj, dw, dh0).
+
+    CPU tensors take :func:`gru_grad_ref`; CUDA tensors launch K8b on the
+    current stream, or raise."""
+    if xproj.device.type == "cpu":
+        return gru_grad_ref(xproj, w, h0, mask, hs, dhs)
+    if xproj.device.type != "cuda":
+        raise ValueError(f"gru_fused_grad: unsupported device "
+                         f"{xproj.device}")
+    _check("gru", 3, xproj, w, mask, {"h0": h0}, hs=hs, dhs=dhs)
+    B, T, H3 = xproj.shape
+    H = H3 // 3
+    dxproj = torch.empty_like(xproj)
+    dw = torch.empty_like(w)
+    dh0 = torch.empty_like(h0)
+    # r ⊙ h_{t-1} of every step, recomputed by the kernel ([T, B, H])
+    rh = torch.empty(T, B, H, dtype=torch.float32, device=xproj.device)
+    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    fn = _kernel_fn(_GRU_BWD, _GRU_BWD_ARGS)
+    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
+             hs.data_ptr(), dhs.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
+             dh0.data_ptr(), rh.data_ptr(), barrier.data_ptr(), B, T, H,
+             xproj.device.index, stream)
+    if err != 0:
+        _raise_launch(_GRU_BWD, err, B, H)
+    gru_fused_grad.launches += 1
+    return dxproj, dw, dh0
+
+
+gru_fused.launches = 0
+gru_fused_grad.launches = 0
+
+__all__ = ["gru_fused", "gru_fused_grad", "gru_grad_ref", "gru_ref",
+           "lstm_fused", "lstm_fused_grad", "lstm_grad_ref", "lstm_ref"]

@@ -1,9 +1,10 @@
 """Layer DSL: functions that append ops to the current program block.
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
-stacked LSTM, DeepFM and the fc/SGD drive call, copied unchanged (and
-``square``, which the reference generates in ``layers/ops.py``): the same
-calls build the same program, byte for byte (``Program.serialize``).
+stacked LSTM, DeepFM, machine translation and the fc/SGD drive call,
+copied unchanged (and ``square``, ``sigmoid`` and ``tanh``, which the
+reference generates in ``layers/ops.py``): the same calls build the
+same program, byte for byte (``Program.serialize``).
 Padded sequences carry their ``<name>@LEN`` companion as in the
 reference.
 """
@@ -262,6 +263,43 @@ def square(x, name=None, **attrs):
     return out
 
 
+def _activation(op_type, x, name=None, **attrs):
+    """A unary activation layer (the reference's generated
+    ``layers/ops.py`` wrapper)."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(op_type, {"X": [x]}, {"Out": [out]}, attrs)
+    return out
+
+
+def sigmoid(x, name=None, **attrs):
+    """sigmoid activation (activation_op.cc functor)."""
+    return _activation("sigmoid", x, name, **attrs)
+
+
+def tanh(x, name=None, **attrs):
+    """tanh activation (activation_op.cc functor)."""
+    return _activation("tanh", x, name, **attrs)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    shp = list(input.shape)
+    for ax, st, en in zip(axes, starts, ends):
+        dim = shp[ax]
+        if dim == -1:
+            continue
+        st2 = max(st + dim, 0) if st < 0 else min(st, dim)
+        en2 = max(en + dim, 0) if en < 0 else min(en, dim)
+        shp[ax] = max(en2 - st2, 0)
+    out = helper.create_variable_for_type_inference(input.dtype, shape=tuple(shp))
+    helper.append_op(
+        "slice", {"Input": [input]}, {"Out": [out]},
+        {"axes": list(axes), "starts": list(starts), "ends": list(ends)},
+    )
+    return out
+
+
 def squeeze(input, axes, name=None):
     shp = [s for i, s in enumerate(input.shape) if i not in axes]
     return _unary("squeeze", input, attrs={"axes": list(axes)}, out_shape=tuple(shp))
@@ -413,6 +451,33 @@ def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
     return hidden, cell
 
 
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, h_0=None, name=None, seq_len=None,
+                dtype="float32"):
+    """GRU over a padded batch; ``input``: [B,T,3H], ``size`` = H."""
+    helper = LayerHelper("gru", name=name)
+    H = size
+    w = helper.create_parameter(param_attr, [H, 3 * H], dtype)
+    b = helper.create_parameter(bias_attr, [3 * H], dtype, is_bias=True)
+    biased = elementwise_add(input, b, axis=2)
+    B, T = input.shape[0], input.shape[1]
+    hidden = helper.create_variable_for_type_inference(dtype, shape=(B, T, H))
+    last_h = helper.create_variable_for_type_inference(dtype, shape=(B, H))
+    ins = {"Input": [biased], "Weight": [w]}
+    sl = seq_len or seq_len_var(input)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    if h_0 is not None:
+        ins["H0"] = [h_0]
+    helper.append_op(
+        "gru", ins, {"Hidden": [hidden], "LastH": [last_h]},
+        {"is_reverse": is_reverse},
+    )
+    if sl is not None:
+        _alias_len(hidden, sl)
+    return hidden
+
+
 def _alias_len(var, seq_len):
     """Register seq_len as var's companion length var."""
     var.block.seq_len_map[var.name] = seq_len.name
@@ -474,11 +539,18 @@ def sequence_pool(input, pool_type, name=None):
                    out_shape=out_shape, pool=True, name=name)
 
 
+def sequence_last_step(input):
+    out_shape = (None if getattr(input, "lod_level", 0) == 2
+                 else (input.shape[0],) + tuple(input.shape[2:]))
+    return _seq_op("sequence_last_step", input, out_shape=out_shape, pool=True)
+
+
 __all__ = [
     "accuracy",
     "cast",
     "concat",
     "cross_entropy",
+    "dynamic_gru",
     "dynamic_lstm",
     "dropout",
     "elementwise_add",
@@ -496,13 +568,17 @@ __all__ = [
     "scale",
     "seq_len2_var",
     "seq_len_var",
+    "sequence_last_step",
     "sequence_pool",
+    "sigmoid",
     "sigmoid_cross_entropy_with_logits",
+    "slice",
     "softmax",
     "softmax_with_cross_entropy",
     "square",
     "square_error_cost",
     "squeeze",
+    "tanh",
     "topk",
     "transpose",
     "unsqueeze",

@@ -1,5 +1,6 @@
 """Tensor creation/assignment layers: the part of
-``paddle_tpu/layers/tensor.py`` the Transformer uses, copied unchanged."""
+``paddle_tpu/layers/tensor.py`` the Transformer and machine translation
+use, copied unchanged."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,6 +16,20 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper.append_op(
         "fill_constant", {}, {"Out": [out]},
         {"shape": list(shape), "dtype": dtype, "value": float(value)},
+    )
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    shp = list(shape)
+    shp[output_dim_idx] = input.shape[input_dim_idx]
+    out = helper.create_variable_for_type_inference(dtype, shape=tuple(shp))
+    helper.append_op(
+        "fill_constant_batch_size_like", {"Input": [input]}, {"Out": [out]},
+        {"shape": list(shape), "dtype": dtype, "value": float(value),
+         "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx},
     )
     return out
 
@@ -58,4 +73,5 @@ def increment(x, value=1.0, in_place=True):
     return out
 
 
-__all__ = ["assign", "cast", "fill_constant", "increment", "ones", "zeros"]
+__all__ = ["assign", "cast", "fill_constant", "fill_constant_batch_size_like",
+           "increment", "ones", "zeros"]

@@ -1,2 +1,2 @@
 """Models of the port (``paddle_tpu/models``, in part)."""
-from . import deepfm, stacked_lstm, transformer  # noqa: F401
+from . import deepfm, machine_translation, stacked_lstm, transformer  # noqa: F401

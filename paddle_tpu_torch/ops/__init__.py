@@ -2,6 +2,7 @@
 as in the JAX package)."""
 from . import (  # noqa: F401
     attention_ops,
+    control_flow_ops,
     math_ops,
     nn_ops,
     optimizer_ops,

@@ -1,10 +1,10 @@
-"""Math op rules: elementwise (with axis-broadcast), relu, square,
-pow, softmax, reductions, ``mul``, ``scale``, ``sum``, ``cast``,
-``mean``.
+"""Math op rules: elementwise (with axis-broadcast), relu, sigmoid,
+tanh, square, pow, softmax, reductions, ``mul``, ``matmul``,
+``scale``, ``sum``, ``cast``, ``mean``.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
-Transformer's, the stacked LSTM's and DeepFM's training programs and
-the fc/SGD drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
+Transformer's, the stacked LSTM's, DeepFM's and machine translation's
+training programs and the fc/SGD drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
 product, as the reference left its matmuls to XLA.  Scalars from attrs
 enter as float32 values of the tensor's dtype, as the reference's
 ``jnp.asarray(v, x.dtype)`` does.
@@ -47,6 +47,16 @@ register("elementwise_min")(_ew(torch.minimum))
 @register("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": [torch.sigmoid(ins["X"][0])]}
+
+
+@register("tanh")
+def _tanh(ctx, ins, attrs):
+    return {"Out": [torch.tanh(ins["X"][0])]}
 
 
 @register("square")
@@ -103,6 +113,23 @@ def _mul(ctx, ins, attrs):
     ync = attrs.get("y_num_col_dims", 1)
     out = torch.matmul(flatten_to_2d(x, xnc), flatten_to_2d(y, ync))
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+@register("matmul")
+def _matmul(ctx, ins, attrs):
+    """matmul_op.cc: ``transpose_X``/``transpose_Y`` swap the last two
+    axes (of an operand with at least two), leading axes broadcast as a
+    batch, and the product is scaled by ``alpha``."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
 
 
 @register("scale")

@@ -1,8 +1,9 @@
-"""Neural-net op rules: layer_norm, the losses, accuracy and the lstm.
+"""Neural-net op rules: layer_norm, the losses, accuracy, the lstm and
+the gru.
 
 The port of the part of ``paddle_tpu/ops/nn_ops.py`` that the
-Transformer's, the stacked LSTM's and DeepFM's training programs and
-the fc/SGD drive use.  Statistics are taken in at least float32, as the
+Transformer's, the stacked LSTM's, DeepFM's and machine translation's
+training programs and the fc/SGD drive use.  Statistics are taken in at least float32, as the
 reference's ``_stat_dtype``.
 """
 from __future__ import annotations
@@ -118,11 +119,12 @@ def _length_mask(seq_len, B: int, T: int, dtype, device):
     return (t < seq_len[:, None]).to(dtype)
 
 
-def _lstm_inputs(ins):
-    """(xproj, w, h0, c0, mask [B, T] float32) of an lstm op."""
+def _rnn_inputs(ins, n_gates: int, state_slots):
+    """(xproj, w, one [B, H] initial state per slot (zeros when the op
+    has none), mask [B, T] float32) of an lstm (4 gates) or gru (3) op."""
     xproj, w = ins["Input"][0], ins["Weight"][0]
-    B, T, H4 = xproj.shape
-    H = H4 // 4
+    B, T, HN = xproj.shape
+    H = HN // n_gates
 
     def state(slot):
         if ins.get(slot):
@@ -131,13 +133,22 @@ def _lstm_inputs(ins):
 
     seq_len = ins["SeqLen"][0] if ins.get("SeqLen") else None
     mask = _length_mask(seq_len, B, T, torch.float32, xproj.device)
-    return xproj, w.contiguous(), state("H0"), state("C0"), mask
+    return (xproj, w.contiguous(), *map(state, state_slots), mask)
 
 
-def _use_kernel(attrs) -> bool:
+def _use_kernel(ctx, attrs) -> bool:
     """``use_pallas_kernel`` keeps the reference's meaning as the
     caller's choice: False takes the plain scan on any device; absent or
-    True takes K6/K7 (their plain versions for CPU tensors)."""
+    True takes the kernels (K6/K7, K8a/K8b; their plain versions for CPU
+    tensors).  Inside a control-flow sub-block the plain scan runs
+    whatever the attr says: a sub-block is differentiated by autograd
+    through its ops (``ops/control_flow_ops.py``), and autograd cannot
+    see through a kernel launched by ctypes.  The reference keeps its
+    Pallas cells to the top-level block for the same reason (its
+    ``_rnn_pallas_eligible``: sub-blocks differentiate through
+    ``jax.vjp``)."""
+    if ctx is not None and getattr(ctx.block, "idx", 0) != 0:
+        return False
     return attrs.get("use_pallas_kernel", None) is not False
 
 
@@ -149,11 +160,11 @@ def _lstm(ctx, ins, attrs):
     Hidden and Cell [B, T, H], LastH and LastC [B, H].  ``is_reverse``
     flips the whole padded time axis, masked steps included; LastH/LastC
     are the states of the last step of the flipped (scan) order."""
-    xproj, w, h0, c0, mask = _lstm_inputs(ins)
+    xproj, w, h0, c0, mask = _rnn_inputs(ins, 4, ("H0", "C0"))
     reverse = attrs.get("is_reverse", False)
     if reverse:
         xproj, mask = torch.flip(xproj, [1]), torch.flip(mask, [1])
-    run = _rnn.lstm_fused if _use_kernel(attrs) else _rnn.lstm_ref
+    run = _rnn.lstm_fused if _use_kernel(ctx, attrs) else _rnn.lstm_ref
     hs, cs = run(xproj.contiguous(), w, h0, c0, mask.contiguous())
     h_last, c_last = hs[:, -1], cs[:, -1]
     if reverse:
@@ -168,7 +179,7 @@ def _lstm_grad(ctx, ins, attrs):
     re-run): K7, or the plain backward when ``use_pallas_kernel`` is
     False.  Missing cotangents count as zeros; LastH/LastC cotangents
     fold into the last scan-domain step."""
-    xproj, w, h0, c0, mask = _lstm_inputs(ins)
+    xproj, w, h0, c0, mask = _rnn_inputs(ins, 4, ("H0", "C0"))
     hs, cs = ins["Hidden"][0], ins["Cell"][0]
 
     def cot(slot):
@@ -192,7 +203,8 @@ def _lstm_grad(ctx, ins, attrs):
     if last_c is not None:
         dcs = dcs.clone()
         dcs[:, -1] += last_c
-    run = _rnn.lstm_fused_grad if _use_kernel(attrs) else _rnn.lstm_grad_ref
+    run = (_rnn.lstm_fused_grad if _use_kernel(ctx, attrs)
+           else _rnn.lstm_grad_ref)
     dxs, dw, dh0, dc0 = run(
         xproj.contiguous(), w, h0, c0, mask.contiguous(), hs.contiguous(),
         cs.contiguous(), dhs.contiguous(), dcs.contiguous())
@@ -203,4 +215,60 @@ def _lstm_grad(ctx, ins, attrs):
         outs["H0@GRAD"] = [dh0]
     if ins.get("C0"):
         outs["C0@GRAD"] = [dc0]
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# gru over a padded batch + length mask (gates update, reset, candidate)
+# ---------------------------------------------------------------------------
+
+@register("gru", no_grad_slots=("SeqLen",))
+def _gru(ctx, ins, attrs):
+    """Fused GRU over a padded batch (gru_op.cc; the reference's
+    ``_gru``).  Inputs: Input [B, T, 3H] (x·Wx + b, made by the layer),
+    Weight [H, 3H] as [update | reset | candidate], optional H0 [B, H]
+    and SeqLen [B].  Outputs: Hidden [B, T, H] and LastH [B, H].
+    ``is_reverse`` flips the whole padded time axis, masked steps
+    included; LastH is the state of the last step of the flipped (scan)
+    order."""
+    xproj, w, h0, mask = _rnn_inputs(ins, 3, ("H0",))
+    reverse = attrs.get("is_reverse", False)
+    if reverse:
+        xproj, mask = torch.flip(xproj, [1]), torch.flip(mask, [1])
+    run = _rnn.gru_fused if _use_kernel(ctx, attrs) else _rnn.gru_ref
+    hs = run(xproj.contiguous(), w, h0, mask.contiguous())
+    h_last = hs[:, -1]
+    if reverse:
+        hs = torch.flip(hs, [1])
+    return {"Hidden": [hs], "LastH": [h_last]}
+
+
+@register_grad("gru")
+def _gru_grad(ctx, ins, attrs):
+    """Explicit gru backward from the saved Hidden (no forward re-run):
+    K8b, or the plain backward when ``use_pallas_kernel`` is False or
+    inside a sub-block.  A missing Hidden cotangent counts as zeros; a
+    LastH cotangent folds into the last scan-domain step; H0@GRAD only
+    when H0 is an input."""
+    xproj, w, h0, mask = _rnn_inputs(ins, 3, ("H0",))
+    hs = ins["Hidden"][0]
+    g = ins.get("Hidden@GRAD")
+    dhs = (g[0].float() if g and g[0] is not None
+           else torch.zeros_like(hs, dtype=torch.float32))
+    if attrs.get("is_reverse", False):
+        xproj, mask, hs, dhs = (torch.flip(v, [1]) for v in
+                                (xproj, mask, hs, dhs))
+    g = ins.get("LastH@GRAD")
+    if g and g[0] is not None:
+        dhs = dhs.clone()
+        dhs[:, -1] += g[0].float()
+    run = (_rnn.gru_fused_grad if _use_kernel(ctx, attrs)
+           else _rnn.gru_grad_ref)
+    dxs, dw, dh0 = run(xproj.contiguous(), w, h0, mask.contiguous(),
+                       hs.contiguous(), dhs.contiguous())
+    if attrs.get("is_reverse", False):
+        dxs = torch.flip(dxs, [1])
+    outs = {"Input@GRAD": [dxs], "Weight@GRAD": [dw]}
+    if ins.get("H0"):
+        outs["H0@GRAD"] = [dh0]
     return outs

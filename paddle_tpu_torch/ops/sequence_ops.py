@@ -1,6 +1,7 @@
 """Sequence op rules over the padded [B, T, ...] + lengths contract.
 
-The port of ``sequence_pool`` from ``paddle_tpu/ops/sequence_ops.py``:
+The port of ``sequence_pool`` and ``sequence_last_step`` from
+``paddle_tpu/ops/sequence_ops.py``:
 a variable-length batch is a padded dense tensor with an explicit
 ``SeqLen`` length vector, so pooling is a masked reduction.  The nested
 (level-2, ``SeqLen2``) form is not ported yet and raises.
@@ -66,3 +67,9 @@ def _sequence_pool(ctx, ins, attrs):
         out = torch.where(alive, out, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
     return {"Out": [out]}
+
+
+@register("sequence_last_step", no_grad_slots=("SeqLen",))
+def _sequence_last_step(ctx, ins, attrs):
+    """Each row's last live step: ``sequence_pool`` with LAST."""
+    return _sequence_pool(ctx, ins, {"pooltype": "LAST"})

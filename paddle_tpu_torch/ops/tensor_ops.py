@@ -2,9 +2,10 @@
 
 The port of the part of ``paddle_tpu/ops/tensor_ops.py`` that the
 Transformer's, the stacked LSTM's and DeepFM's training programs use:
-reshape, transpose, squeeze/unsqueeze, concat, ``lookup_table`` (its
+reshape, transpose, squeeze/unsqueeze, slice, concat, ``lookup_table`` (its
 gradient dense, or a ``SelectedRows`` with ``is_sparse``), top_k,
-assign, assign_value, fill_constant, increment, the random initializers
+assign, assign_value, fill_constant, fill_constant_batch_size_like,
+increment, the random initializers
 and dropout.  Random
 ops draw from ``torch.Generator`` objects the context hands out
 (``core/registry.py``); they give other bits than the reference's
@@ -96,6 +97,20 @@ def _lookup_table_grad(ctx, ins, attrs):
     return {"W@GRAD": [sr.to_dense()]}
 
 
+@register("slice")
+def _slice(ctx, ins, attrs):
+    """``x[starts:ends]`` along each of ``axes``; negative bounds count
+    from the end and every bound is clamped to the axis."""
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(st, en)
+    return {"Out": [x[tuple(idx)]]}
+
+
 @register("concat")
 def _concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
@@ -147,6 +162,19 @@ def _fill_constant(ctx, ins, attrs):
     dt = torch_dtype(attrs.get("dtype", "float32"))
     return {"Out": [torch.full(tuple(attrs["shape"]), attrs["value"],
                                dtype=dt, device=ctx.device)]}
+
+
+@register("fill_constant_batch_size_like", no_grad_slots=("Input",))
+def _fill_cbsl(ctx, ins, attrs):
+    """``value`` in ``shape``, whose ``output_dim_idx`` axis takes the
+    size of Input's ``input_dim_idx`` axis."""
+    ref = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    dt = torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(tuple(shape), attrs["value"], dtype=dt,
+                               device=ref.device)]}
 
 
 def _generator(ctx, attrs) -> torch.Generator:

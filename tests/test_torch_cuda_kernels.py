@@ -14,7 +14,8 @@ context, and a launch on a side stream; for the flash kernels, odd
 lengths, dropout and all-masked rows; for the LSTM kernels, batches
 past one 128-row chunk, hidden sizes that are not a multiple of 4 or
 32, all-masked rows, the op's reversed path and the shapes past what a
-card can hold; for the sparse kernels (K9, K10), an empty batch, every
+card can hold; the same for the GRU kernels (K8a, K8b), with an
+initial state and a bit-identical backward on a rerun; for the sparse kernels (K9, K10), an empty batch, every
 id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
 bit against the plain versions, and no fallback when the kernel library
 is missing.
@@ -346,6 +347,136 @@ def test_lstm_kernels_refuse_what_they_do_not_take(dev):
     zeros = torch.zeros(1, 1, 2048, device=dev)
     with pytest.raises(ValueError, match="resident|shared memory"):
         R.lstm_fused_grad(*big, zeros, zeros, zeros, zeros)
+
+
+# K8a/K8b: the tolerances of K6/K7 (the same sums through the same
+# recurrence, and a second all-unit product a step)
+GRU_SHAPES = {   # B, T, H
+    "b1_t1_h8": (1, 1, 8),
+    "b5_t7_h96": (5, 7, 96),
+    "b5_t6_h37": (5, 6, 37),
+    "b200_t9_h40": (200, 9, 40),
+    "b64_t32_h256": (64, 32, 256),
+    "b3_t64_h512": (3, 64, 512),
+}
+
+
+def _gru_inputs(dev, B, T, H, seed=0, masked=True, all_masked=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xproj = torch.randn(B, T, 3 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(H, 3 * H, generator=g, device=dev) / H ** 0.5
+    h0 = torch.randn(B, H, generator=g, device=dev) * 0.1
+    lens = (torch.randint(1, T + 1, (B,), generator=g, device=dev) if masked
+            else torch.full((B,), T, device=dev))
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    if all_masked:
+        mask[-1] = 0.0
+    dhs = torch.randn(B, T, H, generator=g, device=dev)
+    return (xproj, w, h0, mask), dhs
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["ragged", "full"])
+@pytest.mark.parametrize("shape", list(GRU_SHAPES), ids=list(GRU_SHAPES))
+def test_gru_kernels_match_plain(dev, shape, masked):
+    B, T, H = GRU_SHAPES[shape]
+    args, dhs = _gru_inputs(dev, B, T, H, seed=B + T + H, masked=masked,
+                            all_masked=masked)
+    n = (R.gru_fused.launches, R.gru_fused_grad.launches)
+    hs = R.gru_fused(*args)
+    grads = R.gru_fused_grad(*args, hs, dhs)
+    torch.cuda.synchronize()
+    assert (R.gru_fused.launches, R.gru_fused_grad.launches) == \
+        (n[0] + 1, n[1] + 1)
+    assert (hs - R.gru_ref(*args)).abs().max().item() <= LSTM_FWD_ATOL
+    ref = R.gru_grad_ref(*args, hs, dhs)
+    for name, a, b in zip(("dxproj", "dw", "dh0"), grads, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= LSTM_GRAD_REL, name
+    if masked:   # the all-masked row keeps h0 and takes no gate gradient
+        assert torch.equal(hs[-1], args[2][-1].expand(T, H))
+        assert torch.count_nonzero(grads[0][-1]).item() == 0
+
+
+def test_gru_kernels_are_deterministic(dev):
+    args, dhs = _gru_inputs(dev, 64, 32, 256, seed=9)
+    hs = R.gru_fused(*args)
+    assert torch.equal(hs, R.gru_fused(*args))
+    a = R.gru_fused_grad(*args, hs, dhs)
+    b = R.gru_fused_grad(*args, hs, dhs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_op_kernel_path_matches_plain_scan(dev, reverse, h0):
+    """The op and its grad rule on the card: K8a/K8b (attr absent)
+    against the plain scan (use_pallas_kernel False), with ragged
+    lengths (one of them 0), the whole-axis flip of is_reverse, an
+    optional H0 and a LastH cotangent."""
+    B, T, H = 6, 11, 40
+    args, dhs = _gru_inputs(dev, B, T, H, seed=22)
+    xproj, w = args[0], args[1]
+    lens = torch.tensor([11, 1, 5, 0, 7, 3], dtype=torch.int32, device=dev)
+    ins = {"Input": [xproj], "Weight": [w], "SeqLen": [lens]}
+    if h0:
+        ins["H0"] = [args[2]]
+    op = t_registry.get("gru")
+    outs = {}
+    for name, attrs in (("kernel", {"is_reverse": reverse}),
+                        ("plain", {"is_reverse": reverse,
+                                   "use_pallas_kernel": False})):
+        fwd = op.lower(None, ins, attrs)
+        gin = {**ins, **fwd, "Hidden@GRAD": [dhs],
+               "LastH@GRAD": [dhs[:, 0] * 0.5]}
+        outs[name] = (fwd, op.grad(None, gin, attrs))
+    (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
+    for slot in ("Hidden", "LastH"):
+        assert (fk[slot][0] - fp[slot][0]).abs().max().item() <= \
+            LSTM_FWD_ATOL, slot
+    assert sorted(gk) == sorted(gp)
+    assert ("H0@GRAD" in gk) == h0
+    for slot in gk:
+        assert _rel(gk[slot][0], gp[slot][0]) <= LSTM_GRAD_REL, slot
+
+
+def test_gru_kernels_on_a_side_stream(dev):
+    args, dhs = _gru_inputs(dev, 16, 20, 64, seed=13)
+    hs = R.gru_fused(*args)
+    grads = R.gru_fused_grad(*args, hs, dhs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hs2 = R.gru_fused(*args)
+        grads2 = R.gru_fused_grad(*args, hs2, dhs)
+    side.synchronize()
+    assert torch.equal(hs, hs2)
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+
+
+def test_gru_kernels_refuse_what_they_do_not_take(dev):
+    args, dhs = _gru_inputs(dev, 2, 3, 8)
+    xproj, w, h0, mask = args
+    with pytest.raises(TypeError):
+        R.gru_fused(xproj.double(), w, h0, mask)
+    with pytest.raises(ValueError):
+        R.gru_fused(xproj.transpose(0, 1).contiguous().transpose(0, 1), w,
+                    h0, mask)
+    with pytest.raises(ValueError):
+        R.gru_fused(xproj, w, h0, mask.cpu())
+    with pytest.raises(ValueError):
+        R.gru_fused(xproj, w[:, :8], h0, mask)
+    hs = R.gru_fused(*args)
+    with pytest.raises(ValueError):
+        R.gru_fused_grad(*args, hs, dhs.transpose(1, 2))
+    # past the co-residency a card offers: 4 units a block
+    big, _ = _gru_inputs(dev, 1, 1, 8192)
+    with pytest.raises(ValueError, match="resident|shared memory"):
+        R.gru_fused(*big)
+    zeros = torch.zeros(1, 1, 8192, device=dev)
+    with pytest.raises(ValueError, match="resident|shared memory"):
+        R.gru_fused_grad(*big, zeros, zeros)
 
 
 # ---------------------------------------------------------------------------

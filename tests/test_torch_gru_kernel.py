@@ -1,0 +1,188 @@
+"""The port's fused GRU (K8a/K8b plain versions and the ``gru`` op)
+against the JAX reference on the same numpy inputs.
+
+The reference's Pallas kernels run in interpret mode on the CPU, as its
+own ``tests/test_rnn_kernel.py`` runs them; the JAX scan is the XLA
+lowering's math and its ``jax.grad`` the reference's default gradient.
+Tolerances are the reference tests' own: 1e-5 for the forward, 2e-4 for
+the gradients (float32 in two frameworks, different summation orders
+through the recurrence).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jfluid
+import paddle_tpu_torch as tfluid
+from paddle_tpu.core import unique_name as j_unique
+from paddle_tpu.core.executor import Executor as JExecutor
+from paddle_tpu.core.executor import Scope as JScope
+from paddle_tpu.core.executor import scope_guard as j_scope_guard
+from paddle_tpu.core.program import Program as JProgram
+from paddle_tpu.core.program import program_guard as j_guard
+from paddle_tpu.kernels import rnn as R
+from paddle_tpu.layer_helper import LayerHelper as JHelper
+from paddle_tpu.layers.nn import seq_len_var as j_seq_len_var
+from paddle_tpu_torch.core import lowering as t_lowering
+from paddle_tpu_torch.core import unique_name as t_unique
+from paddle_tpu_torch.core.program import Program as TProgram
+from paddle_tpu_torch.core.program import program_guard as t_guard
+from paddle_tpu_torch.kernels import rnn as TR
+from paddle_tpu_torch.layer_helper import LayerHelper as THelper
+from paddle_tpu_torch.layers.nn import seq_len_var as t_seq_len_var
+
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _scan(xproj, w, h0, mask):
+    """jnp scan with the math of the reference's XLA gru lowering."""
+    H = w.shape[0]
+    w_uz, w_c = w[:, :2 * H], w[:, 2 * H:]
+    xs = jnp.swapaxes(xproj, 0, 1)
+    ms = jnp.swapaxes(mask, 0, 1)[..., None]
+
+    def step(h, inp):
+        x_t, m_t = inp
+        uz = jax.nn.sigmoid(x_t[:, :2 * H] + jnp.matmul(h, w_uz))
+        u, r = uz[:, :H], uz[:, H:]
+        c = jnp.tanh(x_t[:, 2 * H:] + jnp.matmul(r * h, w_c))
+        h_new = u * h + (1 - u) * c
+        h_new = m_t * h_new + (1 - m_t) * h
+        return h_new, h_new
+
+    _, hs = jax.lax.scan(step, h0, (xs, ms))
+    return jnp.swapaxes(hs, 0, 1)
+
+
+def _data(masked, B=4, T=6, H=16, seed=3):
+    rs = np.random.RandomState(seed)
+    xproj = rs.randn(B, T, 3 * H).astype("float32") * 0.5
+    w = rs.randn(H, 3 * H).astype("float32") * 0.3
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(1, T + 1, (B,)) if masked else np.full((B,), T)
+    lens[0] = 1
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    return xproj, w, h0, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gru_ref_matches_pallas_forward_and_scan(masked):
+    args = _data(masked)
+    hs = TR.gru_ref(*_t(*args)).numpy()
+    np.testing.assert_allclose(
+        hs, np.asarray(R.gru_fused(*map(jnp.asarray, args), True)), **FWD_TOL)
+    np.testing.assert_allclose(
+        hs, np.asarray(_scan(*map(jnp.asarray, args))), **FWD_TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gru_grad_ref_matches_pallas_backward_and_scan(masked):
+    """The cotangent of loss = |hs|^2, as the reference's
+    test_fused_gru_forward_and_grads_match_scan feeds it: against the
+    Pallas backward in interpret mode and ``jax.grad`` of the scan."""
+    args = _data(masked, seed=4)
+    xproj, w, h0, mask = map(jnp.asarray, args)
+    hs = R.gru_fused(xproj, w, h0, mask, True)
+    want_p = R.gru_fused_grad(xproj, w, h0, mask, hs, 2.0 * hs, True)
+    want_s = jax.grad(lambda x, w_, h: jnp.sum(_scan(x, w_, h, mask) ** 2),
+                      (0, 1, 2))(xproj, w, h0)
+    hs_n = np.asarray(hs)
+    got = TR.gru_grad_ref(*_t(*args, hs_n, 2.0 * hs_n))
+    for name, a, b, c in zip(["dx", "dw", "dh0"], got, want_p, want_s):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **GRAD_TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    args = _t(*_data(True, seed=5))
+    n = (TR.gru_fused.launches, TR.gru_fused_grad.launches)
+    hs = TR.gru_fused(*args)
+    assert torch.equal(hs, TR.gru_ref(*args))
+    for a, b in zip(TR.gru_fused_grad(*args, hs, hs),
+                    TR.gru_grad_ref(*args, hs, hs)):
+        assert torch.equal(a, b)
+    assert (TR.gru_fused.launches, TR.gru_fused_grad.launches) == n
+
+
+B, T, H = 4, 5, 8
+LENS = np.array([5, 3, 1, 4], "int64")
+
+
+def _gru_program(fluid, Program, guard, unique, Helper, seq_len_var,
+                 reverse, use_kernel, with_h0):
+    prog, startup = Program(), Program()
+    prog.random_seed = startup.random_seed = 7
+    with guard(prog, startup), unique.guard():
+        d = fluid.layers.data("x", [T, 3 * H], lod_level=1,
+                              stop_gradient=False)
+        helper = Helper("gru")
+        w = helper.create_parameter("w", (H, 3 * H), "float32")
+        hidden = helper.create_variable_for_type_inference(
+            "float32", shape=(B, T, H))
+        last_h = helper.create_variable_for_type_inference(
+            "float32", shape=(B, H))
+        ins = {"Input": [d], "Weight": [w], "SeqLen": [seq_len_var(d)]}
+        if with_h0:
+            ins["H0"] = [fluid.layers.data("h0", [H], stop_gradient=False)]
+        attrs = {"is_reverse": reverse}
+        if use_kernel is not None:
+            attrs["use_pallas_kernel"] = use_kernel
+        helper.append_op("gru", ins, {"Hidden": [hidden], "LastH": [last_h]},
+                         attrs)
+        loss = fluid.layers.elementwise_add(
+            fluid.layers.mean(hidden), fluid.layers.mean(last_h))
+        fluid.append_backward(loss)
+    fetch = [hidden.name, last_h.name, "w@GRAD", "x@GRAD"]
+    if with_h0:
+        fetch.append("h0@GRAD")
+    return prog, startup, fetch
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("use_kernel", [True, None, False],
+                         ids=["pallas", "default", "scan"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_op_in_program_matches_reference(reverse, use_kernel, with_h0):
+    """The gru op and its explicit grad inside a program, ragged lengths
+    (one row of length 1) with the LastH cotangent and an optional H0:
+    the port against the reference run with the same
+    ``use_pallas_kernel`` (True is the Pallas kernels in interpret mode;
+    absent and False its XLA scan and ``jax.vjp``)."""
+    rs = np.random.RandomState(6)
+    feed = {"x": rs.randn(B, T, 3 * H).astype("float32") * 0.3,
+            "x@LEN": LENS}
+    if with_h0:
+        feed["h0"] = rs.randn(B, H).astype("float32") * 0.2
+    prog, startup, fetch = _gru_program(
+        jfluid, JProgram, j_guard, j_unique, JHelper, j_seq_len_var, reverse,
+        use_kernel, with_h0)
+    exe, scope = JExecutor(), JScope()
+    with j_scope_guard(scope):
+        exe.run(startup)
+        init = {"w": np.array(scope.find_var("w"))}
+        want = exe.run(prog, feed=feed, fetch_list=fetch)
+
+    prog, _, fetch = _gru_program(
+        tfluid, TProgram, t_guard, t_unique, THelper, t_seq_len_var, reverse,
+        use_kernel, with_h0)
+    scope = tfluid.Scope()
+    scope.load_numpy(init, device="cpu")
+    n = (TR.gru_fused.launches, TR.gru_fused_grad.launches,
+         t_lowering.grad_recomputes)
+    got = tfluid.Executor("cpu").run(prog, feed=feed, fetch_list=fetch,
+                                     scope=scope)
+    assert (TR.gru_fused.launches, TR.gru_fused_grad.launches,
+            t_lowering.grad_recomputes) == n
+    for name, a, b in zip(fetch[:2], got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **FWD_TOL)
+    for name, a, b in zip(fetch[2:], got[2:], want[2:]):
+        np.testing.assert_allclose(a, b, err_msg=name, **GRAD_TOL)

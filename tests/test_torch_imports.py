@@ -40,17 +40,19 @@ PROGRAM_MODULES = [
     "ops/optimizer_ops.py", "ops/attention_ops.py", "ops/sequence_ops.py",
     "models/transformer.py", "models/stacked_lstm.py", "kernels/_hash.py",
     "kernels/rnn.py", "core/selected_rows.py", "kernels/sparse.py",
-    "models/deepfm.py",
+    "models/deepfm.py", "ops/control_flow_ops.py", "layers/control_flow.py",
+    "models/machine_translation.py",
 ]
 
 
 def test_port_files_exist():
     files = _port_files()
-    assert len(files) >= 48
+    assert len(files) >= 51
     for src in ("paged_decode_attn.cu", "flash_attn_fwd.cu",
                 "flash_attn_bwd.cu", "flash_attn_common.cuh",
                 "lstm_fwd.cu", "lstm_bwd.cu", "lstm_common.cuh",
-                "sparse_gather.cu", "sparse_update.cu"):
+                "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
+                "gru_bwd.cu", "gru_common.cuh"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
     for mod in PROGRAM_MODULES:
         assert os.path.join(PORT, mod) in files, mod

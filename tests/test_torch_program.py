@@ -24,6 +24,7 @@ from paddle_tpu_torch.core import lowering as t_lowering
 from paddle_tpu_torch.core import unique_name as t_unique
 from paddle_tpu_torch.core.program import Program as TProgram
 from paddle_tpu_torch.core.program import program_guard as t_guard
+from paddle_tpu_torch.layer_helper import LayerHelper as THelper
 from paddle_tpu_torch.models import transformer as t_transformer
 
 SMALL = dict(src_vocab=50, tgt_vocab=50, max_len=16, d_model=32, n_head=4,
@@ -174,12 +175,20 @@ def test_unported_ops_raise():
             exe.run(startup)
             exe.run(main, feed=feed, fetch_list=[out])
 
+    def gather():
+        helper = THelper("gather")
+        out = helper.create_variable_for_type_inference("float32",
+                                                        shape=(2, 4))
+        helper.append_op("gather", {
+            "X": [tfluid.layers.data("x", [4])],
+            "Index": [tfluid.layers.data("idx", [], dtype="int64")]},
+            {"Out": [out]})
+        return out
+
+    # gather comes with beam-search decoding
     with pytest.raises(KeyError, match="no lowering registered"):
-        run(lambda: tfluid.layers.matmul(tfluid.layers.data("x", [4]),
-                                         tfluid.layers.data("y", [4]),
-                                         transpose_y=True),
-            {"x": np.zeros((2, 4), "float32"),
-             "y": np.zeros((2, 4), "float32")})
+        run(gather, {"x": np.zeros((2, 4), "float32"),
+                     "idx": np.zeros((2,), "int64")})
     with pytest.raises(NotImplementedError, match="nested"):
         run(lambda: tfluid.layers.sequence_pool(
             tfluid.layers.data("w", [1], lod_level=2), "sum"),

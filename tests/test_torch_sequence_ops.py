@@ -1,8 +1,10 @@
 """The stacked LSTM's op rules other than the lstm: ``sequence_pool``,
-``softmax``, ``cross_entropy``, ``top_k`` and ``accuracy``, each against
-the reference's rule on the same numpy inputs, forward and (where the op
-has one) gradient: jax.vjp of the reference rule against torch autograd
-of the port's, with the same cotangent.
+``softmax``, ``cross_entropy``, ``top_k`` and ``accuracy``, and machine
+translation's: ``matmul``, ``slice``, ``sigmoid``, ``tanh``,
+``fill_constant_batch_size_like`` and ``sequence_last_step``; each
+against the reference's rule on the same numpy inputs, forward and
+(where the op has one) gradient: jax.vjp of the reference rule against
+torch autograd of the port's, with the same cotangent.
 
 Tolerances: float32 elementwise math and short reductions in two
 frameworks, 1e-6 relative + 1e-6 absolute; index outputs exactly.
@@ -146,3 +148,50 @@ def test_accuracy_matches_reference():
         (got, want), _ = _both("accuracy", ins, {}, slot)
         assert got.dtype == dtype, slot
         np.testing.assert_array_equal(got, want)
+
+
+def _rand(*shape, seed=2):
+    return np.random.RandomState(seed).randn(*shape).astype("float32")
+
+
+MT_OPS = {  # name: (op, ins, attrs, output slot, input slot differentiated)
+    "matmul_broadcast_alpha": (
+        "matmul", {"X": _rand(2, 3, 4), "Y": _rand(4, 5, seed=3)},
+        {"alpha": 0.5}, "Out", "X"),
+    "matmul_transposed": (
+        "matmul", {"X": _rand(2, 4, 3), "Y": _rand(2, 5, 4, seed=3)},
+        {"transpose_X": True, "transpose_Y": True}, "Out", "Y"),
+    "matmul_2d_by_batched": (
+        "matmul", {"X": _rand(3, 4), "Y": _rand(2, 4, 5, seed=3)}, {},
+        "Out", "Y"),
+    "slice_negative_and_clamped": (
+        "slice", {"Input": _rand(3, 8, 5)},
+        {"axes": [1, 2], "starts": [2, -3], "ends": [100, -1]}, "Out",
+        "Input"),
+    "sigmoid": ("sigmoid", {"X": _rand(4, 6) * 4}, {}, "Out", "X"),
+    "tanh": ("tanh", {"X": _rand(4, 6) * 4}, {}, "Out", "X"),
+    "fill_constant_batch_size_like": (
+        "fill_constant_batch_size_like", {"Input": _rand(3, 7)},
+        {"shape": [-1, 5], "dtype": "float32", "value": 1.5}, "Out", None),
+    "fill_constant_batch_size_like_dims": (
+        "fill_constant_batch_size_like", {"Input": _rand(3, 7)},
+        {"shape": [2, -1], "dtype": "float32", "value": -2.0,
+         "input_dim_idx": 1, "output_dim_idx": 1}, "Out", None),
+    "sequence_last_step_ragged": (
+        "sequence_last_step", _pool_input(True), {}, "Out", "X"),
+    "sequence_last_step_dense": (
+        "sequence_last_step", _pool_input(False), {}, "Out", "X"),
+}
+
+
+@pytest.mark.parametrize("case", list(MT_OPS), ids=list(MT_OPS))
+def test_machine_translation_op_matches_reference(case):
+    """matmul transposes the last two axes, broadcasts a batch and
+    scales by alpha; slice clamps and counts negative bounds from the
+    end; sequence_last_step gives a length-0 row zeros."""
+    op, ins, attrs, slot, wrt = MT_OPS[case]
+    (got, want), (ggot, gwant) = _both(op, ins, attrs, slot, wrt)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, **TOL)
+    if wrt is not None:
+        np.testing.assert_allclose(ggot, gwant, **TOL)
