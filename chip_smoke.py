@@ -5,8 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 7, 8, 9, 6
-(each one that fails raises, and the script exits non-zero):
+Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
+9, 10, 6 (each one that fails raises, and the script exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -111,6 +111,37 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 7, 8, 9, 6
    finite and fall, K8a and K8b must each launch exactly twice a step,
    and no gradient may re-run its forward.  Step ms, tokens/s, peak
    memory and one profiled step follow.
+3f. The fused-dequant int8 FC K5 against its plain version at the int8
+   Transformer's four bucket-8 shapes (M = 2048: [512 -> 512],
+   [512 -> 2048] with relu, [2048 -> 512], [512 -> 32000]), an odd shape
+   (M=5, K=37, N=11) and one row, every act of the epilogue ("", relu,
+   sigmoid, tanh, gelu) with a dynamic and a calibrated activation
+   scale: "" and relu bit for bit, the others within 1e-6 of max|ref|.
+   Then the kernel's device time (profiler), its plain version and two
+   library yardsticks the port never calls (``torch._int_mm`` plus the
+   epilogue in torch ops, and the float32 ``torch.matmul`` of the same
+   layer) beside the bound, cycling inputs past the L2.
+10. The int8 serving slice: Transformer-base (vocab 32000/32000, d_model
+   512, 8 heads, d_ffn 2048, ``attention_impl="base"``, dropout 0.1 that
+   the predictor runs as identities) through ``io.save_inference_model``
+   -> ``AnalysisConfig.enable_int8()`` -> ``create_predictor`` ->
+   ``ModelManager`` with buckets (1, 2, 4, 8).  First a 2 + 2-layer
+   model at full width, B=2, T=64, on the card and on the CPU from one
+   saved directory: equal stamped programs; every stamped op's K5
+   output equal, bit for bit, to its plain version on the CPU given the
+   same input; float32 logits within 1e-4 of max|ref|; every stamped
+   op's activation codes equal up to the first op where one differs,
+   and there at most 0.1% of them apart, each by one (a rounding tie);
+   int8 logits within the int8 error itself (RMS no more than sqrt(2) x
+   int8 vs float32 on the CPU: each flipped code moves later codes).
+   Then the full model (6 + 6 layers, T=256) loaded twice,
+   float32 and int8, serves 128 single-row requests with ragged masks
+   from 4 client threads, two in flight each: every request answered, K5 launched exactly
+   97 times an int8 dispatch and never in the float32 arm, every float32
+   reply within 1e-4 of ``Predictor.run`` of its row alone.  Printed,
+   not gated: the argmax disagreement of int8 against float32
+   (``quant_accuracy_delta``), QPS, p50/p99, the bucket-8 dispatch ms,
+   peak memory and one profiled int8 dispatch.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound.
@@ -207,6 +238,33 @@ MT_TRAIN = dict(src_vocab=10000, tgt_vocab=10000, emb_dim=256, hid=256,
 MT_B, MT_STEPS, MT_PARITY_B = 64, 12, 8
 MT_SHORTEST = 8                # ragged masks keep 8..T tokens a row
 
+# K5 vs its plain version: "" and relu bit for bit (exact int32 sums,
+# the epilogue's rounded multiply then add); sigmoid, tanh and gelu
+# within INT8_FC_REL * max|ref| (the card's and torch's transcendentals)
+INT8_FC_REL = 1e-6
+INT8_OPS_PER_S = 1.979e15      # dense int8 tensor-core peak
+INT8_ACTS = ("", "relu", "sigmoid", "tanh", "gelu")
+# the int8 Transformer's K5 shapes at bucket 8 (M = 8 x 256): M, K, N and
+# the path's act, and how many launches of each a dispatch makes
+INT8_SHAPES = {"proj": (2048, 512, 512, ""),
+               "ffn1": (2048, 512, 2048, "relu"),
+               "ffn2": (2048, 2048, 512, ""),
+               "vocab": (2048, 512, 32000, "")}
+INT8_DISPATCH_SHAPES = {"proj": 72, "ffn1": 12, "ffn2": 12, "vocab": 1}
+INT8_LAUNCHES = 97             # stamped ops of the 6 + 6-layer model
+INT8_CHECK = {**INT8_SHAPES, "odd": (5, 37, 11, ""), "m1": (1, 512, 512, "")}
+# the serving slice: the bench's serving Transformer at full width
+SERVE = dict(src_vocab=32000, tgt_vocab=32000, d_model=512, n_head=8,
+             d_ffn=2048, dropout=0.1, attention_impl="base")
+SERVE_T, SERVE_LAYERS = 256, 6
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUCKETS = 128, 4, (1, 2, 4, 8)
+# float32 logits, card vs CPU, and an f32 reply vs Predictor.run of its
+# row alone: other GEMM tilings and sum orders over the layers.  (The
+# int8 logits are held to the int8 error itself: check_int8_against_cpu)
+SERVE_F32_TOL = 1e-4
+# int8 card vs CPU: the share of a stamped op's activation codes that may
+# flip (each by one) at the first op where the two runs' codes differ
+FLIP_FRAC = 1e-3
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
 SLOTS, BLOCK_TOKENS, BUCKETS = 8, 16, (16, 32, 64, 128)
@@ -1560,24 +1618,32 @@ def check_train_step_against_cpu(dev) -> dict:
 
 
 def profile_step(exe, main, feed, loss, focus) -> dict:
-    """One training step under the torch profiler: device busy time over
-    its window, the device time of the kernels whose names contain each
-    of ``focus`` and their share, and the kernels with the most device
-    time.  One more step runs first inside the same profiler session and
-    is left out (the device events from the moment the measured step's
+    """One training step under the torch profiler (``profile_call``)."""
+    return profile_call(lambda: exe.run(main, feed=feed, fetch_list=[loss]),
+                        focus)
+
+
+def profile_call(run, focus) -> dict:
+    """One call of ``run`` (a training step, a serving dispatch) under
+    the torch profiler: device busy time over its window, the device
+    time of the kernels whose names contain each of ``focus`` and their
+    share, and the kernels with the most device time.  One more call
+    runs first inside the same profiler session and is left out (the
+    device events from the moment the measured call's
     ``record_function`` span opens are kept): a session can drop its
-    first device event, which would otherwise be the step's first
+    first device event, which would otherwise be the call's first
     kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        exe.run(main, feed=feed, fetch_list=[loss])
+        run()
         torch.cuda.synchronize()
         with record_function("chip_smoke.profiled_step"):
             t0 = time.perf_counter()
-            exe.run(main, feed=feed, fetch_list=[loss])
+            run()
+            torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     # the span itself also shows on the device's timeline (a user
     # annotation): it marks the start and is no kernel
@@ -1608,6 +1674,9 @@ def profile_step(exe, main, feed, loss, focus) -> dict:
     return {"wall_ms": wall * 1e3, "device_window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / window,
+            # the host's time before the first kernel and after the last
+            # (a fetch's copy into numpy) is outside the device window
+            "device_idle_share_of_wall": 1.0 - busy / (wall * 1e6),
             "kernels_launched": len(events),
             "kernel_ms_total": total / 1e3,
             "focus_ms": {k: v / 1e3 for k, v in named.items()},
@@ -2197,6 +2266,530 @@ def run_machine_translation(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: the fused-dequant int8 FC (K5) against its plain version
+# ---------------------------------------------------------------------------
+
+def int8_case(dev, M, K, N, seed):
+    """Random float32 activations x [M, K], a weight [K, N] (scaled
+    1/sqrt(K)) quantized per out channel as the quantize_int8 pass does,
+    and a bias [N]."""
+    from paddle_tpu_torch.kernels import quant as Q
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = torch.randn(K, N, generator=g, device=dev) / math.sqrt(K)
+    q, s = Q.quantize_weight(w.cpu().numpy())
+    b = torch.randn(N, generator=g, device=dev) * 0.1
+    return x, torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev), b
+
+
+def int8_work(M, K, N) -> dict:
+    """K5's least work: int8 codes read once (M*K + K*N bytes), the
+    float32 scales and bias (8N) and the float32 output (4MN), against
+    2MNK int8 operations at the H100's dense int8 tensor-core peak."""
+    nbytes = M * K + K * N + 4 * M * N + 8 * N
+    ops = 2 * M * N * K
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def check_int8_fc(Q, dev) -> dict:
+    """K5 against its plain version at the path's four shapes, an odd
+    shape and one row, every act with a dynamic and a calibrated scale:
+    bit for bit for "" and relu, within INT8_FC_REL * max|ref|
+    otherwise.  Returns the largest |kernel - plain| per act."""
+    errs = {a or "none": 0.0 for a in INT8_ACTS}
+    for i, (name, (M, K, N, _)) in enumerate(INT8_CHECK.items()):
+        x, q, s, b = int8_case(dev, M, K, N, seed=90 + i)
+        for act in INT8_ACTS:
+            for in_scale in (0.0, 4.0):
+                got = Q.int8_fc(x, q, s, in_scale, b, act)
+                want = Q.int8_fc_plain(x, q, s, in_scale, b, act)
+                torch.cuda.synchronize()
+                d = (got - want).abs().max().item()
+                tol = (0.0 if act in ("", "relu")
+                       else INT8_FC_REL * want.abs().max().item())
+                if not (torch.isfinite(got).all() and d <= tol):
+                    raise AssertionError(
+                        f"K5 disagrees with its plain version at {name} "
+                        f"[{M}, {K}] x [{K}, {N}], act {act!r}, in_scale "
+                        f"{in_scale}: max|d| {d} > {tol}")
+                errs[act or "none"] = max(errs[act or "none"], d)
+        del x, q, s, b
+        log(f"  {name} [{M}, {K}] x [{K}, {N}]: every act, dynamic and "
+            f"calibrated scale: '' and relu bit for bit, sigmoid/tanh/gelu "
+            f"within {INT8_FC_REL} * max|ref|")
+    return errs
+
+
+def time_int8_fc(Q, dev) -> dict:
+    """K5 at the path's four bucket-8 shapes with the path's acts and the
+    dynamic scale: the kernel's device time (profiler, K5 alone), the
+    wrapper's (quantize + K5) device time, the plain version, and two
+    library yardsticks the port never calls: ``torch._int_mm``
+    (cuBLASLt int8 -> int32) plus the same epilogue in torch ops, and
+    the float32 ``torch.matmul`` the float32 predictor pays for the
+    layer.  Inputs are cycled so every launch reads its weight from
+    device memory rather than L2."""
+    out = {}
+    for i, (name, (M, K, N, act)) in enumerate(INT8_SHAPES.items()):
+        per_set = 4 * M * K + K * N + 4 * K * N
+        n_sets = max(2, min(32, -(-3 * L2_BYTES // per_set)))
+        sets = [int8_case(dev, M, K, N, seed=120 + 40 * i + j)
+                for j in range(n_sets)]
+        w32 = [q.float() * (s / 127.0) for _, q, s, _ in sets]
+        pre = [Q._quantize_act(x, 0.0) for x, *_ in sets]
+
+        def kernel(st):
+            x, q, s, b = st
+            return Q.int8_fc(x, q, s, 0.0, b, act)
+
+        def plain(st):
+            x, q, s, b = st
+            return Q.int8_fc_plain(x, q, s, 0.0, b, act)
+
+        def int_mm(k, qw):
+            xq, sx = pre[k]
+            acc = torch._int_mm(xq, qw).float()
+            _, _, s, b = sets[k]
+            return Q._epilogue(acc, Q._dequant_scale(sx, s), b, act)
+
+        row = int8_work(M, K, N)
+        idx = list(range(n_sets))
+        row["ms"] = device_ms(lambda k: kernel(sets[k]), idx, iters=20,
+                              name="int8_fc_kernel")
+        row["wrapper_ms"] = device_ms(lambda k: kernel(sets[k]), idx,
+                                      iters=20)
+        row["wall_ms"] = time_ms(lambda k: kernel(sets[k]), idx, iters=20)
+        row["plain_ms"] = time_ms(lambda k: plain(sets[k]), idx, iters=3)
+        try:
+            row["library_ms"] = device_ms(
+                lambda k: int_mm(k, sets[k][1]), idx, iters=20)
+            row["library"] = "torch._int_mm + epilogue"
+        except RuntimeError as e:   # cuBLASLt may want the weight K-major
+            cm = [st[1].t().contiguous().t() for st in sets]
+            try:
+                row["library_ms"] = device_ms(lambda k: int_mm(k, cm[k]),
+                                              idx, iters=20)
+                row["library"] = "torch._int_mm (K-major weight) + epilogue"
+            except RuntimeError as e2:
+                row["library_ms"] = None
+                row["library"] = f"torch._int_mm refused: {e}; {e2}"[:300]
+        row["f32_matmul_ms"] = device_ms(
+            lambda k: torch.matmul(sets[k][0], w32[k]), idx, iters=20)
+        row.update(M=M, K=K, N=N, act=act, launches_per_dispatch=
+                   INT8_DISPATCH_SHAPES[name], input_sets=n_sets)
+        out[name] = row
+        log(f"  {name} [{M}, {K}] x [{K}, {N}] {act or 'no act'}: kernel "
+            f"{row['ms']!r} ms of device time (with the activation "
+            f"quantization {row['wrapper_ms']!r} ms; {row['wall_ms']!r} ms "
+            f"a call by CUDA events), plain {row['plain_ms']!r} ms, "
+            f"{row['library']} {row['library_ms']!r} ms, float32 matmul "
+            f"{row['f32_matmul_ms']!r} ms, bound {row['bound_ms']!r} ms "
+            f"({row['bound_by']}, {row['ops']} ops, {row['bytes']} bytes)")
+        del sets, w32, pre
+        torch.cuda.empty_cache()
+    summed = {k: sum(r[k] * r["launches_per_dispatch"] for r in out.values())
+              for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                        "f32_matmul_ms")}
+    summed["library_ms"] = (None if any(r["library_ms"] is None
+                                        for r in out.values()) else
+                            sum(r["library_ms"] * r["launches_per_dispatch"]
+                                for r in out.values()))
+    out["dispatch_sum"] = summed
+    log("  summed over one bucket-8 dispatch's "
+        f"{sum(INT8_DISPATCH_SHAPES.values())} launches: " + json.dumps(
+            {k: v for k, v in summed.items()}))
+    return out
+
+
+def check_and_time_int8_fc(dev) -> dict:
+    from paddle_tpu_torch.kernels import quant as Q
+    errs = check_int8_fc(Q, dev)
+    out = {"max_abs_err": errs, **time_int8_fc(Q, dev)}
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: int8 serving of Transformer-base through ModelManager
+# ---------------------------------------------------------------------------
+
+def save_serving_model(dirname: str, n_layer: int, T: int, place,
+                       seed: int = 5):
+    """Build the port's Transformer inference program (the bench's
+    serving model: attention_impl "base", dropout 0.1) at full width
+    with ``n_layer`` + ``n_layer`` layers and T-token feeds, initialize
+    it from ``seed`` on ``place``, and save it with
+    ``io.save_inference_model``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models.transformer import transformer
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), unique_name.guard():
+        src = L.data("src_ids", [T], dtype="int64")
+        tgt = L.data("tgt_ids", [T], dtype="int64")
+        sm = L.data("src_mask", [T])
+        tm = L.data("tgt_mask", [T])
+        logits = transformer(src, tgt, sm, tm, n_layer=n_layer, max_len=T,
+                             **SERVE)
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(
+            dirname, ["src_ids", "tgt_ids", "src_mask", "tgt_mask"],
+            [logits], exe, main_program=main)
+    del scope, exe
+
+
+def serving_rows(n: int, T: int, seed: int) -> list:
+    """``n`` single-row requests: token ids and ragged masks (a prefix of
+    T/2..T live tokens, source and target drawn apart) from ``seed``."""
+    rs = np.random.RandomState(seed)
+    rows = []
+    for _ in range(n):
+        ls, lt = rs.randint(T // 2, T + 1, 2)
+        pos = np.arange(T)[None, :]
+        rows.append({
+            "src_ids": rs.randint(0, SERVE["src_vocab"], (1, T)
+                                  ).astype("int64"),
+            "tgt_ids": rs.randint(0, SERVE["tgt_vocab"], (1, T)
+                                  ).astype("int64"),
+            "src_mask": (pos < ls).astype("float32"),
+            "tgt_mask": (pos < lt).astype("float32")})
+    return rows
+
+
+def int8_predictor(d: str, int8: bool, cpu: bool = False):
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    cfg = AnalysisConfig(d)
+    if cpu:
+        cfg.disable_gpu()
+    if int8:
+        cfg.enable_int8()
+    return create_predictor(cfg)
+
+
+def rms_rel(got, want) -> float:
+    return float(np.sqrt(np.mean((got - want) ** 2))
+                 / np.sqrt(np.mean(want ** 2)))
+
+
+def stamped_io(pred, feed) -> tuple:
+    """The stamped ops of ``pred``'s int8 program, with the input X and
+    the output each took in ``pred``'s run on ``feed``, as numpy."""
+    ops = [op for op in pred.program().global_block.ops
+           if op.attrs.get("quant_int8")]
+    names = [op.inputs["X"][0] for op in ops] + \
+        [op.outputs["Out"][0] for op in ops]
+    vals = pred._exe.run(pred.program(), feed=feed, fetch_list=names,
+                         scope=pred._scope)
+    return ops, vals[:len(ops)], vals[len(ops):]
+
+
+def replay_stamped_ops(Q, host, ops, xs, outs) -> int:
+    """Every stamped op of the card's run, replayed on the CPU: the op's
+    plain version (``int8_fc_plain`` with the host predictor's weights)
+    on the very input the card gave the op must equal the card's K5
+    output bit for bit (the path's acts are "" and relu).  Returns the
+    number of ops replayed."""
+    for op, x, out in zip(ops, xs, outs):
+        xnc = int(op.attrs.get("x_num_col_dims", 1))
+        xm = torch.from_numpy(x.reshape(int(np.prod(x.shape[:xnc])), -1))
+        wt = {s: host._scope.find_var(op.inputs[s][0])
+              for s in ("WInt8", "WScale")}
+        bias = (host._scope.find_var(op.inputs["Bias"][0]).reshape(-1)
+                if op.type == "fused_fc" else None)
+        act = (op.attrs.get("act", "") or "") if op.type == "fused_fc" \
+            else ""
+        want = Q.int8_fc_plain(xm, wt["WInt8"], wt["WScale"],
+                               float(op.attrs.get("in_scale", 0.0)), bias,
+                               act).numpy()
+        if not np.array_equal(out.reshape(want.shape), want):
+            raise AssertionError(
+                f"K5 on the card and the plain version on the CPU differ on "
+                f"the same input at {op.type} {op.outputs['Out'][0]}: "
+                f"max|d| {np.abs(out.reshape(want.shape) - want).max()}")
+    return len(ops)
+
+
+def first_flip(Q, ops, xs_card, xs_host) -> list:
+    """Each stamped op's activation quantized as K5's launch quantizes
+    it, from the card's run and from the CPU's, in program order: the
+    codes must be equal up to the first op where one differs, and there
+    at most FLIP_FRAC of them may differ, each by one (a rounding tie
+    broken the other way).  Returns the flipped codes per op."""
+    flips = []
+    for op, a, b in zip(ops, xs_card, xs_host):
+        s = float(op.attrs.get("in_scale", 0.0))
+        d = (Q._quantize_act(torch.from_numpy(a), s)[0].int()
+             - Q._quantize_act(torch.from_numpy(b), s)[0].int())
+        n = int((d != 0).sum())
+        if n and not any(flips):
+            move = int(d.abs().max())
+            if move != 1 or n > FLIP_FRAC * d.numel():
+                raise AssertionError(
+                    f"int8 card vs CPU: the first op whose codes differ, "
+                    f"{op.outputs['Out'][0]}, has {n} of {d.numel()} codes "
+                    f"apart, by up to {move}: not a rounding tie")
+        flips.append(n)
+    return flips
+
+
+def check_int8_against_cpu(Q, dev) -> dict:
+    """A 2 + 2-layer Transformer at full width, one saved model loaded
+    through create_predictor on the card and on the CPU (the plain
+    versions), float32 and int8, same weights; B=2, T=64.
+
+    - the stamped int8 programs are equal;
+    - every stamped op, replayed on the CPU on the input the card gave
+      it, equals the card's K5 output bit for bit (``replay_stamped_ops``);
+    - the float32 logits agree within SERVE_F32_TOL * max|ref|;
+    - each stamped op's activation codes are equal on the card and the
+      CPU up to the first op where a code differs, and there at most
+      FLIP_FRAC of them differ, each by one (``first_flip``): an
+      activation one float32 rounding apart (the card's GEMMs and
+      softmax sum in other orders) crosses a rounding tie.  A wrong
+      int8 wiring moves most codes of the next op;
+    - the int8 logits: each flipped code moves the next op's activation
+      by up to a code's weight, so later codes flip too (the per-op
+      counts are printed), and two int8 runs whose float32 parts round
+      apart become two draws of the int8 error around the float32
+      answer.  The card's int8 logits are held to the CPU's within
+      sqrt(2) times the RMS difference of the CPU's int8 and float32
+      logits on the same rows."""
+    import tempfile
+    T = 64
+    with tempfile.TemporaryDirectory() as d:
+        save_serving_model(d, 2, T, "cpu")
+        preds = {(dv, q8): int8_predictor(d, q8, cpu=dv == "cpu")
+                 for dv in ("card", "cpu") for q8 in (False, True)}
+    card, host = preds[("card", True)], preds[("cpu", True)]
+    if json.dumps(card.program().to_dict()) != \
+            json.dumps(host.program().to_dict()):
+        raise AssertionError("the card's and the CPU's int8 programs differ")
+    stamped = sum(1 for op in card.program().global_block.ops
+                  if op.attrs.get("quant_int8"))
+    rows = serving_rows(2, T, seed=3)
+    feed = {n: np.concatenate([r[n] for r in rows]) for n in card.feed_names}
+    n0 = Q.int8_fc.launches
+    (got,) = card.run(feed)
+    launches = Q.int8_fc.launches - n0
+    logits = {k: p.run(feed)[0] for k, p in preds.items()}
+    ops, xs, outs = stamped_io(card, feed)
+    replayed = replay_stamped_ops(Q, host, ops, xs, outs)
+    flips = first_flip(Q, ops, xs, stamped_io(host, feed)[1])
+    want, f32_card, f32_cpu = (logits[("cpu", True)], logits[("card", False)],
+                               logits[("cpu", False)])
+    out = {"stamped_ops": stamped, "launches": launches,
+           "ops_replayed_bit_equal": replayed,
+           "first_flip_op": next((i for i, n in enumerate(flips) if n), None),
+           "codes_flipped_per_op": flips,
+           "f32_max_rel_err": float(np.abs(f32_card - f32_cpu).max()
+                                    / np.abs(f32_cpu).max()),
+           "int8_max_rel_err": float(np.abs(got - want).max()
+                                     / np.abs(want).max()),
+           "int8_rms_rel_err": rms_rel(got, want),
+           "int8_vs_f32_rms_rel_on_cpu": rms_rel(want, f32_cpu),
+           "int8_argmax_agreement": float(np.mean(got.argmax(-1)
+                                                  == want.argmax(-1)))}
+    log(f"  2+2 layers at full width, B=2, T={T}: {stamped} stamped ops "
+        f"(equal programs), {launches} K5 launches, {replayed} ops equal to "
+        f"their plain versions on the CPU bit for bit; codes flipped card vs "
+        f"CPU per op: {flips}; logits card vs CPU: "
+        + json.dumps({k: v for k, v in out.items() if "err" in k or "rel" in k
+                      or "agree" in k}))
+    if launches != stamped or not np.isfinite(got).all():
+        raise AssertionError(f"int8 card: {launches} K5 launches for "
+                             f"{stamped} stamped ops")
+    if not out["f32_max_rel_err"] <= SERVE_F32_TOL:
+        raise AssertionError(f"f32 card vs CPU: {out['f32_max_rel_err']}")
+    bound = math.sqrt(2.0) * out["int8_vs_f32_rms_rel_on_cpu"]
+    if not out["int8_rms_rel_err"] <= bound:
+        raise AssertionError(f"int8 card vs CPU RMS {out['int8_rms_rel_err']}"
+                             f" exceeds sqrt(2) x the int8 error {bound}")
+    return out
+
+
+def serve_arm(mgr, name: str, rows: list, Q) -> dict:
+    """Send ``rows`` from SERVE_CLIENTS threads through ``mgr`` (model
+    ``name``), each thread two requests at a time (``submit`` both, then
+    wait), so up to 8 are in flight and the top bucket fills;
+    per-request latency from its submit, QPS over the whole burst, K5
+    launches and the batcher's counters.  K5's count is set to 0 just
+    before and read just after."""
+    lat, outs, errs = {}, {}, []
+
+    def client(k):
+        mine = list(range(k, len(rows), SERVE_CLIENTS))
+        for j in range(0, len(mine), 2):
+            pair = mine[j:j + 2]
+            t = time.perf_counter()
+            try:
+                futs = [mgr.submit(name, rows[i]) for i in pair]
+                for i, f in zip(pair, futs):
+                    outs[i] = f.result(timeout=600)[0]
+                    lat[i] = (time.perf_counter() - t) * 1e3
+            except Exception as e:
+                errs.append(f"{pair}: {e!r}")
+                return
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_CLIENTS)]
+    # the host-clock ms of each Predictor.run the batcher makes
+    pred = mgr._route(name).predictor
+    run, runs_ms = pred.run, []
+
+    def timed_run(feed):
+        t = time.perf_counter()
+        try:
+            return run(feed)
+        finally:
+            runs_ms.append((time.perf_counter() - t) * 1e3)
+
+    pred.run = timed_run
+    Q.int8_fc.launches = 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = Q.int8_fc.launches
+    del pred.run
+    snap = mgr.servingz()["models"][f"{name}@1"]
+    lats = sorted(lat.values())
+    return {"outs": outs, "errors": errs, "answered": len(outs),
+            "run_ms": runs_ms, "run_ms_median": float(np.median(runs_ms)),
+            "launches": launches, "batches": snap["batches"],
+            "padded_rows": snap["padded_rows"], "wall_s": wall,
+            "qps": len(outs) / wall,
+            "p50_ms": pctl(lats, 0.50) if lats else None,
+            "p99_ms": pctl(lats, 0.99) if lats else None,
+            "avg_batch_occupancy": snap["avg_batch_occupancy"]}
+
+
+def dispatch_ms(pred, rows: list, reps: int = 5) -> float:
+    """Median host-clock ms of ``Predictor.run`` on a bucket-8 batch
+    (the fetch copies the logits to the host: the synchronise)."""
+    feed = {n: np.concatenate([r[n] for r in rows[:8]])
+            for n in pred.feed_names}
+    pred.run(feed)
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        pred.run(feed)
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def run_int8_serving(dev, card: str) -> dict:
+    import tempfile
+    from paddle_tpu_torch.kernels import quant as Q
+    from paddle_tpu_torch.serving import ModelManager
+    out = {"cpu_check": check_int8_against_cpu(Q, dev)}
+    T = SERVE_T
+    rows = serving_rows(SERVE_REQUESTS, T, seed=17)
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        save_serving_model(d, SERVE_LAYERS, T, dev)
+        out["save_s"] = time.perf_counter() - t
+        mgr = ModelManager()
+        try:
+            arms = {}
+            for name, int8 in (("f32", False), ("int8", True)):
+                t = time.perf_counter()
+                sm = mgr.load(name, "1", predictor=int8_predictor(d, int8),
+                              buckets=SERVE_BUCKETS, activate=True,
+                              max_delay_ms=5.0, max_queue_rows=4096)
+                load_s = time.perf_counter() - t
+                stamped = sum(1 for op in sm.predictor.program()
+                              .global_block.ops if op.attrs.get("quant_int8"))
+                torch.cuda.reset_peak_memory_stats()
+                res = serve_arm(mgr, name, rows, Q)
+                res.update(load_s=load_s, stamped_ops=stamped,
+                           max_memory_allocated=
+                           torch.cuda.max_memory_allocated(),
+                           dispatch_ms_bucket8=dispatch_ms(sm.predictor,
+                                                           rows))
+                arms[name] = res
+                log(f"  {name}: {res['answered']}/{len(rows)} answered from "
+                    f"{SERVE_CLIENTS} threads in {res['batches']} batches "
+                    f"(occupancy {res['avg_batch_occupancy']}), QPS "
+                    f"{res['qps']!r}, p50 {res['p50_ms']!r} ms, p99 "
+                    f"{res['p99_ms']!r} ms, Predictor.run in the batcher "
+                    f"{res['run_ms_median']!r} ms median (all "
+                    f"{[round(x, 1) for x in res['run_ms']]}), bucket-8 "
+                    f"dispatch alone {res['dispatch_ms_bucket8']!r} ms, K5 "
+                    f"launches "
+                    f"{res['launches']}, {stamped} stamped ops, peak "
+                    f"{res['max_memory_allocated']} bytes, load {load_s:.1f} s")
+            f32, q8 = arms["f32"], arms["int8"]
+            for name, a in arms.items():
+                if a["errors"] or a["answered"] != len(rows):
+                    raise AssertionError(f"{name}: {a['answered']} of "
+                                         f"{len(rows)} answered: "
+                                         f"{a['errors'][:3]}")
+            if f32["launches"] != 0:
+                raise AssertionError(f"the f32 arm launched K5 "
+                                     f"{f32['launches']} times")
+            if q8["stamped_ops"] != INT8_LAUNCHES or \
+                    q8["launches"] != INT8_LAUNCHES * q8["batches"]:
+                raise AssertionError(
+                    f"K5 launched {q8['launches']} times in "
+                    f"{q8['batches']} int8 dispatches ({q8['stamped_ops']} "
+                    f"stamped ops; want {INT8_LAUNCHES} a dispatch)")
+            # every f32 reply against Predictor.run of its row alone
+            pred = mgr._route("f32").predictor
+            worst = 0.0
+            for i, r in enumerate(rows):
+                (want,) = pred.run(r)
+                got = f32["outs"][i]
+                ratio = float(np.abs(got - want).max()
+                              / np.abs(want).max())
+                if not (np.isfinite(got).all() and ratio <= SERVE_F32_TOL):
+                    raise AssertionError(f"f32 reply {i} vs its row alone: "
+                                         f"max|d|/max|ref| {ratio}")
+                worst = max(worst, ratio)
+            live = np.concatenate([r["tgt_mask"][0] for r in rows]) > 0
+            a32 = np.concatenate([f32["outs"][i][0].argmax(-1)
+                                  for i in range(len(rows))])
+            a8 = np.concatenate([q8["outs"][i][0].argmax(-1)
+                                 for i in range(len(rows))])
+            out["quant_accuracy_delta"] = float(np.mean(a32 != a8))
+            out["quant_accuracy_delta_live"] = float(
+                np.mean(a32[live] != a8[live]))
+            out["f32_reply_vs_alone_max_rel"] = worst
+            log(f"  f32 replies vs Predictor.run of each row alone: worst "
+                f"max|d|/max|ref| {worst!r} (tolerance {SERVE_F32_TOL})")
+            log(f"  quant_accuracy_delta (argmax of int8 vs f32 on the same "
+                f"rows, printed, not gated; the reference's bar is 0.05): "
+                f"{out['quant_accuracy_delta']!r} over all positions, "
+                f"{out['quant_accuracy_delta_live']!r} over live target "
+                f"positions")
+            pred8 = mgr._route("int8").predictor
+            feed8 = {n: np.concatenate([r[n] for r in rows[:8]])
+                     for n in pred8.feed_names}
+            prof = profile_call(lambda: pred8.run(feed8),
+                                ("int8_fc_kernel",))
+            out["profile_int8_dispatch"] = prof
+            log(f"  profiled int8 dispatch at bucket 8 [{card}]: " +
+                json.dumps({k: v for k, v in prof.items()
+                            if k != "top_kernels"}))
+            for k in prof.get("top_kernels", []):
+                log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+            for a in arms.values():
+                del a["outs"]
+            out["arms"] = arms
+        finally:
+            mgr.close()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -2238,6 +2831,9 @@ def main() -> int:
     log("== phase 3e: fused GRU kernels against their plain versions")
     gru_k = check_and_time_gru(dev)
 
+    log("== phase 3f: the int8 FC kernel against its plain version")
+    int8_k = check_and_time_int8_fc(dev)
+
     log("== phase 4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
@@ -2252,6 +2848,9 @@ def main() -> int:
 
     log("== phase 9: machine-translation training through Executor.run")
     mt_train = run_machine_translation(dev, card)
+
+    log("== phase 10: int8 serving of Transformer-base through ModelManager")
+    serving = run_int8_serving(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -2314,6 +2913,17 @@ def main() -> int:
             "max_abs_err": gru_k["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K5 at the path's most common shape (72 of a dispatch's 97
+    # launches); every shape and the per-dispatch sums are in the json
+    t = int8_k["proj"]
+    rows.append({
+        "name": "int8_fc", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/int8_fc.cu",
+        "replaces": "paddle_tpu/kernels/quant.py:167",
+        "launches": serving["arms"]["int8"]["launches"],
+        "max_abs_err": max(int8_k["max_abs_err"].values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
@@ -2322,7 +2932,8 @@ def main() -> int:
                    "sparse": sparse_k, "gru": gru_k, "slice": e2e,
                    "training": train, "lstm_training": lstm_train,
                    "deepfm_training": deepfm_train,
-                   "mt_training": mt_train,
+                   "mt_training": mt_train, "int8_fc": int8_k,
+                   "int8_serving": serving,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -6,7 +6,7 @@ kernel for Hopper (``kernels/csrc``), held against its plain PyTorch
 version.  Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"`` (or ``CPUPlace()``).
 
-Two paths are ported: the decode serving plane (``decode``), and
+Three paths are ported: the decode serving plane (``decode``);
 training a Program — built with ``layers``, differentiated by
 ``append_backward``/``optimizer.minimize`` and run by
 ``Executor.run`` — as far as the Transformer (``models.transformer``)
@@ -16,6 +16,10 @@ on its ``fused_attention`` op::
     exe = fluid.Executor()              # cuda:0
     exe.run(startup)
     loss, = exe.run(main, feed=..., fetch_list=[avg_cost])
+
+and serving a saved model, float32 or int8: ``io.save_inference_model``,
+``inference.create_predictor`` (with ``AnalysisConfig.enable_int8()``)
+and ``serving.ModelManager``'s dynamic batching.
 """
 from __future__ import annotations
 
@@ -37,9 +41,11 @@ from .core.program import (  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .platform import CPUPlace, CUDAPlace  # noqa: F401
 from . import decode  # noqa: F401
+from . import inference, io, serving  # noqa: F401
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
            "Scope", "append_backward", "decode", "default_main_program",
            "default_startup_program", "get_flags", "global_scope",
-           "initializer", "layers", "optimizer", "platform",
+           "inference", "initializer", "io", "layers", "optimizer",
+           "platform", "serving",
            "program_guard", "scope_guard", "set_flags", "unique_name"]

@@ -16,9 +16,12 @@ a tensor of the same shape, dtype and device is written IN PLACE
 old buffer to XLA and stores the new one.
 The plan (dataflow analysis and grad pairing) is cached per program
 version, feed names and fetch names; constants the rules make on the
-device (literal tables, optimizer scalars) are cached per executor.  The reference's jit cache,
-segmented host ops, numerics guard, compile cache, ``LazyFetch``,
-``run_steps`` and ``warm_start`` are not ported yet.
+device (literal tables, optimizer scalars) are cached per executor.
+``Executor(training=False)`` is the Predictor's inference executor, and
+``warm_start`` builds the plans a serving bucket ladder will use (there
+is no compile cache to fill).  The reference's jit cache, segmented
+host ops, numerics guard, compile cache, ``LazyFetch`` and
+``run_steps`` are not ported yet.
 
 ``run_callable(key, build_fn, feed, state, const)`` builds
 ``build_fn()`` once per key, moves the host feeds to the executor's
@@ -34,6 +37,7 @@ leaves the device or is copied.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -124,11 +128,14 @@ class Executor:
     """Runs Programs and built callables on one device (module doc).
 
     ``place``: ``None`` (``cuda:0``), a ``CUDAPlace``/``CPUPlace``, a
-    device string or a ``torch.device``."""
+    device string or a ``torch.device``.  ``training=False`` makes an
+    inference executor (the Predictor's): its rules take their test
+    branch (``LowerContext.training``)."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, training: bool = True):
         self.device = get_device(place)
         self.place = place
+        self.training = bool(training)
         self._cache: Dict[str, Callable] = {}
         self._plans: Dict[tuple, object] = {}
         self._consts: Dict[tuple, torch.Tensor] = {}
@@ -160,12 +167,7 @@ class Executor:
                        for v in (fetch_list or [])]
         scope = scope or global_scope()
         feed_names = sorted(feed)
-        key = (program._uid, program._version, tuple(feed_names),
-               tuple(fetch_names))
-        plan = self._plans.get(key)
-        if plan is None:
-            plan = self._plans[key] = analyze_block(program, 0, feed_names,
-                                                    fetch_names)
+        plan = self._plan(program, feed_names, fetch_names)
         block = program.global_block
         env: Dict[str, object] = {}
         for n in feed_names:
@@ -175,7 +177,7 @@ class Executor:
         ctx = LowerContext(block=block, device=self.device,
                            base_seed=program.random_seed,
                            generator=self._generator(scope, program),
-                           consts=self._consts)
+                           consts=self._consts, training=self.training)
         with torch.no_grad():
             lower_ops(ctx, program, block, env, plan)
         fetches = [env[n] for n in fetch_names]
@@ -186,6 +188,49 @@ class Executor:
         if plan.has_stateful:
             scope.set_var(RNG_STATE_VAR, ctx._generator)
         self._steps.inc()
+        return out
+
+    def _plan(self, program: Program, feed_names, fetch_names):
+        key = (program._uid, program._version, tuple(feed_names),
+               tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = analyze_block(program, 0, feed_names,
+                                                    fetch_names)
+        return plan
+
+    def warm_start(self, program: Optional[Program] = None,
+                   feed_specs=None, fetch_list: Optional[Sequence] = None,
+                   scope: Optional[Scope] = None) -> dict:
+        """Prepare ``(program, feed_specs, fetch_list)`` before the first
+        run: the port has no compile cache, so this builds the plan for
+        the feed names and checks that the scope holds every state the
+        block reads.  ``feed_specs`` is one name -> spec dict, or a list
+        of them (a serving bucket ladder).  Returns the reference's keys,
+        {"segments", "warmed", "persistent_hits", "compiled",
+        "skipped", "ms"}: one segment per spec, warmed when its state
+        is all there (skipped, with the reason, when not), and never a
+        persistent hit or a compile."""
+        t0 = time.perf_counter()
+        program = program if program is not None else default_main_program()
+        scope = scope or global_scope()
+        specs = (list(feed_specs) if isinstance(feed_specs, (list, tuple))
+                 else [feed_specs or {}])
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        out = {"segments": 0, "warmed": 0, "persistent_hits": 0,
+               "compiled": 0, "skipped": [], "ms": 0.0}
+        for i, fs in enumerate(specs):
+            out["segments"] += 1
+            plan = self._plan(program, sorted(fs), fetch_names)
+            missing = [n for n in plan.state_reads
+                       if scope.find_var(n) is None]
+            if missing:
+                out["skipped"].append(f"program[{i}]: state not in the "
+                                      f"scope: {missing[:4]}")
+            else:
+                out["warmed"] += 1
+        out["ms"] = round((time.perf_counter() - t0) * 1e3, 3)
         return out
 
     def _generator(self, scope: Scope, program: Program) -> torch.Generator:

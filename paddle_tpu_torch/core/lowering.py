@@ -7,14 +7,18 @@ runs every op's rule eagerly on torch tensors, and sends the ops in
 ``CONTROL_FLOW_OPS`` to their handlers (``ops/control_flow_ops.py``),
 which run their sub-block through :func:`run_block`.  There is no jit:
 the reference's ``build_block_fn`` is the plan plus one interpreter
-pass (``Executor.run``).  Of the reference's two peephole hooks, the
-fused sparse gather is here: with ``FLAGS_sparse_fused_kernel`` on,
-sparse ``lookup_table`` ops of the top-level block that share one Ids
-input are gathered by one K9 launch
-(``kernels/sparse.py: plan_lookup_fusion``).  The int8 ``mul`` hook is
-absent until its kernel (K5) is ported, so ``mul`` takes its plain
-rule.  A value that is not a tensor (a ``SelectedRows`` gradient)
-passes through the environment untouched.
+pass (``Executor.run``).  The reference's two peephole hooks run on
+the top-level block, in its order:
+
+- the fused sparse gather: with ``FLAGS_sparse_fused_kernel`` on,
+  sparse ``lookup_table`` ops that share one Ids input are gathered by
+  one K9 launch (``kernels/sparse.py: plan_lookup_fusion``);
+- the int8 FC: the ``mul``/``fused_fc`` ops the ``quantize_int8`` pass
+  stamped run through K5 (``kernels/quant.py: plan_int8``).  An
+  uncalibrated program builds no plan and runs unchanged.
+
+A value that is not a tensor (a ``SelectedRows`` gradient) passes
+through the environment untouched.
 
 Gradients.  Eager PyTorch has no common-subexpression pass, so the
 reference's default grad (re-trace the forward under ``jax.vjp`` and
@@ -44,6 +48,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..kernels import quant as _quant_kernels
 from ..kernels import sparse as _sparse_kernels
 from ..ops.control_flow_ops import CONTROL_FLOW_OPS
 from . import registry
@@ -280,11 +285,15 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
     tapes: Dict[int, tuple] = {}
     fusion = (_sparse_kernels.plan_lookup_fusion(block)
               if _sparse_kernels.enabled_for(ctx) else None)
+    int8_plan = _quant_kernels.plan_int8(block)
     for pos, op in enumerate(block.ops):
         if op.type in SKIP_OPS:
             continue
         if fusion is not None and fusion.covers(pos) and fusion.lower(pos,
                                                                       env):
+            continue
+        if int8_plan is not None and int8_plan.covers(pos) \
+                and int8_plan.lower(pos, env):
             continue
         ins = _gather_ins(op, env)
         try:

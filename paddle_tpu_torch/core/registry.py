@@ -44,16 +44,16 @@ def derive_seed(seed: int, name: str) -> int:
 
 class LowerContext:
     """Per-run context handed to every rule: the device, the random
-    streams (module doc) and the executor's device constants.  Runs
-    train (``training``); an inference executor comes with the
-    Predictor's port."""
-
-    training = True
+    streams (module doc), the executor's device constants, and
+    ``training``: False for an inference executor (the Predictor's),
+    whose rules take their test branch (dropout an identity, no
+    attention dropout) with or without ``is_test`` attrs."""
 
     def __init__(self, block=None, device=None, base_seed: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 consts: Optional[dict] = None):
+                 consts: Optional[dict] = None, training: bool = True):
         self.block = block
+        self.training = bool(training)
         self.device = torch.device("cpu") if device is None else device
         self.base_seed = int(base_seed or 0)
         self._generator = generator

@@ -310,6 +310,12 @@ int gru_bwd(const void* xproj, const void* w, const void* h0, const void* mask,
                                   sizeof(float) * bwd_smem_floats(B, H), device, st);
 }
 
+// Blocks of gru_bwd the card holds at once at this shape's shared memory
+// (0 when a block cannot have that much), or minus a cudaError_t.
+int gru_bwd_capacity(int B, int H, int device) {
+  return lstm::resident_capacity(gru_bwd_kernel, sizeof(float) * bwd_smem_floats(B, H), device);
+}
+
 const char* gru_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -170,6 +170,12 @@ int gru_fwd(const void* xproj, const void* w, const void* h0, const void* mask, 
                                   sizeof(float) * fwd_smem_floats(B, H), device, st);
 }
 
+// Blocks of gru_fwd the card holds at once at this shape's shared memory
+// (0 when a block cannot have that much), or minus a cudaError_t.
+int gru_fwd_capacity(int B, int H, int device) {
+  return lstm::resident_capacity(gru_fwd_kernel, sizeof(float) * fwd_smem_floats(B, H), device);
+}
+
 const char* gru_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -278,6 +278,12 @@ int lstm_bwd(const void* xproj, const void* w, const void* h0, const void* c0,
                             sizeof(float) * bwd_smem_floats(B, H), device, st);
 }
 
+// Blocks of lstm_bwd the card holds at once at this shape's shared memory
+// (0 when a block cannot have that much), or minus a cudaError_t.
+int lstm_bwd_capacity(int B, int H, int device) {
+  return resident_capacity(lstm_bwd_kernel, sizeof(float) * bwd_smem_floats(B, H), device);
+}
+
 const char* lstm_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -136,6 +136,29 @@ __device__ __forceinline__ void load_w_slice(const float* w, int H, int j0, floa
   }
 }
 
+// Blocks of `kernel` the card `device` holds at once with `smem` bytes of
+// dynamic shared memory a block: SM count x blocks per SM from the
+// occupancy query, 0 when `smem` is more than a block may use.  Returns
+// the count, or minus a cudaError_t.  kernels/rnn.py's eligibility gate
+// reads it before it routes a shape to the kernel.
+template <typename Args>
+int resident_capacity(void (*kernel)(const Args), size_t smem, int device) {
+  int smem_max = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                           device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_max)) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return per_sm * sms;
+}
+
 // Checks that the launch can run (shared memory a block, every block
 // resident) and launches `kernel` cooperatively with the one argument
 // `args`; returns 0, kSmemOver, kNotResident or a cudaError_t.
@@ -147,15 +170,9 @@ int launch_cooperative(void (*kernel)(const Args), const Args& args, int grid,
                                            device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(smem_max)) return kSmemOver;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm * sms < grid) return kNotResident;
+  const int capacity = resident_capacity(kernel, smem, device);
+  if (capacity < 0) return -capacity;
+  if (capacity < grid) return kNotResident;
   void* argv[] = {const_cast<Args*>(&args)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kThreads),
                                     argv, smem, stream);

@@ -138,6 +138,13 @@ int lstm_fwd(const void* xproj, const void* w, const void* h0, const void* c0,
                             fwd_smem_bytes(H), device, st);
 }
 
+// Blocks of lstm_fwd the card holds at once at this shape's shared memory
+// (0 when a block cannot have that much), or minus a cudaError_t.
+int lstm_fwd_capacity(int B, int H, int device) {
+  (void)B;
+  return resident_capacity(lstm_fwd_kernel, fwd_smem_bytes(H), device);
+}
+
 const char* lstm_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -28,9 +28,15 @@ the initial state h0 (and the LSTM's c0) [B, H], the length mask
   the wrapper's ``launches``.
 
 The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
-B % 8) follow TPU tiles and are not carried over: the kernels take any
-B, T, H >= 1 whose grid can be resident on the card at once, and raise
-``ValueError`` naming the limit otherwise.
+B % 8) follow TPU tiles and are not carried over.  The kernels take any
+float32 B, T, H >= 1 whose H/4 blocks can all be resident on the card
+at once, and raise ``ValueError`` naming the limit otherwise.  The
+port's own gates, :func:`lstm_eligible` and :func:`gru_eligible`, say
+which shapes those are, from the card's resident-block capacity at the
+kernel's shared memory a block (:func:`kernel_capacity`); the ``lstm`` and
+``gru`` ops route what fails them to the plain scan
+(``ops/nn_ops.py: _use_kernel``), as the reference routes what its gates
+refuse to its XLA scan.
 """
 from __future__ import annotations
 
@@ -112,6 +118,46 @@ def lstm_grad_ref(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
         dw = dw + torch.matmul(h_prev.t(), dgates)
     return (torch.stack(dxs, 1), dw.to(w.dtype), dh.to(xproj.dtype),
             dc.to(xproj.dtype))
+
+
+def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int) -> bool:
+    """Whether an LSTM kernel (K6 or K7) takes this shape: float32,
+    non-empty, and its ceil(H/4) blocks within ``capacity``, the blocks
+    of that kernel the card holds at once at this B and H (SM count x
+    blocks per SM with the kernel's shared memory a block; 0 when a
+    block may not have that much).  Pure: the card's number comes from
+    :func:`kernel_capacity`, or from the caller."""
+    return (dtype == torch.float32 and min(B, T, H) >= 1
+            and -(-H // _UNITS) <= capacity)
+
+
+# the GRU kernels (K8a, K8b) launch as the LSTM kernels do
+# (lstm_common.cuh): the same rule, with their own numbers
+gru_eligible = lstm_eligible
+
+
+_capacity = {}
+
+
+def kernel_capacity(lib: str, B: int, H: int, device) -> int:
+    """The blocks of the kernel library ``lib`` (one of ``lstm_fwd``,
+    ``lstm_bwd``, ``gru_fwd``, ``gru_bwd``) the CUDA ``device`` holds at
+    once at batch B and hidden size H, from the occupancy query with the
+    kernel's shared memory a block (``*_smem_bytes``); 0 when a block
+    may not have that much.  Cached per shape and device; builds the
+    library at first use."""
+    key = (lib, int(B), int(H), device.index)
+    n = _capacity.get(key)
+    if n is None:
+        cap = getattr(_build.load(lib), f"{lib}_capacity")
+        cap.argtypes = [_INT, _INT, _INT]
+        cap.restype = _INT
+        n = cap(B, H, device.index)
+        if n < 0:
+            raise RuntimeError(f"{lib} occupancy query failed "
+                               f"(cudaError {-n})")
+        _capacity[key] = n
+    return n
 
 
 def _kernel_fn(lib: str, argtypes):
@@ -362,5 +408,7 @@ def gru_fused_grad(xproj, w, h0, mask, hs, dhs):
 gru_fused.launches = 0
 gru_fused_grad.launches = 0
 
-__all__ = ["gru_fused", "gru_fused_grad", "gru_grad_ref", "gru_ref",
-           "lstm_fused", "lstm_fused_grad", "lstm_grad_ref", "lstm_ref"]
+__all__ = ["gru_eligible", "gru_fused",
+           "gru_fused_grad", "gru_grad_ref", "gru_ref", "kernel_capacity",
+           "lstm_eligible", "lstm_fused", "lstm_fused_grad", "lstm_grad_ref",
+           "lstm_ref"]

@@ -6,6 +6,7 @@ from . import (  # noqa: F401
     math_ops,
     nn_ops,
     optimizer_ops,
+    quant_ops,
     sequence_ops,
     tensor_ops,
 )

@@ -1,5 +1,5 @@
 """Math op rules: elementwise (with axis-broadcast), relu, sigmoid,
-tanh, square, pow, softmax, reductions, ``mul``, ``matmul``,
+tanh, gelu, square, pow, softmax, reductions, ``mul``, ``matmul``,
 ``scale``, ``sum``, ``cast``, ``mean``.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
@@ -12,6 +12,7 @@ enter as float32 values of the tensor's dtype, as the reference's
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register, register_grad
 from ._util import torch_dtype
@@ -57,6 +58,14 @@ def _sigmoid(ctx, ins, attrs):
 @register("tanh")
 def _tanh(ctx, ins, attrs):
     return {"Out": [torch.tanh(ins["X"][0])]}
+
+
+@register("gelu")
+def _gelu(ctx, ins, attrs):
+    """``jax.nn.gelu``: the tanh approximation unless ``approximate`` is
+    False (torch's own default is the erf form)."""
+    approx = "tanh" if attrs.get("approximate", True) else "none"
+    return {"Out": [F.gelu(ins["X"][0], approximate=approx)]}
 
 
 @register("square")

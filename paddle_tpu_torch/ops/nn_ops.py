@@ -1,17 +1,21 @@
 """Neural-net op rules: layer_norm, the losses, accuracy, the lstm and
-the gru.
+the gru, and the fused ops of the inference passes (``fused_fc``,
+``fusion_lstm``, ``fusion_gru``, ``fused_elemwise_activation``).
 
 The port of the part of ``paddle_tpu/ops/nn_ops.py`` that the
 Transformer's, the stacked LSTM's, DeepFM's and machine translation's
-training programs and the fc/SGD drive use.  Statistics are taken in at least float32, as the
-reference's ``_stat_dtype``.
+training programs, the fc/SGD drive and the predictor use.
+Statistics are taken in at least float32, as the reference's
+``_stat_dtype``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import registry as _registry
 from ..core.registry import register, register_grad
 from ..kernels import rnn as _rnn
+from ..observability import stats as _obs_stats
 
 
 def _stat_dtype(x):
@@ -136,20 +140,55 @@ def _rnn_inputs(ins, n_gates: int, state_slots):
     return (xproj, w.contiguous(), *map(state, state_slots), mask)
 
 
-def _use_kernel(ctx, attrs) -> bool:
-    """``use_pallas_kernel`` keeps the reference's meaning as the
-    caller's choice: False takes the plain scan on any device; absent or
-    True takes the kernels (K6/K7, K8a/K8b; their plain versions for CPU
-    tensors).  Inside a control-flow sub-block the plain scan runs
-    whatever the attr says: a sub-block is differentiated by autograd
-    through its ops (``ops/control_flow_ops.py``), and autograd cannot
-    see through a kernel launched by ctypes.  The reference keeps its
-    Pallas cells to the top-level block for the same reason (its
-    ``_rnn_pallas_eligible``: sub-blocks differentiate through
-    ``jax.vjp``)."""
+_routings = {}
+
+
+def _count_routing(cell: str) -> None:
+    """Add one to ``rnn.<cell>_scan_routings``: a top-level call the
+    eligibility gate sent to the plain scan (a routing, as the
+    reference's, not a fault fallback)."""
+    c = _routings.get(cell)
+    if c is None:
+        c = _routings[cell] = _obs_stats.scope("rnn").counter(
+            f"{cell}_scan_routings",
+            "top-level calls the kernel's eligibility gate sent to the "
+            "plain scan")
+    c.inc()
+
+
+def _use_kernel(ctx, attrs, lib: str, xproj) -> bool:
+    """Whether the rule runs the fused cell ``lib`` (``lstm_fwd``,
+    ``lstm_bwd``, ``gru_fwd``, ``gru_bwd``: K6/K7, K8a/K8b, their plain
+    versions for CPU tensors) or the plain scan.  The reference's
+    ``_rnn_pallas_eligible``, with the port's gate:
+
+    - inside a control-flow sub-block the plain scan runs whatever the
+      attr says: a sub-block is differentiated by autograd through its
+      ops (``ops/control_flow_ops.py``), and autograd cannot see through
+      a kernel launched by ctypes (the reference keeps its Pallas cells
+      to the top-level block for the same reason);
+    - an explicit ``use_pallas_kernel`` wins: False takes the plain
+      scan, True the fused cell, which raises on a shape it cannot take;
+    - otherwise a CUDA tensor takes the kernel when
+      ``kernels/rnn.py: lstm_eligible``/``gru_eligible`` pass at this
+      shape on this card (float32, every block resident), and the plain
+      scan when they do not, counted as ``rnn.<cell>_scan_routings``."""
     if ctx is not None and getattr(ctx.block, "idx", 0) != 0:
         return False
-    return attrs.get("use_pallas_kernel", None) is not False
+    force = attrs.get("use_pallas_kernel", None)
+    if force is not None:
+        return bool(force)
+    if xproj.device.type != "cuda":
+        return True
+    cell = lib.split("_")[0]
+    B, T, HN = xproj.shape
+    H = HN // (4 if cell == "lstm" else 3)
+    gate = _rnn.lstm_eligible if cell == "lstm" else _rnn.gru_eligible
+    if gate(B, T, H, xproj.dtype,
+            _rnn.kernel_capacity(lib, B, H, xproj.device)):
+        return True
+    _count_routing(cell)
+    return False
 
 
 @register("lstm", no_grad_slots=("SeqLen",))
@@ -164,7 +203,8 @@ def _lstm(ctx, ins, attrs):
     reverse = attrs.get("is_reverse", False)
     if reverse:
         xproj, mask = torch.flip(xproj, [1]), torch.flip(mask, [1])
-    run = _rnn.lstm_fused if _use_kernel(ctx, attrs) else _rnn.lstm_ref
+    run = (_rnn.lstm_fused if _use_kernel(ctx, attrs, "lstm_fwd", xproj)
+           else _rnn.lstm_ref)
     hs, cs = run(xproj.contiguous(), w, h0, c0, mask.contiguous())
     h_last, c_last = hs[:, -1], cs[:, -1]
     if reverse:
@@ -203,7 +243,7 @@ def _lstm_grad(ctx, ins, attrs):
     if last_c is not None:
         dcs = dcs.clone()
         dcs[:, -1] += last_c
-    run = (_rnn.lstm_fused_grad if _use_kernel(ctx, attrs)
+    run = (_rnn.lstm_fused_grad if _use_kernel(ctx, attrs, "lstm_bwd", xproj)
            else _rnn.lstm_grad_ref)
     dxs, dw, dh0, dc0 = run(
         xproj.contiguous(), w, h0, c0, mask.contiguous(), hs.contiguous(),
@@ -235,7 +275,8 @@ def _gru(ctx, ins, attrs):
     reverse = attrs.get("is_reverse", False)
     if reverse:
         xproj, mask = torch.flip(xproj, [1]), torch.flip(mask, [1])
-    run = _rnn.gru_fused if _use_kernel(ctx, attrs) else _rnn.gru_ref
+    run = (_rnn.gru_fused if _use_kernel(ctx, attrs, "gru_fwd", xproj)
+           else _rnn.gru_ref)
     hs = run(xproj.contiguous(), w, h0, mask.contiguous())
     h_last = hs[:, -1]
     if reverse:
@@ -262,7 +303,7 @@ def _gru_grad(ctx, ins, attrs):
     if g and g[0] is not None:
         dhs = dhs.clone()
         dhs[:, -1] += g[0].float()
-    run = (_rnn.gru_fused_grad if _use_kernel(ctx, attrs)
+    run = (_rnn.gru_fused_grad if _use_kernel(ctx, attrs, "gru_bwd", xproj)
            else _rnn.gru_grad_ref)
     dxs, dw, dh0 = run(xproj.contiguous(), w, h0, mask.contiguous(),
                        hs.contiguous(), dhs.contiguous())
@@ -272,3 +313,108 @@ def _gru_grad(ctx, ins, attrs):
     if ins.get("H0"):
         outs["H0@GRAD"] = [dh0]
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the fused ops the inference passes emit (inference/passes.py)
+# ---------------------------------------------------------------------------
+
+@register("fused_fc")
+def _fused_fc(ctx, ins, attrs):
+    """mul + bias + activation in one op, emitted by ``fuse_fc_act``
+    (fc_fuse_pass.cc).  Runs the registered ``mul``,
+    ``elementwise_add`` and activation rules, so the fused op computes
+    what the chain it replaced computed.  A ``fused_fc`` the
+    ``quantize_int8`` pass stamped runs through K5 instead
+    (``core/lowering.py``)."""
+    out = _registry.get("mul").lower(
+        ctx, {"X": ins["X"], "Y": ins["W"]},
+        {"x_num_col_dims": attrs.get("x_num_col_dims", 1),
+         "y_num_col_dims": attrs.get("y_num_col_dims", 1)})["Out"][0]
+    if ins.get("Bias"):
+        out = _registry.get("elementwise_add").lower(
+            ctx, {"X": [out], "Y": ins["Bias"]},
+            {"axis": attrs.get("axis", -1)})["Out"][0]
+    act = attrs.get("act") or ""
+    if act:
+        out = _registry.get(act).lower(
+            ctx, {"X": [out]}, dict(attrs.get("act_attrs") or {}))["Out"][0]
+    return {"Out": [out]}
+
+
+def _inference_attrs(ctx, attrs):
+    """A fusion op in training takes the plain scan: it has no grad rule
+    of its own and autograd differentiates it through its forward,
+    which cannot see through a kernel launched by ctypes (the
+    reference's ``jax.vjp`` cannot see through its Pallas cell either).
+    In inference it keeps the kernel routing of ``_use_kernel``."""
+    if ctx is not None and ctx.training:
+        return {**attrs, "use_pallas_kernel": False}
+    return attrs
+
+
+@register("fusion_lstm", no_grad_slots=("SeqLen",))
+def _fusion_lstm(ctx, ins, attrs):
+    """fusion_lstm_op.cc: fc(x) + LSTM in one op, emitted by
+    ``fuse_fc_lstm``.  X [B, T, M], WeightX [M, 4D], WeightH [D, 4D],
+    Bias [1, 4D]; the ``lstm`` rule does the rest (K6 in inference)."""
+    if attrs.get("use_peepholes", False):
+        raise NotImplementedError(
+            "fusion_lstm: use_peepholes=True (the [1, 7D] bias layout) is "
+            "not ported; the in-scope models run peephole-free")
+    xproj = torch.matmul(ins["X"][0], ins["WeightX"][0])
+    if ins.get("Bias"):
+        xproj = xproj + ins["Bias"][0].reshape(1, 1, -1)
+    sub = {"Input": [xproj], "Weight": [ins["WeightH"][0]]}
+    for slot in ("H0", "C0", "SeqLen"):
+        if ins.get(slot):
+            sub[slot] = ins[slot]
+    out = _lstm(ctx, sub, _inference_attrs(ctx, attrs))
+    return {"Hidden": out["Hidden"], "Cell": out["Cell"], "XX": [xproj]}
+
+
+@register("fusion_gru", no_grad_slots=("SeqLen",))
+def _fusion_gru(ctx, ins, attrs):
+    """fusion_gru_op.cc: fc(x) + GRU in one op, emitted by
+    ``fuse_fc_gru``; the ``gru`` rule does the rest (K8a in
+    inference)."""
+    xproj = torch.matmul(ins["X"][0], ins["WeightX"][0])
+    if ins.get("Bias"):
+        xproj = xproj + ins["Bias"][0].reshape(1, 1, -1)
+    sub = {"Input": [xproj], "Weight": [ins["WeightH"][0]]}
+    for slot in ("H0", "SeqLen"):
+        if ins.get(slot):
+            sub[slot] = ins[slot]
+    out = _gru(ctx, sub, _inference_attrs(ctx, attrs))
+    return {"Hidden": out["Hidden"], "XX": [xproj]}
+
+
+@register("fused_elemwise_activation")
+def _fused_elemwise_activation(ctx, ins, attrs):
+    """fused_elemwise_activation_op.cc: a binary op and a unary
+    activation in one op, ``functor_list`` like ["elementwise_add",
+    "relu"] (binary first) or ["relu", "elementwise_add"] (unary on Y
+    first), emitted by ``fuse_elewise_add_act``."""
+    x, y = ins["X"][0], ins["Y"][0]
+    functors = [f.lower() for f in attrs["functor_list"]]
+    axis = attrs.get("axis", -1)
+
+    def binary(name, a, b):
+        if b.dim() < a.dim() and axis != -1:
+            b = b.reshape(tuple(b.shape) + (1,) * (a.dim() - b.dim() - axis))
+        return {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+                "elementwise_mul": torch.mul}[name](a, b)
+
+    def unary(name, a):
+        if name == "scale":
+            return a * attrs.get("scale", 1.0)
+        return {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh}[name](a)
+
+    if functors[0].startswith("elementwise"):
+        inter = binary(functors[0], x, y)
+        out = unary(functors[1], inter)
+    else:
+        inter = unary(functors[0], y)
+        out = binary(functors[1], x, inter)
+    return {"Out": [out], "IntermediateOut": [inter]}

@@ -18,7 +18,12 @@ card can hold; the same for the GRU kernels (K8a, K8b), with an
 initial state and a bit-identical backward on a rerun; for the sparse kernels (K9, K10), an empty batch, every
 id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
 bit against the plain versions, and no fallback when the kernel library
-is missing.
+is missing; for the ``lstm`` and ``gru`` ops, both sides of the
+eligibility gate (an ineligible shape or dtype runs the plain scan, an
+eligible one launches the kernel); for the int8 FC (K5), the int8
+Transformer's four shapes at bucket 8, an odd shape and one row, every
+act of the epilogue with a calibrated and a dynamic scale, no bias, a
+side stream and what it refuses.
 """
 import pytest
 import torch
@@ -639,3 +644,161 @@ def test_dense_grad_and_mask_sums_in_order_on_the_card(dev):
     got = dense_grad_and_mask(SelectedRows(rows.to(dev), vals.to(dev), H))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# the RNN ops' routing: the eligibility gate (lstm_eligible/gru_eligible)
+# ---------------------------------------------------------------------------
+
+def _scan_routings(cell):
+    from paddle_tpu_torch.observability import stats
+    c = stats.default_registry().get(f"rnn.{cell}_scan_routings")
+    return c.value if c is not None else 0
+
+
+def _rnn_op_case(dev, cell, B, T, H, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 4 if cell == "lstm" else 3
+    xproj = (torch.randn(B, T, n * H, generator=g, device=dev) * 0.5
+             ).to(dtype)
+    w = (torch.randn(H, n * H, generator=g, device=dev) / H ** 0.5
+         ).to(dtype)
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev).int()
+    return {"Input": [xproj], "Weight": [w], "SeqLen": [lens]}
+
+
+RNN_ROUTE_CASES = {   # cell, B, T, H, dtype: ineligible on an H100
+    "lstm_H2048_f32": ("lstm", 2, 3, 2048, torch.float32),
+    "lstm_bf16": ("lstm", 4, 5, 64, torch.bfloat16),
+    "gru_bf16": ("gru", 4, 5, 64, torch.bfloat16),
+    "gru_H4096_f32": ("gru", 2, 3, 4096, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", list(RNN_ROUTE_CASES))
+def test_rnn_op_routes_an_ineligible_shape_to_the_scan(dev, case):
+    """A shape or dtype the kernels cannot take runs the plain scan, as
+    the reference routes what its gates refuse to its XLA scan; it used
+    to raise (TypeError for bf16, ValueError past the co-residency).
+    Forward and grad both route, count the routing, launch nothing, and
+    equal the plain scan (use_pallas_kernel False) bit for bit."""
+    cell, B, T, H, dtype = RNN_ROUTE_CASES[case]
+    ins = _rnn_op_case(dev, cell, B, T, H, dtype, seed=31)
+    op = t_registry.get(cell)
+    fwd_k = R.lstm_fused if cell == "lstm" else R.gru_fused
+    bwd_k = R.lstm_fused_grad if cell == "lstm" else R.gru_fused_grad
+    before = (fwd_k.launches, bwd_k.launches, _scan_routings(cell))
+    got = op.lower(None, ins, {})
+    want = op.lower(None, ins, {"use_pallas_kernel": False})
+    dh = torch.randn_like(got["Hidden"][0])
+    g_got = op.grad(None, {**ins, **got, "Hidden@GRAD": [dh]}, {})
+    g_want = op.grad(None, {**ins, **want, "Hidden@GRAD": [dh]},
+                     {"use_pallas_kernel": False})
+    torch.cuda.synchronize()
+    assert (fwd_k.launches, bwd_k.launches) == before[:2]
+    assert _scan_routings(cell) == before[2] + 2
+    for slot, v in got.items():
+        assert torch.equal(v[0], want[slot][0]), slot
+    for slot in ("Input@GRAD", "Weight@GRAD"):
+        assert torch.equal(g_got[slot][0], g_want[slot][0]), slot
+    # the explicit attr still wins, and the kernel refuses the shape
+    with pytest.raises((TypeError, ValueError)):
+        op.lower(None, ins, {"use_pallas_kernel": True})
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_op_launches_the_kernel_on_an_eligible_shape(dev, cell):
+    ins = _rnn_op_case(dev, cell, 8, 6, 256, torch.float32, seed=32)
+    op = t_registry.get(cell)
+    fwd_k = R.lstm_fused if cell == "lstm" else R.gru_fused
+    cap = R.kernel_capacity(f"{cell}_fwd", 8, 256, dev)
+    gate = R.lstm_eligible if cell == "lstm" else R.gru_eligible
+    assert gate(8, 6, 256, torch.float32, cap) and cap >= 64
+    before = (fwd_k.launches, _scan_routings(cell))
+    got = op.lower(None, ins, {})
+    want = op.lower(None, ins, {"use_pallas_kernel": False})
+    torch.cuda.synchronize()
+    assert fwd_k.launches == before[0] + 1
+    assert _scan_routings(cell) == before[1]
+    assert (got["Hidden"][0] - want["Hidden"][0]).abs().max().item() <= \
+        LSTM_FWD_ATOL
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused-dequant int8 FC
+# ---------------------------------------------------------------------------
+
+INT8_SHAPES = {   # M, K, N: the path's four at bucket 8, odd, one row
+    "qkv_out": (2048, 512, 512),
+    "ffn1": (2048, 512, 2048),
+    "ffn2": (2048, 2048, 512),
+    "vocab": (2048, 512, 32000),
+    "odd": (5, 37, 11),
+    "m1": (1, 512, 512),
+}
+INT8_ACTS = ["", "relu", "sigmoid", "tanh", "gelu"]
+
+
+def _int8_case(dev, M, K, N, seed):
+    from paddle_tpu_torch.kernels import quant as Q
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(M, K, generator=g).to(dev)
+    w = torch.randn(K, N, generator=g) / K ** 0.5
+    q, s = Q.quantize_weight(w.numpy())
+    return (x, torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev),
+            (torch.randn(N, generator=g) * 0.1).to(dev))
+
+
+@pytest.mark.parametrize("in_scale", [0.0, 3.0], ids=["dynamic", "calib"])
+@pytest.mark.parametrize("act", INT8_ACTS, ids=lambda a: a or "none")
+@pytest.mark.parametrize("shape", list(INT8_SHAPES))
+def test_int8_fc_matches_plain(dev, shape, act, in_scale):
+    """K5 against its plain version on the same inputs: bit for bit for
+    "" and relu (exact int32 sums, the epilogue's rounded multiply then
+    add), within 1e-6 of max|ref| for sigmoid, tanh and gelu (the
+    card's and torch's transcendentals differ by ulps)."""
+    from paddle_tpu_torch.kernels import quant as Q
+    x, q, s, b = _int8_case(dev, *INT8_SHAPES[shape], seed=40)
+    n = Q.int8_fc.launches
+    got = Q.int8_fc(x, q, s, in_scale, b, act)
+    torch.cuda.synchronize()
+    assert Q.int8_fc.launches == n + 1
+    want = Q.int8_fc_plain(x, q, s, in_scale, b, act)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if act in ("", "relu"):
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item(), err
+
+
+def test_int8_fc_without_bias_and_on_a_side_stream(dev):
+    from paddle_tpu_torch.kernels import quant as Q
+    x, q, s, _ = _int8_case(dev, 70, 96, 130, seed=41)
+    want = Q.int8_fc_plain(x, q, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = Q.int8_fc(x, q, s)
+    side.synchronize()
+    assert torch.equal(got, want)
+    zero = Q.int8_fc(torch.zeros_like(x), q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+def test_int8_fc_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels import quant as Q
+    x, q, s, b = _int8_case(dev, 4, 16, 8, seed=42)
+    with pytest.raises(ValueError, match="epilogue"):
+        Q.int8_fc(x, q, s, act="leaky_relu")
+    with pytest.raises(TypeError):
+        Q.int8_fc(x, q.float(), s)
+    with pytest.raises(ValueError):
+        Q.int8_fc(x, q[:8], s)
+    with pytest.raises(ValueError):
+        Q.int8_fc(x, q, s.cpu())
+    with pytest.raises(ValueError):
+        Q.int8_fc(x, q, s, bias=b[:4])
+    with pytest.raises(ValueError):
+        Q.int8_fc(x, q.t().contiguous().t(), s)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, and
 not ``chip_smoke.py``, imports JAX or the JAX package, and importing the
-port's decode plane or its Program stack (the copied pure-Python IR
-modules included) loads neither.  ``chip_smoke.py`` refuses to report
+port's decode plane, its Program stack (the copied pure-Python IR
+modules included) or its inference and serving planes loads neither.  ``chip_smoke.py`` refuses to report
 a result without a CUDA device."""
 import ast
 import os
@@ -41,7 +41,9 @@ PROGRAM_MODULES = [
     "models/transformer.py", "models/stacked_lstm.py", "kernels/_hash.py",
     "kernels/rnn.py", "core/selected_rows.py", "kernels/sparse.py",
     "models/deepfm.py", "ops/control_flow_ops.py", "layers/control_flow.py",
-    "models/machine_translation.py",
+    "models/machine_translation.py", "kernels/quant.py", "ops/quant_ops.py",
+    "io.py", "inference/passes.py", "inference/predictor.py",
+    "serving/batcher.py", "serving/model_registry.py",
 ]
 
 
@@ -52,7 +54,7 @@ def test_port_files_exist():
                 "flash_attn_bwd.cu", "flash_attn_common.cuh",
                 "lstm_fwd.cu", "lstm_bwd.cu", "lstm_common.cuh",
                 "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
-                "gru_bwd.cu", "gru_common.cuh"):
+                "gru_bwd.cu", "gru_common.cuh", "int8_fc.cu"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
     for mod in PROGRAM_MODULES:
         assert os.path.join(PORT, mod) in files, mod

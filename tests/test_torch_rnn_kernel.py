@@ -174,3 +174,57 @@ def test_lstm_op_in_program_matches_reference(reverse, use_kernel):
         np.testing.assert_allclose(a, b, err_msg=name, **FWD_TOL)
     for name, a, b in zip(fetch[4:], got[4:], want[4:]):
         np.testing.assert_allclose(a, b, err_msg=name, **GRAD_TOL)
+
+
+# the H100's numbers for the eligibility gates: 132 SMs, 233,472 bytes of
+# shared memory an SM (at most 232,448 a block, 1 KB of it reserved a
+# resident block), 2,048 threads an SM (8 blocks of the kernels' 256)
+def _h100_capacity(smem):
+    return 132 * min(8, 233472 // (smem + 1024)) if smem <= 232448 else 0
+
+
+def _lstm_fwd_smem(H):
+    return 4 * (-(-H // 32) * 32 * 16 + 128 * 33)   # lstm_fwd.cu:53
+
+
+@pytest.mark.parametrize("gate", ["lstm", "gru"])
+@pytest.mark.parametrize("case", [
+    ("B128_H512", 128, 128, 512, torch.float32, True),
+    ("H2048", 2, 3, 2048, torch.float32, False),
+    ("bf16", 8, 4, 64, torch.bfloat16, False),
+    ("float64", 8, 4, 64, torch.float64, False),
+    ("empty_batch", 0, 4, 64, torch.float32, False),
+    ("H1", 1, 1, 1, torch.float32, True),
+], ids=lambda c: c[0] if isinstance(c, tuple) else c)
+def test_eligibility_gates_with_the_h100s_numbers(gate, case):
+    """``lstm_eligible``/``gru_eligible`` are pure: float32, non-empty,
+    and ceil(H/4) blocks within the card's resident-block capacity at
+    the kernel's shared memory a block (0 when a block may not have
+    that much).  At H=2048 K6 needs 512 blocks of 147,968 bytes; an
+    H100 holds 132."""
+    _, B, T, H, dtype, want = case
+    fn = TR.lstm_eligible if gate == "lstm" else TR.gru_eligible
+    assert fn(B, T, H, dtype, _h100_capacity(_lstm_fwd_smem(H))) is want
+    # a block over the shared-memory limit has capacity 0; the capacity
+    # alone decides
+    assert _h100_capacity(232448 + 4) == 0
+    assert not fn(128, 128, 512, torch.float32, _h100_capacity(232448 + 4))
+    assert not fn(128, 128, 512, torch.float32, 127)
+    assert fn(128, 128, 512, torch.float32, 128)
+
+
+def test_rnn_ops_on_the_cpu_never_consult_the_gate(monkeypatch):
+    """On the CPU the op takes the wrappers (their plain versions) with
+    no card query; an explicit use_pallas_kernel still decides."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    def no_query(*a, **k):
+        raise AssertionError("kernel_capacity queried on the CPU")
+
+    monkeypatch.setattr(TR, "kernel_capacity", no_query)
+    x = torch.zeros(2, 3, 16)
+    assert nn_ops._use_kernel(None, {}, "lstm_fwd", x)
+    assert not nn_ops._use_kernel(None, {"use_pallas_kernel": False},
+                                  "gru_bwd", x)
+    assert nn_ops._use_kernel(None, {"use_pallas_kernel": True},
+                              "gru_fwd", x.bfloat16())
