@@ -243,16 +243,19 @@ def _visits(Tq: int, Tk: int, causal: bool, device):
     return (last + 1) * bk, first * bq
 
 
-def _padded_scores(q, k, kv_mask, causal: bool, sm_scale: float):
+def _padded_scores(q, k, kv_mask, causal: bool, sm_scale: float,
+                   matmul=None):
     """Scores in exp2 units over the reference's padded key frame
     [B, H, Tq, Tk_p]: masked keys, padding keys and causal positions
-    score the finite NEG_INF."""
+    score the finite NEG_INF.  ``matmul`` (default an exact float32
+    einsum) takes the product."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _, bk = resolve_blocks(Tq, Tk)
     Tk_p = _round_up(Tk, bk)
     qs = q.float() * _scale_log2(sm_scale)
-    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    s = (torch.einsum("bhqd,bhkd->bhqk", qs, k.float()) if matmul is None
+         else matmul(qs, k.float().transpose(-1, -2)))
     s = torch.nn.functional.pad(s, (0, Tk_p - Tk), value=NEG_INF)
     valid = torch.zeros(B, Tk_p, dtype=torch.bool, device=q.device)
     valid[:, :Tk] = True if kv_mask is None else kv_mask > 0
@@ -285,14 +288,16 @@ def tile_dropout_ref(seed, B: int, H: int, Tq: int, Tk: int, rate: float,
 
 def flash_attention_ref(q, k, v, kv_mask=None, causal: bool = False,
                         sm_scale: Optional[float] = None,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None, matmul=None):
     """Plain flash-attention forward: (out [B, H, Tq, D], lse [B*H, Tq]
-    base 2, +1e30 where the softmax mass is 0), as ``_pallas_fwd``."""
+    base 2, +1e30 where the softmax mass is 0), as ``_pallas_fwd``.
+    ``matmul`` takes both products (default exact float32 einsums; the
+    tests pass ``kernels/_tf32.py: matmul_tf32x3``, K1's arithmetic)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(D))
-    s = _padded_scores(q, k, kv_mask, causal, sm_scale)
+    s = _padded_scores(q, k, kv_mask, causal, sm_scale, matmul)
     key_end, _ = _visits(Tq, Tk, causal, q.device)
     visit = torch.arange(s.shape[-1], device=q.device)[None] < key_end[:, None]
     m = s.masked_fill(~visit, -math.inf).amax(dim=-1, keepdim=True)
@@ -300,7 +305,8 @@ def flash_attention_ref(q, k, v, kv_mask=None, causal: bool = False,
     l = p.sum(dim=-1)
     if dropout_rate > 0.0:
         p = p * tile_dropout_ref(seed, B, H, Tq, Tk, dropout_rate, q.device)
-    out = torch.einsum("bhqk,bhkd->bhqd", p[..., :Tk], v.float())
+    out = (torch.einsum("bhqk,bhkd->bhqd", p[..., :Tk], v.float())
+           if matmul is None else matmul(p[..., :Tk], v.float()))
     out = out / torch.clamp(l, min=1e-30)[..., None]
     lse = torch.where(l > 0, m[..., 0] + torch.log2(torch.clamp(l, min=1e-30)),
                       torch.full((), 1e30, device=q.device))

@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), float32.
+// Flash-attention forward for Hopper (sm_90a), float32: K1.
 //
-// Replaces the Pallas kernel paddle_tpu/kernels/attention.py
+// Replaces the Pallas kernel paddle_tpu/kernels/attention.py:226
 // _flash_fwd_kernel (launched by _pallas_fwd through pl.pallas_call):
 // online-softmax attention of q [B, H, Tq, D] over k, v [B, H, Tk, D]
 // with an optional [B, Tk] key mask, causal masking (q_pos >= k_pos in
@@ -11,141 +11,304 @@
 //
 // Design.  The TPU grid walked (batch*head, q-block, k-block) in order,
 // carrying m, l and acc in VMEM scratch across k-blocks.  Here one CUDA
-// block takes 64 query rows of one (batch, head); each row lives in
-// LPR = ceil(D / 32) adjacent lanes (32 of its D values each), which
-// keep q (pre-scaled into exp2 units), the running max m, the mass l
-// and the accumulator acc in registers, in float32 throughout.  K and V
-// stream through shared memory 32 keys at a time; a row scores the 32
-// keys (a dot product over its lanes, summed with two shuffles at most),
-// rescales acc once per tile, then adds the tile's p * V.  Causal
-// blocks stop at the reference's causal frontier.
+// block takes 64 query rows of one (batch, head), one warp per 16 rows,
+// and walks the keys 32 at a time.  Both products run on the tensor cores
+// in split TF32 (tf32x3.cuh: three mma.sync m16n8k8 products a term,
+// float32-equivalent): S = Q . K^T for the warp's 16 x 32 scores, kept in
+// registers as mma fragments, and O += P . V, whose A operand is the score
+// fragment itself (its keys taken in the order 0, 2, 4, 6, 1, 3, 5, 7 of
+// each 8, with V's rows read in the same order, so no shuffle is needed).
+// The online softmax runs on the fragments: each thread holds two rows'
+// values, a row's max and mass are reduced over the 4 threads that share
+// it.  Q sits in shared memory, pre-scaled into exp2 units; K/V tiles are
+// double-buffered with cp.async, together with each key's mask bit and
+// its part of the dropout hash.  The dropout bit of an element comes from
+// its own (row, key), as the reference's tile hash defines it.  A warp
+// skips the key tiles past its rows' causal frontier (they add exactly
+// nothing), and the block stops at the last row's frontier.
 //
 // Bound.  For B=32, H=8, T=256, D=64 the work is 4 * B*H*Tq*Tk*D = 4.3
 // GFLOP of float32 (two products of Tq x Tk x D), over about 67 MB of
-// q, k, v, mask and out: 64 operations per byte, so bound by the
-// float32 rate outside the tensor cores (67 TFLOP/s on an H100 SXM),
-// about 0.064 ms.  This first version runs on the CUDA cores with
-// scalar FMAs (no wgmma, TMA or cp.async; a later PR's work) and
-// reloads K/V per 64-row q tile; its time beside that bound is in
-// PERF.md.
+// q, k, v, mask and out: 64 operations per byte.  Split TF32 runs three
+// products a term on the tensor cores, a third of their TF32 rate (495
+// TFLOP/s on an H100 SXM): 165 TFLOP/s, so about 0.026 ms, bound by the
+// operations (the bytes take 0.020 ms).  What is left on the CUDA cores
+// is the split of each K/V element per warp, the exp2 and the dropout
+// hash of each score, and the rescale of O once a tile.
 //
 // Entry point: flash_attn_fwd(), a plain C function called through
 // ctypes on PyTorch's current stream.  It launches and returns
 // cudaGetLastError(); it never synchronises and allocates nothing.
 
 #include "flash_attn_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using flash::Args;
 using flash::kNegInf;
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::FragA;
+using tf32x3::FragB;
+using tf32x3::mma3;
 
-constexpr int kRows = 64;  // query rows per block
-constexpr int kKeys = 32;  // keys per shared-memory tile
+constexpr int kRows = 64;     // query rows a block
+constexpr int kThreads = 128; // 4 warps of 16 rows
+constexpr int kKeys = 32;     // keys a tile
 
-template <int LPR>
-__global__ void __launch_bounds__(kRows * LPR)
-flash_fwd_kernel(const Args a) {
-  constexpr int DP = LPR * 32;
-  __shared__ __align__(16) float ks[kKeys][DP];
-  __shared__ __align__(16) float vs[kKeys][DP];
-  __shared__ float valid[kKeys];
+template <int DP>
+constexpr int smem_floats() {
+  // Q [64][DP + 4], K and V [2][32][DP + 4], key info [2][3][32]
+  return kRows * (DP + 4) + 4 * kKeys * (DP + 4) + 2 * 3 * kKeys;
+}
+
+// the dropout multiplier of one element: flash::drop_mult with the row's
+// and the key's parts of the hash computed once
+__device__ __forceinline__ float drop_of(uint32_t row_x, uint32_t row_salt, uint32_t key_x,
+                                         uint32_t key_salt, float rate, float keep) {
+  uint32_t x = row_x ^ key_x;
+  x ^= row_salt + key_salt;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  const float u = static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+  return u >= rate ? keep : 0.0f;
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+  constexpr int LD = DP + 4;
+  constexpr int NT = kKeys / 8;  // 8-key column tiles of S
+  constexpr int DT = DP / 8;     // 8-wide column tiles of O
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                               // [64][LD]
+  float* Ks = Qs + kRows * LD;                    // [2][32][LD]
+  float* Vs = Ks + 2 * kKeys * LD;                // [2][32][LD]
+  uint32_t* info = reinterpret_cast<uint32_t*>(Vs + 2 * kKeys * LD);  // [2][3][32]
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
-  const int tid = threadIdx.x;
-  const int sub = tid % LPR;
   const int row0 = blockIdx.y * kRows;
-  const int row = row0 + tid / LPR;
-  const bool row_ok = row < a.Tq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int D = a.D, Tq = a.Tq, Tk = a.Tk;
+  const float* kbase = a.k + static_cast<size_t>(bh) * Tk * D;
+  const float* vbase = a.v + static_cast<size_t>(bh) * Tk * D;
 
-  float q[32], acc[32];
-  const float* qp = a.q + (static_cast<size_t>(bh) * a.Tq + (row_ok ? row : 0)) * a.D;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int d = flash::dim_of<LPR>(e, sub);
-    q[e] = (row_ok && d < a.D) ? qp[d] * a.scale_log2 : 0.0f;
-    acc[e] = 0.0f;
+  for (int i = tid; i < kRows * DP; i += kThreads) {
+    const int r = i / DP, d = i - r * DP;
+    const int row = row0 + r;
+    Qs[r * LD + d] = (row < Tq && d < D)
+                         ? a.q[(static_cast<size_t>(bh) * Tq + row) * D + d] * a.scale_log2
+                         : 0.0f;
   }
-  float m = kNegInf;
-  float l = 0.0f;
-  const int kend = row_ok ? flash::key_end(row, a.Tk, a.causal, a.bq, a.bk) : 0;
-  const int last_row = min(row0 + kRows, a.Tq) - 1;
-  const int kend_blk = min(flash::key_end(last_row, a.Tk, a.causal, a.bq, a.bk), a.Tk);
-  const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
-  const float* kbase = a.k + static_cast<size_t>(bh) * a.Tk * a.D;
-  const float* vbase = a.v + static_cast<size_t>(bh) * a.Tk * a.D;
 
-  for (int k0 = 0; k0 < kend_blk; k0 += kKeys) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kKeys * DP; idx += blockDim.x) {
-      const int j = idx / DP;
-      const int d = idx - j * DP;
-      const int key = k0 + j;
-      const bool ok = key < a.Tk && d < a.D;
-      const size_t off = static_cast<size_t>(key) * a.D + d;
-      ks[j][d] = ok ? kbase[off] : 0.0f;
-      vs[j][d] = ok ? vbase[off] : 0.0f;
+  // this thread's two rows (fragment rows g and g + 8 of its warp)
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  int kend[2];
+  uint32_t row_x[2], row_salt[2];
+  const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    kend[h] = row < Tq ? flash::key_end(row, Tk, a.causal, a.bq, a.bk) : 0;
+    const uint32_t qi = static_cast<uint32_t>(row / a.bq);
+    row_x[h] = (static_cast<uint32_t>(row) - qi * a.bq) * 0x9E3779B1u;
+    row_salt[h] = seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du + qi * 0x27D4EB2Fu;
+  }
+  // keys past the frontier of the warp's (and the block's) last row weigh nothing
+  const int wlast = min(row0 + warp * 16 + 15, Tq - 1);
+  const int wkend = row0 + warp * 16 < Tq ? flash::key_end(wlast, Tk, a.causal, a.bq, a.bk) : 0;
+  const int last_row = min(row0 + kRows, Tq) - 1;
+  const int kend_blk = min(flash::key_end(last_row, Tk, a.causal, a.bq, a.bk), Tk);
+  const int ntiles = (kend_blk + kKeys - 1) / kKeys;
+
+  auto load = [&](int tile, int st) {
+    const int k0 = tile * kKeys;
+    float* kd = Ks + st * kKeys * LD;
+    float* vd = Vs + st * kKeys * LD;
+    if (VEC) {  // D % 4 == 0
+      for (int i = tid; i < kKeys * DP / 4; i += kThreads) {
+        const int j = i / (DP / 4), c = (i % (DP / 4)) * 4;
+        const bool ok = k0 + j < Tk && c < D;
+        const size_t off = static_cast<size_t>(k0 + j) * D + c;
+        cp_async16(kd + j * LD + c, ok ? kbase + off : kbase, ok ? 16 : 0);
+        cp_async16(vd + j * LD + c, ok ? vbase + off : vbase, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kKeys * DP; i += kThreads) {
+        const int j = i / DP, c = i - j * DP;
+        const bool ok = k0 + j < Tk && c < D;
+        const size_t off = static_cast<size_t>(k0 + j) * D + c;
+        cp_async4(kd + j * LD + c, ok ? kbase + off : kbase, ok ? 4 : 0);
+        cp_async4(vd + j * LD + c, ok ? vbase + off : vbase, ok ? 4 : 0);
+      }
     }
-    for (int j = tid; j < kKeys; j += blockDim.x) {
+    for (int j = tid; j < kKeys; j += kThreads) {
       const int key = k0 + j;
-      valid[j] = (key < a.Tk &&
-                  (a.mask == nullptr || a.mask[static_cast<size_t>(b) * a.Tk + key] > 0.0f))
-                     ? 1.0f : 0.0f;
+      uint32_t* inf = info + st * 3 * kKeys;
+      inf[j] = key < Tk && (a.mask == nullptr ||
+                            a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
+      const uint32_t kb = static_cast<uint32_t>(key / a.bk);
+      inf[kKeys + j] = (static_cast<uint32_t>(key) - kb * a.bk) * 0x85EBCA77u;
+      inf[2 * kKeys + j] = kb * 0x165667B1u;
+    }
+  };
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};  // this thread's part of each row's mass
+
+  if (ntiles > 0) load(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      load(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int k0 = i * kKeys;
+    if (k0 < wkend) {
+      const float* Kt = Ks + (i & 1) * kKeys * LD;
+      const float* Vt = Vs + (i & 1) * kKeys * LD;
+      const uint32_t* inf = info + (i & 1) * 3 * kKeys;
 
-    float s[kKeys];
-    float mx = m;
+      // S = Q . K^T, 16 x 32 a warp
+      float s[NT][4];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float dot = flash::row_sum<LPR>(flash::dot_row<LPR>(q, ks[j], sub));
-      const int key = k0 + j;
-      const bool keep = valid[j] > 0.0f && (!a.causal || key <= row);
-      const float sc = keep ? dot : kNegInf;
-      // keys this row does not visit weigh nothing and leave m alone
-      s[j] = (key < kend && key < a.Tk) ? sc : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = exp2f(m - mx);
-    l *= alpha;
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] *= alpha;
+      for (int kd = 0; kd < DP; kd += 8) {
+        if (kd >= D) break;
+        const float* qp = Qs + (warp * 16 + g) * LD + kd + q;
+        FragA fa;
+        fa.set(qp[0], qp[8 * LD], qp[4], qp[8 * LD + 4]);
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float p = exp2f(s[j] - mx);
-      l += p;  // the mass sums probabilities before dropout
-      if (a.rate > 0.0f && p != 0.0f) {
-        p *= flash::drop_mult(seed, bh, row, k0 + j, a.bq, a.bk, a.rate,
-                              a.keep_scale);
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* kp = Kt + (nt * 8 + g) * LD + kd + q;
+          FragB fb;
+          fb.set(kp[0], kp[4]);
+          mma3(s[nt], fa, fb);
+        }
       }
-      flash::axpy_row<LPR>(acc, p, vs[j], sub);
-    }
-    m = mx;
-  }
-  if (!row_ok) return;
-  // the reference's zero-padded keys in [Tk, kend) score -1e30: they add
-  // mass 1 each to a row whose every visited key is masked, else 0
-  if (m == kNegInf && kend > a.Tk) l += static_cast<float>(kend - a.Tk);
 
-  const float inv = 1.0f / fmaxf(l, 1e-30f);
-  float* op = a.out + (static_cast<size_t>(bh) * a.Tq + row) * a.D;
+      // masks: a masked key scores the finite -1e30, a key the row does
+      // not visit -inf (no weight, and the max is left alone)
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int d = flash::dim_of<LPR>(e, sub);
-    if (d < a.D) op[d] = acc[e] * inv;
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int jj = nt * 8 + 2 * q + (e & 1);
+          const int key = k0 + jj;
+          const bool keep = inf[jj] != 0u && (!a.causal || key <= rows[h]);
+          const float sc = keep ? s[nt][e] : kNegInf;
+          s[nt][e] = (key < kend[h] && key < Tk) ? sc : -INFINITY;
+          mx[h] = fmaxf(mx[h], s[nt][e]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+      const float alpha[2] = {exp2f(m[0] - mx[0]), exp2f(m[1] - mx[1])};
+      l[0] *= alpha[0];
+      l[1] *= alpha[1];
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        o[dt][0] *= alpha[0];
+        o[dt][1] *= alpha[0];
+        o[dt][2] *= alpha[1];
+        o[dt][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = exp2f(s[nt][e] - mx[h]);
+          l[h] += p;  // the mass sums probabilities before dropout
+          if (a.rate > 0.0f) {
+            const int jj = nt * 8 + 2 * q + (e & 1);
+            p *= drop_of(row_x[h], row_salt[h], inf[kKeys + jj], inf[2 * kKeys + jj], a.rate,
+                         a.keep_scale);
+          }
+          s[nt][e] = p;
+        }
+      }
+      m[0] = mx[0];
+      m[1] = mx[1];
+
+      // O += P . V: the score fragment is the A operand, its 8 keys in the
+      // order 2q, 2q + 1 -> k = q, q + 4; V's rows follow the same order
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        FragA pa;
+        pa.set(s[nt][0], s[nt][2], s[nt][1], s[nt][3]);
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          if (dt * 8 >= D) break;
+          const float* vp = Vt + (nt * 8 + 2 * q) * LD + dt * 8 + g;
+          FragB fb;
+          fb.set(vp[0], vp[LD]);
+          mma3(o[dt], pa, fb);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the tile after next
   }
-  if (sub == 0) {
-    a.out_lse[static_cast<size_t>(bh) * a.Tq + row] =
-        l > 0.0f ? m + log2f(fmaxf(l, 1e-30f)) : 1e30f;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = rows[h];
+    if (row >= Tq) continue;
+    // the reference's zero-padded keys in [Tk, kend) score -1e30: they add
+    // mass 1 each to a row whose every visited key is masked, else 0
+    if (m[h] == kNegInf && kend[h] > Tk) l[h] += static_cast<float>(kend[h] - Tk);
+    const float inv = 1.0f / fmaxf(l[h], 1e-30f);
+    float* op = a.out + (static_cast<size_t>(bh) * Tq + row) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int d = dt * 8 + 2 * q;
+      if (d < D) op[d] = o[dt][2 * h] * inv;
+      if (d + 1 < D) op[d + 1] = o[dt][2 * h + 1] * inv;
+    }
+    if (q == 0) {
+      a.out_lse[static_cast<size_t>(bh) * Tq + row] =
+          l[h] > 0.0f ? m[h] + log2f(fmaxf(l[h], 1e-30f)) : 1e30f;
+    }
   }
 }
 
-template <int LPR>
+template <int DP, bool VEC>
 cudaError_t launch(const Args& a, cudaStream_t st) {
+  constexpr size_t smem = sizeof(float) * smem_floats<DP>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Tq + kRows - 1) / kRows);
-  flash_fwd_kernel<LPR><<<grid, kRows * LPR, 0, st>>>(a);
+  flash_fwd_kernel<DP, VEC><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dp(const Args& a, cudaStream_t st) {
+  return a.D % 4 == 0 ? launch<DP, true>(a, st) : launch<DP, false>(a, st);
 }
 
 }  // namespace
@@ -182,9 +345,9 @@ int flash_attn_fwd(const void* q, const void* k, const void* v,
   a.keep_scale = keep_scale;
   a.bq = bq; a.bk = bk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return static_cast<int>(launch<1>(a, st));
-  if (D <= 64) return static_cast<int>(launch<2>(a, st));
-  return static_cast<int>(launch<4>(a, st));
+  if (D <= 32) return static_cast<int>(launch_dp<32>(a, st));
+  if (D <= 64) return static_cast<int>(launch_dp<64>(a, st));
+  return static_cast<int>(launch_dp<128>(a, st));
 }
 
 const char* flash_attn_fwd_error_string(int code) {

@@ -1,7 +1,9 @@
-// Shared pieces of the fused recurrent kernels (lstm_fwd.cu, lstm_bwd.cu,
-// and through gru_common.cuh gru_fwd.cu, gru_bwd.cu).
+// Shared pieces of the fused recurrent kernels (lstm_fwd.cu, and through
+// gru_common.cuh gru_fwd.cu, gru_bwd.cu; lstm_bwd.cu takes only the
+// barrier, the occupancy query, the cooperative launch and sigmoidf, and
+// has its own layout).
 //
-// Both kernels run one persistent grid for the whole sequence, launched
+// These kernels run one persistent grid for the whole sequence, launched
 // with cudaLaunchCooperativeKernel so that every block is resident at
 // once, and step through time with a grid-wide barrier between steps.
 // Block x owns kUnits consecutive hidden units j0 = x * kUnits .. j0 + 3

@@ -27,10 +27,18 @@ the initial state h0 (and the LSTM's c0) [B, H], the length mask
   build failure or a launch failure raises.  Each launch adds one to
   the wrapper's ``launches``.
 
+K7 runs in three launches (``csrc/lstm_bwd.cu``): the gates of every
+step in one GEMM, the serial recurrence (dh_prev only) and dW in one
+product.  :func:`lstm_grad_phases` is the same decomposition in plain
+PyTorch, for the tests.
+
 The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
 B % 8) follow TPU tiles and are not carried over.  The kernels take any
-float32 B, T, H >= 1 whose H/4 blocks can all be resident on the card
-at once, and raise ``ValueError`` naming the limit otherwise.  The
+float32 B, T, H >= 1 whose persistent blocks can all be resident on the
+card at once (H/4 of them for K6, K8a and K8b; ceil(H/16) for K7's
+recurrence, whose batch groups run side by side as far as the card
+holds them and in turn beyond that), and raise
+``ValueError`` naming the limit otherwise.  The
 port's own gates, :func:`lstm_eligible` and :func:`gru_eligible`, say
 which shapes those are, from the card's resident-block capacity at the
 kernel's shared memory a block (:func:`kernel_capacity`); the ``lstm`` and
@@ -54,8 +62,10 @@ _FWD_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 _BWD_ARGS = [_PTR] * 14 + [_INT] * 4 + [_PTR]
 _GRU_FWD_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _GRU_BWD_ARGS = [_PTR] * 11 + [_INT] * 4 + [_PTR]
-# hidden units one block of every recurrent kernel owns (lstm_common.cuh)
+# hidden units one block of K6, K8a and K8b owns (lstm_common.cuh)
 _UNITS = 4
+# hidden units one block of K7's recurrence owns (lstm_bwd.cu)
+_BWD_UNITS = 16
 # codes the C entry points return besides a cudaError_t
 _SMEM_OVER, _NOT_RESIDENT = -1, -2
 
@@ -120,20 +130,94 @@ def lstm_grad_ref(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
             dc.to(xproj.dtype))
 
 
-def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int) -> bool:
-    """Whether an LSTM kernel (K6 or K7) takes this shape: float32,
-    non-empty, and its ceil(H/4) blocks within ``capacity``, the blocks
-    of that kernel the card holds at once at this B and H (SM count x
-    blocks per SM with the kernel's shared memory a block; 0 when a
-    block may not have that much).  Pure: the card's number comes from
-    :func:`kernel_capacity`, or from the caller."""
+def lstm_grad_phases(xproj, w, h0, c0, mask, hs, cs, dhs, dcs,
+                     rows: int = 32, splits: int = 2, matmul=torch.matmul):
+    """:func:`lstm_grad_ref`'s function in K7's three launches, for the
+    tests (the card path never calls it): (A) the post-activation gates
+    of every (row, step) from one product over the B*T rows; (B) the
+    reverse recurrence per batch group of ``rows`` rows, dh_prev =
+    dgates . W^T + the masked pass-through, with no product for a group
+    whose rows are all masked at a step; (C) dW = Hprev^T . dgates as
+    one product over the B*T rows, in ``splits`` K-wise parts summed in
+    order.  ``matmul`` is every product (``kernels/_tf32.py:
+    matmul_tf32x3`` models the kernel's split TF32)."""
+    B, T, H4 = xproj.shape
+    H = H4 // 4
+    f = lambda x: x.float()  # noqa: E731
+    hprev = torch.cat([f(h0)[:, None], f(hs)[:, :-1]], 1).reshape(B * T, H)
+    pre = matmul(hprev, f(w)).reshape(B, T, H4) + f(xproj)
+    gates = torch.cat([torch.sigmoid(pre[..., :2 * H]),
+                       torch.tanh(pre[..., 2 * H:3 * H]),
+                       torch.sigmoid(pre[..., 3 * H:])], -1)
+    dx = torch.zeros(B, T, H4, dtype=torch.float32, device=xproj.device)
+    dh0 = torch.empty(B, H, dtype=torch.float32, device=xproj.device)
+    dc0 = torch.empty_like(dh0)
+    wt = f(w).t()
+    for b0 in range(0, B, rows):
+        g = slice(b0, min(B, b0 + rows))
+        dh = torch.zeros_like(dh0[g])
+        dc = torch.zeros_like(dh)
+        for t in reversed(range(T)):
+            i, fg, gg, o = gates[g, t].split(H, -1)
+            c_prev = f(c0[g]) if t == 0 else f(cs[g, t - 1])
+            m = f(mask[g, t, None])
+            dh_total = f(dhs[g, t]) + dh
+            dc_total = f(dcs[g, t]) + dc
+            dh_new = m * dh_total
+            tc = torch.tanh(f(cs[g, t]))
+            dc_new = m * dc_total + dh_new * o * (1.0 - tc * tc)
+            dc = dc_new * fg + (1.0 - m) * dc_total
+            dgates = torch.cat([dc_new * gg * i * (1.0 - i),
+                                dc_new * c_prev * fg * (1.0 - fg),
+                                dc_new * i * (1.0 - gg * gg),
+                                dh_new * tc * o * (1.0 - o)], -1)
+            dx[g, t] = torch.where(m != 0, dgates, torch.zeros_like(dgates))
+            pass_ = (1.0 - m) * dh_total
+            dh = (matmul(dx[g, t], wt) + pass_ if bool((m != 0).any())
+                  else pass_)
+        dh0[g], dc0[g] = dh, dc
+    k = B * T
+    edges = [k * s // splits for s in range(splits + 1)]
+    dgf = dx.reshape(k, H4)
+    dw = None
+    for s in range(splits):
+        part = matmul(hprev[edges[s]:edges[s + 1]].t(),
+                      dgf[edges[s]:edges[s + 1]])
+        dw = part if dw is None else dw + part
+    return (dx.to(xproj.dtype), dw.to(w.dtype), dh0.to(xproj.dtype),
+            dc0.to(xproj.dtype))
+
+
+def _blocks(lib: str, H: int) -> int:
+    """Persistent blocks the kernel library ``lib`` needs resident at
+    once: ceil(H/4), or for K7's recurrence ceil(H/16) (one batch group
+    at a time; it runs more side by side when the card holds more
+    blocks)."""
+    if lib == _BWD:
+        return -(-H // _BWD_UNITS)
+    return -(-H // _UNITS)
+
+
+def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int,
+                  lib: str = _FWD) -> bool:
+    """Whether the LSTM kernel ``lib`` (``lstm_fwd``, K6, or
+    ``lstm_bwd``, K7) takes this shape: float32, non-empty, and its
+    persistent blocks (ceil(H/4) for K6; ceil(H/16) for K7's
+    recurrence) within ``capacity``, the blocks of that kernel the
+    card holds at once at this shape (SM count x blocks per SM with the
+    kernel's shared memory a block; 0 when a block may not have that
+    much).  Pure: the card's number comes from :func:`kernel_capacity`,
+    or from the caller."""
     return (dtype == torch.float32 and min(B, T, H) >= 1
-            and -(-H // _UNITS) <= capacity)
+            and _blocks(lib, H) <= capacity)
 
 
-# the GRU kernels (K8a, K8b) launch as the LSTM kernels do
-# (lstm_common.cuh): the same rule, with their own numbers
-gru_eligible = lstm_eligible
+def gru_eligible(B: int, T: int, H: int, dtype, capacity: int) -> bool:
+    """Whether the GRU kernels (K8a, K8b) take this shape: float32,
+    non-empty, and their ceil(H/4) blocks within ``capacity``
+    (:func:`lstm_eligible`'s rule for K6)."""
+    return (dtype == torch.float32 and min(B, T, H) >= 1
+            and _blocks(_GRU_FWD, H) <= capacity)
 
 
 _capacity = {}
@@ -181,9 +265,10 @@ def _raise_launch(lib: str, err: int, B: int, H: int):
             f"{lib} kernel: B={B}, H={H} needs {_smem_bytes(lib, B, H)} "
             "bytes of shared memory a block, more than the card allows")
     if err == _NOT_RESIDENT:
+        what = f"ceil(H/{_BWD_UNITS if lib == _BWD else _UNITS})"
         raise ValueError(
-            f"{lib} kernel: H={H} needs {-(-H // _UNITS)} blocks resident "
-            f"at once ({_UNITS} hidden units each, "
+            f"{lib} kernel: B={B}, H={H} needs {_blocks(lib, H)} "
+            f"blocks resident at once ({what}, "
             f"{_smem_bytes(lib, B, H)} bytes of shared memory a block), "
             "more than the card holds")
     fn = getattr(_build.load(lib), f"{lib}_error_string")
@@ -269,7 +354,13 @@ def lstm_fused_grad(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
-    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    words = getattr(_build.load(_BWD), "lstm_bwd_sync_words")
+    words.argtypes = [_INT, _INT]
+    words.restype = _INT
+    # the recurrence's group barriers and dW's split flags (zeroed by
+    # lstm_bwd); the gates of every step live in dxproj's own buffer
+    barrier = torch.empty(words(B, H), dtype=torch.int32,
+                          device=xproj.device)
     fn = _kernel_fn(_BWD, _BWD_ARGS)
     stream = torch.cuda.current_stream(xproj.device).cuda_stream
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
@@ -410,5 +501,6 @@ gru_fused_grad.launches = 0
 
 __all__ = ["gru_eligible", "gru_fused",
            "gru_fused_grad", "gru_grad_ref", "gru_ref", "kernel_capacity",
-           "lstm_eligible", "lstm_fused", "lstm_fused_grad", "lstm_grad_ref",
+           "lstm_eligible", "lstm_fused", "lstm_fused_grad", "lstm_grad_phases",
+           "lstm_grad_ref",
            "lstm_ref"]

@@ -183,9 +183,9 @@ def _use_kernel(ctx, attrs, lib: str, xproj) -> bool:
     cell = lib.split("_")[0]
     B, T, HN = xproj.shape
     H = HN // (4 if cell == "lstm" else 3)
-    gate = _rnn.lstm_eligible if cell == "lstm" else _rnn.gru_eligible
-    if gate(B, T, H, xproj.dtype,
-            _rnn.kernel_capacity(lib, B, H, xproj.device)):
+    cap = _rnn.kernel_capacity(lib, B, H, xproj.device)
+    if (_rnn.lstm_eligible(B, T, H, xproj.dtype, cap, lib) if cell == "lstm"
+            else _rnn.gru_eligible(B, T, H, xproj.dtype, cap)):
         return True
     _count_routing(cell)
     return False

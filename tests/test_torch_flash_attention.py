@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.kernels import attention as JA
 from paddle_tpu_torch.kernels import attention as TA
+from paddle_tpu_torch.kernels._tf32 import matmul_tf32x3
 
 FWD_TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -170,3 +171,25 @@ def test_autograd_function_uses_saved_lse_on_cpu():
     assert (TA.flash_attention_fwd.launches,
             TA.flash_attention_bwd_dq.launches,
             TA.flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_tf32_model_holds_k1s_tolerance(causal):
+    """K1's two products in split TF32 (``kernels/_tf32.py``, the
+    kernel's arithmetic) at the bench's per-head shape, T=256, D=64,
+    dropout 0.1, ragged key masks, with B x H cut to 2 x 8 (heads are
+    independent): out and lse within FWD_TOL (chip_smoke.py's
+    FLASH_FWD_TOL) of the float32 plain forward."""
+    rs = np.random.RandomState(21)
+    B, H, T, D = 2, 8, 256, 64
+    q, k, v = (torch.from_numpy(rs.randn(B, H, T, D).astype("float32"))
+               for _ in range(3))
+    lens = rs.randint(1, T + 1, (B,))
+    mask = torch.from_numpy(
+        (np.arange(T)[None, :] < lens[:, None]).astype("float32"))
+    seed = torch.tensor([77], dtype=torch.int32)
+    ref = TA.flash_attention_ref(q, k, v, mask, causal, None, 0.1, seed)
+    got = TA.flash_attention_ref(q, k, v, mask, causal, None, 0.1, seed,
+                                 matmul=matmul_tf32x3)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **FWD_TOL)

@@ -29,6 +29,7 @@ from paddle_tpu_torch.core import unique_name as t_unique
 from paddle_tpu_torch.core.program import Program as TProgram
 from paddle_tpu_torch.core.program import program_guard as t_guard
 from paddle_tpu_torch.kernels import rnn as TR
+from paddle_tpu_torch.kernels._tf32 import matmul_tf32, matmul_tf32x3
 from paddle_tpu_torch.layer_helper import LayerHelper as THelper
 from paddle_tpu_torch.layers.nn import seq_len_var as t_seq_len_var
 
@@ -95,6 +96,89 @@ def test_lstm_grad_ref_matches_pallas_backward(masked):
     for name, a, b in zip(["dx", "dw", "dh0", "dc0"], got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **GRAD_TOL)
+
+
+# name -> (B, T, H, ragged lengths, rows a group, dW splits, a row
+# masked at every step)
+PHASE_CASES = {
+    "ragged_b6_groups_of_4": (6, 7, 16, True, 4, 3, False),
+    "t1": (4, 1, 16, True, 32, 2, False),
+    "h20_b5_groups_of_2_dead_row": (5, 6, 20, True, 2, 2, True),
+    "full_lengths": (4, 6, 16, False, 32, 1, False),
+}
+
+
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_lstm_grad_phases_match_pallas_backward(name):
+    """K7's decomposition (gates of every step in one product, the
+    recurrence per batch group, dW as one split product) against the
+    reference's fused backward in interpret mode: ragged masks, T=1, a
+    batch that is not a multiple of the group, H not a multiple of 16
+    and a row masked throughout."""
+    B, T, H, masked, rows, splits, dead_row = PHASE_CASES[name]
+    args = _data(masked, B=B, T=T, H=H, seed=8)
+    if dead_row:
+        args[4][-1] = 0.0
+    hs, cs = R.lstm_fused(*map(jnp.asarray, args), True)
+    want = R.lstm_fused_grad(*map(jnp.asarray, args), hs, cs, 2.0 * hs,
+                             1.0 * cs, True)
+    hs_n, cs_n = np.asarray(hs), np.asarray(cs)
+    got = TR.lstm_grad_phases(*_t(*args, hs_n, cs_n, 2.0 * hs_n,
+                                  cs_n.copy()), rows=rows, splits=splits)
+    for gname, a, b in zip(["dx", "dw", "dh0", "dc0"], got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=gname,
+                                   **GRAD_TOL)
+    if dead_row:
+        assert torch.count_nonzero(got[0][-1]).item() == 0
+
+
+# chip_smoke.py's bounds on K7's gradients, max|d| <= bound * max|ref|:
+# LSTM_GRAD_REL for the recurrent kernels, and K7's own tighter one for
+# its split-TF32 products
+LSTM_GRAD_REL = 1e-3
+K7_GRAD_REL = 1.5e-4
+
+
+def _k7_bench_rel(matmul):
+    """max|d| / max|ref| of each gradient of :func:`TR.lstm_grad_phases`
+    with every product taken by ``matmul``, against the float32 plain
+    backward, at the bench's widths, B=128 and H=512, with T cut to 8
+    (the error of a product does not grow with T; the carries are summed
+    in float32 either way)."""
+    rs = np.random.RandomState(12)
+    B, T, H = 128, 8, 512
+    xproj = rs.randn(B, T, 4 * H).astype("float32") * 0.5
+    w = (rs.randn(H, 4 * H) / np.sqrt(H)).astype("float32")
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    c0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(1, T + 1, (B,))
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    dhs = rs.randn(B, T, H).astype("float32")
+    dcs = rs.randn(B, T, H).astype("float32")
+    args = _t(xproj, w, h0, c0, mask)
+    hs, cs = TR.lstm_ref(*args)
+    ref = TR.lstm_grad_ref(*args, hs, cs, *_t(dhs, dcs))
+    got = TR.lstm_grad_phases(*args, hs, cs, *_t(dhs, dcs), matmul=matmul)
+    return {gname: ((a - b).abs().max() / b.abs().max()).item()
+            for gname, a, b in zip(["dx", "dw", "dh0", "dc0"], got, ref)}
+
+
+def test_split_tf32_model_holds_k7s_tolerance():
+    """K7's products in split TF32 (``kernels/_tf32.py``, the kernel's
+    arithmetic): every gradient within LSTM_GRAD_REL and within K7's own
+    K7_GRAD_REL of max|ref|."""
+    for gname, rel in _k7_bench_rel(matmul_tf32x3).items():
+        assert rel <= min(LSTM_GRAD_REL, K7_GRAD_REL), (gname, rel)
+
+
+def test_one_tf32_product_breaks_k7s_bound():
+    """The control: the same backward with each product taken once in
+    TF32 stays within LSTM_GRAD_REL (so that bound alone cannot tell it
+    from split TF32) but not within K7_GRAD_REL, which the card holds
+    K7 to."""
+    rels = _k7_bench_rel(matmul_tf32)
+    assert max(rels.values()) <= LSTM_GRAD_REL, rels
+    assert max(rels.values()) > K7_GRAD_REL, rels
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
@@ -187,7 +271,11 @@ def _lstm_fwd_smem(H):
     return 4 * (-(-H // 32) * 32 * 16 + 128 * 33)   # lstm_fwd.cu:53
 
 
-@pytest.mark.parametrize("gate", ["lstm", "gru"])
+def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
+    return 4 * (16 * (-(-4 * H // 32) * 32 + 4) + 2 * 8704 + 256 * 16 + 8)
+
+
+@pytest.mark.parametrize("gate", ["lstm", "lstm_bwd", "gru"])
 @pytest.mark.parametrize("case", [
     ("B128_H512", 128, 128, 512, torch.float32, True),
     ("H2048", 2, 3, 2048, torch.float32, False),
@@ -195,22 +283,42 @@ def _lstm_fwd_smem(H):
     ("float64", 8, 4, 64, torch.float64, False),
     ("empty_batch", 0, 4, 64, torch.float32, False),
     ("H1", 1, 1, 1, torch.float32, True),
+    ("B1024_H512", 1024, 8, 512, torch.float32, True),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else c)
 def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     """``lstm_eligible``/``gru_eligible`` are pure: float32, non-empty,
-    and ceil(H/4) blocks within the card's resident-block capacity at
-    the kernel's shared memory a block (0 when a block may not have
-    that much).  At H=2048 K6 needs 512 blocks of 147,968 bytes; an
-    H100 holds 132."""
+    and the kernel's persistent blocks within the card's resident-block
+    capacity at the kernel's shared memory a block (0 when a block may
+    not have that much).  K6, K8a and K8b need ceil(H/4) blocks; K7's
+    recurrence ceil(H/16), whatever B (its batch groups take turns when
+    the card cannot hold them side by side).  At H=2048 K6 needs 512
+    blocks of 147,968 bytes, and a block of K7 would need 610,336 bytes;
+    an H100 holds 132 blocks of K6 at H=512, and 132 of K7's 217,376."""
     _, B, T, H, dtype, want = case
-    fn = TR.lstm_eligible if gate == "lstm" else TR.gru_eligible
-    assert fn(B, T, H, dtype, _h100_capacity(_lstm_fwd_smem(H))) is want
+    if gate == "lstm_bwd":
+        fn = lambda *a: TR.lstm_eligible(*a, lib="lstm_bwd")  # noqa: E731
+        smem, need = _lstm_bwd_smem(H), 32
+    else:
+        fn = TR.lstm_eligible if gate == "lstm" else TR.gru_eligible
+        smem, need = _lstm_fwd_smem(H), 128
+    assert fn(B, T, H, dtype, _h100_capacity(smem)) is want
     # a block over the shared-memory limit has capacity 0; the capacity
     # alone decides
     assert _h100_capacity(232448 + 4) == 0
     assert not fn(128, 128, 512, torch.float32, _h100_capacity(232448 + 4))
-    assert not fn(128, 128, 512, torch.float32, 127)
-    assert fn(128, 128, 512, torch.float32, 128)
+    assert not fn(128, 128, 512, torch.float32, need - 1)
+    assert fn(128, 128, 512, torch.float32, need)
+
+
+def test_gru_gate_keeps_the_h_over_4_rule():
+    """``gru_eligible`` is K8a/K8b's own rule, ceil(H/4) blocks whatever
+    B, as before K7 changed; K7's recurrence needs ceil(H/16)."""
+    assert TR.gru_eligible(4096, 8, 64, torch.float32, 16)
+    assert not TR.gru_eligible(4096, 8, 64, torch.float32, 15)
+    assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4, "lstm_bwd")
+    assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3, "lstm_bwd")
+    assert TR.lstm_eligible(4096, 8, 64, torch.float32, 16)
+    assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 15)
 
 
 def test_rnn_ops_on_the_cpu_never_consult_the_gate(monkeypatch):
