@@ -32,16 +32,22 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
 3b. The flash-attention kernels K1 (forward), K2 (dq) and K3 (dk/dv)
    against their plain versions at the training shapes (B=32, H=8,
    T=256, D=64, ragged key masks): not causal, causal and cross
-   (Tq != Tk), dropout 0 and 0.1, plus an all-masked row at a length
-   that is not a multiple of 128.  Then each kernel, its plain version
-   and the library yardstick (``scaled_dot_product_attention`` forward,
-   and its autograd backward, on the same inputs and the same dropout
-   rate) are timed with CUDA events beside the bound, with dropout 0.1
+   (Tq != Tk), dropout 0 and 0.1, an all-masked row at a length that
+   is not a multiple of 128, head dims 32 and 128, and lengths that are
+   multiples of neither 32 nor 64; K2/K3 bit-identical on a rerun.
+   K2's and K3's registers, shared memory and resident blocks an SM
+   are printed.  Then each kernel, its plain version and the library
+   yardstick (``scaled_dot_product_attention`` forward, and its
+   autograd backward, on the same inputs and the same dropout rate)
+   are timed with CUDA events beside the bound, with dropout 0.1
    (causal and not) and at rate 0, the same function as SDPA's without
-   dropout.  Last, K1 (causal, no dropout) against SDPA with
-   ``is_causal=True`` at the long context the reference's
-   ``impl="auto"`` sends to its kernel (B=4, H=8, T=8192, D=64): equal
-   within 1e-4, and both timed.
+   dropout; SDPA's backward computes dq, dk, dv and its own delta, so
+   it is set beside the port's whole backward, delta + K2 + K3, with
+   the names of the kernels it ran (its backend).  Last, K1 (causal,
+   no dropout) against SDPA with ``is_causal=True`` at the long context
+   the reference's ``impl="auto"`` sends to its kernel (B=4, H=8,
+   T=8192, D=64): equal within 1e-4; delta + K2 + K3 against SDPA's
+   backward there within 1e-4 of max|ref|; all timed.
 5. The training slice: Transformer-base through Program ->
    append_backward -> Executor.run with ``attention_impl="pallas"``.
    First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
@@ -213,6 +219,11 @@ FLASH_LONG_SHAPE = (4, 8, 8192, 64)
 # K1 vs SDPA (is_causal) there: the same causal softmax, both summing up
 # to 8192 keys in float32-equivalent arithmetic in different orders
 FLASH_LONG_TOL = 1e-4
+# K2/K3 vs SDPA's backward (is_causal) there: max|d| <= FLASH_LONG_GRAD_REL
+# * max|ref| for each of dq, dk, dv (both float32-equivalent, summing up
+# to 8192 rows or keys in different orders, each from its own forward's
+# lse)
+FLASH_LONG_GRAD_REL = 1e-4
 
 # K6/K7 vs their plain versions on the same inputs: float32 sums over H
 # (and over B*T for dW) in other orders, carried through T steps
@@ -1279,14 +1290,22 @@ FLASH_CASES = {  # name: (B, H, Tq, Tk, D, causal, rate, all-masked row)
     "causal_dropout": (32, 8, 256, 256, 64, True, 0.1, False),
     "cross_tk320_dropout": (32, 8, 256, 320, 64, False, 0.1, False),
     "causal_t200_all_masked_row": (4, 8, 200, 200, 64, True, 0.1, True),
+    # the head dims of the kernels' other widths (the seq-8k cell: 128)
+    "self_d128_dropout": (8, 8, 256, 256, 128, False, 0.1, False),
+    "causal_d32_dropout": (32, 8, 256, 256, 32, True, 0.1, False),
+    # lengths that are multiples of neither 32 nor 64
+    "cross_tq100_tk77_causal_dropout": (8, 8, 100, 77, 64, True, 0.1, False),
+    "cross_tq77_tk100_dropout": (8, 8, 77, 100, 64, False, 0.1, False),
 }
+# the cases whose K2/K3 outputs must be bit-identical on a rerun
+FLASH_RERUN = ("self_dropout", "causal_dropout")
 
 
 def flash_work(x, causal) -> dict:
     """The least work of one call of each kernel on these inputs: the
     (query, key) pairs the data needs (unmasked keys, causal-allowed),
-    4 / 6 / 8 float32 operations per pair per head dim for K1 / K2 / K3
-    (K1's at the split-TF32 rate), and each input read once, each output
+    4 / 6 / 8 float32 operations per pair per head dim for K1 / K2 / K3,
+    all at the split-TF32 rate, and each input read once, each output
     written once."""
     B, H, Tq, D = x["q"].shape
     Tk = x["k"].shape[2]
@@ -1308,15 +1327,65 @@ def flash_work(x, causal) -> dict:
         "bwd_dkv": (8 * D * pairs, 2 * qb + 2 * kb + maskb + 2 * rowb
                     + 2 * kb),
     }
-    # K1 multiplies in split TF32, K2/K3 in float32 FMA
-    rate = {"fwd": TF32X3_OPS_PER_S}
-    return {name: bound(nbytes, ops, rate.get(name, F32_OPS_PER_S))
+    # K1, K2 and K3 multiply in split TF32
+    return {name: bound(nbytes, ops, TF32X3_OPS_PER_S)
             for name, (ops, nbytes) in rows.items()}
+
+
+def flash_bwd(A, x, lse, out, causal, rate):
+    """FlashAttentionFn.backward's device work: delta, K2, K3."""
+    delta = A.flash_attention_delta(out, x["do"])
+    dq = A.flash_attention_bwd_dq(x["q"], x["k"], x["v"], x["mask"], lse,
+                                  delta, x["do"], causal, None, rate,
+                                  x["seed"])
+    dk, dv = A.flash_attention_bwd_dkv(x["q"], x["k"], x["v"], x["mask"],
+                                       lse, delta, x["do"], causal, None,
+                                       rate, x["seed"])
+    return dq, dk, dv
+
+
+def top_kernels(fn, n=2) -> list:
+    """Names of the ``n`` CUDA kernels with the most device time in one
+    call of ``fn`` (which SDPA backend ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0) + e.time_range.end - \
+                e.time_range.start
+    return sorted(per, key=per.get, reverse=True)[:n]
+
+
+def flash_bwd_occupancy(A, D, Tq, Tk) -> dict:
+    """K2's and K3's registers a thread, shared memory a block and
+    resident blocks an SM (the occupancy query of flash_attn_bwd.cu)."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("flash_attn_bwd").flash_attn_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    err = fn(D, Tq, Tk, torch.cuda.current_device(), out)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_occupancy: cudaError {err}")
+    keys = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
+    return {name: {k: out[4 * i + j] for j, k in enumerate(keys)}
+            for i, name in enumerate(("bwd_dq", "bwd_dkv"))}
 
 
 def time_flash(A, dev, causal, rate) -> dict:
     """Kernel, plain and library times at the main path's shape, cycling
-    input sets so each launch reads its K/V from device memory."""
+    input sets so each launch reads its K/V from device memory.  ``ms``
+    is device time (the profiler): a kernel shorter than its wrapper's
+    host time leaves the card idle between launches, which CUDA events
+    around a loop of calls (``event_ms``) count."""
     import torch.nn.functional as F
     B, H, T, D = FLASH_TIME_SHAPE
     one = flash_inputs(dev, B, H, T, T, D, seed=40)
@@ -1333,44 +1402,67 @@ def time_flash(A, dev, causal, rate) -> dict:
             tri = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
             s["bias"] = s["bias"] & tri
     args = lambda s: (s["q"], s["k"], s["v"], s["mask"])  # noqa: E731
-    res = {
-        "fwd": time_ms(lambda s: A.flash_attention_fwd(
-            *args(s), causal, None, rate, s["seed"]), sets, iters=100),
-        "bwd_dq": time_ms(lambda s: A.flash_attention_bwd_dq(
+    calls = {
+        "fwd": lambda s: A.flash_attention_fwd(*args(s), causal, None, rate,
+                                               s["seed"]),
+        "bwd_dq": lambda s: A.flash_attention_bwd_dq(
             *args(s), s["lse"], s["delta"], s["do"], causal, None, rate,
-            s["seed"]), sets, iters=100),
-        "bwd_dkv": time_ms(lambda s: A.flash_attention_bwd_dkv(
+            s["seed"]),
+        "bwd_dkv": lambda s: A.flash_attention_bwd_dkv(
             *args(s), s["lse"], s["delta"], s["do"], causal, None, rate,
-            s["seed"]), sets, iters=100),
+            s["seed"]),
+        # the port's whole backward (delta + K2 + K3), the function SDPA's
+        # autograd backward computes with its own delta
+        "bwd": lambda s: flash_bwd(A, s, s["lse"], s["out"], causal, rate),
     }
+    kernel = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq_kernel",
+              "bwd_dkv": "flash_bwd_dkv_kernel", "bwd": None}
     plain = {
-        "fwd": time_ms(lambda s: A.flash_attention_ref(
-            *args(s), causal, None, rate, s["seed"]), sets, iters=10),
-        "bwd_dq": time_ms(lambda s: A._bwd_ref(
+        "fwd": lambda s: A.flash_attention_ref(*args(s), causal, None, rate,
+                                               s["seed"]),
+        "bwd_dq": lambda s: A._bwd_ref(
             *args(s), s["lse"], s["delta"], s["do"], causal, D ** -0.5,
-            rate, s["seed"], True, False), sets, iters=10),
-        "bwd_dkv": time_ms(lambda s: A._bwd_ref(
+            rate, s["seed"], True, False),
+        "bwd_dkv": lambda s: A._bwd_ref(
             *args(s), s["lse"], s["delta"], s["do"], causal, D ** -0.5,
-            rate, s["seed"], False, True), sets, iters=10),
+            rate, s["seed"], False, True),
     }
     # library yardstick (never called by the port): SDPA forward, and the
     # autograd backward of one SDPA call (dq, dk and dv together), at the
     # same dropout rate (its own random bits)
-    lib_fwd = time_ms(lambda s: F.scaled_dot_product_attention(
-        s["q"], s["k"], s["v"], attn_mask=s["bias"], dropout_p=rate), sets,
-        iters=100)
     for s in sets:
         s["leaves"] = [s[n].clone().requires_grad_(True)
                        for n in ("q", "k", "v")]
         s["sdpa"] = F.scaled_dot_product_attention(
             *s["leaves"], attn_mask=s["bias"], dropout_p=rate)
-    lib_bwd = time_ms(lambda s: torch.autograd.grad(
-        s["sdpa"], s["leaves"], s["do"], retain_graph=True), sets, iters=50)
+    lib = {
+        "fwd": lambda s: F.scaled_dot_product_attention(
+            s["q"], s["k"], s["v"], attn_mask=s["bias"], dropout_p=rate),
+        "bwd": lambda s: torch.autograd.grad(
+            s["sdpa"], s["leaves"], s["do"], retain_graph=True),
+    }
+    event = {n: time_ms(fn, sets, iters=100) for n, fn in calls.items()}
+    dev_ms = {n: device_ms(fn, sets, iters=50, name=kernel[n])
+              for n, fn in calls.items()}
+    lib_event = {n: time_ms(fn, sets, iters=50) for n, fn in lib.items()}
+    lib_dev = {n: device_ms(fn, sets, iters=50) for n, fn in lib.items()}
+    plain_ms = {n: time_ms(fn, sets, iters=10) for n, fn in plain.items()}
+    backend = top_kernels(lambda: lib["bwd"](sets[0]))
+    for s in sets:
+        del s["sdpa"], s["leaves"]
     work = flash_work(one, causal)
-    return {n: {"ms": res[n], "plain_ms": plain[n],
-                "library_ms": lib_fwd if n == "fwd" else lib_bwd,
-                "input_sets": n_sets, **work[n]} for n in res}
-
+    res = {}
+    for n in calls:
+        ln = "fwd" if n == "fwd" else "bwd"
+        res[n] = {"ms": dev_ms[n], "event_ms": event[n],
+                  "library_ms": lib_dev[ln], "library_event_ms": lib_event[ln],
+                  "input_sets": n_sets}
+        if n in work:
+            res[n].update(plain_ms=plain_ms[n], **work[n])
+    res["bwd"].update(sdpa_bwd_kernels=backend,
+                      bound_ms=work["bwd_dq"]["bound_ms"]
+                      + work["bwd_dkv"]["bound_ms"])
+    return res
 
 def time_flash_long(A, dev) -> dict:
     """K1 (causal, float32, no dropout, no key mask) and SDPA with
@@ -1395,11 +1487,44 @@ def time_flash_long(A, dev) -> dict:
                  [None], iters=10)
     lib = time_ms(lambda _: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), [None], iters=10)
-    ops = 4 * D * B * H * (T * (T + 1) // 2)
-    nbytes = 4 * (4 * B * H * T * D + B * H * T)   # q, k, v, out; lse
-    return {"shape": list(FLASH_LONG_SHAPE), "max_abs_err_vs_sdpa": err,
-            "ms": ms, "library_ms": lib,
-            **bound(nbytes, ops, TF32X3_OPS_PER_S)}
+    pairs = B * H * (T * (T + 1) // 2)
+    row = B * H * T * D * 4
+    nbytes = 4 * row + B * H * T * 4          # q, k, v, out; lse
+    out = {"shape": list(FLASH_LONG_SHAPE), "max_abs_err_vs_sdpa": err,
+           "ms": ms, "library_ms": lib,
+           **bound(nbytes, 4 * D * pairs, TF32X3_OPS_PER_S)}
+    # K2/K3 (delta + K2 + K3 from K1's out and lse) against SDPA's
+    # autograd backward, the same function
+    do = torch.randn(B, H, T, D, generator=g, device=dev)
+    x = dict(q=q, k=k, v=v, do=do, mask=None, seed=None)
+    o, lse = A.flash_attention_fwd(q, k, v, None, True)
+    got = flash_bwd(A, x, lse, o, True, 0.0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    ref = torch.autograd.grad(sdpa, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+           for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+    if not all(math.isfinite(r) and r <= FLASH_LONG_GRAD_REL
+               for r in rel.values()):
+        raise AssertionError(f"K2/K3 disagree with SDPA's backward at "
+                             f"{FLASH_LONG_SHAPE}: max|d|/max|ref| {rel} > "
+                             f"{FLASH_LONG_GRAD_REL}")
+    del got, ref
+    bwd_ms = time_ms(lambda _: flash_bwd(A, x, lse, o, True, 0.0), [None],
+                     iters=5)
+    lib_bwd = time_ms(lambda _: torch.autograd.grad(
+        sdpa, leaves, do, retain_graph=True), [None], iters=5)
+    # delta reads dO and O and writes [B*H, T]; K2 reads q, k, v, dO, lse,
+    # delta and writes dq; K3 reads the same and writes dk, dv
+    bwd_bytes = (2 * row + B * H * T * 4) + (5 * row + 2 * B * H * T * 4) \
+        + (6 * row + 2 * B * H * T * 4)
+    out["bwd"] = {"max_rel_err_vs_sdpa": rel, "ms": bwd_ms,
+                  "library_ms": lib_bwd,
+                  "sdpa_bwd_kernels": top_kernels(lambda: torch.autograd.grad(
+                      sdpa, leaves, do, retain_graph=True)),
+                  **bound(bwd_bytes, 14 * D * pairs, TF32X3_OPS_PER_S)}
+    return out
 
 
 def check_and_time_flash(dev) -> dict:
@@ -1423,24 +1548,54 @@ def check_and_time_flash(dev) -> dict:
             f"{FLASH_FWD_TOL} / {FLASH_GRAD_TOL} as atol, rtol)")
         for n in errs:
             errs[n] = max(errs[n], e[n])
+        if name in FLASH_RERUN:
+            again = flash_bwd(A, x, got["lse"], got["out"], causal, rate)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, got[n])
+                       for a, n in zip(again, ("dq", "dk", "dv"))):
+                raise AssertionError(f"{name}: K2/K3 differ on a rerun")
+            log(f"  {name}: K2/K3 bit-identical on a rerun")
+            del again
         del x, got, ref
-    out = {"max_abs_err": errs}
+    out = {"max_abs_err": errs, "occupancy": {}}
+    for D in (32, 64, 128):
+        occ = out["occupancy"][f"D{D}"] = flash_bwd_occupancy(A, D, 256, 256)
+        for n, o in occ.items():
+            log(f"  {n} D={D} T=256: {o['registers']} registers a thread, "
+                f"{o['static_smem']} + {o['dynamic_smem']} bytes of shared "
+                f"memory a block, {o['blocks_per_sm']} blocks "
+                f"({4 * o['blocks_per_sm']} warps) an SM")
     for label, causal, rate in (("self_dropout", False, 0.1),
                                 ("causal_dropout", True, 0.1),
                                 ("self", False, 0.0)):
         t = time_flash(A, dev, causal, rate)
         out[label] = t
         for n, r in t.items():
-            log(f"  {label} {n}: kernel {r['ms']!r} ms, plain "
-                f"{r['plain_ms']!r} ms, sdpa {r['library_ms']!r} ms, bound "
-                f"{r['bound_ms']!r} ms ({r['bound_by']}, {r['ops']} ops, "
-                f"{r['bytes']} bytes)")
+            if n == "bwd":
+                continue
+            log(f"  {label} {n}: kernel {r['ms']!r} ms device "
+                f"({r['event_ms']!r} by events), plain {r['plain_ms']!r} ms, "
+                f"sdpa {r['library_ms']!r} ms device "
+                f"({r['library_event_ms']!r}), bound {r['bound_ms']!r} ms "
+                f"({r['bound_by']}, {r['ops']} ops, {r['bytes']} bytes)")
+        r = t["bwd"]
+        log(f"  {label} backward, delta + K2 + K3: {r['ms']!r} ms device "
+            f"({r['event_ms']!r} by events), sdpa autograd backward "
+            f"{r['library_ms']!r} ms device ({r['library_event_ms']!r}; its "
+            f"top kernels {[k[:60] for k in r['sdpa_bwd_kernels']]}), bound "
+            f"of K2 + K3 {r['bound_ms']!r} ms")
         torch.cuda.empty_cache()
     r = out["long_causal"] = time_flash_long(A, dev)
     log(f"  long_causal fwd B,H,T,D={r['shape']}: max|K1 - sdpa| "
         f"{r['max_abs_err_vs_sdpa']!r} (tolerance {FLASH_LONG_TOL}), kernel "
         f"{r['ms']!r} ms, sdpa (is_causal) {r['library_ms']!r} ms, bound "
         f"{r['bound_ms']!r} ms ({r['bound_by']})")
+    b = r["bwd"]
+    log(f"  long_causal bwd: max|d|/max|ref| vs sdpa {b['max_rel_err_vs_sdpa']}"
+        f" (tolerance {FLASH_LONG_GRAD_REL}), delta + K2 + K3 {b['ms']!r} ms, "
+        f"sdpa autograd backward {b['library_ms']!r} ms (its top kernels "
+        f"{[k[:60] for k in b['sdpa_bwd_kernels']]}), bound {b['bound_ms']!r} ms "
+        f"({b['bound_by']})")
     torch.cuda.empty_cache()
     return out
 
@@ -2987,14 +3142,20 @@ def main() -> int:
              "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 507, 2)}
     for key, (name, src, line, i) in names.items():
         t = flash["self_dropout"][key]   # the main path's most common shape
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/{src}",
             "replaces": f"paddle_tpu/kernels/attention.py:{line}",
             "launches": train["launches"][i],
             "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if key != "fwd":
+            # SDPA's one backward call computes dq, dk, dv and its delta:
+            # it stands against the pair, delta + K2 + K3
+            row.update(library_ms_is_for="delta + K2 + K3",
+                       pair_ms=flash["self_dropout"]["bwd"]["ms"])
+        rows.append(row)
     for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
         t = lstm_k["ragged"][key]   # the training path's ragged lengths
         rows.append({

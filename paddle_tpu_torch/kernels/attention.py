@@ -321,12 +321,19 @@ def flash_attention_delta(out, do) -> torch.Tensor:
 
 
 def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
-             dropout_rate, seed, want_dq: bool, want_dkv: bool):
+             dropout_rate, seed, want_dq: bool, want_dkv: bool,
+             matmul=None):
+    """The plain backward; ``matmul`` takes its five products (default
+    exact float32 einsums; the tests pass ``kernels/_tf32.py:
+    matmul_tf32x3``, K2's and K3's arithmetic)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    s = _padded_scores(q, k, kv_mask, causal, sm_scale)[..., :Tk]
+    if matmul is None:
+        def matmul(a, b):
+            return torch.einsum("bhij,bhjk->bhik", a, b)
+    s = _padded_scores(q, k, kv_mask, causal, sm_scale, matmul)[..., :Tk]
     p = torch.exp2(s - lse.reshape(B, H, Tq, 1))
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    dp = matmul(do.float(), v.float().transpose(-1, -2))
     drop = None
     if dropout_rate > 0.0:
         drop = tile_dropout_ref(seed, B, H, Tq, Tk, dropout_rate,
@@ -338,16 +345,15 @@ def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
     dq = dk = dv = None
     if want_dq:
         vis = torch.arange(Tk, device=q.device)[None] < key_end[:, None]
-        dq = torch.einsum("bhqk,bhkd->bhqd", torch.where(vis, ds, zero),
-                          k.float()) * sm_scale
+        dq = matmul(torch.where(vis, ds, zero), k.float()) * sm_scale
         dq = dq.to(q.dtype)
     if want_dkv:
         vis = torch.arange(Tq, device=q.device)[:, None] >= row_begin[None]
         pd = p if drop is None else p * drop
-        dv = torch.einsum("bhqk,bhqd->bhkd", torch.where(vis, pd, zero),
-                          do.float()).to(v.dtype)
-        dk = torch.einsum("bhqk,bhqd->bhkd", torch.where(vis, ds, zero),
-                          q.float()) * sm_scale
+        dv = matmul(torch.where(vis, pd, zero).transpose(-1, -2),
+                    do.float()).to(v.dtype)
+        dk = matmul(torch.where(vis, ds, zero).transpose(-1, -2),
+                    q.float()) * sm_scale
         dk = dk.to(k.dtype)
     return dq, dk, dv
 
@@ -356,16 +362,16 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, do,
                             causal: bool = False,
                             sm_scale: Optional[float] = None,
                             dropout_rate: float = 0.0, seed=None,
-                            delta=None):
+                            delta=None, matmul=None):
     """Plain flash-attention backward: (dq, dk, dv), as ``_pallas_bwd``.
     ``lse`` is the forward's [B*H, Tq]; ``delta`` ([B*H, Tq]) defaults to
-    rowsum(dO * O)."""
+    rowsum(dO * O); ``matmul`` as in :func:`_bwd_ref`."""
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
     if delta is None:
         delta = flash_attention_delta(out, do)
     return _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
-                    dropout_rate, seed, True, True)
+                    dropout_rate, seed, True, True, matmul)
 
 
 _FLASH_FWD, _FLASH_BWD = "flash_attn_fwd", "flash_attn_bwd"

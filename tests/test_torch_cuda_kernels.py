@@ -11,7 +11,10 @@ checks the kernels at the main path's shapes; these cover the edges:
 head dims that are not a multiple of 32, one-token blocks, the largest
 head dim, many slots, context lengths past the block table, an empty
 context, and a launch on a side stream; for the flash kernels, odd
-lengths, dropout and all-masked rows at head dims 32, 64 and 128; for
+lengths, dropout and all-masked rows at head dims 32, 64 and 128,
+cross lengths that are multiples of neither 32 nor 64, a bit-identical
+backward on a rerun at the bench shape and a long causal backward
+against SDPA's; for
 the LSTM kernels, batches of one row, one row past K7's 32-row batch
 group and past one 128-row chunk, a batch whose K7 groups take
 turns, hidden sizes that are not a multiple of 4, 16 or 32, all-masked rows, steps where no row lives, the op's
@@ -189,6 +192,65 @@ def test_flash_kernels_cross_length_causal(dev, rate):
                           seed=4)
     assert torch.count_nonzero(dk[:, :, 128:]) == 0
     assert torch.count_nonzero(dv[:, :, 128:]) == 0
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_at_the_bench_length_other_head_dims(dev, causal, D):
+    _flash_check(dev, 4, 4, 256, 256, D, causal, rate=0.1, seed=D + 7)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(100, 77), (77, 100), (33, 65)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_odd_cross_lengths(dev, causal, Tq, Tk):
+    """Lengths that are multiples of neither 32 nor 64 (K2/K3's tiles)."""
+    _flash_check(dev, 2, 3, Tq, Tk, 64, causal, rate=0.1, seed=Tq + Tk)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_is_deterministic(dev, causal):
+    """K2/K3 at the bench shape (B=32, H=8, T=256, D=64, dropout 0.1):
+    a rerun on the same inputs gives the same bits (no atomics)."""
+    q, k, v, do, mask = _flash_inputs(dev, 32, 8, 256, 256, 64, seed=8)
+    s = torch.tensor([99], dtype=torch.int32, device=dev)
+    out, lse = A.flash_attention_fwd(q, k, v, mask, causal, None, 0.1, s)
+    delta = A.flash_attention_delta(out, do)
+
+    def run():
+        dq = A.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, causal,
+                                      None, 0.1, s)
+        return (dq, *A.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                               causal, None, 0.1, s))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# K2/K3 vs SDPA's backward at a long causal context: both
+# float32-equivalent, summing up to 8192 rows or keys in other orders
+# (chip_smoke.py's FLASH_LONG_GRAD_REL)
+FLASH_LONG_GRAD_REL = 1e-4
+
+
+def test_flash_backward_long_causal_matches_sdpa(dev):
+    """B=1, H=2, T=8192, D=64, causal, no mask or dropout: dq, dk, dv
+    from K1's lse through K2/K3 against SDPA's autograd backward with
+    ``is_causal=True`` (the plain version's [T, T] scores are the
+    cost this context avoids)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v, do = (torch.randn(1, 2, 8192, 64, generator=g, device=dev)
+                   for _ in range(4))
+    out, lse = A.flash_attention_fwd(q, k, v, None, True)
+    delta = A.flash_attention_delta(out, do)
+    dq = A.flash_attention_bwd_dq(q, k, v, None, lse, delta, do, True)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, None, lse, delta, do, True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, do)
+    for a, b in zip((dq, dk, dv), ref):
+        assert (a - b).abs().max() <= FLASH_LONG_GRAD_REL * b.abs().max()
 
 
 def test_flash_autograd_on_a_side_stream(dev):

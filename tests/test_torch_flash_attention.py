@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.kernels import attention as JA
 from paddle_tpu_torch.kernels import attention as TA
-from paddle_tpu_torch.kernels._tf32 import matmul_tf32x3
+from paddle_tpu_torch.kernels._tf32 import matmul_tf32, matmul_tf32x3
 
 FWD_TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -193,3 +193,51 @@ def test_split_tf32_model_holds_k1s_tolerance(causal):
                                  matmul=matmul_tf32x3)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, **FWD_TOL)
+
+
+def _bench_head_inputs(seed):
+    """The bench's per-head shape, T=256, D=64, ragged key masks, with
+    B x H cut to 2 x 8 (heads are independent)."""
+    rs = np.random.RandomState(seed)
+    B, H, T, D = 2, 8, 256, 64
+    q, k, v, do = (torch.from_numpy(rs.randn(B, H, T, D).astype("float32"))
+                   for _ in range(4))
+    lens = rs.randint(1, T + 1, (B,))
+    mask = torch.from_numpy(
+        (np.arange(T)[None, :] < lens[:, None]).astype("float32"))
+    return q, k, v, do, mask
+
+
+def _bwd_tol_ratio(causal, matmul):
+    """max over dq, dk, dv of |d| / (atol + rtol |ref|) under GRAD_TOL
+    (chip_smoke.py's FLASH_GRAD_TOL) for the backward with its five
+    products taken by ``matmul``, against the float32 plain backward, at
+    dropout 0.1, from the same float32 forward's lse and delta."""
+    q, k, v, do, mask = _bench_head_inputs(22)
+    seed = torch.tensor([78], dtype=torch.int32)
+    out, lse = TA.flash_attention_ref(q, k, v, mask, causal, None, 0.1, seed)
+    ref = TA.flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal,
+                                     None, 0.1, seed)
+    got = TA.flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal,
+                                     None, 0.1, seed, matmul=matmul)
+    return {n: ((a - b).abs() / (GRAD_TOL["atol"] + GRAD_TOL["rtol"]
+                                 * b.abs())).max().item()
+            for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_tf32_model_holds_k2_k3s_tolerance(causal):
+    """K2's and K3's products in split TF32 (``kernels/_tf32.py``, the
+    kernels' arithmetic): dq, dk and dv within GRAD_TOL of the float32
+    plain backward at the bench's per-head shape."""
+    ratios = _bwd_tol_ratio(causal, matmul_tf32x3)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_breaks_k2_k3s_tolerance(causal):
+    """The control: the same backward with each product taken once in
+    TF32 leaves GRAD_TOL, so the card's bound tells split TF32 from one
+    TF32 product without a bound of its own."""
+    ratios = _bwd_tol_ratio(causal, matmul_tf32)
+    assert max(ratios.values()) > 1.0, ratios
