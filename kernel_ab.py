@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Hand-written kernels of this checkout against those of other checkouts
+of the repository, on one CUDA card, in one process.
+
+    git archive <commit> paddle_tpu_torch/kernels/csrc | tar -x -C <dir>
+    python3 kernel_ab.py <kernel>[,<kernel> ...] <dir> [<dir> ...]
+
+<kernel> is one of
+
+- ``flash_bwd``: K2/K3 (``csrc/flash_attn_bwd.cu``) at the bench shape
+  (B=32, H=8, T=256, D=64, ragged key masks), dropout 0.1 (not causal and
+  causal) and rate 0, with each build's registers, shared memory and
+  resident blocks an SM.  A source with no occupancy query of its own
+  (PR 2's kernels, templates in an anonymous namespace) is compiled with
+  a small shim that includes it and reports them;
+- ``paged_decode``: K4 (``csrc/paged_decode_attn.cu``), float32 and int8
+  at the decode shape and at the long-context case
+  (``chip_smoke.PAGED_SHAPES``), cycling input sets past the L2.  Another
+  checkout is called through ``paged_decode_attn`` (one split), this one
+  through ``decode_attention``, which cuts a long table into context
+  splits;
+- ``lstm_fwd``: K6 (``csrc/lstm_fwd.cu``) at the stacked LSTM's bench
+  shape, ragged and full, and ragged at H=1024 (``LSTM_WIDE_H``), every
+  build through ``lstm_fwd`` (given enough barrier words for either
+  design).
+
+Every source keeps its C entry points.  Each kernel is checked against
+this checkout's plain version (a disagreement is reported, not raised, so
+a variant built to find where the time goes can be timed too) and its
+device time taken (``chip_smoke.py``'s ``device_ms``, the torch
+profiler's median of three sessions) in turns, other, this, this, other.
+One JSON line at the end; run on a card, it fails without one.
+"""
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+from chip_smoke import (FLASH_GRAD_TOL, FLASH_TIME_SHAPE,  # noqa: E402
+                        K4_KERNELS, L2_BYTES, LSTM_SHORTEST, LSTM_TIME_SHAPE,
+                        PAGED_SHAPES, device_ms, flash_inputs, lstm_inputs,
+                        nvidia_smi_line, paged_inputs, work, worst)
+from paddle_tpu_torch.kernels import _build  # noqa: E402
+from paddle_tpu_torch.kernels import attention as A  # noqa: E402
+from paddle_tpu_torch.kernels import rnn as R  # noqa: E402
+
+# PR 2's K2/K3 at D=64: LPR = 2 lanes a row, 128 threads
+FLASH_SHIM = r"""
+#include "%s"
+namespace {
+template <typename K>
+int occ(K kernel, int threads, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = 0;
+  out[3] = blocks;
+  return static_cast<int>(err);
+}
+}
+extern "C" int flash_attn_bwd_occupancy(int D, int Tq, int Tk, int device, int* out) {
+  int err = occ(flash_bwd_dq_kernel<2>, 128, out);
+  return err ? err : occ(flash_bwd_dkv_kernel<2>, 128, out + 4);
+}
+"""
+
+OCC_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
+# paged_decode_attn (one split): q, k/v caches, k/v scales, tables,
+# lengths, out; S, H, D, bs, MB, quantized; sm_scale; device; stream
+PAGED_ONE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+BARRIER_WORDS = 64   # group barriers of the widest batch timed here
+LSTM_WIDE_H = 1024   # K6 past H=512: 8 units a block
+
+
+def build_other(src_dir: str, out_dir: str, tag: str, name: str,
+                shim=None):
+    """``csrc/<name>.cu`` of the checkout ``src_dir`` built with this
+    checkout's flags; ``shim`` = (marker, text): compiled around the source
+    when the source lacks ``marker``.  Prints ptxas' register lines."""
+    src = os.path.join(os.path.abspath(src_dir), "paddle_tpu_torch", "kernels",
+                       "csrc", f"{name}.cu")
+    if shim is not None:
+        with open(src) as f:
+            if shim[0] not in f.read():
+                path = os.path.join(out_dir, f"{tag}_{name}_shim.cu")
+                with open(path, "w") as g:
+                    g.write(shim[1] % src)
+                src = path
+    lib = os.path.join(out_dir, f"lib{tag}_{name}.so")
+    log = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                         capture_output=True, text=True)
+    if log.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}{log.stderr}")
+    for line in (log.stdout + log.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {tag}:", line.strip(), flush=True)
+    return ctypes.CDLL(lib)
+
+
+def turns(libs) -> list:
+    """other, this, this, other for each other build."""
+    return [w for o in libs if o != "this" for w in (o, "this", "this", o)]
+
+
+def err_of(got, want) -> str:
+    e = max((g - w).abs().max().item() for g, w in zip(got, want))
+    return repr(e) if math.isfinite(e) else f"disagrees: {e}"
+
+
+# ---------------------------------------------------------------------------
+# K2/K3
+# ---------------------------------------------------------------------------
+
+def flash_occupancy(lib, device: int) -> dict:
+    fn = lib.flash_attn_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    err = fn(64, 256, 256, device, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_occupancy: cudaError {err}")
+    return {k: {key: out[4 * i + j] for j, key in enumerate(OCC_KEYS)}
+            for i, k in enumerate(("bwd_dq", "bwd_dkv"))}
+
+
+def flash_call(lib, which: str, s, causal, rate):
+    """One launch of K2 or K3 of ``lib`` on input set ``s``."""
+    dq, dkv = lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkv
+    dq.argtypes, dq.restype = A._DQ_ARGS, ctypes.c_int
+    dkv.argtypes, dkv.restype = A._DKV_ARGS, ctypes.c_int
+    q, k, v = s["q"], s["k"], s["v"]
+    scale = float(1.0 / math.sqrt(q.shape[-1]))
+    B, H, Tq, Tk, D, c, sl2, r, keep, bq, bk = A._common(q, k, causal,
+                                                          scale, rate)
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), s["mask"].data_ptr(),
+              s["seed"].data_ptr(), s["do"].data_ptr(), s["lse"].data_ptr(),
+              s["delta"].data_ptr())
+    if which == "bwd_dq":
+        err = dq(*common, s["dq"].data_ptr(), B, H, Tq, Tk, D, c, sl2, scale,
+                 r, keep, bq, bk, q.device.index, stream)
+    else:
+        err = dkv(*common, s["dk"].data_ptr(), s["dv"].data_ptr(), B, H, Tq,
+                  Tk, D, c, sl2, scale / sl2, r, keep, bq, bk,
+                  q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{which}: cudaError {err}")
+
+
+def ab_flash_bwd(libs, dev) -> dict:
+    res = {"occupancy": {t: flash_occupancy(lib, dev.index)
+                         for t, lib in libs.items()}}
+    print(json.dumps(res["occupancy"]), flush=True)
+    B, H, T, D = FLASH_TIME_SHAPE
+    one = flash_inputs(dev, B, H, T, T, D, seed=40)
+    set_bytes = sum(one[n].numel() * 4 for n in ("q", "k", "v", "do"))
+    n_sets = max(2, math.ceil(2 * L2_BYTES / set_bytes))
+    for label, causal, rate in (("self_dropout", False, 0.1),
+                                ("causal_dropout", True, 0.1),
+                                ("self", False, 0.0)):
+        sets = [flash_inputs(dev, B, H, T, T, D, seed=41 + i)
+                for i in range(n_sets)]
+        for s in sets:
+            s["out"], s["lse"] = A.flash_attention_fwd(
+                s["q"], s["k"], s["v"], s["mask"], causal, None, rate,
+                s["seed"])
+            s["delta"] = A.flash_attention_delta(s["out"], s["do"])
+            for n in ("dq", "dk", "dv"):
+                s[n] = torch.empty_like(s["q"])
+        s = sets[0]
+        want = A.flash_attention_bwd_ref(
+            s["q"], s["k"], s["v"], s["mask"], s["out"], s["lse"], s["do"],
+            causal, None, rate, s["seed"], delta=s["delta"])
+        row = {}
+        for who, lib in libs.items():
+            for which in ("bwd_dq", "bwd_dkv"):
+                flash_call(lib, which, s, causal, rate)
+            torch.cuda.synchronize()
+            try:   # max |kernel - plain| over dq, dk, dv
+                row[f"{who}_max_abs_err"] = repr(max(
+                    worst(s[n], w, FLASH_GRAD_TOL)
+                    for n, w in zip(("dq", "dk", "dv"), want)))
+            except AssertionError as e:
+                row[f"{who}_max_abs_err"] = f"disagrees: {e}"
+        for which in ("bwd_dq", "bwd_dkv"):
+            for who in turns(libs):
+                ms = device_ms(lambda x: flash_call(libs[who], which, x,
+                                                    causal, rate),
+                               sets, iters=50, name=f"flash_{which}_kernel")
+                row.setdefault(f"{who}_{which}_ms", []).append(ms)
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+def paged_call(lib, this: bool):
+    """The decode attention of ``lib`` (this checkout: its wrapper)."""
+    if this:
+        return lambda s: A.decode_attention(**s)
+    fn = lib.paged_decode_attn
+    fn.argtypes, fn.restype = PAGED_ONE_ARGS, ctypes.c_int
+
+    def call(s):
+        q = s["q"]
+        S, H, D = q.shape
+        out = torch.empty_like(q)
+        quantized = "k_scale" in s
+        err = fn(q.data_ptr(), s["k_cache"].data_ptr(), s["v_cache"].data_ptr(),
+                 s["k_scale"].data_ptr() if quantized else None,
+                 s["v_scale"].data_ptr() if quantized else None,
+                 s["block_tables"].data_ptr(), s["context_lens"].data_ptr(),
+                 out.data_ptr(), S, H, D, s["k_cache"].shape[1],
+                 s["block_tables"].shape[1], int(quantized),
+                 float(1.0 / math.sqrt(D)), q.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"paged_decode_attn: cudaError {err}")
+        return out
+    return call
+
+
+def ab_paged_decode(libs, dev) -> dict:
+    res = {}
+    calls = {who: paged_call(lib, who == "this") for who, lib in libs.items()}
+    for dtype in ("float32", "int8"):
+        for name in ("decode", "long"):
+            shape = PAGED_SHAPES[name]
+            q8 = dtype == "int8"
+            one = paged_inputs(**shape, quantized=q8, seed=3, dev=dev)
+            kv = sum(one[k].numel() * one[k].element_size()
+                     for k in ("k_cache", "v_cache"))
+            sets = [paged_inputs(**shape, quantized=q8, seed=10 + i, dev=dev)
+                    for i in range(max(2, math.ceil(2 * L2_BYTES / kv)))]
+            want = A.paged_attention_ref(**sets[0])
+            row = {"this_splits": A.decode_splits(
+                shape["S"], shape["H"], shape["D"], shape["bs"],
+                shape["MB"], q8, dev), **work(one)}
+            for who, call in calls.items():
+                got = call(sets[0])
+                torch.cuda.synchronize()
+                row[f"{who}_max_abs_err"] = err_of([got], [want])
+            for who in turns(libs):
+                row.setdefault(f"{who}_ms", []).append(
+                    device_ms(calls[who], sets, name=K4_KERNELS))
+            res[f"{dtype}_{name}"] = row
+            print(f"k4_{dtype}_{name}", json.dumps(row), flush=True)
+            del sets, one, want
+            torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+def lstm_call(lib):
+    fn = lib.lstm_fwd
+    fn.argtypes, fn.restype = R._FWD_ARGS, ctypes.c_int
+
+    def call(a):
+        xproj, w, h0, c0, mask = a
+        B, T, H4 = xproj.shape
+        hs = torch.empty(B, T, H4 // 4, device=xproj.device)
+        cs = torch.empty_like(hs)
+        barrier = torch.empty(BARRIER_WORDS, dtype=torch.int32,
+                              device=xproj.device)
+        err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                 mask.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                 barrier.data_ptr(), B, T, H4 // 4, xproj.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lstm_fwd: error {err}")
+        return hs, cs
+    return call
+
+
+def ab_lstm_fwd(libs, dev) -> dict:
+    res = {}
+    calls = {who: lstm_call(lib) for who, lib in libs.items()}
+    B, T, H = LSTM_TIME_SHAPE
+    for label, lo, h in (("ragged", LSTM_SHORTEST, H), ("full", None, H),
+                         (f"ragged_h{LSTM_WIDE_H}", LSTM_SHORTEST,
+                          LSTM_WIDE_H)):
+        a = lstm_inputs(dev, B, T, h, seed=70, lo=lo)["args"]
+        want = R.lstm_ref(*a)
+        row = {"live_steps": int(a[4].sum().item())}
+        for who, call in calls.items():
+            got = call(a)
+            torch.cuda.synchronize()
+            row[f"{who}_max_abs_err"] = err_of(got, want)
+        for who in turns(libs):
+            row.setdefault(f"{who}_ms", []).append(
+                device_ms(calls[who], [a], 20, name="lstm_fwd"))
+        res[label] = row
+        print(f"k6_{label}", json.dumps(row), flush=True)
+    return res
+
+
+# kernel: (csrc source, its A/B, the shim for sources without a query)
+KERNELS = {
+    "flash_bwd": ("flash_attn_bwd", ab_flash_bwd,
+                  ("flash_attn_bwd_occupancy", FLASH_SHIM)),
+    "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
+    "lstm_fwd": ("lstm_fwd", ab_lstm_fwd, None),
+}
+
+
+def main() -> int:
+    kernels = sys.argv[1].split(",") if len(sys.argv) > 1 else []
+    if (not torch.cuda.is_available() or len(sys.argv) < 3 or not kernels
+            or any(k not in KERNELS for k in kernels)):
+        print(f"usage: kernel_ab.py <{'|'.join(KERNELS)}>[,...] "
+              "<other checkout> ... (on a CUDA card)", file=sys.stderr)
+        return 1
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    dev = torch.device("cuda:0")
+    res = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kernel in kernels:
+            src, run, shim = KERNELS[kernel]
+            libs = {"this": _build.load(src)}
+            for i, d in enumerate(sys.argv[2:]):
+                tag = f"other{i}_{os.path.basename(os.path.normpath(d))}"
+                libs[tag] = build_other(d, tmp, tag, src, shim)
+            res[kernel] = run(libs, dev)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

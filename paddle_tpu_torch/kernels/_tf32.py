@@ -1,5 +1,6 @@
-"""The split-TF32 products of the redesigned kernels (K1, K7) in plain
-PyTorch: the same arithmetic as ``csrc/tf32x3.cuh``, for the CPU tests.
+"""The split-TF32 products of the redesigned kernels (K1-K3, K6, K7) in
+plain PyTorch: the same arithmetic as ``csrc/tf32x3.cuh``, for the CPU
+tests.
 
 A float32 x is split into hi = tf32(x), rounded to nearest (ties away
 from zero) at 10 explicit mantissa bits as ``cvt.rna.tf32.f32`` does,

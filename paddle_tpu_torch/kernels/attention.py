@@ -12,8 +12,10 @@ found through the slot's row of ``block_tables``.
 - :func:`decode_attention` takes the plain version for CPU tensors and
   launches the hand-written CUDA kernel ``csrc/paged_decode_attn.cu``
   for CUDA tensors.  There is no fallback: a CUDA tensor goes to the
-  kernel, and a build or launch failure raises.  Each launch adds one
-  to ``decode_attention.launches``.
+  kernel, and a build or launch failure raises.  Each call adds one
+  to ``decode_attention.launches``, also where a long table is cut into
+  context splits (:func:`decode_splits`) and a second launch merges
+  them.
 
 Flash attention (``flash_attention``, ``_pallas_fwd``/``_pallas_bwd``
 and ``mha_xla`` in the reference) is the training path's hot op:
@@ -88,16 +90,40 @@ def paged_attention_ref(q, k_cache, v_cache, block_tables, context_lens,
     return torch.einsum("sht,sthd->shd", p, v.float()).to(q.dtype)
 
 
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+# paged_decode_attn_split: q, k/v caches, k/v scales, tables, lengths,
+# out, partials; S, H, D, bs, MB, quantized; sm_scale; splits, device;
+# stream
+_SPLIT_ARGS = [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 2 + [_PTR]
+
+
 def _kernel_fn():
-    fn = _build.load(_KERNEL).paged_decode_attn
+    fn = _build.load(_KERNEL).paged_decode_attn_split
     if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ptr]
+        fn.argtypes = _SPLIT_ARGS
         fn.restype = ctypes.c_int
     return fn
+
+
+_splits = {}
+
+
+def decode_splits(S: int, H: int, D: int, bs: int, MB: int,
+                  quantized: bool, device) -> int:
+    """Context splits the kernel takes at this shape on the CUDA
+    ``device`` (``paged_decode_attn_splits``): 1 for a table whose K rows
+    of a head take at most 64 KB (256 positions of float32 at D=64, 1,024
+    of int8), else two blocks an SM, each split at least 64 KB of K.
+    Cached per shape."""
+    key = (S, H, D, bs, MB, bool(quantized), device.index)
+    n = _splits.get(key)
+    if n is None:
+        fn = _build.load(_KERNEL).paged_decode_attn_splits
+        fn.argtypes = [_INT] * 7
+        fn.restype = _INT
+        n = _splits[key] = fn(S, H, D, bs, MB, int(quantized), device.index)
+    return n
 
 
 def _error_string(code: int) -> str:
@@ -178,18 +204,22 @@ def decode_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check_inputs(q, k_cache, v_cache, block_tables, context_lens,
                   k_scale, v_scale)
-    fn = _kernel_fn()
     S, H, D = q.shape
+    bs, MB = k_cache.shape[1], block_tables.shape[1]
     quantized = k_scale is not None
     out = torch.empty_like(q)
+    splits = decode_splits(S, H, D, bs, MB, quantized, q.device)
+    # each split's unnormalized acc [S, H, D], then its m and l [S, H]
+    part = (torch.empty(splits * S * H * (D + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), S, H, D, k_cache.shape[1],
-             block_tables.shape[1], int(quantized), float(sm_scale),
-             q.device.index, stream)
+    err = _kernel_fn()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None, block_tables.data_ptr(),
+        context_lens.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, S, H, D, bs, MB,
+        int(quantized), float(sm_scale), splits, q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attn launch failed: "
                            f"{_error_string(err)} (cudaError {err})")
@@ -639,7 +669,8 @@ def mha_ref(q, k, v, kv_mask=None, causal: bool = False,
 
 
 __all__ = ["FLASH_MAX_HEAD_DIM", "FlashAttentionFn", "LOG2E",
-           "MAX_HEAD_DIM", "NEG_INF", "decode_attention", "flash_attention",
+           "MAX_HEAD_DIM", "NEG_INF", "decode_attention", "decode_splits",
+           "flash_attention",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_ref", "flash_attention_delta",
            "flash_attention_fwd", "flash_attention_ref", "hash_dropout_ref",

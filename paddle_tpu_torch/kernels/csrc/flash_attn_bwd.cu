@@ -87,6 +87,8 @@ using tf32x3::cp_async_commit;
 using tf32x3::cp_async_wait;
 using tf32x3::FragA;
 using tf32x3::FragB;
+using tf32x3::mma_tf32;
+using tf32x3::mma_tf32_first;
 
 constexpr int kRows = 64;      // rows a block owns (q rows for dq, keys for dk/dv)
 constexpr int kThreads = 128;  // 4 warps of 16 rows
@@ -125,25 +127,6 @@ __device__ __forceinline__ float drop_of(uint32_t row_x, uint32_t row_salt, uint
 // < 1 the ceiling is at most 2^24 - 1, so the shift does not wrap
 __device__ __forceinline__ uint32_t drop_threshold(float rate) {
   return static_cast<uint32_t>(ceilf(rate * 16777216.0f)) << 8;
-}
-
-// d (+)= a * b on the tensor cores, one mma.sync m16n8k8 TF32 product
-// (tf32x3::mma's), as a plain asm statement: tf32x3::mma is volatile, so
-// the compiler keeps every product in program order and a warp waits out
-// the whole latency of each before the next, which depends on it
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
 // acc1[j] += a1 * b1[j] and acc2[j] += a2 * b2[j], j < 4, in split TF32

@@ -1,18 +1,17 @@
-// Shared pieces of the fused recurrent kernels (lstm_fwd.cu, and through
-// gru_common.cuh gru_fwd.cu, gru_bwd.cu; lstm_bwd.cu takes only the
-// barrier, the occupancy query, the cooperative launch and sigmoidf, and
-// has its own layout).
+// Shared pieces of the fused recurrent kernels: the grid barrier, the
+// occupancy query, the cooperative launch and sigmoidf (lstm_fwd.cu,
+// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu), and through gru_common.cuh the
+// FFMA products of the GRU kernels (gru_fwd.cu, gru_bwd.cu; the LSTM
+// kernels have their own layouts, in split TF32).
 //
 // These kernels run one persistent grid for the whole sequence, launched
 // with cudaLaunchCooperativeKernel so that every block is resident at
-// once, and step through time with a grid-wide barrier between steps.
-// Block x owns kUnits consecutive hidden units j0 = x * kUnits .. j0 + 3
-// and the kCols = 4 * kUnits gate columns of W that feed them (the i, f,
-// g and o columns of each unit).  Column c of a block's slice is gate
-// c / kUnits of unit c % kUnits.
+// once, and step through time with a barrier between steps.  In the GRU
+// kernels block x owns kUnits consecutive hidden units j0 = x * kUnits ..
+// j0 + 3 and the gate columns of W that feed them.
 //
 // Float32 throughout (FFMA on the CUDA cores, no tensor cores), as the
-// reference keeps h, c and every product in float32.
+// reference keeps h and every product in float32.
 
 #pragma once
 
@@ -22,7 +21,6 @@
 namespace lstm {
 
 constexpr int kUnits = 4;                  // hidden units a block owns
-constexpr int kCols = 4 * kUnits;          // gate columns of those units
 constexpr int kRows = 128;                 // batch rows per chunk
 constexpr int kSplit = 2;                  // threads per row (reduction split)
 constexpr int kThreads = kRows * kSplit;   // threads per block
@@ -122,19 +120,6 @@ __device__ __forceinline__ void reduce_split(float* tile, float (&acc)[NC]) {
   if (ks == 0) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[c] += tile[r * (NC + 1) + c];
-  }
-}
-
-// Ws[k][c] = w[k][gate(c) * H + j0 + unit(c)] for k < H and a unit < H,
-// else 0; Ws has round_up(H, kTile) rows.
-__device__ __forceinline__ void load_w_slice(const float* w, int H, int j0, float* Ws) {
-  const int Hp = round_up(H, kTile);
-  for (int idx = threadIdx.x; idx < Hp * kCols; idx += kThreads) {
-    const int k = idx / kCols;
-    const int c = idx - k * kCols;
-    const int j = j0 + c % kUnits;
-    Ws[idx] = (k < H && j < H) ? w[static_cast<size_t>(k) * 4 * H + (c / kUnits) * H + j]
-                               : 0.0f;
   }
 }
 

@@ -1,7 +1,8 @@
 // Float32 products on the tensor cores by split TF32 ("3xTF32"), and the
-// cp.async copies that feed them: the pieces the redesigned flash forward
-// (flash_attn_fwd.cu, K1) and LSTM backward (lstm_bwd.cu, K7) share.  No
-// other kernel includes this header.
+// cp.async copies that feed them: the pieces the redesigned flash kernels
+// (flash_attn_fwd.cu, K1; flash_attn_bwd.cu, K2/K3) and LSTM kernels
+// (lstm_fwd.cu, K6; lstm_bwd.cu, K7) share.  No other kernel includes
+// this header.
 //
 // A float32 x is split into x_hi = tf32(x) (round to nearest, ties away,
 // to 10 explicit mantissa bits, as cvt.rna.tf32.f32) and x_lo = x - x_hi
@@ -42,6 +43,27 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b (mma_tf32) and d = a * b (mma_tf32_first, a fresh
+// accumulator), one mma.sync m16n8k8 TF32 product each, as plain asm
+// statements: mma above is volatile, so the compiler keeps every product
+// in program order and a warp waits out the whole latency of each before
+// the next, which depends on it; these let it interleave independent
+// products
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
 // An A fragment or a B fragment in split form.

@@ -32,12 +32,19 @@ step in one GEMM, the serial recurrence (dh_prev only) and dW in one
 product.  :func:`lstm_grad_phases` is the same decomposition in plain
 PyTorch, for the tests.
 
+K6 runs as K7's recurrence does (``csrc/lstm_fwd.cu``): batch groups of
+rows with a barrier each, W for 16 units a block in shared memory (8
+past H=512, where 16 units' W no longer fits), the live rows' h_{t-1}
+packed and multiplied in split TF32 on the tensor cores.
+
 The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
 B % 8) follow TPU tiles and are not carried over.  The kernels take any
 float32 B, T, H >= 1 whose persistent blocks can all be resident on the
-card at once (H/4 of them for K6, K8a and K8b; ceil(H/16) for K7's
-recurrence, whose batch groups run side by side as far as the card
-holds them and in turn beyond that), and raise
+card at once (ceil(H/16) for K6 and K7's recurrence, whose batch groups
+run side by side as far as the card holds them and in turn beyond that,
+and ceil(H/8) for K6 past H=512: up to H=1056 on an H100's 132 SMs;
+H/4 of them for K8a and K8b) at the kernel's shared memory a block, and
+raise
 ``ValueError`` naming the limit otherwise.  The
 port's own gates, :func:`lstm_eligible` and :func:`gru_eligible`, say
 which shapes those are, from the card's resident-block capacity at the
@@ -62,29 +69,34 @@ _FWD_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 _BWD_ARGS = [_PTR] * 14 + [_INT] * 4 + [_PTR]
 _GRU_FWD_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _GRU_BWD_ARGS = [_PTR] * 11 + [_INT] * 4 + [_PTR]
-# hidden units one block of K6, K8a and K8b owns (lstm_common.cuh)
+# hidden units one block of K8a and K8b owns (lstm_common.cuh)
 _UNITS = 4
-# hidden units one block of K7's recurrence owns (lstm_bwd.cu)
-_BWD_UNITS = 16
+# hidden units one block of K6's and K7's recurrences owns (lstm_fwd.cu,
+# lstm_bwd.cu); K6 takes 8 past H = _FWD_WIDE_H, where 16 units' W no
+# longer fits a block's shared memory
+_LSTM_UNITS = 16
+_FWD_WIDE_H = 512
 # codes the C entry points return besides a cudaError_t
 _SMEM_OVER, _NOT_RESIDENT = -1, -2
 
 
-def _gates(x_t, h, w):
+def _gates(x_t, h, w, matmul=torch.matmul):
     """[B, 4H] pre-activations -> post-activation (i, f, g, o), float32."""
     H = h.shape[-1]
-    pre = x_t.float() + torch.matmul(h.to(w.dtype), w).float()
+    pre = x_t.float() + matmul(h.to(w.dtype), w).float()
     return (torch.sigmoid(pre[:, :H]), torch.sigmoid(pre[:, H:2 * H]),
             torch.tanh(pre[:, 2 * H:3 * H]), torch.sigmoid(pre[:, 3 * H:]))
 
 
-def lstm_ref(xproj, w, h0, c0, mask):
-    """Plain LSTM forward (``_lstm_fwd_kernel``): (hs, cs) [B, T, H]."""
+def lstm_ref(xproj, w, h0, c0, mask, matmul=torch.matmul):
+    """Plain LSTM forward (``_lstm_fwd_kernel``): (hs, cs) [B, T, H].
+    ``matmul`` is the recurrent product (``kernels/_tf32.py:
+    matmul_tf32x3`` models K6's split TF32, for the tests)."""
     T = xproj.shape[1]
     h, c = h0.float(), c0.float()
     hs, cs = [], []
     for t in range(T):
-        i, f, g, o = _gates(xproj[:, t], h, w)
+        i, f, g, o = _gates(xproj[:, t], h, w, matmul)
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
         m = mask[:, t, None].float()
@@ -188,22 +200,30 @@ def lstm_grad_phases(xproj, w, h0, c0, mask, hs, cs, dhs, dcs,
             dc0.to(xproj.dtype))
 
 
+def _units(lib: str, H: int) -> int:
+    """Hidden units one block of ``lib`` owns at hidden size H: 16 for
+    K6 up to H=512 and 8 past it, 16 for K7's recurrence, 4 for K8a and
+    K8b."""
+    if lib == _FWD:
+        return _LSTM_UNITS if H <= _FWD_WIDE_H else _LSTM_UNITS // 2
+    return _LSTM_UNITS if lib == _BWD else _UNITS
+
+
 def _blocks(lib: str, H: int) -> int:
     """Persistent blocks the kernel library ``lib`` needs resident at
-    once: ceil(H/4), or for K7's recurrence ceil(H/16) (one batch group
-    at a time; it runs more side by side when the card holds more
+    once: ceil(H / units a block) (:func:`_units`; K6 and K7 need one
+    batch group's, and run more side by side when the card holds more
     blocks)."""
-    if lib == _BWD:
-        return -(-H // _BWD_UNITS)
-    return -(-H // _UNITS)
+    return -(-H // _units(lib, H))
 
 
 def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int,
                   lib: str = _FWD) -> bool:
     """Whether the LSTM kernel ``lib`` (``lstm_fwd``, K6, or
     ``lstm_bwd``, K7) takes this shape: float32, non-empty, and its
-    persistent blocks (ceil(H/4) for K6; ceil(H/16) for K7's
-    recurrence) within ``capacity``, the blocks of that kernel the
+    persistent blocks (one batch group's: ceil(H/16), for K6 ceil(H/8)
+    past H=512) within
+    ``capacity``, the blocks of that kernel the
     card holds at once at this shape (SM count x blocks per SM with the
     kernel's shared memory a block; 0 when a block may not have that
     much).  Pure: the card's number comes from :func:`kernel_capacity`,
@@ -214,8 +234,7 @@ def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int,
 
 def gru_eligible(B: int, T: int, H: int, dtype, capacity: int) -> bool:
     """Whether the GRU kernels (K8a, K8b) take this shape: float32,
-    non-empty, and their ceil(H/4) blocks within ``capacity``
-    (:func:`lstm_eligible`'s rule for K6)."""
+    non-empty, and their ceil(H/4) blocks within ``capacity``."""
     return (dtype == torch.float32 and min(B, T, H) >= 1
             and _blocks(_GRU_FWD, H) <= capacity)
 
@@ -265,7 +284,7 @@ def _raise_launch(lib: str, err: int, B: int, H: int):
             f"{lib} kernel: B={B}, H={H} needs {_smem_bytes(lib, B, H)} "
             "bytes of shared memory a block, more than the card allows")
     if err == _NOT_RESIDENT:
-        what = f"ceil(H/{_BWD_UNITS if lib == _BWD else _UNITS})"
+        what = f"ceil(H/{_units(lib, H)})"
         raise ValueError(
             f"{lib} kernel: B={B}, H={H} needs {_blocks(lib, H)} "
             f"blocks resident at once ({what}, "
@@ -323,7 +342,12 @@ def lstm_fused(xproj, w, h0, c0, mask):
     H = H4 // 4
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xproj.device)
     cs = torch.empty_like(hs)
-    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    words = getattr(_build.load(_FWD), "lstm_fwd_sync_words")
+    words.argtypes = [_INT, _INT]
+    words.restype = _INT
+    # the batch groups' barriers (zeroed by lstm_fwd)
+    barrier = torch.empty(words(B, H), dtype=torch.int32,
+                          device=xproj.device)
     fn = _kernel_fn(_FWD, _FWD_ARGS)
     stream = torch.cuda.current_stream(xproj.device).cuda_stream
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),

@@ -10,14 +10,17 @@ card's machine needs no JAX: this file imports none).  ``chip_smoke.py``
 checks the kernels at the main path's shapes; these cover the edges:
 head dims that are not a multiple of 32, one-token blocks, the largest
 head dim, many slots, context lengths past the block table, an empty
-context, and a launch on a side stream; for the flash kernels, odd
+context, a launch on a side stream, and a table cut into context
+splits (f32 and int8, against the plain version, bit-identical on a
+rerun and on a side stream); for the flash kernels, odd
 lengths, dropout and all-masked rows at head dims 32, 64 and 128,
 cross lengths that are multiples of neither 32 nor 64, a bit-identical
 backward on a rerun at the bench shape and a long causal backward
 against SDPA's; for
 the LSTM kernels, batches of one row, one row past K7's 32-row batch
 group and past one 128-row chunk, a batch whose K7 groups take
-turns, hidden sizes that are not a multiple of 4, 16 or 32, all-masked rows, steps where no row lives, the op's
+turns, hidden sizes that are not a multiple of 4, 16 or 32, all-masked rows, steps where no row lives (forward and
+backward), a bit-identical forward and backward on a rerun, the op's
 reversed path and the shapes past what a card can hold; the same for the GRU kernels (K8a, K8b), with an
 initial state and a bit-identical backward on a rerun; for the sparse kernels (K9, K10), an empty batch, every
 id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
@@ -39,7 +42,7 @@ from paddle_tpu_torch.kernels.quant import kv_quantize
 
 pytestmark = pytest.mark.cuda
 
-TOL = 1e-5      # float32 sums in two orders over at most 256 positions
+TOL = 1e-5      # float32 sums in two orders over at most 2,048 positions
 
 
 @pytest.fixture
@@ -110,6 +113,48 @@ def test_launch_on_a_side_stream(dev):
         got = A.decode_attention(**inp)
     side.synchronize()
     assert torch.equal(got, ref)
+
+
+# tables long enough to be cut into context splits (2,048 positions of bs
+# 16; on an H100, 8 splits of 256 positions in float32, 2 of 1,024 in
+# int8): contexts of 1, bs, bs + 1, a multiple of the split, past the
+# table and with a split boundary inside, at 2 heads and at 8
+SPLIT_SHAPE = (6, 2, 64, 16, 128, 800)   # S, H, D, bs, MB, N
+SPLIT_CLS = [1, 16, 17, 1024, 5000, 1300]
+SPLIT_CASES = {"h2": (SPLIT_SHAPE, SPLIT_CLS),
+               "h8": ((3, 8, 64, 16, 128, 400), [2000, 17, 1400])}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=list(SPLIT_CASES))
+def test_kernel_matches_plain_version_across_context_splits(dev, case,
+                                                            quantized):
+    shape, cls = SPLIT_CASES[case]
+    S, H, D, bs, MB, N = shape
+    assert A.decode_splits(S, H, D, bs, MB, quantized, dev) > 1
+    inp = _inputs(dev, *shape, cls, quantized=quantized, seed=7)
+    before = A.decode_attention.launches
+    got = A.decode_attention(**inp)
+    torch.cuda.synchronize()
+    assert A.decode_attention.launches == before + 1
+    ref = A.paged_attention_ref(**inp)
+    assert (got - ref).abs().max().item() <= TOL
+
+
+def test_context_splits_are_bit_identical_on_a_rerun_and_a_side_stream(dev):
+    """The splits' partial states merge in a fixed order: a rerun, and a
+    launch on another stream, give the same bits (f32 and int8)."""
+    for quantized in (False, True):
+        inp = _inputs(dev, *SPLIT_SHAPE, SPLIT_CLS, quantized=quantized,
+                      seed=8)
+        ref = A.decode_attention(**inp)
+        again = A.decode_attention(**inp)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = A.decode_attention(**inp)
+        side.synchronize()
+        assert torch.equal(again, ref) and torch.equal(got, ref)
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
@@ -289,8 +334,10 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
 # backward: max|d| <= LSTM_GRAD_REL * max|ref| (sums over B*T for dW)
 LSTM_FWD_ATOL = 1e-4
 LSTM_GRAD_REL = 1e-3
-# K7 multiplies in split TF32 and is held tighter (chip_smoke.py's
-# K7_GRAD_REL): one TF32 product a term would pass LSTM_GRAD_REL
+# K6 and K7 multiply in split TF32 and are held tighter (chip_smoke.py's
+# K6_FWD_ATOL, K7_GRAD_REL): one TF32 product a term would pass
+# LSTM_GRAD_REL, and miss LSTM_FWD_ATOL by a slim margin only
+K6_FWD_ATOL = 1e-5
 K7_GRAD_REL = 1.5e-4
 
 
@@ -340,8 +387,8 @@ def test_lstm_kernels_match_plain(dev, shape, masked):
     assert (R.lstm_fused.launches, R.lstm_fused_grad.launches) == \
         (n[0] + 1, n[1] + 1)
     hs_r, cs_r = R.lstm_ref(*args)
-    assert (hs - hs_r).abs().max().item() <= LSTM_FWD_ATOL
-    assert (cs - cs_r).abs().max().item() <= LSTM_FWD_ATOL
+    assert (hs - hs_r).abs().max().item() <= K6_FWD_ATOL
+    assert (cs - cs_r).abs().max().item() <= K6_FWD_ATOL
     ref = R.lstm_grad_ref(*args, hs, cs, dhs, dcs)
     for name, a, b in zip(("dxproj", "dw", "dh0", "dc0"), grads, ref):
         assert a.shape == b.shape and torch.isfinite(a).all(), name
@@ -367,6 +414,78 @@ def test_lstm_backward_with_steps_where_no_row_lives(dev):
         assert torch.isfinite(a).all(), name
         assert _rel(a, b) <= K7_GRAD_REL, name
     assert torch.count_nonzero(grads[0][:, 5:9]).item() == 0
+
+
+def test_lstm_forward_with_steps_where_no_row_lives(dev):
+    """K6 at the bench's width with steps at which every row is masked,
+    in the middle and at the end (its batch groups skip their barrier and
+    product there): h and c pass through them unchanged."""
+    args, _, _ = _lstm_inputs(dev, 64, 16, 512, seed=17, masked=False)
+    mask = args[4]
+    mask[:, 5:9] = 0.0
+    mask[:, 13:] = 0.0
+    hs, cs = R.lstm_fused(*args)
+    torch.cuda.synchronize()
+    hs_r, cs_r = R.lstm_ref(*args)
+    assert (hs - hs_r).abs().max().item() <= K6_FWD_ATOL
+    assert (cs - cs_r).abs().max().item() <= K6_FWD_ATOL
+    for x in (hs, cs):
+        assert torch.equal(x[:, 5:9], x[:, 4:5].expand(-1, 4, -1))
+        assert torch.equal(x[:, 13:], x[:, 12:13].expand(-1, 3, -1))
+
+
+def test_lstm_forward_where_batch_groups_take_turns(dev):
+    """B=1024 at H=512: more of K6's batch groups than the card holds
+    side by side, so they take turns; ragged lengths, and a rerun gives
+    the same bits."""
+    args, _, _ = _lstm_inputs(dev, 1024, 8, 512, seed=19)
+    hs, cs = R.lstm_fused(*args)
+    hs2, cs2 = R.lstm_fused(*args)
+    torch.cuda.synchronize()
+    hs_r, cs_r = R.lstm_ref(*args)
+    assert (hs - hs_r).abs().max().item() <= K6_FWD_ATOL
+    assert (cs - cs_r).abs().max().item() <= K6_FWD_ATOL
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
+
+
+# K6 past H=512, at 8 units a block (K7 does not take these widths)
+LSTM_WIDE_SHAPES = {   # B, T, H
+    "b8_t5_h640": (8, 5, 640),
+    "b128_t16_h1024": (128, 16, 1024),
+    "b3_t7_h1056": (3, 7, 1056),
+    "b200_t4_h520": (200, 4, 520),
+}
+
+
+@pytest.mark.parametrize("shape", list(LSTM_WIDE_SHAPES),
+                         ids=list(LSTM_WIDE_SHAPES))
+def test_lstm_forward_past_h512(dev, shape):
+    """K6 at widths whose 16 units' W no longer fits a block, ragged with
+    an all-masked row: the gate takes them on the card (ceil(H/8) blocks),
+    the kernel matches its plain version and a rerun gives the same
+    bits."""
+    B, T, H = LSTM_WIDE_SHAPES[shape]
+    cap = R.kernel_capacity("lstm_fwd", B, H, dev)
+    assert R.lstm_eligible(B, T, H, torch.float32, cap)
+    args, _, _ = _lstm_inputs(dev, B, T, H, seed=B + T + H, all_masked=True)
+    hs, cs = R.lstm_fused(*args)
+    hs2, cs2 = R.lstm_fused(*args)
+    torch.cuda.synchronize()
+    hs_r, cs_r = R.lstm_ref(*args)
+    assert (hs - hs_r).abs().max().item() <= K6_FWD_ATOL
+    assert (cs - cs_r).abs().max().item() <= K6_FWD_ATOL
+    assert torch.equal(hs[-1], args[2][-1].expand(T, H))
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
+
+
+def test_lstm_forward_is_deterministic(dev):
+    """K6 at the bench shape with ragged lengths: a rerun gives the same
+    bits (the K-slices' partial sums meet in a fixed order)."""
+    args, _, _ = _lstm_inputs(dev, 128, 128, 512, seed=23)
+    a = R.lstm_fused(*args)
+    b = R.lstm_fused(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_lstm_backward_is_deterministic(dev):
@@ -400,7 +519,7 @@ def test_lstm_op_kernel_path_matches_plain_scan(dev, reverse):
     (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
     for slot in ("Hidden", "Cell", "LastH", "LastC"):
         assert (fk[slot][0] - fp[slot][0]).abs().max().item() <= \
-            LSTM_FWD_ATOL, slot
+            K6_FWD_ATOL, slot
     for slot in ("Input@GRAD", "Weight@GRAD"):
         assert _rel(gk[slot][0], gp[slot][0]) <= LSTM_GRAD_REL, slot
 
@@ -811,7 +930,7 @@ def test_rnn_op_launches_the_kernel_on_an_eligible_shape(dev, cell):
     assert fwd_k.launches == before[0] + 1
     assert _scan_routings(cell) == before[1]
     assert (got["Hidden"][0] - want["Hidden"][0]).abs().max().item() <= \
-        LSTM_FWD_ATOL
+        (K6_FWD_ATOL if cell == "lstm" else LSTM_FWD_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,14 @@ PORT = os.path.join(ROOT, "paddle_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 
 
+# the root scripts the port added: its smoke check and the card's
+# measurement scripts
+SCRIPTS = [SMOKE] + [os.path.join(ROOT, f) for f in (
+    "kernel_ab.py", "mma_rate.py", "profiler_loss.py")]
+
+
 def _port_files():
-    out = [SMOKE]
+    out = list(SCRIPTS)
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

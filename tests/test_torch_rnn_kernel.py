@@ -181,6 +181,52 @@ def test_one_tf32_product_breaks_k7s_bound():
     assert max(rels.values()) > K7_GRAD_REL, rels
 
 
+# chip_smoke.py's bounds on K6's hs and cs: max|d| <= LSTM_FWD_ATOL, the
+# bound of every float32 recurrence, and K6_FWD_ATOL, K6's own: split TF32
+# reaches 2.3e-7..3.9e-7 here, one TF32 product a term 1.2e-4..1.8e-4
+LSTM_FWD_ATOL = 1e-4
+K6_FWD_ATOL = 1e-5
+# (seed, T): the bench's B=128 and H=512 with T cut to 8 on four seeds,
+# and the bench's T=128
+K6_CASES = [(12, 8), (13, 8), (14, 8), (12, 128)]
+
+
+def _k6_bench_err(matmul, seed, T):
+    """max|d| over hs and cs of :func:`TR.lstm_ref` with the recurrent
+    product taken by ``matmul``, against the float32 plain forward, at the
+    bench's widths, B=128 and H=512, ragged, over T steps."""
+    rs = np.random.RandomState(seed)
+    B, H = 128, 512
+    xproj = rs.randn(B, T, 4 * H).astype("float32") * 0.5
+    w = (rs.randn(H, 4 * H) / np.sqrt(H)).astype("float32")
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    c0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(1, T + 1, (B,))
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    args = _t(xproj, w, h0, c0, mask)
+    ref = TR.lstm_ref(*args)
+    got = TR.lstm_ref(*args, matmul=matmul)
+    return max((a - b).abs().max().item() for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("case", K6_CASES,
+                         ids=[f"seed{s}_t{t}" for s, t in K6_CASES])
+def test_split_tf32_model_holds_k6s_tolerance(case):
+    """K6's recurrent product in split TF32 (``kernels/_tf32.py``, the
+    kernel's arithmetic): hs and cs within K6_FWD_ATOL (and so within
+    LSTM_FWD_ATOL)."""
+    assert _k6_bench_err(matmul_tf32x3, *case) <= K6_FWD_ATOL
+
+
+@pytest.mark.parametrize("case", K6_CASES,
+                         ids=[f"seed{s}_t{t}" for s, t in K6_CASES])
+def test_one_tf32_product_breaks_k6s_tolerance(case):
+    """The control: the same forward with one TF32 product a term misses
+    K6_FWD_ATOL, which the card holds K6 to.  It misses LSTM_FWD_ATOL too,
+    but only by 1.2-1.8x, too slim a margin to be K6's bound alone."""
+    assert _k6_bench_err(matmul_tf32, *case) > K6_FWD_ATOL
+
+
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     args = _t(*_data(True, seed=5))
     n = (TR.lstm_fused.launches, TR.lstm_fused_grad.launches)
@@ -267,8 +313,13 @@ def _h100_capacity(smem):
     return 132 * min(8, 233472 // (smem + 1024)) if smem <= 232448 else 0
 
 
-def _lstm_fwd_smem(H):
-    return 4 * (-(-H // 32) * 32 * 16 + 128 * 33)   # lstm_fwd.cu:53
+def _lstm_fwd_smem(H):   # lstm_fwd.cu: fwd_smem_bytes, 16 units or 8
+    units = 16 if H <= 512 else 8
+    return 4 * (4 * units * (-(-H // 128) * 128 + 4) + 18432) + 4 * 260
+
+
+def _four_unit_smem(H):   # a block of 4 units: W's 16 columns and a tile
+    return 4 * (-(-H // 32) * 32 * 16 + 128 * 33)
 
 
 def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
@@ -284,23 +335,32 @@ def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
     ("empty_batch", 0, 4, 64, torch.float32, False),
     ("H1", 1, 1, 1, torch.float32, True),
     ("B1024_H512", 1024, 8, 512, torch.float32, True),
+    # K6 at 8 units a block; K7's 16 units' W no longer fits a block
+    ("H1024", 8, 4, 1024, torch.float32,
+     {"lstm": True, "lstm_bwd": False, "gru": True}),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else c)
 def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     """``lstm_eligible``/``gru_eligible`` are pure: float32, non-empty,
     and the kernel's persistent blocks within the card's resident-block
     capacity at the kernel's shared memory a block (0 when a block may
-    not have that much).  K6, K8a and K8b need ceil(H/4) blocks; K7's
-    recurrence ceil(H/16), whatever B (its batch groups take turns when
-    the card cannot hold them side by side).  At H=2048 K6 needs 512
-    blocks of 147,968 bytes, and a block of K7 would need 610,336 bytes;
-    an H100 holds 132 blocks of K6 at H=512, and 132 of K7's 217,376."""
+    not have that much).  K6 and K7's recurrence need ceil(H/16) blocks,
+    whatever B (their batch groups take turns when the card cannot hold
+    them side by side), K6 ceil(H/8) past H=512; K8a and K8b ceil(H/4).
+    At H=2048 a block of K6 would need 337,424 bytes and one of K7
+    610,336; an H100 holds 132 blocks of K6's 206,864 bytes at H=512 and
+    of its 206,352 at H=1024, and 132 of K7's 217,376 at H=512."""
     _, B, T, H, dtype, want = case
+    if isinstance(want, dict):
+        want = want[gate]
     if gate == "lstm_bwd":
         fn = lambda *a: TR.lstm_eligible(*a, lib="lstm_bwd")  # noqa: E731
         smem, need = _lstm_bwd_smem(H), 32
+    elif gate == "lstm":
+        fn = TR.lstm_eligible
+        smem, need = _lstm_fwd_smem(H), 32
     else:
-        fn = TR.lstm_eligible if gate == "lstm" else TR.gru_eligible
-        smem, need = _lstm_fwd_smem(H), 128
+        fn = TR.gru_eligible
+        smem, need = _four_unit_smem(H), 128
     assert fn(B, T, H, dtype, _h100_capacity(smem)) is want
     # a block over the shared-memory limit has capacity 0; the capacity
     # alone decides
@@ -310,15 +370,28 @@ def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     assert fn(128, 128, 512, torch.float32, need)
 
 
+@pytest.mark.parametrize("H, blocks, on_h100", [
+    (512, 32, True), (513, 65, True), (1024, 128, True), (1056, 132, True),
+    (1064, 133, False)])
+def test_k6_takes_eight_units_a_block_past_h512(H, blocks, on_h100):
+    """K6's blocks are ceil(H/16) up to H=512 and ceil(H/8) past it, where
+    16 units' W no longer fits a block: one block an SM, so an H100's 132
+    SMs take K6 up to H=1056."""
+    assert TR._blocks("lstm_fwd", H) == blocks
+    cap = _h100_capacity(_lstm_fwd_smem(H))
+    assert cap == 132
+    assert TR.lstm_eligible(8, 4, H, torch.float32, cap) is on_h100
+
+
 def test_gru_gate_keeps_the_h_over_4_rule():
     """``gru_eligible`` is K8a/K8b's own rule, ceil(H/4) blocks whatever
-    B, as before K7 changed; K7's recurrence needs ceil(H/16)."""
+    B, as before K6 and K7 changed; their recurrences need ceil(H/16)."""
     assert TR.gru_eligible(4096, 8, 64, torch.float32, 16)
     assert not TR.gru_eligible(4096, 8, 64, torch.float32, 15)
     assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4, "lstm_bwd")
     assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3, "lstm_bwd")
-    assert TR.lstm_eligible(4096, 8, 64, torch.float32, 16)
-    assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 15)
+    assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4)
+    assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3)
 
 
 def test_rnn_ops_on_the_cpu_never_consult_the_gate(monkeypatch):
