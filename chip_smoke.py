@@ -96,9 +96,12 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    T=7, H=96) and at T=1; the backward must be bit-identical on a rerun.
    The ``gru`` op with ``is_reverse``, H0 and a LastH cotangent runs
    K8a/K8b against its plain scan at the path's shape.  Then each
-   kernel's device time (torch profiler), its plain version and cuDNN's
+   kernel's device time (torch profiler; K8b's three launches, the gates,
+   the recurrence and dw, also one by one), its plain version and cuDNN's
    GRU (``torch.nn.GRU``, TF32 off; a different function: it applies the
-   reset gate after the recurrent product) are set beside the bound.
+   reset gate after the recurrent product) are set beside the bound (K8b
+   at split TF32's rate, the float32 rate's beside it).  K8b is held to
+   its own ``K8B_GRAD_REL``.
 7. The stacked-LSTM slice: ``models/stacked_lstm.py`` (dict 30000, emb
    512, hid 512, 3 layers, the middle one reversed, Adam) through
    ``layers.data(lod_level=1)`` -> ``Adam.minimize`` -> Executor.run.
@@ -134,17 +137,19 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    (8..32 tokens) trains 12 steps on one batch: the loss must stay
    finite and fall, K8a and K8b must each launch exactly twice a step,
    and no gradient may re-run its forward.  Step ms, tokens/s, peak
-   memory and one profiled step follow.
+   memory and one profiled step follow, with K8a's and K8b's shares of
+   its device busy time.
 3f. The fused-dequant int8 FC K5 against its plain version at the int8
    Transformer's four bucket-8 shapes (M = 2048: [512 -> 512],
    [512 -> 2048] with relu, [2048 -> 512], [512 -> 32000]), an odd shape
    (M=5, K=37, N=11) and one row, every act of the epilogue ("", relu,
    sigmoid, tanh, gelu) with a dynamic and a calibrated activation
    scale: "" and relu bit for bit, the others within 1e-6 of max|ref|.
-   Then the kernel's device time (profiler), its plain version and two
-   library yardsticks the port never calls (``torch._int_mm`` plus the
-   epilogue in torch ops, and the float32 ``torch.matmul`` of the same
-   layer) beside the bound, cycling inputs past the L2.
+   Then the kernel's device time (profiler; each weight's K-major copy
+   made before, as on the path), its tile and occupancy, its plain version and two library yardsticks the port
+   never calls (``torch._int_mm`` plus the epilogue in torch ops, and
+   the float32 ``torch.matmul`` of the same layer) beside the bound,
+   cycling inputs past the L2, and the sums over one bucket-8 dispatch.
 10. The int8 serving slice: Transformer-base (vocab 32000/32000, d_model
    512, 8 heads, d_ffn 2048, ``attention_impl="base"``, dropout 0.1 that
    the predictor runs as identities) through ``io.save_inference_model``
@@ -165,7 +170,8 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    reply within 1e-4 of ``Predictor.run`` of its row alone.  Printed,
    not gated: the argmax disagreement of int8 against float32
    (``quant_accuracy_delta``), QPS, p50/p99, the bucket-8 dispatch ms,
-   peak memory and one profiled int8 dispatch.
+   peak memory and one profiled int8 dispatch with K5's share of its
+   device busy time.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound.
@@ -273,9 +279,17 @@ DEEPFM_TABLE_TOL = 1e-2
 DEEPFM_FLAG_TOL = (1e-6, 1e-7)
 SPARSE_TIME_SETS = 32          # id batches cycled so rows come from HBM
 
-# K8a/K8b are held to the float32 recurrences' tolerances (LSTM_FWD_ATOL,
-# LSTM_GRAD_REL): the same float32 sums through the same kind of
-# recurrence
+# K8a is held to the float32 recurrences' forward tolerance
+# (LSTM_FWD_ATOL): the same float32 sums through the same kind of
+# recurrence.  K8b multiplies in split TF32 and is held tighter than
+# LSTM_GRAD_REL: the CPU model of its arithmetic reaches 1.7e-7..4.6e-7
+# of max|ref| at machine translation's shape on four seeds, one TF32
+# product a term 2.4e-4..2.8e-4 (tests/test_torch_gru_kernel.py), which
+# LSTM_GRAD_REL would let pass
+K8B_GRAD_REL = 2e-5
+# K8b's three launches (csrc/gru_bwd.cu): (A) the gates, (B) the
+# recurrence, (C) dw; profiler event names contain these
+K8B_LAUNCHES = ("gru_bwd_gates", "gru_bwd_recurrence", "gru_bwd_dw")
 GRU_CASES = {  # name: (B, T, H, shortest row or None for full lengths)
     "mt_full": (64, 32, 256, None),
     "mt_ragged": (64, 32, 256, 8),
@@ -422,12 +436,14 @@ PROFILER_LOSSES = []
 def device_ms_by_name(fn, sets, iters, names) -> dict:
     """Mean device time per call over ``iters`` calls (after warm-up) of
     the CUDA kernels and copies whose names contain each of ``names``
-    (None: all of them): the median over three torch profiler sessions.
+    (None: all of them): the median over three torch profiler sessions
+    (five after a loss).
     The profiler drops a session's device records now and then, all of
     them or some, whether the session waits before or after its work
     (``profiler_loss.py`` measures how often); a loss only lowers a
     session's sum, so the median holds unless two sessions of the three
-    lose.  Sessions whose record counts differ are logged and listed in
+    lose; then two more sessions run and the median is over all five.
+    Sessions whose record counts differ are logged and listed in
     ``PROFILER_LOSSES``; a name with no time in the median raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -435,7 +451,13 @@ def device_ms_by_name(fn, sets, iters, names) -> dict:
         fn(sets[i % len(sets)])
     per = {name: [] for name in names}
     counts = []
-    for _ in range(3):
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    for session in range(5):
+        if session == 3 and all(median(v) > 0 for v in per.values()):
+            break
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -454,11 +476,11 @@ def device_ms_by_name(fn, sets, iters, names) -> dict:
         log(f"  profiler sessions disagree ({where}); taking the median")
     out = {}
     for name in names:
-        out[name] = sorted(per[name])[1]
+        out[name] = median(per[name])
         if not out[name] > 0:
             raise AssertionError(f"the profiler recorded no device time for "
-                                 f"{name or 'the call'} in two sessions of "
-                                 f"three")
+                                 f"{name or 'the call'} in most of "
+                                 f"{len(per[name])} sessions")
     return out
 
 
@@ -880,9 +902,11 @@ def gru_inputs(dev, B, T, H, seed, lo=None):
 def gru_work(x) -> dict:
     """The least work of K8a and K8b on these inputs, per live (row,
     step) (a masked step needs none): K8a the two products h·w_uz and
-    (r ⊙ h)·w_c, 2·H·3H operations; K8b the gate recompute (2·H·3H),
-    drh = db·w_c^T (2·H·H), da·w_uz^T (2·2H·H) and dW (2·H·3H), 18·H²;
-    each input read once and each output written once."""
+    (r ⊙ h)·w_c, 2·H·3H operations at the float32 rate; K8b the gate
+    recompute (2·H·3H), drh = db·w_c^T (2·H·H), da·w_uz^T (2·2H·H) and
+    dW (2·H·3H), 18·H², at split TF32's rate (its products' arithmetic),
+    with the float32 rate's bound beside it (``fma_bound_ms``); each
+    input read once and each output written once."""
     xproj = x["args"][0]
     B, T, H3 = xproj.shape
     H = H3 // 3
@@ -890,15 +914,15 @@ def gru_work(x) -> dict:
     f4 = 4
     xb, wb, sb = B * T * H3 * f4, H * H3 * f4, B * H * f4
     mb, hb = B * T * f4, B * T * H * f4
-    rows = {"fwd": (2 * live * H * H3, xb + wb + sb + mb + hb),
+    rows = {"fwd": (2 * live * H * H3, xb + wb + sb + mb + hb,
+                    F32_OPS_PER_S),
             "bwd": (18 * live * H * H,
-                    xb + wb + sb + mb + 2 * hb + xb + wb + sb)}
-    out = {}
-    for name, (ops, nbytes) in rows.items():
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        out[name] = {"ops": ops, "bytes": nbytes, "live_steps": live,
-                     "bound_ms": max(t_b, t_o) * 1e3,
-                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+                    xb + wb + sb + mb + 2 * hb + xb + wb + sb,
+                    TF32X3_OPS_PER_S)}
+    out = {name: {**bound(nbytes, ops, rate), "live_steps": live}
+           for name, (ops, nbytes, rate) in rows.items()}
+    out["bwd"]["fma_bound_ms"] = bound(out["bwd"]["bytes"],
+                                       out["bwd"]["ops"])["bound_ms"]
     return out
 
 
@@ -927,9 +951,10 @@ def time_cudnn_gru(dev, B, T, H) -> dict:
 
 def time_gru(R, dev) -> dict:
     """K8a/K8b at machine translation's shape with ragged lengths 8..32:
-    device time from the profiler (``device_ms``) and wall per call from
-    CUDA events, the plain versions (CUDA events) and cuDNN's GRU (a
-    different function, device time) beside the bound."""
+    device time from the profiler (``device_ms``; K8b's three launches
+    also one by one) and wall per call from CUDA events, the plain
+    versions (CUDA events) and cuDNN's GRU (a different function, device
+    time) beside the bound."""
     B, T, H = GRU_TIME_SHAPE
     x = gru_inputs(dev, B, T, H, seed=80, lo=MT_SHORTEST)
     a, dhs = x["args"], x["dhs"]
@@ -938,13 +963,15 @@ def time_gru(R, dev) -> dict:
     runs = {"fwd": (lambda _: R.gru_fused(*a), lambda _: R.gru_ref(*a),
                     "gru_fwd_kernel"),
             "bwd": (lambda _: R.gru_fused_grad(*a, hs, dhs),
-                    lambda _: R.gru_grad_ref(*a, hs, dhs), "gru_bwd_kernel")}
+                    lambda _: R.gru_grad_ref(*a, hs, dhs), "gru_bwd")}
     cudnn = time_cudnn_gru(dev, B, T, H)
     for k, (kernel, plain, name) in runs.items():
         work[k].update(ms=device_ms(kernel, [None], iters=20, name=name),
                        wall_ms=time_ms(kernel, [None], iters=20),
                        plain_ms=time_ms(plain, [None], iters=3),
                        library_ms=cudnn[k])
+    work["bwd"]["launch_ms"] = device_ms_by_name(runs["bwd"][0], [None], 20,
+                                                 K8B_LAUNCHES)
     return work
 
 
@@ -983,9 +1010,9 @@ def check_gru_op_reversed(R, dev) -> float:
         ref = gp[slot][0]
         ratio = ((gk[slot][0] - ref).abs().max()
                  / ref.abs().max().clamp(min=1e-30)).item()
-        if not ratio <= LSTM_GRAD_REL:
+        if not ratio <= K8B_GRAD_REL:
             raise AssertionError(f"reversed gru op {slot}: max|d|/max|ref| "
-                                 f"{ratio} > {LSTM_GRAD_REL}")
+                                 f"{ratio} > {K8B_GRAD_REL}")
         worst = max(worst, ratio)
     return worst
 
@@ -1013,14 +1040,14 @@ def check_and_time_gru(dev) -> dict:
                                    R.gru_grad_ref(*a, hs, dhs)):
             d = (got - ref).abs().max().item()
             ratio = d / max(ref.abs().max().item(), 1e-30)
-            if not (torch.isfinite(got).all() and ratio <= LSTM_GRAD_REL):
+            if not (torch.isfinite(got).all() and ratio <= K8B_GRAD_REL):
                 raise AssertionError(
                     f"K8b {gname} disagrees with its plain version at {name}"
-                    f": max|d| / max|ref| = {ratio} > {LSTM_GRAD_REL}")
+                    f": max|d| / max|ref| = {ratio} > {K8B_GRAD_REL}")
             e_b, worst_ratio = max(e_b, d), max(worst_ratio, ratio)
         log(f"  {name} B={B} T={T} H={H}: max|kernel - plain| hs {e_f!r} "
             f"(tolerance {LSTM_FWD_ATOL}), gradients {e_b!r} (worst "
-            f"max|d|/max|ref| {worst_ratio!r}, tolerance {LSTM_GRAD_REL}); "
+            f"max|d|/max|ref| {worst_ratio!r}, tolerance {K8B_GRAD_REL}); "
             f"backward bit-identical on a rerun")
         errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"],
                                                             e_b)
@@ -1032,11 +1059,15 @@ def check_and_time_gru(dev) -> dict:
            **time_gru(R, dev)}
     for n in ("fwd", "bwd"):
         r = out[n]
+        rate = ("split TF32; float32 FMA "
+                f"{r['fma_bound_ms']!r} ms" if n == "bwd" else "float32 FMA")
         log(f"  {n}: kernel {r['ms']!r} ms of device time ({r['wall_ms']!r} "
             f"ms a call by CUDA events), plain {r['plain_ms']!r} ms, cuDNN "
             f"GRU (TF32 off; a different function, reset after the product) "
             f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
-            f"({r['bound_by']}, {r['ops']} ops, {r['bytes']} bytes)")
+            f"({r['bound_by']} at {rate}; {r['ops']} ops, {r['bytes']} "
+            f"bytes)")
+    log(f"    K8b by launch, device ms: {out['bwd']['launch_ms']!r}")
     torch.cuda.empty_cache()
     return out
 
@@ -2020,6 +2051,8 @@ def profile_call(run, focus) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     total = sum(t for t, _ in by_name.values())
+    copies = sum(t for n, (t, _) in by_name.items()
+                 if n.startswith(("Memcpy", "Memset")))
     named = {k: sum(t for n, (t, _) in by_name.items() if k in n)
              for k in focus}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -2031,8 +2064,12 @@ def profile_call(run, focus) -> dict:
             "device_idle_share_of_wall": 1.0 - busy / (wall * 1e6),
             "kernels_launched": len(events),
             "kernel_ms_total": total / 1e3,
+            # copies and memsets (a fetch's copy to the host leads a
+            # serving dispatch), inside kernel_ms_total
+            "copy_ms": copies / 1e3,
             "focus_ms": {k: v / 1e3 for k, v in named.items()},
             "focus_share_of_kernel_time": sum(named.values()) / total,
+            "focus_share_of_busy": {k: v / busy for k, v in named.items()},
             "top_kernels": [{"name": n[:120], "ms": t / 1e3, "count": c}
                             for n, (t, c) in top]}
 
@@ -2616,10 +2653,15 @@ def run_machine_translation(dev, card: str) -> dict:
         f"{out['max_memory_allocated']} bytes")
     with fluid.scope_guard(scope):
         prof = profile_step(exe, main, feed, loss,
-                            ("gru_fwd_kernel", "gru_bwd_kernel"))
+                            ("gru_fwd_kernel",) + K8B_LAUNCHES)
     out["profile"] = prof
     log(f"  profiled step [{card}]: " + json.dumps(
         {k: v for k, v in prof.items() if k != "top_kernels"}))
+    if "focus_ms" in prof:
+        k8b = sum(prof["focus_ms"][k] for k in K8B_LAUNCHES)
+        log(f"  K8b {k8b!r} ms of the step's {prof['device_busy_ms']!r} ms "
+            f"of device busy time ({k8b / prof['device_busy_ms']:.2%}; "
+            f"K8a {prof['focus_share_of_busy']['gru_fwd_kernel']:.2%})")
     for k in prof.get("top_kernels", []):
         log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
     del scope, exe
@@ -2684,26 +2726,48 @@ def check_int8_fc(Q, dev) -> dict:
     return errs
 
 
+def int8_config(M, N, K, dev) -> dict:
+    """The tile and occupancy K5 takes at this shape
+    (``int8_fc_config``)."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("int8_fc").int8_fc_config
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    v = (ctypes.c_int * 6)()
+    err = fn(M, N, K, dev.index, v)
+    if err != 0:
+        raise RuntimeError(f"int8_fc_config: cudaError {err}")
+    keys = ("tile_m", "tile_n", "blocks", "blocks_per_sm", "registers",
+            "smem_bytes")
+    out = dict(zip(keys, v))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out["waves"] = out["blocks"] / (sms * out["blocks_per_sm"])
+    return out
+
+
 def time_int8_fc(Q, dev) -> dict:
     """K5 at the path's four bucket-8 shapes with the path's acts and the
-    dynamic scale: the kernel's device time (profiler, K5 alone), the
-    wrapper's (quantize + K5) device time, the plain version, and two
-    library yardsticks the port never calls: ``torch._int_mm``
-    (cuBLASLt int8 -> int32) plus the same epilogue in torch ops, and
-    the float32 ``torch.matmul`` the float32 predictor pays for the
-    layer.  Inputs are cycled so every launch reads its weight from
-    device memory rather than L2."""
+    dynamic scale, each weight's K-major copy made (by its first launch)
+    before the timing, as on the int8 path: the kernel's device time
+    (profiler, K5 alone), the wrapper's (quantize + K5) device time, the plain
+    version, and two library yardsticks the port never calls:
+    ``torch._int_mm`` (cuBLASLt int8 -> int32) plus the same epilogue in
+    torch ops, and the float32 ``torch.matmul`` the float32 predictor
+    pays for the layer; with the tile and occupancy K5 takes.
+    Inputs are cycled so every launch reads its weight from device
+    memory rather than L2."""
     out = {}
     for i, (name, (M, K, N, act)) in enumerate(INT8_SHAPES.items()):
-        per_set = 4 * M * K + K * N + 4 * K * N
+        per_set = 4 * M * K + 2 * K * N + 4 * K * N
         n_sets = max(2, min(32, -(-3 * L2_BYTES // per_set)))
         sets = [int8_case(dev, M, K, N, seed=120 + 40 * i + j)
                 for j in range(n_sets)]
         w32 = [q.float() * (s / 127.0) for _, q, s, _ in sets]
         pre = [Q._quantize_act(x, 0.0) for x, *_ in sets]
 
-        def kernel(st):
-            x, q, s, b = st
+        def kernel(k):
+            x, q, s, b = sets[k]
             return Q.int8_fc(x, q, s, 0.0, b, act)
 
         def plain(st):
@@ -2717,12 +2781,13 @@ def time_int8_fc(Q, dev) -> dict:
             return Q._epilogue(acc, Q._dequant_scale(sx, s), b, act)
 
         row = int8_work(M, K, N)
+        row["config"] = int8_config(M, N, K, dev)
         idx = list(range(n_sets))
-        row["ms"] = device_ms(lambda k: kernel(sets[k]), idx, iters=20,
-                              name="int8_fc_kernel")
-        row["wrapper_ms"] = device_ms(lambda k: kernel(sets[k]), idx,
-                                      iters=20)
-        row["wall_ms"] = time_ms(lambda k: kernel(sets[k]), idx, iters=20)
+        for k in idx:   # each weight's K-major copy
+            kernel(k)
+        row["ms"] = device_ms(kernel, idx, iters=20, name="int8_fc_kernel")
+        row["wrapper_ms"] = device_ms(kernel, idx, iters=20)
+        row["wall_ms"] = time_ms(kernel, idx, iters=20)
         row["plain_ms"] = time_ms(lambda k: plain(sets[k]), idx, iters=3)
         try:
             row["library_ms"] = device_ms(
@@ -2748,7 +2813,8 @@ def time_int8_fc(Q, dev) -> dict:
             f"a call by CUDA events), plain {row['plain_ms']!r} ms, "
             f"{row['library']} {row['library_ms']!r} ms, float32 matmul "
             f"{row['f32_matmul_ms']!r} ms, bound {row['bound_ms']!r} ms "
-            f"({row['bound_by']}, {row['ops']} ops, {row['bytes']} bytes)")
+            f"({row['bound_by']}, {row['ops']} ops, {row['bytes']} bytes); "
+            f"occupancy {json.dumps(row['config'])}")
         del sets, w32, pre
         torch.cuda.empty_cache()
     summed = {k: sum(r[k] * r["launches_per_dispatch"] for r in out.values())
@@ -2762,6 +2828,12 @@ def time_int8_fc(Q, dev) -> dict:
     log("  summed over one bucket-8 dispatch's "
         f"{sum(INT8_DISPATCH_SHAPES.values())} launches: " + json.dumps(
             {k: v for k, v in summed.items()}))
+    if summed["library_ms"] is not None:
+        log(f"  a dispatch: K5 {summed['ms']!r} ms against torch._int_mm + "
+            f"epilogue {summed['library_ms']!r} ms "
+            f"({summed['library_ms'] / summed['ms']:.2f}x); K5 faster at "
+            + ", ".join(f"{n} {r['library_ms'] > r['ms']}"
+                        for n, r in out.items() if n != "dispatch_sum"))
     return out
 
 
@@ -3140,6 +3212,11 @@ def run_int8_serving(dev, card: str) -> dict:
             log(f"  profiled int8 dispatch at bucket 8 [{card}]: " +
                 json.dumps({k: v for k, v in prof.items()
                             if k != "top_kernels"}))
+            if "focus_ms" in prof:
+                log(f"  K5 {prof['focus_ms']['int8_fc_kernel']!r} ms of the "
+                    f"dispatch's {prof['device_busy_ms']!r} ms of device "
+                    f"busy time ("
+                    f"{prof['focus_share_of_busy']['int8_fc_kernel']:.2%})")
             for k in prof.get("top_kernels", []):
                 log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
             for a in arms.values():
@@ -3277,14 +3354,18 @@ def main() -> int:
     # GRU, a different function (reset after the product)
     for i, (key, line) in enumerate((("fwd", 272), ("bwd", 288))):
         t = gru_k[key]
-        rows.append({
+        row = {
             "name": f"gru_{key}", "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/gru_{key}.cu",
             "replaces": f"paddle_tpu/kernels/rnn.py:{line}",
             "launches": mt_train["launches"][i],
             "max_abs_err": gru_k["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if key == "bwd":   # three launches; bound at split TF32's rate
+            row.update(launch_ms=t["launch_ms"],
+                       fma_bound_ms=t["fma_bound_ms"])
+        rows.append(row)
     # K5 at the path's most common shape (72 of a dispatch's 97
     # launches); every shape and the per-dispatch sums are in the json
     t = int8_k["proj"]
@@ -3295,7 +3376,9 @@ def main() -> int:
         "launches": serving["arms"]["int8"]["launches"],
         "max_abs_err": max(int8_k["max_abs_err"].values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "dispatch_ms": int8_k["dispatch_sum"]["ms"],
+        "dispatch_library_ms": int8_k["dispatch_sum"]["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,

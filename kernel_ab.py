@@ -22,7 +22,19 @@ of the repository, on one CUDA card, in one process.
 - ``lstm_fwd``: K6 (``csrc/lstm_fwd.cu``) at the stacked LSTM's bench
   shape, ragged and full, and ragged at H=1024 (``LSTM_WIDE_H``), every
   build through ``lstm_fwd`` (given enough barrier words for either
-  design).
+  design);
+- ``gru_bwd``: K8b (``csrc/gru_bwd.cu``) at machine translation's shape
+  (``chip_smoke.GRU_TIME_SHAPE``), ragged 8..32 and full, and ragged at
+  H=1024 (``GRU_WIDE_H``: 8 units a block past H=896), every build
+  through ``gru_bwd`` (given the barrier words its own
+  ``gru_bwd_sync_words`` asks for, one where it has none); a build with
+  K8b's three launches is also timed launch by launch;
+- ``int8_fc``: K5 (``csrc/int8_fc.cu``) at the int8 Transformer's four
+  bucket-8 shapes (``chip_smoke.INT8_SHAPES``) with the path's acts, on
+  quantized activations, cycling input sets past the L2, and their sum
+  over one dispatch's 97 launches.  A build with ``int8_fc_config``
+  takes the weight K-major ([N, K]); one without takes it as stored
+  ([K, N]).
 
 Every source keeps its C entry points.  Each kernel is checked against
 this checkout's plain version (a disagreement is reported, not raised, so
@@ -45,11 +57,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from chip_smoke import (FLASH_GRAD_TOL, FLASH_TIME_SHAPE,  # noqa: E402
-                        K4_KERNELS, L2_BYTES, LSTM_SHORTEST, LSTM_TIME_SHAPE,
-                        PAGED_SHAPES, device_ms, flash_inputs, lstm_inputs,
-                        nvidia_smi_line, paged_inputs, work, worst)
+                        GRU_TIME_SHAPE, INT8_DISPATCH_SHAPES, INT8_SHAPES,
+                        K4_KERNELS, K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
+                        LSTM_TIME_SHAPE, MT_SHORTEST, PAGED_SHAPES,
+                        device_ms, device_ms_by_name, flash_inputs,
+                        gru_inputs, int8_case, lstm_inputs, nvidia_smi_line,
+                        paged_inputs, work, worst)
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import attention as A  # noqa: E402
+from paddle_tpu_torch.kernels import quant as Q  # noqa: E402
 from paddle_tpu_torch.kernels import rnn as R  # noqa: E402
 
 # PR 2's K2/K3 at D=64: LPR = 2 lanes a row, 128 threads
@@ -83,6 +99,7 @@ PAGED_ONE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 BARRIER_WORDS = 64   # group barriers of the widest batch timed here
 LSTM_WIDE_H = 1024   # K6 past H=512: 8 units a block
+GRU_WIDE_H = 1024    # K8b past H=896: 8 units a block
 
 
 def build_other(src_dir: str, out_dir: str, tag: str, name: str,
@@ -315,12 +332,141 @@ def ab_lstm_fwd(libs, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# K8b
+# ---------------------------------------------------------------------------
+
+def gru_bwd_call(lib):
+    fn = lib.gru_bwd
+    fn.argtypes, fn.restype = R._GRU_BWD_ARGS, ctypes.c_int
+    words = 1
+    if hasattr(lib, "gru_bwd_sync_words"):
+        words = lib.gru_bwd_sync_words
+        words.argtypes, words.restype = [ctypes.c_int] * 2, ctypes.c_int
+
+    def call(s):
+        xproj, w, h0, mask = s["args"]
+        B, T, H3 = xproj.shape
+        H = H3 // 3
+        dx, dw, dh0 = (torch.empty_like(xproj), torch.empty_like(w),
+                       torch.empty_like(h0))
+        rh = torch.empty(B, T, H, device=xproj.device)
+        n = words if isinstance(words, int) else words(B, H)
+        barrier = torch.empty(n, dtype=torch.int32, device=xproj.device)
+        err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                 mask.data_ptr(), s["hs"].data_ptr(), s["dhs"].data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), dh0.data_ptr(), rh.data_ptr(),
+                 barrier.data_ptr(), B, T, H, xproj.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gru_bwd: error {err}")
+        return dx, dw, dh0
+    return call
+
+
+def ab_gru_bwd(libs, dev) -> dict:
+    res = {}
+    calls = {who: gru_bwd_call(lib) for who, lib in libs.items()}
+    B, T, H = GRU_TIME_SHAPE
+    for label, lo, h in (("ragged", MT_SHORTEST, H), ("full", None, H),
+                         ("wide_ragged", MT_SHORTEST, GRU_WIDE_H)):
+        s = gru_inputs(dev, B, T, h, seed=80, lo=lo)
+        s["hs"] = R.gru_ref(*s["args"])
+        want = R.gru_grad_ref(*s["args"], s["hs"], s["dhs"])
+        row = {"live_steps": int(s["args"][3].sum().item())}
+        takes = {}
+        for who, call in calls.items():
+            try:
+                got = call(s)
+            except RuntimeError as e:   # a build that does not take H
+                row[f"{who}_refused"] = str(e)
+                continue
+            torch.cuda.synchronize()
+            takes[who] = libs[who]
+            row[f"{who}_max_abs_err"] = err_of(got, want)
+        # this build twice when no other takes the shape
+        for who in turns(takes) or ["this", "this"]:
+            row.setdefault(f"{who}_ms", []).append(
+                device_ms(calls[who], [s], 20, name="gru_bwd"))
+        for who, lib in takes.items():
+            if hasattr(lib, "gru_bwd_sync_words"):
+                row[f"{who}_launch_ms"] = device_ms_by_name(
+                    calls[who], [s], 20, K8B_LAUNCHES)
+        res[label] = row
+        print(f"k8b_{label}", json.dumps(row), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+def int8_fc_call(lib):
+    """K5 of ``lib`` on a quantized input set (xq, sx, w_q, w_t, w_scale,
+    bias) with the act ``act``."""
+    fn = lib.int8_fc
+    kmajor = hasattr(lib, "int8_fc_config")
+    fn.argtypes = Q._ARGS
+    fn.restype = ctypes.c_int
+
+    def call(s, act):
+        xq, sx, w_q, w_t, w_scale, b = s
+        M, K = xq.shape
+        N = w_q.shape[1]
+        out = torch.empty(M, N, device=xq.device)
+        err = fn(xq.data_ptr(), (w_t if kmajor else w_q).data_ptr(),
+                 w_scale.data_ptr(), sx.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), M, N, K, Q._EPILOGUE_ACTS[act],
+                 xq.device.index, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"int8_fc: error {err}")
+        return out
+    return call
+
+
+def ab_int8_fc(libs, dev) -> dict:
+    res = {}
+    calls = {who: int8_fc_call(lib) for who, lib in libs.items()}
+    for i, (name, (M, K, N, act)) in enumerate(INT8_SHAPES.items()):
+        per_set = M * K + 2 * K * N
+        n_sets = max(2, min(32, -(-3 * L2_BYTES // per_set)))
+        sets = []
+        for j in range(n_sets):
+            x, q, s, b = int8_case(dev, M, K, N, seed=120 + 40 * i + j)
+            xq, sx = Q._quantize_act(x, 0.0)
+            sets.append((xq, sx, q, q.t().contiguous(), s, b))
+            del x
+        x0, q0, s0, b0 = int8_case(dev, M, K, N, seed=120 + 40 * i)
+        want = Q.int8_fc_plain(x0, q0, s0, 0.0, b0, act)
+        row = {}
+        for who, call in calls.items():
+            got = call(sets[0], act)
+            torch.cuda.synchronize()
+            row[f"{who}_bit_equal"] = bool(torch.equal(got, want))
+        idx = list(range(n_sets))
+        for who in turns(libs):
+            row.setdefault(f"{who}_ms", []).append(device_ms(
+                lambda k: calls[who](sets[k], act), idx, 20,
+                name="int8_fc_kernel"))
+        res[name] = row
+        print(f"k5_{name}", json.dumps(row), flush=True)
+        del sets, want
+        torch.cuda.empty_cache()
+    res["dispatch_sum"] = {
+        who: sum(min(res[n][f"{who}_ms"]) * INT8_DISPATCH_SHAPES[n]
+                 for n in INT8_SHAPES) for who in libs}
+    print("k5_dispatch_sum", json.dumps(res["dispatch_sum"]), flush=True)
+    return res
+
+
 # kernel: (csrc source, its A/B, the shim for sources without a query)
 KERNELS = {
     "flash_bwd": ("flash_attn_bwd", ab_flash_bwd,
                   ("flash_attn_bwd_occupancy", FLASH_SHIM)),
     "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
     "lstm_fwd": ("lstm_fwd", ab_lstm_fwd, None),
+    "gru_bwd": ("gru_bwd", ab_gru_bwd, None),
+    "int8_fc": ("int8_fc", ab_int8_fc, None),
 }
 
 

@@ -1,4 +1,4 @@
-"""The split-TF32 products of the redesigned kernels (K1-K3, K6, K7) in
+"""The split-TF32 products of the redesigned kernels (K1-K3, K6, K7, K8b) in
 plain PyTorch: the same arithmetic as ``csrc/tf32x3.cuh``, for the CPU
 tests.
 

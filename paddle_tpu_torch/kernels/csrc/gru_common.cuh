@@ -1,4 +1,4 @@
-// Shared pieces of the fused GRU kernels (gru_fwd.cu, gru_bwd.cu).
+// Pieces of the fused GRU forward (gru_fwd.cu, K8a).
 //
 // The launch, the grid barrier and the per-block products come from
 // lstm_common.cuh: one cooperative persistent grid for the whole
@@ -9,7 +9,8 @@
 // c % kUnits.
 //
 // Float32 throughout (FFMA on the CUDA cores, no tensor cores), as the
-// reference keeps h and every product in float32.
+// reference keeps h and every product in float32.  K8b (gru_bwd.cu) has
+// its own layouts, in split TF32.
 
 #pragma once
 

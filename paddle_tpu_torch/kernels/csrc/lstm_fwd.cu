@@ -74,9 +74,13 @@
 
 namespace {
 
+using lstm::group_arrive;
+using lstm::group_wait;
 using lstm::kThreads;
+using lstm::load_units;
 using lstm::round_up;
 using lstm::sigmoidf;
+using lstm::store_units;
 using tf32x3::cp_async16;
 using tf32x3::cp_async4;
 using tf32x3::cp_async_commit;
@@ -117,72 +121,6 @@ __host__ __device__ inline int w_ld(int H) { return round_up(H, 128) + 4; }
 size_t fwd_smem_bytes(int H) {
   return sizeof(float) * (static_cast<size_t>(4 * fwd_units(H)) * w_ld(H) + kStageFloats) +
          sizeof(int) * kListInts;
-}
-
-// P consecutive floats at p, of which the first n exist; 8- or 16-byte
-// loads when `vec` (p aligned to P floats and n == P)
-template <int P>
-__device__ __forceinline__ void load_units(const float* p, int n, bool vec, float (&v)[P]) {
-  if constexpr (P == 1) {
-    v[0] = n > 0 ? __ldg(p) : 0.0f;
-  } else if (vec) {
-    if constexpr (P == 2) {
-      const float2 x = __ldg(reinterpret_cast<const float2*>(p));
-      v[0] = x.x; v[1] = x.y;
-    } else {
-#pragma unroll
-      for (int i = 0; i < P; i += 4) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(p + i));
-        v[i] = x.x; v[i + 1] = x.y; v[i + 2] = x.z; v[i + 3] = x.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) v[i] = i < n ? __ldg(p + i) : 0.0f;
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void store_units(float* p, int n, bool vec, const float (&v)[P]) {
-  if constexpr (P == 1) {
-    if (n > 0) p[0] = v[0];
-  } else if (vec) {
-    if constexpr (P == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < P; i += 4) {
-        *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      if (i < n) p[i] = v[i];
-    }
-  }
-}
-
-// The group barrier in two halves: every block of a group arrives once a
-// step after writing hs[t] (thread 0, after a block barrier, with a fence),
-// and waits only before a product, for the count to reach the arrivals of
-// the steps before.  A wait that has not opened after 20 s traps, so a
-// fault ends the kernel with an error instead of hanging the card.
-__device__ __forceinline__ void group_wait(unsigned int* count, unsigned int target) {
-  if (threadIdx.x == 0) {
-    unsigned long long t0;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-    while (true) {
-      unsigned int seen;
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
-      if (static_cast<int>(seen - target) >= 0) break;
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (now - t0 > 20000000000ull) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // acc[mt][nt] += A[rows of m-tile mt] . W[k-step, columns of n-tile nt]
@@ -429,13 +367,9 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_recurrence(const FwdArgs
         // this block has written hs[t] and read the list and the stage:
         // arrive at the group's barrier (every step, so the count is
         // (t + 1) x nu once the group has), then the next step's list and
-        // gate inputs while the other blocks arrive (after the fence, which
+        // gate inputs while the other blocks arrive (after the release, which
         // would otherwise wait for those loads too)
-        __syncthreads();
-        if (tid == 0) {
-          __threadfence();
-          atomicAdd(a.sync + group, 1u);
-        }
+        group_arrive(a.sync + group);
         if (warp == 0) make_list(t + 1);
         fetch(t + 1);
         __syncthreads();

@@ -13,7 +13,10 @@ The port of ``paddle_tpu/kernels/quant.py``.
   the batch abs-max, reduced on the device (no host sync).  CPU tensors
   take :func:`int8_fc_plain`; CUDA tensors launch
   ``csrc/int8_fc.cu`` on the current stream, or raise.  Each launch
-  adds one to ``int8_fc.launches``.
+  adds one to ``int8_fc.launches``.  K5 reads the weight K-major: the
+  wrapper keeps each weight's K-major copy beside its [K, N] codes for
+  as long as they live, made at the weight's first launch (counted as
+  ``quant.kmajor_copies``), so a dispatch transposes no weight.
 - :class:`Int8Plan` / :func:`plan_int8`: the ``core/lowering.py``
   peephole over the ``mul``/``fused_fc`` ops the pass stamped.  What
   the epilogue cannot compute (an act outside the set, act attrs other
@@ -44,6 +47,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..observability import stats as _obs_stats
 from . import _build
@@ -79,7 +83,7 @@ _EPILOGUE_ACTS = {"": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
 _LIB = "int8_fc"
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# int8_fc(xq, wq, w_scale, sx, bias, out, M, N, K, act, device, stream)
+# int8_fc(xq, wt, w_scale, sx, bias, out, M, N, K, act, device, stream)
 _ARGS = [_PTR] * 6 + [_INT] * 5 + [_PTR]
 
 # the quant.* counters of the stats registry, by name; /quantz reads them
@@ -181,6 +185,21 @@ def int8_fc_plain(x, w_q, w_scale, in_scale=0.0, bias=None, act: str = ""):
     return _epilogue(acc, _dequant_scale(sx, w_scale), bias, act)
 
 
+# w_q -> (its version counter when copied, w_q^T contiguous)
+_KMAJOR = WeakIdKeyDictionary()
+
+
+def _kmajor(w_q):
+    """``w_q``'s K-major copy [N, K], the operand K5 reads: made at the
+    weight's first launch and again only if ``w_q`` is written in place,
+    each copy counted as ``quant.kmajor_copies``."""
+    kept = _KMAJOR.get(w_q)
+    if kept is None or kept[0] != w_q._version:
+        kept = _KMAJOR[w_q] = (w_q._version, w_q.t().contiguous())
+        _count("kmajor_copies")
+    return kept[1]
+
+
 def _kernel_fn():
     fn = getattr(_build.load(_LIB), _LIB)
     if fn.argtypes is None:
@@ -205,7 +224,7 @@ def int8_fc(x, w_q, w_scale, in_scale=0.0, bias=None, act: str = ""):
     tensor on x's device), 0 for the batch abs-max; ``bias`` float32
     [N] or None; ``act`` one of "", relu, sigmoid, tanh, gelu.  CPU
     tensors take :func:`int8_fc_plain`; CUDA tensors launch K5 on the
-    current stream, or raise."""
+    current stream (on ``w_q``'s kept K-major copy), or raise."""
     if x.device.type == "cpu":
         return int8_fc_plain(x, w_q, w_scale, in_scale, bias, act)
     if x.device.type != "cuda":
@@ -237,8 +256,9 @@ def int8_fc(x, w_q, w_scale, in_scale=0.0, bias=None, act: str = ""):
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     if M and N:
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_fn()(xq.contiguous().data_ptr(), w_q.data_ptr(),
-                           w_scale.data_ptr(), sx.data_ptr(),
+        err = _kernel_fn()(xq.contiguous().data_ptr(),
+                           _kmajor(w_q).data_ptr(), w_scale.data_ptr(),
+                           sx.data_ptr(),
                            bias.data_ptr() if bias is not None else None,
                            out.data_ptr(), M, N, K, _EPILOGUE_ACTS[act],
                            x.device.index, stream)

@@ -37,15 +37,23 @@ rows with a barrier each, W for 16 units a block in shared memory (8
 past H=512, where 16 units' W no longer fits), the live rows' h_{t-1}
 packed and multiplied in split TF32 on the tensor cores.
 
+K8b runs as K7 does (``csrc/gru_bwd.cu``): the gates of every step in two
+GEMMs, the recurrence in batch groups of rows with the block's 16 units'
+rows of w (8 units' past H=896) in shared memory and two group barriers
+a step (drh = db . w_c^T, then da . w_uz^T), and dw in one split
+product.
+:func:`gru_grad_phases` is the same decomposition in plain PyTorch, for
+the tests.
+
 The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
 B % 8) follow TPU tiles and are not carried over.  The kernels take any
 float32 B, T, H >= 1 whose persistent blocks can all be resident on the
-card at once (ceil(H/16) for K6 and K7's recurrence, whose batch groups
-run side by side as far as the card holds them and in turn beyond that,
-and ceil(H/8) for K6 past H=512: up to H=1056 on an H100's 132 SMs;
-H/4 of them for K8a and K8b) at the kernel's shared memory a block, and
-raise
-``ValueError`` naming the limit otherwise.  The
+card at once (ceil(H/16) for K6's, K7's and K8b's recurrences, whose
+batch groups run side by side as far as the card holds them and in turn
+beyond that, and ceil(H/8) for K6 past H=512 and K8b past H=896: up
+to H=1056 on an H100's 132 SMs; H/4 of them for K8a) at the kernel's
+shared memory a block, and raise ``ValueError`` naming the limit
+otherwise.  The
 port's own gates, :func:`lstm_eligible` and :func:`gru_eligible`, say
 which shapes those are, from the card's resident-block capacity at the
 kernel's shared memory a block (:func:`kernel_capacity`); the ``lstm`` and
@@ -69,13 +77,15 @@ _FWD_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 _BWD_ARGS = [_PTR] * 14 + [_INT] * 4 + [_PTR]
 _GRU_FWD_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _GRU_BWD_ARGS = [_PTR] * 11 + [_INT] * 4 + [_PTR]
-# hidden units one block of K8a and K8b owns (lstm_common.cuh)
+# hidden units one block of K8a owns (lstm_common.cuh)
 _UNITS = 4
-# hidden units one block of K6's and K7's recurrences owns (lstm_fwd.cu,
-# lstm_bwd.cu); K6 takes 8 past H = _FWD_WIDE_H, where 16 units' W no
-# longer fits a block's shared memory
+# hidden units one block of K6's, K7's and K8b's recurrences owns
+# (lstm_fwd.cu, lstm_bwd.cu, gru_bwd.cu); K6 takes 8 past H = _FWD_WIDE_H
+# and K8b past H = _GRU_BWD_WIDE_H, where 16 units' W no longer fits a
+# block's shared memory
 _LSTM_UNITS = 16
 _FWD_WIDE_H = 512
+_GRU_BWD_WIDE_H = 896
 # codes the C entry points return besides a cudaError_t
 _SMEM_OVER, _NOT_RESIDENT = -1, -2
 
@@ -202,18 +212,19 @@ def lstm_grad_phases(xproj, w, h0, c0, mask, hs, cs, dhs, dcs,
 
 def _units(lib: str, H: int) -> int:
     """Hidden units one block of ``lib`` owns at hidden size H: 16 for
-    K6 up to H=512 and 8 past it, 16 for K7's recurrence, 4 for K8a and
-    K8b."""
-    if lib == _FWD:
-        return _LSTM_UNITS if H <= _FWD_WIDE_H else _LSTM_UNITS // 2
+    K6 up to H=512 and 8 past it, 16 for K8b's recurrence up to H=896
+    and 8 past it, 16 for K7's recurrence, 4 for K8a."""
+    if lib in (_FWD, _GRU_BWD):
+        wide = _FWD_WIDE_H if lib == _FWD else _GRU_BWD_WIDE_H
+        return _LSTM_UNITS if H <= wide else _LSTM_UNITS // 2
     return _LSTM_UNITS if lib == _BWD else _UNITS
 
 
 def _blocks(lib: str, H: int) -> int:
     """Persistent blocks the kernel library ``lib`` needs resident at
-    once: ceil(H / units a block) (:func:`_units`; K6 and K7 need one
-    batch group's, and run more side by side when the card holds more
-    blocks)."""
+    once: ceil(H / units a block) (:func:`_units`; K6, K7 and K8b need
+    one batch group's, and run more side by side when the card holds
+    more blocks)."""
     return -(-H // _units(lib, H))
 
 
@@ -232,11 +243,15 @@ def lstm_eligible(B: int, T: int, H: int, dtype, capacity: int,
             and _blocks(lib, H) <= capacity)
 
 
-def gru_eligible(B: int, T: int, H: int, dtype, capacity: int) -> bool:
-    """Whether the GRU kernels (K8a, K8b) take this shape: float32,
-    non-empty, and their ceil(H/4) blocks within ``capacity``."""
+def gru_eligible(B: int, T: int, H: int, dtype, capacity: int,
+                 lib: str = _GRU_FWD) -> bool:
+    """Whether the GRU kernel ``lib`` (``gru_fwd``, K8a, or ``gru_bwd``,
+    K8b) takes this shape: float32, non-empty, and its persistent blocks
+    within ``capacity`` (:func:`lstm_eligible`'s meaning): ceil(H/4) for
+    K8a, one batch group's ceil(H/16) for K8b's recurrence, ceil(H/8)
+    past H=896."""
     return (dtype == torch.float32 and min(B, T, H) >= 1
-            and _blocks(_GRU_FWD, H) <= capacity)
+            and _blocks(lib, H) <= capacity)
 
 
 _capacity = {}
@@ -462,6 +477,69 @@ def gru_grad_ref(xproj, w, h0, mask, hs, dhs):
     return torch.stack(dxs, 1), dw.to(w.dtype), dh.to(xproj.dtype)
 
 
+def gru_grad_phases(xproj, w, h0, mask, hs, dhs, rows: int = 32,
+                    splits: int = 2, matmul=torch.matmul):
+    """:func:`gru_grad_ref`'s function in K8b's three launches, for the
+    tests (the card path never calls it): (A) the gates of every (row,
+    step) from two products over the B*T rows, h_prev . w_uz (u, r) and
+    (r ⊙ h_prev) . w_c (c); (B) the reverse recurrence per batch group of
+    ``rows`` rows, drh = db . w_c^T then dh_prev = da . w_uz^T + the
+    pass-through parts, with no product for a group whose rows are all
+    masked at a step; (C) dw = [Hprev^T . da | RH^T . db] as one product
+    over the B*T rows, in ``splits`` K-wise parts summed in order.
+    ``matmul`` is every product (``kernels/_tf32.py: matmul_tf32x3``
+    models the kernel's split TF32)."""
+    B, T, H3 = xproj.shape
+    H = H3 // 3
+    f = lambda x: x.float()  # noqa: E731
+    wd = f(w)
+    hprev = torch.cat([f(h0)[:, None], f(hs)[:, :-1]], 1).reshape(B * T, H)
+    x = f(xproj).reshape(B * T, H3)
+    uz = torch.sigmoid(matmul(hprev, wd[:, :2 * H]) + x[:, :2 * H])
+    rh = uz[:, H:] * hprev
+    c = torch.tanh(matmul(rh, wd[:, 2 * H:]) + x[:, 2 * H:])
+    gates = torch.cat([uz, c], -1).reshape(B, T, H3)
+    hp_all = hprev.reshape(B, T, H)
+    dx = torch.zeros(B, T, H3, dtype=torch.float32, device=xproj.device)
+    dh0 = torch.empty(B, H, dtype=torch.float32, device=xproj.device)
+    wc_t, wuz_t = wd[:, 2 * H:].t(), wd[:, :2 * H].t()
+    for b0 in range(0, B, rows):
+        g = slice(b0, min(B, b0 + rows))
+        dh = torch.zeros_like(dh0[g])
+        for t in reversed(range(T)):
+            u, r, cc = gates[g, t].split(H, -1)
+            hp = hp_all[g, t]
+            m = f(mask[g, t, None])
+            dh_total = f(dhs[g, t]) + dh
+            din = m * dh_total
+            du = din * (hp - cc)
+            pass_ = din * u + (1.0 - m) * dh_total
+            db = din * (1.0 - u) * (1.0 - cc * cc)
+            if not bool((m != 0).any()):
+                dh = dh_total
+                continue
+            drh = matmul(db, wc_t)
+            pass_ = pass_ + drh * r
+            da = torch.cat([du * u * (1.0 - u), drh * hp * r * (1.0 - r)], -1)
+            live = m != 0
+            dx[g, t] = torch.where(live, torch.cat([da, db], -1),
+                                   torch.zeros_like(dx[g, t]))
+            dh = torch.where(live, matmul(dx[g, t][:, :2 * H], wuz_t) + pass_,
+                             dh_total)
+        dh0[g] = dh
+    k = B * T
+    edges = [k * s // splits for s in range(splits + 1)]
+    dxf = dx.reshape(k, H3)
+    rh = rh.reshape(k, H)
+    dw = None
+    for s in range(splits):
+        e = slice(edges[s], edges[s + 1])
+        part = torch.cat([matmul(hprev[e].t(), dxf[e, :2 * H]),
+                          matmul(rh[e].t(), dxf[e, 2 * H:])], -1)
+        dw = part if dw is None else dw + part
+    return dx.to(xproj.dtype), dw.to(w.dtype), dh0.to(xproj.dtype)
+
+
 def gru_fused(xproj, w, h0, mask):
     """Whole-sequence GRU forward (module doc): hs [B, T, H].
 
@@ -505,9 +583,16 @@ def gru_fused_grad(xproj, w, h0, mask, hs, dhs):
     dxproj = torch.empty_like(xproj)
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
-    # r ⊙ h_{t-1} of every step, recomputed by the kernel ([T, B, H])
-    rh = torch.empty(T, B, H, dtype=torch.float32, device=xproj.device)
-    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    # r ⊙ h_{t-1} of every (row, step), recomputed by the gates' launch
+    rh = torch.empty(B, T, H, dtype=torch.float32, device=xproj.device)
+    words = getattr(_build.load(_GRU_BWD), "gru_bwd_sync_words")
+    words.argtypes = [_INT, _INT]
+    words.restype = _INT
+    # the gates' grid barrier, the recurrence's group barriers and dw's
+    # split flags (zeroed by gru_bwd); the gates of every step live in
+    # dxproj's own buffer
+    barrier = torch.empty(words(B, H), dtype=torch.int32,
+                          device=xproj.device)
     fn = _kernel_fn(_GRU_BWD, _GRU_BWD_ARGS)
     stream = torch.cuda.current_stream(xproj.device).cuda_stream
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
@@ -524,7 +609,7 @@ gru_fused.launches = 0
 gru_fused_grad.launches = 0
 
 __all__ = ["gru_eligible", "gru_fused",
-           "gru_fused_grad", "gru_grad_ref", "gru_ref", "kernel_capacity",
+           "gru_fused_grad", "gru_grad_phases", "gru_grad_ref", "gru_ref", "kernel_capacity",
            "lstm_eligible", "lstm_fused", "lstm_fused_grad", "lstm_grad_phases",
            "lstm_grad_ref",
            "lstm_ref"]

@@ -185,7 +185,7 @@ def _use_kernel(ctx, attrs, lib: str, xproj) -> bool:
     H = HN // (4 if cell == "lstm" else 3)
     cap = _rnn.kernel_capacity(lib, B, H, xproj.device)
     if (_rnn.lstm_eligible(B, T, H, xproj.dtype, cap, lib) if cell == "lstm"
-            else _rnn.gru_eligible(B, T, H, xproj.dtype, cap)):
+            else _rnn.gru_eligible(B, T, H, xproj.dtype, cap, lib)):
         return True
     _count_routing(cell)
     return False

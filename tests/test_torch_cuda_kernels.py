@@ -22,7 +22,9 @@ group and past one 128-row chunk, a batch whose K7 groups take
 turns, hidden sizes that are not a multiple of 4, 16 or 32, all-masked rows, steps where no row lives (forward and
 backward), a bit-identical forward and backward on a rerun, the op's
 reversed path and the shapes past what a card can hold; the same for the GRU kernels (K8a, K8b), with an
-initial state and a bit-identical backward on a rerun; for the sparse kernels (K9, K10), an empty batch, every
+initial state and a bit-identical backward on a rerun; K8b's three
+launches, steps where no row lives, a row masked throughout, and batch
+groups that take turns, bit-identical on a rerun; for the sparse kernels (K9, K10), an empty batch, every
 id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
 bit against the plain versions, and no fallback when the kernel library
 is missing; for the ``lstm`` and ``gru`` ops, both sides of the
@@ -30,7 +32,9 @@ eligibility gate (an ineligible shape or dtype runs the plain scan, an
 eligible one launches the kernel); for the int8 FC (K5), the int8
 Transformer's four shapes at bucket 8, an odd shape and one row, every
 act of the epilogue with a calibrated and a dynamic scale, no bias, a
-side stream and what it refuses.
+side stream, every tile edge (M, N and K not multiples of the tile, one
+row, byte loads), the K-major weight copy made once a weight, the tiles
+the path's shapes take, and what it refuses.
 """
 import pytest
 import torch
@@ -563,8 +567,13 @@ def test_lstm_kernels_refuse_what_they_do_not_take(dev):
         R.lstm_fused_grad(*big, zeros, zeros, zeros, zeros)
 
 
-# K8a/K8b: the tolerances of K6/K7 (the same sums through the same
-# recurrence, and a second all-unit product a step)
+# K8a: the tolerances of K6/K7's first versions (the same float32 sums
+# through the same recurrence, and a second all-unit product a step).
+# K8b multiplies in split TF32 and is held to its own chip_smoke.py
+# K8B_GRAD_REL: one TF32 product a term would pass LSTM_GRAD_REL
+K8B_GRAD_REL = 2e-5
+# K8b's three launches; profiler event names contain these
+K8B_LAUNCHES = ("gru_bwd_gates", "gru_bwd_recurrence", "gru_bwd_dw")
 GRU_SHAPES = {   # B, T, H
     "b1_t1_h8": (1, 1, 8),
     "b5_t7_h96": (5, 7, 96),
@@ -572,6 +581,13 @@ GRU_SHAPES = {   # B, T, H
     "b200_t9_h40": (200, 9, 40),
     "b64_t32_h256": (64, 32, 256),
     "b3_t64_h512": (3, 64, 512),
+    # more of K8b's batch groups than the card holds side by side
+    "b4096_t3_h256": (4096, 3, 256),
+    # K8b at 16 units a block at its widest, then 8 units a block past
+    # H=896, up to the widest the card holds (132 blocks)
+    "b8_t5_h896": (8, 5, 896),
+    "b16_t8_h1024": (16, 8, 1024),
+    "b8_t6_h1056": (8, 6, 1056),
 }
 
 
@@ -605,10 +621,76 @@ def test_gru_kernels_match_plain(dev, shape, masked):
     ref = R.gru_grad_ref(*args, hs, dhs)
     for name, a, b in zip(("dxproj", "dw", "dh0"), grads, ref):
         assert a.shape == b.shape and torch.isfinite(a).all(), name
-        assert _rel(a, b) <= LSTM_GRAD_REL, name
+        assert _rel(a, b) <= K8B_GRAD_REL, name
     if masked:   # the all-masked row keeps h0 and takes no gate gradient
         assert torch.equal(hs[-1], args[2][-1].expand(T, H))
         assert torch.count_nonzero(grads[0][-1]).item() == 0
+
+
+def test_gru_backward_runs_as_three_launches(dev):
+    """One call of K8b is one launch of each of its three kernels: the
+    gates, the recurrence and dw (and a memset of its counters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args, dhs = _gru_inputs(dev, 64, 32, 256, seed=12)
+    hs = R.gru_fused(*args)
+    R.gru_fused_grad(*args, hs, dhs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        R.gru_fused_grad(*args, hs, dhs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for k in K8B_LAUNCHES:
+        assert sum(k in n for n in names) == 1, (k, names)
+
+
+def test_gru_backward_with_steps_where_no_row_lives(dev):
+    """Steps at which every row is masked (K8b's batch groups skip both
+    barriers and products there) in the middle and at the end, and a row
+    masked throughout: the carry passes through them unchanged."""
+    args, dhs = _gru_inputs(dev, 64, 16, 256, seed=17, masked=False)
+    mask = args[3]
+    mask[:, 5:9] = 0.0
+    mask[:, 13:] = 0.0
+    mask[7] = 0.0
+    hs = R.gru_fused(*args)
+    grads = R.gru_fused_grad(*args, hs, dhs)
+    torch.cuda.synchronize()
+    ref = R.gru_grad_ref(*args, hs, dhs)
+    for name, a, b in zip(("dxproj", "dw", "dh0"), grads, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= K8B_GRAD_REL, name
+    assert torch.count_nonzero(grads[0][:, 5:9]).item() == 0
+    assert torch.count_nonzero(grads[0][7]).item() == 0
+
+
+def test_gru_backward_where_batch_groups_take_turns_is_deterministic(dev):
+    """More batch groups than the card holds side by side (they take
+    turns in their slots), ragged: bit-identical on a rerun."""
+    args, dhs = _gru_inputs(dev, 4096, 4, 256, seed=19)
+    hs = R.gru_fused(*args)
+    a = R.gru_fused_grad(*args, hs, dhs)
+    b = R.gru_fused_grad(*args, hs, dhs)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, R.gru_grad_ref(*args, hs, dhs)):
+        assert torch.equal(x, y)
+        assert _rel(x, z) <= K8B_GRAD_REL
+
+
+def test_gru_backward_dw_lists_its_chunks_a_window_at_a_time(dev):
+    """B*T = 163,840 rows (5,120 chunks of 32, over 1,024 a split at
+    H=64): K8b's dw lists each split's live chunks a window of 1,024 at a
+    time in a fixed amount of shared memory; within K8B_GRAD_REL of the
+    plain backward and bit-identical on a rerun."""
+    args, dhs = _gru_inputs(dev, 4096, 40, 64, seed=23)
+    hs = R.gru_fused(*args)
+    a = R.gru_fused_grad(*args, hs, dhs)
+    b = R.gru_fused_grad(*args, hs, dhs)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dxproj", "dw", "dh0"), a, b,
+                             R.gru_grad_ref(*args, hs, dhs)):
+        assert torch.equal(x, y), name
+        assert _rel(x, z) <= K8B_GRAD_REL, name
 
 
 def test_gru_kernels_are_deterministic(dev):
@@ -651,7 +733,7 @@ def test_gru_op_kernel_path_matches_plain_scan(dev, reverse, h0):
     assert sorted(gk) == sorted(gp)
     assert ("H0@GRAD" in gk) == h0
     for slot in gk:
-        assert _rel(gk[slot][0], gp[slot][0]) <= LSTM_GRAD_REL, slot
+        assert _rel(gk[slot][0], gp[slot][0]) <= K8B_GRAD_REL, slot
 
 
 def test_gru_kernels_on_a_side_stream(dev):
@@ -979,6 +1061,85 @@ def test_int8_fc_matches_plain(dev, shape, act, in_scale):
     else:
         err = (got - want).abs().max().item()
         assert err <= 1e-6 * want.abs().max().item(), err
+
+
+def _int8_config(M, N, K, dev):
+    """(tile rows, tile columns, blocks, resident blocks an SM,
+    registers, shared memory) K5 takes at this shape."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("int8_fc").int8_fc_config
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    assert fn(M, N, K, dev.index, out) == 0
+    return tuple(out)
+
+
+INT8_EDGE_SHAPES = {   # M, K, N: tile edges in every dimension
+    "m129_k80_n200": (129, 80, 200),     # K a multiple of 16, not of 64
+    "m1_k4112_n33": (1, 4112, 33),       # one row, deep K
+    "m300_k2064_n130": (300, 2064, 130),  # deep K, N % 4 != 0
+    "m70_k37_n130": (70, 37, 130),       # K % 16 != 0: byte loads
+    "m64_k16_n4": (64, 16, 4),
+    "m2049_k512_n513": (2049, 512, 513),
+}
+
+
+@pytest.mark.parametrize("act", ["", "relu", "gelu"], ids=lambda a: a or "none")
+@pytest.mark.parametrize("shape", list(INT8_EDGE_SHAPES))
+def test_int8_fc_at_tile_edges(dev, shape, act):
+    """M, N and K that are not multiples of K5's tiles, one row, deep K
+    and byte loads: "" and relu bit for bit, gelu within 1e-6 of
+    max|ref|."""
+    from paddle_tpu_torch.kernels import quant as Q
+    x, q, s, b = _int8_case(dev, *INT8_EDGE_SHAPES[shape], seed=43)
+    got = Q.int8_fc(x, q, s, 0.0, b, act)
+    torch.cuda.synchronize()
+    want = Q.int8_fc_plain(x, q, s, 0.0, b, act)
+    if act in ("", "relu"):
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= \
+            1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", ["qkv_out", "ffn1", "ffn2", "vocab"])
+def test_int8_fc_fills_the_card_at_the_paths_shapes(dev, shape):
+    """Each of the path's bucket-8 shapes launches as many blocks as its
+    64 x 128 tiles, up to a block an SM (64 x 128 tiles where 128 x 128
+    would leave SMs idle), every block resident with its neighbours (two
+    an SM)."""
+    M, K, N = INT8_SHAPES[shape]
+    bm, bn, blocks, per_sm, _, _ = _int8_config(M, N, K, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert blocks >= min(sms, -(-M // 64) * -(-N // 128))
+    assert per_sm >= 2
+    assert (bm, bn) == ((128, 128) if shape in ("ffn1", "vocab")
+                        else (64, 128))
+
+
+def test_int8_fc_keeps_each_weights_kmajor_copy(dev):
+    """The wrapper makes a weight's K-major copy at its first launch and
+    reuses it (``quant.kmajor_copies`` counts the copies); a weight
+    written in place is copied again, so K5 reads its new codes."""
+    from paddle_tpu_torch.kernels import quant as Q
+    x, q, s, b = _int8_case(dev, 64, 96, 130, seed=45)
+
+    def made():
+        return Q.quantz()["counters"].get("kmajor_copies", 0)
+
+    n = made()
+    first = Q.int8_fc(x, q, s, 0.0, b)
+    second = Q.int8_fc(x, q, s, 0.0, b)
+    torch.cuda.synchronize()
+    assert made() == n + 1
+    assert torch.equal(first, second)
+    q[0] = -q[0]
+    third = Q.int8_fc(x, q, s, 0.0, b)
+    torch.cuda.synchronize()
+    assert made() == n + 2
+    assert torch.equal(third, Q.int8_fc_plain(x, q, s, 0.0, b))
 
 
 def test_int8_fc_without_bias_and_on_a_side_stream(dev):

@@ -30,6 +30,7 @@ from paddle_tpu_torch.core import unique_name as t_unique
 from paddle_tpu_torch.core.program import Program as TProgram
 from paddle_tpu_torch.core.program import program_guard as t_guard
 from paddle_tpu_torch.kernels import rnn as TR
+from paddle_tpu_torch.kernels._tf32 import matmul_tf32, matmul_tf32x3
 from paddle_tpu_torch.layer_helper import LayerHelper as THelper
 from paddle_tpu_torch.layers.nn import seq_len_var as t_seq_len_var
 
@@ -100,6 +101,90 @@ def test_gru_grad_ref_matches_pallas_backward_and_scan(masked):
                                    **GRAD_TOL)
         np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name,
                                    **GRAD_TOL)
+
+
+# name -> (B, T, H, ragged lengths, rows a group, dw splits, a row
+# masked at every step)
+PHASE_CASES = {
+    "ragged_b6_groups_of_4": (6, 7, 16, True, 4, 3, False),
+    "t1": (4, 1, 16, True, 32, 2, False),
+    "h20_b5_groups_of_2_dead_row": (5, 6, 20, True, 2, 2, True),
+    "full_lengths": (4, 6, 16, False, 32, 1, False),
+}
+
+
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_gru_grad_phases_match_pallas_backward(name):
+    """K8b's decomposition (the gates of every step in two products, the
+    recurrence per batch group, dw as one split product) against the
+    reference's fused backward in interpret mode: ragged masks, T=1, a
+    batch that is not a multiple of the group, H not a multiple of 16
+    and a row masked throughout."""
+    B, T, H, masked, rows, splits, dead_row = PHASE_CASES[name]
+    args = _data(masked, B=B, T=T, H=H, seed=8)
+    if dead_row:
+        args[3][-1] = 0.0
+    xproj, w, h0, mask = map(jnp.asarray, args)
+    hs = R.gru_fused(xproj, w, h0, mask, True)
+    want = R.gru_fused_grad(xproj, w, h0, mask, hs, 2.0 * hs, True)
+    hs_n = np.asarray(hs)
+    got = TR.gru_grad_phases(*_t(*args, hs_n, 2.0 * hs_n), rows=rows,
+                             splits=splits)
+    for gname, a, b in zip(["dx", "dw", "dh0"], got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=gname,
+                                   **GRAD_TOL)
+    if dead_row:
+        assert torch.count_nonzero(got[0][-1]).item() == 0
+
+
+# chip_smoke.py's bound on K8b's gradients, max|d| <= bound * max|ref|:
+# LSTM_GRAD_REL, the recurrent kernels' bound, and K8b's own tighter one
+# for its split-TF32 products.  At machine translation's shape the CPU
+# model of K8b's arithmetic reaches 1.7e-7..4.6e-7 of max|ref| on the four
+# seeds below, one TF32 product a term 2.4e-4..2.8e-4
+LSTM_GRAD_REL = 1e-3
+K8B_GRAD_REL = 2e-5
+K8B_SEEDS = [20, 21, 22, 23]
+
+
+def _k8b_mt_rel(matmul, seed):
+    """max|d| / max|ref| of each gradient of :func:`TR.gru_grad_phases`
+    with every product taken by ``matmul``, against the float32 plain
+    backward, at machine translation's shape (B=64, T=32, H=256, ragged
+    8..32)."""
+    rs = np.random.RandomState(seed)
+    B, T, H = 64, 32, 256
+    xproj = rs.randn(B, T, 3 * H).astype("float32") * 0.5
+    w = (rs.randn(H, 3 * H) / np.sqrt(H)).astype("float32")
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(8, T + 1, (B,))
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    dhs = rs.randn(B, T, H).astype("float32")
+    args = _t(xproj, w, h0, mask)
+    hs = TR.gru_ref(*args)
+    ref = TR.gru_grad_ref(*args, hs, *_t(dhs))
+    got = TR.gru_grad_phases(*args, hs, *_t(dhs), matmul=matmul)
+    return {gname: ((a - b).abs().max() / b.abs().max()).item()
+            for gname, a, b in zip(["dx", "dw", "dh0"], got, ref)}
+
+
+@pytest.mark.parametrize("seed", K8B_SEEDS)
+def test_split_tf32_model_holds_k8bs_tolerance(seed):
+    """K8b's products in split TF32 (``kernels/_tf32.py``, the kernel's
+    arithmetic): every gradient within K8B_GRAD_REL of max|ref|."""
+    for gname, rel in _k8b_mt_rel(matmul_tf32x3, seed).items():
+        assert rel <= min(LSTM_GRAD_REL, K8B_GRAD_REL), (gname, rel)
+
+
+@pytest.mark.parametrize("seed", K8B_SEEDS)
+def test_one_tf32_product_breaks_k8bs_bound(seed):
+    """The control: the same backward with each product taken once in
+    TF32 stays within LSTM_GRAD_REL (so that bound alone cannot tell it
+    from split TF32) but not within K8B_GRAD_REL, which the card holds
+    K8b to."""
+    rels = _k8b_mt_rel(matmul_tf32, seed)
+    assert max(rels.values()) <= LSTM_GRAD_REL, rels
+    assert max(rels.values()) > K8B_GRAD_REL, rels
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():

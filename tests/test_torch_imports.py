@@ -19,7 +19,8 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 # the root scripts the port added: its smoke check and the card's
 # measurement scripts
 SCRIPTS = [SMOKE] + [os.path.join(ROOT, f) for f in (
-    "kernel_ab.py", "mma_rate.py", "profiler_loss.py")]
+    "int8_dispatch_ab.py", "kernel_ab.py", "mma_rate.py",
+    "profiler_loss.py")]
 
 
 def _port_files():

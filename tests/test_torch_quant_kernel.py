@@ -20,6 +20,8 @@ peephole plan) against the JAX reference, on the same numpy inputs.
 - ``plan_int8``: an op stamped by half keeps its float32 rule (the
   reference's ``test_plan_int8_skips_half_stamped_ops``), and a stamped
   op the epilogue cannot compute is routed to float32 and counted.
+- the wrapper keeps each weight's K-major copy (the operand K5 reads):
+  made once, equal to ``w_q.T``, made again only after ``w_q`` changes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -187,3 +189,39 @@ def test_plan_int8_routes_what_the_epilogue_cannot_compute(change):
     if op.type == "fused_fc":
         op.attrs.update(act="relu", act_attrs={"op_role": 0})
         assert TQ.plan_int8(block) is not None
+
+
+def test_kmajor_copy_is_made_once_a_weight():
+    """The K-major copy K5 reads (``_kmajor``) is made once a weight and
+    counted as ``quant.kmajor_copies``: equal to ``w_q.T``, contiguous,
+    the same tensor at the next dispatch, made anew only after ``w_q``
+    is written in place.  On the CPU the plan's lowering takes the plain
+    version and makes no copy."""
+    block = _fc_block()
+    mul = next(op for op in block.ops if op.type == "mul")
+    mul.attrs["quant_int8"] = True
+    mul.inputs.update(WInt8=["w@INT8"], WScale=["w@INT8_SCALE"])
+    _, w, _ = _case(8, 8, 4, seed=7)
+    qw, sw = TQ.quantize_weight(w)
+    env = {mul.inputs["X"][0]: _t(_case(3, 8, 4, seed=8)[0]),
+           "w@INT8": _t(qw), "w@INT8_SCALE": _t(sw)}
+    pos = block.ops.index(mul)
+
+    def made():
+        return TQ.quantz()["counters"].get("kmajor_copies", 0)
+
+    n = made()
+    for _ in range(2):   # two dispatches: two plans of the same block
+        assert TQ.plan_int8(block).lower(pos, env)
+    assert made() == n
+    out = env[mul.outputs["Out"][0]]
+    assert torch.equal(out, TQ.int8_fc_plain(
+        env[mul.inputs["X"][0]], env["w@INT8"], env["w@INT8_SCALE"]))
+    copies = [TQ._kmajor(env["w@INT8"]) for _ in range(2)]
+    assert copies[0] is copies[1] and made() == n + 1
+    assert copies[0].is_contiguous()
+    assert torch.equal(copies[0], env["w@INT8"].t())
+    env["w@INT8"][0, 0] = -env["w@INT8"][0, 0] - 1
+    again = TQ._kmajor(env["w@INT8"])
+    assert again is not copies[0] and made() == n + 2
+    assert torch.equal(again, env["w@INT8"].t())

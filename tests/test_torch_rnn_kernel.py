@@ -326,7 +326,13 @@ def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
     return 4 * (16 * (-(-4 * H // 32) * 32 + 4) + 2 * 8704 + 256 * 16 + 8)
 
 
-@pytest.mark.parametrize("gate", ["lstm", "lstm_bwd", "gru"])
+def _gru_bwd_smem(H):   # gru_bwd.cu: recur_smem_bytes, 16 units' rows or 8
+    units = 16 if H <= 896 else 8
+    w_ld = -(-2 * H // 128) * 128 + -(-H // 128) * 128 + 4
+    return 4 * (units * w_ld + 13824) + 4 * 2 * (2 * 128 + 1)
+
+
+@pytest.mark.parametrize("gate", ["lstm", "lstm_bwd", "gru", "gru_bwd"])
 @pytest.mark.parametrize("case", [
     ("B128_H512", 128, 128, 512, torch.float32, True),
     ("H2048", 2, 3, 2048, torch.float32, False),
@@ -335,9 +341,9 @@ def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
     ("empty_batch", 0, 4, 64, torch.float32, False),
     ("H1", 1, 1, 1, torch.float32, True),
     ("B1024_H512", 1024, 8, 512, torch.float32, True),
-    # K6 at 8 units a block; K7's 16 units' W no longer fits a block
+    # K6 and K8b at 8 units a block; K7's 16 units' W no longer fits a block
     ("H1024", 8, 4, 1024, torch.float32,
-     {"lstm": True, "lstm_bwd": False, "gru": True}),
+     {"lstm": True, "lstm_bwd": False, "gru": True, "gru_bwd": True}),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else c)
 def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     """``lstm_eligible``/``gru_eligible`` are pure: float32, non-empty,
@@ -345,16 +351,21 @@ def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     capacity at the kernel's shared memory a block (0 when a block may
     not have that much).  K6 and K7's recurrence need ceil(H/16) blocks,
     whatever B (their batch groups take turns when the card cannot hold
-    them side by side), K6 ceil(H/8) past H=512; K8a and K8b ceil(H/4).
-    At H=2048 a block of K6 would need 337,424 bytes and one of K7
-    610,336; an H100 holds 132 blocks of K6's 206,864 bytes at H=512 and
-    of its 206,352 at H=1024, and 132 of K7's 217,376 at H=512."""
+    them side by side), K6 ceil(H/8) past H=512; K8a ceil(H/4), K8b's
+    recurrence ceil(H/16) as K7's, ceil(H/8) past H=896.  At H=2048 a
+    block of K6 would need 337,424 bytes and one of K7 610,336; an H100
+    holds 132 blocks of K6's 206,864 bytes at H=512 and of its 206,352 at
+    H=1024, 132 of K7's 217,376 and of K8b's 155,912 at H=512, and 132 of
+    K8b's 155,784 at H=1024."""
     _, B, T, H, dtype, want = case
     if isinstance(want, dict):
         want = want[gate]
     if gate == "lstm_bwd":
         fn = lambda *a: TR.lstm_eligible(*a, lib="lstm_bwd")  # noqa: E731
         smem, need = _lstm_bwd_smem(H), 32
+    elif gate == "gru_bwd":
+        fn = lambda *a: TR.gru_eligible(*a, lib="gru_bwd")  # noqa: E731
+        smem, need = _gru_bwd_smem(H), 32
     elif gate == "lstm":
         fn = TR.lstm_eligible
         smem, need = _lstm_fwd_smem(H), 32
@@ -383,15 +394,45 @@ def test_k6_takes_eight_units_a_block_past_h512(H, blocks, on_h100):
     assert TR.lstm_eligible(8, 4, H, torch.float32, cap) is on_h100
 
 
+@pytest.mark.parametrize("H, blocks, on_h100", [
+    (896, 56, True), (897, 113, True), (1024, 128, True), (1056, 132, True),
+    (1064, 133, False)])
+def test_k8b_takes_eight_units_a_block_past_h896(H, blocks, on_h100):
+    """K8b's recurrence takes ceil(H/16) blocks up to H=896 and ceil(H/8)
+    past it, where 16 units' rows of w no longer fit a block: one block
+    an SM, so an H100's 132 SMs take K8b up to H=1056, as far as K8a's
+    ceil(H/4) blocks at two an SM."""
+    assert TR._blocks("gru_bwd", H) == blocks
+    cap = _h100_capacity(_gru_bwd_smem(H))
+    assert cap == 132
+    assert TR.gru_eligible(8, 4, H, torch.float32, cap, "gru_bwd") is on_h100
+    assert TR.gru_eligible(8, 4, H, torch.float32,
+                           _h100_capacity(_four_unit_smem(H))) is on_h100
+
+
 def test_gru_gate_keeps_the_h_over_4_rule():
-    """``gru_eligible`` is K8a/K8b's own rule, ceil(H/4) blocks whatever
+    """``gru_eligible`` keeps K8a's own rule, ceil(H/4) blocks whatever
     B, as before K6 and K7 changed; their recurrences need ceil(H/16)."""
     assert TR.gru_eligible(4096, 8, 64, torch.float32, 16)
     assert not TR.gru_eligible(4096, 8, 64, torch.float32, 15)
+    assert TR.gru_eligible(4096, 8, 64, torch.float32, 16, "gru_fwd")
     assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4, "lstm_bwd")
     assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3, "lstm_bwd")
     assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4)
     assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3)
+
+
+def test_gru_bwd_gate_takes_one_batch_group():
+    """K8b's recurrence (``lib="gru_bwd"``) is gated on its own grid:
+    one batch group's ceil(H/16) blocks whatever B (its groups take
+    turns), as K7's; K8a's ceil(H/4) does not bind it."""
+    assert TR._blocks("gru_bwd", 256) == 16
+    assert TR._blocks("gru_fwd", 256) == 64
+    assert TR.gru_eligible(4096, 8, 64, torch.float32, 4, "gru_bwd")
+    assert not TR.gru_eligible(4096, 8, 64, torch.float32, 3, "gru_bwd")
+    assert TR.gru_eligible(64, 32, 256, torch.float32, 16, "gru_bwd")
+    assert not TR.gru_eligible(64, 32, 256, torch.float32, 16)
+    assert not TR.gru_eligible(64, 32, 256, torch.bfloat16, 132, "gru_bwd")
 
 
 def test_rnn_ops_on_the_cpu_never_consult_the_gate(monkeypatch):
