@@ -83,25 +83,27 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    seed 0, field 1 repeating field 0; tables [1e6, 10] and [1e6, 1])
    and at an odd shape (H=23, D=5, n=17): K9 with out-of-range ids (NaN
    rows) and an empty batch; K10 for Adam, momentum (plain and
-   Nesterov) and adagrad, with rows the batch does not touch unchanged,
+   Nesterov) and adagrad, also on a skewed batch (Zipf ids, the hottest
+   a tenth of the batch), with rows the batch does not touch unchanged,
    plus a dyadic case that must be exact.  Then each kernel, its plain
    version and a library yardstick the port never calls
    (``F.embedding`` per table; ``torch.optim.SparseAdam.step`` on a
-   coalesced gradient of the same rows) are timed with CUDA events,
+   coalesced gradient of the same rows) are timed by device time,
    cycling 32 id batches, beside the byte bound and the 32-byte-sector
-   bound.
+   bound; K10 also with the sort in front, the DeepFM step's pair (one
+   sort, both tables' K10) and on the skewed batch.
 3e. The fused GRU kernels K8a (forward) and K8b (backward) against
    their plain versions at machine translation's shape (B=64, T=32,
    H=256) with full and ragged (8..32) lengths, at an odd shape (B=5,
-   T=7, H=96) and at T=1; the backward must be bit-identical on a rerun.
+   T=7, H=96) and at T=1; both must be bit-identical on a rerun.
    The ``gru`` op with ``is_reverse``, H0 and a LastH cotangent runs
    K8a/K8b against its plain scan at the path's shape.  Then each
    kernel's device time (torch profiler; K8b's three launches, the gates,
    the recurrence and dw, also one by one), its plain version and cuDNN's
    GRU (``torch.nn.GRU``, TF32 off; a different function: it applies the
-   reset gate after the recurrent product) are set beside the bound (K8b
-   at split TF32's rate, the float32 rate's beside it).  K8b is held to
-   its own ``K8B_GRAD_REL``.
+   reset gate after the recurrent product) are set beside the bound (at
+   split TF32's rate, the float32 rate's beside it).  K8a and K8b are
+   held to their own ``K8A_FWD_ATOL`` and ``K8B_GRAD_REL``.
 7. The stacked-LSTM slice: ``models/stacked_lstm.py`` (dict 30000, emb
    512, hid 512, 3 layers, the middle one reversed, Adam) through
    ``layers.data(lod_level=1)`` -> ``Adam.minimize`` -> Executor.run.
@@ -122,8 +124,9 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    CPU from the same copied starting values: the loss, every gradient,
    and both tables and their moments after the step agree.  Then the
    bench configuration (B=2048, one seeded batch) trains 12 steps: the
-   loss must stay finite, K9 must launch once a step and K10 twice, and
-   no gradient may re-run its forward.  The same 12 steps with the flag
+   loss must stay finite, K9 must launch once a step and K10 twice, the
+   two K10 launches must share one sort of the step's ids, and no
+   gradient may re-run its forward.  The same 12 steps with the flag
    off (the masked-dense update) must give the same tables.  Step ms,
    samples/s, peak memory and one profiled step follow for both.
 9. The machine-translation slice: ``models/machine_translation.py`` at
@@ -184,6 +187,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -240,19 +244,18 @@ FLASH_LONG_TOL = 1e-4
 # lse)
 FLASH_LONG_GRAD_REL = 1e-4
 
-# K6/K7 vs their plain versions on the same inputs: float32 sums over H
-# (and over B*T for dW) in other orders, carried through T steps
-LSTM_FWD_ATOL = 1e-4
-LSTM_GRAD_REL = 1e-3           # max|d| <= LSTM_GRAD_REL * max|ref|
-# K6 multiplies in split TF32 and is held tighter: the CPU model of its
-# arithmetic reaches 2.3e-7..3.9e-7 at the bench's widths, one TF32
-# product a term 1.2e-4..1.8e-4 (tests/test_torch_rnn_kernel.py), which
-# LSTM_FWD_ATOL would tell apart by a slim margin only
+# The recurrent kernels (K6, K7, K8a, K8b) vs their plain versions on the
+# same inputs.  They multiply in split TF32 and are held tighter than the
+# bounds of a float32 recurrence, 1e-4 absolute on the states and 1e-3 of
+# max|ref| on the gradients (max|d| <= bound * max|ref|), which one TF32
+# product a term would meet or miss by a slim margin only.
+# K6: the CPU model of its arithmetic reaches 2.3e-7..3.9e-7 at the
+# bench's widths, one TF32 product a term 1.2e-4..1.8e-4
+# (tests/test_torch_rnn_kernel.py)
 K6_FWD_ATOL = 1e-5
-# K7 multiplies in split TF32 and is held tighter: it reached 5.8e-5 of
-# max|ref| at the bench shape on an H100; the same backward with one
-# TF32 product a term reaches 3.1e-4 on the CPU model
-# (tests/test_torch_rnn_kernel.py), which LSTM_GRAD_REL would let pass
+# K7: it reached 5.8e-5 of max|ref| at the bench shape on an H100; the
+# same backward with one TF32 product a term reaches 3.1e-4 on the CPU
+# model (tests/test_torch_rnn_kernel.py)
 K7_GRAD_REL = 1.5e-4
 LSTM_TIME_SHAPE = (128, 128, 512)   # B, T, H of the stacked LSTM's bench
 LSTM_TRAIN = dict(dict_dim=30000, class_dim=2, emb_dim=512, hid_dim=512,
@@ -278,14 +281,13 @@ DEEPFM_TABLE_TOL = 1e-2
 # for the fused and masked-dense paths (tests/test_sparse.py)
 DEEPFM_FLAG_TOL = (1e-6, 1e-7)
 SPARSE_TIME_SETS = 32          # id batches cycled so rows come from HBM
+SPARSE_HOT_SHARE = 0.1         # the skewed batch: its hottest id's share
 
-# K8a is held to the float32 recurrences' forward tolerance
-# (LSTM_FWD_ATOL): the same float32 sums through the same kind of
-# recurrence.  K8b multiplies in split TF32 and is held tighter than
-# LSTM_GRAD_REL: the CPU model of its arithmetic reaches 1.7e-7..4.6e-7
-# of max|ref| at machine translation's shape on four seeds, one TF32
-# product a term 2.4e-4..2.8e-4 (tests/test_torch_gru_kernel.py), which
-# LSTM_GRAD_REL would let pass
+# K8a: the CPU model of its arithmetic reaches 3.0e-7..3.9e-7 at machine
+# translation's shape on four seeds, one TF32 product a term
+# 1.4e-4..1.6e-4; K8b: its model reaches 1.7e-7..4.6e-7 of max|ref|, one
+# TF32 product a term 2.4e-4..2.8e-4 (tests/test_torch_gru_kernel.py)
+K8A_FWD_ATOL = 1e-5
 K8B_GRAD_REL = 2e-5
 # K8b's three launches (csrc/gru_bwd.cu): (A) the gates, (B) the
 # recurrence, (C) dw; profiler event names contain these
@@ -596,6 +598,27 @@ def sparse_ids(seed):
     return ids.astype("int64")
 
 
+@functools.lru_cache(maxsize=None)
+def zipf_p(H, top):
+    """Zipf frequencies over ranks 1..H, p_k proportional to k^-s, with s
+    set so that the first covers a ``top`` share."""
+    k = np.arange(1, H + 1, dtype=np.float64)
+    lo, hi = 0.0, 8.0
+    for _ in range(60):   # the first rank's share grows with s
+        s = (lo + hi) / 2
+        lo, hi = (lo, s) if 1.0 / np.sum(k ** -s) > top else (s, hi)
+    p = k ** -s
+    return p / p.sum()
+
+
+def zipf_ids(n, H, seed, top=SPARSE_HOT_SHARE):
+    """n ids in [0, H) drawn with ``zipf_p`` frequencies (the hottest id
+    a ``top`` share of the batch), the ranks spread over the rows by a
+    seeded permutation."""
+    rs = np.random.RandomState(seed)
+    return rs.permutation(H)[rs.choice(H, n, p=zipf_p(H, top))].astype("int64")
+
+
 def bits_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))
@@ -699,7 +722,7 @@ def check_update(S, sr, tables, lr, kind) -> tuple:
     S.rowwise_update(sr, got, lr, base, **SPARSE_HYPER[kind])
     torch.cuda.synchronize()
     want = [t.clone() for t in tables]
-    S.rowwise_update_ref(*S._sorted_segments(sr.rows, sr.values, sr.height),
+    S.rowwise_update_ref(*S.sorted_segments(sr.rows, sr.height), sr.values,
                          want, lr, base, **SPARSE_HYPER[kind])
     H = tables[0].shape[0]
     touched = torch.zeros(H, dtype=torch.bool, device=lr.device)
@@ -753,7 +776,11 @@ def time_sparse(S, dev) -> dict:
     ``ms``/``plain_ms``/``library_ms`` are device time per call
     (``device_ms``: the kernel alone, and every kernel of the plain and
     library calls); the ``*_wall_ms`` figures are CUDA-event times of a
-    loop of calls, which the host's launch rate paces at these sizes."""
+    loop of calls, which the host's launch rate paces at these sizes.
+    K10 is also timed with the sort in front (``with_sort_ms``), as the
+    DeepFM step's pair (``update_step``: one sort shared by both tables'
+    K10, and a sort each beside it) and on a skewed batch
+    (``update_skewed``: Zipf ids, the hottest a tenth of the batch)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.core.selected_rows import SelectedRows
     g = torch.Generator(device=dev).manual_seed(21)
@@ -762,6 +789,7 @@ def time_sparse(S, dev) -> dict:
     w1 = torch.randn(H, 1, generator=g, device=dev) * 0.01
     ids = [torch.tensor(sparse_ids(100 + i), device=dev)
            for i in range(SPARSE_TIME_SETS)]
+    idx = list(range(SPARSE_TIME_SETS))
     w = gather_work([emb, w1], ids[0])
     kernel = lambda x: S.fused_gather([emb, w1], x)  # noqa: E731
     plain = lambda x: S.fused_gather_ref([emb, w1], x)  # noqa: E731
@@ -771,41 +799,72 @@ def time_sparse(S, dev) -> dict:
              wall_ms=time_ms(kernel, ids), plain_wall_ms=time_ms(
                  plain, ids, iters=50), library_wall_ms=time_ms(lib, ids))
     out = {"gather": w}
+    del emb, w1
     lr = torch.tensor(1e-4, device=dev)
     hyper = SPARSE_HYPER["adam"]
-    for name, width in (("update_emb", D), ("update_w1", 1)):
-        tabs = update_tables("adam", H, width, g)
-        srs = [SelectedRows(x.reshape(-1), torch.randn(
-            x.numel(), width, generator=g, device=dev) * 1e-3, H)
-            for x in ids]
-        segs = [S._sorted_segments(s.rows, s.values, H) for s in srs]
-        param = torch.nn.Parameter(tabs[0].clone())
+    widths = {"update_emb": D, "update_w1": 1}
+    tabs = {n: update_tables("adam", H, width, g) for n, width in widths.items()}
+    srs = {n: [SelectedRows(x.reshape(-1), torch.randn(
+        x.numel(), width, generator=g, device=dev) * 1e-3, H) for x in ids]
+        for n, width in widths.items()}
+    segs = [S.sorted_segments(x.reshape(-1), H) for x in ids]
+    for name, width in widths.items():
+        t, sr = tabs[name], srs[name]
+        param = torch.nn.Parameter(t[0].clone())
         opt = torch.optim.SparseAdam([param], lr=1e-4)
-        grads = [torch.sparse_coo_tensor(s.rows[None], s.values,
-                                         (H, width),
+        grads = [torch.sparse_coo_tensor(s.rows[None], s.values, (H, width),
                                          check_invariants=True).coalesce()
-                 for s in srs]
+                 for s in sr]
 
         def lib_step(gr):
             param.grad = gr
             opt.step()
-        kernel = lambda sg: S.rowwise_update_sorted(  # noqa: E731
-            *sg, tabs, lr, "adam", **hyper)
-        wrapper = lambda s: S.rowwise_update(  # noqa: E731
-            s, tabs, lr, "adam", **hyper)
-        plain = lambda sg: S.rowwise_update_ref(  # noqa: E731
-            *sg, tabs, lr, "adam", **hyper)
+        kernel = lambda i: S.rowwise_update_sorted(  # noqa: E731
+            *segs[i], sr[i].values, t, lr, "adam", **hyper)
+        wrapper = lambda i: S.rowwise_update(  # noqa: E731
+            sr[i], t, lr, "adam", **hyper)
+        plain = lambda i: S.rowwise_update_ref(  # noqa: E731
+            *segs[i], sr[i].values, t, lr, "adam", **hyper)
         w = update_work(ids[0], width, "adam", 3)
-        w.update(ms=device_ms(kernel, segs, name="sparse_update_kernel"),
-                 with_sort_ms=device_ms(wrapper, srs),
-                 plain_ms=device_ms(plain, segs, iters=20),
+        w.update(ms=device_ms(kernel, idx, name="sparse_update_kernel"),
+                 with_sort_ms=device_ms(wrapper, idx),
+                 plain_ms=device_ms(plain, idx, iters=20),
                  library_ms=device_ms(lib_step, grads),
-                 wall_ms=time_ms(kernel, segs),
-                 with_sort_wall_ms=time_ms(wrapper, srs),
-                 plain_wall_ms=time_ms(plain, segs, iters=20),
+                 wall_ms=time_ms(kernel, idx),
+                 with_sort_wall_ms=time_ms(wrapper, idx),
+                 plain_wall_ms=time_ms(plain, idx, iters=20),
                  library_wall_ms=time_ms(lib_step, grads, iters=100))
         out[name] = w
-        del tabs, srs, segs, grads, param, opt
+        del grads, param, opt
+
+    def step(i, memo):   # both tables' updates from one id batch
+        for n in widths:
+            S.rowwise_update(srs[n][i], tabs[n], lr, "adam", memo, **hyper)
+    shared = lambda i: step(i, {})  # noqa: E731
+    apart = lambda i: step(i, None)  # noqa: E731
+    out["update_step"] = {
+        "ms": device_ms(shared, idx), "sort_each_ms": device_ms(apart, idx),
+        "wall_ms": time_ms(shared, idx), "sort_each_wall_ms": time_ms(apart,
+                                                                       idx)}
+    del srs, segs
+    # the skewed batch, Adam on the [1e6, 10] table
+    hot = [torch.tensor(zipf_ids(DEEPFM_B * SPARSE_FIELDS, H, 300 + i),
+                        device=dev) for i in range(4)]
+    vals = [torch.randn(x.numel(), D, generator=g, device=dev) * 1e-3
+            for x in hot]
+    hsegs = [S.sorted_segments(x, H) for x in hot]
+    t = tabs["update_emb"]
+    kernel = lambda i: S.rowwise_update_sorted(  # noqa: E731
+        *hsegs[i], vals[i], t, lr, "adam", **hyper)
+    wrapper = lambda i: S.rowwise_update(  # noqa: E731
+        SelectedRows(hot[i], vals[i], H), t, lr, "adam", **hyper)
+    counts = torch.unique(hot[0], return_counts=True)[1]
+    w = update_work(hot[0], D, "adam", 3)
+    w.update(ms=device_ms(kernel, list(range(4)), name="sparse_update_kernel"),
+             with_sort_ms=device_ms(wrapper, list(range(4))),
+             hot_share=int(counts.max().item()) / hot[0].numel())
+    out["update_skewed"] = w
+    del tabs, hot, vals, hsegs
     return out
 
 
@@ -843,12 +902,15 @@ def check_and_time_sparse(dev) -> dict:
             f"{[tuple(t.shape) for t in tabs]}: bit-equal to the plain "
             f"version")
     del emb, w1
-    # K10: every math variant at the bench shape and an odd one
+    # K10: every math variant at the bench shape, an odd one and on the
+    # skewed batch
     lr = torch.tensor(1e-4, device=dev)
+    skewed = torch.tensor(zipf_ids(bench.numel(), SPARSE_ROWS, 7), device=dev)
     for kind in ("adam", "momentum", "nesterov", "adagrad"):
         for name, (H, D, ids) in {
                 "bench": (SPARSE_ROWS, SPARSE_EMBED, bench.reshape(-1)),
                 "bench_w1": (SPARSE_ROWS, 1, bench.reshape(-1)),
+                "skewed": (SPARSE_ROWS, SPARSE_EMBED, skewed),
                 "odd": (23, 5, torch.randint(-23, 23, (17,), generator=g,
                                              device=dev))}.items():
             vals = torch.randn(ids.numel(), D, generator=g, device=dev) \
@@ -876,6 +938,15 @@ def check_and_time_sparse(dev) -> dict:
             f"bytes); wall ms per call in a loop: kernel {r['wall_ms']!r},"
             f" plain {r['plain_wall_ms']!r}, library "
             f"{r['library_wall_ms']!r}")
+    r = out["update_step"]
+    log(f"  the DeepFM step's updates (both tables), device ms: one shared "
+        f"sort + K10 x2 {r['ms']!r} (wall {r['wall_ms']!r}), a sort each "
+        f"{r['sort_each_ms']!r} (wall {r['sort_each_wall_ms']!r})")
+    r = out["update_skewed"]
+    log(f"  update_emb on the skewed batch (hottest id {r['hot_share']!r} "
+        f"of it, {r['unique_rows']} unique rows), device ms: kernel "
+        f"{r['ms']!r}, with the sort {r['with_sort_ms']!r}; bound "
+        f"{r['bound_ms']!r}, sector bound {r['sector_bound_ms']!r}")
     torch.cuda.empty_cache()
     return out
 
@@ -902,11 +973,11 @@ def gru_inputs(dev, B, T, H, seed, lo=None):
 def gru_work(x) -> dict:
     """The least work of K8a and K8b on these inputs, per live (row,
     step) (a masked step needs none): K8a the two products h·w_uz and
-    (r ⊙ h)·w_c, 2·H·3H operations at the float32 rate; K8b the gate
-    recompute (2·H·3H), drh = db·w_c^T (2·H·H), da·w_uz^T (2·2H·H) and
-    dW (2·H·3H), 18·H², at split TF32's rate (its products' arithmetic),
-    with the float32 rate's bound beside it (``fma_bound_ms``); each
-    input read once and each output written once."""
+    (r ⊙ h)·w_c, 2·H·3H operations; K8b the gate recompute (2·H·3H),
+    drh = db·w_c^T (2·H·H), da·w_uz^T (2·2H·H) and dW (2·H·3H), 18·H²;
+    both at split TF32's rate (their products' arithmetic), with the
+    float32 rate's bound beside it (``fma_bound_ms``); each input read
+    once and each output written once."""
     xproj = x["args"][0]
     B, T, H3 = xproj.shape
     H = H3 // 3
@@ -914,15 +985,14 @@ def gru_work(x) -> dict:
     f4 = 4
     xb, wb, sb = B * T * H3 * f4, H * H3 * f4, B * H * f4
     mb, hb = B * T * f4, B * T * H * f4
-    rows = {"fwd": (2 * live * H * H3, xb + wb + sb + mb + hb,
-                    F32_OPS_PER_S),
+    rows = {"fwd": (2 * live * H * H3, xb + wb + sb + mb + hb),
             "bwd": (18 * live * H * H,
-                    xb + wb + sb + mb + 2 * hb + xb + wb + sb,
-                    TF32X3_OPS_PER_S)}
-    out = {name: {**bound(nbytes, ops, rate), "live_steps": live}
-           for name, (ops, nbytes, rate) in rows.items()}
-    out["bwd"]["fma_bound_ms"] = bound(out["bwd"]["bytes"],
-                                       out["bwd"]["ops"])["bound_ms"]
+                    xb + wb + sb + mb + 2 * hb + xb + wb + sb)}
+    out = {}
+    for name, (ops, nbytes) in rows.items():
+        out[name] = {**bound(nbytes, ops, TF32X3_OPS_PER_S),
+                     "live_steps": live,
+                     "fma_bound_ms": bound(nbytes, ops)["bound_ms"]}
     return out
 
 
@@ -961,7 +1031,7 @@ def time_gru(R, dev) -> dict:
     hs = R.gru_fused(*a)
     work = gru_work(x)
     runs = {"fwd": (lambda _: R.gru_fused(*a), lambda _: R.gru_ref(*a),
-                    "gru_fwd_kernel"),
+                    "gru_fwd_recurrence"),
             "bwd": (lambda _: R.gru_fused_grad(*a, hs, dhs),
                     lambda _: R.gru_grad_ref(*a, hs, dhs), "gru_bwd")}
     cudnn = time_cudnn_gru(dev, B, T, H)
@@ -1002,9 +1072,9 @@ def check_gru_op_reversed(R, dev) -> float:
     (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
     for slot in ("Hidden", "LastH"):
         e = (fk[slot][0] - fp[slot][0]).abs().max().item()
-        if not (math.isfinite(e) and e <= LSTM_FWD_ATOL):
+        if not (math.isfinite(e) and e <= K8A_FWD_ATOL):
             raise AssertionError(f"reversed gru op {slot}: {e} > "
-                                 f"{LSTM_FWD_ATOL}")
+                                 f"{K8A_FWD_ATOL}")
     worst = 0.0
     for slot in ("Input@GRAD", "Weight@GRAD", "H0@GRAD"):
         ref = gp[slot][0]
@@ -1024,16 +1094,20 @@ def check_and_time_gru(dev) -> dict:
         x = gru_inputs(dev, B, T, H, seed=70 + i, lo=lo)
         a, dhs = x["args"], x["dhs"]
         hs = R.gru_fused(*a)
+        hs_again = R.gru_fused(*a)
         grads = R.gru_fused_grad(*a, hs, dhs)
         again = R.gru_fused_grad(*a, hs, dhs)
         torch.cuda.synchronize()
+        if not torch.equal(hs, hs_again):
+            raise AssertionError(f"K8a is not bit-identical on a rerun at "
+                                 f"{name}")
         if not all(torch.equal(p, q) for p, q in zip(grads, again)):
             raise AssertionError(f"K8b is not bit-identical on a rerun at "
                                  f"{name}")
         e_f = (hs - R.gru_ref(*a)).abs().max().item()
-        if not (math.isfinite(e_f) and e_f <= LSTM_FWD_ATOL):
+        if not (math.isfinite(e_f) and e_f <= K8A_FWD_ATOL):
             raise AssertionError(f"K8a disagrees with its plain version at "
-                                 f"{name}: {e_f} > {LSTM_FWD_ATOL}")
+                                 f"{name}: {e_f} > {K8A_FWD_ATOL}")
         # the plain backward on the kernel's own hs: K8b checked alone
         e_b, worst_ratio = 0.0, 0.0
         for gname, got, ref in zip(("dxproj", "dw", "dh0"), grads,
@@ -1046,9 +1120,9 @@ def check_and_time_gru(dev) -> dict:
                     f": max|d| / max|ref| = {ratio} > {K8B_GRAD_REL}")
             e_b, worst_ratio = max(e_b, d), max(worst_ratio, ratio)
         log(f"  {name} B={B} T={T} H={H}: max|kernel - plain| hs {e_f!r} "
-            f"(tolerance {LSTM_FWD_ATOL}), gradients {e_b!r} (worst "
+            f"(tolerance {K8A_FWD_ATOL}), gradients {e_b!r} (worst "
             f"max|d|/max|ref| {worst_ratio!r}, tolerance {K8B_GRAD_REL}); "
-            f"backward bit-identical on a rerun")
+            f"forward and backward bit-identical on a rerun")
         errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"],
                                                             e_b)
     rev = check_gru_op_reversed(R, dev)
@@ -1059,8 +1133,7 @@ def check_and_time_gru(dev) -> dict:
            **time_gru(R, dev)}
     for n in ("fwd", "bwd"):
         r = out[n]
-        rate = ("split TF32; float32 FMA "
-                f"{r['fma_bound_ms']!r} ms" if n == "bwd" else "float32 FMA")
+        rate = f"split TF32; float32 FMA {r['fma_bound_ms']!r} ms"
         log(f"  {n}: kernel {r['ms']!r} ms of device time ({r['wall_ms']!r} "
             f"ms a call by CUDA events), plain {r['plain_ms']!r} ms, cuDNN "
             f"GRU (TF32 off; a different function, reset after the product) "
@@ -2323,7 +2396,9 @@ def deepfm_feed(B: int, seed: int) -> dict:
 
 
 def sparse_launches(S) -> tuple:
-    return S.fused_gather.launches, S.rowwise_update.launches
+    """K9's and K10's launches and the sorts in front of K10."""
+    return (S.fused_gather.launches, S.rowwise_update.launches,
+            S.sorted_segments.launches)
 
 
 def table_state(names) -> list:
@@ -2368,12 +2443,14 @@ def check_deepfm_step_against_cpu(dev) -> dict:
             out[name + "_state"] = scope.to_numpy(state)
     finally:
         fluid.set_flags({"sparse_fused_kernel": False})
-    # one K9 launch for both tables, one K10 launch per table
-    want = (1, 2) if torch.device(dev).type == "cuda" else (0, 0)
-    if out["gpu_launches"] != want or out["cpu_launches"] != (0, 0):
-        raise AssertionError(f"K9/K10 launches card {out['gpu_launches']}, "
-                             f"CPU {out['cpu_launches']}; expected {want} on"
-                             f" the card and none on the CPU")
+    # one K9 launch for both tables, one K10 launch per table, one sort
+    # for both (the CPU sorts too, and launches no kernel)
+    want = (1, 2, 1) if torch.device(dev).type == "cuda" else (0, 0, 1)
+    if out["gpu_launches"] != want or out["cpu_launches"] != (0, 0, 1):
+        raise AssertionError(f"K9/K10 launches and sorts card "
+                             f"{out['gpu_launches']}, CPU "
+                             f"{out['cpu_launches']}; expected {want} on the "
+                             f"card and (0, 0, 1) on the CPU")
     if not all(np.array_equal(a, b) for a, b in zip(out["gpu_rows"],
                                                     out["cpu_rows"])):
         raise AssertionError("sparse gradient rows differ card vs CPU")
@@ -2423,6 +2500,7 @@ def train_deepfm(exe, main, loss, feed, scope, flag: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lowering.grad_recomputes = 0
     S.fused_gather.launches = S.rowwise_update.launches = 0
+    S.sorted_segments.launches = 0
     losses, step_ms = [], []
     with fluid.scope_guard(scope):
         for _ in range(DEEPFM_STEPS):
@@ -2433,12 +2511,15 @@ def train_deepfm(exe, main, loss, feed, scope, flag: bool) -> dict:
     launches = sparse_launches(S)
     recomputes = lowering.grad_recomputes
     on_card = torch.device(exe.device).type == "cuda"
-    want = (DEEPFM_STEPS, 2 * DEEPFM_STEPS) if flag and on_card else (0, 0)
+    # one sort a step, shared by the two tables' K10 launches
+    want = ((DEEPFM_STEPS, 2 * DEEPFM_STEPS, DEEPFM_STEPS) if flag and on_card
+            else (0, 0, 0))
     log(f"  flag {'on' if flag else 'off'}, {DEEPFM_STEPS} steps: launches "
-        f"K9/K10 {launches} (expected {want}), grad recomputes {recomputes}")
+        f"K9/K10 and sorts {launches} (expected {want}), grad recomputes "
+        f"{recomputes}")
     if launches != want or recomputes != 0:
-        raise AssertionError(f"K9/K10 launches {launches} (want {want}), "
-                             f"grad recomputes {recomputes} (want 0)")
+        raise AssertionError(f"K9/K10 launches and sorts {launches} (want "
+                             f"{want}), grad recomputes {recomputes} (want 0)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     med = float(np.median(step_ms[2:]))
@@ -2479,9 +2560,10 @@ def run_deepfm(dev, card: str) -> dict:
                 f"{run['losses'][-1]!r}, max memory allocated "
                 f"{run['max_memory_allocated']} bytes")
             with fluid.scope_guard(scope):
+                # "Sort": the sort's kernels (cub's radix sort)
                 run["profile"] = profile_step(
                     exe, main, feed, loss,
-                    ("sparse_gather_kernel", "sparse_update_kernel"))
+                    ("sparse_gather_kernel", "sparse_update_kernel", "Sort"))
             prof = run["profile"]
             log(f"  profiled step, {key} [{card}]: " + json.dumps(
                 {k: v for k, v in prof.items() if k != "top_kernels"}))
@@ -2653,7 +2735,7 @@ def run_machine_translation(dev, card: str) -> dict:
         f"{out['max_memory_allocated']} bytes")
     with fluid.scope_guard(scope):
         prof = profile_step(exe, main, feed, loss,
-                            ("gru_fwd_kernel",) + K8B_LAUNCHES)
+                            ("gru_fwd_recurrence",) + K8B_LAUNCHES)
     out["profile"] = prof
     log(f"  profiled step [{card}]: " + json.dumps(
         {k: v for k, v in prof.items() if k != "top_kernels"}))
@@ -2661,7 +2743,7 @@ def run_machine_translation(dev, card: str) -> dict:
         k8b = sum(prof["focus_ms"][k] for k in K8B_LAUNCHES)
         log(f"  K8b {k8b!r} ms of the step's {prof['device_busy_ms']!r} ms "
             f"of device busy time ({k8b / prof['device_busy_ms']:.2%}; "
-            f"K8a {prof['focus_share_of_busy']['gru_fwd_kernel']:.2%})")
+            f"K8a {prof['focus_share_of_busy']['gru_fwd_recurrence']:.2%})")
     for k in prof.get("top_kernels", []):
         log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
     del scope, exe
@@ -3350,6 +3432,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if name == "sparse_update":   # the DeepFM step's pair; skewed ids
+            rows[-1].update(step_ms=sparse_k["update_step"]["ms"],
+                            skewed_ms=sparse_k["update_skewed"]["ms"])
     # K8a/K8b at the path's shape and ragged lengths; library: cuDNN's
     # GRU, a different function (reset after the product)
     for i, (key, line) in enumerate((("fwd", 272), ("bwd", 288))):
@@ -3362,9 +3447,9 @@ def main() -> int:
             "max_abs_err": gru_k["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if key == "bwd":   # three launches; bound at split TF32's rate
-            row.update(launch_ms=t["launch_ms"],
-                       fma_bound_ms=t["fma_bound_ms"])
+        row["fma_bound_ms"] = t["fma_bound_ms"]   # bound at split TF32's rate
+        if key == "bwd":   # three launches
+            row["launch_ms"] = t["launch_ms"]
         rows.append(row)
     # K5 at the path's most common shape (72 of a dispatch's 97
     # launches); every shape and the per-dispatch sums are in the json

@@ -23,12 +23,28 @@ of the repository, on one CUDA card, in one process.
   shape, ragged and full, and ragged at H=1024 (``LSTM_WIDE_H``), every
   build through ``lstm_fwd`` (given enough barrier words for either
   design);
+- ``gru_fwd``: K8a (``csrc/gru_fwd.cu``) at machine translation's shape
+  (``chip_smoke.GRU_TIME_SHAPE``), ragged 8..32 and full, and ragged at
+  H=1024 (``GRU_WIDE_H``), every build through ``gru_fwd`` (given enough
+  barrier words for either design; a build that does not take a shape
+  is listed as refused);
 - ``gru_bwd``: K8b (``csrc/gru_bwd.cu``) at machine translation's shape
   (``chip_smoke.GRU_TIME_SHAPE``), ragged 8..32 and full, and ragged at
   H=1024 (``GRU_WIDE_H``: 8 units a block past H=896), every build
   through ``gru_bwd`` (given the barrier words its own
   ``gru_bwd_sync_words`` asks for, one where it has none); a build with
   K8b's three launches is also timed launch by launch;
+- ``sparse_update``: K10 (``csrc/sparse_update.cu``), Adam on DeepFM's
+  two tables ([1e6, 10] and [1e6, 1]) from one id batch
+  (``chip_smoke.sparse_ids``, and a skewed batch of Zipf ids whose
+  hottest id covers a tenth of it), cycling 32 batches: the kernel alone
+  on each table, what is sorted in front of it, and the step's pair with
+  everything in front of it.
+  This checkout goes through ``rowwise_update`` with a run's memo (one
+  int32 sort shared by both tables; the kernel reads the values through
+  the permutation); another checkout through its own K10 behind the
+  wrapper it had before the sort was shared (a stable int64 sort,
+  the sorted copy of the values and the run flags, for each table);
 - ``int8_fc``: K5 (``csrc/int8_fc.cu``) at the int8 Transformer's four
   bucket-8 shapes (``chip_smoke.INT8_SHAPES``) with the path's acts, on
   quantized activations, cycling input sets past the L2, and their sum
@@ -56,17 +72,23 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import (FLASH_GRAD_TOL, FLASH_TIME_SHAPE,  # noqa: E402
-                        GRU_TIME_SHAPE, INT8_DISPATCH_SHAPES, INT8_SHAPES,
-                        K4_KERNELS, K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
+from chip_smoke import (DEEPFM_B, FLASH_GRAD_TOL,  # noqa: E402
+                        FLASH_TIME_SHAPE, GRU_TIME_SHAPE,
+                        INT8_DISPATCH_SHAPES, INT8_SHAPES, K4_KERNELS,
+                        K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
                         LSTM_TIME_SHAPE, MT_SHORTEST, PAGED_SHAPES,
+                        SPARSE_EMBED, SPARSE_FIELDS, SPARSE_HYPER,
+                        SPARSE_ROWS, SPARSE_TIME_SETS, bits_equal,
                         device_ms, device_ms_by_name, flash_inputs,
                         gru_inputs, int8_case, lstm_inputs, nvidia_smi_line,
-                        paged_inputs, work, worst)
+                        paged_inputs, sparse_ids, update_tables, work, worst,
+                        zipf_ids)
+from paddle_tpu_torch.core.selected_rows import SelectedRows  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import attention as A  # noqa: E402
 from paddle_tpu_torch.kernels import quant as Q  # noqa: E402
 from paddle_tpu_torch.kernels import rnn as R  # noqa: E402
+from paddle_tpu_torch.kernels import sparse as S  # noqa: E402
 
 # PR 2's K2/K3 at D=64: LPR = 2 lanes a row, 128 threads
 FLASH_SHIM = r"""
@@ -99,7 +121,7 @@ PAGED_ONE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 BARRIER_WORDS = 64   # group barriers of the widest batch timed here
 LSTM_WIDE_H = 1024   # K6 past H=512: 8 units a block
-GRU_WIDE_H = 1024    # K8b past H=896: 8 units a block
+GRU_WIDE_H = 1024    # K8a and K8b past H=896: 8 units a block
 
 
 def build_other(src_dir: str, out_dir: str, tag: str, name: str,
@@ -333,6 +355,58 @@ def ab_lstm_fwd(libs, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K8a
+# ---------------------------------------------------------------------------
+
+def gru_fwd_call(lib):
+    fn = lib.gru_fwd
+    fn.argtypes, fn.restype = R._GRU_FWD_ARGS, ctypes.c_int
+
+    def call(a):
+        xproj, w, h0, mask = a
+        B, T, H3 = xproj.shape
+        hs = torch.empty(B, T, H3 // 3, device=xproj.device)
+        rh = torch.empty(B, H3 // 3, device=xproj.device)
+        barrier = torch.empty(BARRIER_WORDS, dtype=torch.int32,
+                              device=xproj.device)
+        err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                 mask.data_ptr(), hs.data_ptr(), rh.data_ptr(),
+                 barrier.data_ptr(), B, T, H3 // 3, xproj.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gru_fwd: error {err}")
+        return hs
+    return call
+
+
+def ab_gru_fwd(libs, dev) -> dict:
+    res = {}
+    calls = {who: gru_fwd_call(lib) for who, lib in libs.items()}
+    B, T, H = GRU_TIME_SHAPE
+    for label, lo, h in (("ragged", MT_SHORTEST, H), ("full", None, H),
+                         ("wide_ragged", MT_SHORTEST, GRU_WIDE_H)):
+        a = gru_inputs(dev, B, T, h, seed=80, lo=lo)["args"]
+        want = R.gru_ref(*a)
+        row = {"live_steps": int(a[3].sum().item())}
+        takes = {}
+        for who, call in calls.items():
+            try:
+                got = call(a)
+            except RuntimeError as e:   # a build that does not take H
+                row[f"{who}_refused"] = str(e)
+                continue
+            torch.cuda.synchronize()
+            takes[who] = libs[who]
+            row[f"{who}_max_abs_err"] = err_of([got], [want])
+        for who in turns(takes) or ["this", "this"]:
+            row.setdefault(f"{who}_ms", []).append(
+                device_ms(calls[who], [a], 20, name="gru_fwd"))
+        res[label] = row
+        print(f"k8a_{label}", json.dumps(row), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # K8b
 # ---------------------------------------------------------------------------
 
@@ -394,6 +468,123 @@ def ab_gru_bwd(libs, dev) -> dict:
                     calls[who], [s], 20, K8B_LAUNCHES)
         res[label] = row
         print(f"k8b_{label}", json.dumps(row), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K10
+# ---------------------------------------------------------------------------
+
+# the K10 entry point before the sort was shared: sparse_update(kind,
+# rows int64, sorted values, first, last, n, d, p, a, b, lr, h1, h2, h3,
+# flag, device, stream)
+PARENT_UPDATE_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_float] * 3
+                      + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def parent_update(lib):
+    """Adam through ``lib``'s K10 behind the wrapper it had before the
+    sort was shared: (sort, kernel) for one table, the sort making the
+    stable int64 sort, the sorted copy of the values and the run flags."""
+    fn = lib.sparse_update
+    fn.argtypes, fn.restype = PARENT_UPDATE_ARGS, ctypes.c_int
+    hyper = SPARSE_HYPER["adam"]
+
+    def sort(rows, vals, H):
+        rows = torch.where(rows < 0, rows + H, rows).clamp(0, H - 1)
+        r, order = torch.sort(rows.to(torch.int64), stable=True)
+        neq = r[1:] != r[:-1]
+        one = torch.ones(1, dtype=torch.bool, device=r.device)
+        return (r, vals[order].contiguous(), torch.cat([one, neq]),
+                torch.cat([neq, one]))
+
+    def kernel(segs, tables, lr):
+        r, v, first, last = segs
+        err = fn(0, r.data_ptr(), v.data_ptr(), first.data_ptr(),
+                 last.data_ptr(), r.shape[0], v.shape[1],
+                 *[t.data_ptr() for t in tables], lr.data_ptr(),
+                 hyper["beta1"], hyper["beta2"], hyper["eps"], 0,
+                 r.device.index, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"sparse_update: error {err}")
+    return sort, kernel
+
+
+def this_update():
+    """(sort, kernel) of this checkout: ``sorted_segments`` and K10
+    through ``rowwise_update_sorted``."""
+    hyper = SPARSE_HYPER["adam"]
+
+    def sort(rows, vals, H):
+        return (*S.sorted_segments(rows, H), vals)
+
+    def kernel(segs, tables, lr):
+        S.rowwise_update_sorted(*segs, tables, lr, "adam", **hyper)
+    return sort, kernel
+
+
+def ab_sparse_update(libs, dev) -> dict:
+    res = {}
+    hyper = SPARSE_HYPER["adam"]
+    H, D = SPARSE_ROWS, SPARSE_EMBED
+    fns = {who: this_update() if who == "this" else parent_update(lib)
+           for who, lib in libs.items()}
+    g = torch.Generator(device=dev).manual_seed(21)
+    lr = torch.tensor(1e-4, device=dev)
+    widths = {"emb": D, "w1": 1}
+    tables = {n: update_tables("adam", H, w, g) for n, w in widths.items()}
+    n_ids = DEEPFM_B * SPARSE_FIELDS
+    feeds = {"bench": lambda i: sparse_ids(100 + i).reshape(-1),
+             "skewed": lambda i: zipf_ids(n_ids, H, 300 + i)}
+    for label, make in feeds.items():
+        ids = [torch.tensor(make(i), device=dev)
+               for i in range(SPARSE_TIME_SETS)]
+        vals = {n: [torch.randn(n_ids, w, generator=g, device=dev) * 1e-3
+                    for _ in ids] for n, w in widths.items()}
+        idx = list(range(SPARSE_TIME_SETS))
+        row = {"unique_rows": int(torch.unique(ids[0]).numel()),
+               "hot_share": int(torch.unique(ids[0], return_counts=True)[1]
+                                .max().item()) / n_ids}
+        for who, (sort, kernel) in fns.items():   # bit for bit on set 0
+            ok = True
+            for n in widths:
+                got = [t.clone() for t in tables[n]]
+                kernel(sort(ids[0], vals[n][0], H), got, lr)
+                want = [t.clone() for t in tables[n]]
+                S.rowwise_update_ref(*S.sorted_segments(ids[0], H),
+                                     vals[n][0], want, lr, "adam", **hyper)
+                torch.cuda.synchronize()
+                ok = ok and all(bits_equal(a, b) for a, b in zip(got, want))
+            row[f"{who}_bit_equal"] = ok
+        for who in turns(libs):
+            sort, kernel = fns[who]
+            for n in widths:   # the kernel alone, on sorted inputs
+                segs = [sort(x, v, H) for x, v in zip(ids, vals[n])]
+                row.setdefault(f"{who}_{n}_kernel_ms", []).append(device_ms(
+                    lambda i: kernel(segs[i], tables[n], lr), idx,
+                    name="sparse_update"))
+                del segs
+            # what the step sorts: the ids (and, for another checkout, the
+            # sorted copy of the [1e6, 10] table's values and the flags)
+            row.setdefault(f"{who}_sort_ms", []).append(device_ms(
+                lambda i: sort(ids[i], vals["emb"][i], H), idx))
+            if who == "this":   # one sort, shared through the run's memo
+                def step(i):
+                    memo = {}
+                    for n in widths:
+                        S.rowwise_update(SelectedRows(ids[i], vals[n][i], H),
+                                         tables[n], lr, "adam", memo, **hyper)
+            else:               # a sort each
+                def step(i):
+                    for n in widths:
+                        kernel(sort(ids[i], vals[n][i], H), tables[n], lr)
+            row.setdefault(f"{who}_step_ms", []).append(device_ms(step, idx))
+        res[label] = row
+        print(f"k10_{label}", json.dumps(row), flush=True)
+        del ids, vals
+        torch.cuda.empty_cache()
     return res
 
 
@@ -465,7 +656,9 @@ KERNELS = {
                   ("flash_attn_bwd_occupancy", FLASH_SHIM)),
     "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
     "lstm_fwd": ("lstm_fwd", ab_lstm_fwd, None),
+    "gru_fwd": ("gru_fwd", ab_gru_fwd, None),
     "gru_bwd": ("gru_bwd", ab_gru_bwd, None),
+    "sparse_update": ("sparse_update", ab_sparse_update, None),
     "int8_fc": ("int8_fc", ab_int8_fc, None),
 }
 

@@ -61,6 +61,10 @@ class LowerContext:
         # runs (owned by the executor): a fresh host-to-device copy per
         # op and step would stall the stream
         self.consts = {} if consts is None else consts
+        # values one rule derives and another rule of the same run may
+        # reuse (the sparse updates' sort of one id batch,
+        # ``kernels/sparse.py``); dropped with the context after the run
+        self.run_memo = {}
 
     def _new_generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)

@@ -1,18 +1,13 @@
-// Shared pieces of the fused recurrent kernels: the grid and group
-// barriers, the occupancy query, the cooperative launch, sigmoidf and the
-// (row, units) loads of the batch-group kernels (lstm_fwd.cu, lstm_bwd.cu,
-// gru_fwd.cu, gru_bwd.cu), and through gru_common.cuh the FFMA products
-// of K8a (gru_fwd.cu; the other kernels have their own layouts, in split
-// TF32).
+// Shared pieces of the fused recurrent kernels (lstm_fwd.cu, lstm_bwd.cu,
+// gru_fwd.cu, gru_bwd.cu): the grid and group barriers, the occupancy
+// query, the cooperative launch, sigmoidf and the (row, units) loads and
+// stores of their cells.
 //
 // These kernels run one persistent grid for the whole sequence, launched
 // with cudaLaunchCooperativeKernel so that every block is resident at
-// once, and step through time with a barrier between steps.  In the GRU
-// kernels block x owns kUnits consecutive hidden units j0 = x * kUnits ..
-// j0 + 3 and the gate columns of W that feed them.
-//
-// Float32 throughout (FFMA on the CUDA cores, no tensor cores), as the
-// reference keeps h and every product in float32.
+// once, and step through time with a barrier between steps.  Their
+// products are split TF32 on the tensor cores (tf32x3.cuh); h, c and
+// every cell stay in float32, as the reference keeps them.
 
 #pragma once
 
@@ -21,13 +16,7 @@
 
 namespace lstm {
 
-constexpr int kUnits = 4;                  // hidden units a block owns
-constexpr int kRows = 128;                 // batch rows per chunk
-constexpr int kSplit = 2;                  // threads per row (reduction split)
-constexpr int kThreads = kRows * kSplit;   // threads per block
-constexpr int kTile = 32;                  // reduction depth of a staged tile
-constexpr int kTileStride = kTile + 1;     // padded row of a staged tile
-constexpr int kTileFloats = kRows * kTileStride;
+constexpr int kThreads = 256;  // threads a block
 
 // return codes besides a cudaError_t (kernels/rnn.py raises ValueError)
 constexpr int kSmemOver = -1;
@@ -62,8 +51,8 @@ __device__ __forceinline__ void grid_sync(unsigned int* count, unsigned int targ
   __syncthreads();
 }
 
-// The group barrier of the batch-group kernels (lstm_fwd.cu, gru_bwd.cu)
-// in two halves: every block of a group arrives once a step after its
+// The group barrier of the batch-group kernels (lstm_fwd.cu, gru_fwd.cu,
+// gru_bwd.cu) in two halves: every block of a group arrives after its
 // writes, and waits only before it reads what the others wrote, for the
 // count to reach the arrivals it needs.  Arrival is a block barrier, then
 // thread 0's release add on the group's counter (release is cumulative:
@@ -139,68 +128,6 @@ __device__ __forceinline__ void store_units(float* p, int n, bool vec, const flo
     for (int i = 0; i < P; ++i) {
       if (i < n) p[i] = v[i];
     }
-  }
-}
-
-// acc[0:NC] = sum_k A[b0 + r][k] * Ws[k][0:NC] for this thread's row r of
-// a chunk of kRows batch rows, over its half (ks) of every kTile-deep
-// tile; reduce_split() then adds the two halves.  A row b of A starts at
-// A + b * stride and holds K values; it is read through L2 only (__ldcg),
-// since the kernels read rows other blocks wrote in the same launch.  Ws
-// is shared memory, [round_up(K, kTile)][NC], zero past row K.  Every
-// thread of the block must call it.
-template <int NC>
-__device__ __forceinline__ void rows_times_slice(const float* A, size_t stride, int B,
-                                                 int b0, int K, const float* Ws,
-                                                 float* tile, float (&acc)[NC]) {
-  const int tid = threadIdx.x;
-  const int r = tid % kRows;
-  const int ks = tid / kRows;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kRows * kTile; idx += kThreads) {
-      const int rr = idx / kTile;
-      const int kk = idx - rr * kTile;
-      const int b = b0 + rr;
-      const int k = k0 + kk;
-      tile[rr * kTileStride + kk] =
-          (b < B && k < K) ? __ldcg(A + static_cast<size_t>(b) * stride + k) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kTile / kSplit; ++q) {
-      const int kk = ks * (kTile / kSplit) + q;
-      const float a = tile[r * kTileStride + kk];
-      const float4* w4 = reinterpret_cast<const float4*>(Ws + (k0 + kk) * NC);
-#pragma unroll
-      for (int c = 0; c < NC / 4; ++c) {
-        const float4 w = w4[c];
-        acc[4 * c + 0] = fmaf(a, w.x, acc[4 * c + 0]);
-        acc[4 * c + 1] = fmaf(a, w.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(a, w.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(a, w.w, acc[4 * c + 3]);
-      }
-    }
-  }
-}
-
-// Adds the second half's partial sums into the first half's (threads with
-// ks == 0 hold the row's total afterwards).  Reuses the staging tile.
-template <int NC>
-__device__ __forceinline__ void reduce_split(float* tile, float (&acc)[NC]) {
-  const int r = threadIdx.x % kRows;
-  const int ks = threadIdx.x / kRows;
-  __syncthreads();  // the last tile is no longer read
-  if (ks == 1) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) tile[r * (NC + 1) + c] = acc[c];
-  }
-  __syncthreads();
-  if (ks == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] += tile[r * (NC + 1) + c];
   }
 }
 

@@ -1,8 +1,8 @@
 // Float32 products on the tensor cores by split TF32 ("3xTF32"), and the
 // cp.async copies that feed them: the pieces the redesigned flash kernels
 // (flash_attn_fwd.cu, K1; flash_attn_bwd.cu, K2/K3) and recurrent kernels
-// (lstm_fwd.cu, K6; lstm_bwd.cu, K7; gru_bwd.cu, K8b) share.  No other
-// kernel includes this header.
+// (lstm_fwd.cu, K6; lstm_bwd.cu, K7; gru_fwd.cu, K8a; gru_bwd.cu, K8b)
+// share.  No other kernel includes this header.
 //
 // A float32 x is split into x_hi = tf32(x) (round to nearest, ties away,
 // to 10 explicit mantissa bits, as cvt.rna.tf32.f32) and x_lo = x - x_hi

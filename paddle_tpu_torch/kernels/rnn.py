@@ -37,6 +37,12 @@ rows with a barrier each, W for 16 units a block in shared memory (8
 past H=512, where 16 units' W no longer fits), the live rows' h_{t-1}
 packed and multiplied in split TF32 on the tensor cores.
 
+K8a runs as K6's recurrence does (``csrc/gru_fwd.cu``), with two group
+barriers a step: h_{t-1} . w_uz gives u and r, then (r ⊙ h_{t-1}) . w_c
+the candidate, each product over the group's live rows in split TF32,
+with w's columns for the block's 16 units (8 past H=896) in shared
+memory.
+
 K8b runs as K7 does (``csrc/gru_bwd.cu``): the gates of every step in two
 GEMMs, the recurrence in batch groups of rows with the block's 16 units'
 rows of w (8 units' past H=896) in shared memory and two group barriers
@@ -48,12 +54,11 @@ the tests.
 The reference's ``lstm_supported``/``gru_supported`` gates (H % 128,
 B % 8) follow TPU tiles and are not carried over.  The kernels take any
 float32 B, T, H >= 1 whose persistent blocks can all be resident on the
-card at once (ceil(H/16) for K6's, K7's and K8b's recurrences, whose
-batch groups run side by side as far as the card holds them and in turn
-beyond that, and ceil(H/8) for K6 past H=512 and K8b past H=896: up
-to H=1056 on an H100's 132 SMs; H/4 of them for K8a) at the kernel's
-shared memory a block, and raise ``ValueError`` naming the limit
-otherwise.  The
+card at once (ceil(H/16) for K6's, K7's, K8a's and K8b's recurrences,
+whose batch groups run side by side as far as the card holds them and in
+turn beyond that, and ceil(H/8) for K6 past H=512 and K8a and K8b past
+H=896: up to H=1056 on an H100's 132 SMs) at the kernel's shared memory
+a block, and raise ``ValueError`` naming the limit otherwise.  The
 port's own gates, :func:`lstm_eligible` and :func:`gru_eligible`, say
 which shapes those are, from the card's resident-block capacity at the
 kernel's shared memory a block (:func:`kernel_capacity`); the ``lstm`` and
@@ -77,15 +82,13 @@ _FWD_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 _BWD_ARGS = [_PTR] * 14 + [_INT] * 4 + [_PTR]
 _GRU_FWD_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
 _GRU_BWD_ARGS = [_PTR] * 11 + [_INT] * 4 + [_PTR]
-# hidden units one block of K8a owns (lstm_common.cuh)
-_UNITS = 4
-# hidden units one block of K6's, K7's and K8b's recurrences owns
-# (lstm_fwd.cu, lstm_bwd.cu, gru_bwd.cu); K6 takes 8 past H = _FWD_WIDE_H
-# and K8b past H = _GRU_BWD_WIDE_H, where 16 units' W no longer fits a
-# block's shared memory
-_LSTM_UNITS = 16
+# hidden units one block of the recurrences owns (lstm_fwd.cu,
+# lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu); K6 takes 8 past H = _FWD_WIDE_H
+# and K8a and K8b past H = _GRU_WIDE_H, where 16 units' W no longer fits
+# a block's shared memory
+_UNITS = 16
 _FWD_WIDE_H = 512
-_GRU_BWD_WIDE_H = 896
+_GRU_WIDE_H = 896
 # codes the C entry points return besides a cudaError_t
 _SMEM_OVER, _NOT_RESIDENT = -1, -2
 
@@ -212,19 +215,18 @@ def lstm_grad_phases(xproj, w, h0, c0, mask, hs, cs, dhs, dcs,
 
 def _units(lib: str, H: int) -> int:
     """Hidden units one block of ``lib`` owns at hidden size H: 16 for
-    K6 up to H=512 and 8 past it, 16 for K8b's recurrence up to H=896
-    and 8 past it, 16 for K7's recurrence, 4 for K8a."""
-    if lib in (_FWD, _GRU_BWD):
-        wide = _FWD_WIDE_H if lib == _FWD else _GRU_BWD_WIDE_H
-        return _LSTM_UNITS if H <= wide else _LSTM_UNITS // 2
-    return _LSTM_UNITS if lib == _BWD else _UNITS
+    K6 up to H=512 and 8 past it, 16 for K8a and K8b up to H=896 and 8
+    past it, 16 for K7's recurrence."""
+    if lib == _BWD:
+        return _UNITS
+    wide = _FWD_WIDE_H if lib == _FWD else _GRU_WIDE_H
+    return _UNITS if H <= wide else _UNITS // 2
 
 
 def _blocks(lib: str, H: int) -> int:
     """Persistent blocks the kernel library ``lib`` needs resident at
-    once: ceil(H / units a block) (:func:`_units`; K6, K7 and K8b need
-    one batch group's, and run more side by side when the card holds
-    more blocks)."""
+    once: ceil(H / units a block) (:func:`_units`): one batch group's,
+    and more run side by side when the card holds more blocks."""
     return -(-H // _units(lib, H))
 
 
@@ -247,9 +249,9 @@ def gru_eligible(B: int, T: int, H: int, dtype, capacity: int,
                  lib: str = _GRU_FWD) -> bool:
     """Whether the GRU kernel ``lib`` (``gru_fwd``, K8a, or ``gru_bwd``,
     K8b) takes this shape: float32, non-empty, and its persistent blocks
-    within ``capacity`` (:func:`lstm_eligible`'s meaning): ceil(H/4) for
-    K8a, one batch group's ceil(H/16) for K8b's recurrence, ceil(H/8)
-    past H=896."""
+    within ``capacity`` (:func:`lstm_eligible`'s meaning): one batch
+    group's ceil(H/16) for K8a's and K8b's recurrences, ceil(H/8) past
+    H=896."""
     return (dtype == torch.float32 and min(B, T, H) >= 1
             and _blocks(lib, H) <= capacity)
 
@@ -422,23 +424,24 @@ lstm_fused_grad.launches = 0
 # r ⊙ h, so h_t = u ⊙ h + (1 - u) ⊙ tanh(x_c + (r ⊙ h) @ w_c)
 # ---------------------------------------------------------------------------
 
-def _gru_gates(x_t, h, w):
+def _gru_gates(x_t, h, w, matmul=torch.matmul):
     """Post-activation (u, r, c) of one step, float32."""
     H = h.shape[-1]
-    a = x_t[:, :2 * H].float() + torch.matmul(h.to(w.dtype),
-                                              w[:, :2 * H]).float()
+    a = x_t[:, :2 * H].float() + matmul(h.to(w.dtype), w[:, :2 * H]).float()
     u, r = torch.sigmoid(a[:, :H]), torch.sigmoid(a[:, H:])
-    b = x_t[:, 2 * H:].float() + torch.matmul((r * h).to(w.dtype),
-                                              w[:, 2 * H:]).float()
+    b = x_t[:, 2 * H:].float() + matmul((r * h).to(w.dtype),
+                                        w[:, 2 * H:]).float()
     return u, r, torch.tanh(b)
 
 
-def gru_ref(xproj, w, h0, mask):
-    """Plain GRU forward (``_gru_fwd_kernel``): hs [B, T, H]."""
+def gru_ref(xproj, w, h0, mask, matmul=torch.matmul):
+    """Plain GRU forward (``_gru_fwd_kernel``): hs [B, T, H].
+    ``matmul`` is both recurrent products (``kernels/_tf32.py:
+    matmul_tf32x3`` models K8a's split TF32, for the tests)."""
     h = h0.float()
     hs = []
     for t in range(xproj.shape[1]):
-        u, _, c = _gru_gates(xproj[:, t], h, w)
+        u, _, c = _gru_gates(xproj[:, t], h, w, matmul)
         h_new = u * h + (1.0 - u) * c
         m = mask[:, t, None].float()
         h = m * h_new + (1.0 - m) * h
@@ -553,8 +556,14 @@ def gru_fused(xproj, w, h0, mask):
     B, T, H3 = xproj.shape
     H = H3 // 3
     hs = torch.empty(B, T, H, dtype=torch.float32, device=xproj.device)
+    # r ⊙ h_{t-1} of the step's live rows, for the candidate's product
     rh = torch.empty(B, H, dtype=torch.float32, device=xproj.device)
-    barrier = torch.empty(1, dtype=torch.int32, device=xproj.device)
+    words = getattr(_build.load(_GRU_FWD), "gru_fwd_sync_words")
+    words.argtypes = [_INT, _INT]
+    words.restype = _INT
+    # the batch groups' barriers (zeroed by gru_fwd)
+    barrier = torch.empty(words(B, H), dtype=torch.int32,
+                          device=xproj.device)
     fn = _kernel_fn(_GRU_FWD, _GRU_FWD_ARGS)
     stream = torch.cuda.current_stream(xproj.device).cuda_stream
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),

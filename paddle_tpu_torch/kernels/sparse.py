@@ -11,11 +11,15 @@ DeepFM path with ``FLAGS_sparse_fused_kernel`` on:
 - :func:`rowwise_update` (K10, the reference's ``_rowwise_update`` and
   ``_update_kernel``): one launch per table updates, in place, only the
   rows a ``SelectedRows`` gradient touches.  Before the launch, torch
-  ops canonicalize the ids, sort them stably and mark the first/last
-  position of each run of equal ids (:func:`_sorted_segments`, which
-  the reference also runs outside its ``pallas_call``).  The kernel sums
-  each run left to right in float32 and applies the Adam, momentum or
+  ops canonicalize the ids and sort them stably as int32 keys
+  (:func:`sorted_segments`; the reference also sorts outside its
+  ``pallas_call``).  The kernel finds the runs of equal ids itself, sums
+  each left to right in batch order in float32, reading the values
+  through the sort's permutation, and applies the Adam, momentum or
   adagrad math once per unique row.  Untouched rows are never read.
+  Tables updated by gradients of one id batch in one run (DeepFM's two)
+  share one sort: the optimizer rules pass the run's memo
+  (``LowerContext.run_memo``).
 
 Beside them are their plain PyTorch versions, :func:`fused_gather_ref`
 and :func:`rowwise_update_ref` (with :func:`_adam_math`,
@@ -58,6 +62,7 @@ __all__ = [
     "rowwise_update",
     "rowwise_update_ref",
     "rowwise_update_sorted",
+    "sorted_segments",
 ]
 
 _GATHER, _UPDATE = "sparse_gather", "sparse_update"
@@ -70,9 +75,9 @@ MAX_TABLES = 4
 # stream)
 _GATHER_ARGS = ([_INT, _PTR, _I64] + [_PTR] * MAX_TABLES * 2
                 + [_I64] * MAX_TABLES + [_INT] * MAX_TABLES + [_INT, _PTR])
-# sparse_update(kind, rows, vals, first, last, n, d, p, a, b, lr, h1, h2,
-# h3, flag, device, stream)
-_UPDATE_ARGS = ([_INT, _PTR, _PTR, _PTR, _PTR, _I64, _INT] + [_PTR] * 4
+# sparse_update(kind, rows, order, vals, n, d, p, a, b, lr, h1, h2, h3,
+# flag, device, stream)
+_UPDATE_ARGS = ([_INT, _PTR, _PTR, _PTR, _I64, _INT] + [_PTR] * 4
                 + [_FLOAT] * 3 + [_INT, _INT, _PTR])
 _KINDS = {"adam": 0, "momentum": 1, "adagrad": 2}
 
@@ -180,21 +185,47 @@ fused_gather.launches = 0
 # K10: row-wise lazy optimizer update
 # ---------------------------------------------------------------------------
 
-def _sorted_segments(rows, vals, height: int):
-    """Canonicalize, stably sort and mark the runs of equal ids.
+def sorted_segments(rows, height: int):
+    """Canonicalize and stably sort an id batch: ``(r, order)``, ``r``
+    the sorted int32 rows and ``order`` int64 with ``r[k] ==
+    canonical(rows)[order[k]]``; equal ids keep their batch order, which
+    is the order their values are summed in.  Ids in [-H, 0) wrap and
+    the rest clamp to an edge row, before the sort, so ids that land on
+    one row form ONE run (the reference's rule; program-made ids are in
+    range, and an out-of-range feed id has already made the forward
+    NaN).  Adds one to ``sorted_segments.launches`` (a torch sort, on
+    the CPU too)."""
+    if height >= 1 << 31:
+        raise ValueError(f"sorted_segments: height {height} does not fit "
+                         "the kernel's int32 rows")
+    # clamped into [-H, H) and wrapped: ids past either end land on the
+    # edge row, as clamping after the wrap puts them there
+    rows = torch.remainder(rows.clamp(-height, height - 1).to(torch.int32),
+                           height)
+    r, order = torch.sort(rows, stable=True)
+    sorted_segments.launches += 1
+    return r, order
 
-    Returns ``(r, v, first, last)``: ``r`` the sorted int64 rows, ``v``
-    the matching value rows (contiguous), ``first[i]``/``last[i]`` True
-    iff position i starts/ends a run.  Ids in [-H, 0) wrap and the rest
-    clamp to an edge row, before the sort, so ids that land on one row
-    form ONE run (the reference's rule; program-made ids are in range,
-    and an out-of-range feed id has already made the forward NaN)."""
-    rows = torch.where(rows < 0, rows + height, rows).clamp(0, height - 1)
-    r, order = torch.sort(rows.to(torch.int64), stable=True)
-    v = vals[order].contiguous()
-    neq = r[1:] != r[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=r.device)
-    return r, v, torch.cat([one, neq]), torch.cat([neq, one])
+
+sorted_segments.launches = 0
+
+
+def _segments(rows, height: int, memo):
+    """:func:`sorted_segments` of ``rows``, shared through ``memo`` (a
+    dict that lives for one ``Executor.run``) with every other update of
+    the run whose rows are the same tensor memory, unwritten since (its
+    version counter, which views share), at the same height."""
+    if memo is None:
+        return sorted_segments(rows, height)
+    key = ("sorted_segments", rows.data_ptr(), rows.dtype, rows.device,
+           tuple(rows.shape), tuple(rows.stride()), height)
+    hit = memo.get(key)
+    if hit is not None and hit[1] == rows._version:
+        return hit[2]
+    segs = sorted_segments(rows, height)
+    # ``rows`` is kept alive so no other tensor takes its memory this run
+    memo[key] = (rows, rows._version, segs)
+    return segs
 
 
 def _f32(x, like):
@@ -230,25 +261,33 @@ _MATH = {"adam": _adam_math, "momentum": _momentum_math,
          "adagrad": _adagrad_math}
 
 
-def rowwise_update_ref(r, v, first, last, tables, lr, kind, **hyper):
-    """Plain K10 on the output of :func:`_sorted_segments`: each run of
-    ``v`` summed left to right in float32 (starting from its first row,
-    as the kernel does), the ``kind`` math applied once per unique row,
-    and the rows written back into ``tables`` IN PLACE.  Returns
-    ``tables``."""
-    del last   # the runs are read from ``first``
-    _, seg, pos = segment_starts(r)
+def rowwise_update_ref(r, order, vals, tables, lr, kind, **hyper):
+    """Plain K10 on the output of :func:`sorted_segments`: each run of
+    equal ``r`` summed left to right in float32 over ``vals[order]``
+    (starting from its first row, as the kernel does), the ``kind`` math
+    applied once per unique row, and the rows written back into
+    ``tables`` IN PLACE.  Returns ``tables``."""
+    v = vals[order]
+    first, seg, pos = segment_starts(r)
     rest = ~first
     acc = segment_sum_in_order(v[rest], seg[rest], pos[rest] - 1,
                                v[first].clone())
-    urows = r[first]
+    urows = r[first].long()
     new = _MATH[kind](acc, lr, [t[urows] for t in tables], **hyper)
     for t, x in zip(tables, new):
         t[urows] = x
     return tables
 
 
-def _check_update(r, v, tables, lr):
+def _check_update(r, order, v, tables, lr):
+    n = r.shape[0]
+    for name, t, dtype in (("rows", r, torch.int32),
+                           ("order", order, torch.int64)):
+        if t.device != v.device or t.dtype != dtype or \
+                tuple(t.shape) != (n,) or not t.is_contiguous():
+            raise ValueError(f"rowwise_update: {name} must be a contiguous "
+                             f"{dtype} [{n}] tensor on {v.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     named = [("values", v)] + [(f"table {i}", t)
                                for i, t in enumerate(tables)]
     for name, t in named:
@@ -260,7 +299,7 @@ def _check_update(r, v, tables, lr):
                             f" tensor, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"rowwise_update: {name} must be contiguous")
-    want = [(r.shape[0], v.shape[1])] + \
+    want = [(n, v.shape[1])] + \
         [(tables[0].shape[0], v.shape[1])] * len(tables)
     for (name, t), shape in zip(named, want):
         if tuple(t.shape) != shape:
@@ -272,7 +311,7 @@ def _check_update(r, v, tables, lr):
                          "the tables' device")
 
 
-def rowwise_update(sr, tables, lr, kind, **hyper):
+def rowwise_update(sr, tables, lr, kind, memo=None, **hyper):
     """Apply the ``kind`` math ("adam": p, m1, m2 with beta1, beta2, eps;
     "momentum": p, velocity with mu, nesterov; "adagrad": p, moment with
     eps) once per unique row of ``sr``, IN PLACE on ``tables``; returns
@@ -280,24 +319,26 @@ def rowwise_update(sr, tables, lr, kind, **hyper):
     step for Adam), read by the kernel from device memory.
 
     An empty batch changes nothing.  Otherwise the ids are sorted
-    (:func:`_sorted_segments`); CPU tensors then take
-    :func:`rowwise_update_ref`, CUDA tensors :func:`rowwise_update_sorted`
-    (K10)."""
+    (:func:`sorted_segments`, shared through ``memo``, the run's memo,
+    with the other updates of the run over the same ids); CPU tensors
+    then take :func:`rowwise_update_ref`, CUDA tensors
+    :func:`rowwise_update_sorted` (K10)."""
     tables = list(tables)
     if sr.rows.shape[0] == 0:
         return tables
-    segs = _sorted_segments(sr.rows, sr.values, sr.height)
-    if segs[0].device.type == "cpu":
-        return rowwise_update_ref(*segs, tables, lr.reshape(()), kind,
-                                  **hyper)
-    return rowwise_update_sorted(*segs, tables, lr, kind, **hyper)
+    r, order = _segments(sr.rows, sr.height, memo)
+    if r.device.type == "cpu":
+        return rowwise_update_ref(r, order, sr.values, tables,
+                                  lr.reshape(()), kind, **hyper)
+    return rowwise_update_sorted(r, order, sr.values.contiguous(), tables,
+                                 lr, kind, **hyper)
 
 
-def rowwise_update_sorted(r, v, first, last, tables, lr, kind, **hyper):
+def rowwise_update_sorted(r, order, vals, tables, lr, kind, **hyper):
     """Launch K10 on the current stream over the output of
-    :func:`_sorted_segments` (CUDA tensors), updating ``tables`` in
-    place; raises on what the kernel does not take.  Adds one to
-    ``rowwise_update.launches``."""
+    :func:`sorted_segments` and the values in batch order (CUDA
+    tensors), updating ``tables`` in place; raises on what the kernel
+    does not take.  Adds one to ``rowwise_update.launches``."""
     if r.device.type != "cuda":
         raise ValueError(f"rowwise_update: unsupported device {r.device}")
     n_tables = {"adam": 3, "momentum": 2, "adagrad": 2}[kind]
@@ -305,16 +346,15 @@ def rowwise_update_sorted(r, v, first, last, tables, lr, kind, **hyper):
         raise ValueError(f"rowwise_update({kind}) takes {n_tables} tables, "
                          f"got {len(tables)}")
     lr = lr.reshape(1)
-    _check_update(r, v, tables, lr)
+    _check_update(r, order, vals, tables, lr)
     h = (hyper.get("beta1", hyper.get("mu", 0.0)),
          hyper.get("beta2", 0.0), hyper.get("eps", 0.0))
     ptrs = [t.data_ptr() for t in tables] + [None] * (3 - n_tables)
     fn = _kernel_fn(_UPDATE, _UPDATE_ARGS)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = fn(_KINDS[kind], r.data_ptr(), v.data_ptr(), first.data_ptr(),
-             last.data_ptr(), r.shape[0], v.shape[1], *ptrs, lr.data_ptr(),
-             *h, int(bool(hyper.get("nesterov", False))), r.device.index,
-             stream)
+    err = fn(_KINDS[kind], r.data_ptr(), order.data_ptr(), vals.data_ptr(),
+             r.shape[0], vals.shape[1], *ptrs, lr.data_ptr(), *h,
+             int(bool(hyper.get("nesterov", False))), r.device.index, stream)
     if err != 0:
         _raise_launch(_UPDATE, err)
     rowwise_update.launches += 1
@@ -339,29 +379,31 @@ def _eligible(sr, tables) -> bool:
     return ok
 
 
-def fused_adam(p, m1, m2, sr, lr_eff, beta1, beta2, eps):
+def fused_adam(p, m1, m2, sr, lr_eff, beta1, beta2, eps, memo=None):
     """Lazy sparse Adam (one K10 launch): (p, m1, m2) updated in place,
     or None when :func:`_eligible` routes the gradient elsewhere.
-    ``lr_eff`` is the bias-corrected step the sorted path uses."""
+    ``lr_eff`` is the bias-corrected step the sorted path uses; ``memo``
+    the run's memo (:func:`rowwise_update`)."""
     if not _eligible(sr, (p, m1, m2)):
         return None
-    return tuple(rowwise_update(sr, [p, m1, m2], lr_eff, "adam",
+    return tuple(rowwise_update(sr, [p, m1, m2], lr_eff, "adam", memo,
                                 beta1=beta1, beta2=beta2, eps=eps))
 
 
-def fused_momentum(p, velocity, sr, lr, mu, nesterov):
+def fused_momentum(p, velocity, sr, lr, mu, nesterov, memo=None):
     """Lazy sparse momentum (one K10 launch): (p, velocity) or None."""
     if not _eligible(sr, (p, velocity)):
         return None
-    return tuple(rowwise_update(sr, [p, velocity], lr, "momentum", mu=mu,
-                                nesterov=bool(nesterov)))
+    return tuple(rowwise_update(sr, [p, velocity], lr, "momentum", memo,
+                                mu=mu, nesterov=bool(nesterov)))
 
 
-def fused_adagrad(p, moment, sr, lr, eps):
+def fused_adagrad(p, moment, sr, lr, eps, memo=None):
     """Lazy sparse adagrad (one K10 launch): (p, moment) or None."""
     if not _eligible(sr, (p, moment)):
         return None
-    return tuple(rowwise_update(sr, [p, moment], lr, "adagrad", eps=eps))
+    return tuple(rowwise_update(sr, [p, moment], lr, "adagrad", memo,
+                                eps=eps))
 
 
 # ---------------------------------------------------------------------------

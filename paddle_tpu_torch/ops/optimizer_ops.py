@@ -77,7 +77,7 @@ def _momentum(ctx, ins, attrs):
     if _is_sparse(g):
         if sparse_kernels.enabled_for(ctx):
             fused = sparse_kernels.fused_momentum(
-                p, v, g, lr, attrs.get("mu", 0.9), nesterov)
+                p, v, g, lr, attrs.get("mu", 0.9), nesterov, ctx.run_memo)
             if fused is not None:
                 p_new, v_new = fused
                 return {"ParamOut": [p_new], "VelocityOut": [v_new]}
@@ -127,7 +127,8 @@ def _adam(ctx, ins, attrs):
         if sparse_kernels.enabled_for(ctx):
             fused = sparse_kernels.fused_adam(
                 p, m1, m2, g, lr, attrs.get("beta1", 0.9),
-                attrs.get("beta2", 0.999), attrs.get("epsilon", 1e-8))
+                attrs.get("beta2", 0.999), attrs.get("epsilon", 1e-8),
+                ctx.run_memo)
             if fused is not None:
                 p_new, m1n, m2n = fused
                 return {"ParamOut": [p_new], "Moment1Out": [m1n],
@@ -166,7 +167,7 @@ def _adagrad(ctx, ins, attrs):
     if _is_sparse(g):
         if sparse_kernels.enabled_for(ctx):
             fused = sparse_kernels.fused_adagrad(
-                p, mom, g, lr, attrs.get("epsilon", 1e-6))
+                p, mom, g, lr, attrs.get("epsilon", 1e-6), ctx.run_memo)
             if fused is not None:
                 p_new, mom_new = fused
                 return {"ParamOut": [p_new], "MomentOut": [mom_new]}

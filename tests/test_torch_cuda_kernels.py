@@ -22,12 +22,13 @@ group and past one 128-row chunk, a batch whose K7 groups take
 turns, hidden sizes that are not a multiple of 4, 16 or 32, all-masked rows, steps where no row lives (forward and
 backward), a bit-identical forward and backward on a rerun, the op's
 reversed path and the shapes past what a card can hold; the same for the GRU kernels (K8a, K8b), with an
-initial state and a bit-identical backward on a rerun; K8b's three
-launches, steps where no row lives, a row masked throughout, and batch
-groups that take turns, bit-identical on a rerun; for the sparse kernels (K9, K10), an empty batch, every
-id the same, ids at and past +-H, width 1, a table of 3 rows, bit for
-bit against the plain versions, and no fallback when the kernel library
-is missing; for the ``lstm`` and ``gru`` ops, both sides of the
+initial state and a bit-identical forward and backward on a rerun; K8b's
+three launches, and for both steps where no row lives, a row masked
+throughout, and batch groups that take turns, bit-identical on a rerun;
+for the sparse kernels (K9, K10), an empty batch, every id the same, ids
+at and past +-H, width 1, a table of 3 rows, skewed (Zipf) ids, bit for
+bit against the plain versions, no fallback when the kernel library is
+missing, and one sort a DeepFM step; for the ``lstm`` and ``gru`` ops, both sides of the
 eligibility gate (an ineligible shape or dtype runs the plain scan, an
 eligible one launches the kernel); for the int8 FC (K5), the int8
 Transformer's four shapes at bucket 8, an odd shape and one row, every
@@ -334,13 +335,13 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
 # fused LSTM (K6 forward, K7 backward)
 # ---------------------------------------------------------------------------
 
-# forward: float32 sums over H in another order, carried through T steps;
-# backward: max|d| <= LSTM_GRAD_REL * max|ref| (sums over B*T for dW)
-LSTM_FWD_ATOL = 1e-4
+# forward: float32 sums over H in another order, carried through T steps
+# (1e-4 absolute for a float32 recurrence); backward: max|d| <=
+# LSTM_GRAD_REL * max|ref| (sums over B*T for dW)
 LSTM_GRAD_REL = 1e-3
 # K6 and K7 multiply in split TF32 and are held tighter (chip_smoke.py's
 # K6_FWD_ATOL, K7_GRAD_REL): one TF32 product a term would pass
-# LSTM_GRAD_REL, and miss LSTM_FWD_ATOL by a slim margin only
+# LSTM_GRAD_REL, and miss the forward's 1e-4 by a slim margin only
 K6_FWD_ATOL = 1e-5
 K7_GRAD_REL = 1.5e-4
 
@@ -567,10 +568,11 @@ def test_lstm_kernels_refuse_what_they_do_not_take(dev):
         R.lstm_fused_grad(*big, zeros, zeros, zeros, zeros)
 
 
-# K8a: the tolerances of K6/K7's first versions (the same float32 sums
-# through the same recurrence, and a second all-unit product a step).
-# K8b multiplies in split TF32 and is held to its own chip_smoke.py
-# K8B_GRAD_REL: one TF32 product a term would pass LSTM_GRAD_REL
+# K8a and K8b multiply in split TF32 and are held to their own
+# chip_smoke.py bounds, K8A_FWD_ATOL and K8B_GRAD_REL: one TF32 product a
+# term would miss the forward's 1e-4 by a slim margin only and pass
+# LSTM_GRAD_REL
+K8A_FWD_ATOL = 1e-5
 K8B_GRAD_REL = 2e-5
 # K8b's three launches; profiler event names contain these
 K8B_LAUNCHES = ("gru_bwd_gates", "gru_bwd_recurrence", "gru_bwd_dw")
@@ -581,10 +583,10 @@ GRU_SHAPES = {   # B, T, H
     "b200_t9_h40": (200, 9, 40),
     "b64_t32_h256": (64, 32, 256),
     "b3_t64_h512": (3, 64, 512),
-    # more of K8b's batch groups than the card holds side by side
+    # more of K8a's and K8b's batch groups than the card holds side by side
     "b4096_t3_h256": (4096, 3, 256),
-    # K8b at 16 units a block at its widest, then 8 units a block past
-    # H=896, up to the widest the card holds (132 blocks)
+    # K8a and K8b at 16 units a block at their widest, then 8 units a
+    # block past H=896, up to the widest the card holds (132 blocks)
     "b8_t5_h896": (8, 5, 896),
     "b16_t8_h1024": (16, 8, 1024),
     "b8_t6_h1056": (8, 6, 1056),
@@ -617,7 +619,8 @@ def test_gru_kernels_match_plain(dev, shape, masked):
     torch.cuda.synchronize()
     assert (R.gru_fused.launches, R.gru_fused_grad.launches) == \
         (n[0] + 1, n[1] + 1)
-    assert (hs - R.gru_ref(*args)).abs().max().item() <= LSTM_FWD_ATOL
+    assert (hs - R.gru_ref(*args)).abs().max().item() <= K8A_FWD_ATOL
+    assert torch.equal(hs, R.gru_fused(*args))   # bit-identical on a rerun
     ref = R.gru_grad_ref(*args, hs, dhs)
     for name, a, b in zip(("dxproj", "dw", "dh0"), grads, ref):
         assert a.shape == b.shape and torch.isfinite(a).all(), name
@@ -662,6 +665,33 @@ def test_gru_backward_with_steps_where_no_row_lives(dev):
         assert _rel(a, b) <= K8B_GRAD_REL, name
     assert torch.count_nonzero(grads[0][:, 5:9]).item() == 0
     assert torch.count_nonzero(grads[0][7]).item() == 0
+
+
+def test_gru_forward_with_steps_where_no_row_lives(dev):
+    """Steps at which every row is masked (K8a's batch groups skip both
+    products and both waits there) in the middle and at the end, and a
+    row masked throughout: h passes through them unchanged."""
+    args, _ = _gru_inputs(dev, 64, 16, 256, seed=18, masked=False)
+    mask = args[3]
+    mask[:, 5:9] = 0.0
+    mask[:, 13:] = 0.0
+    mask[7] = 0.0
+    hs = R.gru_fused(*args)
+    torch.cuda.synchronize()
+    assert (hs - R.gru_ref(*args)).abs().max().item() <= K8A_FWD_ATOL
+    assert torch.equal(hs[:, 5:9], hs[:, 4:5].expand(-1, 4, -1))
+    assert torch.equal(hs[7], args[2][7].expand(16, 256))
+
+
+def test_gru_forward_where_batch_groups_take_turns_is_deterministic(dev):
+    """More of K8a's batch groups than the card holds side by side (they
+    take turns in their slots), ragged: bit-identical on a rerun."""
+    args, _ = _gru_inputs(dev, 4096, 6, 256, seed=20)
+    a = R.gru_fused(*args)
+    b = R.gru_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (a - R.gru_ref(*args)).abs().max().item() <= K8A_FWD_ATOL
 
 
 def test_gru_backward_where_batch_groups_take_turns_is_deterministic(dev):
@@ -729,7 +759,7 @@ def test_gru_op_kernel_path_matches_plain_scan(dev, reverse, h0):
     (fk, gk), (fp, gp) = outs["kernel"], outs["plain"]
     for slot in ("Hidden", "LastH"):
         assert (fk[slot][0] - fp[slot][0]).abs().max().item() <= \
-            LSTM_FWD_ATOL, slot
+            K8A_FWD_ATOL, slot
     assert sorted(gk) == sorted(gp)
     assert ("H0@GRAD" in gk) == h0
     for slot in gk:
@@ -766,7 +796,8 @@ def test_gru_kernels_refuse_what_they_do_not_take(dev):
     hs = R.gru_fused(*args)
     with pytest.raises(ValueError):
         R.gru_fused_grad(*args, hs, dhs.transpose(1, 2))
-    # past the co-residency a card offers: 4 units a block
+    # past what a card offers: 8 units' columns of w take more shared
+    # memory than a block may have
     big, _ = _gru_inputs(dev, 1, 1, 8192)
     with pytest.raises(ValueError, match="resident|shared memory"):
         R.gru_fused(*big)
@@ -785,11 +816,28 @@ def _bits_equal(a, b) -> bool:
                                               b.view(torch.int32))
 
 
+def _zipf_ids(n, H, seed, top=0.1):
+    """n ids in [0, H) with Zipf frequencies (p_k proportional to k^-s,
+    s set so the hottest id covers a ``top`` share of the batch), the
+    ranks spread over the rows by a seeded permutation."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    k = np.arange(1, H + 1, dtype=np.float64)
+    lo, hi = 0.0, 8.0
+    for _ in range(60):   # the hottest id's share grows with s
+        s = (lo + hi) / 2
+        lo, hi = (lo, s) if 1.0 / np.sum(k ** -s) > top else (s, hi)
+    p = k ** -s
+    return rs.permutation(H)[rs.choice(H, n, p=p / p.sum())]
+
+
 def _sparse_case(dev, H, D, n, seed=0, lo=0, hi=None, dup=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     hi = H if hi is None else hi
     ids = torch.randint(lo, hi, (n,), generator=g, device=dev)
-    if dup is not None:
+    if dup == "zipf":
+        ids = torch.tensor(_zipf_ids(n, H, seed), device=dev)
+    elif dup is not None:
         ids[:] = dup
     vals = torch.randn(n, D, generator=g, device=dev)
     p = torch.randn(H, D, generator=g, device=dev)
@@ -831,6 +879,8 @@ UPDATE_CASES = {   # H, D, n, id range, every id the same
     "every_id_the_same": (40, 5, 513, 0, 40, 7),
     "wrapped_and_edge_ids": (23, 5, 17, -23, 23, None),
     "three_rows": (3, 2, 65, 0, 3, None),
+    # Zipf ids, the hottest a tenth of the batch: a run of ~410 positions
+    "skewed": (1000, 10, 4096, 0, 1000, "zipf"),
 }
 
 
@@ -857,7 +907,7 @@ def test_sparse_update_matches_plain_bitwise(dev, case, kind):
     torch.cuda.synchronize()
     assert S.rowwise_update.launches == before + 1
     want = [t.clone() for t in tabs]
-    S.rowwise_update_ref(*S._sorted_segments(ids, vals, H), want, lr, base,
+    S.rowwise_update_ref(*S.sorted_segments(ids, H), vals, want, lr, base,
                          **hyper)
     touched = torch.zeros(H, dtype=torch.bool, device=dev)
     touched[torch.where(ids < 0, ids + H, ids)] = True
@@ -917,6 +967,46 @@ def test_sparse_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         S.rowwise_update(sr, [p, m], torch.tensor(0.1), "momentum", mu=0.9,
                          nesterov=False)
+    r, order = S.sorted_segments(ids, 30)
+    with pytest.raises(ValueError):   # int64 rows: the kernel takes int32
+        S.rowwise_update_sorted(r.long(), order, vals, [p, m],
+                                torch.tensor(0.1, device=dev), "momentum",
+                                mu=0.9, nesterov=False)
+
+
+def test_deepfm_step_sorts_once(dev):
+    """A DeepFM step (two sparse tables looked up with one Ids var,
+    FLAGS_sparse_fused_kernel on) sorts its ids once: K9 once, K10 twice,
+    one sort, a step."""
+    import numpy as np
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.kernels import sparse as S
+    from paddle_tpu_torch.models import deepfm
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = deepfm.build(dense_dim=13, sparse_fields=26,
+                                  sparse_dim=5000, embed_dim=10, lr=1e-3)
+    rs = np.random.RandomState(0)
+    feed = {"dense": rs.randn(64, 13).astype("float32"),
+            "sparse": rs.randint(0, 5000, (64, 26)).astype("int64"),
+            "label": rs.randint(0, 2, (64, 1)).astype("float32")}
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.set_flags({"sparse_fused_kernel": True})
+    try:
+        for _ in range(2):
+            n = (S.fused_gather.launches, S.rowwise_update.launches,
+                 S.sorted_segments.launches)
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            assert np.isfinite(l).all()
+            assert (S.fused_gather.launches - n[0],
+                    S.rowwise_update.launches - n[1],
+                    S.sorted_segments.launches - n[2]) == (1, 2, 1)
+    finally:
+        fluid.set_flags({"sparse_fused_kernel": False})
 
 
 def test_dense_grad_and_mask_sums_in_order_on_the_card(dev):
@@ -1012,7 +1102,7 @@ def test_rnn_op_launches_the_kernel_on_an_eligible_shape(dev, cell):
     assert fwd_k.launches == before[0] + 1
     assert _scan_routings(cell) == before[1]
     assert (got["Hidden"][0] - want["Hidden"][0]).abs().max().item() <= \
-        (K6_FWD_ATOL if cell == "lstm" else LSTM_FWD_ATOL)
+        (K6_FWD_ATOL if cell == "lstm" else K8A_FWD_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -89,6 +89,7 @@ def _port(ref, flag):
     scope.load_numpy(ref["init"], device="cpu")
     recomputes = t_lowering.grad_recomputes
     launches = (TS.fused_gather.launches, TS.rowwise_update.launches)
+    sorts = TS.sorted_segments.launches
     tflags.set_flags({"sparse_fused_kernel": flag})
     try:
         with tfluid.scope_guard(scope):
@@ -100,6 +101,8 @@ def _port(ref, flag):
     assert t_lowering.grad_recomputes == recomputes
     assert (TS.fused_gather.launches, TS.rowwise_update.launches) == \
         launches
+    # the two tables' updates share one sort of the step's ids
+    assert TS.sorted_segments.launches - sorts == (STEPS if flag else 0)
     return dict(steps=steps, final=scope.to_numpy(ref["persist"]))
 
 

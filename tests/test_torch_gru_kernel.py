@@ -1,5 +1,8 @@
 """The port's fused GRU (K8a/K8b plain versions and the ``gru`` op)
-against the JAX reference on the same numpy inputs.
+against the JAX reference on the same numpy inputs, and the CPU models of
+K8a's and K8b's split-TF32 products (``kernels/_tf32.py``) against the
+bounds the card holds them to, each with one TF32 product a term as the
+control that must miss it.
 
 The reference's Pallas kernels run in interpret mode on the CPU, as its
 own ``tests/test_rnn_kernel.py`` runs them; the JAX scan is the XLA
@@ -101,6 +104,56 @@ def test_gru_grad_ref_matches_pallas_backward_and_scan(masked):
                                    **GRAD_TOL)
         np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name,
                                    **GRAD_TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gru_ref_split_tf32_model_matches_pallas_forward(masked):
+    """``gru_ref`` with K8a's split-TF32 products (``kernels/_tf32.py``)
+    against the reference's Pallas forward in interpret mode, at the
+    reference tests' forward tolerance."""
+    args = _data(masked, seed=7)
+    hs = TR.gru_ref(*_t(*args), matmul=matmul_tf32x3).numpy()
+    np.testing.assert_allclose(
+        hs, np.asarray(R.gru_fused(*map(jnp.asarray, args), True)), **FWD_TOL)
+
+
+# chip_smoke.py's bound on K8a's hs, max|d| <= K8A_FWD_ATOL: the CPU model
+# of its split-TF32 products reaches 3.0e-7..3.9e-7 at machine
+# translation's shape on the four seeds below, one TF32 product a term
+# 1.4e-4..1.6e-4, which the recurrent kernels' LSTM_FWD_ATOL = 1e-4 would
+# tell apart by a slim margin only
+K8A_FWD_ATOL = 1e-5
+K8A_SEEDS = [30, 31, 32, 33]
+
+
+def _k8a_mt_err(matmul, seed):
+    """max|d| of :func:`TR.gru_ref` with both recurrent products taken by
+    ``matmul``, against the float32 plain forward, at machine
+    translation's shape (B=64, T=32, H=256, ragged 8..32)."""
+    rs = np.random.RandomState(seed)
+    B, T, H = 64, 32, 256
+    xproj = rs.randn(B, T, 3 * H).astype("float32") * 0.5
+    w = (rs.randn(H, 3 * H) / np.sqrt(H)).astype("float32")
+    h0 = rs.randn(B, H).astype("float32") * 0.1
+    lens = rs.randint(8, T + 1, (B,))
+    mask = (np.arange(T)[None, :] < lens[:, None]).astype("float32")
+    args = _t(xproj, w, h0, mask)
+    return (TR.gru_ref(*args, matmul=matmul)
+            - TR.gru_ref(*args)).abs().max().item()
+
+
+@pytest.mark.parametrize("seed", K8A_SEEDS)
+def test_split_tf32_model_holds_k8as_tolerance(seed):
+    """K8a's products in split TF32 (the kernel's arithmetic): hs within
+    K8A_FWD_ATOL of the float32 plain forward."""
+    assert _k8a_mt_err(matmul_tf32x3, seed) <= K8A_FWD_ATOL
+
+
+@pytest.mark.parametrize("seed", K8A_SEEDS)
+def test_one_tf32_product_breaks_k8as_tolerance(seed):
+    """The control: the same forward with one TF32 product a term misses
+    K8A_FWD_ATOL, which the card holds K8a to."""
+    assert _k8a_mt_err(matmul_tf32, seed) > K8A_FWD_ATOL
 
 
 # name -> (B, T, H, ragged lengths, rows a group, dw splits, a row

@@ -61,7 +61,7 @@ def test_port_files_exist():
                 "flash_attn_bwd.cu", "flash_attn_common.cuh",
                 "lstm_fwd.cu", "lstm_bwd.cu", "lstm_common.cuh",
                 "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
-                "gru_bwd.cu", "gru_common.cuh", "int8_fc.cu"):
+                "gru_bwd.cu", "tf32x3.cuh", "int8_fc.cu"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
     for mod in PROGRAM_MODULES:
         assert os.path.join(PORT, mod) in files, mod

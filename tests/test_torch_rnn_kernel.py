@@ -181,8 +181,8 @@ def test_one_tf32_product_breaks_k7s_bound():
     assert max(rels.values()) > K7_GRAD_REL, rels
 
 
-# chip_smoke.py's bounds on K6's hs and cs: max|d| <= LSTM_FWD_ATOL, the
-# bound of every float32 recurrence, and K6_FWD_ATOL, K6's own: split TF32
+# the bounds on K6's hs and cs: max|d| <= LSTM_FWD_ATOL, the bound of a
+# float32 recurrence, and K6_FWD_ATOL, K6's own in chip_smoke.py: split TF32
 # reaches 2.3e-7..3.9e-7 here, one TF32 product a term 1.2e-4..1.8e-4
 LSTM_FWD_ATOL = 1e-4
 K6_FWD_ATOL = 1e-5
@@ -318,8 +318,9 @@ def _lstm_fwd_smem(H):   # lstm_fwd.cu: fwd_smem_bytes, 16 units or 8
     return 4 * (4 * units * (-(-H // 128) * 128 + 4) + 18432) + 4 * 260
 
 
-def _four_unit_smem(H):   # a block of 4 units: W's 16 columns and a tile
-    return 4 * (-(-H // 32) * 32 * 16 + 128 * 33)
+def _gru_fwd_smem(H):   # gru_fwd.cu: fwd_smem_bytes, 16 units' columns or 8
+    units = 16 if H <= 896 else 8
+    return 4 * (3 * units * (-(-H // 128) * 128 + 4) + 13824) + 4 * 260
 
 
 def _lstm_bwd_smem(H):   # lstm_bwd.cu: recur_smem_floats
@@ -341,7 +342,8 @@ def _gru_bwd_smem(H):   # gru_bwd.cu: recur_smem_bytes, 16 units' rows or 8
     ("empty_batch", 0, 4, 64, torch.float32, False),
     ("H1", 1, 1, 1, torch.float32, True),
     ("B1024_H512", 1024, 8, 512, torch.float32, True),
-    # K6 and K8b at 8 units a block; K7's 16 units' W no longer fits a block
+    # K6, K8a and K8b at 8 units a block; K7's 16 units' W no longer fits
+    # a block
     ("H1024", 8, 4, 1024, torch.float32,
      {"lstm": True, "lstm_bwd": False, "gru": True, "gru_bwd": True}),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else c)
@@ -351,12 +353,12 @@ def test_eligibility_gates_with_the_h100s_numbers(gate, case):
     capacity at the kernel's shared memory a block (0 when a block may
     not have that much).  K6 and K7's recurrence need ceil(H/16) blocks,
     whatever B (their batch groups take turns when the card cannot hold
-    them side by side), K6 ceil(H/8) past H=512; K8a ceil(H/4), K8b's
-    recurrence ceil(H/16) as K7's, ceil(H/8) past H=896.  At H=2048 a
+    them side by side), K6 ceil(H/8) past H=512; K8a's and K8b's
+    recurrences ceil(H/16) as K7's, ceil(H/8) past H=896.  At H=2048 a
     block of K6 would need 337,424 bytes and one of K7 610,336; an H100
     holds 132 blocks of K6's 206,864 bytes at H=512 and of its 206,352 at
-    H=1024, 132 of K7's 217,376 and of K8b's 155,912 at H=512, and 132 of
-    K8b's 155,784 at H=1024."""
+    H=1024, 132 of K7's 217,376, of K8a's 155,408 and of K8b's 155,912 at
+    H=512, and 132 of K8a's 155,024 and of K8b's 155,784 at H=1024."""
     _, B, T, H, dtype, want = case
     if isinstance(want, dict):
         want = want[gate]
@@ -371,7 +373,7 @@ def test_eligibility_gates_with_the_h100s_numbers(gate, case):
         smem, need = _lstm_fwd_smem(H), 32
     else:
         fn = TR.gru_eligible
-        smem, need = _four_unit_smem(H), 128
+        smem, need = _gru_fwd_smem(H), 32
     assert fn(B, T, H, dtype, _h100_capacity(smem)) is want
     # a block over the shared-memory limit has capacity 0; the capacity
     # alone decides
@@ -400,22 +402,24 @@ def test_k6_takes_eight_units_a_block_past_h512(H, blocks, on_h100):
 def test_k8b_takes_eight_units_a_block_past_h896(H, blocks, on_h100):
     """K8b's recurrence takes ceil(H/16) blocks up to H=896 and ceil(H/8)
     past it, where 16 units' rows of w no longer fit a block: one block
-    an SM, so an H100's 132 SMs take K8b up to H=1056, as far as K8a's
-    ceil(H/4) blocks at two an SM."""
+    an SM, so an H100's 132 SMs take K8b up to H=1056, and K8a, whose
+    blocks follow the same rule, as far."""
     assert TR._blocks("gru_bwd", H) == blocks
     cap = _h100_capacity(_gru_bwd_smem(H))
     assert cap == 132
     assert TR.gru_eligible(8, 4, H, torch.float32, cap, "gru_bwd") is on_h100
     assert TR.gru_eligible(8, 4, H, torch.float32,
-                           _h100_capacity(_four_unit_smem(H))) is on_h100
+                           _h100_capacity(_gru_fwd_smem(H))) is on_h100
 
 
 def test_gru_gate_keeps_the_h_over_4_rule():
-    """``gru_eligible`` keeps K8a's own rule, ceil(H/4) blocks whatever
-    B, as before K6 and K7 changed; their recurrences need ceil(H/16)."""
-    assert TR.gru_eligible(4096, 8, 64, torch.float32, 16)
-    assert not TR.gru_eligible(4096, 8, 64, torch.float32, 15)
-    assert TR.gru_eligible(4096, 8, 64, torch.float32, 16, "gru_fwd")
+    """K8a's first version needed ceil(H/4) blocks whatever B; its
+    recurrence now takes K6's and K8b's grid, so ``gru_eligible`` gates
+    it on one batch group's ceil(H/16) blocks (its groups take turns)."""
+    assert TR._blocks("gru_fwd", 64) == 4
+    assert TR.gru_eligible(4096, 8, 64, torch.float32, 4)
+    assert not TR.gru_eligible(4096, 8, 64, torch.float32, 3)
+    assert TR.gru_eligible(4096, 8, 64, torch.float32, 4, "gru_fwd")
     assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4, "lstm_bwd")
     assert not TR.lstm_eligible(4096, 8, 64, torch.float32, 3, "lstm_bwd")
     assert TR.lstm_eligible(4096, 8, 64, torch.float32, 4)
@@ -425,13 +429,13 @@ def test_gru_gate_keeps_the_h_over_4_rule():
 def test_gru_bwd_gate_takes_one_batch_group():
     """K8b's recurrence (``lib="gru_bwd"``) is gated on its own grid:
     one batch group's ceil(H/16) blocks whatever B (its groups take
-    turns), as K7's; K8a's ceil(H/4) does not bind it."""
+    turns), as K7's and K8a's."""
     assert TR._blocks("gru_bwd", 256) == 16
-    assert TR._blocks("gru_fwd", 256) == 64
+    assert TR._blocks("gru_fwd", 256) == 16
     assert TR.gru_eligible(4096, 8, 64, torch.float32, 4, "gru_bwd")
     assert not TR.gru_eligible(4096, 8, 64, torch.float32, 3, "gru_bwd")
     assert TR.gru_eligible(64, 32, 256, torch.float32, 16, "gru_bwd")
-    assert not TR.gru_eligible(64, 32, 256, torch.float32, 16)
+    assert not TR.gru_eligible(64, 32, 256, torch.float32, 15, "gru_bwd")
     assert not TR.gru_eligible(64, 32, 256, torch.bfloat16, 132, "gru_bwd")
 
 

@@ -7,8 +7,10 @@ optimizer rules against the JAX reference, on the same numpy inputs.
 - ``rowwise_update`` on CPU tensors (plain K10) against the reference's
   ``fused_adam``/``fused_momentum``/``fused_adagrad`` in interpret mode
   at the reference's own bound, rtol 2e-6 / atol 1e-6 (XLA may contract
-  or reorder the elementwise chain; the port does not), plus the dyadic
-  case where every operation is exact, bit for bit.
+  or reorder the elementwise chain; the port does not), on uniform,
+  wrapping and skewed (Zipf) ids, plus the dyadic case where every
+  operation is exact, bit for bit; one sort shared by two tables within
+  a run gives the tables of a sort each.
 - the ``sgd``/``momentum``/``adam``/``adagrad`` rules with a
   ``SelectedRows`` gradient, on each of the three paths (fused,
   masked-dense, sorted), against the reference's rules on the same
@@ -77,6 +79,21 @@ def _sr(seed=0, n=FN, dyadic=False, lo=0, hi=FV):
     else:
         vals = rng.randn(n, FD).astype(np.float32)
     return rows, vals
+
+
+def _skewed_sr(seed, n=60, top=0.1):
+    """A skewed batch: Zipf ids (p_k proportional to k^-s over the FV
+    rows, s set so the hottest id covers a ``top`` share of the batch),
+    the ranks spread over the rows by a seeded permutation."""
+    rng = np.random.RandomState(seed)
+    k = np.arange(1, FV + 1, dtype=np.float64)
+    lo, hi = 0.0, 8.0
+    for _ in range(60):   # the hottest id's share grows with s
+        s = (lo + hi) / 2
+        lo, hi = (lo, s) if 1.0 / np.sum(k ** -s) > top else (s, hi)
+    p = k ** -s
+    rows = rng.permutation(FV)[rng.choice(FV, n, p=p / p.sum())]
+    return rows.astype(np.int64), rng.randn(n, FD).astype(np.float32)
 
 
 def _j_sr(rows, vals):
@@ -172,11 +189,13 @@ def _ref_update(kind, tabs, sr, lr, hyper):
 
 
 @pytest.mark.parametrize("kind", list(UPDATES))
-@pytest.mark.parametrize("seed,lo,hi", [(0, 0, FV), (1, -FV, FV)],
-                         ids=["ids", "wrapped_ids"])
+@pytest.mark.parametrize("seed,lo,hi", [(0, 0, FV), (1, -FV, FV),
+                                        (2, None, None)],
+                         ids=["ids", "wrapped_ids", "skewed_ids"])
 def test_rowwise_update_matches_reference(kind, seed, lo, hi):
     signs, hyper = UPDATES[kind]
-    rows, vals = _sr(seed, lo=lo, hi=hi)
+    rows, vals = _sr(seed, lo=lo, hi=hi) if lo is not None else \
+        _skewed_sr(seed)
     tabs = _tables(seed + 10, signs)
     want = _ref_update(kind, tabs, _j_sr(rows, vals), 0.1, hyper)
     assert want is not None
@@ -229,14 +248,51 @@ def test_rowwise_update_empty_batch_changes_nothing():
 
 
 def test_sorted_segments_canonicalize_before_sorting():
-    """Ids that wrap onto one row form ONE run, in original order."""
+    """Ids that wrap onto one row form ONE run, in original order: the
+    sorted int32 rows and the permutation K10 reads the values through."""
     rows = torch.tensor([3, -FV + 3, 1, 3 - FV, 7, 1])
-    vals = torch.arange(6.0).reshape(6, 1)
-    r, v, first, last = TS._sorted_segments(rows, vals, FV)
+    r, order = TS.sorted_segments(rows, FV)
+    assert r.dtype == torch.int32 and order.dtype == torch.int64
     assert r.tolist() == [1, 1, 3, 3, 3, 7]
-    assert v.flatten().tolist() == [2.0, 5.0, 0.0, 1.0, 3.0, 4.0]
-    assert first.tolist() == [True, False, True, False, False, True]
-    assert last.tolist() == [False, True, False, False, True, True]
+    assert order.tolist() == [2, 5, 0, 1, 3, 4]
+    # ids past either end clamp to the edge rows, as the reference's
+    # clip after the wrap does
+    r, order = TS.sorted_segments(torch.tensor([FV, -FV - 1, 1 << 40, -FV]),
+                                  FV)
+    assert r.tolist() == [0, 0, FV - 1, FV - 1]
+    assert order.tolist() == [1, 3, 0, 2]
+
+
+def test_shared_sort_gives_the_same_tables_as_two_sorts():
+    """Two tables updated from gradients of one id batch (two views of
+    the ids, as ``lookup_table``'s grad makes them) sort once through a
+    run's memo, with the same tables bit for bit as a sort each; a write
+    to the ids makes the next update sort again."""
+    rows, vals = _sr(21, n=40, lo=-FV, hi=FV)
+    w1_vals = np.random.RandomState(22).randn(40, 1).astype(np.float32)
+    ids = _t(rows)
+    hyper = UPDATES["adam"][1]
+    lr = torch.tensor(0.1)
+    emb = _tables(23, (False, True, True))
+    w1 = [np.abs(x[:, :1]) if i else x[:, :1].copy()
+          for i, x in enumerate(_tables(24, (False, True, True)))]
+    out = {}
+    for memo in (None, {}):
+        n0 = TS.sorted_segments.launches
+        tabs = [[_t(x) for x in emb], [_t(x) for x in w1]]
+        for t, v in zip(tabs, (vals, w1_vals)):
+            TS.rowwise_update(TSR.SelectedRows(ids.reshape(-1), _t(v), FV), t,
+                              lr, "adam", memo, **hyper)
+        assert TS.sorted_segments.launches - n0 == (2 if memo is None else 1)
+        out[memo is None] = tabs
+    for a, b in zip(out[True], out[False]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    n0 = TS.sorted_segments.launches
+    ids.add_(0)   # a write: the ids' version counter moves
+    TS.rowwise_update(TSR.SelectedRows(ids.reshape(-1), _t(vals), FV),
+                      out[False][0], lr, "adam", memo, **hyper)
+    assert TS.sorted_segments.launches == n0 + 1
 
 
 def test_eligible_routes_by_semantics():
