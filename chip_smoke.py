@@ -82,7 +82,9 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    at DeepFM's bench shape (2048 x 26 ids from randint(0, 1e6) with
    seed 0, field 1 repeating field 0; tables [1e6, 10] and [1e6, 1])
    and at an odd shape (H=23, D=5, n=17): K9 with out-of-range ids (NaN
-   rows) and an empty batch; K10 for Adam, momentum (plain and
+   rows), an empty batch, int32 ids, 3 and 4 tables (widths 10, 1, 3,
+   16), tables that start at row 1 and a skewed batch, one launch a
+   call and bit-identical on a rerun; K10 for Adam, momentum (plain and
    Nesterov) and adagrad, also on a skewed batch (Zipf ids, the hottest
    a tenth of the batch), with rows the batch does not touch unchanged,
    plus a dyadic case that must be exact.  Then each kernel, its plain
@@ -90,7 +92,8 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    (``F.embedding`` per table; ``torch.optim.SparseAdam.step`` on a
    coalesced gradient of the same rows) are timed by device time,
    cycling 32 id batches, beside the byte bound and the 32-byte-sector
-   bound; K10 also with the sort in front, the DeepFM step's pair (one
+   bound, each with its wall per call in a loop; K9 also on the skewed
+   batch; K10 also with the sort in front, the DeepFM step's pair (one
    sort, both tables' K10) and on the skewed batch.
 3e. The fused GRU kernels K8a (forward) and K8b (backward) against
    their plain versions at machine translation's shape (B=64, T=32,
@@ -664,16 +667,18 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S) -> dict:
 
 
 def gather_work(tables, ids) -> dict:
-    """K9's least work on these ids: the ids read, each touched row of
-    each table read once, the outputs written; and the same with the
-    touched rows counted as the 32-byte sectors they span."""
+    """K9's least work on these ids: the ids read (4 or 8 bytes each),
+    each touched row of each table read once, the outputs written; and
+    the same with the touched rows counted as the 32-byte sectors they
+    span."""
     n = ids.numel()
+    id_b = ids.element_size() * n
     uniq = torch.unique(ids)
     rows_b = sum(uniq.numel() * t.shape[1] * 4 for t in tables)
     out_b = sum(n * t.shape[1] * 4 for t in tables)
     sec_b = sum(sectors(uniq, t.shape[1]) * 32 for t in tables)
-    w = bound(8 * n + rows_b + out_b, 0)
-    w["sector_bytes"] = 8 * n + sec_b + out_b
+    w = bound(id_b + rows_b + out_b, 0)
+    w["sector_bytes"] = id_b + sec_b + out_b
     w["sector_bound_ms"] = w["sector_bytes"] / HBM_BYTES_PER_S * 1e3
     return w
 
@@ -799,7 +804,13 @@ def time_sparse(S, dev) -> dict:
              wall_ms=time_ms(kernel, ids), plain_wall_ms=time_ms(
                  plain, ids, iters=50), library_wall_ms=time_ms(lib, ids))
     out = {"gather": w}
-    del emb, w1
+    hot = [torch.tensor(zipf_ids(DEEPFM_B * SPARSE_FIELDS, H, 300 + i),
+                        device=dev) for i in range(SPARSE_TIME_SETS)]
+    w = gather_work([emb, w1], hot[0])
+    w.update(ms=device_ms(kernel, hot, name="sparse_gather_kernel"),
+             library_ms=device_ms(lib, hot))
+    out["gather_skewed"] = w
+    del emb, w1, hot
     lr = torch.tensor(1e-4, device=dev)
     hyper = SPARSE_HYPER["adam"]
     widths = {"update_emb": D, "update_w1": 1}
@@ -883,9 +894,22 @@ def check_and_time_sparse(dev) -> dict:
     odd = [torch.randn(23, 5, generator=g, device=dev),
            torch.randn(23, 1, generator=g, device=dev)]
     odd_ids = torch.randint(-30, 30, (17,), generator=g, device=dev)
+    # two more tables of widths 3 and 16, and the four tables each
+    # starting at row 1 of a table one row taller
+    more = [torch.randn(SPARSE_ROWS, d, generator=g, device=dev)
+            for d in (3, 16)]
+    shifted = [torch.randn(SPARSE_ROWS + 1, t.shape[1], generator=g,
+                           device=dev)[1:] for t in [emb, w1] + more]
+    skewed = torch.tensor(zipf_ids(bench.numel(), SPARSE_ROWS, 7),
+                          device=dev)
     cases = {"bench": ([emb, w1], bench), "out_of_range": ([emb, w1], bad),
              "odd": (odd, odd_ids),
-             "empty": (odd, torch.zeros(0, dtype=torch.int64, device=dev))}
+             "empty": (odd, torch.zeros(0, dtype=torch.int64, device=dev)),
+             "int32_ids": ([emb, w1], bad.to(torch.int32)),
+             "three_tables": ([emb, w1, more[0]], bench),
+             "four_tables": ([emb, w1] + more, bad),
+             "row_1_starts": (shifted, bench.to(torch.int32)),
+             "skewed": ([emb, w1], skewed)}
     for name, (tabs, ids) in cases.items():
         n0 = S.fused_gather.launches
         got = S.fused_gather(tabs, ids)
@@ -893,19 +917,22 @@ def check_and_time_sparse(dev) -> dict:
         want = S.fused_gather_ref(tabs, ids)
         if S.fused_gather.launches - n0 != (1 if ids.numel() else 0):
             raise AssertionError(f"K9 launches at {name}")
-        for a, b in zip(got, want):
+        again = S.fused_gather(tabs, ids)
+        for a, b, c in zip(got, want, again):
             if not bits_equal(a, b):
                 raise AssertionError(f"K9 differs from its plain version at "
                                      f"{name}: {max_ulps(a, b)} ulp")
+            if not bits_equal(c, a):
+                raise AssertionError(f"K9 is not bit-identical on a rerun "
+                                     f"at {name}")
             err["gather"] = max(err["gather"], abs_err(a, b))
-        log(f"  K9 {name} n={ids.numel()} tables "
+        log(f"  K9 {name} n={ids.numel()} {ids.dtype} ids, tables "
             f"{[tuple(t.shape) for t in tabs]}: bit-equal to the plain "
-            f"version")
-    del emb, w1
+            f"version and on a rerun")
+    del emb, w1, more, shifted, cases
     # K10: every math variant at the bench shape, an odd one and on the
     # skewed batch
     lr = torch.tensor(1e-4, device=dev)
-    skewed = torch.tensor(zipf_ids(bench.numel(), SPARSE_ROWS, 7), device=dev)
     for kind in ("adam", "momentum", "nesterov", "adagrad"):
         for name, (H, D, ids) in {
                 "bench": (SPARSE_ROWS, SPARSE_EMBED, bench.reshape(-1)),
@@ -938,6 +965,10 @@ def check_and_time_sparse(dev) -> dict:
             f"bytes); wall ms per call in a loop: kernel {r['wall_ms']!r},"
             f" plain {r['plain_wall_ms']!r}, library "
             f"{r['library_wall_ms']!r}")
+    r = out["gather_skewed"]
+    log(f"  gather on the skewed batch, device ms: kernel {r['ms']!r}, "
+        f"library {r['library_ms']!r}; bound {r['bound_ms']!r}, sector "
+        f"bound {r['sector_bound_ms']!r}")
     r = out["update_step"]
     log(f"  the DeepFM step's updates (both tables), device ms: one shared "
         f"sort + K10 x2 {r['ms']!r} (wall {r['wall_ms']!r}), a sort each "
@@ -3432,6 +3463,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        # wall per call in a loop, beside the library call's
+        rows[-1].update(wall_ms=t["wall_ms"],
+                        library_wall_ms=t["library_wall_ms"])
+        if name == "sparse_gather":   # skewed ids
+            rows[-1].update(skewed_ms=sparse_k["gather_skewed"]["ms"])
         if name == "sparse_update":   # the DeepFM step's pair; skewed ids
             rows[-1].update(step_ms=sparse_k["update_step"]["ms"],
                             skewed_ms=sparse_k["update_skewed"]["ms"])

@@ -45,6 +45,21 @@ of the repository, on one CUDA card, in one process.
   the permutation); another checkout through its own K10 behind the
   wrapper it had before the sort was shared (a stable int64 sort,
   the sorted copy of the values and the run flags, for each table);
+- ``sparse_gather``: K9 (``csrc/sparse_gather.cu``) on DeepFM's two
+  tables ([1e6, 10] and [1e6, 1]) with the bench batch
+  (``chip_smoke.sparse_ids``), the same ids as int32 and a skewed batch
+  (Zipf ids, the hottest a tenth of it), on four tables of widths 10, 1,
+  3 and 16 and on one [1e6, 64] table, cycling 32 id batches: the
+  kernel's device time with the L2 read over before each call (its rows
+  and ids come from device memory), the same with the ids read back
+  into the L2 (``ids_in_l2_ms``) and without either (``warm_ms``), the
+  call's device time, the wall per call in a loop, and ``F.embedding``
+  on each table (device and wall) beside them, with the byte and sector
+  bounds.  This checkout goes through ``fused_gather``; another
+  checkout whose source has no ``GatherParams`` through the first
+  version's entry point (21 arguments, int64 ids) behind a copy of the
+  wrapper it had.  The host cost of each piece of both launch paths is
+  timed too (``launch_pieces``);
 - ``int8_fc``: K5 (``csrc/int8_fc.cu``) at the int8 Transformer's four
   bucket-8 shapes (``chip_smoke.INT8_SHAPES``) with the path's acts, on
   quantized activations, cycling input sets past the L2, and their sum
@@ -66,6 +81,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import torch
 
@@ -80,15 +96,16 @@ from chip_smoke import (DEEPFM_B, FLASH_GRAD_TOL,  # noqa: E402
                         SPARSE_EMBED, SPARSE_FIELDS, SPARSE_HYPER,
                         SPARSE_ROWS, SPARSE_TIME_SETS, bits_equal,
                         device_ms, device_ms_by_name, flash_inputs,
-                        gru_inputs, int8_case, lstm_inputs, nvidia_smi_line,
-                        paged_inputs, sparse_ids, update_tables, work, worst,
-                        zipf_ids)
+                        gather_work, gru_inputs, int8_case, lstm_inputs,
+                        nvidia_smi_line, paged_inputs, sparse_ids, time_ms,
+                        update_tables, work, worst, zipf_ids)
 from paddle_tpu_torch.core.selected_rows import SelectedRows  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import attention as A  # noqa: E402
 from paddle_tpu_torch.kernels import quant as Q  # noqa: E402
 from paddle_tpu_torch.kernels import rnn as R  # noqa: E402
 from paddle_tpu_torch.kernels import sparse as S  # noqa: E402
+from paddle_tpu_torch.observability import stats  # noqa: E402
 
 # PR 2's K2/K3 at D=64: LPR = 2 lanes a row, 128 threads
 FLASH_SHIM = r"""
@@ -124,6 +141,10 @@ LSTM_WIDE_H = 1024   # K6 past H=512: 8 units a block
 GRU_WIDE_H = 1024    # K8a and K8b past H=896: 8 units a block
 
 
+# tag -> the csrc source each other build was made from
+SOURCES = {}
+
+
 def build_other(src_dir: str, out_dir: str, tag: str, name: str,
                 shim=None):
     """``csrc/<name>.cu`` of the checkout ``src_dir`` built with this
@@ -131,6 +152,7 @@ def build_other(src_dir: str, out_dir: str, tag: str, name: str,
     when the source lacks ``marker``.  Prints ptxas' register lines."""
     src = os.path.join(os.path.abspath(src_dir), "paddle_tpu_torch", "kernels",
                        "csrc", f"{name}.cu")
+    SOURCES[tag] = src
     if shim is not None:
         with open(src) as f:
             if shim[0] not in f.read():
@@ -589,6 +611,249 @@ def ab_sparse_update(libs, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+# the first version's K9 entry point: sparse_gather(k, ids int64, n,
+# table[4], out[4], height[4], width[4], device, stream)
+PARENT_GATHER_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+                      + [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4
+                      + [ctypes.c_int] * 4 + [ctypes.c_int, ctypes.c_void_p])
+# the cases: the tables' widths (each [SPARSE_ROWS, width]) and the ids
+GATHER_AB_CASES = {
+    "bench": ((SPARSE_EMBED, 1), "bench"),
+    "bench_int32": ((SPARSE_EMBED, 1), "int32"),
+    "skewed": ((SPARSE_EMBED, 1), "skewed"),
+    "four_tables": ((SPARSE_EMBED, 1, 3, 16), "bench"),
+    "d64": ((64,), "bench"),
+}
+
+
+def packed_entry(who: str) -> bool:
+    """Whether build ``who``'s K9 takes one packed argument block (its
+    source defines ``GatherParams``); else it has the first version's
+    21-argument entry."""
+    if who == "this":
+        return True
+    with open(SOURCES[who]) as f:
+        return "GatherParams" in f.read()
+
+
+def parent_gather(lib):
+    """K9 of ``lib`` through the first version's entry point, behind a
+    copy of the wrapper it had: the checks on every table, the ids
+    flattened and made int64, a ``torch.empty`` a table, the stream
+    object, the 21-argument call, the counters, the reshape."""
+    fn = lib.sparse_gather
+    fn.argtypes, fn.restype = PARENT_GATHER_ARGS, ctypes.c_int
+    counter = stats.scope("kernel_ab").counter("parent_gather_launches")
+
+    def call(tables, ids):
+        if ids.device.type == "cpu":
+            raise ValueError("cpu")
+        if ids.device.type != "cuda":
+            raise ValueError(f"unsupported device {ids.device}")
+        if not 1 <= len(tables) <= 4:
+            raise ValueError("1..4 tables")
+        if ids.dtype not in (torch.int32, torch.int64):
+            raise TypeError("ids must be int32/int64")
+        for i, t in enumerate(tables):
+            if t.device != ids.device:
+                raise ValueError(f"table {i} is on {t.device}")
+            if t.dtype != torch.float32 or t.dim() != 2:
+                raise TypeError(f"table {i} must be a 2-D float32 tensor")
+            if not t.is_contiguous() or t.shape[0] < 1:
+                raise ValueError(f"table {i} must be contiguous, non-empty")
+        flat = ids.reshape(-1).to(torch.int64).contiguous()
+        n = flat.shape[0]
+        outs = [torch.empty((n, t.shape[1]), dtype=t.dtype, device=t.device)
+                for t in tables]
+        if n:
+            pad = 4 - len(tables)
+            stream = torch.cuda.current_stream(ids.device).cuda_stream
+            err = fn(len(tables), flat.data_ptr(), n,
+                     *[t.data_ptr() for t in tables], *[None] * pad,
+                     *[o.data_ptr() for o in outs], *[None] * pad,
+                     *[t.shape[0] for t in tables], *[0] * pad,
+                     *[t.shape[1] for t in tables], *[0] * pad,
+                     ids.device.index, stream)
+            if err != 0:
+                raise RuntimeError(f"sparse_gather: cudaError {err}")
+            call.launches += 1
+            counter.inc()
+        return [o.reshape(tuple(ids.shape) + (o.shape[1],)) for o in outs]
+    call.launches = 0
+    return call
+
+
+def packed_gather(lib):
+    """K9 of ``lib`` through a packed-block entry, behind this
+    checkout's allocation and packing."""
+    fn = lib.sparse_gather
+    fn.argtypes, fn.restype = S._GATHER_ARGS, ctypes.c_int
+
+    def call(tables, ids):
+        widths = [t.shape[1] for t in tables]
+        outs = [ids.new_empty((*ids.shape, d), dtype=torch.float32)
+                for d in widths]
+        err = fn(S.gather_params(ids, ids.numel(), tables, outs,
+                                 [t.shape[0] for t in tables], widths,
+                                 ids.get_device()),
+                 _build.current_stream(ids))
+        if err != 0:
+            raise RuntimeError(f"sparse_gather: cudaError {err}")
+        return outs
+    return call
+
+
+def host_us(fn, iters=20000) -> float:
+    """Host microseconds per call of ``fn``: the least of three loops."""
+    best = math.inf
+    for _ in range(3):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t) / iters * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def launch_pieces(dev, libs) -> dict:
+    """Host microseconds a call of K9's launch paths and of their
+    pieces, at the bench batch on DeepFM's two tables: this checkout's
+    path, the first version's (for each build with its entry) and
+    ``F.embedding`` on each table.  A piece that launches counts its
+    launch, not its device time."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(5)
+    tables = [torch.randn(SPARSE_ROWS, w, generator=g, device=dev)
+              for w in (SPARSE_EMBED, 1)]
+    ids = torch.tensor(sparse_ids(7), device=dev)
+    ids32 = ids.to(torch.int32)
+    n = ids.numel()
+    heights = [t.shape[0] for t in tables]
+    widths = [t.shape[1] for t in tables]
+    shapes = [tuple(ids.shape) + (d,) for d in widths]
+    outs = [torch.empty(s, device=dev) for s in shapes]
+    idx = ids.get_device()
+    fn = S._kernel_fn(S._GATHER, S._GATHER_ARGS)
+    # an empty batch returns before any CUDA call: the ctypes call alone
+    empty = S._GATHER_PARAMS.pack(*[0] * 18, 1, 8, 0, 0)
+    full = S.gather_params(ids, n, tables, outs, heights, widths, idx)
+    stream = _build.current_stream(ids)
+    pieces = {
+        "this_fused_gather": lambda: S.fused_gather(tables, ids),
+        "this_new_empty_a_table": lambda: [
+            ids.new_empty(s, dtype=torch.float32) for s in shapes],
+        "this_pack_params": lambda: S.gather_params(
+            ids, n, tables, outs, heights, widths, idx),
+        "this_current_stream": lambda: _build.current_stream(ids),
+        "this_ctypes_2_args": lambda: fn(empty, 0),
+        "this_ctypes_launch": lambda: fn(full, stream),
+        "f_embedding_x2": lambda: [F.embedding(ids, t) for t in tables],
+    }
+    first = [(who, lib) for who, lib in libs.items() if not packed_entry(who)]
+    if first:   # the first version's pieces, which the redesign cut
+        pieces.update({
+            "first_flatten_int64": lambda: ids.reshape(-1).to(
+                torch.int64).contiguous(),
+            "first_flatten_int32_to_int64": lambda: ids32.reshape(-1).to(
+                torch.int64).contiguous(),
+            "first_empty_a_table": lambda: [
+                torch.empty((n, d), dtype=torch.float32, device=dev)
+                for d in widths],
+            "first_stream_object": lambda: torch.cuda.current_stream(
+                ids.device).cuda_stream,
+            "first_reshape_outputs": lambda: [
+                o.reshape(s) for o, s in zip(outs, shapes)],
+        })
+    for who, lib in first:
+        call = parent_gather(lib)
+        f = lib.sparse_gather
+        pieces[f"{who}_wrapper"] = lambda c=call: c(tables, ids)
+        pieces[f"{who}_ctypes_21_args"] = lambda f=f: f(
+            2, 0, 0, 0, 0, None, None, 0, 0, None, None, 1, 1, 0, 0,
+            10, 1, 0, 0, 0, 0)
+        pieces[f"{who}_ctypes_launch"] = lambda f=f: f(
+            2, ids.data_ptr(), n, *[t.data_ptr() for t in tables], None,
+            None, *[o.data_ptr() for o in outs], None, None, *heights, 0, 0,
+            *widths, 0, 0, idx, stream)
+    return {name: host_us(piece) for name, piece in pieces.items()}
+
+
+def l2_flushed(fn, dev, ids_in_l2=False):
+    """``fn`` behind a read of four times the L2 (a sum over a buffer),
+    so the rows and ids it reads come from device memory; with
+    ``ids_in_l2`` a sum over the ids then reads them back into the L2,
+    as the copy that brings a step's ids to the card leaves them.  The
+    reads are kernels of their own, which ``device_ms(..., name=)``
+    leaves out."""
+    buf = torch.ones(L2_BYTES, device=dev)
+
+    def call(x):
+        buf.sum()
+        if ids_in_l2:
+            x.sum()
+        return fn(x)
+    return call
+
+
+def ab_sparse_gather(libs, dev) -> dict:
+    import torch.nn.functional as F
+    res = {"pieces_us": launch_pieces(dev, libs)}
+    print("k9_pieces_us", json.dumps(res["pieces_us"]), flush=True)
+    calls = {who: S.fused_gather if who == "this" else packed_gather(lib)
+             if packed_entry(who) else parent_gather(lib)
+             for who, lib in libs.items()}
+    g = torch.Generator(device=dev).manual_seed(22)
+    n_ids = DEEPFM_B * SPARSE_FIELDS
+    feeds = {"bench": lambda i: torch.tensor(sparse_ids(100 + i), device=dev),
+             "skewed": lambda i: torch.tensor(zipf_ids(n_ids, SPARSE_ROWS,
+                                                       300 + i), device=dev)}
+    feeds["int32"] = lambda i: feeds["bench"](i).to(torch.int32)
+    tables = {}   # width: a [SPARSE_ROWS, width] table
+    for label, (widths, feed) in GATHER_AB_CASES.items():
+        for w in widths:
+            if w not in tables:
+                tables[w] = torch.randn(SPARSE_ROWS, w, generator=g,
+                                        device=dev)
+        tabs = [tables[w] for w in widths]
+        ids = [feeds[feed](i) for i in range(SPARSE_TIME_SETS)]
+        row = {"widths": list(widths), "ids": str(ids[0].dtype),
+               **gather_work(tabs, ids[0])}
+        want = S.fused_gather_ref(tabs, ids[0])
+        for who, call in calls.items():
+            got = call(tabs, ids[0])
+            torch.cuda.synchronize()
+            row[f"{who}_bit_equal"] = all(bits_equal(a, b)
+                                          for a, b in zip(got, want))
+        lib = lambda x: [F.embedding(x, t) for t in tabs]  # noqa: E731
+        row["library_ms"] = device_ms(lib, ids)
+        row["library_wall_ms"] = time_ms(lib, ids)
+        for who in turns(libs):
+            fn = lambda x: calls[who](tabs, x)  # noqa: E731
+            # the kernel alone: rows and ids from device memory (the L2
+            # read over before each call), rows from device memory and
+            # ids from L2, then with only the id batches cycled, as a
+            # step's other kernels may leave rows in L2
+            row.setdefault(f"{who}_ms", []).append(device_ms(
+                l2_flushed(fn, dev), ids, name="sparse_gather"))
+            row.setdefault(f"{who}_ids_in_l2_ms", []).append(device_ms(
+                l2_flushed(fn, dev, ids_in_l2=True), ids,
+                name="sparse_gather"))
+            row.setdefault(f"{who}_warm_ms", []).append(
+                device_ms(fn, ids, name="sparse_gather"))
+            row.setdefault(f"{who}_call_ms", []).append(device_ms(fn, ids))
+            row.setdefault(f"{who}_wall_ms", []).append(time_ms(fn, ids))
+        res[label] = row
+        print(f"k9_{label}", json.dumps(row), flush=True)
+        del ids, want
+    del tables
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # K5
 # ---------------------------------------------------------------------------
 
@@ -659,6 +924,7 @@ KERNELS = {
     "gru_fwd": ("gru_fwd", ab_gru_fwd, None),
     "gru_bwd": ("gru_bwd", ab_gru_bwd, None),
     "sparse_update": ("sparse_update", ab_sparse_update, None),
+    "sparse_gather": ("sparse_gather", ab_sparse_gather, None),
     "int8_fc": ("int8_fc", ab_int8_fc, None),
 }
 

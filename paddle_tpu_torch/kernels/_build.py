@@ -5,7 +5,8 @@ include the shared headers ``csrc/*.cuh``).  At first use it is compiled with ``
 (``sm_90a``) into ``build/lib<name>.so`` beside this file, and loaded
 with ``ctypes``; the wrapper in the kernel's module declares the
 function's argument types and passes tensor pointers, ints and
-PyTorch's current stream.  A source newer than its library is rebuilt.
+PyTorch's current stream (:func:`current_stream`).  A source newer than
+its library is rebuilt.
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine with no ``nvcc``.  :func:`build_all` starts
@@ -22,6 +23,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(HERE, "csrc")
@@ -133,5 +136,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build_all", "build_info", "load",
-           "lib_path", "nvcc", "sources"]
+def current_stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the card of CUDA tensor ``t``, as the
+    raw ``cudaStream_t`` a kernel's C entry takes, looked up without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "build_all", "build_info",
+           "current_stream", "load", "lib_path", "nvcc", "sources"]

@@ -212,7 +212,7 @@ def decode_attention(q, k_cache, v_cache, block_tables, context_lens,
     # each split's unnormalized acc [S, H, D], then its m and l [S, H]
     part = (torch.empty(splits * S * H * (D + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q)
     err = _kernel_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
@@ -510,7 +510,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
     out = torch.empty_like(q)
     lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
     fn = _flash_fn(_FLASH_FWD, "flash_attn_fwd", _FWD_ARGS)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D, c,
              sl2, rate, keep, bq, bk, q.device.index, stream)
@@ -541,7 +541,7 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
         q, k, causal, sm_scale, dropout_rate)
     dq = torch.empty_like(q)
     fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dq", _DQ_ARGS)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), B, H, Tq, Tk, D, c, sl2, float(sm_scale), rate,
@@ -573,7 +573,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dkv", _DKV_ARGS)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, c, sl2,

@@ -255,7 +255,7 @@ def int8_fc(x, w_q, w_scale, in_scale=0.0, bias=None, act: str = ""):
     xq, sx = _quantize_act(x, in_scale)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     if M and N:
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _build.current_stream(x)
         err = _kernel_fn()(xq.contiguous().data_ptr(),
                            _kmajor(w_q).data_ptr(), w_scale.data_ptr(),
                            sx.data_ptr(),

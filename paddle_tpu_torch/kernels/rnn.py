@@ -366,7 +366,7 @@ def lstm_fused(xproj, w, h0, c0, mask):
     barrier = torch.empty(words(B, H), dtype=torch.int32,
                           device=xproj.device)
     fn = _kernel_fn(_FWD, _FWD_ARGS)
-    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    stream = _build.current_stream(xproj)
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
              mask.data_ptr(), hs.data_ptr(), cs.data_ptr(),
              barrier.data_ptr(), B, T, H, xproj.device.index, stream)
@@ -403,7 +403,7 @@ def lstm_fused_grad(xproj, w, h0, c0, mask, hs, cs, dhs, dcs):
     barrier = torch.empty(words(B, H), dtype=torch.int32,
                           device=xproj.device)
     fn = _kernel_fn(_BWD, _BWD_ARGS)
-    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    stream = _build.current_stream(xproj)
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
              mask.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
              dcs.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
@@ -565,7 +565,7 @@ def gru_fused(xproj, w, h0, mask):
     barrier = torch.empty(words(B, H), dtype=torch.int32,
                           device=xproj.device)
     fn = _kernel_fn(_GRU_FWD, _GRU_FWD_ARGS)
-    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    stream = _build.current_stream(xproj)
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
              hs.data_ptr(), rh.data_ptr(), barrier.data_ptr(), B, T, H,
              xproj.device.index, stream)
@@ -603,7 +603,7 @@ def gru_fused_grad(xproj, w, h0, mask, hs, dhs):
     barrier = torch.empty(words(B, H), dtype=torch.int32,
                           device=xproj.device)
     fn = _kernel_fn(_GRU_BWD, _GRU_BWD_ARGS)
-    stream = torch.cuda.current_stream(xproj.device).cuda_stream
+    stream = _build.current_stream(xproj)
     err = fn(xproj.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
              hs.data_ptr(), dhs.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
              dh0.data_ptr(), rh.data_ptr(), barrier.data_ptr(), B, T, H,

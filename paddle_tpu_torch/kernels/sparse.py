@@ -8,6 +8,8 @@ DeepFM path with ``FLAGS_sparse_fused_kernel`` on:
   launch gathers the same id batch from k <= 4 tables.  Ids in [-H, H)
   wrap; any other id gives a NaN row on a float table (``jnp.take``'s
   rule), so a data bug in the feed fails the step loudly on both paths.
+  It takes int32 or int64 ids as they come; its launch is one packed
+  argument block (:func:`gather_params`).
 - :func:`rowwise_update` (K10, the reference's ``_rowwise_update`` and
   ``_update_kernel``): one launch per table updates, in place, only the
   rows a ``SelectedRows`` gradient touches.  Before the launch, torch
@@ -40,6 +42,7 @@ which kernels a step ran.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -58,6 +61,7 @@ __all__ = [
     "fused_gather",
     "fused_gather_ref",
     "fused_momentum",
+    "gather_params",
     "plan_lookup_fusion",
     "rowwise_update",
     "rowwise_update_ref",
@@ -71,10 +75,12 @@ _INT = ctypes.c_int
 _I64 = ctypes.c_int64
 _FLOAT = ctypes.c_float
 MAX_TABLES = 4
-# sparse_gather(k, ids, n, table[4], out[4], height[4], width[4], device,
-# stream)
-_GATHER_ARGS = ([_INT, _PTR, _I64] + [_PTR] * MAX_TABLES * 2
-                + [_I64] * MAX_TABLES + [_INT] * MAX_TABLES + [_INT, _PTR])
+# sparse_gather(params, stream): params is one packed block (the C
+# struct GatherParams): ids, n, table[4], out[4], height[4], width[4],
+# k, id bytes, device, 0
+_GATHER_PARAMS = struct.Struct("<Qq8Q4q8i")
+_GATHER_ARGS = [ctypes.c_char_p, _PTR]
+_GATHER_IDS = (torch.int32, torch.int64)
 # sparse_update(kind, rows, order, vals, n, d, p, a, b, lr, h1, h2, h3,
 # flag, device, stream)
 _UPDATE_ARGS = ([_INT, _PTR, _PTR, _PTR, _I64, _INT] + [_PTR] * 4
@@ -130,52 +136,64 @@ def fused_gather_ref(tables, ids):
     return [take_rows(t, ids) for t in tables]
 
 
+def gather_params(ids, n: int, tables, outs, heights, widths,
+                  dev: int) -> bytes:
+    """K9's packed argument block (the C struct GatherParams): the ids,
+    ``n`` of them, each table's and output's address, height and width,
+    the table count, the id width in bytes and the device."""
+    pad = [0] * (MAX_TABLES - len(tables))
+    return _GATHER_PARAMS.pack(
+        ids.data_ptr(), n, *[t.data_ptr() for t in tables], *pad,
+        *[o.data_ptr() for o in outs], *pad, *heights, *pad, *widths, *pad,
+        len(tables), ids.element_size(), dev, 0)
+
+
 def fused_gather(tables, ids):
     """Gather ``table[ids]`` for every table in ONE launch (module doc).
 
     ``tables``: 1..4 float32 [H_t, D_t] tensors sharing the id batch;
-    ``ids``: an integer tensor of any shape.  CPU tensors take
+    ``ids``: an int32 or int64 tensor of any shape.  CPU tensors take
     :func:`fused_gather_ref`; CUDA tensors launch K9 on the current
     stream (none for an empty batch), or raise."""
-    if ids.device.type == "cpu":
-        return fused_gather_ref(tables, ids)
-    if ids.device.type != "cuda":
+    if not ids.is_cuda:
+        if ids.device.type == "cpu":
+            return fused_gather_ref(tables, ids)
         raise ValueError(f"fused_gather: unsupported device {ids.device}")
     if not 1 <= len(tables) <= MAX_TABLES:
         raise ValueError(f"fused_gather takes 1..{MAX_TABLES} tables, got "
                          f"{len(tables)}")
-    if ids.dtype not in (torch.int32, torch.int64):
+    if ids.dtype not in _GATHER_IDS:
         raise TypeError(f"fused_gather: ids must be int32/int64, got "
                         f"{ids.dtype}")
+    dev = ids.get_device()
+    heights, widths = [], []
     for i, t in enumerate(tables):
-        if t.device != ids.device:
+        if t.get_device() != dev:
             raise ValueError(f"table {i} is on {t.device}, ids on "
                              f"{ids.device}")
         if t.dtype != torch.float32 or t.dim() != 2:
             raise TypeError(f"fused_gather: table {i} must be a 2-D float32"
                             f" tensor, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous() or t.shape[0] < 1:
+        h, d = t.shape
+        if not t.is_contiguous() or h < 1:
             raise ValueError(f"fused_gather: table {i} must be contiguous "
                              "and non-empty")
-    flat = ids.reshape(-1).to(torch.int64).contiguous()
-    n = flat.shape[0]
-    outs = [torch.empty((n, t.shape[1]), dtype=t.dtype, device=t.device)
-            for t in tables]
+        heights.append(h)
+        widths.append(d)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    outs = [ids.new_empty((*ids.shape, d), dtype=torch.float32)
+            for d in widths]
+    n = ids.numel()
     if n:
-        pad = MAX_TABLES - len(tables)
-        fn = _kernel_fn(_GATHER, _GATHER_ARGS)
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = fn(len(tables), flat.data_ptr(), n,
-                 *[t.data_ptr() for t in tables], *[None] * pad,
-                 *[o.data_ptr() for o in outs], *[None] * pad,
-                 *[t.shape[0] for t in tables], *[0] * pad,
-                 *[t.shape[1] for t in tables], *[0] * pad,
-                 ids.device.index, stream)
+        err = _kernel_fn(_GATHER, _GATHER_ARGS)(
+            gather_params(ids, n, tables, outs, heights, widths, dev),
+            _build.current_stream(ids))
         if err != 0:
             _raise_launch(_GATHER, err)
         fused_gather.launches += 1
         _count("gather_launches")
-    return [o.reshape(tuple(ids.shape) + (o.shape[1],)) for o in outs]
+    return outs
 
 
 fused_gather.launches = 0
@@ -351,7 +369,7 @@ def rowwise_update_sorted(r, order, vals, tables, lr, kind, **hyper):
          hyper.get("beta2", 0.0), hyper.get("eps", 0.0))
     ptrs = [t.data_ptr() for t in tables] + [None] * (3 - n_tables)
     fn = _kernel_fn(_UPDATE, _UPDATE_ARGS)
-    stream = torch.cuda.current_stream(r.device).cuda_stream
+    stream = _build.current_stream(r)
     err = fn(_KINDS[kind], r.data_ptr(), order.data_ptr(), vals.data_ptr(),
              r.shape[0], vals.shape[1], *ptrs, lr.data_ptr(), *h,
              int(bool(hyper.get("nesterov", False))), r.device.index, stream)

@@ -28,7 +28,12 @@ throughout, and batch groups that take turns, bit-identical on a rerun;
 for the sparse kernels (K9, K10), an empty batch, every id the same, ids
 at and past +-H, width 1, a table of 3 rows, skewed (Zipf) ids, bit for
 bit against the plain versions, no fallback when the kernel library is
-missing, and one sort a DeepFM step; for the ``lstm`` and ``gru`` ops, both sides of the
+missing, and one sort a DeepFM step; for K9 also int32 ids, four tables
+of widths 1, 3, 10 and 64, tables that start at row 1 and one float past
+a 16-byte boundary, one and 33 ids, bit-identical on a rerun and on a
+side stream, writing nothing past its outputs, and a batch whose
+n * sum(D) passes 2^31; the raw current stream every wrapper passes
+(``_build.current_stream``); for the ``lstm`` and ``gru`` ops, both sides of the
 eligibility gate (an ineligible shape or dtype runs the plain scan, an
 eligible one launches the kernel); for the int8 FC (K5), the int8
 Transformer's four shapes at bucket 8, an odd shape and one row, every
@@ -846,31 +851,132 @@ def _sparse_case(dev, H, D, n, seed=0, lo=0, hi=None, dup=None):
     return ids, vals, p, m, m2
 
 
-GATHER_CASES = {   # H, D (second table width 1), n, id range
-    "in_range": (1000, 10, 4096, 0, 1000),
-    "out_of_range": (50, 7, 300, -60, 60),
-    "ids_at_the_edges": (13, 3, 4, None, None),
-    "three_rows": (3, 1, 17, -3, 3),
-    "empty": (20, 4, 0, 0, 20),
+# table widths (each table [H, D]), H, n, id range (or "edges" / "zipf"),
+# id dtype, and where the tables start: "row" at row 1 of an [H + 1, D]
+# table, "float" one float past a 16-byte boundary (a base the kernel's
+# vector loads must not assume aligned)
+GATHER_CASES = {
+    "in_range": ((10, 1), 1000, 4096, (0, 1000), torch.int64, None),
+    "out_of_range": ((7, 1), 50, 300, (-60, 60), torch.int64, None),
+    "ids_at_the_edges": ((3, 1), 13, 4, "edges", torch.int64, None),
+    "three_rows": ((1, 1), 3, 17, (-3, 3), torch.int64, None),
+    "empty": ((4, 1), 20, 0, (0, 20), torch.int64, None),
+    "int32_ids": ((10, 1), 1000, 4096, (-1100, 1100), torch.int32, None),
+    "four_mixed_widths": ((1, 3, 10, 64), 1000, 4096, (-1100, 1100),
+                          torch.int64, None),
+    "odd_row_offset": ((10, 1, 3, 16), 1000, 4096, (-1000, 1000),
+                       torch.int32, "row"),
+    "unaligned_base": ((16, 2), 1000, 515, (-1000, 1000), torch.int64,
+                       "float"),
+    "n1": ((10, 1), 1000, 1, (0, 1000), torch.int64, None),
+    "n33": ((10, 1), 1000, 33, (-1000, 1000), torch.int32, None),
+    # Zipf ids, the hottest a tenth of the batch
+    "skewed": ((10, 1), 1000, 4096, "zipf", torch.int64, None),
 }
+
+
+def _gather_case(dev, case):
+    widths, H, n, ids_kind, dtype, start = GATHER_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11)
+    if ids_kind == "edges":
+        ids = torch.tensor([H - 1, -H, H, -H - 1], device=dev)
+    elif ids_kind == "zipf":
+        ids = torch.tensor(_zipf_ids(n, H, 4), device=dev)
+    else:
+        ids = torch.randint(*ids_kind, (n,), generator=g, device=dev)
+    tabs = []
+    for d in widths:
+        if start == "row":
+            tabs.append(torch.randn(H + 1, d, generator=g, device=dev)[1:])
+        elif start == "float":
+            flat = torch.randn(H * d + 1, generator=g, device=dev)
+            tabs.append(flat[1:].view(H, d))
+        else:
+            tabs.append(torch.randn(H, d, generator=g, device=dev))
+    ids = ids.to(dtype)
+    return tabs, ids.reshape(-1, 1) if n else ids
 
 
 @pytest.mark.parametrize("case", list(GATHER_CASES))
 def test_sparse_gather_matches_plain_bitwise(dev, case):
+    """K9 against its plain version bit for bit, one launch (none for an
+    empty batch), bit-identical on a rerun and on a side stream."""
     from paddle_tpu_torch.kernels import sparse as S
-    H, D, n, lo, hi = GATHER_CASES[case]
-    if lo is None:
-        ids = torch.tensor([H - 1, -H, H, -H - 1], device=dev)
-    else:
-        ids = _sparse_case(dev, H, D, n, lo=lo, hi=hi)[0]
-    tabs = [torch.randn(H, D, device=dev), torch.randn(H, 1, device=dev)]
+    tabs, ids = _gather_case(dev, case)
     before = S.fused_gather.launches
-    got = S.fused_gather(tabs, ids.reshape(-1, 1) if n else ids)
+    got = S.fused_gather(tabs, ids)
     torch.cuda.synchronize()
     assert S.fused_gather.launches == before + (1 if ids.numel() else 0)
-    want = S.fused_gather_ref(tabs, ids.reshape(-1, 1) if n else ids)
-    for a, b in zip(got, want):
+    want = S.fused_gather_ref(tabs, ids)
+    again = S.fused_gather(tabs, ids)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = S.fused_gather(tabs, ids)
+    side.synchronize()
+    for a, b, c, d in zip(got, want, again, other):
         assert _bits_equal(a, b)
+        assert _bits_equal(c, b) and _bits_equal(d, b)
+
+
+def test_sparse_gather_64bit_index_path(dev):
+    """n * sum(D) >= 2^31 takes the kernel's 64-bit index math (about
+    17 GB of card memory with the plain version)."""
+    from paddle_tpu_torch.kernels import sparse as S
+    H, D = 1000, 64
+    n = (1 << 25) + 3          # n * D = 2^31 + 192
+    g = torch.Generator(device=dev).manual_seed(12)
+    table = torch.randn(H, D, generator=g, device=dev)
+    ids = torch.randint(-H - 10, H + 10, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    (got,) = S.fused_gather([table], ids)
+    torch.cuda.synchronize()
+    (want,) = S.fused_gather_ref([table], ids)
+    assert _bits_equal(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("case", [c for c in GATHER_CASES
+                                  if GATHER_CASES[c][2]])
+def test_sparse_gather_writes_only_its_outputs(dev, case):
+    """K9's entry called on outputs cut from one buffer, with a guard of
+    1,024 words before, between and after them: the outputs match the
+    plain version and every guard word keeps its sentinel."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import sparse as S
+    tabs, ids = _gather_case(dev, case)
+    n, guard, sentinel = ids.numel(), 1024, 0x7F7F7F7F
+    widths = [t.shape[1] for t in tabs]
+    buf = torch.full((guard + sum(n * d + guard for d in widths),), sentinel,
+                     dtype=torch.int32, device=dev)
+    outs, kept, at = [], torch.ones_like(buf, dtype=torch.bool), guard
+    for d in widths:
+        outs.append(buf[at:at + n * d].view(torch.float32).view(
+            *ids.shape, d))
+        kept[at:at + n * d] = False
+        at += n * d + guard
+    err = S._kernel_fn(S._GATHER, S._GATHER_ARGS)(
+        S.gather_params(ids, n, tabs, outs, [t.shape[0] for t in tabs],
+                        widths, ids.get_device()),
+        _build.current_stream(ids))
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip(outs, S.fused_gather_ref(tabs, ids)):
+        assert _bits_equal(a, b)
+    assert bool((buf[kept] == sentinel).all())
+
+
+def test_current_stream_is_torchs(dev):
+    """The raw stream every wrapper passes is PyTorch's current stream,
+    on the default stream and on a side stream."""
+    from paddle_tpu_torch.kernels import _build
+    t = torch.zeros(1, device=dev)
+    assert _build.current_stream(t) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.current_stream(t) == side.cuda_stream != \
+            torch.cuda.default_stream().cuda_stream
 
 
 UPDATE_CASES = {   # H, D, n, id range, every id the same

@@ -3,7 +3,11 @@ optimizer rules against the JAX reference, on the same numpy inputs.
 
 - ``fused_gather_ref`` (plain K9) against the reference's
   ``fused_gather`` (its Pallas kernel in interpret mode): out-of-range
-  ids give NaN rows, an empty batch gives empty outputs; exact (a copy).
+  ids give NaN rows, an empty batch gives empty outputs; int32 ids, 3
+  and 4 tables, widths 1 to 64 and a skewed (Zipf) batch, through the
+  wrapper's CPU path too; exact (a copy).  K9's packed argument block
+  (``gather_params``) holds each field at the offset the C struct
+  asserts for it.
 - ``rowwise_update`` on CPU tensors (plain K10) against the reference's
   ``fused_adam``/``fused_momentum``/``fused_adagrad`` in interpret mode
   at the reference's own bound, rtol 2e-6 / atol 1e-6 (XLA may contract
@@ -22,6 +26,9 @@ optimizer rules against the JAX reference, on the same numpy inputs.
 Interpret mode costs about 0.6 ms a grid position, so every launch here
 stays under 200 id positions.
 """
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +52,7 @@ from paddle_tpu_torch.core import selected_rows as TSR
 from paddle_tpu_torch.core import unique_name as t_unique
 from paddle_tpu_torch.core.program import Program as TProgram
 from paddle_tpu_torch.core.program import program_guard as t_guard
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import sparse as TS
 
 FV, FD, FN = 23, 5, 17          # the reference suite's shapes
@@ -155,6 +163,87 @@ def test_fused_gather_empty_batch():
     (got,) = TS.fused_gather([_t(p)], torch.zeros(0, dtype=torch.int64))
     assert tuple(got.shape) == want[0].shape == (0, FD)
     assert TS.fused_gather.launches == before   # the CPU launches nothing
+
+
+def _gather_ids(kind, seed, shape=(6, 7)):
+    """Ids for a gather case: uniform over [-FV - 2, FV + 2) (wrapping
+    and out-of-range ones included), or a skewed (Zipf) batch."""
+    if kind == "skewed":
+        return _skewed_sr(seed, n=int(np.prod(shape)))[0].reshape(shape)
+    return np.random.RandomState(seed).randint(-FV - 2, FV + 2, shape)
+
+
+# table widths, id dtype, id kind: what the lookup rule can send K9
+GATHER_CASES = {
+    "int32_ids": ((FD, 1), np.int32, "uniform"),
+    "three_tables": ((1, 3, 10), np.int64, "uniform"),
+    "four_tables": ((1, 3, 10, 64), np.int32, "uniform"),
+    **{f"width_{d}": ((d,), np.int64, "uniform")
+       for d in (1, 2, 3, 4, 5, 8, 10, 16, 64)},
+    "skewed": ((FD, 1), np.int64, "skewed"),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_fused_gather_cases_match_reference(case):
+    """Plain K9 and the wrapper's CPU path against the reference's
+    ``fused_gather`` (its Pallas kernel in interpret mode), exactly."""
+    widths, dtype, kind = GATHER_CASES[case]
+    rng = np.random.RandomState(len(case))
+    tabs = [rng.randn(FV, d).astype(np.float32) for d in widths]
+    ids = _gather_ids(kind, len(case)).astype(dtype)
+    want = JS.fused_gather([jnp.asarray(x) for x in tabs], jnp.asarray(ids))
+    t_tabs = [_t(x) for x in tabs]
+    for got in (TS.fused_gather_ref(t_tabs, _t(ids)),
+                TS.fused_gather(t_tabs, _t(ids))):
+        assert len(got) == len(widths)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == ids.shape + g.shape[-1:] == w.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _gather_params_layout():
+    """GatherParams' field offsets and size as ``csrc/sparse_gather.cu``
+    asserts them (``static_assert(offsetof(...) == ...)``)."""
+    with open(os.path.join(_build.CSRC_DIR, "sparse_gather.cu")) as f:
+        src = f.read()
+    offsets = {name: int(at) for name, at in re.findall(
+        r"offsetof\(GatherParams, (\w+)\) == (\d+)", src)}
+    size = int(re.search(r"sizeof\(GatherParams\) == (\d+)", src).group(1))
+    return offsets, size
+
+
+@pytest.mark.parametrize("widths,dtype", [
+    ((FD, 1), torch.int64), ((1, 3, 10, 64), torch.int32), ((16,), torch.int32)])
+def test_gather_params_pack_the_kernel_block(widths, dtype):
+    """K9's one packed argument holds each field of the C struct
+    ``GatherParams`` at the offset ``csrc/sparse_gather.cu`` asserts for
+    it: the ids, their count, each table's and output's address, height
+    and width, zeros past the last table, the table count, the id width
+    in bytes and the device."""
+    offsets, size = _gather_params_layout()
+    tabs = [torch.zeros(FV + t, d) for t, d in enumerate(widths)]
+    ids = torch.zeros((3, 5), dtype=dtype)
+    outs = [torch.zeros(3, 5, d) for d in widths]
+    heights = [t.shape[0] for t in tabs]
+    block = TS.gather_params(ids, 15, tabs, outs, heights, list(widths), 2)
+    assert len(block) == size
+    pad = [0] * (TS.MAX_TABLES - len(widths))
+    want = {"ids": [ids.data_ptr()], "n": [15],
+            "table": [t.data_ptr() for t in tabs] + pad,
+            "out": [o.data_ptr() for o in outs] + pad,
+            "height": heights + pad, "width": list(widths) + pad,
+            "k": [len(widths)], "id_bytes": [ids.element_size()],
+            "device": [2], "reserved": [0]}
+    assert set(offsets) == set(want)
+    ends = sorted(offsets.values()) + [size]
+    for name, value in want.items():
+        at = offsets[name]
+        step = (ends[ends.index(at) + 1] - at) // len(value)
+        got = [int.from_bytes(block[at + i * step:at + (i + 1) * step],
+                              "little", signed=True)
+               for i in range(len(value))]
+        assert got == value, name
 
 
 def test_fused_gather_integer_table_clamps():
