@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
-9, 10, 6 (each one that fails raises, and the script exits non-zero):
+9, 10, 11, 11b, 6 (each one that fails raises, and the script exits
+non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -178,9 +179,50 @@ Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
    (``quant_accuracy_delta``), QPS, p50/p99, the bucket-8 dispatch ms,
    peak memory and one profiled int8 dispatch with K5's share of its
    device busy time.
+11. Machine-translation beam inference: ``models/machine_translation.py``
+   with ``mode="infer"`` at its defaults (vocab 10000/10000, emb 256, hid
+   256, T=32, beam 4): the training program's startup values go through
+   ``io.save_params`` and ``io.load_params`` into the beam-search program
+   on the card and on the CPU.  One source sentence with a ragged mask
+   (21 of 32 tokens) is decoded through the ``while`` op, 32 iterations
+   of embedding, attention, the GRU cell, a 10,000-way log-softmax,
+   ``beam_search`` and three ``array_write``s, then
+   ``beam_search_decode``.  K8a is first held against its plain version
+   at the decode's shape (B=1, T=32, H=256), ragged and full, within
+   ``K8A_FWD_ATOL``, bit-identical on a rerun.  In the decode K8a must
+   launch exactly twice (the encoder's two ``gru`` ops) and K8b never;
+   ``beam_search`` on the card's step-0 candidates and
+   ``beam_search_decode`` on the card's arrays equal their CPU runs on
+   copies of the same inputs bit for bit.  Then the CPU decodes along
+   the card's path (each step's ``beam_search`` computes its own
+   selection, then hands on the card's): at every step the CPU's own
+   scores for the card's picks, sorted, must equal the CPU's own
+   selected scores within ``MT_TIE_REL`` of |s| (where the two sides
+   select differently, a tie under float noise on one side's scores),
+   the card's selected scores must equal the CPU's for the same picks
+   within ``MT_TIE_REL`` of |s| at all 32 steps, and the backtracked ids
+   and lengths must be equal.  Printed, not gated: the decode's wall ms
+   (one host read of the loop condition an iteration) and the device
+   busy time of one profiled decode, with K8a's share.
+11b. ``decode.PagedBeamDecoder`` on phase 4's LM (``init_params(seed=7)``):
+   beam 4, a 32-token prompt, 64 steps, with copy-on-write forking of
+   shared blocks and with the eager-copy baseline.  The two give the same
+   ids, scores and lengths bit for bit; COW forks at least once and makes
+   fewer block copies; no block leaks, after the decode or after
+   ``close()``; K4 launches exactly ``n_layer x (steps - 1)`` times a
+   decode, over block tables in which lanes share blocks.  K4 is held
+   against its plain version on one beam step's own inputs (the last
+   step's six layers, where lanes' block tables share blocks after the
+   forks) within ``KERNEL_TOL``, bit-identical on a rerun.  Each final
+   hypothesis's accumulated scores equal the cumulative log-softmax of
+   the port's own ``full_logits`` re-forward along it within
+   ``BEAM_TOKEN_TOL`` a token.  Printed, not gated: beam tokens/s, step
+   ms, forks and copies, and one profiled decode's device busy time with
+   K4's share.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
-   bound.
+   bound; K4's row adds its launches in a paged beam decode and K8a's
+   and K8b's their launches in an MT beam decode.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -190,6 +232,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -306,6 +349,15 @@ MT_TRAIN = dict(src_vocab=10000, tgt_vocab=10000, emb_dim=256, hid=256,
                 max_len=32)       # models/machine_translation.py defaults
 MT_B, MT_STEPS, MT_PARITY_B = 64, 12, 8
 MT_SHORTEST = 8                # ragged masks keep 8..T tokens a row
+# machine translation's beam inference (mode="infer" at the defaults): one
+# source sentence of MT_INFER_LEN live tokens of T, timed over MT_DECODES
+MT_BEAM, MT_INFER_LEN, MT_DECODES = 4, 21, 5
+# card vs CPU along the card's path: the selected scores agree within
+# MT_TIE_REL * |s| (float32 GEMMs and a 10,000-way softmax in other
+# orders: one ulp is 6e-8 of |s|); where the two sides select
+# differently, the CPU's own scores for the two selections must be that
+# close (a tie under float noise)
+MT_TIE_REL = 1e-5
 
 # K5 vs its plain version: "" and relu bit for bit (exact int32 sums,
 # the epilogue's rounded multiply then add); sigmoid, tanh and gelu
@@ -337,6 +389,13 @@ FLIP_FRAC = 1e-3
 FULL = dict(vocab=32000, d_model=512, n_head=8, d_ffn=2048, n_layer=6,
             max_seq_len=256)
 SLOTS, BLOCK_TOKENS, BUCKETS = 8, 16, (16, 32, 64, 128)
+# PagedBeamDecoder on the decode slice's LM: beam width, prompt, steps
+BEAM_WIDTH, BEAM_PROMPT, BEAM_STEPS = 4, 32, 64
+# a hypothesis's accumulated score vs the re-forward's cumulative
+# log-softmax: a token's log-softmax moves by at most twice its logits'
+# difference (LOGITS_TOL), so at token t the sums agree within
+# BEAM_TOKEN_TOL * (t + 1)
+BEAM_TOKEN_TOL = 2 * LOGITS_TOL
 
 
 def log(*a) -> None:
@@ -3341,6 +3400,521 @@ def run_int8_serving(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: machine-translation beam inference through While
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def captured_inputs(op_type: str, store: list):
+    """Copy the inputs of the first call of ``op_type``'s rule into
+    ``store`` while the block runs (the rule itself runs unchanged)."""
+    from paddle_tpu_torch.core import registry
+    opdef = registry.get(op_type)
+    rule = opdef.lower
+
+    def capture(ctx, ins, attrs):
+        if not store:
+            store.append(({s: [v.clone() for v in vs] for s, vs in
+                           ins.items()}, dict(attrs)))
+        return rule(ctx, ins, attrs)
+
+    opdef.lower = capture
+    try:
+        yield
+    finally:
+        opdef.lower = rule
+
+
+def rule_card_vs_cpu(op_type: str, ins: dict, attrs: dict) -> list:
+    """``op_type``'s rule on the card's inputs and on CPU copies of them:
+    every output must be equal bit for bit.  Returns the output slots."""
+    from paddle_tpu_torch.core import registry
+    rule = registry.get(op_type).lower
+    card = rule(None, ins, attrs)
+    host = rule(None, {s: [v.cpu() for v in vs] for s, vs in ins.items()},
+                attrs)
+    if sorted(card) != sorted(host):
+        raise AssertionError(f"{op_type}: output slots {sorted(card)} on "
+                             f"the card, {sorted(host)} on the CPU")
+    for slot in card:
+        a, b = card[slot][0].cpu(), host[slot][0]
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{op_type} {slot}: the card's rule and "
+                                 f"the CPU's differ on the same inputs")
+    return sorted(card)
+
+
+def build_mt_infer(seed: int = 3):
+    """The port's machine-translation beam-search program
+    (models/machine_translation.py mode="infer" at its defaults): (main,
+    startup, the BeamDecodeResult, the fetch names: sentence ids, scores,
+    lengths, then the three per-step TensorArrays)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, decode, _ = machine_translation.build(
+            mode="infer", beam_size=MT_BEAM, **MT_TRAIN)
+    (bsd,) = [op for op in main.global_block.ops
+              if op.type == "beam_search_decode"]
+    arrays = [bsd.input(s)[0] for s in ("Ids", "Parents", "Scores")]
+    fetch = [decode.ids.name, decode.scores.name,
+             decode.cand_len.name] + arrays
+    return main, startup, fetch
+
+
+def mt_infer_feed(seed: int) -> dict:
+    """One source sentence with a ragged mask (MT_INFER_LEN of T tokens),
+    the [beam, V] candidate iota and the 0/-inf beam seed."""
+    rs = np.random.RandomState(seed)
+    T, V = MT_TRAIN["max_len"], MT_TRAIN["tgt_vocab"]
+    return {"src_ids": rs.randint(3, MT_TRAIN["src_vocab"],
+                                  (1, T)).astype("int64"),
+            "src_mask": (np.arange(T) < MT_INFER_LEN)[None]
+            .astype("float32"),
+            "cand_ids": np.tile(np.arange(V, dtype="int64"), (MT_BEAM, 1)),
+            "beam_seed": np.array([[0.0]] + [[-np.inf]] * (MT_BEAM - 1),
+                                  "float32")}
+
+
+def check_k8a_at_infer_shape(R, dev) -> float:
+    """K8a against its plain version at the MT decode's shape (B=1,
+    T=32, H=256), ragged and full, bit-identical on a rerun."""
+    worst = 0.0
+    for i, lo in enumerate((MT_SHORTEST, None)):
+        x = gru_inputs(dev, 1, MT_TRAIN["max_len"], MT_TRAIN["hid"],
+                       seed=90 + i, lo=lo)
+        hs = R.gru_fused(*x["args"])
+        again = R.gru_fused(*x["args"])
+        torch.cuda.synchronize()
+        if not torch.equal(hs, again):
+            raise AssertionError("K8a is not bit-identical on a rerun at "
+                                 "B=1")
+        e = (hs - R.gru_ref(*x["args"])).abs().max().item()
+        if not (math.isfinite(e) and e <= K8A_FWD_ATOL):
+            raise AssertionError(f"K8a disagrees with its plain version at "
+                                 f"B=1: {e} > {K8A_FWD_ATOL}")
+        worst = max(worst, e)
+    return worst
+
+
+def beam_pick_scores(ins: dict, end_id: int, ids, parents):
+    """One side's own scores for a selection (``ids``, ``parents``: [BW]
+    global lanes) among its ``beam_search`` candidates (``ins``: the
+    rule's inputs as numpy): a live lane's candidate (parent, id) scores
+    ``Scores[parent, column of id]``, a finished lane offers only end_id
+    at its frozen ``PreScores``.  Raises if a pick is no candidate."""
+    pre_ids = ins["PreIds"].reshape(-1)
+    pre_scores = ins["PreScores"].reshape(-1)
+    out = np.empty(len(ids), ins["Scores"].dtype)
+    for j, (k, p) in enumerate(zip(ids, parents)):
+        if pre_ids[p] == end_id:
+            if k != end_id:
+                raise AssertionError(f"lane {j}: id {k} from finished "
+                                     f"lane {p}")
+            out[j] = pre_scores[p]
+            continue
+        col = np.flatnonzero(ins["Ids"][p] == k)
+        if col.size == 0:
+            raise AssertionError(f"lane {j}: id {k} is no candidate of "
+                                 f"lane {p}")
+        out[j] = ins["Scores"][p, col].max()
+    return out
+
+
+def judge_beam_step(ins: dict, beam: int, end_id: int, own, other):
+    """One ``beam_search`` step scored on one side: ``own`` is the side's
+    own selection on its inputs ``ins`` and ``other`` the other side's
+    selection at the same step, each (ids [BW], parents [BW], scores
+    [BW]).  Both selections are scored by this side's candidates; per
+    source group, the other's sorted scores against the own selected
+    ones give the gap, max |d| / |s| (0 where equal, -inf included).
+    Returns (this side's scores for the other's picks, the gap, whether
+    the selections differ)."""
+    ids, parents = np.asarray(other[0]), np.asarray(other[1])
+    bw = len(ids)
+    group = np.arange(bw) // beam
+    if not (parents // beam == group).all():
+        raise AssertionError(f"parents {parents} leave their source group")
+    picks = set(zip(parents.tolist(), ids.tolist()))
+    if len(picks) != bw:
+        raise AssertionError(f"a candidate is selected twice: {picks}")
+    forced = beam_pick_scores(ins, end_id, ids, parents)
+    mine = np.asarray(own[2]).reshape(-1)
+    gap = 0.0
+    for g in range(bw // beam):
+        a = mine[g * beam:(g + 1) * beam]
+        b = np.sort(forced[g * beam:(g + 1) * beam])[::-1]
+        same = a == b
+        if not (same | (np.isfinite(a) & np.isfinite(b))).all():
+            return forced, math.inf, True
+        d = np.where(same, 0.0, np.abs(a - b) / np.maximum(np.abs(a), 1e-30))
+        gap = max(gap, float(d.max()))
+    differs = not (np.array_equal(np.asarray(own[0]).reshape(-1), ids)
+                   and np.array_equal(np.asarray(own[1]).reshape(-1),
+                                      parents))
+    return forced, gap, differs
+
+
+@contextlib.contextmanager
+def beam_search_forced(sel_ids, sel_parents, rel: float, log_steps: list):
+    """While the block runs, the port's ``beam_search`` rule computes its
+    own selection at step t, judges the other side's (``sel_ids[t]``,
+    ``sel_parents[t]``) by :func:`judge_beam_step` (the gap must stay
+    within ``rel``) and hands on the other side's picks with its own
+    scores for them.  Appends (step, differs, gap) to ``log_steps``."""
+    from paddle_tpu_torch.core import registry
+    opdef = registry.get("beam_search")
+    rule = opdef.lower
+
+    def forced(ctx, ins, attrs):
+        t = len(log_steps)
+        outs = rule(ctx, ins, attrs)
+        own = [outs[s][0].reshape(-1).cpu().numpy()
+               for s in ("SelectedIds", "ParentIdx", "SelectedScores")]
+        np_ins = {s: v[0].cpu().numpy() for s, v in ins.items()}
+        ids = np.asarray(sel_ids[t]).reshape(-1).astype(np.int64)
+        par = np.asarray(sel_parents[t]).reshape(-1).astype(np.int64)
+        scores, gap, differs = judge_beam_step(
+            np_ins, int(attrs["beam_size"]), int(attrs["end_id"]), own,
+            (ids, par))
+        log_steps.append((t, differs, gap))
+        if not gap <= rel:
+            raise AssertionError(
+                f"step {t}: the selections differ and it is no near tie: "
+                f"this side scores the other's picks {scores}, its own "
+                f"{own[2]} (gap {gap} of |s|, tolerance {rel})")
+        like = outs["SelectedScores"][0]
+        return {"SelectedIds": [torch.as_tensor(ids).reshape(-1, 1)
+                                .to(outs["SelectedIds"][0])],
+                "SelectedScores": [torch.as_tensor(scores).reshape(
+                    like.shape).to(like)],
+                "ParentIdx": [torch.as_tensor(par)
+                              .to(outs["ParentIdx"][0])]}
+
+    opdef.lower = forced
+    try:
+        yield
+    finally:
+        opdef.lower = rule
+
+
+def run_mt_beam(dev, card: str) -> dict:
+    """Phase 11 (module doc)."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import rnn as R
+    out = {"k8a_max_abs_err_b1": check_k8a_at_infer_shape(R, dev)}
+    log(f"  K8a at B=1, T={MT_TRAIN['max_len']}, H={MT_TRAIN['hid']} "
+        f"(ragged and full) vs its plain version: max|d| "
+        f"{out['k8a_max_abs_err_b1']!r} (tolerance {K8A_FWD_ATOL}), "
+        f"bit-identical on a rerun")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="mt_params_", dir=OUT_DIR)
+    try:
+        t0 = time.perf_counter()
+        train, tstart, _, params = build_mt()
+        exe = fluid.Executor(dev)
+        scope = fluid.Scope()
+        exe.run(tstart, scope=scope)
+        with fluid.scope_guard(scope):
+            fluid.io.save_params(exe, ckpt, main_program=train)
+        del scope
+        main, startup, fetch = build_mt_infer()
+        runs = {}
+        for name, device in (("gpu", dev), ("cpu", "cpu")):
+            e = fluid.Executor(device)
+            s = fluid.Scope()
+            e.run(startup, scope=s)
+            with fluid.scope_guard(s):
+                fluid.io.load_params(e, ckpt, main_program=main)
+            runs[name] = (e, s)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    n_ops = [len(b.ops) for b in main.blocks]
+    log(f"  beam-search program: {n_ops} ops (top-level block, while "
+        f"body), {len(params)} parameters saved from the training "
+        f"program's startup and loaded on the card and on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    feed = mt_infer_feed(seed=17)
+    exe, scope = runs["gpu"]
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope)   # warm-up
+    # the main path: one decode with the launch counts set to 0
+    bs_in, bsd_in = [], []
+    R.gru_fused.launches = R.gru_fused_grad.launches = 0
+    with captured_inputs("beam_search", bs_in), \
+            captured_inputs("beam_search_decode", bsd_in):
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    launches = gru_launches(R)
+    log(f"  one decode: K8a/K8b launches {launches} (expected (2, 0))")
+    if launches != (2, 0):
+        raise AssertionError(f"K8a/K8b launched {launches} times in a "
+                             f"decode, expected (2, 0)")
+    ids, scores, cand_len = got[:3]
+    T = MT_TRAIN["max_len"]
+    if ids.shape != (MT_BEAM, T) or scores.shape != (MT_BEAM, T) or \
+            not np.isfinite(scores).all() or \
+            not ((ids >= 0) & (ids < MT_TRAIN["tgt_vocab"])).all():
+        raise AssertionError(f"bad decode: ids {ids.shape}, scores "
+                             f"{scores.shape}")
+    # the two rules of the loop, card vs CPU on the card's own inputs
+    slots = {"beam_search": rule_card_vs_cpu("beam_search", *bs_in[0]),
+             "beam_search_decode": rule_card_vs_cpu("beam_search_decode",
+                                                    *bsd_in[0])}
+    log(f"  beam_search on the step-0 candidates ({MT_BEAM} x "
+        f"{MT_TRAIN['tgt_vocab']}) and beam_search_decode on the card's "
+        f"arrays: card = CPU bit for bit ({slots})")
+    # the whole decode, card vs CPU: the CPU decodes along the card's
+    # path, judging each of the card's selections on its own scores
+    cexe, cscope = runs["cpu"]
+    judged = []
+    with beam_search_forced(got[3], got[4], MT_TIE_REL, judged):
+        host = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+    if len(judged) != T:
+        raise AssertionError(f"{len(judged)} beam_search steps on the CPU, "
+                             f"expected {T}")
+    if not (np.array_equal(ids, host[0])
+            and np.array_equal(cand_len, host[2])):
+        raise AssertionError("the CPU's backtrack along the card's "
+                             "selections differs from the card's")
+    sc_g, sc_c = got[5][:T], host[5][:T]
+    same = sc_g == sc_c
+    rel = float(np.max(np.where(same, 0.0, np.abs(sc_g - sc_c)
+                                / np.abs(sc_c))))
+    if not rel <= MT_TIE_REL:
+        raise AssertionError(f"selected scores card vs CPU differ by "
+                             f"{rel} of |s| (tolerance {MT_TIE_REL})")
+    differ = [t for t, d, _ in judged if d]
+    gap = max(g for _, _, g in judged)
+    steps_equal = differ[0] if differ else T
+    log(f"  card vs CPU along the card's path ({T} steps): the CPU's own "
+        f"selection equals the card's for the first {steps_equal} steps, "
+        f"differs at steps {differ}; worst gap between the CPU's scores "
+        f"of the two selections {gap!r} of |s|; selected scores within "
+        f"{rel!r} of |s| (tolerance {MT_TIE_REL} for both); ids and "
+        f"lengths equal")
+    # timed decodes (host clock to a synchronised end)
+    ms = []
+    R.gru_fused.launches = R.gru_fused_grad.launches = 0
+    for _ in range(MT_DECODES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    if gru_launches(R) != (2 * MT_DECODES, 0):
+        raise AssertionError(f"K8a/K8b launches {gru_launches(R)} over "
+                             f"{MT_DECODES} decodes")
+    med = float(np.median(ms))
+    out.update({"launches": launches, "rule_slots": slots,
+                "steps_equal": steps_equal, "steps_differing": differ,
+                "tie_gap": gap, "score_rel_diff": rel, "decode_ms": ms,
+                "decode_ms_median": med,
+                "loop_condition_reads": T,
+                "ids": ids.tolist(), "cand_len": cand_len.tolist()})
+    log(f"  decode [{card}]: wall ms median {med!r} over {MT_DECODES} "
+        f"(all {[round(x, 2) for x in ms]}), {T} iterations, one host "
+        f"read of the loop condition each")
+    prof = profile_call(
+        lambda: exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope),
+        ("gru_fwd_recurrence",))
+    out["profile"] = prof
+    log(f"  profiled decode [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    if "focus_ms" in prof:
+        log(f"  K8a {prof['focus_ms']['gru_fwd_recurrence']!r} ms of the "
+            f"decode's {prof['device_busy_ms']!r} ms of device busy time "
+            f"({prof['focus_share_of_busy']['gru_fwd_recurrence']:.2%})")
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del runs, exe, scope, cexe, cscope
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: PagedBeamDecoder over the paged KV cache
+# ---------------------------------------------------------------------------
+
+def check_beam_against_reforward(lm, prompt, res) -> float:
+    """Each final hypothesis's per-token accumulated scores against the
+    cumulative log-softmax of one causal re-forward of prompt +
+    hypothesis on the card: |d| at token t within BEAM_TOKEN_TOL * (t+1).
+    Returns the worst |d| / (t+1)."""
+    P, worst = len(prompt), 0.0
+    for j in range(res.ids.shape[0]):
+        n = int(res.cand_len[j])
+        hyp = res.ids[j, :n]
+        seq = torch.tensor([list(prompt) + list(hyp[:-1])], device=lm.device)
+        with torch.inference_mode():
+            logits = lm.full_logits(seq)[0, P - 1:].double()
+        logp = torch.log_softmax(logits, dim=-1).cpu().numpy()
+        want = np.cumsum(logp[np.arange(n), hyp])
+        d = np.abs(res.scores[j, :n] - want) / np.arange(1, n + 1)
+        if not (np.isfinite(res.scores[j, :n]).all()
+                and d.max() <= BEAM_TOKEN_TOL):
+            raise AssertionError(
+                f"beam lane {j}: accumulated scores differ from the "
+                f"re-forward's cumulative log-softmax by {d.max()} a token "
+                f"(tolerance {BEAM_TOKEN_TOL})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+@contextlib.contextmanager
+def k4_beam_calls(store: list, keep: int):
+    """While the block runs, copy the inputs and output of the decode
+    model's K4 calls into ``store``, keeping the last ``keep`` (the call
+    itself runs unchanged)."""
+    from paddle_tpu_torch.decode import model as M
+    fn = M.decode_attention
+
+    def spy(*a, **k):
+        out = fn(*a, **k)
+        store.append(([x.clone() for x in a], out.clone()))
+        del store[:-keep]
+        return out
+
+    M.decode_attention = spy
+    try:
+        yield
+    finally:
+        M.decode_attention = fn
+
+
+def check_k4_on_beam_step(A, calls) -> dict:
+    """K4 against its plain version on one beam step's own inputs (one
+    call a layer): within KERNEL_TOL, and its output in the decode
+    bit-identical to a rerun.  The lanes' block tables must share
+    blocks within their contexts."""
+    worst, shared = 0.0, 0
+    for (q, kc, vc, bt, cl), out in calls:
+        bs = kc.shape[1]
+        n = ((cl.long() + bs - 1) // bs).tolist()
+        seen = {}
+        for lane, m in enumerate(n):
+            for b in bt[lane, :m].tolist():
+                seen[b] = seen.get(b, 0) + 1
+        shared = max(shared, sum(c > 1 for c in seen.values()))
+        got = A.decode_attention(q, kc, vc, bt, cl)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, out) and torch.equal(
+                got, A.decode_attention(q, kc, vc, bt, cl))):
+            raise AssertionError("K4 is not bit-identical on a rerun of a "
+                                 "beam step")
+        e = (got - A.paged_attention_ref(q, kc, vc, bt, cl)).abs().max()
+        e = e.item()
+        if not (math.isfinite(e) and e <= KERNEL_TOL["float32"]):
+            raise AssertionError(f"K4 disagrees with its plain version on "
+                                 f"a beam step: {e} > "
+                                 f"{KERNEL_TOL['float32']}")
+        worst = max(worst, e)
+    if not shared:
+        raise AssertionError("no block is shared between the beam step's "
+                             "lanes")
+    return {"max_abs_err": worst, "layers": len(calls),
+            "shared_blocks": shared, "slots": int(calls[0][0][0].shape[0]),
+            "context": int(calls[0][0][4].max())}
+
+
+def run_paged_beam(dev, card: str) -> dict:
+    """Phase 11b (module doc)."""
+    from paddle_tpu_torch.decode import (LMConfig, PagedBeamDecoder,
+                                         TransformerLM)
+    from paddle_tpu_torch.kernels import attention as A
+    lm = TransformerLM(LMConfig(**FULL), device=dev)
+    lm.init_params(seed=7)
+    prompt = np.random.RandomState(19).randint(
+        0, FULL["vocab"], BEAM_PROMPT).astype(np.int32)
+    want = FULL["n_layer"] * (BEAM_STEPS - 1)
+    out, results = {}, {}
+    for mode, share in (("cow", True), ("eager", False)):
+        dec = PagedBeamDecoder(lm, beam_size=BEAM_WIDTH,
+                               end_id=FULL["vocab"] - 1, name=f"smoke_{mode}",
+                               block_tokens=BLOCK_TOKENS, share_prefix=share)
+        try:
+            dec.decode(prompt, max_steps=4)               # warm-up
+            forks0, copies0 = dec.cow_forks, dec.block_copies
+            torch.cuda.synchronize()
+            A.decode_attention.launches = 0
+            t0 = time.perf_counter()
+            res = dec.decode(prompt, max_steps=BEAM_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = A.decode_attention.launches
+            leaked = dec.leaked()
+            if launches != want or leaked != 0:
+                raise AssertionError(
+                    f"{mode}: K4 launched {launches} times (expected "
+                    f"n_layer x (steps - 1) = {want}), {leaked} blocks "
+                    f"leaked")
+            out[mode] = {"wall_ms": wall * 1e3,
+                         "step_ms": wall * 1e3 / BEAM_STEPS,
+                         "beam_tokens_per_s": BEAM_WIDTH * BEAM_STEPS / wall,
+                         "cow_forks": dec.cow_forks - forks0,
+                         "block_copies": dec.block_copies - copies0,
+                         "k4_launches": launches, "leaked": leaked}
+            if share:
+                out["profile"] = profile_call(
+                    lambda: dec.decode(prompt, max_steps=BEAM_STEPS),
+                    (K4_KERNELS,))
+                calls = []
+                with k4_beam_calls(calls, FULL["n_layer"]):
+                    dec.decode(prompt, max_steps=BEAM_STEPS)
+                out["k4_beam_step"] = check_k4_on_beam_step(A, calls)
+                del calls
+                log(f"  K4 on the last beam step's own inputs (S="
+                    f"{out['k4_beam_step']['slots']} lanes, context "
+                    f"{out['k4_beam_step']['context']}, "
+                    f"{out['k4_beam_step']['shared_blocks']} blocks shared "
+                    f"between lanes, {FULL['n_layer']} layers) vs its plain "
+                    f"version: max|d| {out['k4_beam_step']['max_abs_err']!r} "
+                    f"(tolerance {KERNEL_TOL['float32']}), bit-identical on "
+                    f"a rerun")
+            results[mode] = res
+        finally:
+            dec.close()
+        if dec.leaked() != 0:
+            raise AssertionError(f"{mode}: blocks leaked after close()")
+        log(f"  {mode} [{card}]: " + json.dumps(out[mode]))
+    cow, eager = results["cow"], results["eager"]
+    if not (np.array_equal(cow.ids, eager.ids)
+            and np.array_equal(cow.scores, eager.scores)
+            and np.array_equal(cow.cand_len, eager.cand_len)):
+        raise AssertionError("COW forking and eager copies disagree")
+    if not (out["cow"]["cow_forks"] >= 1 and out["cow"]["block_copies"]
+            < out["eager"]["block_copies"]):
+        raise AssertionError(f"COW: {out['cow']['cow_forks']} forks, "
+                             f"{out['cow']['block_copies']} block copies "
+                             f"against eager's "
+                             f"{out['eager']['block_copies']}")
+    out["reforward_worst_per_token"] = check_beam_against_reforward(
+        lm, prompt, cow)
+    out["ids"] = cow.ids.tolist()
+    log(f"  COW = eager bit for bit (ids, scores, lengths) over "
+        f"{BEAM_STEPS} steps, beam {BEAM_WIDTH}; K4 {want} launches a "
+        f"decode each; re-forward: accumulated scores within "
+        f"{out['reforward_worst_per_token']!r} a token (tolerance "
+        f"{BEAM_TOKEN_TOL})")
+    prof = out["profile"]
+    log(f"  profiled COW decode [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    if "focus_ms" in prof:
+        log(f"  K4 {prof['focus_ms'][K4_KERNELS]!r} ms of the decode's "
+            f"{prof['device_busy_ms']!r} ms of device busy time "
+            f"({prof['focus_share_of_busy'][K4_KERNELS]:.2%})")
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -3403,6 +3977,12 @@ def main() -> int:
     log("== phase 10: int8 serving of Transformer-base through ModelManager")
     serving = run_int8_serving(dev, card)
 
+    log("== phase 11: machine-translation beam inference through While")
+    mt_beam = run_mt_beam(dev, card)
+
+    log("== phase 11b: PagedBeamDecoder over the paged KV cache")
+    paged_beam = run_paged_beam(dev, card)
+
     log("== phase 6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -3421,6 +4001,8 @@ def main() -> int:
             "long_ms": k["long"]["ms"],
             "long_bound_ms": k["long"]["bound_ms"],
             "long_library_ms": k["long"]["library_ms"]})
+        if dtype == "float32":   # the paged beam decode (phase 11b)
+            rows[-1]["beam_launches"] = paged_beam["cow"]["k4_launches"]
     names = {"fwd": ("flash_attn_fwd", "flash_attn_fwd.cu", 226, 0),
              "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 459, 1),
              "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 507, 2)}
@@ -3484,6 +4066,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         row["fma_bound_ms"] = t["fma_bound_ms"]   # bound at split TF32's rate
+        # an MT beam decode (phase 11): K8a at B=1, K8b never
+        row["mt_infer_launches"] = mt_beam["launches"][i]
         if key == "bwd":   # three launches
             row["launch_ms"] = t["launch_ms"]
         rows.append(row)
@@ -3509,7 +4093,8 @@ def main() -> int:
                    "training": train, "lstm_training": lstm_train,
                    "deepfm_training": deepfm_train,
                    "mt_training": mt_train, "int8_fc": int8_k,
-                   "int8_serving": serving,
+                   "int8_serving": serving, "mt_beam": mt_beam,
+                   "paged_beam": paged_beam,
                    "profiler_losses": PROFILER_LOSSES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -19,7 +19,10 @@ on its ``fused_attention`` op::
 
 and serving a saved model, float32 or int8: ``io.save_inference_model``,
 ``inference.create_predictor`` (with ``AnalysisConfig.enable_int8()``)
-and ``serving.ModelManager``'s dynamic batching.
+and ``serving.ModelManager``'s dynamic batching.  Beam-search decoding
+runs in both planes: a ``While`` program of ``beam_search`` steps
+(machine translation's ``mode="infer"``, ``contrib.decoder``) and
+``decode.PagedBeamDecoder`` over the paged KV cache.
 """
 from __future__ import annotations
 
@@ -40,12 +43,12 @@ from .core.program import (  # noqa: F401
 )
 from .param_attr import ParamAttr  # noqa: F401
 from .platform import CPUPlace, CUDAPlace  # noqa: F401
-from . import decode  # noqa: F401
+from . import contrib, decode  # noqa: F401
 from . import inference, io, serving  # noqa: F401
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
-           "Scope", "append_backward", "decode", "default_main_program",
-           "default_startup_program", "get_flags", "global_scope",
-           "inference", "initializer", "io", "layers", "optimizer",
-           "platform", "serving",
+           "Scope", "append_backward", "contrib", "decode",
+           "default_main_program", "default_startup_program", "get_flags",
+           "global_scope", "inference", "initializer", "io", "layers",
+           "optimizer", "platform", "serving",
            "program_guard", "scope_guard", "set_flags", "unique_name"]

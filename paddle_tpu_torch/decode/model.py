@@ -351,10 +351,19 @@ class TransformerLM(nn.Module):
         """tokens [S] (each slot's last token), positions [S] (where that
         token sits), block_tables [S, MB] int32, seeds [S] (uint32
         values) + steps [S] (per-request sampling identity, see
-        :func:`_sample`) → (next_tokens [S] int32, logits [S, V]); the
+        :func:`_sample`) → (next_tokens [S] int32, logits [S, V]): the
+        forward of :meth:`decode_logits`, then the sampling epilogue."""
+        logits = self.decode_logits(kc, vc, tokens, positions, block_tables,
+                                    ks, vs)
+        return _sample(logits, seeds, steps, temperature, top_k), logits
+
+    def decode_logits(self, kc, vc, tokens, positions, block_tables,
+                      ks=None, vs=None):
+        """The forward of one decode step, without sampling: tokens [S],
+        positions [S], block_tables [S, MB] int32 → logits [S, V]; the
         cache pools are written in place, and with the int8 scale pools
         ``ks``/``vs`` the attention kernel dequantizes per block and
-        head.
+        head.  A beam search ranks these logits on its own.
 
         Writes each slot's K/V at (position // bs, position % bs)
         through its block table, then attends over positions
@@ -382,8 +391,7 @@ class TransformerLM(nn.Module):
                 ctx = decode_attention(q.contiguous(), kc[i], vc[i], bt, cl,
                                        k_scale=ks[i], v_scale=vs[i])
             h = self._post_attn(layer, h, ctx.to(h.dtype))
-        logits = h @ self.out_proj
-        return _sample(logits, seeds, steps, temperature, top_k), logits
+        return h @ self.out_proj
 
 
 def _hash_uniform(seeds, steps, kk: int) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Layer DSL: functions that append ops to the current program block.
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
-stacked LSTM, DeepFM, machine translation and the fc/SGD drive call,
-copied unchanged (and ``square``, ``sigmoid`` and ``tanh``, which the
-reference generates in ``layers/ops.py``): the same calls build the
+stacked LSTM, DeepFM, machine translation (training and beam search)
+and the fc/SGD drive call, copied unchanged (and ``square``,
+``sigmoid``, ``tanh`` and ``log``, which the reference generates in
+``layers/ops.py``): the same calls build the
 same program, byte for byte (``Program.serialize``).
 Padded sequences carry their ``<name>@LEN`` companion as in the
 reference.
@@ -282,6 +283,11 @@ def tanh(x, name=None, **attrs):
     return _activation("tanh", x, name, **attrs)
 
 
+def log(x, name=None, **attrs):
+    """log activation (activation_op.cc functor)."""
+    return _activation("log", x, name, **attrs)
+
+
 def slice(input, axes, starts, ends):
     helper = LayerHelper("slice")
     shp = list(input.shape)
@@ -312,6 +318,19 @@ def unsqueeze(input, axes, name=None):
     return _unary("unsqueeze", input, attrs={"axes": list(axes)}, out_shape=tuple(shp))
 
 
+def expand(x, expand_times, name=None):
+    shp = tuple(s * t if s != -1 else -1 for s, t in zip(x.shape, expand_times))
+    return _unary("expand", x, attrs={"expand_times": list(expand_times)}, out_shape=shp)
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    shp = tuple(index.shape) + tuple(input.shape[1:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shp)
+    helper.append_op("gather", {"X": [input], "Index": [index]}, {"Out": [out]})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     xs = list(x.shape)
@@ -330,6 +349,14 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
         {"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": alpha},
     )
     return out
+
+
+def _tile_rows(x, times):
+    """[B, ...] -> [B*times, ...] repeating each row (beam fan-out;
+    shared by models/machine_translation.py and contrib/decoder.py)."""
+    expanded = expand(unsqueeze(x, [1]),
+                      [1, times] + [1] * (len(x.shape) - 1))
+    return reshape(expanded, [-1] + list(x.shape[1:]))
 
 
 def topk(input, k, name=None):
@@ -545,6 +572,17 @@ def sequence_last_step(input):
     return _seq_op("sequence_last_step", input, out_shape=out_shape, pool=True)
 
 
+def _cmp_layer(op_type, x, y, cond=None, name=None):
+    """Shared comparison wrapper (``less_than``; ``cond=`` writes into
+    an existing bool var)."""
+    helper = LayerHelper(op_type, name=name)
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool",
+                                                         shape=x.shape)
+    helper.append_op(op_type, {"X": [x], "Y": [y]}, {"Out": [cond]})
+    return cond
+
+
 __all__ = [
     "accuracy",
     "cast",
@@ -559,8 +597,11 @@ __all__ = [
     "elementwise_mul",
     "elementwise_sub",
     "embedding",
+    "expand",
     "fc",
+    "gather",
     "layer_norm",
+    "log",
     "matmul",
     "mean",
     "reduce_sum",

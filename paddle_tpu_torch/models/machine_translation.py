@@ -3,16 +3,18 @@ benchmark/fluid/models/machine_translation.py:53,104 — bi-GRU encoder,
 attention decoder trained with DynamicRNN, beam-search inference with the
 While + TensorArray decode stack).
 
-The port of ``paddle_tpu/models/machine_translation.py``: with
-``mode="train"`` the same calls build the reference's program byte for
-byte (two ``gru`` ops, the teacher-forced decoder a ``static_rnn``
-sub-block).  ``mode="infer"`` raises ``NotImplementedError``: its
-beam-search loop needs ``While``, the TensorArray ops, ``beam_search``,
-``beam_search_decode`` and ``gather``, which are not ported yet.
+The port of ``paddle_tpu/models/machine_translation.py``: the same calls
+build the reference's programs byte for byte.  ``mode="train"`` has two
+``gru`` ops and the teacher-forced decoder as a ``static_rnn``
+sub-block; ``mode="infer"`` has the same encoder and a ``while``
+sub-block that runs one beam-search step an iteration.  Train and infer
+programs share parameter names, so params trained with
+``build(mode="train")`` load directly into ``build(mode="infer")``.
 """
 from __future__ import annotations
 
 import paddle_tpu_torch as fluid
+from paddle_tpu_torch.layers.nn import _tile_rows  # shared beam fan-out
 
 L = fluid.layers
 
@@ -82,14 +84,8 @@ def build(src_vocab=10000, tgt_vocab=10000, emb_dim=256, hid=256,
           max_len=32, beam_size=4, mode="train", lr=1e-3,
           with_optimizer=True):
     """mode="train": returns (feed names, avg_cost).
-    mode="infer" (beam-search decoding) raises NotImplementedError: it
-    needs While, the TensorArray ops, beam_search, beam_search_decode and
-    gather, which are not ported yet."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"machine_translation.build(mode={mode!r}): beam-search "
-            "inference needs While, the TensorArray ops, beam_search, "
-            "beam_search_decode and gather, which are not ported yet")
+    mode="infer": returns (feed names, BeamDecodeResult with sentence
+    ids [B*beam, max_len], scores [B*beam, 1])."""
     src = L.data("src_ids", [max_len], dtype="int64")
     src_mask = L.data("src_mask", [max_len])
     enc = _encoder(src, src_vocab, emb_dim, hid)
@@ -99,31 +95,76 @@ def build(src_vocab=10000, tgt_vocab=10000, emb_dim=256, hid=256,
               param_attr=fluid.ParamAttr(name="dec.h0.w"),
               bias_attr=fluid.ParamAttr(name="dec.h0.b"))
 
-    tgt = L.data("tgt_ids", [max_len], dtype="int64")
-    lbl = L.data("lbl_ids", [max_len], dtype="int64")
-    tgt_mask = L.data("tgt_mask", [max_len])
-    tgt_emb = L.embedding(tgt, [tgt_vocab, emb_dim],
-                          param_attr=fluid.ParamAttr(name="dec.emb"))
-    # teacher-forced decode as a StaticRNN over target steps
-    rnn = L.StaticRNN()
-    with rnn.step():
-        cur = rnn.step_input(tgt_emb)                 # [B, emb]
-        h = rnn.memory(init=h0)
-        new_h, logits = _step_logits(cur, h, enc_proj, enc, src_mask,
+    if mode == "train":
+        tgt = L.data("tgt_ids", [max_len], dtype="int64")
+        lbl = L.data("lbl_ids", [max_len], dtype="int64")
+        tgt_mask = L.data("tgt_mask", [max_len])
+        tgt_emb = L.embedding(tgt, [tgt_vocab, emb_dim],
+                              param_attr=fluid.ParamAttr(name="dec.emb"))
+        # teacher-forced decode as a StaticRNN over target steps
+        rnn = L.StaticRNN()
+        with rnn.step():
+            cur = rnn.step_input(tgt_emb)                 # [B, emb]
+            h = rnn.memory(init=h0)
+            new_h, logits = _step_logits(cur, h, enc_proj, enc, src_mask,
+                                         hid, tgt_vocab)
+            rnn.update_memory(h, new_h)
+            rnn.step_output(logits)
+        logits_seq = rnn()                                # [B, T, V]
+        loss = L.softmax_with_cross_entropy(
+            logits_seq, L.unsqueeze(lbl, [2]))
+        loss = L.squeeze(loss, [2])
+        masked = L.elementwise_mul(loss, tgt_mask)
+        avg_cost = L.elementwise_div(L.reduce_sum(masked),
+                                     L.reduce_sum(tgt_mask))
+        if with_optimizer:
+            fluid.optimizer.Adam(lr).minimize(avg_cost)
+        return (["src_ids", "src_mask", "tgt_ids", "lbl_ids", "tgt_mask"],
+                avg_cost)
+
+    # -- beam-search inference (While + TensorArray + beam_search ops) -----
+    B = 1  # static batch for the decode loop; tile inputs to B*beam
+    bw = B * beam_size
+    start, end_id = 1, 2
+    cand_ids = L.data("cand_ids", [tgt_vocab], dtype="int64")  # [bw, V] iota
+    enc_t = _tile_rows(enc, beam_size)
+    proj_t = _tile_rows(enc_proj, beam_size)
+    mask_t = _tile_rows(src_mask, beam_size)
+    h = _tile_rows(h0, beam_size)
+
+    pre_ids = L.fill_constant([bw, 1], "int64", start)
+    pre_scores = L.data("beam_seed", [1])                 # [bw,1] 0/-inf
+    ids_arr = L.create_array("int64", [bw], max_len=max_len)
+    par_arr = L.create_array("int64", [bw], max_len=max_len)
+    score_arr = L.create_array("float32", [bw], max_len=max_len)
+    i = L.fill_constant([1], "int64", 0)
+    n = L.fill_constant([1], "int64", max_len)
+    cond = L.less_than(i, n)
+    with L.While(cond).block():
+        # ids [bw, 1]: the trailing-1 dim is squeezed by lookup_table,
+        # giving [bw, emb] directly
+        cur_emb = L.embedding(pre_ids, [tgt_vocab, emb_dim],
+                              param_attr=fluid.ParamAttr(name="dec.emb"))
+        new_h, logits = _step_logits(cur_emb, h, proj_t, enc_t, mask_t,
                                      hid, tgt_vocab)
-        rnn.update_memory(h, new_h)
-        rnn.step_output(logits)
-    logits_seq = rnn()                                # [B, T, V]
-    loss = L.softmax_with_cross_entropy(
-        logits_seq, L.unsqueeze(lbl, [2]))
-    loss = L.squeeze(loss, [2])
-    masked = L.elementwise_mul(loss, tgt_mask)
-    avg_cost = L.elementwise_div(L.reduce_sum(masked),
-                                 L.reduce_sum(tgt_mask))
-    if with_optimizer:
-        fluid.optimizer.Adam(lr).minimize(avg_cost)
-    return (["src_ids", "src_mask", "tgt_ids", "lbl_ids", "tgt_mask"],
-            avg_cost)
+        logp = L.log(L.softmax(logits))
+        cand_scores = L.elementwise_add(logp, pre_scores)
+        sel_ids, sel_scores, parent = L.beam_search(
+            pre_ids, pre_scores, cand_ids, cand_scores,
+            beam_size=beam_size, end_id=end_id)
+        # beams were reordered: gather the decoder state by parent
+        L.assign(L.gather(new_h, parent), h)
+        L.array_write(L.squeeze(sel_ids, [1]), i, ids_arr)
+        L.array_write(parent, i, par_arr)
+        L.array_write(L.squeeze(sel_scores, [1]), i, score_arr)
+        L.assign(sel_ids, pre_ids)
+        L.assign(sel_scores, pre_scores)
+        L.increment(i, 1)
+        L.less_than(i, n, cond=cond)
+    decode = L.beam_search_decode(ids_arr, par_arr, beam_size=beam_size,
+                                  end_id=end_id, scores_array=score_arr)
+    return (["src_ids", "src_mask", "cand_ids", "beam_seed"], decode,
+            pre_scores)
 
 
 def _last_state(enc, src_mask):

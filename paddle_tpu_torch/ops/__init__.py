@@ -1,6 +1,7 @@
 """Op rules of the port, registered on import (one module per family,
 as in the JAX package)."""
 from . import (  # noqa: F401
+    array_ops,
     attention_ops,
     control_flow_ops,
     math_ops,

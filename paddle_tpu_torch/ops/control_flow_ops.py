@@ -1,5 +1,5 @@
 """Control-flow op rules: ``static_rnn`` (and ``dynamic_rnn``, its
-length-masked form) over a sub-block.
+length-masked form) and ``while`` over a sub-block.
 
 The port of ``paddle_tpu/ops/control_flow_ops.py``.  The reference
 lowers a sub-block to ``lax.scan`` and differentiates the scan with
@@ -18,10 +18,14 @@ The handlers see program variables by name, as the reference's do:
 write names outside the op's output slots into ``env`` (a memory's
 final value, ``<mem>@LAST``).
 
-``while`` and ``conditional_block`` are registered, so that
-``append_backward`` builds their grad ops as the reference does, but
-running either raises ``NotImplementedError``: they come with beam-search
-decoding.
+``while`` runs in its inference form (the reference's
+``lax.while_loop``): the sub-block runs through ``run_block`` until the
+condition var is false, with ``max_iters``, when set, a hard cap.  The
+condition is read on the host once an iteration, one device sync a
+step.  Its training form (``max_iters`` under a training context: the
+reference's masked scan, with ``while_grad``) and ``conditional_block``
+are registered, so that ``append_backward`` builds their grad ops as the
+reference does, but running either raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Dict
 
 import torch
 
-from ..core.registry import register
+from ..core.registry import register, register_grad
 
 
 def _never(ctx, ins, attrs):  # pragma: no cover
@@ -41,6 +45,13 @@ register("static_rnn", no_grad_slots=())(_never)
 register("dynamic_rnn", no_grad_slots=("SeqLen",))(_never)
 register("while", no_grad_slots=("Condition", "Init"))(_never)
 register("conditional_block", no_grad_slots=("Condition", "Init"))(_never)
+
+
+@register_grad("while")
+def _while_grad(ctx, ins, attrs):
+    raise NotImplementedError(
+        "while_grad (the reference's vjp over its masked scan) is not "
+        "ported yet (ROADMAP queue 1 item 4)")
 
 
 def _mask_to(active, new, old):
@@ -95,12 +106,49 @@ def lower_static_rnn(program, op, env: Dict):
     return rule
 
 
+def lower_while(program, op, env: Dict):
+    """while (while_op.cc:36; the reference's ``lower_while``).  attrs:
+    sub_block, carry_vars (the condition var first), captured_vars,
+    max_iters.  Binds the captured vars, the condition and the carries,
+    then repeats the sub-block, which must reassign the condition var,
+    while that var holds and fewer than ``max_iters`` (when set)
+    iterations have run.  The carries' final values are the op's Out;
+    the condition's final value is written to ``env`` by name, as the
+    reference's handler does."""
+    from ..core.lowering import run_block
+
+    sub = program.blocks[op.attr("sub_block")]
+    cond_name = op.input("Condition")[0]
+    carry_names = [n for n in op.attr("carry_vars") if n != cond_name]
+    captured = op.input("Captured")
+    max_iters = int(op.attr("max_iters", 0) or 0)
+
+    def rule(ctx, ins, attrs):
+        if max_iters and ctx.training:
+            raise NotImplementedError(
+                "the training form of the 'while' op (max_iters under a "
+                "training executor: the reference's masked scan, and "
+                "while_grad) is not ported yet (ROADMAP queue 1 item 4); "
+                "an inference executor runs the loop")
+        benv = dict(zip(captured, ins.get("Captured", [])))
+        benv[cond_name] = ins["Condition"][0]
+        benv.update(zip(carry_names, ins.get("X", [])))
+        n = 0
+        while (not max_iters or n < max_iters) \
+                and bool(benv[cond_name].reshape(())):
+            run_block(ctx, program, sub, benv)
+            n += 1
+        env[cond_name] = benv[cond_name]
+        return {"Out": [benv[c] for c in carry_names]}
+
+    return rule
+
+
 def _not_ported(program, op, env: Dict):
     def rule(ctx, ins, attrs):
         raise NotImplementedError(
-            f"the {op.type!r} op is not ported yet (it comes with "
-            f"beam-search decoding: While, the TensorArray ops, "
-            f"beam_search)")
+            f"the {op.type!r} op is not ported yet (ROADMAP queue 1 "
+            f"item 4)")
     return rule
 
 
@@ -109,8 +157,8 @@ def _not_ported(program, op, env: Dict):
 CONTROL_FLOW_OPS = {
     "static_rnn": lower_static_rnn,
     "dynamic_rnn": lower_static_rnn,
-    "while": _not_ported,
+    "while": lower_while,
     "conditional_block": _not_ported,
 }
 
-__all__ = ["CONTROL_FLOW_OPS", "lower_static_rnn"]
+__all__ = ["CONTROL_FLOW_OPS", "lower_static_rnn", "lower_while"]

@@ -1,10 +1,11 @@
 """Math op rules: elementwise (with axis-broadcast), relu, sigmoid,
-tanh, gelu, square, pow, softmax, reductions, ``mul``, ``matmul``,
-``scale``, ``sum``, ``cast``, ``mean``.
+tanh, gelu, log, square, pow, softmax, reductions, ``mul``, ``matmul``,
+``scale``, ``sum``, ``cast``, ``mean``, ``less_than``.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
 Transformer's, the stacked LSTM's, DeepFM's and machine translation's
-training programs and the fc/SGD drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
+training programs, machine translation's beam search and the fc/SGD
+drive use.  Each rule is plain PyTorch; ``mul`` is a torch matrix
 product, as the reference left its matmuls to XLA.  Scalars from attrs
 enter as float32 values of the tensor's dtype, as the reference's
 ``jnp.asarray(v, x.dtype)`` does.
@@ -58,6 +59,18 @@ def _sigmoid(ctx, ins, attrs):
 @register("tanh")
 def _tanh(ctx, ins, attrs):
     return {"Out": [torch.tanh(ins["X"][0])]}
+
+
+@register("log")
+def _log(ctx, ins, attrs):
+    """Natural log.  A subnormal input counts as zero (-inf out), as in
+    the reference, whose XLA treats subnormals as zero: ``log(softmax)``
+    then gives -inf in both packages where a probability underflows."""
+    x = ins["X"][0]
+    if x.is_floating_point():
+        x = torch.where(x.abs() < torch.finfo(x.dtype).tiny,
+                        torch.zeros((), dtype=x.dtype, device=x.device), x)
+    return {"Out": [torch.log(x)]}
 
 
 @register("gelu")
@@ -165,6 +178,13 @@ def _sum(ctx, ins, attrs):
 @register("cast", no_grad_slots=())
 def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register("less_than", no_grad_slots=("X", "Y"))
+def _less_than(ctx, ins, attrs):
+    """compare_op.cc: ``X < Y`` with Y axis-broadcast, a bool tensor."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.lt(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
 
 
 @register_grad("cast")

@@ -1,8 +1,10 @@
 """Tensor manipulation / creation op rules.
 
 The port of the part of ``paddle_tpu/ops/tensor_ops.py`` that the
-Transformer's, the stacked LSTM's and DeepFM's training programs use:
-reshape, transpose, squeeze/unsqueeze, slice, concat, ``lookup_table`` (its
+Transformer's, the stacked LSTM's and DeepFM's training programs and
+machine translation's beam search use: reshape, transpose,
+squeeze/unsqueeze, slice, concat, ``expand`` and ``gather`` (forward
+rules), ``lookup_table`` (its
 gradient dense, or a ``SelectedRows`` with ``is_sparse``), top_k,
 assign, assign_value, fill_constant, fill_constant_batch_size_like,
 increment, the random initializers
@@ -109,6 +111,23 @@ def _slice(ctx, ins, attrs):
         en = max(en + dim, 0) if en < 0 else min(en, dim)
         idx[ax] = slice(st, en)
     return {"Out": [x[tuple(idx)]]}
+
+
+@register("expand")
+def _expand(ctx, ins, attrs):
+    """``jnp.tile``: each axis repeated ``expand_times`` times."""
+    return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}
+
+
+@register("gather", no_grad_slots=("Index",))
+def _gather(ctx, ins, attrs):
+    """``jnp.take(x, index, axis)``: the rows (along ``axis``) that the
+    integer ``Index`` names, in its shape."""
+    x, index = ins["X"][0], ins["Index"][0]
+    axis = attrs.get("axis", 0) % x.dim()
+    out = torch.index_select(x, axis, index.reshape(-1).long())
+    return {"Out": [out.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
+                                + tuple(x.shape[axis + 1:]))]}
 
 
 @register("concat")

@@ -183,7 +183,8 @@ def _while_program():
         x = L.data("x", [4])
         flag = L.data("flag", [], append_batch_size=False, dtype="bool")
         s = L.fill_constant((), "float32", 0.0)
-        with L.While(flag).block():
+        # max_iters under a training executor: the training form
+        with L.While(flag, max_iters=3).block():
             L.assign(L.elementwise_add(s, L.reduce_sum(x)), s)
             L.assign(L.fill_constant((), "bool", 0.0), flag)
     return main, s
@@ -204,8 +205,10 @@ def _cond_program():
 @pytest.mark.parametrize("kind", ["while", "conditional_block"])
 def test_while_and_conditional_block_are_not_ported(kind):
     """Both are registered (append_backward builds their grad ops) but
-    running either raises NotImplementedError naming the op: they come
-    with beam-search decoding."""
+    running conditional_block, or while in its training form (max_iters
+    under a training executor: the reference's masked scan), raises
+    NotImplementedError naming the op.  The inference while runs
+    (tests/test_torch_beam_ops.py)."""
     main, s = _while_program() if kind == "while" else _cond_program()
     prog = TProgram.deserialize(main.serialize())
     assert kind in [op.type for op in prog.global_block.ops]

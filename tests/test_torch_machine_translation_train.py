@@ -144,9 +144,15 @@ def test_three_adam_steps_match(runs):
             name
 
 
-def test_infer_mode_is_not_ported():
+def test_infer_program_shares_training_params(runs):
+    """mode="infer" builds the beam-search program, whose every
+    parameter is one of the training program's, so a training
+    checkpoint fills it (tests/test_torch_machine_translation_infer.py
+    decodes one)."""
+    ref, got = runs
     main, startup = TProgram(), TProgram()
     with t_guard(main, startup), t_unique.guard():
-        with pytest.raises(NotImplementedError, match="While.*beam_search"):
-            t_mt.build(mode="infer", **SMALL)
-    assert not main.global_block.ops
+        t_mt.build(mode="infer", **SMALL)
+    infer_params = sorted(p.name for p in main.all_parameters())
+    assert infer_params and set(infer_params) <= set(got["params"])
+    assert "while" in [op.type for op in main.global_block.ops]
