@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
-9, 10, 11, 11b, 6 (each one that fails raises, and the script exits
+9, 10, 11, 11b, 12, 6 (each one that fails raises, and the script exits
 non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -219,6 +219,28 @@ non-zero):
    ``BEAM_TOKEN_TOL`` a token.  Printed, not gated: beam tokens/s, step
    ms, forks and copies, and one profiled decode's device busy time with
    K4's share.
+12. The convolutional models, which launch no hand-written kernel (the
+   reference runs conv, pool and batch norm through XLA; the port
+   through torch's cuDNN calls): K1-K10's launch counters must not move
+   over the phase.  First ResNet-50 at (3, 224, 224), B=2, one step on
+   the card and on the CPU from the same copied start, NHWC and NCHW:
+   in float64 the loss and every parameter and running stat within
+   ``CONV_F64_TOL``; in float32 the loss within ``CONV_LOSS_TOL`` and
+   the whole update within twice the CPU's own float32 error (against
+   its float64 step) plus ``CONV_UPDATE_FLOOR``, the worst tensor
+   printed.  Then the bench's ResNet-50 (``bench.py:236-250``: B=256,
+   1000 classes, Momentum 0.9, lr 0.1) in bfloat16 NHWC, float32 NHWC
+   and float32 NCHW, 12 steps on one seeded batch put on the card once:
+   losses finite; step ms, images/s, peak memory and one profiled step (busy,
+   idle share, top kernels, and cuDNN's NCHW<->NHWC conversion kernels
+   counted: none may run in the bfloat16 NHWC step, where the entry's
+   transpose is the one layout copy).  MNIST (B=512, Adam) 12 steps:
+   losses finite and falling.  Last the float32 NCHW ResNet-50 (batch
+   statistics as running stats) through ``save_inference_model`` ->
+   ``create_predictor`` with ``fuse_conv_bn`` (53 folds) and
+   ``add_pass("convert_to_nhwc")``: softmax within ``CONV_INFER_TOL`` of
+   max|ref| of the predictor with ``ir_optim`` off, on a batch of 32;
+   dispatch ms of both.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -239,6 +261,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -396,6 +419,37 @@ BEAM_WIDTH, BEAM_PROMPT, BEAM_STEPS = 4, 32, 64
 # difference (LOGITS_TOL), so at token t the sums agree within
 # BEAM_TOKEN_TOL * (t + 1)
 BEAM_TOKEN_TOL = 2 * LOGITS_TOL
+# phase 12: ResNet-50 at the bench's configuration (bench.py:236-250:
+# B=256, (3, 224, 224), 1000 classes, Momentum 0.9, lr 0.1) in bfloat16
+# NHWC (the bench's) and float32 NHWC and NCHW (peaks 32-40 GB of the
+# card's 80); MNIST at bench.py:570-582's B=512
+CONV_IMAGE, CONV_CLASSES, CONV_B, CONV_STEPS = (3, 224, 224), 1000, 256, 12
+CONV_CONFIGS = (("resnet50_bf16_nhwc", "bfloat16", "NHWC"),
+                ("resnet50_f32_nhwc", "float32", "NHWC"),
+                ("resnet50_f32_nchw", "float32", "NCHW"))
+MNIST_IMAGE, MNIST_B = (1, 28, 28), 512
+# cuDNN's NCHW <-> NHWC conversion kernels
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+# one ResNet-50 step, card vs CPU, from the same copied start, at the
+# full resolution and B=2.  A step's float32 update is ~2e-2 (relative
+# L2) from its float64 one on either device (printed each run): deep
+# batch-norm biases and the filters of dead channels (a channel whose
+# batch variance is ~0 normalises rounding noise) have gradients that
+# cancel and move by a tenth of their own scale, and at (3, 32, 32) the
+# last stage's batch norms see B values a channel, so the float32 loss
+# itself is noisy.  So the per-tensor check is made in float64: card =
+# CPU within CONV_F64_TOL (float64's rounding, amplified as float32's
+# is, stays far below it); in float32 the loss within CONV_LOSS_TOL
+# relative (the precedent of phases 5-9) and the whole update within
+# twice the CPU's own float32 error plus CONV_UPDATE_FLOOR
+CONV_PARITY = dict(B=2, image=(3, 224, 224), classes=10)
+CONV_F64_TOL = 1e-8
+CONV_LOSS_TOL = 1e-5
+CONV_UPDATE_FLOOR = 1e-4
+# the predictor: fuse_conv_bn folds every conv + batch-norm pair of
+# ResNet-50 (53); softmax with the passes vs without, float32 products in
+# other orders and the folded filters' roundings
+CONV_INFER_B, CONV_FOLDS, CONV_INFER_TOL = 32, 53, 1e-4
 
 
 def log(*a) -> None:
@@ -2163,13 +2217,13 @@ def check_train_step_against_cpu(dev) -> dict:
             "worst_grad_param": worst_p}
 
 
-def profile_step(exe, main, feed, loss, focus) -> dict:
+def profile_step(exe, main, feed, loss, focus, count=()) -> dict:
     """One training step under the torch profiler (``profile_call``)."""
     return profile_call(lambda: exe.run(main, feed=feed, fetch_list=[loss]),
-                        focus)
+                        focus, count)
 
 
-def profile_call(run, focus) -> dict:
+def profile_call(run, focus, count=()) -> dict:
     """One call of ``run`` (a training step, a serving dispatch) under
     the torch profiler: device busy time over its window, the device
     time of the kernels whose names contain each of ``focus`` and their
@@ -2233,6 +2287,11 @@ def profile_call(run, focus) -> dict:
             "focus_ms": {k: v / 1e3 for k, v in named.items()},
             "focus_share_of_kernel_time": sum(named.values()) / total,
             "focus_share_of_busy": {k: v / busy for k, v in named.items()},
+            "counted": {k: {"launches": sum(c for n, (_, c)
+                                            in by_name.items() if k in n),
+                            "ms": sum(t for n, (t, _) in by_name.items()
+                                      if k in n) / 1e3}
+                        for k in count},
             "top_kernels": [{"name": n[:120], "ms": t / 1e3, "count": c}
                             for n, (t, c) in top]}
 
@@ -3915,6 +3974,331 @@ def run_paged_beam(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the convolutional models through Executor.run and the predictor
+# ---------------------------------------------------------------------------
+
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launch counter (K1-K10)."""
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import quant as Q
+    from paddle_tpu_torch.kernels import rnn as R
+    from paddle_tpu_torch.kernels import sparse as S
+    return {"K1": A.flash_attention_fwd.launches,
+            "K2": A.flash_attention_bwd_dq.launches,
+            "K3": A.flash_attention_bwd_dkv.launches,
+            "K4": A.decode_attention.launches, "K5": Q.int8_fc.launches,
+            "K6": R.lstm_fused.launches, "K7": R.lstm_fused_grad.launches,
+            "K8a": R.gru_fused.launches, "K8b": R.gru_fused_grad.launches,
+            "K9": S.fused_gather.launches, "K10": S.rowwise_update.launches}
+
+
+def build_conv(module, seed=1, **kw):
+    """A model's training program (``module.build(**kw)``), fresh names,
+    random weights from the startup's seed."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        feeds, loss, _ = module.build(**kw)
+    return main, startup, loss, feeds
+
+
+def conv_batch(feeds, B, image, classes, seed) -> dict:
+    """One seeded synthetic batch, as bench.py makes it."""
+    rs = np.random.RandomState(seed)
+    return {feeds[0]: rs.randn(B, *image).astype(np.float32),
+            feeds[1]: rs.randint(0, classes, (B, 1)).astype(np.int64)}
+
+
+def conv_forward_flop(main) -> int:
+    """The forward's convolution and fc FLOP an image (2 x MACs), from
+    the program's shapes: a conv output element takes C_in/groups x kh x
+    kw MACs, an fc output element its K."""
+    blk = main.global_block
+    total = 0
+    for op in blk.ops:
+        if op.type == "conv2d":
+            w = blk.var(op.input("Filter")[0]).shape
+            out = blk.var(op.output("Output")[0]).shape
+            total += 2 * int(np.prod(out[1:])) * w[1] * w[2] * w[3]
+        elif op.type == "mul":
+            w = blk.var(op.input("Y")[0]).shape
+            total += 2 * w[0] * w[1]
+    return total
+
+
+def train_conv(dev, card: str, name: str, build, image, classes, B, steps,
+               dtype="float32", count=()) -> dict:
+    """``steps`` steps of a training program on one seeded batch on the
+    card (the batch put on the card once, in the program's dtype, as
+    bench.py's device_put): losses finite, step ms (median of steps 3 on,
+    host clock, the loss fetch the synchronise), images/s, peak memory,
+    one profiled step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops._util import torch_dtype
+    main, startup, loss, feeds = build()
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batch = conv_batch(feeds, B, image, classes, seed=3)
+    feed = {feeds[0]: torch.from_numpy(batch[feeds[0]]).to(dev).to(
+                torch_dtype(dtype)),
+            feeds[1]: torch.from_numpy(batch[feeds[1]]).to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(steps):
+            t = time.perf_counter()
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(np.asarray(l, np.float32)))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: training loss not finite: {losses}")
+    med = float(np.median(step_ms[2:]))
+    flop = 3 * conv_forward_flop(main) * B
+    out = {"B": B, "ops": len(main.global_block.ops), "steps": steps,
+           "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "images_per_s": B / (med / 1e3),
+           "train_flop_per_step": flop,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    with fluid.scope_guard(scope):
+        out["profile"] = profile_step(exe, main, feed, loss, (), count)
+    prof = out["profile"]
+    log(f"  {name} B={B} [{card}]: step ms median {med!r} (steps 3..{steps}"
+        f", all {[round(x, 2) for x in step_ms]}), images/s "
+        f"{out['images_per_s']!r}, loss {losses[0]!r} -> {losses[-1]!r}, "
+        f"max memory allocated {out['max_memory_allocated']} bytes; "
+        f"{flop / 1e12:.3f} TFLOP a step (3 x the forward's convs and fc)")
+    log(f"  {name} profiled step [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    del scope, exe, feed
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_step(main, loss, values, feed, names, device, dtype) -> tuple:
+    """One training step from ``values`` on ``device`` in ``dtype`` (the
+    float32 values and image feed cast; a float64 feed goes in as a
+    tensor, which the executor takes as it is): the loss and ``names``'
+    values after the step, float64 on the host."""
+    import paddle_tpu_torch as fluid
+    scope = fluid.Scope()
+    scope.load_numpy({n: v.astype(dtype) if v.dtype == np.float32 else v
+                      for n, v in values.items()}, device=device)
+    if dtype == np.float64:
+        feed = {n: torch.from_numpy(v.astype(dtype) if v.dtype == np.float32
+                                    else v) for n, v in feed.items()}
+    (l,) = fluid.Executor(device).run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope)
+    after = scope.to_numpy(names)
+    return float(l), {n: np.asarray(v, np.float64) for n, v in after.items()}
+
+
+def check_conv_step_against_cpu(dev, card: str, layout) -> dict:
+    """One ResNet-50 step at CONV_PARITY on the card and on the CPU from
+    the same copied start, in float64 and in float32.  float64: the loss
+    and every parameter and batch-norm running stat after the step
+    within CONV_F64_TOL (relative; per tensor, of max|ref|).  float32:
+    the loss within CONV_LOSS_TOL relative, and the step's update of all
+    of them as one vector within twice the CPU's own float32 error
+    (relative L2 against its float64 step) plus CONV_UPDATE_FLOOR; the
+    worst tensor is recorded."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    P = CONV_PARITY
+    main, startup, loss, feeds = build_conv(
+        resnet, class_dim=P["classes"], image_shape=P["image"], depth=50,
+        lr=0.1, layout=layout)
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    names = sorted(p.name for p in main.all_parameters()) + sorted(
+        n for n in values if n.endswith((".mean", ".variance")))
+    feed = conv_batch(feeds, P["B"], P["image"], P["classes"], seed=5)
+    runs = {side: conv_step(main, loss, values, feed, names, device, dt)
+            for side, device, dt in (("cpu", "cpu", np.float32),
+                                     ("cpu64", "cpu", np.float64),
+                                     ("gpu", dev, np.float32),
+                                     ("gpu64", dev, np.float64))}
+
+    def update(side):
+        return np.concatenate([(runs[side][1][n] - values[n]).ravel()
+                               for n in names])
+
+    def worst(a, b):
+        r = {n: float(np.abs(runs[a][1][n] - runs[b][1][n]).max())
+             / max(float(np.abs(runs[b][1][n]).max()), 1e-300)
+             for n in names}
+        n = max(r, key=r.get)
+        return r[n], n
+
+    out = {"loss_rel_diff_f64": abs(runs["gpu64"][0] - runs["cpu64"][0])
+           / abs(runs["cpu64"][0]),
+           "loss_rel_diff": abs(runs["gpu"][0] - runs["cpu"][0])
+           / abs(runs["cpu"][0]),
+           "loss_gpu": runs["gpu"][0], "loss_cpu": runs["cpu"][0]}
+    out["worst_f64"], out["worst_f64_name"] = worst("gpu64", "cpu64")
+    out["worst_f32"], out["worst_f32_name"] = worst("gpu", "cpu")
+    u64 = update("cpu64")
+    rel = {key: float(np.linalg.norm(update(side) - base)
+                      / np.linalg.norm(base))
+           for key, side, base in (("gpu", "gpu", update("cpu")),
+                                   ("cpu", "cpu", u64),
+                                   ("gpu_vs_f64", "gpu", u64))}
+    out.update(update_rel_diff=rel["gpu"], cpu_f32_update_err=rel["cpu"],
+               gpu_f32_update_err=rel["gpu_vs_f64"])
+    bound = 2 * rel["cpu"] + CONV_UPDATE_FLOOR
+    if not (out["loss_rel_diff_f64"] <= CONV_F64_TOL
+            and out["worst_f64"] <= CONV_F64_TOL
+            and math.isfinite(out["loss_gpu"])
+            and out["loss_rel_diff"] <= CONV_LOSS_TOL
+            and rel["gpu"] <= bound
+            and not torch.backends.cudnn.allow_tf32):
+        raise AssertionError(f"ResNet-50 {layout}, card vs CPU: {out} "
+                             f"(float64 tolerance {CONV_F64_TOL}, loss "
+                             f"{CONV_LOSS_TOL}, update {bound})")
+    log(f"  ResNet-50 {layout} B={P['B']} {P['image']}, card vs CPU, one "
+        f"step [{card}] (TF32 off): float64 loss rel "
+        f"{out['loss_rel_diff_f64']!r}, {len(names)} parameters and "
+        f"running stats worst max|d|/max|ref| {out['worst_f64']!r} "
+        f"({out['worst_f64_name']}; tolerance {CONV_F64_TOL})")
+    log(f"  float32 loss {runs['gpu'][0]!r} vs {runs['cpu'][0]!r} (rel "
+        f"{out['loss_rel_diff']!r}, tolerance {CONV_LOSS_TOL}), update "
+        f"rel L2 {rel['gpu']!r} (bound {bound!r}: the CPU's float32 "
+        f"update is {rel['cpu']!r} from its float64 one, the card's "
+        f"{rel['gpu_vs_f64']!r}), worst tensor max|d|/max|ref| "
+        f"{out['worst_f32']!r} ({out['worst_f32_name']})")
+    return out
+
+
+def build_resnet_infer(seed=1):
+    """ResNet-50 float32 NCHW's inference program (data -> softmax), the
+    training program's parameter names."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        data = fluid.layers.data("data", list(CONV_IMAGE))
+        predict = resnet.resnet(data, CONV_CLASSES, 50, "NCHW")
+    return main, startup, predict
+
+
+def run_conv_inference(dev, card: str, d: str) -> dict:
+    """The float32 NCHW ResNet-50 through save_inference_model ->
+    create_predictor: ir_optim on (fuse_conv_bn a default pass) plus
+    add_pass("convert_to_nhwc") against ir_optim off, on one batch of
+    CONV_INFER_B."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    main, startup, predict = build_resnet_infer()
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    x = np.random.RandomState(29).randn(CONV_INFER_B, *CONV_IMAGE).astype(
+        np.float32)
+    # running stats: one training-mode forward with momentum 0 takes the
+    # batch's own (with the startup's 0 and 1, the activations of a random
+    # 53-layer net grow layer by layer and the softmax saturates)
+    bns = [op for op in main.global_block.ops if op.type == "batch_norm"]
+    for op in bns:
+        op.set_attr("momentum", 0.0)
+    exe.run(main, feed={"data": x}, fetch_list=[predict], scope=scope)
+    for op in bns:
+        op.set_attr("momentum", 0.9)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["data"], [predict], exe,
+                                      main_program=main)
+    plain_cfg = AnalysisConfig(d)
+    plain_cfg.switch_ir_optim(False)
+    cfg = AnalysisConfig(d)
+    cfg.add_pass("convert_to_nhwc")
+    plain_cfg.place = cfg.place = dev
+    plain, opt = create_predictor(plain_cfg), create_predictor(cfg)
+    ops_before = [op.type for op in plain.program().global_block.ops]
+    ops_after = opt.program().global_block.ops
+    folds = (ops_before.count("batch_norm")
+             - [op.type for op in ops_after].count("batch_norm"))
+    converted = sum(1 for op in ops_after
+                    if op.type in ("conv2d", "pool2d", "batch_norm")
+                    and op.attr("data_layout") == "NHWC")
+    out = {"folds": folds, "converted": converted,
+           "conv_bn_pairs": ops_before.count("batch_norm")}
+    res = {}
+    for name, pred in (("plain", plain), ("optimized", opt)):
+        (res[name],) = pred.run({"data": x})
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            pred.run({"data": x})
+            times.append((time.perf_counter() - t) * 1e3)
+        out[f"{name}_dispatch_ms"] = float(np.median(times))
+    ref = res["plain"]
+    err = float(np.abs(res["optimized"] - ref).max()) / float(
+        np.abs(ref).max())
+    out["max_rel_err"] = err
+    out["softmax_max"] = float(ref.max())
+    if not (np.isfinite(res["optimized"]).all() and err <= CONV_INFER_TOL
+            and folds == CONV_FOLDS):
+        raise AssertionError(f"ResNet-50 predictor: softmax max|d|/max|ref| "
+                             f"{err} (tolerance {CONV_INFER_TOL}), {folds} "
+                             f"folds (expected {CONV_FOLDS})")
+    log(f"  ResNet-50 predictor B={CONV_INFER_B} [{card}]: fuse_conv_bn "
+        f"folded {folds} conv+BN pairs, convert_to_nhwc converted "
+        f"{converted} ops; softmax (largest {out['softmax_max']!r}) vs "
+        f"ir_optim off max|d|/max|ref| {err!r} (tolerance "
+        f"{CONV_INFER_TOL}); dispatch ms "
+        f"{out['optimized_dispatch_ms']!r} (passes) vs "
+        f"{out['plain_dispatch_ms']!r} (ir_optim off)")
+    del plain, opt, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_conv(dev, card: str) -> dict:
+    """Phase 12 (module doc)."""
+    from paddle_tpu_torch.models import mnist, resnet
+    before = kernel_launches()
+    out = {"parity": {layout: check_conv_step_against_cpu(dev, card, layout)
+                      for layout in ("NHWC", "NCHW")}}
+    for name, dtype, layout in CONV_CONFIGS:
+        out[name] = train_conv(
+            dev, card, f"ResNet-50 {dtype} {layout}",
+            lambda: build_conv(resnet, class_dim=CONV_CLASSES,
+                               image_shape=CONV_IMAGE, depth=50, lr=0.1,
+                               dtype=dtype, layout=layout),
+            CONV_IMAGE, CONV_CLASSES, CONV_B, CONV_STEPS, dtype,
+            count=LAYOUT_KERNELS)
+        # the bench's configuration keeps NHWC from the entry's transpose
+        # on; in float32 cuDNN picks some NCHW FMA kernels for NHWC
+        # tensors and converts around them: reported, not gated
+        counted = out[name]["profile"].get("counted", {})
+        if name == CONV_CONFIGS[0][0] and any(v["launches"]
+                                              for v in counted.values()):
+            raise AssertionError(f"{name}: cuDNN layout conversions in the "
+                                 f"profiled step: {counted}")
+    mn = train_conv(dev, card, "MNIST", lambda: build_conv(mnist),
+                    MNIST_IMAGE, 10, MNIST_B, CONV_STEPS)
+    if not mn["losses"][-1] < mn["losses"][0]:
+        raise AssertionError(f"MNIST loss not falling: {mn['losses']}")
+    out["mnist"] = mn
+    with tempfile.TemporaryDirectory() as d:   # ~100 MB of weights
+        out["inference"] = run_conv_inference(dev, card, d)
+    after = kernel_launches()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"a hand-written kernel launched on the "
+                             f"convolutional path: {out['kernel_launches']}")
+    log(f"  no hand-written kernel launched in phase 12 (K1-K10 counters "
+        f"{out['kernel_launches']})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -3982,6 +4366,10 @@ def main() -> int:
 
     log("== phase 11b: PagedBeamDecoder over the paged KV cache")
     paged_beam = run_paged_beam(dev, card)
+
+    log("== phase 12: convolutional training and inference through "
+        "Executor.run")
+    conv = run_conv(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -4094,7 +4482,7 @@ def main() -> int:
                    "deepfm_training": deepfm_train,
                    "mt_training": mt_train, "int8_fc": int8_k,
                    "int8_serving": serving, "mt_beam": mt_beam,
-                   "paged_beam": paged_beam,
+                   "paged_beam": paged_beam, "conv": conv,
                    "profiler_losses": PROFILER_LOSSES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -49,7 +49,7 @@ from .lowering import analyze_block, lower_ops
 from .program import Program, Variable, default_main_program
 from .registry import LowerContext
 from .selected_rows import SelectedRows
-from .types import np_dtype
+from .types import BFLOAT16_NP, normalize_dtype, np_dtype
 
 RNG_STATE_VAR = "@RNG_STATE@"
 
@@ -84,8 +84,8 @@ class Scope:
         starts from another run's (or the JAX reference's) values."""
         dev = get_device(device)
         for name, arr in arrays.items():
-            t = torch.from_numpy(np.array(arr, copy=True))
-            self.vars[name] = t.to(dev)
+            self.vars[name] = tensor_from_numpy(np.array(arr, copy=True),
+                                                device=dev)
 
     def to_numpy(self, names: Optional[Sequence[str]] = None
                  ) -> Dict[str, np.ndarray]:
@@ -114,13 +114,64 @@ def scope_guard(scope: Scope):
         _global_scope = saved
 
 
+def _is_bf16_bits(arr: np.ndarray) -> bool:
+    """An array of bfloat16 values: ``ml_dtypes.bfloat16``, or the
+    2-byte raw records (``|V2``) that ``np.save`` writes for it and
+    ``np.load`` gives back, the reference's on-disk form."""
+    return ((BFLOAT16_NP is not None and arr.dtype == BFLOAT16_NP)
+            or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+                and arr.dtype.fields is None))
+
+
+def tensor_from_numpy(arr, dtype=None, device=None) -> torch.Tensor:
+    """Host array ``arr`` as a tensor on ``device`` (the CPU when None;
+    there it may share ``arr``'s memory), converted to the IR dtype
+    ``dtype`` when one is given.  bfloat16 values
+    (:func:`_is_bf16_bits`) move exactly, by their bits (a ``uint16``
+    view as ``torch.int16``, viewed as ``torch.bfloat16``); other
+    arrays become bfloat16 through torch's round-to-nearest-even cast,
+    never through float32's dtype."""
+    arr = np.asarray(arr)
+    want = None if dtype is None else normalize_dtype(dtype)
+    if _is_bf16_bits(arr):
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        t = torch.from_numpy(bits).view(torch.bfloat16).to(device)
+        return t if want in (None, "bfloat16") else t.to(getattr(torch,
+                                                                   want))
+    if want == "bfloat16":
+        return torch.as_tensor(arr, device=device).to(torch.bfloat16)
+    if want is not None:
+        arr = arr.astype(np_dtype(want), copy=False)
+    return torch.as_tensor(arr, device=device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of tensor ``t``.  A bfloat16 tensor comes back as an
+    ``ml_dtypes.bfloat16`` array where ``ml_dtypes`` can be imported
+    (the reference's fetch type), else as float32 holding the same
+    values (exact: every bfloat16 is a float32)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        if BFLOAT16_NP is None:
+            return t.float().cpu().numpy()
+        return bf16_bits(t).view(BFLOAT16_NP)
+    return np.array(t.cpu(), copy=True)
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """The bits of bfloat16 tensor ``t`` as a host ``uint16`` array."""
+    return t.detach().contiguous().view(torch.int16).cpu().numpy() \
+        .view(np.uint16).copy()
+
+
 def _to_numpy(v):
-    """A host copy of a fetched tensor; a ``SelectedRows`` is returned
-    as it is, as the reference's executor returns it."""
+    """A host copy of a fetched value (:func:`tensor_to_numpy`); a
+    ``SelectedRows`` is returned as it is, as the reference's executor
+    returns it."""
     if isinstance(v, SelectedRows):
         return v
     if isinstance(v, torch.Tensor):
-        return np.array(v.detach().cpu(), copy=True)
+        return tensor_to_numpy(v)
     return np.array(v, copy=True)
 
 
@@ -149,10 +200,8 @@ class Executor:
     def _to_device(self, v, var: Optional[Variable] = None) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
             return v.to(self.device, non_blocking=True)
-        arr = np.asarray(v)
-        if var is not None and var.dtype is not None:
-            arr = arr.astype(np_dtype(var.dtype), copy=False)
-        return torch.as_tensor(arr, device=self.device)
+        dtype = var.dtype if var is not None else None
+        return tensor_from_numpy(v, dtype, self.device)
 
     # -- Program runs --------------------------------------------------------
     def run(self, program: Optional[Program] = None,

@@ -18,7 +18,11 @@ the top-level block, in its order:
   uncalibrated program builds no plan and runs unchanged.
 
 A value that is not a tensor (a ``SelectedRows`` gradient) passes
-through the environment untouched.
+through the environment untouched.  A variable leaves the environment
+after the last op that reads or writes it (the plan's ``drops``)
+unless it is fetched or persistable: eager PyTorch frees an activation
+gradient once the backward has used it, and so does the interpreter,
+while autograd keeps what a tape still needs.
 
 Gradients.  Eager PyTorch has no common-subexpression pass, so the
 reference's default grad (re-trace the forward under ``jax.vjp`` and
@@ -79,6 +83,10 @@ class BlockPlan:
     taped: Dict[int, List[Tuple[str, int]]] = field(default_factory=dict)
     # forward op index -> index of the last grad op that reads its tape
     tape_last_use: Dict[int, int] = field(default_factory=dict)
+    # op index -> the vars no later op reads or writes, to drop from the
+    # run's environment once the op has run (fetches and persistables
+    # stay)
+    drops: Dict[int, List[str]] = field(default_factory=dict)
 
 
 def _is_grad_op(op) -> bool:
@@ -186,7 +194,25 @@ def analyze_block(program: Program, block_idx: int, feed_names: Sequence[str],
             seen_reads.add(n)
             plan.state_reads.append(n)
     pair_grad_ops(block, plan)
+    plan_drops(block, plan)
     return plan
+
+
+def plan_drops(block: Block, plan: BlockPlan) -> None:
+    """Fill ``plan.drops``: each var at the last op that reads or writes
+    it, unless it is fetched or persistable.  (A control-flow op's
+    sub-block sees only the outer vars the op takes as inputs.)"""
+    last: Dict[str, int] = {}
+    for pos, op in enumerate(block.ops):
+        if op.type not in SKIP_OPS:
+            for n in op.input_arg_names() + op.output_arg_names():
+                last[n] = pos
+    keep = set(plan.fetch_names)
+    for n, pos in last.items():
+        v = block.var_or_none(n)
+        if n and n != EMPTY_VAR and n not in keep \
+                and not (v is not None and v.persistable):
+            plan.drops.setdefault(pos, []).append(n)
 
 
 def _gather_ins(op, env: Dict) -> Dict:
@@ -289,52 +315,58 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
     for pos, op in enumerate(block.ops):
         if op.type in SKIP_OPS:
             continue
-        if fusion is not None and fusion.covers(pos) and fusion.lower(pos,
-                                                                      env):
-            continue
-        if int8_plan is not None and int8_plan.covers(pos) \
-                and int8_plan.lower(pos, env):
-            continue
-        ins = _gather_ins(op, env)
-        try:
-            if _is_grad_op(op):
-                base = registry.get(_base_type(op))
-                fwd = plan.grad_fwd.get(pos)
-                if base.grad is not None:
-                    outs = base.grad(ctx, ins, op.attrs)
-                elif fwd is not None and fwd in tapes:
-                    last = plan.tape_last_use[fwd] == pos
-                    leaves, fouts = (tapes.pop(fwd) if last
-                                     else tapes[fwd])
-                    outs = _grads_from_graph(leaves, fouts, ins,
-                                             retain=not last)
-                else:
-                    # a control-flow grad op carries its forward's attrs
-                    # and inputs, so the handler serves it too
-                    rule = _rule(program, op, env, base)
-                    outs = _recompute_grad(base, rule, ctx, ins, op)
-            else:
-                opdef = registry.get(op.type)
-                rule = _rule(program, op, env, opdef)
-                wanted = plan.taped.get(pos)
-                if wanted:
-                    leaves, outs = _run_with_leaves(opdef, rule, ctx, ins,
-                                                    op.attrs, wanted)
-                    tapes[pos] = (leaves, outs)
-                else:
-                    outs = rule(ctx, ins, op.attrs)
-        except Exception as e:
-            raise type(e)(f"while lowering op {op!r} in block {block.idx}: "
-                          f"{e}") from e
-        for slot, names in op.outputs.items():
-            vals = outs.get(slot)
-            if vals is None:
-                continue
-            for name, val in zip(names, vals):
-                if name and name != EMPTY_VAR and val is not None:
-                    env[name] = (val.detach() if isinstance(val, torch.Tensor)
-                                 else val)
+        if not ((fusion is not None and fusion.covers(pos)
+                 and fusion.lower(pos, env))
+                or (int8_plan is not None and int8_plan.covers(pos)
+                    and int8_plan.lower(pos, env))):
+            _lower_op(ctx, program, block, op, pos, env, plan, tapes)
+        for n in plan.drops.get(pos, ()):
+            env.pop(n, None)
     return env
+
+
+def _lower_op(ctx, program, block, op, pos, env, plan, tapes) -> None:
+    """Run one op through its rule (or its grad op through its forward's
+    tape) and store its outputs in ``env``."""
+    ins = _gather_ins(op, env)
+    try:
+        if _is_grad_op(op):
+            base = registry.get(_base_type(op))
+            fwd = plan.grad_fwd.get(pos)
+            if base.grad is not None:
+                outs = base.grad(ctx, ins, op.attrs)
+            elif fwd is not None and fwd in tapes:
+                last = plan.tape_last_use[fwd] == pos
+                leaves, fouts = (tapes.pop(fwd) if last
+                                 else tapes[fwd])
+                outs = _grads_from_graph(leaves, fouts, ins,
+                                         retain=not last)
+            else:
+                # a control-flow grad op carries its forward's attrs
+                # and inputs, so the handler serves it too
+                rule = _rule(program, op, env, base)
+                outs = _recompute_grad(base, rule, ctx, ins, op)
+        else:
+            opdef = registry.get(op.type)
+            rule = _rule(program, op, env, opdef)
+            wanted = plan.taped.get(pos)
+            if wanted:
+                leaves, outs = _run_with_leaves(opdef, rule, ctx, ins,
+                                                op.attrs, wanted)
+                tapes[pos] = (leaves, outs)
+            else:
+                outs = rule(ctx, ins, op.attrs)
+    except Exception as e:
+        raise type(e)(f"while lowering op {op!r} in block {block.idx}: "
+                      f"{e}") from e
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        for name, val in zip(names, vals):
+            if name and name != EMPTY_VAR and val is not None:
+                env[name] = (val.detach() if isinstance(val, torch.Tensor)
+                             else val)
 
 
 def run_block(ctx: LowerContext, program: Program, block: Block,
@@ -367,4 +399,4 @@ def run_block(ctx: LowerContext, program: Program, block: Block,
 
 
 __all__ = ["BlockPlan", "SKIP_OPS", "analyze_block", "grad_recomputes",
-           "lower_ops", "pair_grad_ops", "run_block"]
+           "lower_ops", "pair_grad_ops", "plan_drops", "run_block"]

@@ -3,8 +3,14 @@
 TPU-native re-design of the reference's variable/type model
 (``paddle/fluid/framework/framework.proto:104-181`` — VarType with
 LOD_TENSOR / SELECTED_ROWS / LOD_TENSOR_ARRAY / READER / STEP_SCOPES, and
-typed attributes on OpDesc).  Dtypes map directly onto JAX/XLA dtypes;
-``bfloat16`` is first-class because it is the native MXU input type.
+typed attributes on OpDesc).  Dtypes map onto numpy dtypes for the
+host side.  ``bfloat16`` is an IR dtype of its own whether or not numpy
+can hold it: its numpy dtype is ``ml_dtypes.bfloat16`` where that
+package can be imported (it is the reference's fetch type), and there
+is none otherwise (:data:`BFLOAT16_NP` is None, :func:`np_dtype`
+raises).  It is never folded into float32; the executor moves bfloat16
+values between host and device by their bits
+(``core/executor.py: tensor_from_numpy``).
 """
 from __future__ import annotations
 
@@ -12,12 +18,12 @@ import enum
 
 import numpy as np
 
-try:  # ml_dtypes ships with jax
+try:  # optional: numpy's bfloat16, where it is installed
     import ml_dtypes
 
-    _BFLOAT16 = np.dtype(ml_dtypes.bfloat16)
-except Exception:  # pragma: no cover
-    _BFLOAT16 = np.dtype("float32")
+    BFLOAT16_NP = np.dtype(ml_dtypes.bfloat16)
+except ImportError:
+    BFLOAT16_NP = None
 
 
 class VarType(enum.IntEnum):
@@ -42,12 +48,12 @@ _DTYPES = {
     "int32": np.dtype("int32"),
     "int64": np.dtype("int64"),
     "float16": np.dtype("float16"),
-    "bfloat16": _BFLOAT16,
+    "bfloat16": BFLOAT16_NP,
     "float32": np.dtype("float32"),
     "float64": np.dtype("float64"),
 }
 
-_CANON = {v: k for k, v in _DTYPES.items()}
+_CANON = {v: k for k, v in _DTYPES.items() if v is not None}
 
 
 def normalize_dtype(dtype) -> str:
@@ -63,7 +69,14 @@ def normalize_dtype(dtype) -> str:
 
 
 def np_dtype(name) -> np.dtype:
-    return _DTYPES[normalize_dtype(name)]
+    """The numpy dtype of an IR dtype; ``bfloat16`` without
+    ``ml_dtypes`` has none and raises."""
+    d = _DTYPES[normalize_dtype(name)]
+    if d is None:
+        raise TypeError("numpy has no bfloat16 dtype here (ml_dtypes is "
+                        "not installed): move bfloat16 values by their "
+                        "bits (core/executor.py: tensor_from_numpy)")
+    return d
 
 
 def is_float(name) -> bool:

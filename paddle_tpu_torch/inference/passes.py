@@ -13,7 +13,8 @@ bias, ``quantize_int8``'s sidecars) work on host numpy copies of the
 scope's tensors with the reference's numpy code and put the results back
 as tensors on the device of the weight they came from.
 
-``convert_to_nhwc`` waits for the port's ``conv2d``.
+``convert_to_nhwc`` rewrites conv/bn/pool chains channels-last with
+boundary transposes, as the reference's layout pass.
 """
 from __future__ import annotations
 
@@ -23,12 +24,13 @@ import numpy as np
 import torch
 
 from ..core import registry
-from ..core.executor import _to_numpy
-from ..core.program import Program
+from ..core.executor import _to_numpy, tensor_from_numpy
+from ..core.program import Operator, Program
 from ..kernels import quant as Q
 
-__all__ = ["apply_is_test", "fuse_conv_bn", "fuse_elewise_add_act",
-           "fuse_fc_act", "fuse_fc_gru", "fuse_fc_lstm", "quantize_int8"]
+__all__ = ["apply_is_test", "convert_to_nhwc", "fuse_conv_bn",
+           "fuse_elewise_add_act", "fuse_fc_act", "fuse_fc_gru",
+           "fuse_fc_lstm", "quantize_int8"]
 
 # activations the fc fuser recognizes (fc_fuse_pass handles relu; any
 # registered unary activation with a plain X -> Out contract)
@@ -47,7 +49,8 @@ def _scope_put(scope, name, arr, like=None) -> None:
     of the scope value ``like`` (the CPU when there is none)."""
     ref = scope.find_var(like) if like is not None else None
     dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-    scope.set_var(name, torch.from_numpy(np.array(arr, copy=True)).to(dev))
+    scope.set_var(name, tensor_from_numpy(np.array(arr, copy=True),
+                                          device=dev))
 
 
 def apply_is_test(program: Program) -> None:
@@ -166,6 +169,129 @@ def fuse_conv_bn(program: Program, scope, keep_vars=()) -> int:
         folded += 1
         i += 1
     return folded
+
+
+# ---------------------------------------------------------------------------
+# NHWC layout pass: NCHW conv/bn/pool chains become channels-last, with
+# boundary transposes (opt-in: AnalysisConfig.add_pass("convert_to_nhwc"))
+# ---------------------------------------------------------------------------
+
+_LAYOUT_OPS = {"conv2d", "depthwise_conv2d", "pool2d", "batch_norm"}
+# elementwise/activation ops that pass a layout through untouched when all
+# their 4-D inputs share it (not prelu: its Alpha rides dim 1)
+_LAYOUT_TRANSPARENT = {"relu", "relu6", "sigmoid", "tanh", "leaky_relu",
+                       "elu", "swish", "gelu", "abs", "sqrt", "square",
+                       "scale", "dropout", "elementwise_add",
+                       "elementwise_sub", "elementwise_mul"}
+
+
+def _nchw_shape(s):
+    return (s[0], s[3], s[1], s[2])
+
+
+def _nhwc_shape(s):
+    return (s[0], s[2], s[3], s[1])
+
+
+def _is_4d(var) -> bool:
+    return var is not None and var.shape is not None and len(var.shape) == 4
+
+
+def convert_to_nhwc(program: Program, scope=None, keep_vars=()) -> int:
+    """Rewrite the layout-sensitive ops of the global block to
+    ``data_layout="NHWC"`` (the reference's layout pass).  Filters stay
+    OIHW, so the scope is untouched.  Walks the ops in order with the
+    set of vars that hold NHWC values: an NCHW input of a layout op is
+    transposed in (``<x>@NHWC``), a transparent op whose 4-D inputs are
+    all NHWC passes the layout on (a per-channel 1-D bias add moves
+    from axis 1 to axis 3), any other consumer of an NHWC var gets it
+    transposed back (``<x>@NCHW``), and an NHWC ``keep_vars`` target is
+    renamed ``<x>@NHWCVAL`` and transposed back into its own name.
+    Returns the number of ops converted."""
+    del scope
+    block = program.global_block
+    nhwc: set = set()
+    new_ops = []
+    converted = 0
+
+    def transpose(src, axis, dst_name, dst_shape):
+        dst = block.create_var(name=dst_name, dtype=block.var(src).dtype,
+                               shape=dst_shape)
+        new_ops.append(Operator(block, "transpose", {"X": [src]},
+                                {"Out": [dst.name]}, {"axis": axis}))
+        return dst.name
+
+    def rename_in(op, old, new):
+        op.inputs = {k: [new if n == old else n for n in v]
+                     for k, v in op.inputs.items()}
+
+    for op in block.ops:
+        ins = op.input_arg_names()
+        if (op.type in _LAYOUT_OPS
+                and op.attr("data_layout", "NCHW") == "NCHW"):
+            conv = "conv" in op.type
+            xname = op.input("Input" if conv else "X")[0]
+            xvar = block.var_or_none(xname)
+            if not _is_4d(xvar):
+                new_ops.append(op)
+                continue
+            if xname not in nhwc:
+                t = transpose(xname, [0, 2, 3, 1], f"{xname}@NHWC",
+                              _nhwc_shape(xvar.shape))
+                rename_in(op, xname, t)
+                nhwc.add(t)
+            op.set_attr("data_layout", "NHWC")
+            out = op.output("Output" if conv else (
+                "Y" if op.type == "batch_norm" else "Out"))[0]
+            ovar = block.var(out)
+            ovar.shape = _nhwc_shape(ovar.shape)
+            nhwc.add(out)
+            converted += 1
+            new_ops.append(op)
+            continue
+        if op.type in _LAYOUT_TRANSPARENT and ins and ins[0] in nhwc:
+            ok = all(n in nhwc or not _is_4d(block.var_or_none(n))
+                     for n in ins[1:])
+            if (ok and op.type.startswith("elementwise")
+                    and op.attr("axis", -1) == 1):
+                yv = block.var_or_none(op.input("Y")[0])
+                if yv is not None and yv.shape is not None \
+                        and len(yv.shape) == 1:
+                    op.set_attr("axis", 3)    # the channel bias rides last
+                else:
+                    ok = False
+            if ok:
+                for oname in op.output_arg_names():
+                    ovar = block.var_or_none(oname)
+                    if _is_4d(ovar):
+                        ovar.shape = _nhwc_shape(ovar.shape)
+                        nhwc.add(oname)
+                new_ops.append(op)
+                continue
+        # an NCHW consumer of NHWC vars: transpose them back first
+        for name in set(ins):
+            if name in nhwc:
+                back = transpose(name, [0, 3, 1, 2], f"{name}@NCHW",
+                                 _nchw_shape(block.var(name).shape))
+                rename_in(op, name, back)
+        new_ops.append(op)
+
+    for name in keep_vars:
+        if name in nhwc:
+            v = block.var(name)
+            inner = block.create_var(name=f"{name}@NHWCVAL", dtype=v.dtype,
+                                     shape=v.shape)
+            for op in new_ops:
+                op.outputs = {k: [inner.name if n == name else n
+                                  for n in vs]
+                              for k, vs in op.outputs.items()}
+                rename_in(op, name, inner.name)
+            v.shape = _nchw_shape(v.shape)
+            new_ops.append(Operator(block, "transpose", {"X": [inner.name]},
+                                    {"Out": [name]}, {"axis": [0, 3, 1, 2]}))
+    block.ops[:] = new_ops
+    program._version += 1
+    return converted
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ The port of ``paddle_tpu/inference/predictor.py`` (the reference's
 ``create_predictor(config)`` loads a saved inference model onto the
 config's device (``cuda:0`` unless the config names another place),
 stamps ``is_test``, runs the config's passes (the fusion passes, then
-``quantize_int8`` when int8 is enabled) and wraps the program in a
+the added ones in their order: ``convert_to_nhwc``, ``quantize_int8``
+when int8 is enabled) and wraps the program in a
 :class:`Predictor`, whose inference executor
 (``Executor(training=False)``) runs every op in its test branch and
 sends the stamped ``mul``/``fused_fc`` ops to K5.
@@ -56,7 +57,8 @@ class AnalysisConfig:
         self._passes = [p for p in self._passes if p != name]
 
     def add_pass(self, name: str) -> None:
-        """Append an optional pass to the ir_optim pipeline."""
+        """Append an optional pass (``"convert_to_nhwc"``, the
+        channels-last layout rewrite) to the ir_optim pipeline."""
         if name not in self._passes:
             self._passes.append(name)
 
@@ -180,13 +182,8 @@ def create_predictor(config: AnalysisConfig) -> Predictor:
     if _flags.get_flags("int8_inference") and config.ir_optim:
         config.enable_int8()
     for name in config.pass_names():
-        fn = getattr(P, name, None)
-        if fn is None:
-            raise NotImplementedError(
-                f"inference pass {name!r} is not ported (convert_to_nhwc "
-                "waits for conv2d)")
         # fetch targets count as external uses: never fused away
-        fn(program, scope, keep_vars=fetch_names)
+        getattr(P, name)(program, scope, keep_vars=fetch_names)
     return Predictor(program, feed_names, fetch_names, scope, config.place)
 
 

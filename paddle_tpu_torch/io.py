@@ -13,6 +13,9 @@ file whole.
 The scope holds torch tensors on the executor's device: a save stages
 them to host arrays, and a load puts the arrays on ``executor.device``
 through :meth:`Scope.load_numpy` (``cuda:0`` when the executor is None).
+A bfloat16 value is written as the reference writes it, the 2-byte
+records ``np.save`` makes of an ``ml_dtypes.bfloat16`` array, with or
+without ``ml_dtypes`` here, and loads back by its bits.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ import uuid
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
-from .core.executor import _to_numpy, global_scope
+from .core.executor import _to_numpy, bf16_bits, global_scope
+from .core.types import BFLOAT16_NP
 from .core.program import Program, Variable, default_main_program
 
 MODEL_FILENAME = "__model__"
@@ -78,6 +83,16 @@ def _var_file(dirname: str, name: str) -> str:
     return os.path.join(dirname, name.replace("/", "__") + ".npy")
 
 
+def _saved_array(val) -> np.ndarray:
+    """The host array a save writes for scope value ``val``: a bfloat16
+    tensor's bits as ``ml_dtypes.bfloat16`` (or, without it, as the
+    same raw 2-byte records, ``V2``)."""
+    if isinstance(val, torch.Tensor) and val.dtype == torch.bfloat16:
+        return bf16_bits(val).view(BFLOAT16_NP if BFLOAT16_NP is not None
+                                   else np.dtype("V2"))
+    return _to_numpy(val)
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
     """Write the global scope's values of ``vars`` (every variable of the
@@ -95,7 +110,7 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     for v in vars:
         val = scope.find_var(v.name)
         if val is not None:
-            arrays[v.name] = _to_numpy(val)
+            arrays[v.name] = _saved_array(val)
     if filename is None:
         for name, arr in arrays.items():
             atomic_file_write(_var_file(dirname, name),

@@ -1,10 +1,10 @@
 """Layer DSL: functions that append ops to the current program block.
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
-stacked LSTM, DeepFM, machine translation (training and beam search)
-and the fc/SGD drive call, copied unchanged (and ``square``,
-``sigmoid``, ``tanh`` and ``log``, which the reference generates in
-``layers/ops.py``): the same calls build the
+stacked LSTM, DeepFM, machine translation (training and beam search),
+the convolutional models and the fc/SGD drive call, copied unchanged
+(and ``square``, ``sigmoid``, ``tanh``, ``log`` and ``relu``, which the
+reference generates in ``layers/ops.py``): the same calls build the
 same program, byte for byte (``Program.serialize``).
 Padded sequences carry their ``<name>@LEN`` companion as in the
 reference.
@@ -16,8 +16,12 @@ from typing import Optional
 import numpy as np
 
 from ..core.program import Variable
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
 
 
 def seq_len_var(x: Variable) -> Optional[Variable]:
@@ -100,6 +104,107 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     )
     _propagate_lod(out, input)
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_layout="NCHW"):
+    """2-D convolution (reference nn.py conv2d): the filter is OIHW
+    whatever ``data_layout``, drawn from Normal(0, sqrt(2 / (kh kw
+    C))); the bias rides the channel dim (1 for NCHW, 3 for NHWC)."""
+    helper = LayerHelper("conv2d", bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    fs, st, pd, dl = (_pair(filter_size), _pair(stride), _pair(padding),
+                      _pair(dilation))
+    nhwc = data_layout == "NHWC"
+    C = input.shape[-1] if nhwc else input.shape[1]
+    w_shape = [num_filters, C // groups, fs[0], fs[1]]
+    std = (2.0 / (fs[0] * fs[1] * C)) ** 0.5
+    w = helper.create_parameter(
+        param_attr, w_shape, dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    hin, win = (input.shape[1:3] if nhwc else input.shape[2:4])
+    H = (hin + 2 * pd[0] - (dl[0] * (fs[0] - 1) + 1)) // st[0] + 1
+    W = (win + 2 * pd[1] - (dl[1] * (fs[1] - 1) + 1)) // st[1] + 1
+    out_shape = ((input.shape[0], H, W, num_filters) if nhwc
+                 else (input.shape[0], num_filters, H, W))
+    pre_bias = helper.create_variable_for_type_inference(dtype,
+                                                         shape=out_shape)
+    helper.append_op(
+        "conv2d", {"Input": [input], "Filter": [w]}, {"Output": [pre_bias]},
+        {"strides": st, "paddings": pd, "dilations": dl, "groups": groups,
+         "data_layout": data_layout})
+    if nhwc:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=3, dim_end=4)
+    else:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_layout="NCHW"):
+    """2-D max or avg pooling (reference nn.py pool2d); ``ceil_mode`` is
+    accepted and ignored, as the reference's layer does."""
+    helper = LayerHelper("pool2d", name=name)
+    ks, st, pd = _pair(pool_size), _pair(pool_stride), _pair(pool_padding)
+    nhwc = data_layout == "NHWC"
+    hin, win = (input.shape[1:3] if nhwc else input.shape[2:4])
+    if global_pooling:
+        H = W = 1
+    else:
+        H = (hin + 2 * pd[0] - ks[0]) // st[0] + 1
+        W = (win + 2 * pd[1] - ks[1]) // st[1] + 1
+    ch = input.shape[-1] if nhwc else input.shape[1]
+    shape = ((input.shape[0], H, W, ch) if nhwc
+             else (input.shape[0], ch, H, W))
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(
+        "pool2d", {"X": [input]}, {"Out": [out]},
+        {"pooling_type": pool_type, "ksize": ks, "strides": st,
+         "paddings": pd, "global_pooling": global_pooling,
+         "exclusive": exclusive, "data_layout": data_layout})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               in_place=False):
+    """Batch normalization (reference nn.py batch_norm): float32 scale
+    and bias parameters, and the running mean and variance as
+    persistable globals (``moving_mean_name`` or ``<name>.mean``,
+    ``<name>.variance``) that MeanOut and VarianceOut write back."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype
+    C = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        param_attr, [C], "float32",
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [C], "float32", is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        [C], "float32", moving_mean_name or helper.name + ".mean",
+        persistable=True)
+    variance = helper.create_or_get_global_variable(
+        [C], "float32", moving_variance_name or helper.name + ".variance",
+        persistable=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference("float32",
+                                                           shape=(C,))
+    saved_var = helper.create_variable_for_type_inference("float32",
+                                                          shape=(C,))
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    helper.append_op(
+        "batch_norm",
+        {"X": [input], "Scale": [scale], "Bias": [bias],
+         "Mean": [mean], "Variance": [variance]},
+        {"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+         "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -286,6 +391,11 @@ def tanh(x, name=None, **attrs):
 def log(x, name=None, **attrs):
     """log activation (activation_op.cc functor)."""
     return _activation("log", x, name, **attrs)
+
+
+def relu(x, name=None, **attrs):
+    """relu activation (activation_op.cc functor)."""
+    return _activation("relu", x, name, **attrs)
 
 
 def slice(input, axes, starts, ends):
@@ -585,8 +695,10 @@ def _cmp_layer(op_type, x, y, cond=None, name=None):
 
 __all__ = [
     "accuracy",
+    "batch_norm",
     "cast",
     "concat",
+    "conv2d",
     "cross_entropy",
     "dynamic_gru",
     "dynamic_lstm",
@@ -604,7 +716,9 @@ __all__ = [
     "log",
     "matmul",
     "mean",
+    "pool2d",
     "reduce_sum",
+    "relu",
     "reshape",
     "scale",
     "seq_len2_var",

@@ -1,2 +1,11 @@
 """Models of the port (``paddle_tpu/models``, in part)."""
-from . import deepfm, machine_translation, stacked_lstm, transformer  # noqa: F401
+from . import (  # noqa: F401
+    deepfm,
+    machine_translation,
+    mnist,
+    resnet,
+    se_resnext,
+    stacked_lstm,
+    transformer,
+    vgg,
+)

@@ -1,16 +1,28 @@
-"""Neural-net op rules: layer_norm, the losses, accuracy, the lstm and
-the gru, and the fused ops of the inference passes (``fused_fc``,
-``fusion_lstm``, ``fusion_gru``, ``fused_elemwise_activation``).
+"""Neural-net op rules: conv2d, depthwise_conv2d, pool2d, batch_norm,
+layer_norm, the losses, accuracy, the lstm and the gru, and the fused
+ops of the inference passes (``fused_fc``, ``fusion_lstm``,
+``fusion_gru``, ``fused_elemwise_activation``).
 
 The port of the part of ``paddle_tpu/ops/nn_ops.py`` that the
-Transformer's, the stacked LSTM's, DeepFM's and machine translation's
-training programs, the fc/SGD drive and the predictor use.
-Statistics are taken in at least float32, as the reference's
-``_stat_dtype``.
+Transformer's, the stacked LSTM's, DeepFM's, machine translation's and
+the convolutional models' training programs, the fc/SGD drive and the
+predictor use.  Statistics are taken in at least float32, as the
+reference's ``_stat_dtype``.
+
+Convolutions and pools run through torch's own (cuDNN on the card), as
+the reference's run through XLA: no hand-written kernel lies on this
+path.  An NHWC activation is permuted to an NCHW-shaped view, whose
+strides are channels-last, so the library takes its NHWC kernels with
+no copy; the result is permuted back, an NHWC tensor in NHWC memory.
+The one copy is of an input that is not yet NHWC in memory: the
+``transpose`` at a model's entry is a view of the NCHW feed, which the
+first convolution lays out channels-last.  Filters are OIHW in both
+layouts.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core import registry as _registry
 from ..core.registry import register, register_grad
@@ -20,6 +32,125 @@ from ..observability import stats as _obs_stats
 
 def _stat_dtype(x):
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _nchw_view(x, layout):
+    """An NCHW-shaped view of ``x``: for NHWC, of ``x`` laid out NHWC
+    in memory (a copy only when it is not), so channels-last strides."""
+    return x.contiguous().permute(0, 3, 1, 2) if layout == "NHWC" else x
+
+
+def _from_nchw_view(y, layout):
+    return y.permute(0, 2, 3, 1) if layout == "NHWC" else y
+
+
+# ---------------------------------------------------------------------------
+# conv / pool
+# ---------------------------------------------------------------------------
+
+@register("conv2d", no_grad_slots=())
+def _conv2d(ctx, ins, attrs):
+    """conv_op.cc: ``F.conv2d`` with strides, symmetric paddings,
+    dilations and groups; the filter is OIHW whatever ``data_layout``.
+    The reference computes NHWC's 7x7/s2 stem on at most 4 channels
+    through a space-to-depth rewrite (a TPU lane trick with the same
+    function); here it is the plain convolution."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    layout = attrs.get("data_layout", "NCHW")
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    y = F.conv2d(_nchw_view(x, layout), w,
+                 stride=_pair(attrs.get("strides", [1, 1])),
+                 padding=pads, dilation=_pair(attrs.get("dilations", [1, 1])),
+                 groups=attrs.get("groups", 1))
+    return {"Output": [_from_nchw_view(y, layout)]}
+
+
+@register("depthwise_conv2d", no_grad_slots=())
+def _depthwise_conv2d(ctx, ins, attrs):
+    """conv2d with one group per input channel (the channel dim of the
+    op's layout)."""
+    x = ins["Input"][0]
+    c = x.shape[-1 if attrs.get("data_layout", "NCHW") == "NHWC" else 1]
+    return _conv2d(ctx, ins, {**attrs, "groups": c})
+
+
+@register("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """pool_op.cc, max or avg, either layout.  Max pads with -inf; avg
+    sums in at least float32 and casts back, dividing by the window's
+    in-bounds count when ``exclusive`` and there is padding, by the
+    window's size otherwise.  ``global_pooling`` takes the whole
+    spatial extent; ``ceil_mode`` is not an attr of the op (the layer
+    drops it, as the reference's)."""
+    layout = attrs.get("data_layout", "NCHW")
+    x = _nchw_view(ins["X"][0], layout)
+    if attrs.get("global_pooling", False):
+        ks, strides, pads = tuple(x.shape[2:]), tuple(x.shape[2:]), (0, 0)
+    else:
+        ks = _pair(attrs["ksize"])
+        strides = _pair(attrs.get("strides", [1, 1]))
+        pads = _pair(attrs.get("paddings", [0, 0]))
+    if attrs.get("pooling_type", "max") == "max":
+        y = F.max_pool2d(x, ks, strides, pads)
+    else:
+        exclusive = attrs.get("exclusive", True) and any(pads)
+        y = F.avg_pool2d(x.to(_stat_dtype(x)), ks, strides, pads,
+                         count_include_pad=not exclusive).to(x.dtype)
+    return {"Out": [_from_nchw_view(y, layout)]}
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+@register("batch_norm", no_grad_slots=("Mean", "Variance"))
+def _batch_norm(ctx, ins, attrs):
+    """batch_norm_op.cc with the reference's arithmetic.  Training
+    takes one-pass batch statistics in at least float32, E[x] and
+    max(E[x^2] - E[x]^2, 0) (the biased variance; not Welford, not two
+    passes), and updates the running stats as ``old * momentum + batch
+    * (1 - momentum)`` with that biased variance (``F.batch_norm`` would
+    use the unbiased one).  ``is_test`` (the attr, or an inference
+    executor) uses the running stats.  The per-channel factors
+    ``inv_s = rsqrt(var + eps) * scale`` and ``shift = bias - mean *
+    inv_s`` are computed in float32 and cast to the activation's dtype,
+    and ``y = x * inv_s + shift`` runs in that dtype (two roundings in
+    bfloat16, as the reference's).  SavedVariance is rsqrt(var + eps).
+    The channel is dim 1 (NCHW, and 2-D inputs) or the last dim
+    (NHWC)."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    is_test = attrs.get("is_test", False) or not ctx.training
+    ch = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    bshape = [1] * x.dim()
+    bshape[ch] = -1
+    sdt = _stat_dtype(x)
+    if is_test:
+        use_mean, use_var = mean, var
+        mean_out, var_out, saved_mean = mean, var, mean
+    else:
+        xf = x.to(sdt)
+        use_mean = xf.mean(dim=axes)
+        use_var = torch.clamp_min(
+            (xf * xf).mean(dim=axes) - use_mean * use_mean, 0.0)
+        mean_out = mean * momentum + use_mean * (1.0 - momentum)
+        var_out = var * momentum + use_var * (1.0 - momentum)
+        saved_mean = use_mean
+    inv = torch.rsqrt(use_var.to(sdt) + eps)
+    inv_s = inv * scale.to(sdt)
+    shift = bias.to(sdt) - use_mean.to(sdt) * inv_s
+    y = (x * inv_s.reshape(bshape).to(x.dtype)
+         + shift.reshape(bshape).to(x.dtype))
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [saved_mean], "SavedVariance": [inv]}
 
 
 @register("layer_norm")

@@ -5,7 +5,7 @@ directories, the program passes and the Predictor, float32 and int8.
   loads in the port with an equal program dict and equal parameters,
   and a directory the port wrote loads in the reference the same way.
 - the passes: each of ``apply_is_test``, ``fuse_fc_act``,
-  ``fuse_conv_bn``, ``fuse_fc_lstm``, ``fuse_fc_gru``,
+  ``fuse_conv_bn``, ``convert_to_nhwc``, ``fuse_fc_lstm``, ``fuse_fc_gru``,
   ``fuse_elewise_add_act`` and ``quantize_int8`` turns the same loaded
   program into the same program dict as the reference's pass, and the
   weights it writes (folded filters, summed RNN biases, the int8
@@ -150,6 +150,28 @@ def _conv_bn(L):
     return ["x"], [L.relu(bn)]
 
 
+def _conv_chain(L):
+    """The reference suite's layout-pass program (test_inference.py:198):
+    conv + relu -> batch_norm -> max pool -> 1x1 conv with bias -> fc."""
+    x = L.data("img", [3, 16, 16])
+    c1 = L.conv2d(x, 8, 3, padding=1, act="relu")
+    b1 = L.batch_norm(c1, is_test=True)
+    p1 = L.pool2d(b1, 2, "max", 2)
+    c2 = L.conv2d(p1, 4, 1)
+    return ["img"], [L.fc(c2, 5, act="softmax")]
+
+
+def _conv_bn_pool(L):
+    """conv -> batch_norm -> avg pool (padded) -> conv -> batch_norm ->
+    relu: two folds, then the layout pass over their bias adds."""
+    x = L.data("img", [3, 12, 12])
+    c1 = L.conv2d(x, 6, 3, padding=1, bias_attr=False)
+    b1 = L.batch_norm(c1)
+    p1 = L.pool2d(b1, 3, "avg", 2, pool_padding=1)
+    c2 = L.conv2d(p1, 4, 3, bias_attr=False)
+    return ["img"], [L.relu(L.batch_norm(c2))]
+
+
 def _bn_stats(scope, prog):
     rng = np.random.RandomState(3)
     names = [v.name for v in prog.global_block.vars.values()]
@@ -157,6 +179,20 @@ def _bn_stats(scope, prog):
                   rng.randn(4).astype("float32") * 0.1)
     scope.set_var([n for n in names if "variance" in n][0],
                   np.abs(rng.randn(4)).astype("float32") + 0.5)
+
+
+def _bn_stats_all(scope, prog):
+    """Non-trivial running stats for every batch_norm."""
+    rng = np.random.RandomState(4)
+    for op in prog.global_block.ops:
+        if op.type == "batch_norm":
+            c = prog.global_block.var(op.input("Mean")[0]).shape[0]
+            scope.set_var(op.input("Mean")[0],
+                          rng.randn(c).astype("float32") * 0.1)
+            scope.set_var(op.input("Variance")[0],
+                          np.abs(rng.randn(c)).astype("float32") + 0.5)
+            scope.set_var(op.input("Scale")[0],
+                          (rng.rand(c) + 0.5).astype("float32"))
 
 
 B, T, M, H = 3, 5, 6, 4
@@ -237,6 +273,9 @@ PASS_CASES = {
     "int8_act_attrs": (_mlp_leaky, None, ["fuse_fc_act", "quantize_int8"]),
     "int8_unfused": (_mlp, None, ["quantize_int8"]),
     "conv_bn": (_conv_bn, _bn_stats, ["apply_is_test", "fuse_conv_bn"]),
+    "nhwc": (_conv_chain, None, ["apply_is_test", "convert_to_nhwc"]),
+    "conv_bn_nhwc": (_conv_bn_pool, _bn_stats_all,
+                     ["apply_is_test", "fuse_conv_bn", "convert_to_nhwc"]),
     "rnn_fusions": (_rnns, None, ["apply_is_test", "fuse_fc_lstm",
                                   "fuse_fc_gru", "fuse_elewise_add_act"]),
 }
@@ -283,6 +322,46 @@ def test_rnn_fusions_run_like_the_reference(tmp_path):
         (got,) = TExecutor(tfluid.CPUPlace(), training=False).run(
             tp, feed=_rnn_feed(), fetch_list=tf)
     assert _rel(got, np.asarray(want)) <= F32_TOL
+
+
+@pytest.mark.parametrize("build", [_conv_chain, _conv_bn_pool],
+                         ids=["conv_chain", "conv_bn_pool"])
+def test_conv_passes_run_like_the_reference(tmp_path, build):
+    """``create_predictor`` with ``fuse_conv_bn`` (a default pass) and
+    ``add_pass("convert_to_nhwc")``: the same folds and conversions as
+    the reference's predictor, every conv/bn/pool op NHWC, and the
+    port's CPU output equal to the reference's and to its own
+    unpassed program's."""
+    d = str(tmp_path / build.__name__)
+    _ref_save(d, build, setup=_bn_stats_all)
+    preds = []
+    for Config, create in ((JConfig, j_create), (TConfig, t_create)):
+        cfg = Config(d)
+        cfg.add_pass("convert_to_nhwc")
+        if Config is TConfig:
+            cfg.disable_gpu()
+        preds.append(create(cfg))
+    jpred, tpred = preds
+    assert _norm(tpred.program()) == _norm(jpred.program())
+    ops = tpred.program().global_block.ops
+    # conv_chain's conv has a bias add and a relu before its batch norm:
+    # nothing folds there
+    assert [op.type for op in ops].count("batch_norm") == (
+        1 if build is _conv_chain else 0)
+    assert all(op.attr("data_layout") == "NHWC" for op in ops
+               if op.type in ("conv2d", "pool2d", "batch_norm"))
+    plain = TConfig(d)
+    plain.switch_ir_optim(False)
+    plain.disable_gpu()
+    feed = {"img": np.random.RandomState(5).randn(
+        2, *jpred.program().global_block.var("img").shape[1:]).astype(
+            "float32")}
+    (want,) = jpred.run(feed)
+    (got,) = tpred.run(feed)
+    (unpassed,) = t_create(plain).run(feed)
+    assert got.shape == np.asarray(want).shape
+    assert _rel(got, np.asarray(want)) <= F32_TOL
+    assert _rel(got, unpassed) <= F32_TOL
 
 
 # ---------------------------------------------------------------------------
