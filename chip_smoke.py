@@ -6,8 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
-9, 10, 11, 11b, 12, 6 (each one that fails raises, and the script exits
-non-zero):
+9, 10, 11, 11b, 12, 13, 6 (each one that fails raises, and the script
+exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -241,10 +241,54 @@ non-zero):
    ``add_pass("convert_to_nhwc")``: softmax within ``CONV_INFER_TOL`` of
    max|ref| of the predictor with ``ir_optim`` off, on a batch of 32;
    dispatch ms of both.
+13. Ring attention (K11, ``kernels/attention.py: ring_attention``: the
+   ring over K1-K3, no kernel of its own) and the multi-device plane's
+   first slice.  13a: at ``bench_ring_shard``'s shapes (``bench.py:728``:
+   B=1, H=4, D=128, a 4,096-token shard a device, sp=4 over one card, so
+   T=16,384; float32; ragged key masks), causal and not, dropout 0 and
+   0.1: the ring against the plain ring (``ring_attention_ref``,
+   forward and autograd backward) on the card and, at rate 0, against
+   single K1/K2/K3 launches over the whole sequence, within phase 3b's
+   tolerances; K1, K2 and K3 each launch exactly sp**2 (16) times a
+   ring, or sp(sp+1)/2 (10) causal.  Device times (the profiler) of the
+   ring's forward and backward with their kernels' share and the rest
+   (merges, delta, shard copies, hops), beside the summed pair bounds;
+   CUDA-event times of a diagonal pair and an off-diagonal full pair
+   (the two hop kinds the bench reports), of SDPA over the whole 16,384
+   tokens (forward and autograd backward, a yardstick the port never
+   calls) and of the plain ring.  13b:
+   Transformer-base with ``attention_impl="ring"`` through
+   ``ParallelExecutor`` with ``mesh_shape={"sp": 4}`` over four entries
+   of the card.  First a 2-layer full-width step (B=2, T=512, dropout 0)
+   on the card and on the CPU (``["cpu"] * 4``) from the same copied
+   start, and the same step with ``impl="pallas"`` on the card: loss,
+   attention outputs and every gradient agree (``RING_GRAD_L2`` says
+   why the gradients are held in relative L2); the CPU's own spread
+   (its ring against ``impl="xla"``) is printed beside.  Then the full
+   model (6+6 layers, T=4096, B=2, dropout 0.1) trains 6 steps: losses
+   finite, K1, K2 and K3 exactly 252 launches a step each (6 x 16
+   encoder, 6 x 10 causal decoder, 6 x 16 cross), no gradient re-runs
+   its forward; step ms, tokens/s, peak memory and one profiled step.
+   One more step copies the inputs of three ring ops (the first
+   encoder self-attention, causal decoder self-attention and
+   cross-attention: 1,024-token pairs at D=64, the padding masks, the
+   step's seed, dropout 0.1); on each, the ring over K1-K3 against the
+   plain ring, forward and autograd backward, within phase 3b's
+   tolerances, its forward bit-identical to the step's output.  Then
+   the same model with ``impl="pallas"`` beside it (18 launches a
+   step).  13c: with two or more cards, 13a's checks with the shards
+   on distinct cards (the hops copy between cards), bit-identical to
+   the one-card ring; with one card, one line says it was not run.
+   Run it alone with ``python3 -c "import chip_smoke as c; from
+   paddle_tpu_torch.platform import get_device; c.run_ring(get_device(),
+   c.nvidia_smi_line())"`` from the root (about three minutes).
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
-   and K8b's their launches in an MT beam decode.
+   and K8b's their launches in an MT beam decode; K11's row is the
+   ring's (route "cuda" through K1-K3: its launches are theirs in 13b's
+   steps, its time the ring's forward + backward at 13a's shape, its
+   error the worst of 13a's and 13b's path checks).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -450,6 +494,37 @@ CONV_UPDATE_FLOOR = 1e-4
 # ResNet-50 (53); softmax with the passes vs without, float32 products in
 # other orders and the folded filters' roundings
 CONV_INFER_B, CONV_FOLDS, CONV_INFER_TOL = 32, 53, 1e-4
+# phase 13a: ring attention (K11) at bench_ring_shard's shapes
+# (bench.py:728): a 4,096-token shard a device, sp = 4, so a global
+# sequence of 16,384; B=1, H=4, D=128, float32 (the kernels' type; the
+# bench's is bfloat16); ragged key masks (each row keeps a prefix of
+# 3/4..all of the keys, so the last shard is partly masked)
+RING_SP = 4
+RING_SHAPE = (1, 4, 16384, 128)
+RING_CASES = {"full": (False, 0.0), "full_dropout": (False, 0.1),
+              "causal": (True, 0.0), "causal_dropout": (True, 0.1)}
+# phase 13b: Transformer-base with attention_impl="ring" through
+# ParallelExecutor on {"sp": 4} over one card: a 2-layer full-width step
+# at T=512 against the CPU and against impl="pallas", then the full model
+# at T=4096, B=2, dropout 0.1
+RING_PARITY = dict(TRAIN, n_layer=2, max_len=512, dropout=0.0,
+                   attention_impl="ring")
+RING_PARITY_B = 2
+# The 2-layer step's gates: the loss within TRAIN_LOSS_TOL; the attention
+# ops' outputs within RING_ATTN_TOL * max|ref| (the forward is continuous
+# in float32 noise); each gradient within RING_GRAD_L2 in relative L2
+# norm.  Phase 5's max|d| <= 1e-3 * max|ref| does not hold at T=512: the
+# CPU's ring and its plain softmax chain (impl="xla"), two float32 orders
+# of the same attention, already differ by 5.8e-3 of max|ref| on
+# dec.0.ffn.fc1.w (a ReLU whose pre-activation is within float32 noise of
+# 0 flips, and a whole token's term enters or leaves that row of the
+# gradient), by 5.0e-4 in relative L2 (printed by this phase each run);
+# RING_GRAD_L2 is ten times that, far below what a wrong pair, mask or
+# shard order gives (O(1)).
+RING_ATTN_TOL = 1e-4
+RING_GRAD_L2 = 5e-3
+RING_TRAIN = dict(TRAIN, max_len=4096, attention_impl="ring")
+RING_TRAIN_B, RING_TRAIN_STEPS = 2, 6
 
 
 def log(*a) -> None:
@@ -529,10 +604,10 @@ def gathered(inp):
     return inp["q"][:, :, None, :].contiguous(), k, v, mask
 
 
-def time_ms(fn, sets, iters=300) -> float:
+def time_ms(fn, sets, iters=300, warmup=10) -> float:
     """Mean ms per call over ``iters`` calls, cycling input sets so the
-    K/V of each call is not in L2 (CUDA events, after warm-up)."""
-    for i in range(10):
+    K/V of each call is not in L2 (CUDA events, after ``warmup`` calls)."""
+    for i in range(warmup):
         fn(sets[i % len(sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -4299,6 +4374,578 @@ def run_conv(dev, card: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: ring attention (K11) and Transformer-base on a mesh's sp axis
+# ---------------------------------------------------------------------------
+
+def ring_pairs(causal: bool) -> int:
+    """K1 launches of one ring forward (and K2's, K3's of its backward):
+    sp**2, or sp * (sp + 1) / 2 under causal."""
+    return RING_SP * (RING_SP + 1) // 2 if causal else RING_SP * RING_SP
+
+
+def ring_inputs(dev, seed) -> dict:
+    """q, k, v, dO at RING_SHAPE, a ragged [B, T] key mask and an int32
+    seed, from a seeded generator on the card."""
+    B, H, T, D = RING_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = {n: torch.randn(B, H, T, D, generator=g, device=dev)
+         for n in ("q", "k", "v", "do")}
+    lens = torch.randint(3 * T // 4, T + 1, (B,), generator=g, device=dev)
+    x["mask"] = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    x["seed"] = torch.tensor([seed * 7919 + 1], dtype=torch.int32,
+                             device=dev)
+    return x
+
+
+def ring_work(x, causal) -> dict:
+    """The ring's least work: the sum of ``flash_work``'s bounds over the
+    (q-shard, kv-shard) pairs it launches, the diagonal causal under
+    ``causal``: {"fwd": K1's, "bwd": K2's + K3's}."""
+    B, H, T, D = x["q"].shape
+    S = T // RING_SP
+    out = {"fwd": {"bound_ms": 0.0, "ops": 0, "bytes": 0},
+           "bwd": {"bound_ms": 0.0, "ops": 0, "bytes": 0}}
+    by = {}
+    for i in range(RING_SP):
+        for j in range(RING_SP):
+            if causal and j > i:
+                continue
+            pair = {"q": x["q"][:, :, i * S:(i + 1) * S],
+                    "k": x["k"][:, :, j * S:(j + 1) * S],
+                    "mask": x["mask"][:, j * S:(j + 1) * S]}
+            w = flash_work(pair, causal and i == j)
+            for key, parts in (("fwd", ("fwd",)),
+                               ("bwd", ("bwd_dq", "bwd_dkv"))):
+                for part in parts:
+                    for f in ("bound_ms", "ops", "bytes"):
+                        out[key][f] += w[part][f]
+                    by[w[part]["bound_by"]] = by.get(
+                        w[part]["bound_by"], 0) + w[part]["bound_ms"]
+    for key in out:
+        out[key]["bound_by"] = max(by, key=by.get)
+    return out
+
+
+def ring_run(A, devices, x, causal, rate, plain=False, sm_scale=None):
+    """The ring over ``devices``' shards, its forward, then its autograd
+    backward on ``x["do"]`` (``ring_attention``, or ``ring_attention_ref``
+    with ``plain``): out, dq, dk, dv."""
+    fn = A.ring_attention_ref if plain else A.ring_attention
+    leaves = [x[n].clone().requires_grad_(True) for n in ("q", "k", "v")]
+    out = fn(*leaves, x["mask"], devices, causal, sm_scale, rate, x["seed"])
+    dq, dk, dv = torch.autograd.grad(out, leaves, x["do"])
+    return dict(out=out.detach(), dq=dq, dk=dk, dv=dv)
+
+
+def ring_errors(got, ref, label) -> dict:
+    """max|got - ref| of each output within phase 3b's tolerances."""
+    e = {"out": worst(got["out"], ref["out"], FLASH_FWD_TOL)}
+    for n in ("dq", "dk", "dv"):
+        e[n] = worst(got[n], ref[n], FLASH_GRAD_TOL)
+    mag = {n: ref[n].abs().max().item() for n in e}
+    log(f"  {label}: max|d| out {e['out']!r}, dq {e['dq']!r}, dk "
+        f"{e['dk']!r}, dv {e['dv']!r} (tolerance {FLASH_FWD_TOL} / "
+        f"{FLASH_GRAD_TOL} as atol, rtol; max|ref| {mag})")
+    return e
+
+
+def check_ring_case(A, devices, x, causal, rate, time_plain) -> dict:
+    """One 13a case: the ring over K1-K3 against the plain ring on the
+    card and, at rate 0, against single launches of K1, K2 and K3 over
+    the whole sequence (with dropout the ring keys each pair's bits on
+    its pair seed and a single launch keys them on the one seed: other
+    bits, not comparable); the launch counts; then device times."""
+    import torch.nn.functional as F
+    T = RING_SHAPE[2]
+    S = T // RING_SP
+    n0 = flash_launches(A)
+    got = ring_run(A, devices, x, causal, rate)
+    torch.cuda.synchronize()
+    launches = tuple(b - a for a, b in zip(n0, flash_launches(A)))
+    want = ring_pairs(causal)
+    if launches != (want,) * 3:
+        raise AssertionError(f"ring launches K1/K2/K3 {launches}, expected "
+                             f"{want} each (sp = {RING_SP}, causal "
+                             f"{causal})")
+    res = {"launches": launches}
+    ref = ring_run(A, devices, x, causal, rate, plain=True)
+    torch.cuda.synchronize()
+    res["max_abs_err"] = ring_errors(got, ref, "ring vs plain ring")
+    del ref
+    if rate == 0.0:
+        w_out, w_lse = A.flash_attention_fwd(x["q"], x["k"], x["v"],
+                                             x["mask"], causal)
+        delta = A.flash_attention_delta(w_out, x["do"])
+        bargs = (x["q"], x["k"], x["v"], x["mask"], w_lse, delta, x["do"],
+                 causal)
+        whole = {"out": w_out, "dq": A.flash_attention_bwd_dq(*bargs)}
+        whole["dk"], whole["dv"] = A.flash_attention_bwd_dkv(*bargs)
+        torch.cuda.synchronize()
+        res["max_abs_err_vs_whole"] = ring_errors(
+            got, whole, f"ring vs single K1/K2/K3 launches over T={T}")
+        del whole, w_out, w_lse, delta
+    del got
+    # RingAttentionFn's forward and backward bodies, called on this thread
+    # (the autograd engine would run the backward on its own)
+    devices = tuple(devices)
+    sm = float(1.0 / math.sqrt(RING_SHAPE[3]))
+    args = (x["mask"], x["seed"], devices, causal, sm, rate)
+    saved = A._ring_forward(x["q"], x["k"], x["v"], *args,
+                            A.flash_attention_fwd)
+
+    def fwd(_):
+        return A._ring_forward(x["q"], x["k"], x["v"], *args,
+                               A.flash_attention_fwd)
+
+    def bwd(_):
+        return A._ring_backward(x["q"], x["k"], x["v"], x["mask"], x["seed"],
+                                *saved, x["do"], devices, causal, sm, rate,
+                                A.flash_attention_bwd_dq,
+                                A.flash_attention_bwd_dkv)
+    kf = device_ms_by_name(fwd, [None], 3, [None, "flash_fwd_kernel"])
+    kb = device_ms_by_name(bwd, [None], 3, [None, "flash_bwd_dq_kernel",
+                                            "flash_bwd_dkv_kernel"])
+    res["fwd"] = {"ms": kf[None], "kernel_ms": kf["flash_fwd_kernel"],
+                  "event_ms": time_ms(fwd, [None], iters=3)}
+    res["bwd"] = {"ms": kb[None],
+                  "kernel_ms": kb["flash_bwd_dq_kernel"]
+                  + kb["flash_bwd_dkv_kernel"],
+                  "event_ms": time_ms(bwd, [None], iters=3)}
+    for n in ("fwd", "bwd"):
+        # the merges, delta, shard copies and hops: the ring's device time
+        # beside its kernels'
+        res[n]["overhead_ms"] = res[n]["ms"] - res[n]["kernel_ms"]
+    work = ring_work(x, causal)
+    for n in ("fwd", "bwd"):
+        res[n].update(work[n])
+    del saved
+    # the two hop kinds bench_ring_shard reports: a diagonal pair (causal
+    # under causal) and an off-diagonal full pair, forward and K2 + K3
+    hops = {}
+    for kind, c in (("diagonal", causal), ("offdiag", False)):
+        # q shard 1 against its own K/V shard, or against shard 0
+        sl = slice(0, S) if kind == "offdiag" else slice(S, 2 * S)
+        px = {"q": x["q"][:, :, S:2 * S].contiguous(),
+              "k": x["k"][:, :, sl].contiguous(),
+              "v": x["v"][:, :, sl].contiguous(),
+              "mask": x["mask"][:, sl].contiguous(),
+              "do": x["do"][:, :, S:2 * S].contiguous(), "seed": x["seed"]}
+        o, lse = A.flash_attention_fwd(px["q"], px["k"], px["v"],
+                                       px["mask"], c, None, rate, px["seed"])
+        pw = flash_work(px, c)
+        # CUDA events: a launch of ~1 ms beside ~20 us of host work
+        hops[kind] = {
+            "causal": c,
+            "fwd_ms": time_ms(lambda _: A.flash_attention_fwd(
+                px["q"], px["k"], px["v"], px["mask"], c, None, rate,
+                px["seed"]), [None], iters=5),
+            "bwd_ms": time_ms(lambda _: flash_bwd(A, px, lse, o, c, rate),
+                              [None], iters=5),
+            "fwd_bound_ms": pw["fwd"]["bound_ms"],
+            "bwd_bound_ms": pw["bwd_dq"]["bound_ms"]
+            + pw["bwd_dkv"]["bound_ms"]}
+    res["hops"] = hops
+    # library yardstick (the port never calls it): SDPA over the whole
+    # sequence, forward and its autograd backward, same mask and rate
+    bias = x["mask"][:, None, None, :] > 0
+    if causal:
+        bias = bias & torch.ones(T, T, dtype=torch.bool, device=bias.device
+                                 ).tril()
+    leaves = [x[n].clone().requires_grad_(True) for n in ("q", "k", "v")]
+    sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=bias,
+                                          dropout_p=rate)
+    res["library_fwd_ms"] = time_ms(
+        lambda _: F.scaled_dot_product_attention(
+            x["q"], x["k"], x["v"], attn_mask=bias, dropout_p=rate),
+        [None], iters=3)
+    res["library_bwd_ms"] = time_ms(
+        lambda _: torch.autograd.grad(sdpa, leaves, x["do"],
+                                      retain_graph=True), [None], iters=3)
+    res["library_ms"] = res["library_fwd_ms"] + res["library_bwd_ms"]
+    del sdpa, leaves, bias
+    if time_plain:
+        # seconds a call: one warm-up, one timed call
+        res["plain_ms"] = time_ms(
+            lambda _: ring_run(A, devices, x, causal, rate, plain=True),
+            [None], iters=1, warmup=1)
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_and_time_ring(dev) -> dict:
+    """Phase 13a (module doc): four mesh positions on the one card."""
+    from paddle_tpu_torch.kernels import attention as A
+    devices = [dev] * RING_SP
+    out = {}
+    for i, (name, (causal, rate)) in enumerate(RING_CASES.items()):
+        x = ring_inputs(dev, seed=60 + i)
+        # the plain ring (seconds a call) is timed in the dropout cases,
+        # the path's rate
+        r = out[name] = check_ring_case(A, devices, x, causal, rate,
+                                        time_plain=rate > 0)
+        f, b = r["fwd"], r["bwd"]
+        log(f"  {name} B,H,T,D={list(RING_SHAPE)} sp={RING_SP} causal="
+            f"{causal} dropout={rate}: launches {r['launches']}; forward "
+            f"{f['ms']!r} ms device ({f['event_ms']!r} by events), K1 "
+            f"{f['kernel_ms']!r}, merges/hops {f['overhead_ms']!r}, bound "
+            f"{f['bound_ms']!r} ({f['bound_by']}); backward {b['ms']!r} ms "
+            f"({b['event_ms']!r}), K2+K3 {b['kernel_ms']!r}, delta/hops/"
+            f"accumulation {b['overhead_ms']!r}, bound {b['bound_ms']!r}; "
+            f"SDPA over T={RING_SHAPE[2]} fwd {r['library_fwd_ms']!r} + bwd "
+            f"{r['library_bwd_ms']!r} ms; plain ring "
+            f"{r.get('plain_ms', 'not timed')!r} ms")
+        for kind, h in r["hops"].items():
+            log(f"    {kind} pair (causal={h['causal']}): K1 "
+                f"{h['fwd_ms']!r} ms (bound {h['fwd_bound_ms']!r}), delta "
+                f"+ K2 + K3 {h['bwd_ms']!r} ms (bound of K2 + K3 "
+                f"{h['bwd_bound_ms']!r})")
+        del x
+    return out
+
+
+def check_ring_on_distinct_cards(dev) -> dict:
+    """Phase 13c: the 13a checks with the four shards on distinct cards
+    (cycling over those present), each result bit-identical to the
+    one-card ring's on the same inputs, and the wall ms of a forward +
+    backward."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  phase 13c not run: {n} CUDA device here (the shards on "
+            f"distinct cards need two or more)")
+        return {"run": False, "device_count": n}
+    from paddle_tpu_torch.kernels import attention as A
+    devices = [torch.device("cuda", i % n) for i in range(RING_SP)]
+    one, many = [dev] * RING_SP, devices
+    out = {"run": True, "devices": [str(d) for d in devices]}
+    for i, name in enumerate(("full_dropout", "causal")):
+        causal, rate = RING_CASES[name]
+        x = ring_inputs(dev, seed=80 + i)
+        n0 = flash_launches(A)
+        got = ring_run(A, many, x, causal, rate)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        launches = tuple(b - a for a, b in zip(n0, flash_launches(A)))
+        if launches != (ring_pairs(causal),) * 3:
+            raise AssertionError(f"13c {name}: launches {launches}")
+        base = ring_run(A, one, x, causal, rate)
+        same = {k: bool(torch.equal(got[k], base[k])) for k in got}
+        if not all(same.values()):
+            raise AssertionError(f"13c {name}: distinct cards differ from "
+                                 f"one card: {same}")
+        ref = ring_run(A, many, x, causal, rate, plain=True)
+        err = ring_errors(got, ref, f"13c {name} on {out['devices']} vs "
+                                    f"plain")
+        del ref, base
+
+        def step():
+            ring_run(A, many, x, causal, rate)
+            for d in set(devices):
+                torch.cuda.synchronize(d)
+        step()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ring_run(A, one, x, causal, rate)
+            torch.cuda.synchronize()
+        wall_one = (time.perf_counter() - t0) / 3 * 1e3
+        out[name] = {"launches": launches, "bit_identical_to_one_card": same,
+                     "max_abs_err": err, "wall_ms": wall,
+                     "one_card_wall_ms": wall_one}
+        log(f"  13c {name}: bit-identical to one card, forward + backward "
+            f"{wall!r} ms wall on {len(set(devices))} cards, {wall_one!r} ms "
+            f"on one")
+        del x, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_executor(main, places, scope, loss):
+    import paddle_tpu_torch as fluid
+    return fluid.ParallelExecutor(
+        loss_name=loss.name, main_program=main, scope=scope, places=places,
+        build_strategy=fluid.BuildStrategy(mesh_shape={"sp": RING_SP}))
+
+
+def step_diff(got, ref, params, n_attn, label, gate=True) -> dict:
+    """Card vs CPU (or two impls) for one step's fetches: [loss] +
+    gradients + the attention ops' outputs.  Gated (``gate``): the loss
+    within TRAIN_LOSS_TOL relative, each attention output within
+    RING_ATTN_TOL * max|ref|, each gradient within RING_GRAD_L2 in
+    relative L2 norm; the max|d| / max|ref| of each gradient is printed,
+    not gated (module constants say why)."""
+    l_got, l_ref = float(got[0]), float(ref[0])
+    loss_rel = abs(l_got - l_ref) / abs(l_ref)
+    grads = list(zip(params, got[1:len(params) + 1],
+                     ref[1:len(params) + 1]))
+    attn = list(zip(got[len(params) + 1:], ref[len(params) + 1:]))
+    if len(attn) != n_attn:
+        raise AssertionError(f"{label}: {len(attn)} attention outputs")
+    l2 = {n: float(np.linalg.norm(g - r)) / max(float(np.linalg.norm(r)),
+                                                1e-30)
+          for n, g, r in grads}
+    mx = {n: float(np.abs(g - r).max()) / max(float(np.abs(r).max()), 1e-30)
+          for n, g, r in grads}
+    at = max(float(np.abs(g - r).max()) / float(np.abs(r).max())
+             for g, r in attn)
+    w2, wm = max(l2, key=l2.get), max(mx, key=mx.get)
+    log(f"  {label}: loss {l_got!r} vs {l_ref!r} (rel {loss_rel!r}); "
+        f"{n_attn} attention outputs, worst max|d|/max|ref| {at!r}; "
+        f"{len(params)} gradients, worst relative L2 {l2[w2]!r} ({w2}), "
+        f"worst max|d|/max|ref| {mx[wm]!r} ({wm})")
+    bad = [n for n, g, _ in grads if not np.isfinite(g).all()
+           or l2[n] > RING_GRAD_L2]
+    if gate and (not math.isfinite(l_got) or loss_rel > TRAIN_LOSS_TOL
+                 or at > RING_ATTN_TOL or bad):
+        raise AssertionError(
+            f"{label}: loss rel {loss_rel} (tolerance {TRAIN_LOSS_TOL}), "
+            f"attention outputs {at} ({RING_ATTN_TOL}), gradients beyond "
+            f"relative L2 {RING_GRAD_L2}: {[(n, l2[n]) for n in bad][:6]}")
+    return {"loss": l_got, "loss_ref": l_ref, "loss_rel_diff": loss_rel,
+            "attention_max_rel": at, "worst_grad_l2": l2[w2],
+            "worst_grad_l2_param": w2, "worst_grad_max_ratio": mx[wm],
+            "worst_grad_max_param": wm}
+
+
+def check_ring_step_against_cpu(dev) -> dict:
+    """One step of a 2-layer full-width ring program (B=2, T=512,
+    dropout 0) through ParallelExecutor on {"sp": 4} over the card and
+    over the CPU, from the same copied start: the loss, the attention
+    outputs and every gradient agree (``step_diff``); the same step with
+    impl="pallas" (Executor, the card) agrees too, since the ring
+    composes the same attention.  The CPU's own float32 spread, its ring
+    against the plain softmax chain (impl="xla"), is printed beside."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import attention as A
+    cfg = RING_PARITY
+    feed = train_feed(RING_PARITY_B, cfg["max_len"], cfg["tgt_vocab"],
+                      seed=5)
+    out, got, values = {}, {}, None
+    for name, impl, places in (("cpu", "ring", ["cpu"] * RING_SP),
+                               ("gpu", "ring", [dev] * RING_SP),
+                               ("pallas", "pallas", [dev]),
+                               ("cpu_xla", "xla", ["cpu"])):
+        main, startup, loss, params = build_transformer(
+            dict(cfg, attention_impl=impl))
+        if values is None:
+            init = fluid.Scope()
+            fluid.Executor("cpu").run(startup, scope=init)
+            values, names = init.to_numpy(), params
+        if params != names:
+            raise AssertionError(f"the {impl} program's parameters differ")
+        attn = [op.output("Out")[0] for op in main.global_block.ops
+                if op.type == "fused_attention"]
+        fetch = [loss.name] + [p + "@GRAD" for p in params] + attn
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=places[0])
+        n0 = flash_launches(A)
+        if impl == "ring":
+            got[name] = ring_executor(main, places, scope, loss).run(
+                fetch_list=fetch, feed=feed)
+        else:
+            got[name] = fluid.Executor(places[0]).run(
+                main, feed=feed, fetch_list=fetch, scope=scope)
+        out[name + "_launches"] = tuple(
+            b - a for a, b in zip(n0, flash_launches(A)))
+    want = (cfg["n_layer"] * (2 * ring_pairs(False) + ring_pairs(True))
+            if torch.device(dev).type == "cuda" else 0)
+    if out["gpu_launches"] != (want,) * 3 or \
+            out["cpu_launches"] != (0, 0, 0):
+        raise AssertionError(f"ring launches card {out['gpu_launches']}, "
+                             f"CPU {out['cpu_launches']}; expected {want} "
+                             f"each on the card and none on the CPU")
+    n_attn = 3 * cfg["n_layer"]
+    out["cpu_own_spread"] = step_diff(
+        got["cpu"], got["cpu_xla"], names, n_attn,
+        "the CPU's own spread, ring vs the plain chain (impl=xla)",
+        gate=False)
+    out["card_vs_cpu"] = step_diff(got["gpu"], got["cpu"], names, n_attn,
+                                   "2-layer ring step, card vs CPU")
+    out["ring_vs_pallas"] = step_diff(got["gpu"], got["pallas"], names,
+                                      n_attn, "2-layer step on the card, "
+                                      "ring vs pallas")
+    return out
+
+
+@contextlib.contextmanager
+def ring_op_calls(store: dict, at: dict):
+    """While the block runs, copy the inputs and output of the ring ops'
+    calls of ``ring_attention`` at the positions ``at`` (name -> index of
+    the call within the block) into ``store``; every call runs unchanged.
+    Yields a one-element list holding the number of calls so far."""
+    import inspect
+    from paddle_tpu_torch.kernels import attention as A
+    fn = A.ring_attention
+    sig = inspect.signature(fn)
+    names = {i: name for name, i in at.items()}
+    n = [0]
+
+    def spy(*a, **kw):
+        out = fn(*a, **kw)
+        if n[0] in names:
+            b = sig.bind(*a, **kw)
+            b.apply_defaults()
+            c = dict(b.arguments)
+            store[names[n[0]]] = {
+                "q": c["q"].detach().clone(), "k": c["k"].detach().clone(),
+                "v": c["v"].detach().clone(), "mask": c["kv_mask"].clone(),
+                "seed": c["dropout_seed"].clone(),
+                "devices": list(c["devices"]), "causal": c["causal"],
+                "sm_scale": c["sm_scale"], "rate": c["dropout_rate"],
+                "out": out.detach().clone()}
+        n[0] += 1
+        return out
+
+    A.ring_attention = spy
+    try:
+        yield n
+    finally:
+        A.ring_attention = fn
+
+
+def check_ring_on_path(A, calls) -> dict:
+    """K11 on the path's own inputs, copied from one T=4096 ring step
+    (``ring_op_calls``): an encoder self-attention, a causal decoder
+    self-attention and a cross-attention (1,024 x 1,024-token pairs at
+    D=64, the model's padding masks, the step's seed and rate).  The
+    ring over K1-K3 against the plain ring, forward and autograd
+    backward, within FLASH_FWD_TOL / FLASH_GRAD_TOL; its forward must be
+    bit-identical to the step's own output.  The cotangent is a seeded
+    unit normal: the step's own is of the loss's 1 / (B * T) scale, next
+    to which FLASH_GRAD_TOL's absolute part would check nothing."""
+    out = {}
+    for name, c in calls.items():
+        if c["causal"] != (name == "decoder_self"):
+            raise AssertionError(f"ring call {name}: causal {c['causal']}")
+        g = torch.Generator(device=c["q"].device).manual_seed(97)
+        x = {n: c[n] for n in ("q", "k", "v", "mask", "seed")}
+        x["do"] = torch.randn(c["out"].shape, generator=g,
+                              device=c["q"].device)
+        got = ring_run(A, c["devices"], x, c["causal"], c["rate"],
+                       sm_scale=c["sm_scale"])
+        torch.cuda.synchronize()
+        if not torch.equal(got["out"], c["out"]):
+            raise AssertionError(
+                f"ring call {name}: a rerun on the step's inputs differs "
+                f"from the step's output by "
+                f"{(got['out'] - c['out']).abs().max().item()}")
+        ref = ring_run(A, c["devices"], x, c["causal"], c["rate"],
+                       plain=True, sm_scale=c["sm_scale"])
+        torch.cuda.synchronize()
+        B, H, T, D = c["q"].shape
+        err = ring_errors(
+            got, ref, f"{name} (B,H,T,D {[B, H, T, D]}, sp "
+                      f"{len(c['devices'])}, causal {c['causal']}, "
+                      f"dropout {c['rate']}) vs plain ring")
+        out[name] = {"max_abs_err": err, "shape": [B, H, T, D],
+                     "causal": c["causal"], "rate": c["rate"],
+                     "masked_key_share": float(1 - c["mask"].mean())}
+        del got, ref, x
+    return out
+
+
+def train_arm(dev, card, impl) -> dict:
+    """Transformer-base at RING_TRAIN's T=4096 with ``impl``: "ring"
+    through ParallelExecutor on {"sp": 4} over the card (K1-K3 counted
+    from 0 just before the steps), "pallas" through Executor."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import attention as A
+    cfg = dict(RING_TRAIN, attention_impl=impl)
+    main, startup, loss, params = build_transformer(cfg)
+    scope = fluid.Scope()
+    fluid.Executor(dev).run(startup, scope=scope)
+    if impl == "ring":
+        exe = ring_executor(main, [dev] * RING_SP, scope, loss)
+        run = lambda: exe.run(fetch_list=[loss], feed=feed)  # noqa: E731
+    else:
+        exe = fluid.Executor(dev)
+        run = lambda: exe.run(main, feed=feed, fetch_list=[loss],  # noqa
+                              scope=scope)
+    feed = train_feed(RING_TRAIN_B, cfg["max_len"], cfg["tgt_vocab"],
+                      seed=11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lowering.grad_recomputes = 0
+    reset_flash_launches(A)
+    losses, step_ms = [], []
+    for _ in range(RING_TRAIN_STEPS):
+        t = time.perf_counter()
+        (l,) = run()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(l))
+    launches = flash_launches(A)
+    recomputes = lowering.grad_recomputes
+    n = cfg["n_layer"]
+    per_step = (n * (2 * ring_pairs(False) + ring_pairs(True))
+                if impl == "ring" else 3 * n)
+    want = per_step * RING_TRAIN_STEPS
+    log(f"  {impl}: {RING_TRAIN_STEPS} steps, launches K1/K2/K3 {launches} "
+        f"(expected {want} each, {per_step} a step), grad recomputes "
+        f"{recomputes}")
+    if launches != (want,) * 3 or recomputes != 0:
+        raise AssertionError(f"{impl}: flash launches {launches} (want {want}"
+                             f" each), grad recomputes {recomputes} (want 0)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{impl}: non-finite training loss: {losses}")
+    med = float(np.median(step_ms[2:]))
+    res = {"steps": RING_TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med,
+           "tokens_per_s": RING_TRAIN_B * cfg["max_len"] / (med / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_per_step": per_step,
+           "grad_recomputes": recomputes}
+    log(f"  {impl} [{card}]: step ms median {med!r} (steps 3..."
+        f"{RING_TRAIN_STEPS}, all {[round(v, 2) for v in step_ms]}), "
+        f"tokens/s {res['tokens_per_s']!r}, loss {losses[0]!r} -> "
+        f"{losses[-1]!r}, max memory allocated "
+        f"{res['max_memory_allocated']} bytes")
+    prof = profile_call(run, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                              "flash_bwd_dkv_kernel"))
+    res["profile"] = prof
+    log(f"  profiled {impl} step [{card}]: " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}))
+    for k in prof.get("top_kernels", []):
+        log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
+    if impl == "ring":
+        # one more step, its ring ops' inputs copied: the first layer's
+        # three kinds (the encoder's layers run first, then the decoder's,
+        # each a causal self-attention and a cross-attention)
+        calls = {}
+        at = {"encoder_self": 0, "decoder_self": n, "cross": n + 1}
+        with ring_op_calls(calls, at) as count:
+            run()
+        if count[0] != 3 * n or set(calls) != set(at):
+            raise AssertionError(f"ring step: {count[0]} ring op calls "
+                                 f"(expected {3 * n}), copied "
+                                 f"{sorted(calls)}")
+        res["path_check"] = check_ring_on_path(A, calls)
+        del calls
+    del scope, exe, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_ring(dev, card: str) -> dict:
+    """Phase 13 (module doc): 13a, 13b, 13c."""
+    log("  13a: the ring over K1-K3 at bench_ring_shard's shapes")
+    out = {"kernel": check_and_time_ring(dev)}
+    log("  13b: Transformer-base through ParallelExecutor, mesh {'sp': 4}")
+    out["parity"] = check_ring_step_against_cpu(dev)
+    out["ring"] = train_arm(dev, card, "ring")
+    out["pallas"] = train_arm(dev, card, "pallas")
+    log(f"  ring vs pallas at T={RING_TRAIN['max_len']}: step ms "
+        f"{out['ring']['step_ms_median']!r} vs "
+        f"{out['pallas']['step_ms_median']!r}")
+    log("  13c: the shards on distinct cards")
+    out["distinct_cards"] = check_ring_on_distinct_cards(dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -4370,6 +5017,10 @@ def main() -> int:
     log("== phase 12: convolutional training and inference through "
         "Executor.run")
     conv = run_conv(dev, card)
+
+    log("== phase 13: ring attention (K11) and Transformer-base on a "
+        "mesh's sp axis")
+    ring = run_ring(dev, card)
 
     log("== phase 6: kernels")
     rows = []
@@ -4472,6 +5123,31 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "dispatch_ms": int8_k["dispatch_sum"]["ms"],
         "dispatch_library_ms": int8_k["dispatch_sum"]["library_ms"]})
+    # K11: no kernel of its own, the ring over K1-K3 (its launches are
+    # theirs in phase 13b's steps); at bench_ring_shard's shape, dropout
+    # 0.1 as on the path; library: SDPA over the whole 16,384 tokens
+    r = ring["kernel"]["full_dropout"]
+    errs = [e for c in RING_CASES for k in ("max_abs_err",
+                                             "max_abs_err_vs_whole")
+            for e in ring["kernel"][c].get(k, {}).values()]
+    path = ring["ring"]["path_check"]
+    path_errs = [e for c in path.values() for e in c["max_abs_err"].values()]
+    rows.append({
+        "name": "ring_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/attention.py",
+        "composes": ["paddle_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
+                     "paddle_tpu_torch/kernels/csrc/flash_attn_bwd.cu"],
+        "replaces": "paddle_tpu/kernels/attention.py:767",
+        "launches": sum(ring["ring"]["launches"]),
+        "launches_by_kernel": dict(zip(("K1", "K2", "K3"),
+                                       ring["ring"]["launches"])),
+        "max_abs_err": max(errs + path_errs),
+        "path_max_abs_err": max(path_errs),
+        "ms": r["fwd"]["ms"] + r["bwd"]["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["fwd"]["bound_ms"] + r["bwd"]["bound_ms"],
+        "bound_by": r["fwd"]["bound_by"], "library_ms": r["library_ms"],
+        "fwd_ms": r["fwd"]["ms"], "bwd_ms": r["bwd"]["ms"],
+        "overhead_ms": r["fwd"]["overhead_ms"] + r["bwd"]["overhead_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
@@ -4482,7 +5158,7 @@ def main() -> int:
                    "deepfm_training": deepfm_train,
                    "mt_training": mt_train, "int8_fc": int8_k,
                    "int8_serving": serving, "mt_beam": mt_beam,
-                   "paged_beam": paged_beam, "conv": conv,
+                   "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "profiler_losses": PROFILER_LOSSES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")

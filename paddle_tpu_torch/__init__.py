@@ -23,6 +23,9 @@ and ``serving.ModelManager``'s dynamic batching.  Beam-search decoding
 runs in both planes: a ``While`` program of ``beam_search`` steps
 (machine translation's ``mode="infer"``, ``contrib.decoder``) and
 ``decode.PagedBeamDecoder`` over the paged KV cache.
+``ParallelExecutor`` runs a program over a device mesh
+(``parallel``), whose ``sp`` axis ``fused_attention impl="ring"``
+consumes: sequence-parallel ring attention over the flash kernels.
 """
 from __future__ import annotations
 
@@ -45,10 +48,16 @@ from .param_attr import ParamAttr  # noqa: F401
 from .platform import CPUPlace, CUDAPlace  # noqa: F401
 from . import contrib, decode  # noqa: F401
 from . import inference, io, serving  # noqa: F401
+from .parallel import (  # noqa: F401
+    BuildStrategy,
+    ExecutionStrategy,
+    ParallelExecutor,
+)
 
-__all__ = ["CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
+__all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "ExecutionStrategy",
+           "Executor", "ParallelExecutor", "ParamAttr", "Program",
            "Scope", "append_backward", "contrib", "decode",
            "default_main_program", "default_startup_program", "get_flags",
            "global_scope", "inference", "initializer", "io", "layers",
-           "optimizer", "platform", "serving",
+           "optimizer", "parallel", "platform", "serving",
            "program_guard", "scope_guard", "set_flags", "unique_name"]

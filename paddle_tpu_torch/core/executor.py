@@ -19,9 +19,12 @@ version, feed names and fetch names; constants the rules make on the
 device (literal tables, optimizer scalars) are cached per executor.
 ``Executor(training=False)`` is the Predictor's inference executor, and
 ``warm_start`` builds the plans a serving bucket ladder will use (there
-is no compile cache to fill).  The reference's jit cache, segmented
-host ops, numerics guard, compile cache, ``LazyFetch`` and
-``run_steps`` are not ported yet.
+is no compile cache to fill).  Two hooks, as in the reference, let
+``parallel.ParallelExecutor`` rewrite the program a run executes
+(``_prepare_program``) and hand its device mesh to the rules
+(``_mesh``, read by ``fused_attention impl="ring"``).  The reference's
+jit cache, segmented host ops, numerics guard, compile cache,
+``LazyFetch`` and ``run_steps`` are not ported yet.
 
 ``run_callable(key, build_fn, feed, state, const)`` builds
 ``build_fn()`` once per key, moves the host feeds to the executor's
@@ -212,6 +215,7 @@ class Executor:
         numpy arrays when ``return_numpy`` else tensors."""
         program = program if program is not None else default_main_program()
         feed = feed or {}
+        program = self._prepare_program(program, feed)
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         scope = scope or global_scope()
@@ -226,7 +230,8 @@ class Executor:
         ctx = LowerContext(block=block, device=self.device,
                            base_seed=program.random_seed,
                            generator=self._generator(scope, program),
-                           consts=self._consts, training=self.training)
+                           consts=self._consts, training=self.training,
+                           mesh=self._mesh())
         with torch.no_grad():
             lower_ops(ctx, program, block, env, plan)
         fetches = [env[n] for n in fetch_names]
@@ -271,7 +276,8 @@ class Executor:
                "compiled": 0, "skipped": [], "ms": 0.0}
         for i, fs in enumerate(specs):
             out["segments"] += 1
-            plan = self._plan(program, sorted(fs), fetch_names)
+            plan = self._plan(self._prepare_program(program, fs),
+                              sorted(fs), fetch_names)
             missing = [n for n in plan.state_reads
                        if scope.find_var(n) is None]
             if missing:
@@ -281,6 +287,15 @@ class Executor:
                 out["warmed"] += 1
         out["ms"] = round((time.perf_counter() - t0) * 1e3, 3)
         return out
+
+    # -- hooks (overridden by parallel.ParallelExecutor) --------------------
+    def _prepare_program(self, program: Program, feed: Dict) -> Program:
+        """The program a run executes (the gradient-scale rewrite)."""
+        return program
+
+    def _mesh(self):
+        """The device mesh handed to the rules (``LowerContext.mesh``)."""
+        return None
 
     def _generator(self, scope: Scope, program: Program) -> torch.Generator:
         g = scope.find_var(RNG_STATE_VAR)

@@ -44,15 +44,19 @@ def derive_seed(seed: int, name: str) -> int:
 
 class LowerContext:
     """Per-run context handed to every rule: the device, the random
-    streams (module doc), the executor's device constants, and
+    streams (module doc), the executor's device constants,
     ``training``: False for an inference executor (the Predictor's),
     whose rules take their test branch (dropout an identity, no
-    attention dropout) with or without ``is_test`` attrs."""
+    attention dropout) with or without ``is_test`` attrs, and ``mesh``:
+    the ``ParallelExecutor``'s device mesh (None for an ``Executor``),
+    which ``fused_attention impl="ring"`` reads."""
 
     def __init__(self, block=None, device=None, base_seed: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 consts: Optional[dict] = None, training: bool = True):
+                 consts: Optional[dict] = None, training: bool = True,
+                 mesh=None):
         self.block = block
+        self.mesh = mesh
         self.training = bool(training)
         self.device = torch.device("cpu") if device is None else device
         self.base_seed = int(base_seed or 0)

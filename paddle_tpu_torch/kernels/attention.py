@@ -36,9 +36,18 @@ and ``mha_xla`` in the reference) is the training path's hot op:
   ``delta = rowsum(dO * O)`` taken by a float32 torch reduction.
 - :func:`mha_ref` is the port of ``mha_xla`` (the plain softmax chain
   with the ``_hash_dropout`` bits), the op's ``impl="xla"``.
+
+Ring attention (``ring_attention``/``_ring_flash``, K11 of the
+reference, ``paddle_tpu/kernels/attention.py:694-935``) has no kernel
+of its own: :func:`ring_attention` composes K1–K3 over the shard pairs
+of a sequence cut across a list of devices, with the log2-mass merge in
+torch ops, as the reference composes its Pallas launchers with
+``jnp``; :func:`ring_attention_ref` is the same ring over the plain
+pair functions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -629,6 +638,274 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False,
                                   float(dropout_rate or 0.0))
 
 
+# ---------------------------------------------------------------------------
+# ring attention: sequence-parallel over a mesh axis
+# ---------------------------------------------------------------------------
+
+RING_PAIR_SALT = (1000003, 7919)  # distinct odd primes per (q, kv) shard
+
+
+def _pair_seed(seed0, q_idx, kv_idx) -> torch.Tensor:
+    """The per-(q-shard, kv-shard) dropout seed of
+    ``paddle_tpu/kernels/attention.py:699-707``: ``seed0 + q_idx * a +
+    kv_idx * b`` in int32, with its wraparound (computed in int64 and
+    wrapped to a signed int32).  ``q_idx``/``kv_idx`` are ints or int
+    tensors that broadcast; the result is int32 on ``seed0``'s device."""
+    a, b = RING_PAIR_SALT
+    dev = seed0.device
+    s = (seed0.reshape(()).long()
+         + torch.as_tensor(q_idx, device=dev).long() * a
+         + torch.as_tensor(kv_idx, device=dev).long() * b)
+    return ((s + 2 ** 31) % 2 ** 32 - 2 ** 31).int()
+
+
+def _mass_lse(lse):
+    """The kernels' empty-row sentinel (+1e30) -> the merge's identity
+    (-1e30, log2 of zero probability mass)."""
+    return lse.masked_fill(lse > 1e29, NEG_INF)
+
+
+def _kernel_lse(lse):
+    """Inverse of :func:`_mass_lse`, for handing the merged LSE back to
+    the backward kernels."""
+    return lse.masked_fill(lse < -1e29, 1e30)
+
+
+def _merge_partial(o_a, lse_a, o_p, lse_p):
+    """Merge two normalized partial attentions by their log2 masses (the
+    flash-decoding combine): out = sum_i o_i * 2^(lse_i - lse_tot)."""
+    lse_t = torch.logaddexp2(lse_a, lse_p)
+    o_t = o_a * torch.exp2(lse_a - lse_t) + o_p * torch.exp2(lse_p - lse_t)
+    return o_t, lse_t
+
+
+def _shards(x, dim: int, devices) -> list:
+    """``x`` cut into ``len(devices)`` contiguous pieces along ``dim``,
+    piece i on ``devices[i]`` (None stays None)."""
+    if x is None:
+        return [None] * len(devices)
+    n = x.shape[dim] // len(devices)
+    return [x.narrow(dim, i * n, n).to(d, non_blocking=True).contiguous()
+            for i, d in enumerate(devices)]
+
+
+def _hop(xs, devices) -> list:
+    """One step round the ring: position i takes position i - 1's value,
+    copied to its device (no copy where the devices repeat)."""
+    sp = len(devices)
+    return [None if xs[i - 1] is None
+            else xs[i - 1].to(devices[i], non_blocking=True)
+            for i in range(sp)]
+
+
+def _on(device):
+    """Device guard for one shard's work: torch's current device (and
+    its current stream) is the shard's while its pair runs, and is
+    restored after, whatever device the kernel's launcher selected."""
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _gather(xs, dim: int, device):
+    return torch.cat([x.to(device, non_blocking=True) for x in xs], dim=dim)
+
+
+def _pair_seeds(seed0, devices) -> list:
+    """Row i of the [sp, sp] pair-seed grid, on ``devices[i]``."""
+    idx = torch.arange(len(devices), device=seed0.device)
+    grid = _pair_seed(seed0, idx[:, None], idx[None])
+    return [row.to(d) for row, d in zip(grid, devices)]
+
+
+def _ring_check(q, k, devices) -> None:
+    sp = len(devices)
+    if sp < 1:
+        raise ValueError("ring attention needs at least one device")
+    if q.shape[2] % sp or k.shape[2] % sp:
+        raise ValueError(f"ring attention over {sp} shards: Tq={q.shape[2]}"
+                         f" and Tk={k.shape[2]} must be multiples of {sp}")
+    if any(torch.device(d).type != q.device.type for d in devices):
+        raise ValueError(f"ring devices {devices} are not all of q's "
+                         f"device type ({q.device.type})")
+
+
+def _ring_forward(q, k, v, kv_mask, seed, devices, causal, sm_scale, rate,
+                  pair_fwd):
+    """``_ring_fwd`` (``paddle_tpu/kernels/attention.py:797-849``) with
+    ``pair_fwd`` for each (q-shard, kv-shard) pair: (out [B, H, T, D] on
+    q's device, merged lse [B, H, T] in log2-mass form)."""
+    sp = len(devices)
+    B, H, T, _ = q.shape
+    S = T // sp
+    qs, ks, vs = (_shards(x, 2, devices) for x in (q, k, v))
+    ms = _shards(kv_mask, 1, devices)
+    seeds = _pair_seeds(seed, devices)
+
+    def pair(i, kc, vc, mc, j, c):
+        out, lse = pair_fwd(qs[i], kc, vc, mc, c, sm_scale, rate,
+                            seeds[i][j:j + 1])
+        return out.float(), _mass_lse(lse.reshape(B, H, S, 1))
+
+    o, lse = [None] * sp, [None] * sp
+    for i in range(sp):
+        with _on(devices[i]):
+            o[i], lse[i] = pair(i, ks[i], vs[i], ms[i], i, causal)
+    kc, vc, mc = ks, vs, ms
+    for t in range(1, sp):
+        kc, vc, mc = (_hop(x, devices) for x in (kc, vc, mc))
+        for i in range(sp):
+            j = (i - t) % sp
+            if causal and j > i:   # above the diagonal: no launch
+                continue
+            with _on(devices[i]):
+                o_p, lse_p = pair(i, kc[i], vc[i], mc[i], j, False)
+                o[i], lse[i] = _merge_partial(o[i], lse[i], o_p, lse_p)
+    return (_gather(o, 2, q.device).to(q.dtype),
+            _gather(lse, 2, q.device)[..., 0])
+
+
+def _ring_backward(q, k, v, kv_mask, seed, out, lse, do, devices, causal,
+                   sm_scale, rate, pair_dq, pair_dkv):
+    """``_ring_vjp_bwd`` (``paddle_tpu/kernels/attention.py:858-932``):
+    every pair runs ``pair_dq``/``pair_dkv`` with the GLOBAL lse (back in
+    kernel form) and delta, so its probabilities are the global softmax's;
+    dq accumulates on its shard, dk/dv in float32 travel with their K/V
+    shard (the diagonal first, then the hops) and come home after one
+    more hop."""
+    sp = len(devices)
+    B, H, T, _ = q.shape
+    S = T // sp
+    qs, ks, vs, os_, dos = (_shards(x, 2, devices)
+                            for x in (q, k, v, out, do))
+    ms = _shards(kv_mask, 1, devices)
+    lses = [_kernel_lse(x).reshape(B * H, S)
+            for x in _shards(lse, 2, devices)]
+    # delta depends only on (do, out): one per q shard, for every pair
+    deltas = []
+    for d, o_i, do_i in zip(devices, os_, dos):
+        with _on(d):
+            deltas.append(flash_attention_delta(o_i, do_i))
+    seeds = _pair_seeds(seed, devices)
+
+    def pair(i, kc, vc, mc, j, c):
+        args = (qs[i], kc, vc, mc, lses[i], deltas[i], dos[i], c, sm_scale,
+                rate, seeds[i][j:j + 1])
+        dq = pair_dq(*args)
+        dk, dv = pair_dkv(*args)
+        return dq.float(), dk.float(), dv.float()
+
+    dq, dk, dv = [None] * sp, [None] * sp, [None] * sp
+    for i in range(sp):
+        with _on(devices[i]):
+            dq[i], dk[i], dv[i] = pair(i, ks[i], vs[i], ms[i], i, causal)
+    kc, vc, mc = ks, vs, ms
+    for t in range(1, sp):
+        kc, vc, mc, dk, dv = (_hop(x, devices) for x in (kc, vc, mc, dk, dv))
+        for i in range(sp):
+            j = (i - t) % sp
+            if causal and j > i:
+                continue
+            with _on(devices[i]):
+                dq_p, dk_p, dv_p = pair(i, kc[i], vc[i], mc[i], j, False)
+                dk[i], dv[i], dq[i] = (dk[i] + dk_p, dv[i] + dv_p,
+                                       dq[i] + dq_p)
+    # one more hop brings each shard's dk/dv accumulator home
+    dk, dv = _hop(dk, devices), _hop(dv, devices)
+    return (_gather(dq, 2, q.device).to(q.dtype),
+            _gather(dk, 2, k.device).to(k.dtype),
+            _gather(dv, 2, v.device).to(v.dtype))
+
+
+def _plain_dq(*args):
+    return _bwd_ref(*args, True, False)[0]
+
+
+def _plain_dkv(*args):
+    return _bwd_ref(*args, False, True)[1:]
+
+
+class RingAttentionFn(torch.autograd.Function):
+    """Forward: the ring over K1; backward: the ring over K2 and K3 on
+    the saved (q, k, v, mask, seed, out, lse), with no re-run of the
+    forward.  ``plain`` takes the pairs' plain versions on any device
+    (:func:`ring_attention_ref`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, seed, devices, causal, sm_scale,
+                dropout_rate, plain):
+        out, lse = _ring_forward(q, k, v, kv_mask, seed, devices, causal,
+                                 sm_scale, dropout_rate,
+                                 flash_attention_ref if plain
+                                 else flash_attention_fwd)
+        ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
+        ctx.args = (devices, causal, sm_scale, dropout_rate, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
+        devices, causal, sm_scale, rate, plain = ctx.args
+        pairs = ((_plain_dq, _plain_dkv) if plain
+                 else (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+        dq, dk, dv = _ring_backward(q, k, v, kv_mask, seed, out, lse,
+                                    do.contiguous(), devices, causal,
+                                    sm_scale, rate, *pairs)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _ring(q, k, v, kv_mask, devices, causal, sm_scale, dropout_rate,
+          dropout_seed, plain):
+    devices = tuple(torch.device(d) for d in devices)
+    _ring_check(q, k, devices)
+    if sm_scale is None:
+        sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    seed = (torch.zeros(1, dtype=torch.int32, device=q.device)
+            if dropout_seed is None else dropout_seed.reshape(1))
+    return RingAttentionFn.apply(q, k, v, kv_mask, seed, devices,
+                                 bool(causal), float(sm_scale),
+                                 float(dropout_rate or 0.0), plain)
+
+
+def ring_attention(q, k, v, kv_mask, devices, causal: bool = False,
+                   sm_scale: Optional[float] = None,
+                   dropout_rate: float = 0.0, dropout_seed=None):
+    """Differentiable sequence-parallel ring attention, the port of
+    ``ring_attention``/``_ring_flash``
+    (``paddle_tpu/kernels/attention.py:694-935``).
+
+    q [B, H, Tq, D], k/v [B, H, Tk, D] and kv_mask [B, Tk] (or None) are
+    whole; the sequence axis is cut into ``sp = len(devices)`` contiguous
+    shards, shard i on ``devices[i]`` (a mesh's ``sp`` axis gives them:
+    ``Mesh.axis_devices``).  Devices may repeat: one card then holds every
+    shard, and a hop copies nothing.  Each q shard runs K1 against its
+    own K/V shard (``causal`` on this diagonal pair), then, as the K/V
+    shards move one step round the ring (``tensor.to`` the next device),
+    against every other shard without the causal mask; under ``causal``
+    a pair above the diagonal (kv index > q index, a host int) is
+    skipped and launches nothing.  Partials merge by their log2 masses
+    in float32, in the reference's hop order.  Dropout keys each pair on
+    :func:`_pair_seed`.  The backward runs K2 and K3 for the same pairs
+    from the saved forward.
+
+    Launches per call: K1 ``sp**2`` times, or ``sp * (sp + 1) / 2``
+    under ``causal``; the backward the same counts of K2 and of K3.
+    CPU tensors take the plain pair functions (no launch), as the other
+    wrappers do."""
+    return _ring(q, k, v, kv_mask, devices, causal, sm_scale,
+                 dropout_rate, dropout_seed, plain=False)
+
+
+def ring_attention_ref(q, k, v, kv_mask, devices, causal: bool = False,
+                       sm_scale: Optional[float] = None,
+                       dropout_rate: float = 0.0, dropout_seed=None):
+    """The plain ring: :func:`ring_attention` over
+    :func:`flash_attention_ref` and the plain backward pair by pair, on
+    any device; differentiable the same way."""
+    return _ring(q, k, v, kv_mask, devices, causal, sm_scale,
+                 dropout_rate, dropout_seed, plain=True)
+
+
 def hash_dropout_ref(seed, shape, rate: float, device=None) -> torch.Tensor:
     """The reference's ``_hash_dropout`` multiplier [B, H, Tq, Tk] for
     the plain attention chain, keyed by (seed, element coords); the
@@ -669,10 +946,11 @@ def mha_ref(q, k, v, kv_mask=None, causal: bool = False,
 
 
 __all__ = ["FLASH_MAX_HEAD_DIM", "FlashAttentionFn", "LOG2E",
-           "MAX_HEAD_DIM", "NEG_INF", "decode_attention", "decode_splits",
+           "MAX_HEAD_DIM", "NEG_INF", "RING_PAIR_SALT", "RingAttentionFn",
+           "decode_attention", "decode_splits",
            "flash_attention",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_ref", "flash_attention_delta",
            "flash_attention_fwd", "flash_attention_ref", "hash_dropout_ref",
            "mha_ref", "paged_attention_ref", "resolve_blocks",
-           "tile_dropout_ref"]
+           "ring_attention", "ring_attention_ref", "tile_dropout_ref"]

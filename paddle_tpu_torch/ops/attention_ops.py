@@ -11,16 +11,24 @@ attr, names kept so that serialized programs run unchanged:
 - ``auto``  : ``xla`` on every device, as the reference resolves it off
               a TPU (its crossover was measured on a TPU; an H100
               crossover is not measured yet)
-- ``ring``  : sequence-parallel ring attention, not ported yet
+- ``ring``  : sequence-parallel ring attention over the mesh axis
+              ``sp_axis`` (default "sp") of a ``ParallelExecutor``
+              (``kernels.attention.ring_attention``: K1–K3 over the
+              shard pairs on the card, their plain versions on the
+              CPU); without a mesh, or without that axis, ``mha_ref``,
+              as the reference falls back to ``mha_xla``
 
 Attention-probability dropout is seeded by an explicit program input
 (drawn per step by the layer), so the forward and its gradient see the
 same bits.  The op has no custom grad rule: its grad op differentiates
 the graph the forward recorded (``core/lowering.py``), which for
 ``pallas`` is the ``FlashAttentionFn`` node whose backward launches the
-two backward kernels without re-running the forward.
+two backward kernels without re-running the forward, and for ``ring``
+the ``RingAttentionFn`` node whose backward runs the ring over them.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.registry import register
 from ..kernels import attention as A
@@ -51,9 +59,20 @@ def _fused_attention(ctx, ins, attrs):
                                 v.contiguous(), kv_mask, causal, scale,
                                 dropout_rate=rate, dropout_seed=seed)
     elif impl == "ring":
-        raise NotImplementedError(
-            "fused_attention impl='ring' (sequence-parallel ring "
-            "attention) is not ported yet")
+        mesh = ctx.mesh
+        sp = attrs.get("sp_axis", "sp")
+        if mesh is None or sp not in mesh.axis_names:
+            out = A.mha_ref(q, k, v, kv_mask, causal, scale,
+                            dropout_rate=rate, dropout_seed=seed)
+        else:
+            kv_mask = (torch.ones(q.shape[0], k.shape[2], device=q.device)
+                       if kv_mask is None else kv_mask.float().contiguous())
+            seed = (torch.zeros(1, dtype=torch.int32, device=q.device)
+                    if seed is None else seed.reshape(-1).int().contiguous())
+            out = A.ring_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), kv_mask,
+                                   mesh.axis_devices(sp), causal, scale,
+                                   dropout_rate=rate, dropout_seed=seed)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     return {"Out": [out]}

@@ -40,7 +40,10 @@ Transformer's four shapes at bucket 8, an odd shape and one row, every
 act of the epilogue with a calibrated and a dynamic scale, no bias, a
 side stream, every tile edge (M, N and K not multiples of the tile, one
 row, byte loads), the K-major weight copy made once a weight, the tiles
-the path's shapes take, and what it refuses.
+the path's shapes take, and what it refuses; for ring attention (K11),
+the ring over K1-K3 on four shards of one card against the plain ring,
+all-masked pairs and dropout included, its exact launch counts, and its
+refusal of bf16.
 """
 import pytest
 import torch
@@ -1368,3 +1371,44 @@ def test_int8_fc_refuses_what_it_does_not_take(dev):
         Q.int8_fc(x, q, s, bias=b[:4])
     with pytest.raises(ValueError):
         Q.int8_fc(x, q.t().contiguous().t(), s)
+
+
+# -- ring attention (K11): the ring over K1-K3 ------------------------------
+
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.1)])
+def test_ring_matches_plain_ring_and_counts_launches(dev, causal, rate):
+    """Four shards of one card, ragged keys with a batch row whose keys
+    lie in the last shard only (its other pairs all-masked): the ring
+    over K1-K3 equals the plain ring (forward and autograd backward)
+    within the flash kernels' tolerances, launching each kernel sp**2
+    times (sp * (sp + 1) / 2 causal)."""
+    q, k, v, do, mask = _flash_inputs(dev, 2, 2, 256, 256, 64, seed=9)
+    mask[1] = 0.0
+    mask[1, -64:] = 1.0
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    out = {}
+    for plain in (False, True):
+        fn = A.ring_attention_ref if plain else A.ring_attention
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = (A.flash_attention_fwd.launches,
+              A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+        o = fn(*leaves, mask, [dev] * 4, causal, None, rate, seed)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        out[plain] = (o,) + grads
+        n1 = (A.flash_attention_fwd.launches,
+              A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches)
+        want = 0 if plain else (10 if causal else 16)
+        assert tuple(b - a for a, b in zip(n0, n1)) == (want,) * 3
+    torch.testing.assert_close(out[False][0], out[True][0], **FWD_TOL)
+    for a, b in zip(out[False][1:], out[True][1:]):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_ring_refuses_bf16_as_the_flash_kernels_do(dev):
+    q, k, v, _, mask = _flash_inputs(dev, 1, 2, 64, 64, 32, seed=3)
+    with pytest.raises(TypeError):
+        A.ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask,
+                         [dev] * 4)

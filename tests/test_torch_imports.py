@@ -51,6 +51,7 @@ PROGRAM_MODULES = [
     "models/machine_translation.py", "kernels/quant.py", "ops/quant_ops.py",
     "io.py", "inference/passes.py", "inference/predictor.py",
     "serving/batcher.py", "serving/model_registry.py",
+    "parallel/strategy.py", "parallel/parallel_executor.py",
 ]
 
 

@@ -1,0 +1,238 @@
+"""Ring attention (K11): the port's ``ring_attention`` over ``sp``
+repeated CPU devices against the reference's ``ring_attention`` under
+``shard_map`` on the virtual CPU mesh (its Pallas pair kernels in
+interpret mode), at the shapes of the reference's own ring tests
+(``tests/test_attention.py:59-175``: B <= 2, H=2, T=32-64, D=8-16).
+
+Tolerances: the forward within 2e-5 (rtol and atol) and dq/dk/dv within
+1e-4, the reference tests' own bounds (float32 in two frameworks,
+different summation orders in the pairs and the merges).  Dropout bits
+are the same counter hash on both sides, keyed on the same pair seeds,
+so the dropped outputs agree within the forward's bound; the pair seeds
+themselves agree bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+from paddle_tpu.kernels import attention as JA
+from paddle_tpu_torch.kernels import attention as TA
+
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(B, H, T, D, seed=11, keys_in_last_shard=None):
+    """q, k, v, the cotangent and a [B, T] key mask from a seeded numpy
+    stream; ``keys_in_last_shard=sp`` leaves batch row 1 with keys only
+    in the last of ``sp`` shards (every other pair of that row is
+    all-masked, the merge's identity case)."""
+    rs = np.random.RandomState(seed)
+    q, k, v, g = (rs.randn(B, H, T, D).astype("float32") for _ in range(4))
+    mask = (rs.rand(B, T) > 0.2).astype("float32")
+    mask[:, 0] = 1.0
+    if keys_in_last_shard:
+        mask[1] = 0.0
+        mask[1, -(T // keys_in_last_shard):] = 1.0
+    return q, k, v, g, mask
+
+
+def _reference(q, k, v, mask, g, sp, causal, rate=0.0, seed=None):
+    """(out, dq, dk, dv) of the reference's ring under shard_map over the
+    first ``sp`` virtual CPU devices, forward and VJP in one jitted call
+    (run eagerly, every interpret-mode pair kernel is dispatched op by op,
+    about six times slower)."""
+    mesh = Mesh(np.array(jax.devices()[:sp]), ("sp",))
+    spec = P(None, None, "sp", None)
+    s = None if seed is None else jnp.asarray(seed, jnp.int32)
+    ring = jax.shard_map(
+        lambda q, k, v, m: JA.ring_attention(
+            q, k, v, None if mask is None else m, "sp", causal,
+            dropout_rate=rate, dropout_seed=s),
+        mesh=mesh, in_specs=(spec,) * 3 + (P(None, "sp"),), out_specs=spec)
+
+    @jax.jit
+    def fwd_vjp(q, k, v, m, g):
+        out, vjp = jax.vjp(lambda q, k, v: ring(q, k, v, m), q, k, v)
+        return (out,) + vjp(g)
+
+    # with no mask the shard_map still takes one, unused, to keep one form
+    m = np.ones((q.shape[0], q.shape[2]), "float32") if mask is None else mask
+    return tuple(np.asarray(x) for x in fwd_vjp(
+        *(jnp.asarray(x) for x in (q, k, v, m, g))))
+
+
+def _port(q, k, v, mask, g, sp, causal, rate=0.0, seed=None):
+    """(out, dq, dk, dv) of the port's ring over ``sp`` CPU devices."""
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    m = None if mask is None else torch.tensor(mask)
+    s = None if seed is None else torch.tensor([seed], dtype=torch.int32)
+    out = TA.ring_attention(*leaves, m, ["cpu"] * sp, causal,
+                            dropout_rate=rate, dropout_seed=s)
+    out.backward(torch.tensor(g))
+    return (out.detach().numpy(),) + tuple(x.grad.numpy() for x in leaves)
+
+
+def _close(got, ref):
+    for name, a, b, tol in zip(("out", "dq", "dk", "dv"), got, ref,
+                               (FWD_TOL,) + (GRAD_TOL,) * 3):
+        np.testing.assert_allclose(a, b, err_msg=name, **tol)
+
+
+# (sp, causal, B, T, D, mask, rate): every sp of 2, 4 and 8, causal and
+# not, at the reference tests' shapes; "partial" leaves batch row 1 with
+# keys only in the last shard (its other pairs all-masked: the kernels'
+# +1e30 sentinel, the merge's -1e30 identity); dropout 0.3 with seed 7
+CASES = {
+    "sp8": (8, False, 2, 64, 16, "mask", 0.0),
+    "sp4_causal_partial_rows": (4, True, 2, 64, 16, "partial", 0.0),
+    "sp2_causal_mask_none": (2, True, 1, 32, 8, None, 0.0),
+    "sp4_dropout": (4, False, 1, 64, 16, "mask", 0.3),
+}
+
+
+def _case(name):
+    sp, causal, B, T, D, kind, rate = CASES[name]
+    q, k, v, g, mask = _inputs(B, 2, T, D, keys_in_last_shard=(
+        sp if kind == "partial" else None))
+    return (q, k, v, None if kind is None else mask, g, sp, causal, rate,
+            7 if rate else None)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ring_matches_reference(name):
+    args = _case(name)
+    got = _port(*args)
+    _close(got, _reference(*args))
+    if CASES[name][-1]:
+        # dropout: deterministic on a rerun, other bits for seed 8, and
+        # the bits do engage
+        for x, y in zip(got, _port(*args)):
+            np.testing.assert_array_equal(x, y)
+        other = _port(*args[:-1], 8)
+        assert np.abs(got[0] - other[0]).max() > 1e-4
+        plain = _port(*args[:-2], 0.0, None)
+        assert np.abs(got[0] - plain[0]).max() > 1e-4
+
+
+def test_pair_seed_bit_for_bit_with_wraparound():
+    seeds = np.array([0, 1, 7, -1, 123456789, 2 ** 31 - 1, -2 ** 31,
+                      2 ** 31 - 4000000, -2 ** 31 + 5], dtype=np.int64)
+    idx = np.arange(8)
+    for s0 in seeds:
+        ref = np.asarray(JA._pair_seed(jnp.asarray(s0, jnp.int32),
+                                       jnp.asarray(idx[:, None], jnp.int32),
+                                       jnp.asarray(idx[None], jnp.int32)))
+        got = TA._pair_seed(torch.tensor([s0], dtype=torch.int32),
+                            torch.tensor(idx[:, None]),
+                            torch.tensor(idx[None])).numpy()
+        assert got.dtype == np.int32 and ref.dtype == np.int32
+        np.testing.assert_array_equal(got, ref)
+    # the grid does wrap: seed 2**31 - 1 plus a positive product
+    assert TA._pair_seed(torch.tensor([2 ** 31 - 1], dtype=torch.int32),
+                         1, 0).item() < 0
+
+
+def test_merge_identities_match_reference():
+    """The +/-1e30 sentinels: an all-masked partial (mass -1e30) leaves
+    the other unchanged bit for bit, two all-masked partials stay
+    all-masked, and the lse conversions agree with the reference's."""
+    rs = np.random.RandomState(5)
+    o_a, o_p = (rs.randn(2, 2, 8, 4).astype("float32") for _ in range(2))
+    lse_a = rs.randn(2, 2, 8, 1).astype("float32") * 4
+    lse_p = rs.randn(2, 2, 8, 1).astype("float32") * 4
+    lse_a[0, 0, :3] = -1e30             # all-masked rows in the carry
+    lse_p[0, 1] = -1e30                 # an all-masked partial
+    lse_p[0, 0, :2] = -1e30             # both
+    o_p[lse_p[..., 0] == -1e30] = 0.0
+    o_a[lse_a[..., 0] == -1e30] = 0.0
+    ref = JA._merge_partial(*(jnp.asarray(x) for x in (o_a, lse_a, o_p,
+                                                        lse_p)))
+    got = TA._merge_partial(*(torch.tensor(x) for x in (o_a, lse_a, o_p,
+                                                         lse_p)))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    o_t, lse_t = (x.numpy() for x in got)
+    np.testing.assert_array_equal(o_t[0, 1], o_a[0, 1])
+    np.testing.assert_array_equal(lse_t[0, 1], lse_a[0, 1])
+    assert (lse_t[0, 0, :2] < -1e29).all() and (o_t[0, 0, :2] == 0).all()
+    lse = np.array([1e30, -1e30, 3.5, -2.0], "float32")
+    np.testing.assert_array_equal(TA._mass_lse(torch.tensor(lse)).numpy(),
+                                  np.asarray(JA._mass_lse(jnp.asarray(lse))))
+    np.testing.assert_array_equal(
+        TA._kernel_lse(torch.tensor(lse)).numpy(),
+        np.asarray(JA._kernel_lse(jnp.asarray(lse))))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_ring_equals_whole_sequence_attention(causal):
+    """The plain ring (``ring_attention_ref``, forward and backward)
+    against ``mha_ref`` over the whole sequence; the differentiable ring
+    on the CPU takes the same plain pairs, so it equals the plain ring
+    bit for bit."""
+    q, k, v, g, mask = _inputs(2, 2, 64, 16, seed=4)
+    gt, mt = torch.tensor(g), torch.tensor(mask)
+    plain = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = TA.ring_attention_ref(*plain, mt, ["cpu"] * 4, causal)
+    out.backward(gt)
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    ref = TA.mha_ref(*leaves, mt, causal)
+    ref.backward(gt)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               **FWD_TOL)
+    for a, b in zip(plain, leaves):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   **GRAD_TOL)
+    got = _port(q, k, v, mask, g, 4, causal)
+    np.testing.assert_array_equal(got[0], out.detach().numpy())
+    for a, b in zip(got[1:], plain):
+        np.testing.assert_array_equal(a, b.grad.numpy())
+
+
+@pytest.mark.parametrize("sp,causal", [(4, False), (4, True), (8, True),
+                                       (1, False)])
+def test_pair_counts_and_no_cpu_launch(sp, causal, monkeypatch):
+    """The pair calls ``chip_smoke.py`` counts as launches on the card:
+    K1 ``sp**2`` times a forward (``sp * (sp + 1) / 2`` causal), K2 and
+    K3 as many times a backward; on the CPU no launch counter moves."""
+    calls = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def counted(key, fn):
+        def wrap(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrap
+
+    monkeypatch.setattr(TA, "flash_attention_fwd",
+                        counted("fwd", TA.flash_attention_fwd))
+    monkeypatch.setattr(TA, "flash_attention_bwd_dq",
+                        counted("dq", TA.flash_attention_bwd_dq))
+    monkeypatch.setattr(TA, "flash_attention_bwd_dkv",
+                        counted("dkv", TA.flash_attention_bwd_dkv))
+    q, k, v, g, mask = _inputs(1, 2, 32, 8)
+    _port(q, k, v, mask, g, sp, causal)
+    want = sp * (sp + 1) // 2 if causal else sp * sp
+    assert calls == {"fwd": want, "dq": want, "dkv": want}
+
+
+def test_cpu_ring_moves_no_launch_counter():
+    n0 = [TA.flash_attention_fwd.launches, TA.flash_attention_bwd_dq.launches,
+          TA.flash_attention_bwd_dkv.launches]
+    q, k, v, g, mask = _inputs(1, 2, 32, 8)
+    _port(q, k, v, mask, g, 4, True)
+    assert [TA.flash_attention_fwd.launches,
+            TA.flash_attention_bwd_dq.launches,
+            TA.flash_attention_bwd_dkv.launches] == n0
+
+
+def test_ring_contract_errors():
+    q = torch.zeros(1, 2, 30, 8)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TA.ring_attention(q, q, q, None, ["cpu"] * 4)
+    q = torch.zeros(1, 2, 32, 8)
+    with pytest.raises(ValueError, match="device type"):
+        TA.ring_attention(q, q, q, None, ["cuda:0"] * 4)
