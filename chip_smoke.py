@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in the order they run: 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 5, 7, 8,
-9, 10, 11, 11b, 12, 13, 6 (each one that fails raises, and the script
-exits non-zero):
+Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
+3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
+13a in bfloat16, 6 (each one that fails raises, and the script exits
+non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -55,6 +56,18 @@ exits non-zero):
    the reference's ``impl="auto"`` sends to its kernel (B=4, H=8,
    T=8192, D=64): equal within 1e-4; delta + K2 + K3 against SDPA's
    backward there within 1e-4 of max|ref|; all timed.
+   Then the same kernels' bfloat16 mode (``flash_attn_fwd_bf16.cu``,
+   ``flash_attn_bwd_bf16.cu``) on bfloat16 q, k, v, dO: against the
+   plain bfloat16 version at the training shapes (ragged masks, dropout
+   0 and 0.1, causal and not, an all-masked row, head dims 32 and 128,
+   odd lengths), K2/K3 from the plain forward's lse and delta, within
+   ``FLASH_BF16_REL`` and ``FLASH_BF16_LSE``; K2/K3 bit-identical on a
+   rerun; at ``bench_flash_attention_long``'s two shapes (B=4, T=8192,
+   causal, (H, D) = (8, 64) and (4, 128)) against the float32 kernels on
+   the same inputs upcast, within ``FLASH_BF16_VS_F32_REL``.  Timed at
+   the training shape (dropout 0.1) and at the two long shapes beside
+   the bound at the bfloat16 rate, SDPA in bfloat16 and the float32
+   kernels.
 5. The training slice: Transformer-base through Program ->
    append_backward -> Executor.run with ``attention_impl="pallas"``.
    First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
@@ -64,7 +77,15 @@ exits non-zero):
    dropout 0.1) trains 12 steps on one seeded batch: the loss must stay
    finite, K1, K2 and K3 must each launch exactly 18 times a step, and
    no gradient may re-run its forward.  Step ms, tokens/s, peak memory
-   and one profiled step follow.
+   and one profiled step follow.  Then the same with the bench's
+   ``dtype="bfloat16"`` (``bench.py:253-276``): bfloat16 weights and
+   embeddings, float32 activations after the embedding's add of the
+   float32 positional table, so the attention inputs are float32 and
+   the 18 launches a step of each of K1-K3 must be the float32 kernels
+   (the profiled step counts the kernels by name, none bfloat16); the
+   2-layer card-vs-CPU step holds each bfloat16 gradient within
+   ``FLASH_BF16_REL`` of max|ref| and each float32 one within
+   ``TRAIN_GRAD_TOL``.
 3c. The fused LSTM kernels K6 (forward) and K7 (backward) against their
    plain versions at the stacked LSTM's bench shape (B=128, T=128,
    H=512), with ragged lengths 16..128 and with full lengths, at an odd
@@ -256,7 +277,13 @@ exits non-zero):
    CUDA-event times of a diagonal pair and an off-diagonal full pair
    (the two hop kinds the bench reports), of SDPA over the whole 16,384
    tokens (forward and autograd backward, a yardstick the port never
-   calls) and of the plain ring.  13b:
+   calls) and of the plain ring.  The same in bfloat16 (the bench's
+   dtype; a phase of its own, "13a, bfloat16", after 13c) over the
+   bfloat16 K1-K3, dropout 0.1 (timed) and causal at rate 0, within
+   phase 3b's bfloat16 tolerances (``RING_BF16_WHOLE_REL`` against
+   whole-sequence launches), with the same exact launch counts; its
+   dropout case, counted from 0, is the bfloat16 kernels' main-path
+   run.  13b:
    Transformer-base with ``attention_impl="ring"`` through
    ``ParallelExecutor`` with ``mesh_shape={"sp": 4}`` over four entries
    of the card.  First a 2-layer full-width step (B=2, T=512, dropout 0)
@@ -265,7 +292,7 @@ exits non-zero):
    attention outputs and every gradient agree (``RING_GRAD_L2`` says
    why the gradients are held in relative L2); the CPU's own spread
    (its ring against ``impl="xla"``) is printed beside.  Then the full
-   model (6+6 layers, T=4096, B=2, dropout 0.1) trains 6 steps: losses
+   model (6+6 layers, T=4096, B=2, dropout 0.1) trains 4 steps: losses
    finite, K1, K2 and K3 exactly 252 launches a step each (6 x 16
    encoder, 6 x 10 causal decoder, 6 x 16 cross), no gradient re-runs
    its forward; step ms, tokens/s, peak memory and one profiled step.
@@ -288,7 +315,9 @@ exits non-zero):
    and K8b's their launches in an MT beam decode; K11's row is the
    ring's (route "cuda" through K1-K3: its launches are theirs in 13b's
    steps, its time the ring's forward + backward at 13a's shape, its
-   error the worst of 13a's and 13b's path checks).
+   error the worst of 13a's and 13b's path checks; its ``bf16_*`` keys
+   the bfloat16 ring's).  The bfloat16 K1-K3 rows' launches are those
+   of 13a's bfloat16 ring (a ring op's 16 each).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -356,6 +385,29 @@ FLASH_LONG_TOL = 1e-4
 # to 8192 rows or keys in different orders, each from its own forward's
 # lse)
 FLASH_LONG_GRAD_REL = 1e-4
+# bfloat16 K1-K3 against the plain bfloat16 version on the same inputs
+# (K2/K3 from the plain forward's lse and delta): the kernel rounds p
+# against its own 64-key tile's running max, the plain version against
+# the reference's logical tile's, and both sum float32 in other orders,
+# so a p or a ds may round to the neighbouring bfloat16: max|d| <=
+# FLASH_BF16_REL * max|ref| (one rounding of the largest value) for out,
+# dq, dk, dv; the LSE within FLASH_BF16_LSE, plus, where the mass sums
+# the rounded p (the ones lane: D < 128 and no dropout), half an ulp of
+# each p in each version, 2^-8 / ln 2
+FLASH_BF16_REL = 2.0 ** -7
+FLASH_BF16_LSE = 1e-4
+FLASH_BF16_CASES = ("self", "self_dropout", "causal_dropout",
+                    "causal_t200_all_masked_row", "self_d128_dropout",
+                    "causal_d32_dropout", "cross_tq100_tk77_causal_dropout")
+# bfloat16 K1-K3 against the float32 kernels on the same inputs upcast:
+# the reference's own bar for its bfloat16 gradients against float32
+# attention (tests/test_attention.py: test_pallas_bwd_bf16_grad_precision),
+# max|d| / max|ref| < 0.02, for out, dq, dk and dv
+FLASH_BF16_VS_F32_REL = 0.02
+# bench.py:586-712 bench_flash_attention_long's shapes: B=4, T=8192,
+# causal, (H, D) = (8, 64) and (4, 128), bfloat16
+FLASH_LONG_BF16_SHAPES = ((4, 8, 8192, 64), (4, 4, 8192, 128))
+BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 
 # The recurrent kernels (K6, K7, K8a, K8b) vs their plain versions on the
 # same inputs.  They multiply in split TF32 and are held tighter than the
@@ -496,13 +548,23 @@ CONV_UPDATE_FLOOR = 1e-4
 CONV_INFER_B, CONV_FOLDS, CONV_INFER_TOL = 32, 53, 1e-4
 # phase 13a: ring attention (K11) at bench_ring_shard's shapes
 # (bench.py:728): a 4,096-token shard a device, sp = 4, so a global
-# sequence of 16,384; B=1, H=4, D=128, float32 (the kernels' type; the
-# bench's is bfloat16); ragged key masks (each row keeps a prefix of
+# sequence of 16,384; B=1, H=4, D=128, float32 and bfloat16 (the
+# bench's); ragged key masks (each row keeps a prefix of
 # 3/4..all of the keys, so the last shard is partly masked)
 RING_SP = 4
 RING_SHAPE = (1, 4, 16384, 128)
 RING_CASES = {"full": (False, 0.0), "full_dropout": (False, 0.1),
               "causal": (True, 0.0), "causal_dropout": (True, 0.1)}
+# and in bfloat16, the bench's dtype: the path's dropout (its launches
+# the bfloat16 kernels' main-path count) and causal at rate 0 (held to
+# whole-sequence launches too)
+RING_BF16_CASES = {"full_dropout": (False, 0.1), "causal": (True, 0.0)}
+# the bfloat16 ring against single whole-sequence launches: the ring
+# rounds each pair's out (or dq, dk, dv) to bfloat16 before its float32
+# merge (or sum), as the reference's does, so each of the sp pairs adds
+# up to half an ulp of max|ref|, 2^-8 * max|ref|, and the final cast one
+# more
+RING_BF16_WHOLE_REL = (RING_SP + 1) * 2.0 ** -8
 # phase 13b: Transformer-base with attention_impl="ring" through
 # ParallelExecutor on {"sp": 4} over one card: a 2-layer full-width step
 # at T=512 against the CPU and against impl="pallas", then the full model
@@ -524,7 +586,7 @@ RING_PARITY_B = 2
 RING_ATTN_TOL = 1e-4
 RING_GRAD_L2 = 5e-3
 RING_TRAIN = dict(TRAIN, max_len=4096, attention_impl="ring")
-RING_TRAIN_B, RING_TRAIN_STEPS = 2, 6
+RING_TRAIN_B, RING_TRAIN_STEPS = 2, 4
 
 
 def log(*a) -> None:
@@ -1689,9 +1751,11 @@ FLASH_RERUN = ("self_dropout", "causal_dropout")
 def flash_work(x, causal) -> dict:
     """The least work of one call of each kernel on these inputs: the
     (query, key) pairs the data needs (unmasked keys, causal-allowed),
-    4 / 6 / 8 float32 operations per pair per head dim for K1 / K2 / K3,
-    all at the split-TF32 rate, and each input read once, each output
-    written once."""
+    4 / 6 / 8 operations per pair per head dim for K1 / K2 / K3, at the
+    split-TF32 rate for float32 q, k, v and the bf16 tensor-core rate for
+    bfloat16 ones, and each input read once, each output written once
+    (q, k, v, dO and the outputs in their dtype, mask, lse and delta
+    float32)."""
     B, H, Tq, D = x["q"].shape
     Tk = x["k"].shape[2]
     valid = x["mask"] > 0                                     # [B, Tk]
@@ -1701,9 +1765,9 @@ def flash_work(x, causal) -> dict:
         pairs = int((allowed[None] & valid[:, None]).sum().item()) * H
     else:
         pairs = int(valid.sum().item()) * Tq * H
-    f4 = 4
-    qb = B * H * Tq * D * f4
-    kb = B * H * Tk * D * f4
+    f4, el = 4, x["q"].element_size()
+    qb = B * H * Tq * D * el
+    kb = B * H * Tk * D * el
     rowb = B * H * Tq * f4
     maskb = B * Tk * f4
     rows = {
@@ -1712,9 +1776,43 @@ def flash_work(x, causal) -> dict:
         "bwd_dkv": (8 * D * pairs, 2 * qb + 2 * kb + maskb + 2 * rowb
                     + 2 * kb),
     }
-    # K1, K2 and K3 multiply in split TF32
-    return {name: bound(nbytes, ops, TF32X3_OPS_PER_S)
+    # K1, K2 and K3 multiply in split TF32, or in bf16
+    rate = (BF16_OPS_PER_S if x["q"].dtype == torch.bfloat16
+            else TF32X3_OPS_PER_S)
+    return {name: bound(nbytes, ops, rate)
             for name, (ops, nbytes) in rows.items()}
+
+
+def flash_kernel_names(dtype) -> dict:
+    """The profiler names of K1, K2, K3 for q's dtype."""
+    tag = "_bf16" if dtype == torch.bfloat16 else ""
+    return {"fwd": f"flash_fwd{tag}_kernel",
+            "bwd_dq": f"flash_bwd_dq{tag}_kernel",
+            "bwd_dkv": f"flash_bwd_dkv{tag}_kernel"}
+
+
+def flash_as(x, dtype) -> dict:
+    """x with q, k, v and dO in ``dtype`` (the mask and seed as they
+    are)."""
+    return {n: t.to(dtype) if n in ("q", "k", "v", "do") else t
+            for n, t in x.items()}
+
+
+def rel_err(got, ref, bar, what) -> float:
+    """max|got - ref| / max|ref|; raises past ``bar`` or where got is not
+    finite."""
+    g, r = got.float(), ref.float()
+    e = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+    if not (torch.isfinite(g).all() and e <= bar):
+        raise AssertionError(f"{what}: max|d| / max|ref| {e} > {bar}")
+    return e
+
+
+def bf16_lse_tol(D, rate) -> float:
+    """FLASH_BF16_LSE, plus the ones lane's share where the mass sums
+    the rounded p."""
+    lane = D < 128 and rate == 0.0
+    return FLASH_BF16_LSE + (2.0 ** -8 / math.log(2.0) if lane else 0.0)
 
 
 def flash_bwd(A, x, lse, out, causal, rate):
@@ -1748,35 +1846,41 @@ def top_kernels(fn, n=2) -> list:
     return sorted(per, key=per.get, reverse=True)[:n]
 
 
-def flash_bwd_occupancy(A, D, Tq, Tk) -> dict:
+def flash_bwd_occupancy(A, D, Tq, Tk, dtype=torch.float32) -> dict:
     """K2's and K3's registers a thread, shared memory a block and
-    resident blocks an SM (the occupancy query of flash_attn_bwd.cu)."""
+    resident blocks an SM (the occupancy query of flash_attn_bwd.cu, or
+    of flash_attn_bwd_bf16.cu for bfloat16, which needs no lengths)."""
     import ctypes
     from paddle_tpu_torch.kernels import _build
-    fn = _build.load("flash_attn_bwd").flash_attn_bwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bf16 = dtype == torch.bfloat16
+    lib = "flash_attn_bwd_bf16" if bf16 else "flash_attn_bwd"
+    fn = getattr(_build.load(lib), f"{lib}_occupancy")
+    args = (D,) if bf16 else (D, Tq, Tk)
+    fn.argtypes = [ctypes.c_int] * (len(args) + 1) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 8)()
-    err = fn(D, Tq, Tk, torch.cuda.current_device(), out)
+    err = fn(*args, torch.cuda.current_device(), out)
     if err != 0:
-        raise RuntimeError(f"flash_attn_bwd_occupancy: cudaError {err}")
+        raise RuntimeError(f"{lib}_occupancy: cudaError {err}")
     keys = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
     return {name: {k: out[4 * i + j] for j, k in enumerate(keys)}
             for i, name in enumerate(("bwd_dq", "bwd_dkv"))}
 
 
-def time_flash(A, dev, causal, rate) -> dict:
-    """Kernel, plain and library times at the main path's shape, cycling
-    input sets so each launch reads its K/V from device memory.  ``ms``
-    is device time (the profiler): a kernel shorter than its wrapper's
-    host time leaves the card idle between launches, which CUDA events
-    around a loop of calls (``event_ms``) count."""
+def time_flash(A, dev, causal, rate, dtype=torch.float32) -> dict:
+    """Kernel, plain and library times at the main path's shape, q, k,
+    v, dO in ``dtype``, cycling input sets so each launch reads its K/V
+    from device memory.  ``ms`` is device time (the profiler): a kernel
+    shorter than its wrapper's host time leaves the card idle between
+    launches, which CUDA events around a loop of calls (``event_ms``)
+    count."""
     import torch.nn.functional as F
     B, H, T, D = FLASH_TIME_SHAPE
-    one = flash_inputs(dev, B, H, T, T, D, seed=40)
-    set_bytes = sum(one[n].numel() * 4 for n in ("q", "k", "v", "do"))
+    one = flash_as(flash_inputs(dev, B, H, T, T, D, seed=40), dtype)
+    set_bytes = sum(one[n].numel() * one[n].element_size()
+                    for n in ("q", "k", "v", "do"))
     n_sets = max(2, math.ceil(2 * L2_BYTES / set_bytes))
-    sets = [flash_inputs(dev, B, H, T, T, D, seed=41 + i)
+    sets = [flash_as(flash_inputs(dev, B, H, T, T, D, seed=41 + i), dtype)
             for i in range(n_sets)]
     for s in sets:
         s["out"], s["lse"] = A.flash_attention_fwd(
@@ -1800,8 +1904,7 @@ def time_flash(A, dev, causal, rate) -> dict:
         # autograd backward computes with its own delta
         "bwd": lambda s: flash_bwd(A, s, s["lse"], s["out"], causal, rate),
     }
-    kernel = {"fwd": "flash_fwd_kernel", "bwd_dq": "flash_bwd_dq_kernel",
-              "bwd_dkv": "flash_bwd_dkv_kernel", "bwd": None}
+    kernel = {**flash_kernel_names(dtype), "bwd": None}
     plain = {
         "fwd": lambda s: A.flash_attention_ref(*args(s), causal, None, rate,
                                                s["seed"]),
@@ -1983,6 +2086,169 @@ def check_and_time_flash(dev) -> dict:
         f"({b['bound_by']})")
     torch.cuda.empty_cache()
     return out
+
+
+def flash_long_bf16(A, dev, shape) -> dict:
+    """At one of ``bench_flash_attention_long``'s shapes (causal, no mask,
+    no dropout; the plain version's [T, T] scores do not fit): the
+    bfloat16 K1, then delta + K2 + K3 from its out and lse, against the
+    float32 kernels on the same inputs upcast (FLASH_BF16_VS_F32_REL);
+    then each timed by CUDA events (launches of milliseconds) beside its
+    bound at the bf16 rate, the float32 kernel's time and SDPA in
+    bfloat16 (``is_causal``; its one autograd backward against delta +
+    K2 + K3)."""
+    import torch.nn.functional as F
+    B, H, T, D = shape
+    g = torch.Generator(device=dev).manual_seed(46 + D)
+    x16 = {n: torch.randn(B, H, T, D, generator=g, device=dev).bfloat16()
+           for n in ("q", "k", "v", "do")}
+    xs = {"bf16": dict(x16, mask=None, seed=None),
+          "f32": dict(flash_as(x16, torch.float32), mask=None, seed=None)}
+    res = {}
+    for key, x in xs.items():
+        out, lse = A.flash_attention_fwd(x["q"], x["k"], x["v"], None, True)
+        dq, dk, dv = flash_bwd(A, x, lse, out, True, 0.0)
+        res[key] = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+    torch.cuda.synchronize()
+    rel = {n: rel_err(res["bf16"][n], res["f32"][n], FLASH_BF16_VS_F32_REL,
+                      f"bf16 {n} vs f32 at {list(shape)}")
+           for n in ("out", "dq", "dk", "dv")}
+    lse_d = (res["bf16"]["lse"] - res["f32"]["lse"]).abs().max().item()
+    times = {}
+    for key, x in xs.items():
+        o, lse = res[key]["out"], res[key]["lse"]
+        delta = A.flash_attention_delta(o, x["do"])
+        bargs = (x["q"], x["k"], x["v"], None, lse, delta, x["do"], True)
+        times[key] = {
+            "fwd": time_ms(lambda _: A.flash_attention_fwd(
+                x["q"], x["k"], x["v"], None, True), [None], iters=5,
+                warmup=2),
+            "bwd_dq": time_ms(lambda _: A.flash_attention_bwd_dq(*bargs),
+                              [None], iters=3, warmup=1),
+            "bwd_dkv": time_ms(lambda _: A.flash_attention_bwd_dkv(*bargs),
+                               [None], iters=3, warmup=1),
+            "bwd": time_ms(lambda _: flash_bwd(A, x, lse, o, True, 0.0),
+                           [None], iters=3, warmup=1)}
+    del res
+    leaves = [x16[n].clone().requires_grad_(True) for n in ("q", "k", "v")]
+    sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib = {"fwd": time_ms(lambda _: F.scaled_dot_product_attention(
+        x16["q"], x16["k"], x16["v"], is_causal=True), [None], iters=5,
+        warmup=2),
+        "bwd": time_ms(lambda _: torch.autograd.grad(
+            sdpa, leaves, x16["do"], retain_graph=True), [None], iters=3,
+            warmup=1)}
+    backend = top_kernels(lambda: torch.autograd.grad(
+        sdpa, leaves, x16["do"], retain_graph=True))
+    del sdpa, leaves
+    pairs = B * H * (T * (T + 1) // 2)
+    row, rowf = B * H * T * D * 2, B * H * T * 4
+    work = {"fwd": (4 * D * pairs, 4 * row + rowf),
+            "bwd_dq": (6 * D * pairs, 5 * row + 2 * rowf),
+            "bwd_dkv": (8 * D * pairs, 6 * row + 2 * rowf)}
+    out = {"shape": list(shape), "max_rel_err_vs_f32": rel,
+           "max_lse_diff_vs_f32": lse_d, "sdpa_bwd_kernels": backend}
+    for n, (ops, nbytes) in work.items():
+        out[n] = {"ms": times["bf16"][n], "f32_ms": times["f32"][n],
+                  **bound(nbytes, ops, BF16_OPS_PER_S)}
+    out["fwd"]["library_ms"] = lib["fwd"]
+    out["bwd"] = {"ms": times["bf16"]["bwd"], "f32_ms": times["f32"]["bwd"],
+                  "library_ms": lib["bwd"],
+                  "bound_ms": out["bwd_dq"]["bound_ms"]
+                  + out["bwd_dkv"]["bound_ms"]}
+    return out
+
+
+def check_and_time_flash_bf16(dev, flash) -> dict:
+    """Phase 3b's bfloat16 part (module doc); ``flash`` is the float32
+    part's result, whose kernel times at the same shape stand beside."""
+    from paddle_tpu_torch.kernels import attention as A
+    errs = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    abs_errs = dict(errs)
+    for i, name in enumerate(FLASH_BF16_CASES):
+        B, H, Tq, Tk, D, causal, rate, all_masked = FLASH_CASES[name]
+        x = flash_as(flash_inputs(dev, B, H, Tq, Tk, D, seed=100 + i,
+                                  all_masked=all_masked), torch.bfloat16)
+        args = (x["q"], x["k"], x["v"], x["mask"])
+        out, lse = A.flash_attention_fwd(*args, causal, None, rate, x["seed"])
+        r_out, r_lse = A.flash_attention_ref(*args, causal, None, rate,
+                                             x["seed"])
+        # K2/K3 from the plain forward's lse and delta: they then round
+        # where the plain version rounds
+        delta = A.flash_attention_delta(r_out, x["do"])
+        bargs = (*args, r_lse, delta, x["do"], causal, None, rate, x["seed"])
+        dq = A.flash_attention_bwd_dq(*bargs)
+        dk, dv = A.flash_attention_bwd_dkv(*bargs)
+        torch.cuda.synchronize()
+        r_dq, r_dk, r_dv = A._bwd_ref(*args, r_lse, delta, x["do"], causal,
+                                      D ** -0.5, rate, x["seed"], True, True)
+        lse_e = (lse - r_lse).abs().max().item()
+        if not lse_e <= bf16_lse_tol(D, rate):
+            raise AssertionError(f"{name}: bf16 LSE off by {lse_e} > "
+                                 f"{bf16_lse_tol(D, rate)}")
+        pairs = {"fwd": ((out, r_out),), "bwd_dq": ((dq, r_dq),),
+                 "bwd_dkv": ((dk, r_dk), (dv, r_dv))}
+        e = {n: max(rel_err(a, b, FLASH_BF16_REL, f"{name} {n}")
+                    for a, b in ps) for n, ps in pairs.items()}
+        for n, ps in pairs.items():
+            errs[n] = max(errs[n], e[n])
+            abs_errs[n] = max([abs_errs[n]] + [
+                (a.float() - b.float()).abs().max().item() for a, b in ps])
+        log(f"  bf16 {name} B={B} H={H} Tq={Tq} Tk={Tk} D={D} causal="
+            f"{causal} dropout={rate}: max|kernel - plain| / max|plain| out "
+            f"{e['fwd']!r}, dq {e['bwd_dq']!r}, dk/dv {e['bwd_dkv']!r} "
+            f"(tolerance {FLASH_BF16_REL}); LSE {lse_e!r} (tolerance "
+            f"{bf16_lse_tol(D, rate)!r})")
+        if name in FLASH_RERUN:
+            again = (A.flash_attention_bwd_dq(*bargs),
+                     *A.flash_attention_bwd_dkv(*bargs))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                         (dq, dk, dv))):
+                raise AssertionError(f"bf16 {name}: K2/K3 differ on a rerun")
+            log(f"  bf16 {name}: K2/K3 bit-identical on a rerun")
+            del again
+        del x, out, lse, r_out, r_lse, dq, dk, dv, r_dq, r_dk, r_dv
+    res = {"max_rel_err": errs, "max_abs_err": abs_errs, "occupancy": {}}
+    for D in (32, 64, 128):
+        occ = res["occupancy"][f"D{D}"] = flash_bwd_occupancy(
+            A, D, 256, 256, torch.bfloat16)
+        for n, o in occ.items():
+            log(f"  bf16 {n} D={D}: {o['registers']} registers a thread, "
+                f"{o['static_smem']} + {o['dynamic_smem']} bytes of shared "
+                f"memory a block, {o['blocks_per_sm']} blocks an SM")
+    t = res["self_dropout"] = time_flash(A, dev, False, 0.1, torch.bfloat16)
+    for n, r in t.items():
+        f32_ms = flash["self_dropout"][n]["ms"]
+        r["f32_ms"] = f32_ms
+        if n == "bwd":
+            log(f"  bf16 self_dropout backward, delta + K2 + K3: {r['ms']!r} "
+                f"ms device ({r['event_ms']!r} by events; f32 {f32_ms!r}), "
+                f"sdpa bf16 autograd backward {r['library_ms']!r} ms device "
+                f"(its top kernels {[k[:60] for k in r['sdpa_bwd_kernels']]})"
+                f", bound of K2 + K3 {r['bound_ms']!r} ms")
+            continue
+        log(f"  bf16 self_dropout {n}: kernel {r['ms']!r} ms device "
+            f"({r['event_ms']!r} by events; f32 kernel {f32_ms!r}), plain "
+            f"{r['plain_ms']!r} ms, sdpa bf16 {r['library_ms']!r} ms device, "
+            f"bound {r['bound_ms']!r} ms ({r['bound_by']}, {r['ops']} ops, "
+            f"{r['bytes']} bytes)")
+    torch.cuda.empty_cache()
+    res["long"] = {}
+    for shape in FLASH_LONG_BF16_SHAPES:
+        r = res["long"]["x".join(map(str, shape))] = flash_long_bf16(
+            A, dev, shape)
+        log(f"  bf16 long B,H,T,D={r['shape']} causal: max|bf16 - f32| / "
+            f"max|f32| {r['max_rel_err_vs_f32']} (tolerance "
+            f"{FLASH_BF16_VS_F32_REL}), LSE {r['max_lse_diff_vs_f32']!r}")
+        for n in ("fwd", "bwd_dq", "bwd_dkv", "bwd"):
+            k = r[n]
+            log(f"    {n}: bf16 {k['ms']!r} ms, f32 {k['f32_ms']!r}, bound "
+                f"{k['bound_ms']!r} ({k.get('bound_by', 'K2 + K3')})"
+                + (f", sdpa bf16 {k['library_ms']!r}" if "library_ms" in k
+                   else ""))
+        torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2242,20 +2508,25 @@ def reset_flash_launches(A) -> None:
     A.flash_attention_bwd_dkv.launches = 0
 
 
-def check_train_step_against_cpu(dev) -> dict:
+def check_train_step_against_cpu(dev, dtype="float32") -> dict:
     """One step of a 2-layer full-width program (B=4, T=64, dropout 0)
     on the card and on the CPU from the same copied starting values:
     the loss and every parameter gradient agree (the kernels against
-    their plain versions through append_backward)."""
+    their plain versions through append_backward).  With ``dtype``
+    bfloat16 (the bench's), a bfloat16 gradient is held within
+    FLASH_BF16_REL of max|ref| (one rounding of the largest value: each
+    is a float32 sum rounded once), a float32 one within
+    TRAIN_GRAD_TOL."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels import attention as A
-    cfg = dict(TRAIN, n_layer=2, max_len=64, dropout=0.0)
+    cfg = dict(TRAIN, n_layer=2, max_len=64, dropout=0.0, dtype=dtype)
     main, startup, loss, params = build_transformer(cfg)
     init = fluid.Scope()
     fluid.Executor("cpu").run(startup, scope=init)
     values = init.to_numpy()
     feed = train_feed(4, 64, cfg["tgt_vocab"], seed=5)
     fetch = [loss.name] + [p + "@GRAD" for p in params]
+    bf16 = {p for p in params if init.find_var(p).dtype == torch.bfloat16}
     out = {}
     for name, device in (("cpu", "cpu"), ("gpu", dev)):
         scope = fluid.Scope()
@@ -2278,17 +2549,21 @@ def check_train_step_against_cpu(dev) -> dict:
         raise AssertionError(f"loss card {l_gpu} vs CPU {l_cpu}")
     ratios = {}
     for name, g, r in zip(params, out["gpu"][1:], out["cpu"][1:]):
+        g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
+        tol = FLASH_BF16_REL if name in bf16 else TRAIN_GRAD_TOL
         scale = float(np.abs(r).max())
         ratios[name] = float(np.abs(g - r).max()) / max(scale, 1e-30)
-        if not np.isfinite(g).all() or ratios[name] > TRAIN_GRAD_TOL:
+        if not np.isfinite(g).all() or ratios[name] > tol:
             raise AssertionError(f"gradient of {name}: max|d| / max|ref| = "
-                                 f"{ratios[name]} > {TRAIN_GRAD_TOL}")
+                                 f"{ratios[name]} > {tol}")
     worst_p = max(ratios, key=ratios.get)
-    log(f"  2-layer step, card vs CPU: loss {l_gpu!r} vs {l_cpu!r} (rel "
-        f"{loss_rel!r}), {len(params)} gradients, worst max|d|/max|ref| "
-        f"{ratios[worst_p]!r} ({worst_p}; tolerance {TRAIN_GRAD_TOL})")
+    log(f"  2-layer {dtype} step, card vs CPU: loss {l_gpu!r} vs {l_cpu!r} "
+        f"(rel {loss_rel!r}), {len(params)} gradients ({len(bf16)} "
+        f"bfloat16), worst max|d|/max|ref| {ratios[worst_p]!r} ({worst_p}; "
+        f"tolerance {TRAIN_GRAD_TOL}, bfloat16 {FLASH_BF16_REL})")
     return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
-            "n_grads": len(params), "worst_grad_ratio": ratios[worst_p],
+            "n_grads": len(params), "n_bf16_grads": len(bf16),
+            "worst_grad_ratio": ratios[worst_p],
             "worst_grad_param": worst_p}
 
 
@@ -2371,21 +2646,25 @@ def profile_call(run, focus, count=()) -> dict:
                             for n, (t, c) in top]}
 
 
-def run_training(dev, card: str) -> dict:
+def run_training(dev, card: str, dtype="float32") -> dict:
+    """Phase 5 (module doc) in ``dtype``: the 2-layer parity, then the
+    full model's steps; in bfloat16 the profiled step's flash kernels
+    must all be the float32 ones."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core import lowering
     from paddle_tpu_torch.kernels import attention as A
-    out = {"parity": check_train_step_against_cpu(dev)}
+    out = {"dtype": dtype,
+           "parity": check_train_step_against_cpu(dev, dtype)}
     t0 = time.perf_counter()
-    main, startup, loss, params = build_transformer(TRAIN)
+    main, startup, loss, params = build_transformer(dict(TRAIN, dtype=dtype))
     n_ops = len(main.global_block.ops)
     exe = fluid.Executor(dev)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
     n_params = sum(scope.find_var(p).numel() for p in params)
-    log(f"  Transformer-base program: {n_ops} ops, {n_params} parameters, "
-        f"built and initialized on the card in "
+    log(f"  Transformer-base {dtype} program: {n_ops} ops, {n_params} "
+        f"parameters, built and initialized on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     feed = train_feed(TRAIN_B, TRAIN["max_len"], TRAIN["tgt_vocab"], seed=11)
     torch.cuda.reset_peak_memory_stats()
@@ -2419,18 +2698,33 @@ def run_training(dev, card: str) -> dict:
         "target_tokens_per_s": tokens / (med / 1e3),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches, "grad_recomputes": recomputes})
-    log(f"  training [{card}]: step ms median {med!r} (steps 3..{TRAIN_STEPS}"
+    log(f"  training {dtype} [{card}]: step ms median {med!r} (steps 3.."
+        f"{TRAIN_STEPS}"
         f", all {[round(x, 2) for x in step_ms]}), target tokens/s "
         f"{out['target_tokens_per_s']!r}, loss {losses[0]!r} -> "
         f"{losses[-1]!r}, max memory allocated "
         f"{out['max_memory_allocated']} bytes")
+    f32_names = tuple(flash_kernel_names(torch.float32).values())
+    bf16_names = tuple(flash_kernel_names(torch.bfloat16).values())
     with fluid.scope_guard(scope):
-        prof = profile_step(exe, main, feed, loss,
-                            ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                             "flash_bwd_dkv_kernel"))
+        prof = profile_step(exe, main, feed, loss, f32_names,
+                            count=f32_names + bf16_names)
     out["profile"] = prof
-    log(f"  profiled step [{card}]: " + json.dumps(
+    log(f"  profiled {dtype} step [{card}]: " + json.dumps(
         {k: v for k, v in prof.items() if k != "top_kernels"}))
+    # the bench's bfloat16 program feeds float32 q, k, v to its attention
+    # (the positional add promotes): its 18 launches a step of each
+    # (counted above) are the float32 kernels.  By name in the profiled
+    # step: none bfloat16, each float32 one present (a session that loses
+    # records can only lower a count)
+    by_name = {n: c["launches"] for n, c in prof.get("counted", {}).items()}
+    out["kernels_by_name"] = by_name or "not measured"
+    log(f"  profiled {dtype} step: flash kernels by name "
+        f"{out['kernels_by_name']}")
+    if by_name and (any(by_name[n] for n in bf16_names)
+                    or not all(by_name[n] for n in f32_names)):
+        raise AssertionError(f"{dtype} step: flash kernels by name {by_name}"
+                             f", expected float32 ones only")
     for k in prof.get("top_kernels", []):
         log(f"    {k['ms']:.3f} ms  x{k['count']}  {k['name']}")
     del scope, exe
@@ -4439,24 +4733,35 @@ def ring_run(A, devices, x, causal, rate, plain=False, sm_scale=None):
     return dict(out=out.detach(), dq=dq, dk=dk, dv=dv)
 
 
-def ring_errors(got, ref, label) -> dict:
-    """max|got - ref| of each output within phase 3b's tolerances."""
-    e = {"out": worst(got["out"], ref["out"], FLASH_FWD_TOL)}
-    for n in ("dq", "dk", "dv"):
-        e[n] = worst(got[n], ref[n], FLASH_GRAD_TOL)
-    mag = {n: ref[n].abs().max().item() for n in e}
+def ring_errors(got, ref, label, bf16_rel=FLASH_BF16_REL) -> dict:
+    """max|got - ref| of each output within phase 3b's tolerances (for
+    bfloat16 outputs max|d| <= ``bf16_rel`` * max|ref|)."""
+    names = ("out", "dq", "dk", "dv")
+    if got["out"].dtype == torch.bfloat16:
+        for n in names:
+            rel_err(got[n], ref[n], bf16_rel, f"{label} {n}")
+        e = {n: (got[n].float() - ref[n].float()).abs().max().item()
+             for n in names}
+        tol = f"{bf16_rel} of max|ref|"
+    else:
+        e = {"out": worst(got["out"], ref["out"], FLASH_FWD_TOL)}
+        for n in ("dq", "dk", "dv"):
+            e[n] = worst(got[n], ref[n], FLASH_GRAD_TOL)
+        tol = f"{FLASH_FWD_TOL} / {FLASH_GRAD_TOL} as atol, rtol"
+    mag = {n: ref[n].float().abs().max().item() for n in e}
     log(f"  {label}: max|d| out {e['out']!r}, dq {e['dq']!r}, dk "
-        f"{e['dk']!r}, dv {e['dv']!r} (tolerance {FLASH_FWD_TOL} / "
-        f"{FLASH_GRAD_TOL} as atol, rtol; max|ref| {mag})")
+        f"{e['dk']!r}, dv {e['dv']!r} (tolerance {tol}; max|ref| {mag})")
     return e
 
 
-def check_ring_case(A, devices, x, causal, rate, time_plain) -> dict:
+def check_ring_case(A, devices, x, causal, rate, time_plain,
+                    timed=True) -> dict:
     """One 13a case: the ring over K1-K3 against the plain ring on the
     card and, at rate 0, against single launches of K1, K2 and K3 over
     the whole sequence (with dropout the ring keys each pair's bits on
     its pair seed and a single launch keys them on the one seed: other
-    bits, not comparable); the launch counts; then device times."""
+    bits, not comparable); the launch counts; then, if ``timed``, device
+    times."""
     import torch.nn.functional as F
     T = RING_SHAPE[2]
     S = T // RING_SP
@@ -4484,9 +4789,13 @@ def check_ring_case(A, devices, x, causal, rate, time_plain) -> dict:
         whole["dk"], whole["dv"] = A.flash_attention_bwd_dkv(*bargs)
         torch.cuda.synchronize()
         res["max_abs_err_vs_whole"] = ring_errors(
-            got, whole, f"ring vs single K1/K2/K3 launches over T={T}")
+            got, whole, f"ring vs single K1/K2/K3 launches over T={T}",
+            RING_BF16_WHOLE_REL)
         del whole, w_out, w_lse, delta
     del got
+    if not timed:
+        torch.cuda.empty_cache()
+        return res
     # RingAttentionFn's forward and backward bodies, called on this thread
     # (the autograd engine would run the backward on its own)
     devices = tuple(devices)
@@ -4504,14 +4813,14 @@ def check_ring_case(A, devices, x, causal, rate, time_plain) -> dict:
                                 *saved, x["do"], devices, causal, sm, rate,
                                 A.flash_attention_bwd_dq,
                                 A.flash_attention_bwd_dkv)
-    kf = device_ms_by_name(fwd, [None], 3, [None, "flash_fwd_kernel"])
-    kb = device_ms_by_name(bwd, [None], 3, [None, "flash_bwd_dq_kernel",
-                                            "flash_bwd_dkv_kernel"])
-    res["fwd"] = {"ms": kf[None], "kernel_ms": kf["flash_fwd_kernel"],
+    kn = flash_kernel_names(x["q"].dtype)
+    kf = device_ms_by_name(fwd, [None], 3, [None, kn["fwd"]])
+    kb = device_ms_by_name(bwd, [None], 3, [None, kn["bwd_dq"],
+                                            kn["bwd_dkv"]])
+    res["fwd"] = {"ms": kf[None], "kernel_ms": kf[kn["fwd"]],
                   "event_ms": time_ms(fwd, [None], iters=3)}
     res["bwd"] = {"ms": kb[None],
-                  "kernel_ms": kb["flash_bwd_dq_kernel"]
-                  + kb["flash_bwd_dkv_kernel"],
+                  "kernel_ms": kb[kn["bwd_dq"]] + kb[kn["bwd_dkv"]],
                   "event_ms": time_ms(bwd, [None], iters=3)}
     for n in ("fwd", "bwd"):
         # the merges, delta, shard copies and hops: the ring's device time
@@ -4574,21 +4883,36 @@ def check_ring_case(A, devices, x, causal, rate, time_plain) -> dict:
     return res
 
 
-def check_and_time_ring(dev) -> dict:
-    """Phase 13a (module doc): four mesh positions on the one card."""
+def check_and_time_ring(dev, dtype=torch.float32) -> dict:
+    """Phase 13a (module doc): four mesh positions on the one card, q,
+    k, v, dO in ``dtype``.  In bfloat16 (RING_BF16_CASES) the launch
+    counts are set to 0 just before the dropout case, the bfloat16
+    kernels' main-path run, and read after it (``main_path_launches``)."""
     from paddle_tpu_torch.kernels import attention as A
     devices = [dev] * RING_SP
+    bf16 = dtype == torch.bfloat16
     out = {}
-    for i, (name, (causal, rate)) in enumerate(RING_CASES.items()):
-        x = ring_inputs(dev, seed=60 + i)
+    cases = RING_BF16_CASES if bf16 else RING_CASES
+    for i, (name, (causal, rate)) in enumerate(cases.items()):
+        x = flash_as(ring_inputs(dev, seed=(70 if bf16 else 60) + i), dtype)
+        if bf16 and rate > 0:
+            reset_flash_launches(A)
         # the plain ring (seconds a call) is timed in the dropout cases,
-        # the path's rate
+        # the path's rate; in bfloat16 only that case is timed at all
         r = out[name] = check_ring_case(A, devices, x, causal, rate,
-                                        time_plain=rate > 0)
+                                        time_plain=rate > 0,
+                                        timed=not bf16 or rate > 0)
+        if bf16 and rate > 0:
+            out["main_path_launches"] = r["launches"]
+        if "fwd" not in r:
+            log(f"  {name} {dtype} B,H,T,D={list(RING_SHAPE)} sp={RING_SP} "
+                f"causal={causal} dropout={rate}: launches {r['launches']} "
+                f"(checked, not timed)")
+            continue
         f, b = r["fwd"], r["bwd"]
-        log(f"  {name} B,H,T,D={list(RING_SHAPE)} sp={RING_SP} causal="
-            f"{causal} dropout={rate}: launches {r['launches']}; forward "
-            f"{f['ms']!r} ms device ({f['event_ms']!r} by events), K1 "
+        log(f"  {name} {dtype} B,H,T,D={list(RING_SHAPE)} sp={RING_SP} "
+            f"causal={causal} dropout={rate}: launches {r['launches']}; "
+            f"forward {f['ms']!r} ms device ({f['event_ms']!r} by events), K1 "
             f"{f['kernel_ms']!r}, merges/hops {f['overhead_ms']!r}, bound "
             f"{f['bound_ms']!r} ({f['bound_by']}); backward {b['ms']!r} ms "
             f"({b['event_ms']!r}), K2+K3 {b['kernel_ms']!r}, delta/hops/"
@@ -4955,15 +5279,22 @@ def main() -> int:
     from paddle_tpu_torch.kernels import attention as A
     from paddle_tpu_torch.platform import get_device
     t_start = time.perf_counter()
+    starts = {}
+
+    def phase(title: str) -> None:
+        """The phase's header, with the seconds since the start."""
+        at = starts[title.split(":")[0]] = time.perf_counter() - t_start
+        log(f"== phase {title} (at {at:.1f} s)")
+
     dev = get_device()
     card = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log("== phase 1: the card")
+    phase("1: the card")
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {kind}, count {torch.cuda.device_count()}")
 
-    log("== phase 2: build the kernels")
+    phase("2: build the kernels")
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
@@ -4972,57 +5303,64 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("== phase 3: kernels against their plain versions")
+    phase("3: kernels against their plain versions")
     kern = check_and_time_paged_attention(dev)
 
-    log("== phase 3b: flash-attention kernels against their plain versions")
+    phase("3b: flash-attention kernels against their plain versions")
     flash = check_and_time_flash(dev)
+    phase("3b, bfloat16: the flash kernels' bfloat16 mode")
+    flash_bf16 = check_and_time_flash_bf16(dev, flash)
 
-    log("== phase 3c: fused LSTM kernels against their plain versions")
+    phase("3c: fused LSTM kernels against their plain versions")
     lstm_k = check_and_time_lstm(dev)
 
-    log("== phase 3d: sparse-embedding kernels against their plain versions")
+    phase("3d: sparse-embedding kernels against their plain versions")
     sparse_k = check_and_time_sparse(dev)
 
-    log("== phase 3e: fused GRU kernels against their plain versions")
+    phase("3e: fused GRU kernels against their plain versions")
     gru_k = check_and_time_gru(dev)
 
-    log("== phase 3f: the int8 FC kernel against its plain version")
+    phase("3f: the int8 FC kernel against its plain version")
     int8_k = check_and_time_int8_fc(dev)
 
-    log("== phase 4: the decode slice end to end")
+    phase("4: the decode slice end to end")
     e2e = run_slice(dev, card)
 
-    log("== phase 5: Transformer-base training through Executor.run")
+    phase("5: Transformer-base training through Executor.run")
     train = run_training(dev, card)
+    phase("5, bfloat16: the bench's dtype")
+    train_bf16 = run_training(dev, card, "bfloat16")
 
-    log("== phase 7: stacked-LSTM training through Executor.run")
+    phase("7: stacked-LSTM training through Executor.run")
     lstm_train = run_stacked_lstm(dev, card)
 
-    log("== phase 8: DeepFM sparse-embedding training through Executor.run")
+    phase("8: DeepFM sparse-embedding training through Executor.run")
     deepfm_train = run_deepfm(dev, card)
 
-    log("== phase 9: machine-translation training through Executor.run")
+    phase("9: machine-translation training through Executor.run")
     mt_train = run_machine_translation(dev, card)
 
-    log("== phase 10: int8 serving of Transformer-base through ModelManager")
+    phase("10: int8 serving of Transformer-base through ModelManager")
     serving = run_int8_serving(dev, card)
 
-    log("== phase 11: machine-translation beam inference through While")
+    phase("11: machine-translation beam inference through While")
     mt_beam = run_mt_beam(dev, card)
 
-    log("== phase 11b: PagedBeamDecoder over the paged KV cache")
+    phase("11b: PagedBeamDecoder over the paged KV cache")
     paged_beam = run_paged_beam(dev, card)
 
-    log("== phase 12: convolutional training and inference through "
-        "Executor.run")
+    phase("12: convolutional training and inference through "
+          "Executor.run")
     conv = run_conv(dev, card)
 
-    log("== phase 13: ring attention (K11) and Transformer-base on a "
-        "mesh's sp axis")
+    phase("13: ring attention (K11) and Transformer-base on a "
+          "mesh's sp axis")
     ring = run_ring(dev, card)
 
-    log("== phase 6: kernels")
+    phase("13a, bfloat16: the ring over the bfloat16 K1-K3")
+    ring["kernel_bf16"] = check_and_time_ring(dev, torch.bfloat16)
+
+    phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
     # context beside it
@@ -5060,6 +5398,33 @@ def main() -> int:
             # it stands against the pair, delta + K2 + K3
             row.update(library_ms_is_for="delta + K2 + K3",
                        pair_ms=flash["self_dropout"]["bwd"]["ms"])
+        rows.append(row)
+    # the bfloat16 mode: launches from 13a's bfloat16 ring (counted from
+    # 0), errors against the plain bfloat16 version, times at the
+    # training shape (dropout 0.1) beside SDPA in bfloat16 and the
+    # float32 kernel, and at bench_flash_attention_long's two shapes
+    src = {"fwd": "flash_attn_fwd_bf16.cu", "bwd_dq": "flash_attn_bwd_bf16.cu",
+           "bwd_dkv": "flash_attn_bwd_bf16.cu"}
+    for key, (name, _, line, i) in names.items():
+        t = flash_bf16["self_dropout"][key]
+        row = {
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src[key]}",
+            "replaces": f"paddle_tpu/kernels/attention.py:{line}",
+            "launches": ring["kernel_bf16"]["main_path_launches"][i],
+            "max_abs_err": flash_bf16["max_abs_err"][key],
+            "max_rel_err": flash_bf16["max_rel_err"][key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "f32_ms": t["f32_ms"]}
+        if key != "fwd":
+            row.update(library_ms_is_for="delta + K2 + K3",
+                       pair_ms=flash_bf16["self_dropout"]["bwd"]["ms"])
+        for label, r in flash_bf16["long"].items():
+            row[f"long_{label}"] = {k: r[key][k] for k in
+                                    ("ms", "f32_ms", "bound_ms")}
+            if key == "fwd":
+                row[f"long_{label}"]["library_ms"] = r["fwd"]["library_ms"]
         rows.append(row)
     for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
         t = lstm_k["ragged"][key]   # the training path's ragged lengths
@@ -5136,7 +5501,9 @@ def main() -> int:
         "name": "ring_attention", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/attention.py",
         "composes": ["paddle_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
-                     "paddle_tpu_torch/kernels/csrc/flash_attn_bwd.cu"],
+                     "paddle_tpu_torch/kernels/csrc/flash_attn_bwd.cu",
+                     "paddle_tpu_torch/kernels/csrc/flash_attn_fwd_bf16.cu",
+                     "paddle_tpu_torch/kernels/csrc/flash_attn_bwd_bf16.cu"],
         "replaces": "paddle_tpu/kernels/attention.py:767",
         "launches": sum(ring["ring"]["launches"]),
         "launches_by_kernel": dict(zip(("K1", "K2", "K3"),
@@ -5148,18 +5515,34 @@ def main() -> int:
         "bound_by": r["fwd"]["bound_by"], "library_ms": r["library_ms"],
         "fwd_ms": r["fwd"]["ms"], "bwd_ms": r["bwd"]["ms"],
         "overhead_ms": r["fwd"]["overhead_ms"] + r["bwd"]["overhead_ms"]})
+    # the ring in bfloat16 over the bfloat16 K1-K3, dropout 0.1
+    rb = ring["kernel_bf16"]["full_dropout"]
+    rows[-1].update({
+        "bf16_launches": sum(ring["kernel_bf16"]["main_path_launches"]),
+        "bf16_max_abs_err": max(
+            e for c in RING_BF16_CASES for k in ("max_abs_err",
+                                                 "max_abs_err_vs_whole")
+            for e in ring["kernel_bf16"][c].get(k, {}).values()),
+        "bf16_ms": rb["fwd"]["ms"] + rb["bwd"]["ms"],
+        "bf16_plain_ms": rb["plain_ms"],
+        "bf16_bound_ms": rb["fwd"]["bound_ms"] + rb["bwd"]["bound_ms"],
+        "bf16_bound_by": rb["fwd"]["bound_by"],
+        "bf16_library_ms": rb["library_ms"]})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built,
                    "kernels": kern, "flash": flash, "lstm": lstm_k,
                    "sparse": sparse_k, "gru": gru_k, "slice": e2e,
-                   "training": train, "lstm_training": lstm_train,
+                   "flash_bf16": flash_bf16,
+                   "training": train, "training_bf16": train_bf16,
+                   "lstm_training": lstm_train,
                    "deepfm_training": deepfm_train,
                    "mt_training": mt_train, "int8_fc": int8_k,
                    "int8_serving": serving, "mt_beam": mt_beam,
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "profiler_losses": PROFILER_LOSSES,
+                   "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

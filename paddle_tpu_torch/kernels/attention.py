@@ -24,12 +24,17 @@ and ``mha_xla`` in the reference) is the training path's hot op:
   the plain PyTorch versions of the forward (out and the base-2 LSE)
   and the backward (dq, dk, dv).  They compute over the reference's
   padded frame, so the dropout bits and the rows whose keys are all
-  masked match ``_pallas_fwd``/``_pallas_bwd``.
+  masked match ``_pallas_fwd``/``_pallas_bwd``.  On bfloat16 inputs
+  they round to bfloat16 where the reference's kernels do (the
+  pre-scaled q, p tile by tile against the running max, the ones-lane
+  mass, ds, p * drop); out, dq, dk, dv are bfloat16, the LSE float32.
 - :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq` and
   :func:`flash_attention_bwd_dkv` take those plain versions for CPU
-  tensors and launch the CUDA kernels ``csrc/flash_attn_fwd.cu`` and
-  ``csrc/flash_attn_bwd.cu`` for CUDA tensors, or raise; each launch
-  adds one to the wrapper's ``launches``.
+  tensors and launch CUDA kernels for CUDA tensors, or raise: float32
+  q, k, v go to ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``,
+  bfloat16 ones to ``csrc/flash_attn_fwd_bf16.cu`` and
+  ``csrc/flash_attn_bwd_bf16.cu``; each launch, of either dtype, adds
+  one to the wrapper's ``launches``.
 - :func:`flash_attention` is one ``torch.autograd.Function`` over the
   three: the forward saves (q, k, v, mask, seed, out, lse), so the
   backward launches only the two backward kernels, with
@@ -42,8 +47,9 @@ reference, ``paddle_tpu/kernels/attention.py:694-935``) has no kernel
 of its own: :func:`ring_attention` composes K1–K3 over the shard pairs
 of a sequence cut across a list of devices, with the log2-mass merge in
 torch ops, as the reference composes its Pallas launchers with
-``jnp``; :func:`ring_attention_ref` is the same ring over the plain
-pair functions.
+``jnp`` (in bfloat16 each pair's output is merged, and its gradients
+summed, in float32); :func:`ring_attention_ref` is the same ring over
+the plain pair functions.
 """
 from __future__ import annotations
 
@@ -282,17 +288,25 @@ def _visits(Tq: int, Tk: int, causal: bool, device):
     return (last + 1) * bk, first * bq
 
 
+def _bf16(x):
+    """x rounded to bfloat16, back in float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def _padded_scores(q, k, kv_mask, causal: bool, sm_scale: float,
                    matmul=None):
     """Scores in exp2 units over the reference's padded key frame
     [B, H, Tq, Tk_p]: masked keys, padding keys and causal positions
     score the finite NEG_INF.  ``matmul`` (default an exact float32
-    einsum) takes the product."""
+    einsum) takes the product.  A bfloat16 q is pre-scaled in float32
+    and rounded back to bfloat16 before the product (``_scaled_q``)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _, bk = resolve_blocks(Tq, Tk)
     Tk_p = _round_up(Tk, bk)
     qs = q.float() * _scale_log2(sm_scale)
+    if q.dtype == torch.bfloat16:
+        qs = _bf16(qs)
     s = (torch.einsum("bhqd,bhkd->bhqk", qs, k.float()) if matmul is None
          else matmul(qs, k.float().transpose(-1, -2)))
     s = torch.nn.functional.pad(s, (0, Tk_p - Tk), value=NEG_INF)
@@ -331,12 +345,15 @@ def flash_attention_ref(q, k, v, kv_mask=None, causal: bool = False,
     """Plain flash-attention forward: (out [B, H, Tq, D], lse [B*H, Tq]
     base 2, +1e30 where the softmax mass is 0), as ``_pallas_fwd``.
     ``matmul`` takes both products (default exact float32 einsums; the
-    tests pass ``kernels/_tf32.py: matmul_tf32x3``, K1's arithmetic)."""
+    tests pass ``kernels/_tf32.py: matmul_tf32x3``, K1's arithmetic).
+    bfloat16 inputs take :func:`_flash_fwd_bf16`."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(D))
     s = _padded_scores(q, k, kv_mask, causal, sm_scale, matmul)
+    if q.dtype == torch.bfloat16:
+        return _flash_fwd_bf16(s, v, causal, dropout_rate, seed)
     key_end, _ = _visits(Tq, Tk, causal, q.device)
     visit = torch.arange(s.shape[-1], device=q.device)[None] < key_end[:, None]
     m = s.masked_fill(~visit, -math.inf).amax(dim=-1, keepdim=True)
@@ -352,6 +369,45 @@ def flash_attention_ref(q, k, v, kv_mask=None, causal: bool = False,
     return out.to(q.dtype), lse.reshape(B * H, Tq)
 
 
+def _flash_fwd_bf16(s, v, causal: bool, dropout_rate: float, seed):
+    """The forward on bfloat16 inputs from its scores ``s``, rounding
+    where ``_flash_fwd_kernel`` rounds: the online softmax walks the
+    reference's logical k-tiles, and each tile's p (against the running
+    max, times the dropout multiplier in float32) is rounded to
+    bfloat16 before P . V.  The softmax mass l sums the unrounded p, or
+    the rounded p where the reference carries it in V's ones lane (D <
+    128 and no dropout, ``_lane_pack_ok``).  out is bfloat16, the LSE
+    float32."""
+    B, H, Tq, Tk_p = s.shape
+    Tk, D = v.shape[2], v.shape[3]
+    _, bk = resolve_blocks(Tq, Tk)
+    key_end, _ = _visits(Tq, Tk, causal, s.device)
+    drop = (tile_dropout_ref(seed, B, H, Tq, Tk, dropout_rate, s.device)
+            if dropout_rate > 0.0 else None)
+    ones_lane = D < 128 and drop is None
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, Tk_p - Tk))
+    m = torch.full((B, H, Tq, 1), NEG_INF, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, H, Tq, D, device=s.device)
+    for k0 in range(0, Tk_p, bk):
+        vis = (k0 < key_end)[:, None]
+        st = s[..., k0:k0 + bk]
+        m_new = torch.where(vis, torch.maximum(m, st.amax(-1, keepdim=True)),
+                            m)
+        p = torch.exp2(st - m_new)
+        alpha = torch.exp2(m - m_new)
+        pb = _bf16(p if drop is None else p * drop[..., k0:k0 + bk])
+        mass = (pb if ones_lane else p).sum(-1, keepdim=True)
+        l = torch.where(vis, l * alpha + mass, l)
+        acc = torch.where(vis, acc * alpha + pb @ vf[..., k0:k0 + bk, :],
+                          acc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log2(torch.clamp(l, min=1e-30)),
+                      torch.full((), 1e30, device=s.device))
+    return out.to(torch.bfloat16), lse.reshape(B * H, Tq)
+
+
 def flash_attention_delta(out, do) -> torch.Tensor:
     """delta = rowsum(dO * O) in float32, [B*H, Tq] (computed outside the
     backward kernels, as the reference does)."""
@@ -364,7 +420,11 @@ def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
              matmul=None):
     """The plain backward; ``matmul`` takes its five products (default
     exact float32 einsums; the tests pass ``kernels/_tf32.py:
-    matmul_tf32x3``, K2's and K3's arithmetic)."""
+    matmul_tf32x3``, K2's and K3's arithmetic).  On bfloat16 inputs it
+    rounds where ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
+    do: the pre-scaled q (:func:`_padded_scores`), ds before ds . K and
+    ds^T . q, and p * drop before its product with dO; lse and delta
+    stay float32."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if matmul is None:
@@ -379,6 +439,8 @@ def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
                                 q.device)[..., :Tk]
         dp = dp * drop
     ds = p * (dp - delta.reshape(B, H, Tq, 1))
+    rnd = _bf16 if q.dtype == torch.bfloat16 else (lambda x: x)
+    ds = rnd(ds)
     key_end, row_begin = _visits(Tq, Tk, causal, q.device)
     zero = torch.zeros((), device=q.device)
     dq = dk = dv = None
@@ -388,7 +450,7 @@ def _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
         dq = dq.to(q.dtype)
     if want_dkv:
         vis = torch.arange(Tq, device=q.device)[:, None] >= row_begin[None]
-        pd = p if drop is None else p * drop
+        pd = rnd(p if drop is None else p * drop)
         dv = matmul(torch.where(vis, pd, zero).transpose(-1, -2),
                     do.float()).to(v.dtype)
         dk = matmul(torch.where(vis, ds, zero).transpose(-1, -2),
@@ -413,7 +475,17 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, do,
                     dropout_rate, seed, True, True, matmul)
 
 
-_FLASH_FWD, _FLASH_BWD = "flash_attn_fwd", "flash_attn_bwd"
+# the kernels' libraries and entry points by q's dtype: float32 (split
+# TF32 products) and bfloat16 (bf16 products, f32 sums)
+_FLASH_LIBS = {
+    torch.float32: dict(fwd=("flash_attn_fwd", "flash_attn_fwd"),
+                        dq=("flash_attn_bwd", "flash_attn_bwd_dq"),
+                        dkv=("flash_attn_bwd", "flash_attn_bwd_dkv")),
+    torch.bfloat16: dict(fwd=("flash_attn_fwd_bf16", "flash_attn_fwd_bf16"),
+                         dq=("flash_attn_bwd_bf16", "flash_attn_bwd_dq_bf16"),
+                         dkv=("flash_attn_bwd_bf16",
+                              "flash_attn_bwd_dkv_bf16")),
+}
 _PTR = ctypes.c_void_p
 _FWD_ARGS = [_PTR] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
     [ctypes.c_int] * 3 + [_PTR]
@@ -440,7 +512,12 @@ def _raise_launch(lib: str, name: str, err: int):
 
 
 def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
-    """What the flash kernels take; anything else raises (no fallback)."""
+    """What the flash kernels take; anything else raises (no fallback).
+    q, k, v (and dO) share one dtype, float32 or bfloat16; the mask, lse
+    and delta are float32, the seed int32."""
+    if q.dtype not in _FLASH_LIBS:
+        raise TypeError(f"flash attention kernel: q must be float32 or "
+                        f"bfloat16, got {q.dtype}")
     tensors = {"q": q, "k": k, "v": v, **extra}
     if kv_mask is not None:
         tensors["kv_mask"] = kv_mask
@@ -449,7 +526,8 @@ def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        want = torch.int32 if name == "seed" else torch.float32
+        want = (torch.int32 if name == "seed" else
+                q.dtype if name in ("q", "k", "v", "do") else torch.float32)
         if t.dtype != want:
             raise TypeError(f"flash attention kernel: {name} must be "
                             f"{want}, got {t.dtype}")
@@ -502,10 +580,12 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
                         dropout_rate: float = 0.0, seed=None):
     """Flash-attention forward: (out [B, H, Tq, D], lse [B*H, Tq]).
 
-    q: [B, H, Tq, D], k/v: [B, H, Tk, D] float32; kv_mask: [B, Tk] 1/0
-    float32 or None; seed: int32 tensor of one value (the dropout seed)
-    or None.  CPU tensors take :func:`flash_attention_ref`; CUDA tensors
-    launch ``flash_attn_fwd`` on the current stream, or raise."""
+    q: [B, H, Tq, D], k/v: [B, H, Tk, D] float32 or bfloat16; kv_mask:
+    [B, Tk] 1/0 float32 or None; seed: int32 tensor of one value (the
+    dropout seed) or None.  out has q's dtype, lse is float32.  CPU
+    tensors take :func:`flash_attention_ref`; CUDA tensors launch
+    ``flash_attn_fwd`` (float32) or ``flash_attn_fwd_bf16`` on the
+    current stream, or raise."""
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
@@ -518,13 +598,14 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
         q, k, causal, sm_scale, dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
-    fn = _flash_fn(_FLASH_FWD, "flash_attn_fwd", _FWD_ARGS)
+    lib, name = _FLASH_LIBS[q.dtype]["fwd"]
+    fn = _flash_fn(lib, name, _FWD_ARGS)
     stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D, c,
              sl2, rate, keep, bq, bk, q.device.index, stream)
     if err != 0:
-        _raise_launch(_FLASH_FWD, "flash_attn_fwd", err)
+        _raise_launch(lib, name, err)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -536,7 +617,8 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
     """dq of flash attention from the forward's ``lse`` and ``delta``
     ([B*H, Tq] each; ring attention passes its global ones).  CPU
     tensors take the plain version; CUDA tensors launch
-    ``flash_attn_bwd_dq``, or raise."""
+    ``flash_attn_bwd_dq`` (float32) or ``flash_attn_bwd_dq_bf16``, or
+    raise."""
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
@@ -549,14 +631,15 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
     B, H, Tq, Tk, D, c, sl2, rate, keep, bq, bk = _common(
         q, k, causal, sm_scale, dropout_rate)
     dq = torch.empty_like(q)
-    fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dq", _DQ_ARGS)
+    lib, name = _FLASH_LIBS[q.dtype]["dq"]
+    fn = _flash_fn(lib, name, _DQ_ARGS)
     stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), B, H, Tq, Tk, D, c, sl2, float(sm_scale), rate,
              keep, bq, bk, q.device.index, stream)
     if err != 0:
-        _raise_launch(_FLASH_BWD, "flash_attn_bwd_dq", err)
+        _raise_launch(lib, name, err)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -566,7 +649,8 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
                             sm_scale: Optional[float] = None,
                             dropout_rate: float = 0.0, seed=None):
     """(dk, dv) of flash attention (as :func:`flash_attention_bwd_dq`);
-    CUDA tensors launch ``flash_attn_bwd_dkv``, or raise."""
+    CUDA tensors launch ``flash_attn_bwd_dkv`` (float32) or
+    ``flash_attn_bwd_dkv_bf16``, or raise."""
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
@@ -581,15 +665,19 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
         q, k, causal, sm_scale, dropout_rate)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _flash_fn(_FLASH_BWD, "flash_attn_bwd_dkv", _DKV_ARGS)
+    lib, name = _FLASH_LIBS[q.dtype]["dkv"]
+    fn = _flash_fn(lib, name, _DKV_ARGS)
+    # the float32 kernel holds its q tile pre-scaled; the bfloat16 one
+    # takes dk from the unscaled q, as the reference does
+    dk_scale = (float(sm_scale) / sl2 if q.dtype == torch.float32
+                else float(sm_scale))
     stream = _build.current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
              _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, c, sl2,
-             float(sm_scale) / sl2, rate, keep, bq, bk, q.device.index,
-             stream)
+             dk_scale, rate, keep, bq, bk, q.device.index, stream)
     if err != 0:
-        _raise_launch(_FLASH_BWD, "flash_attn_bwd_dkv", err)
+        _raise_launch(lib, name, err)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

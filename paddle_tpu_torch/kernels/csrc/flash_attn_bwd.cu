@@ -80,6 +80,8 @@
 namespace {
 
 using flash::Args;
+using flash::drop_of;
+using flash::drop_threshold;
 using flash::kNegInf;
 using tf32x3::cp_async16;
 using tf32x3::cp_async4;
@@ -106,28 +108,6 @@ constexpr int smem_floats() {
 }
 
 __host__ __device__ inline int bit_words(int ntiles) { return (ntiles + 31) / 32; }
-
-// the dropout multiplier of one element: flash::drop_mult with the row's
-// and the key's parts of the hash computed once, and its test
-// float(x >> 8) * 2^-24 >= rate (both sides exact) taken as the integer
-// test x >= drop_threshold(rate)
-__device__ __forceinline__ float drop_of(uint32_t row_x, uint32_t row_salt, uint32_t key_x,
-                                         uint32_t key_salt, uint32_t threshold, float keep) {
-  uint32_t x = row_x ^ key_x;
-  x ^= row_salt + key_salt;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x >= threshold ? keep : 0.0f;
-}
-
-// ceil(rate * 2^24) << 8: rate * 2^24 is exact in float32, and for rate
-// < 1 the ceiling is at most 2^24 - 1, so the shift does not wrap
-__device__ __forceinline__ uint32_t drop_threshold(float rate) {
-  return static_cast<uint32_t>(ceilf(rate * 16777216.0f)) << 8;
-}
 
 // acc1[j] += a1 * b1[j] and acc2[j] += a2 * b2[j], j < 4, in split TF32
 // (tf32x3::mma3's three products a term, small ones first).  The eight
@@ -192,20 +172,6 @@ __device__ __forceinline__ void load_b4(FragB (&fb)[4], const float* Bh, const f
     fb[j].lo[0] = __float_as_uint(Bl[o]);
     fb[j].lo[1] = __float_as_uint(Bl[o2]);
   }
-}
-
-__device__ __forceinline__ uint32_t row_x_of(int row, int bq) {
-  return (static_cast<uint32_t>(row) - static_cast<uint32_t>(row / bq) * bq) * 0x9E3779B1u;
-}
-__device__ __forceinline__ uint32_t row_salt_of(int row, int bq, uint32_t seed, int bh) {
-  return seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du +
-         static_cast<uint32_t>(row / bq) * 0x27D4EB2Fu;
-}
-__device__ __forceinline__ uint32_t key_x_of(int key, int bk) {
-  return (static_cast<uint32_t>(key) - static_cast<uint32_t>(key / bk) * bk) * 0x85EBCA77u;
-}
-__device__ __forceinline__ uint32_t key_salt_of(int key, int bk) {
-  return static_cast<uint32_t>(key / bk) * 0x165667B1u;
 }
 
 // cp.async of NR rows (from row r0) of two [n_rows, D] matrices into
@@ -468,8 +434,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     lse[h] = ok ? a.lse[ridx] : 0.0f;
     delta[h] = ok ? a.delta[ridx] : 0.0f;
     kend[h] = ok ? flash::key_end(row, Tk, a.causal, a.bq, a.bk) : 0;
-    row_x[h] = row_x_of(row, a.bq);
-    row_salt[h] = row_salt_of(row, a.bq, seed, bh);
+    row_x[h] = flash::drop_row_x(row, a.bq);
+    row_salt[h] = flash::drop_row_salt(row, a.bq, seed, bh);
     mass = mass && (!ok || lse[h] > kHasMass);
   }
   mass = __all_sync(0xffffffffu, mass);
@@ -516,8 +482,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
       } else {
         inf[j] = __float_as_uint(key < Tk ? 1.0f : 0.0f);
       }
-      inf[kTile + j] = key_x_of(key, a.bk);
-      inf[2 * kTile + j] = key_salt_of(key, a.bk);
+      inf[kTile + j] = flash::drop_key_x(key, a.bk);
+      inf[2 * kTile + j] = flash::drop_key_salt(key, a.bk);
     }
   };
 
@@ -623,8 +589,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
     const bool ok = key < Tk;
     valid[h] = ok && (a.mask == nullptr || a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
     rbeg[h] = ok ? flash::row_begin(key, Tq, a.causal, a.bq, a.bk) : Tq;
-    key_x[h] = key_x_of(key, a.bk);
-    key_salt[h] = key_salt_of(key, a.bk);
+    key_x[h] = flash::drop_key_x(key, a.bk);
+    key_salt[h] = flash::drop_key_salt(key, a.bk);
   }
   const bool any = __any_sync(0xffffffffu, valid[0] || valid[1]);
   const int wfirst = key0 + warp * 16;
@@ -663,8 +629,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
       const bool ok = row < Tq;
       cp_async4(inf + j, ok ? lbase + row : lbase, ok ? 4 : 0);
       cp_async4(inf + kTile + j, ok ? dbase + row : dbase, ok ? 4 : 0);
-      inf[2 * kTile + j] = row_x_of(row, a.bq);
-      inf[3 * kTile + j] = row_salt_of(row, a.bq, seed, bh);
+      inf[2 * kTile + j] = flash::drop_row_x(row, a.bq);
+      inf[3 * kTile + j] = flash::drop_row_salt(row, a.bq, seed, bh);
     }
   };
 

@@ -1,5 +1,6 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a):
-// flash_attn_fwd.cu (forward) and flash_attn_bwd.cu (dq; dk and dv).
+// flash_attn_fwd.cu (forward) and flash_attn_bwd.cu (dq; dk and dv) in
+// float32, flash_attn_fwd_bf16.cu and flash_attn_bwd_bf16.cu in bfloat16.
 //
 // Conventions the three kernels keep exactly, because the JAX package's
 // Pallas kernels (paddle_tpu/kernels/attention.py _flash_fwd_kernel,
@@ -121,26 +122,73 @@ __device__ __forceinline__ int row_begin(int key, int Tq, int causal, int bq,
   return min((key / bk) * bk / bq, nqb - 1) * bq;
 }
 
-struct Args {
-  const float* q;        // [B, H, Tq, D]
-  const float* k;        // [B, H, Tk, D]
-  const float* v;        // [B, H, Tk, D]
+// The dropout hash of (row, key) in two parts computed once a row and
+// once a key: the element's bits are drop_of(row_x ^ key_x, row_salt +
+// key_salt), flash::drop_mult's.  The keep test float(x >> 8) * 2^-24 >=
+// rate (both sides exact) is taken as the integer test x >=
+// drop_threshold(rate).
+__device__ __forceinline__ uint32_t drop_row_x(int row, int bq) {
+  return (static_cast<uint32_t>(row) - static_cast<uint32_t>(row / bq) * bq) * 0x9E3779B1u;
+}
+__device__ __forceinline__ uint32_t drop_row_salt(int row, int bq, uint32_t seed, int bh) {
+  return seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du +
+         static_cast<uint32_t>(row / bq) * 0x27D4EB2Fu;
+}
+__device__ __forceinline__ uint32_t drop_key_x(int key, int bk) {
+  return (static_cast<uint32_t>(key) - static_cast<uint32_t>(key / bk) * bk) * 0x85EBCA77u;
+}
+__device__ __forceinline__ uint32_t drop_key_salt(int key, int bk) {
+  return static_cast<uint32_t>(key / bk) * 0x165667B1u;
+}
+// ceil(rate * 2^24) << 8: rate * 2^24 is exact in float32, and for rate
+// < 1 the ceiling is at most 2^24 - 1, so the shift does not wrap
+__device__ __forceinline__ uint32_t drop_threshold(float rate) {
+  return static_cast<uint32_t>(ceilf(rate * 16777216.0f)) << 8;
+}
+__device__ __forceinline__ float drop_of(uint32_t row_x, uint32_t row_salt, uint32_t key_x,
+                                         uint32_t key_salt, uint32_t threshold, float keep) {
+  uint32_t x = row_x ^ key_x;
+  x ^= row_salt + key_salt;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= threshold ? keep : 0.0f;
+}
+
+// the base-2 LSE of a row from its max m and mass l: +1e30 where the mass
+// is 0, so the backward's p = exp2(s - lse) is 0 there, never NaN
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.0f ? m + log2f(fmaxf(l, 1e-30f)) : 1e30f;
+}
+
+// T is the element type of q, k, v, dO and the outputs (float for the
+// float32 kernels, __nv_bfloat16 for the bfloat16 ones); the mask, LSE
+// and delta are float32 in both.
+template <typename T>
+struct ArgsT {
+  const T* q;            // [B, H, Tq, D]
+  const T* k;            // [B, H, Tk, D]
+  const T* v;            // [B, H, Tk, D]
   const float* mask;     // [B, Tk] 1/0 validity, or null (all valid)
   const int32_t* seed;   // [1] dropout seed, or null (0)
-  const float* dout;     // [B, H, Tq, D] (backward)
+  const T* dout;         // [B, H, Tq, D] (backward)
   const float* lse;      // [B*H, Tq] base-2 LSE (backward input)
   const float* delta;    // [B*H, Tq] rowsum(dO * O) (backward)
-  float* out;            // forward: O [B, H, Tq, D]; dq: dQ
+  T* out;                // forward: O [B, H, Tq, D]; dq: dQ
   float* out_lse;        // forward: LSE [B*H, Tq]
-  float* dk;             // [B, H, Tk, D]
-  float* dv;             // [B, H, Tk, D]
+  T* dk;                 // [B, H, Tk, D]
+  T* dv;                 // [B, H, Tk, D]
   int B, H, Tq, Tk, D;
   int causal;
   float scale_log2;      // float(sm_scale * log2(e))
-  float grad_scale;      // dq: sm_scale; dk: sm_scale / scale_log2
+  float grad_scale;      // dq: sm_scale; dk: sm_scale / scale_log2 (float32,
+                         // whose q tile is held pre-scaled) or sm_scale
   float rate;            // dropout rate (0: off)
   float keep_scale;      // float(1 / (1 - rate))
   int bq, bk;            // the reference's logical tile sizes
 };
+using Args = ArgsT<float>;
 
 }  // namespace flash

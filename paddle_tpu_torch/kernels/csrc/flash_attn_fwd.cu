@@ -287,10 +287,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
       if (d < D) op[d] = o[dt][2 * h] * inv;
       if (d + 1 < D) op[d + 1] = o[dt][2 * h + 1] * inv;
     }
-    if (q == 0) {
-      a.out_lse[static_cast<size_t>(bh) * Tq + row] =
-          l[h] > 0.0f ? m[h] + log2f(fmaxf(l[h], 1e-30f)) : 1e30f;
-    }
+    if (q == 0) a.out_lse[static_cast<size_t>(bh) * Tq + row] = flash::lse_of(m[h], l[h]);
   }
 }
 

@@ -32,6 +32,14 @@ def broadcast_y(x, y, axis: int):
     return y.reshape(new_shape)
 
 
+def promote(x, y):
+    """x and y in their common dtype, as jnp promotes the operands of a
+    product (``torch.promote_types`` agrees for float types); autograd
+    casts each gradient back to its operand's own dtype."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 def _ew(fn):
     def lower(ctx, ins, attrs):
         x, y = ins["X"][0], ins["Y"][0]
@@ -131,6 +139,7 @@ def _mul(ctx, ins, attrs):
     """mul_op.cc: X flattened to 2-D at ``x_num_col_dims``, Y at
     ``y_num_col_dims``; the FC core."""
     x, y = ins["X"][0], ins["Y"][0]
+    x, y = promote(x, y)
     xnc = attrs.get("x_num_col_dims", 1)
     ync = attrs.get("y_num_col_dims", 1)
     out = torch.matmul(flatten_to_2d(x, xnc), flatten_to_2d(y, ync))
@@ -147,7 +156,7 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = torch.matmul(*promote(x, y))
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -161,6 +170,9 @@ def _scale(ctx, ins, attrs):
     bias = attrs.get("bias", 0.0)
     if not x.is_floating_point():
         scale, bias = int(scale), int(bias)
+    else:  # rounded to x's dtype first, as the reference's jnp.asarray
+        scale, bias = (torch.tensor(c, dtype=x.dtype).item()
+                       for c in (scale, bias))
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * scale + bias]}
     return {"Out": [(x + bias) * scale]}
@@ -194,4 +206,4 @@ def _cast_grad(ctx, ins, attrs):
     return {"X@GRAD": [g.to(x.dtype)]}
 
 
-__all__ = ["broadcast_y", "flatten_to_2d"]
+__all__ = ["broadcast_y", "flatten_to_2d", "promote"]

@@ -42,9 +42,15 @@ side stream, every tile edge (M, N and K not multiples of the tile, one
 row, byte loads), the K-major weight copy made once a weight, the tiles
 the path's shapes take, and what it refuses; for ring attention (K11),
 the ring over K1-K3 on four shards of one card against the plain ring,
-all-masked pairs and dropout included, its exact launch counts, and its
-refusal of bf16.
+all-masked pairs and dropout included, its exact launch counts, and the
+same in bfloat16.  The flash kernels' bfloat16 mode (K1-K3 on bfloat16
+q, k, v) is held against the plain bfloat16 version at the same edges:
+head dims 32, 64, 128 and 40 (no 16-byte copies), odd lengths,
+dropout, all-masked rows, cross lengths, a bit-identical rerun; the
+kernels refuse float16 and mixed dtypes.
 """
+import math
+
 import pytest
 import torch
 
@@ -326,10 +332,110 @@ def test_flash_autograd_on_a_side_stream(dev):
         assert torch.equal(a, b)
 
 
+# bfloat16: the kernel rounds p against its own 64-key tile's running
+# max, the plain version against the reference's logical tile's, so a p
+# (and then out) may round to the neighbouring bfloat16: out within one
+# rounding of the largest value, 2^-7 * max|ref|.  The LSE within 1e-4,
+# plus, where the mass sums the rounded p (the ones lane, D < 128 and no
+# dropout), each p's half-ulp rounding in both versions, 2^-8 / ln 2.
+# K2/K3 take the plain version's own lse and delta, so they round where
+# it rounds and differ only in the order of float32 sums: a ds rounds
+# the other way now and then, within 2^-7 * max|ref| again.  Where a
+# row's mass sits on one key (T=1) dp - delta cancels, and ds, dq and dk
+# are the float32 noise of two D-term sums, ~D * 2^-24 of |dO||v|: an
+# absolute floor of 1e-5 covers it.
+BF16_REL = 2.0 ** -7
+BF16_ATOL = 1e-5
+BF16_LSE_ATOL = 1e-4
+
+
+def _bf16_close(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= BF16_REL * ref.float().abs().max() + BF16_ATOL, err.item()
+
+
+def _flash_check_bf16(dev, B, H, Tq, Tk, D, causal, rate=0.0, seed=0,
+                      all_masked=False):
+    q, k, v, do, mask = (x.bfloat16() if x.dim() == 4 else x
+                         for x in _flash_inputs(dev, B, H, Tq, Tk, D, seed,
+                                                all_masked))
+    s = torch.tensor([12345 + seed], dtype=torch.int32, device=dev)
+    n = (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
+         A.flash_attention_bwd_dkv.launches)
+    out, lse = A.flash_attention_fwd(q, k, v, mask, causal, None, rate, s)
+    o_ref, l_ref = A.flash_attention_ref(q, k, v, mask, causal, None, rate, s)
+    delta = A.flash_attention_delta(o_ref, do)
+    dq = A.flash_attention_bwd_dq(q, k, v, mask, l_ref, delta, do, causal,
+                                  None, rate, s)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, l_ref, delta, do,
+                                       causal, None, rate, s)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_fwd.launches, A.flash_attention_bwd_dq.launches,
+            A.flash_attention_bwd_dkv.launches) == tuple(x + 1 for x in n)
+    dq_r, dk_r, dv_r = A.flash_attention_bwd_ref(q, k, v, mask, o_ref, l_ref,
+                                                 do, causal, None, rate, s)
+    assert lse.dtype == torch.float32
+    lse_tol = BF16_LSE_ATOL + (2.0 ** -8 / math.log(2.0)
+                               if D < 128 and rate == 0.0 else 0.0)
+    assert (lse - l_ref).abs().max() <= lse_tol
+    for a, b in ((out, o_ref), (dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        _bf16_close(a, b)
+    return dk, dv
+
+
+@pytest.mark.parametrize("T", [1, 17, 255, 512])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bf16_kernels_match_plain(dev, D, T):
+    _flash_check_bf16(dev, 2, 3, T, T, D, causal=(T % 2 == 1), seed=D + T)
+
+
+@pytest.mark.parametrize("D", [32, 40, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_kernels_dropout_and_all_masked_row(dev, causal, D):
+    _flash_check_bf16(dev, 2, 2, 200, 200, D, causal, rate=0.1, seed=3,
+                      all_masked=True)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(100, 77), (77, 100), (128, 300)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_kernels_odd_cross_lengths(dev, causal, Tq, Tk):
+    dk, dv = _flash_check_bf16(dev, 2, 3, Tq, Tk, 64, causal, rate=0.1,
+                               seed=Tq + Tk)
+    if causal and Tk > Tq:   # keys wholly above the frontier
+        assert torch.count_nonzero(dk[:, :, 128:]) == 0
+        assert torch.count_nonzero(dv[:, :, 128:]) == 0
+
+
+def test_flash_bf16_backward_is_deterministic(dev):
+    q, k, v, do, mask = (x.bfloat16() if x.dim() == 4 else x
+                         for x in _flash_inputs(dev, 32, 8, 256, 256, 64,
+                                                seed=8))
+    s = torch.tensor([99], dtype=torch.int32, device=dev)
+    out, lse = A.flash_attention_fwd(q, k, v, mask, True, None, 0.1, s)
+    delta = A.flash_attention_delta(out, do)
+
+    def run():
+        dq = A.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, True,
+                                      None, 0.1, s)
+        return (dq, *A.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                               True, None, 0.1, s))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q, k, v, do, mask = _flash_inputs(dev, 1, 2, 16, 16, 32)
     with pytest.raises(TypeError):
-        A.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
+        A.flash_attention_fwd(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(TypeError):
+        A.flash_attention_fwd(q.bfloat16(), k, v.bfloat16(), mask)
+    with pytest.raises(TypeError):
+        A.flash_attention_bwd_dq(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 mask, torch.zeros(2, 16, device=dev),
+                                 torch.zeros(2, 16, device=dev), do)
     with pytest.raises(ValueError):
         A.flash_attention_fwd(q.transpose(2, 3), k, v, mask)
     with pytest.raises(ValueError):
@@ -1407,8 +1513,32 @@ def test_ring_matches_plain_ring_and_counts_launches(dev, causal, rate):
         torch.testing.assert_close(a, b, **GRAD_TOL)
 
 
-def test_ring_refuses_bf16_as_the_flash_kernels_do(dev):
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.1)])
+def test_ring_bf16_matches_plain_ring(dev, causal, rate):
+    """The ring over the bfloat16 K1-K3 against the plain bfloat16 ring
+    (pairs merged and accumulated in float32), within the bfloat16
+    kernels' bar, with the same exact launch counts."""
+    q, k, v, do, mask = (x.bfloat16() if x.dim() == 4 else x
+                         for x in _flash_inputs(dev, 2, 2, 256, 256, 64,
+                                                seed=9))
+    mask[1] = 0.0
+    mask[1, -64:] = 1.0
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    out = {}
+    for plain in (False, True):
+        fn = A.ring_attention_ref if plain else A.ring_attention
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = A.flash_attention_fwd.launches
+        o = fn(*leaves, mask, [dev] * 4, causal, None, rate, seed)
+        out[plain] = (o,) + torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        want = 0 if plain else (10 if causal else 16)
+        assert A.flash_attention_fwd.launches - n0 == want
+    for a, b in zip(out[False], out[True]):
+        _bf16_close(a, b)
+
+
+def test_ring_refuses_float16_as_the_flash_kernels_do(dev):
     q, k, v, _, mask = _flash_inputs(dev, 1, 2, 64, 64, 32, seed=3)
     with pytest.raises(TypeError):
-        A.ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask,
-                         [dev] * 4)
+        A.ring_attention(q.half(), k.half(), v.half(), mask, [dev] * 4)

@@ -7,6 +7,21 @@ Tolerances: both sides compute in float32 over at most a few hundred
 keys of O(1) values, in different summation orders, so out/lse agree
 to about 1e-6 and the gradients (sums of products of those) to about
 1e-5; the bounds below leave a few-fold margin.
+
+bfloat16 inputs (``BF16_CASES``): the kernels' products take bfloat16
+operands with float32 sums, and they round to bfloat16 in five places
+(the pre-scaled q, p before P . V, the ones-lane mass, ds, p * drop
+before its product with dO), which the plain version mirrors; the two
+then differ only where a float32 sum taken in another order lands on
+the other side of a bfloat16 rounding (a score one float32 ulp off
+rounds its p, or a ds, the other way).  One such flip moves a sum of
+p- or ds-weighted terms by at most one bfloat16 ulp of its largest
+term, so the bar is: every element of out, dq, dk and dv within one
+bfloat16 ulp of its tensor's max|ref|, and at most 1% of each
+tensor's elements differing at all (leaving out any one of the five
+roundings makes a third or more differ).  The LSE within 1e-5, and
+where the mass l sums the rounded p (the ones lane), within 1e-5 plus
+one flip's share, 2^-8 / (l ln 2).
 """
 import numpy as np
 import pytest
@@ -241,3 +256,149 @@ def test_one_tf32_product_breaks_k2_k3s_tolerance(causal):
     TF32 product without a bound of its own."""
     ratios = _bwd_tol_ratio(causal, matmul_tf32)
     assert max(ratios.values()) > 1.0, ratios
+
+
+# bfloat16 cases: name -> (B, H, Tq, Tk, D, causal, rate, all-masked row)
+BF16_CASES = {
+    "ones_lane_d16": (2, 2, 64, 64, 16, False, 0.0, False),
+    "ones_lane_d64_causal": (1, 2, 256, 256, 64, True, 0.0, False),
+    "d128": (1, 2, 128, 128, 128, False, 0.0, False),
+    "dropout": (2, 2, 48, 48, 16, False, 0.1, False),
+    "dropout_causal_multi_tile": (1, 2, 140, 140, 8, True, 0.1, False),
+    "masked_all_masked_row": (2, 2, 40, 40, 8, False, 0.0, True),
+    "ragged_multi_tile": (1, 2, 160, 160, 16, True, 0.0, False),
+    "cross_tk_gt_tq_causal": (1, 2, 128, 256, 16, True, 0.0, False),
+}
+BF16_DIFFER_FRAC = 0.01
+BF16_LSE_ATOL = 1e-5
+
+
+def _bf16_np(x):
+    """float32 numpy values rounded to bfloat16 (returned as float32)."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _ulp_bf16(x):
+    """The bfloat16 spacing at |x| (0 where x is 0)."""
+    _, e = np.frexp(np.abs(x))
+    return np.where(x == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def _within_bf16_bar(name, got, ref):
+    diff = np.abs(got.float().numpy() - ref)
+    assert diff.max() <= _ulp_bf16(np.abs(ref).max()), (name, diff.max())
+    frac = np.count_nonzero(diff) / diff.size
+    assert frac <= BF16_DIFFER_FRAC, (name, frac)
+
+
+def _ones_lane_mass(r):
+    """The reference's softmax mass l of each row, [B*H, Tq], from its
+    LSE and the row's largest visited score."""
+    q, k, _, _, mask, _ = (torch.from_numpy(x) for x in r["inputs"])
+    s = TA._padded_scores(q.bfloat16(), k.bfloat16(), mask, r["causal"],
+                          1.0 / np.sqrt(q.shape[-1]))
+    key_end, _ = TA._visits(q.shape[2], k.shape[2], r["causal"], "cpu")
+    vis = torch.arange(s.shape[-1])[None] < key_end[:, None]
+    m = s.masked_fill(~vis, -np.inf).amax(-1).reshape(r["lse"].shape)
+    return np.exp2(r["lse"] - m.numpy())
+
+
+def _bf16_reference(name):
+    B, H, Tq, Tk, D, causal, rate, all_masked = BF16_CASES[name]
+    q, k, v, g, mask = (_bf16_np(x) if x.ndim == 4 else x
+                        for x in _inputs(B, H, Tq, Tk, D, all_masked,
+                                         len(name)))
+    seed = np.array([-99], "int32")
+    js = jnp.asarray(seed)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    out, lse = JA._pallas_fwd(jq, jk, jv, mask, causal, None, rate, js,
+                              interpret=True)
+    dq, dk, dv = JA._pallas_bwd(jq, jk, jv, mask, out, lse, jg, causal,
+                                None, rate, js, interpret=True)
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+    return dict(inputs=(q, k, v, g, mask, seed), causal=causal, rate=rate,
+                out=f32(out), lse=f32(lse)[:, 0, :Tq], dq=f32(dq),
+                dk=f32(dk), dv=f32(dv))
+
+
+@pytest.fixture(scope="module")
+def bf16_refs():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _bf16_reference(name)
+        return cache[name]
+    return get
+
+
+def _port_bf16(r):
+    q, k, v, g = (torch.from_numpy(x).bfloat16() for x in r["inputs"][:4])
+    mask, seed = (torch.from_numpy(x) for x in r["inputs"][4:])
+    out, lse = TA.flash_attention_ref(q, k, v, mask, r["causal"], None,
+                                      r["rate"], seed)
+    dq, dk, dv = TA.flash_attention_bwd_ref(q, k, v, mask, out, lse, g,
+                                            r["causal"], None, r["rate"],
+                                            seed)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_plain_flash_bf16_within_one_ulp_of_pallas(bf16_refs, name):
+    r = bf16_refs(name)
+    got = _port_bf16(r)
+    for key in ("out", "dq", "dk", "dv"):
+        assert got[key].dtype == torch.bfloat16, key
+        _within_bf16_bar(key, got[key], r[key])
+    assert got["lse"].dtype == torch.float32
+    bound = BF16_LSE_ATOL
+    D = r["inputs"][0].shape[-1]
+    if D < 128 and r["rate"] == 0.0:      # the ones lane
+        bound = bound + 2.0 ** -8 / (_ones_lane_mass(r) * np.log(2.0))
+    assert (np.abs(got["lse"].numpy() - r["lse"]) <= bound).all()
+
+
+def test_bf16_gradients_hold_the_references_bar():
+    """The reference's test_pallas_bwd_bf16_grad_precision bar on the
+    plain versions: flash_attention's bfloat16 gradients against
+    float32 attention of the same inputs, relative maxdiff < 0.02."""
+    rng = np.random.RandomState(0)
+    B, H, T, D = 1, 2, 256, 64
+    q, k, v = (torch.from_numpy(rng.randn(B, H, T, D) * 0.3).bfloat16()
+               for _ in range(3))
+
+    def grads(*xs):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        loss = (TA.flash_attention(*leaves, None, True).float() ** 2).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    for a, b in zip(grads(q, k, v), grads(q.float(), k.float(), v.float())):
+        assert a.dtype == torch.bfloat16
+        rel = (a.float() - b).abs().max() / b.abs().max().clamp(min=1e-6)
+        assert rel < 0.02, rel
+
+
+def test_kernel_dtype_rules():
+    """What the kernels take (checked before a launch): q, k, v and dO
+    of one dtype, float32 or bfloat16; mask, lse and delta float32; the
+    seed int32.  Anything else raises TypeError."""
+    q = torch.zeros(1, 2, 8, 16)
+    mask, row = torch.ones(1, 8), torch.zeros(2, 8)
+    seed = torch.zeros(1, dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        x = q.to(dt)
+        TA._check_flash(x, x, x, mask, seed, lse=row, delta=row, do=x)
+    bad = [
+        ((q.half(),) * 3, {}),
+        ((q.bfloat16(), q, q.bfloat16()), {}),
+        ((q.bfloat16(),) * 3, dict(lse=row.bfloat16(), delta=row,
+                                   do=q.bfloat16())),
+        ((q.bfloat16(),) * 3, dict(lse=row, delta=row, do=q)),
+    ]
+    for (a, b, c), extra in bad:
+        with pytest.raises(TypeError):
+            TA._check_flash(a, b, c, mask, seed, **extra)
+    with pytest.raises(TypeError):
+        TA._check_flash(q, q, q, mask.bfloat16(), seed)

@@ -10,7 +10,19 @@ different summation orders in the pairs and the merges).  Dropout bits
 are the same counter hash on both sides, keyed on the same pair seeds,
 so the dropped outputs agree within the forward's bound; the pair seeds
 themselves agree bit for bit.
+
+bfloat16 (``BF16_CASES``): inputs rounded to bfloat16 go through both
+rings, whose pairs run the flash kernels' bfloat16 arithmetic (the
+port's plain bfloat16 K1-K3 against the reference's Pallas kernels in
+interpret mode; ``test_torch_flash_attention.py`` holds the pairs
+alone), merged and accumulated in float32 and cast to bfloat16 once.
+The reference's ring is compiled with XLA's excess precision off, so
+it rounds where its program says.  Bar: ``test_torch_flash_attention.py``'s
+bfloat16 one, every element within one bfloat16 ulp of its tensor's
+max|ref| and at most 1% of the elements differing.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +52,8 @@ def _inputs(B, H, T, D, seed=11, keys_in_last_shard=None):
     return q, k, v, g, mask
 
 
-def _reference(q, k, v, mask, g, sp, causal, rate=0.0, seed=None):
+def _reference(q, k, v, mask, g, sp, causal, rate=0.0, seed=None,
+               dtype=jnp.float32):
     """(out, dq, dk, dv) of the reference's ring under shard_map over the
     first ``sp`` virtual CPU devices, forward and VJP in one jitted call
     (run eagerly, every interpret-mode pair kernel is dispatched op by op,
@@ -54,26 +67,32 @@ def _reference(q, k, v, mask, g, sp, causal, rate=0.0, seed=None):
             dropout_rate=rate, dropout_seed=s),
         mesh=mesh, in_specs=(spec,) * 3 + (P(None, "sp"),), out_specs=spec)
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options={
+        "xla_allow_excess_precision": False})
     def fwd_vjp(q, k, v, m, g):
         out, vjp = jax.vjp(lambda q, k, v: ring(q, k, v, m), q, k, v)
         return (out,) + vjp(g)
 
     # with no mask the shard_map still takes one, unused, to keep one form
     m = np.ones((q.shape[0], q.shape[2]), "float32") if mask is None else mask
-    return tuple(np.asarray(x) for x in fwd_vjp(
-        *(jnp.asarray(x) for x in (q, k, v, m, g))))
+    q, k, v, g = (jnp.asarray(x, dtype) for x in (q, k, v, g))
+    return tuple(np.asarray(x, np.float32)
+                 for x in fwd_vjp(q, k, v, jnp.asarray(m), g))
 
 
-def _port(q, k, v, mask, g, sp, causal, rate=0.0, seed=None):
+def _port(q, k, v, mask, g, sp, causal, rate=0.0, seed=None,
+          dtype=torch.float32):
     """(out, dq, dk, dv) of the port's ring over ``sp`` CPU devices."""
-    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    leaves = [torch.tensor(x, dtype=dtype, requires_grad=True)
+              for x in (q, k, v)]
     m = None if mask is None else torch.tensor(mask)
     s = None if seed is None else torch.tensor([seed], dtype=torch.int32)
     out = TA.ring_attention(*leaves, m, ["cpu"] * sp, causal,
                             dropout_rate=rate, dropout_seed=s)
-    out.backward(torch.tensor(g))
-    return (out.detach().numpy(),) + tuple(x.grad.numpy() for x in leaves)
+    out.backward(torch.tensor(g, dtype=dtype))
+    assert out.dtype == dtype and all(x.grad.dtype == dtype for x in leaves)
+    return tuple(x.detach().float().numpy()
+                 for x in [out] + [x.grad for x in leaves])
 
 
 def _close(got, ref):
@@ -116,6 +135,31 @@ def test_ring_matches_reference(name):
         assert np.abs(got[0] - other[0]).max() > 1e-4
         plain = _port(*args[:-2], 0.0, None)
         assert np.abs(got[0] - plain[0]).max() > 1e-4
+
+
+BF16_CASES = {
+    "sp4_causal_partial_rows": (4, True, 2, 64, 16, "partial", 0.0),
+    "sp2_d64_mask_none": (2, False, 1, 64, 64, None, 0.0),
+    "sp4_dropout": (4, False, 1, 64, 16, "mask", 0.3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_ring_bf16_matches_reference(name):
+    sp, causal, B, T, D, kind, rate = BF16_CASES[name]
+    q, k, v, g, mask = (torch.from_numpy(x).bfloat16().float().numpy()
+                        if x.ndim == 4 else x
+                        for x in _inputs(B, 2, T, D, keys_in_last_shard=(
+                            sp if kind == "partial" else None)))
+    args = (q, k, v, None if kind is None else mask, g, sp, causal, rate,
+            7 if rate else None)
+    got = _port(*args, dtype=torch.bfloat16)
+    ref = _reference(*args, dtype=jnp.bfloat16)
+    for name_, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        diff = np.abs(a - b)
+        _, e = np.frexp(np.abs(b).max())
+        assert diff.max() <= np.ldexp(1.0, e - 8), (name_, diff.max())
+        assert np.count_nonzero(diff) <= 0.01 * diff.size, name_
 
 
 def test_pair_seed_bit_for_bit_with_wraparound():
