@@ -64,10 +64,17 @@ non-zero; each phase's header gives its start in seconds):
    ``FLASH_BF16_REL`` and ``FLASH_BF16_LSE``; K2/K3 bit-identical on a
    rerun; at ``bench_flash_attention_long``'s two shapes (B=4, T=8192,
    causal, (H, D) = (8, 64) and (4, 128)) against the float32 kernels on
-   the same inputs upcast, within ``FLASH_BF16_VS_F32_REL``.  Timed at
-   the training shape (dropout 0.1) and at the two long shapes beside
-   the bound at the bfloat16 rate, SDPA in bfloat16 and the float32
-   kernels.
+   the same inputs upcast, within ``FLASH_BF16_VS_F32_REL``; at the bf16
+   ring's pair (B=1, H=4, 4,096 x 4,096, D=128, ragged keys) against the
+   plain bfloat16 version.  K2's own delta (the backward passes none; K2
+   computes rowsum(dO * O) for its rows and hands it to K3) is held to
+   ``flash_attention_delta`` within the float32 sum-order bound
+   (``delta_bound``).  Timed at the training shape (dropout 0.1), at the
+   two long shapes and at the ring's pair beside the bound at the
+   bfloat16 rate, SDPA in bfloat16 and the float32 kernels (not at the
+   pair).  The SASS of ``flash_attn_bwd_bf16.cu`` (``cuobjdump
+   -sass``) must hold ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA
+   loads) in K2 and in K3: the counts are logged.
 5. The training slice: Transformer-base through Program ->
    append_backward -> Executor.run with ``attention_impl="pallas"``.
    First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
@@ -407,6 +414,9 @@ FLASH_BF16_VS_F32_REL = 0.02
 # bench.py:586-712 bench_flash_attention_long's shapes: B=4, T=8192,
 # causal, (H, D) = (8, 64) and (4, 128), bfloat16
 FLASH_LONG_BF16_SHAPES = ((4, 8, 8192, 64), (4, 4, 8192, 128))
+# the bf16 ring's pair at bench_ring_shard's shape (bench.py:713-779): B=1,
+# H=4, 4,096-token q and kv shards, D=128, ragged keys, not causal
+FLASH_RING_PAIR_BF16 = (1, 4, 4096, 128)
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 
 # The recurrent kernels (K6, K7, K8a, K8b) vs their plain versions on the
@@ -1816,15 +1826,56 @@ def bf16_lse_tol(D, rate) -> float:
 
 
 def flash_bwd(A, x, lse, out, causal, rate):
-    """FlashAttentionFn.backward's device work: delta, K2, K3."""
-    delta = A.flash_attention_delta(out, x["do"])
-    dq = A.flash_attention_bwd_dq(x["q"], x["k"], x["v"], x["mask"], lse,
-                                  delta, x["do"], causal, None, rate,
-                                  x["seed"])
+    """FlashAttentionFn.backward's device work: K2 given the forward's
+    out in place of delta (the bfloat16 kernel computes delta itself; for
+    float32 the wrapper takes the torch reduction), then K3 on that
+    delta."""
+    dq, delta = A.flash_attention_bwd_dq(
+        x["q"], x["k"], x["v"], x["mask"], lse, None, x["do"], causal,
+        None, rate, x["seed"], out=out)
     dk, dv = A.flash_attention_bwd_dkv(x["q"], x["k"], x["v"], x["mask"],
                                        lse, delta, x["do"], causal, None,
                                        rate, x["seed"])
     return dq, dk, dv
+
+
+def delta_bound(out, do) -> float:
+    """How far two float32 sums of rowsum(dO * O) in different orders
+    may lie apart: D * 2^-23 * the largest row's sum of |dO * O|."""
+    terms = (out.float() * do.float()).abs().sum(-1)
+    return out.shape[-1] * 2.0 ** -23 * terms.max().item()
+
+
+def check_own_delta(A, x, lse, out, causal, rate, label) -> float:
+    """K2's own delta (the backward's) against flash_attention_delta;
+    raises past delta_bound.  Returns max|d|."""
+    _, delta = A.flash_attention_bwd_dq(
+        x["q"], x["k"], x["v"], x["mask"], lse, None, x["do"], causal,
+        None, rate, x["seed"], out=out)
+    want = A.flash_attention_delta(out, x["do"])
+    d = (delta - want).abs().max().item()
+    tol = delta_bound(out, x["do"])
+    if not (math.isfinite(d) and d <= tol):
+        raise AssertionError(f"{label}: K2's delta off by {d} > {tol}")
+    return d
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel function: {"HGMMA": n, "UTMALDG": n}} in the SASS of a
+    built kernel library (``cuobjdump -sass``)."""
+    from paddle_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.lib_path(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                out[fn][op] += op in line
+    return out
 
 
 def top_kernels(fn, n=2) -> list:
@@ -2159,12 +2210,81 @@ def flash_long_bf16(A, dev, shape) -> dict:
     return out
 
 
+def flash_ring_pair_bf16(A, dev) -> dict:
+    """K2/K3 at the bf16 ring's pair (FLASH_RING_PAIR_BF16): against the
+    plain bfloat16 version from the plain forward's lse and delta
+    (FLASH_BF16_REL), K2's own delta within delta_bound; then K2 and K3
+    alone and the backward (K2 with its own delta, then K3) by device
+    time, cycling input sets past the L2, beside the bound at the bf16
+    rate and SDPA bf16's autograd backward with the same key mask."""
+    import torch.nn.functional as F
+    B, H, T, D = FLASH_RING_PAIR_BF16
+    n_sets = max(2, math.ceil(2 * L2_BYTES / (4 * B * H * T * D * 2)))
+    sets = []
+    for i in range(n_sets):
+        s = flash_as(flash_inputs(dev, B, H, T, T, D, seed=70 + i),
+                     torch.bfloat16)
+        s["seed"] = None
+        s["out"], s["lse"] = A.flash_attention_fwd(s["q"], s["k"], s["v"],
+                                                   s["mask"], False)
+        s["delta"] = A.flash_attention_delta(s["out"], s["do"])
+        sets.append(s)
+    x = sets[0]
+    args = (x["q"], x["k"], x["v"], x["mask"])
+    r_out, r_lse = A.flash_attention_ref(*args, False)
+    r_delta = A.flash_attention_delta(r_out, x["do"])
+    bargs = (*args, r_lse, r_delta, x["do"], False)
+    got = (A.flash_attention_bwd_dq(*bargs),
+           *A.flash_attention_bwd_dkv(*bargs))
+    want = A._bwd_ref(*args, r_lse, r_delta, x["do"], False, D ** -0.5, 0.0,
+                      None, True, True)
+    torch.cuda.synchronize()
+    out = {"shape": [B, H, T, T, D], "input_sets": n_sets,
+           "max_rel_err": {n: rel_err(a, b, FLASH_BF16_REL,
+                                      f"bf16 ring pair {n}")
+                           for n, a, b in zip(("dq", "dk", "dv"), got,
+                                              want)},
+           "delta_max_abs_err": check_own_delta(A, x, r_lse, r_out, False,
+                                                0.0, "bf16 ring pair")}
+    del got, want, r_out, r_lse, r_delta
+    sargs = lambda s: (s["q"], s["k"], s["v"], s["mask"])  # noqa: E731
+    calls = {
+        "bwd_dq": lambda s: A.flash_attention_bwd_dq(
+            *sargs(s), s["lse"], s["delta"], s["do"], False),
+        "bwd_dkv": lambda s: A.flash_attention_bwd_dkv(
+            *sargs(s), s["lse"], s["delta"], s["do"], False),
+        "bwd": lambda s: flash_bwd(A, s, s["lse"], s["out"], False, 0.0)}
+    names = {**flash_kernel_names(torch.bfloat16), "bwd": None}
+    ms = {n: device_ms(fn, sets, iters=20, name=names[n])
+          for n, fn in calls.items()}
+    for s in sets:
+        s["leaves"] = [s[n].clone().requires_grad_(True)
+                       for n in ("q", "k", "v")]
+        s["sdpa"] = F.scaled_dot_product_attention(
+            *s["leaves"], attn_mask=s["mask"][:, None, None, :] > 0)
+    lib = device_ms(lambda s: torch.autograd.grad(
+        s["sdpa"], s["leaves"], s["do"], retain_graph=True), sets, iters=20)
+    backend = top_kernels(lambda: torch.autograd.grad(
+        sets[0]["sdpa"], sets[0]["leaves"], sets[0]["do"],
+        retain_graph=True))
+    work = flash_work(x, False)
+    for n in ("bwd_dq", "bwd_dkv"):
+        out[n] = {"ms": ms[n], **work[n]}
+    out["bwd"] = {"ms": ms["bwd"], "library_ms": lib,
+                  "sdpa_bwd_kernels": backend,
+                  "bound_ms": work["bwd_dq"]["bound_ms"]
+                  + work["bwd_dkv"]["bound_ms"]}
+    del sets
+    return out
+
+
 def check_and_time_flash_bf16(dev, flash) -> dict:
     """Phase 3b's bfloat16 part (module doc); ``flash`` is the float32
     part's result, whose kernel times at the same shape stand beside."""
     from paddle_tpu_torch.kernels import attention as A
     errs = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
     abs_errs = dict(errs)
+    delta_errs = {}
     for i, name in enumerate(FLASH_BF16_CASES):
         B, H, Tq, Tk, D, causal, rate, all_masked = FLASH_CASES[name]
         x = flash_as(flash_inputs(dev, B, H, Tq, Tk, D, seed=100 + i,
@@ -2190,6 +2310,9 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
                  "bwd_dkv": ((dk, r_dk), (dv, r_dv))}
         e = {n: max(rel_err(a, b, FLASH_BF16_REL, f"{name} {n}")
                     for a, b in ps) for n, ps in pairs.items()}
+        # the backward's own delta, from K2
+        delta_errs[name] = check_own_delta(A, x, r_lse, r_out, causal, rate,
+                                           f"bf16 {name}")
         for n, ps in pairs.items():
             errs[n] = max(errs[n], e[n])
             abs_errs[n] = max([abs_errs[n]] + [
@@ -2198,7 +2321,8 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
             f"{causal} dropout={rate}: max|kernel - plain| / max|plain| out "
             f"{e['fwd']!r}, dq {e['bwd_dq']!r}, dk/dv {e['bwd_dkv']!r} "
             f"(tolerance {FLASH_BF16_REL}); LSE {lse_e!r} (tolerance "
-            f"{bf16_lse_tol(D, rate)!r})")
+            f"{bf16_lse_tol(D, rate)!r}); K2's own delta {delta_errs[name]!r} "
+            f"(within delta_bound)")
         if name in FLASH_RERUN:
             again = (A.flash_attention_bwd_dq(*bargs),
                      *A.flash_attention_bwd_dkv(*bargs))
@@ -2209,7 +2333,17 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
             log(f"  bf16 {name}: K2/K3 bit-identical on a rerun")
             del again
         del x, out, lse, r_out, r_lse, dq, dk, dv, r_dq, r_dk, r_dv
-    res = {"max_rel_err": errs, "max_abs_err": abs_errs, "occupancy": {}}
+    res = {"max_rel_err": errs, "max_abs_err": abs_errs,
+           "delta_max_abs_err": delta_errs, "occupancy": {},
+           "sass": sass_counts("flash_attn_bwd_bf16")}
+    for fn, n in res["sass"].items():
+        log(f"  bf16 backward SASS {fn}: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
+            f"UTMALDG")
+    for k in ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"):
+        fns = [n for fn, n in res["sass"].items() if k in fn]
+        if not fns or not all(n["HGMMA"] and n["UTMALDG"] for n in fns):
+            raise AssertionError(f"{k}: no wgmma (HGMMA) or no TMA load "
+                                 f"(UTMALDG) in its SASS: {fns}")
     for D in (32, 64, 128):
         occ = res["occupancy"][f"D{D}"] = flash_bwd_occupancy(
             A, D, 256, 256, torch.bfloat16)
@@ -2248,6 +2382,17 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
                 + (f", sdpa bf16 {k['library_ms']!r}" if "library_ms" in k
                    else ""))
         torch.cuda.empty_cache()
+    r = res["ring_pair"] = flash_ring_pair_bf16(A, dev)
+    log(f"  bf16 ring pair B,H,Tq,Tk,D={r['shape']}: max|kernel - plain| / "
+        f"max|plain| {r['max_rel_err']} (tolerance {FLASH_BF16_REL}), K2's "
+        f"own delta {r['delta_max_abs_err']!r}")
+    for n in ("bwd_dq", "bwd_dkv"):
+        log(f"    {n}: {r[n]['ms']!r} ms device, bound {r[n]['bound_ms']!r} "
+            f"({r[n]['bound_by']})")
+    log(f"    delta + K2 + K3: {r['bwd']['ms']!r} ms device, sdpa bf16 "
+        f"autograd backward {r['bwd']['library_ms']!r} (its top kernels "
+        f"{[k[:60] for k in r['bwd']['sdpa_bwd_kernels']]})")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5425,6 +5570,15 @@ def main() -> int:
                                     ("ms", "f32_ms", "bound_ms")}
             if key == "fwd":
                 row[f"long_{label}"]["library_ms"] = r["fwd"]["library_ms"]
+        if key != "fwd":
+            r = flash_bf16["ring_pair"]
+            row["ring_pair"] = {"ms": r[key]["ms"],
+                                "bound_ms": r[key]["bound_ms"],
+                                "pair_ms": r["bwd"]["ms"],
+                                "library_ms": r["bwd"]["library_ms"]}
+            kernel = flash_kernel_names(torch.bfloat16)[key]
+            row["sass"] = {fn: n for fn, n in flash_bf16["sass"].items()
+                           if kernel in fn}
         rows.append(row)
     for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
         t = lstm_k["ragged"][key]   # the training path's ragged lengths

@@ -13,6 +13,19 @@ of the repository, on one CUDA card, in one process.
   resident blocks an SM.  A source with no occupancy query of its own
   (PR 2's kernels, templates in an anonymous namespace) is compiled with
   a small shim that includes it and reports them;
+- ``flash_bwd_bf16``: K2/K3 in bfloat16 (``csrc/flash_attn_bwd_bf16.cu``)
+  at four shapes (``FLASH_BF16_AB_SHAPES``): the training shape (B=32,
+  H=8, T=256, D=64, ragged key masks, dropout 0.1, not causal and
+  causal), ``bench_flash_attention_long``'s B=4, T=8192, causal, (H, D) =
+  (8, 64) and (4, 128), and the bf16 ring's pair (B=1, H=4, 4,096 x
+  4,096, D=128, ragged keys): each kernel alone from the same lse and
+  delta (the forward's, this checkout's K1), and the backward's whole
+  device work, delta + K2 + K3 (a build whose K2 computes delta, one
+  whose source names ``delta_out``, does so; another takes delta by the
+  float32 torch reduction), with each build's registers, shared memory
+  and blocks an SM, and its max error against the plain bf16 version
+  (at T=8192, where the plain version's scores do not fit, against the
+  first build's output) and the bound at the bf16 rate;
 - ``paged_decode``: K4 (``csrc/paged_decode_attn.cu``), float32 and int8
   at the decode shape and at the long-context case
   (``chip_smoke.PAGED_SHAPES``), cycling input sets past the L2.  Another
@@ -88,16 +101,16 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import (DEEPFM_B, FLASH_GRAD_TOL,  # noqa: E402
-                        FLASH_TIME_SHAPE, GRU_TIME_SHAPE,
+from chip_smoke import (DEEPFM_B, FLASH_BF16_REL,  # noqa: E402
+                        FLASH_GRAD_TOL, FLASH_TIME_SHAPE, GRU_TIME_SHAPE,
                         INT8_DISPATCH_SHAPES, INT8_SHAPES, K4_KERNELS,
                         K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
                         LSTM_TIME_SHAPE, MT_SHORTEST, PAGED_SHAPES,
                         SPARSE_EMBED, SPARSE_FIELDS, SPARSE_HYPER,
                         SPARSE_ROWS, SPARSE_TIME_SETS, bits_equal,
-                        device_ms, device_ms_by_name, flash_inputs,
-                        gather_work, gru_inputs, int8_case, lstm_inputs,
-                        nvidia_smi_line, paged_inputs, sparse_ids, time_ms,
+                        device_ms, device_ms_by_name, flash_as,
+                        flash_inputs, flash_work, gather_work, gru_inputs,
+                        int8_case, lstm_inputs, nvidia_smi_line, paged_inputs, sparse_ids, time_ms,
                         update_tables, work, worst, zipf_ids)
 from paddle_tpu_torch.core.selected_rows import SelectedRows  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
@@ -262,6 +275,177 @@ def ab_flash_bwd(libs, dev) -> dict:
                                                     causal, rate),
                                sets, iters=50, name=f"flash_{which}_kernel")
                 row.setdefault(f"{who}_{which}_ms", []).append(ms)
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K2/K3 in bfloat16
+# ---------------------------------------------------------------------------
+
+# name: (B, H, Tq, Tk, D, causal, dropout rate, ragged key mask)
+FLASH_BF16_AB_SHAPES = {
+    "a_train": (32, 8, 256, 256, 64, False, 0.1, True),
+    "a_train_causal": (32, 8, 256, 256, 64, True, 0.1, True),
+    "b_long_h8_d64": (4, 8, 8192, 8192, 64, True, 0.0, False),
+    "c_long_h4_d128": (4, 4, 8192, 8192, 128, True, 0.0, False),
+    "d_ring_pair": (1, 4, 4096, 4096, 128, False, 0.0, True),
+}
+# the plain version's [T, T] scores fit up to this many query-key pairs
+FLASH_BF16_AB_PLAIN_PAIRS = 1 << 27
+
+
+def own_delta(tag: str) -> bool:
+    """Whether the build's K2 computes delta (its source names
+    delta_out); this checkout's does."""
+    if tag == "this":
+        return True
+    with open(SOURCES[tag]) as f:
+        return "delta_out" in f.read()
+
+
+def flash_bf16_calls(lib, tag: str):
+    """(K2 alone, K3 alone, delta + K2 + K3) of one build on an input
+    set, the kernels from the set's lse and delta; the backward's own
+    delta where the build's K2 computes it."""
+    own = own_delta(tag)
+    dq_fn, dkv_fn = lib.flash_attn_bwd_dq_bf16, lib.flash_attn_bwd_dkv_bf16
+    dq_fn.argtypes = A._DQ_BF16_ARGS if own else A._DQ_ARGS
+    dkv_fn.argtypes = A._DKV_ARGS
+    dq_fn.restype = dkv_fn.restype = ctypes.c_int
+
+    def run(s, which, delta=None, own_out=False):
+        q, k, v = s["q"], s["k"], s["v"]
+        B, H, Tq, Tk, D, c, sl2, r, keep, bq, bk = A._common(
+            q, k, s["causal"], sm_scale_of(q), s["rate"])
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), A._ptr(s["mask"]),
+                A._ptr(s["seed"]), s["do"].data_ptr(), s["lse"].data_ptr())
+        tail = (B, H, Tq, Tk, D, c, sl2, sm_scale_of(q), r, keep, bq, bk,
+                q.device.index, torch.cuda.current_stream().cuda_stream)
+        if which == "dq":
+            if own:
+                err = dq_fn(*head, None if own_out else delta.data_ptr(),
+                            s["out"].data_ptr() if own_out else None,
+                            delta.data_ptr() if own_out else None,
+                            s["dq"].data_ptr(), *tail)
+            else:
+                err = dq_fn(*head, delta.data_ptr(), s["dq"].data_ptr(),
+                            *tail)
+        else:
+            err = dkv_fn(*head, delta.data_ptr(), s["dk"].data_ptr(),
+                         s["dv"].data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"{tag} {which}: cudaError {err}")
+
+    def pair(s):
+        if own:
+            run(s, "dq", s["own_delta"], own_out=True)
+            delta = s["own_delta"]
+        else:
+            delta = A.flash_attention_delta(s["out"], s["do"])
+            run(s, "dq", delta)
+        run(s, "dkv", delta)
+
+    return {"bwd_dq": lambda s: run(s, "dq", s["delta"]),
+            "bwd_dkv": lambda s: run(s, "dkv", s["delta"]),
+            "bwd": pair}
+
+
+def sm_scale_of(q) -> float:
+    """The default sm_scale, 1 / sqrt(D)."""
+    return float(1.0 / math.sqrt(q.shape[-1]))
+
+
+def flash_bf16_occupancy(lib, D: int, device: int) -> dict:
+    fn = lib.flash_attn_bwd_bf16_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    err = fn(D, device, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_bf16_occupancy: cudaError {err}")
+    return {k: {key: out[4 * i + j] for j, key in enumerate(OCC_KEYS)}
+            for i, k in enumerate(("bwd_dq", "bwd_dkv"))}
+
+
+def flash_bf16_sets(dev, shape) -> list:
+    """Input sets at one shape (enough to cycle past the L2), each with
+    this checkout's K1 output and lse, the float32 delta and outputs."""
+    B, H, Tq, Tk, D, causal, rate, ragged = shape
+    one = B * H * (2 * Tq + 2 * Tk) * D * 2
+    sets = []
+    for i in range(max(2, math.ceil(2 * L2_BYTES / one))):
+        x = flash_as(flash_inputs(dev, B, H, Tq, Tk, D, seed=60 + i),
+                     torch.bfloat16)
+        if not ragged:
+            x["mask"] = None
+        if rate == 0.0:
+            x["seed"] = None
+        x.update(causal=causal, rate=rate)
+        x["out"], x["lse"] = A.flash_attention_fwd(
+            x["q"], x["k"], x["v"], x["mask"], causal, None, rate, x["seed"])
+        x["delta"] = A.flash_attention_delta(x["out"], x["do"])
+        x["own_delta"] = torch.empty_like(x["delta"])
+        for n, like in (("dq", "q"), ("dk", "k"), ("dv", "v")):
+            x[n] = torch.empty_like(x[like])
+        sets.append(x)
+    return sets
+
+
+def ab_flash_bwd_bf16(libs, dev) -> dict:
+    res = {"occupancy": {t: {f"D{D}": flash_bf16_occupancy(lib, D, dev.index)
+                             for D in (64, 128)}
+                         for t, lib in libs.items()}}
+    print(json.dumps(res["occupancy"]), flush=True)
+    calls = {t: flash_bf16_calls(lib, t) for t, lib in libs.items()}
+    for label, shape in FLASH_BF16_AB_SHAPES.items():
+        B, H, Tq, Tk, D, causal, rate, _ = shape
+        sets = flash_bf16_sets(dev, shape)
+        s = sets[0]
+        row = {"shape": list(shape), "input_sets": len(sets)}
+        plain = B * H * Tq * Tk <= FLASH_BF16_AB_PLAIN_PAIRS
+        if plain:
+            want = A._bwd_ref(s["q"], s["k"], s["v"], s["mask"], s["lse"],
+                              s["delta"], s["do"], causal, sm_scale_of(s["q"]),
+                              rate, s["seed"], True, True)
+        first = None
+        for who in libs:
+            calls[who]["bwd"](s)
+            torch.cuda.synchronize()
+            got = tuple(s[n].clone() for n in ("dq", "dk", "dv"))
+            if who == "this":
+                row["this_delta_max_abs_diff"] = (
+                    s["own_delta"] - s["delta"]).abs().max().item()
+            ref = want if plain else first
+            if ref is None:
+                first = got
+                row[f"{who}_vs"] = "the reference for the others"
+                continue
+            e = max(((g.float() - r.float()).abs().max()
+                     / r.float().abs().max()).item()
+                    for g, r in zip(got, ref))
+            row[f"{who}_max_rel_err"] = (
+                repr(e) if math.isfinite(e) and e <= FLASH_BF16_REL
+                else f"disagrees: {e}")
+            row[f"{who}_vs"] = "plain bf16" if plain else "the first build"
+        del s
+        iters = 50 if Tq * Tk <= 1 << 20 else (20 if Tq * Tk <= 1 << 24 else 5)
+        names = {"bwd_dq": "flash_bwd_dq_bf16_kernel",
+                 "bwd_dkv": "flash_bwd_dkv_bf16_kernel", "bwd": None}
+        for which, name in names.items():
+            for who in turns(libs):
+                ms = device_ms(calls[who][which], sets, iters=iters,
+                               name=name)
+                row.setdefault(f"{who}_{which}_ms", []).append(ms)
+        work = flash_work(dict(sets[0], mask=sets[0]["mask"] if
+                               sets[0]["mask"] is not None else
+                               torch.ones(B, Tk, device=dev)), causal)
+        row["bound_ms"] = {n: work[n]["bound_ms"] for n in ("bwd_dq",
+                                                            "bwd_dkv")}
+        row["ops"] = {n: work[n]["ops"] for n in ("bwd_dq", "bwd_dkv")}
         res[label] = row
         print(label, json.dumps(row), flush=True)
         del sets
@@ -919,6 +1103,7 @@ def ab_int8_fc(libs, dev) -> dict:
 KERNELS = {
     "flash_bwd": ("flash_attn_bwd", ab_flash_bwd,
                   ("flash_attn_bwd_occupancy", FLASH_SHIM)),
+    "flash_bwd_bf16": ("flash_attn_bwd_bf16", ab_flash_bwd_bf16, None),
     "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
     "lstm_fwd": ("lstm_fwd", ab_lstm_fwd, None),
     "gru_fwd": ("gru_fwd", ab_gru_fwd, None),

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The rate of ``mma.sync`` products on one CUDA card: m16n8k8 TF32, the
-instruction the split-TF32 kernels (K1, K2, K3, K6-K8b) are built on,
-and m16n8k16 bf16 with float32 sums, the bfloat16 flash kernels' (K1-K3
-on bfloat16 inputs).
+"""The rate of tensor-core products on one CUDA card: ``mma.sync``
+m16n8k8 TF32, the instruction the split-TF32 kernels (K1, K2, K3,
+K6-K8b) are built on, and m16n8k16 bf16 with float32 sums, the bfloat16
+forward's (K1 on bfloat16 inputs); and the warpgroup product ``wgmma``
+m64nNk16 bf16 with float32 sums (N = 64, 128, 256; A from shared memory
+and from registers), the bfloat16 backward's (K2, K3).
 
     python3 mma_rate.py
 
@@ -10,9 +12,12 @@ A kernel in which every warp runs ``chains`` independent accumulator
 chains of ``mma.sync`` (no memory traffic) is compiled with ``nvcc``
 for ``sm_90a`` into a temporary directory and timed with CUDA events
 at 1, 2, 4 and 8 chains a warp and 4, 8 and 16 warps an SM, on every
-SM, for each instruction.  Prints the rate (2 * 16 * 8 * 8 operations
-a TF32 instruction, 2 * 16 * 8 * 16 a bf16 one) of each, then one JSON
-line; fails without a card.
+SM, for each instruction.  A second kernel has each warpgroup issue
+batches of eight ``wgmma`` on one accumulator from operands in shared
+memory (B, and A unless it comes from registers), then wait for them,
+at 1, 2 and 3 warpgroups an SM.  Prints the rate (2 * 16 * 8 * 8
+operations a TF32 ``mma.sync``, 2 * 16 * 8 * 16 a bf16 one, 2 * 64 * N
+* 16 a ``wgmma``) of each, then one JSON line; fails without a card.
 """
 import ctypes
 import json
@@ -72,6 +77,71 @@ int run(int chains, int blocks, int threads, int iters, float* o, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- wgmma m64nNk16 bf16, f32 sums --------------------------------------
+
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
+  // K-major, 128-byte swizzle: 8-row groups 1024 bytes apart
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+WGMMA_FUNCS
+
+template <int N, bool RS>
+__global__ void wgmma_loop(float* out, int iters) {
+  extern __shared__ __align__(1024) unsigned char sm[];
+  // A: 64 rows x 64 columns (8 KB), B: N rows x 64 columns, small values
+  const int words = (8192 + N * 128) / 4;
+  uint32_t* w = reinterpret_cast<uint32_t*>(sm);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = 0x3c003c00u ^ (i & 0x00ff00ffu);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+  const uint32_t a[4] = {0x3c003c00u + threadIdx.x, 0x3c013c01u, 0x3c023c02u, 0x3c033c03u};
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint64_t db = desc_b128(base + 8192 + (k & 3) * 32);
+      if (RS) {
+        wgmma_rs<N>(d, a, db);
+      } else {
+        wgmma_ss<N>(d, desc_b128(base + (k & 3) * 32), db);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+template <int N, bool RS>
+int run_wgmma(int blocks, int iters, float* o, cudaStream_t st) {
+  const int smem = 8192 + N * 128 + 1024;
+  wgmma_loop<N, RS><<<blocks, 128, smem, st>>>(o, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgmma_run(int n, int rs, int blocks, int iters, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  switch (n * 2 + rs) {
+    case 128: return run_wgmma<64, false>(blocks, iters, o, st);
+    case 129: return run_wgmma<64, true>(blocks, iters, o, st);
+    case 256: return run_wgmma<128, false>(blocks, iters, o, st);
+    case 257: return run_wgmma<128, true>(blocks, iters, o, st);
+    case 512: return run_wgmma<256, false>(blocks, iters, o, st);
+    case 513: return run_wgmma<256, true>(blocks, iters, o, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int mma_run(int bf16, int chains, int blocks, int threads, int iters,
                        void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -80,6 +150,63 @@ extern "C" int mma_run(int bf16, int chains, int blocks, int threads, int iters,
               : run<false>(chains, blocks, threads, iters, o, st);
 }
 """
+
+
+def wgmma_funcs() -> str:
+    """CUDA source of wgmma_ss<N> and wgmma_rs<N> (N = 64, 128, 256): d
+    += A . B, A and B K-major, every accumulator register an operand of
+    the inline PTX (the form of csrc/sm90.cuh's)."""
+    out = ["template <int N> __device__ __forceinline__ void wgmma_ss("
+           "float (&d)[N / 2], uint64_t a, uint64_t b);",
+           "template <int N> __device__ __forceinline__ void wgmma_rs("
+           "float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);"]
+    for n in (64, 128, 256):
+        regs = n // 2
+        dl = ", ".join(f"%{i}" for i in range(regs))
+        cons = ", ".join(f'"+f"(d[{i}])' for i in range(regs))
+        for rs in (False, True):
+            if rs:
+                a = "{" + ", ".join(f"%{regs + i}" for i in range(4)) + "}"
+                b, one, tail = f"%{regs + 4}", f"%{regs + 5}", "p, 1, 1, 0"
+                ins = ('"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), '
+                       '"r"(1)')
+                sig = "const uint32_t (&a)[4], uint64_t b"
+            else:
+                a, b, one = f"%{regs}", f"%{regs + 1}", f"%{regs + 2}"
+                tail = "p, 1, 1, 0, 0"
+                ins = '"l"(a), "l"(b), "r"(1)'
+                sig = "uint64_t a, uint64_t b"
+            name = "wgmma_rs" if rs else "wgmma_ss"
+            out.append(
+                f"template <> __device__ __forceinline__ void {name}<{n}>("
+                f"float (&d)[{regs}], {sig}) {{\n"
+                f"  asm volatile(\"{{\\n.reg .pred p;\\nsetp.ne.b32 p, {one}, 0;"
+                f"\\nwgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+                f"{{{dl}}}, {a}, {b}, {tail};\\n}}\\n\"\n"
+                f"               : {cons}\n               : {ins} : \"memory\");\n}}")
+    return "\n".join(out)
+
+
+def lib_fn(lib: str, name: str, argtypes):
+    fn = getattr(ctypes.CDLL(lib), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def event_ms(launch) -> float:
+    """CUDA-event ms of the third of three launches (``launch`` returns a
+    cudaError_t)."""
+    for i in range(3):
+        if i == 2:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        err = launch()
+        if err != 0:
+            raise RuntimeError(f"launch: cudaError {err}")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def main() -> int:
@@ -94,13 +221,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "mma_rate.cu")
         with open(src, "w") as f:
-            f.write(SRC)
+            f.write(SRC.replace("WGMMA_FUNCS", wgmma_funcs()))
         lib = os.path.join(tmp, "libmma_rate.so")
         subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
                        check=True, capture_output=True)
-        fn = ctypes.CDLL(lib).mma_run
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
+        fn = lib_fn(lib, "mma_run", [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
         iters = 4096
         res = {"mma_sync_m16n8k8_tf32": [], "mma_sync_m16n8k16_bf16": []}
         for key, bf16, depth in (("mma_sync_m16n8k8_tf32", 0, 8),
@@ -111,21 +236,8 @@ def main() -> int:
                     blocks = sms * warps // 4
                     out = torch.empty(blocks * threads, device="cuda")
                     stream = torch.cuda.current_stream().cuda_stream
-                    def launch():
-                        err = fn(bf16, chains, blocks, threads, iters,
-                                 out.data_ptr(), stream)
-                        if err != 0:
-                            raise RuntimeError(f"mma_run: cudaError {err}")
-
-                    launch()
-                    launch()
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    launch()
-                    end.record()
-                    end.synchronize()
-                    ms = start.elapsed_time(end)
+                    ms = event_ms(lambda: fn(bf16, chains, blocks, threads,
+                                             iters, out.data_ptr(), stream))
                     n_mma = blocks * (threads // 32) * chains * iters
                     rate = n_mma * 2 * 16 * 8 * depth / (ms * 1e-3)
                     res[key].append({"warps_per_sm": warps, "chains": chains,
@@ -133,6 +245,22 @@ def main() -> int:
                     print(f"  {key}: {warps} warps an SM, {chains} chains a "
                           f"warp: {rate / 1e12:.1f} TFLOP/s ({ms:.3f} ms)",
                           flush=True)
+        wg = lib_fn(lib, "wgmma_run", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        for n in (64, 128, 256):
+            for rs in (0, 1):
+                key = f"wgmma_m64n{n}k16_bf16_{'rs' if rs else 'ss'}"
+                res[key] = []
+                for wgs in (1, 2, 3):
+                    blocks = sms * wgs
+                    out = torch.empty(blocks * 128, device="cuda")
+                    stream = torch.cuda.current_stream().cuda_stream
+                    ms = event_ms(lambda: wg(n, rs, blocks, iters, out.data_ptr(),
+                                             stream))
+                    rate = blocks * iters * 8 * 2 * 64 * n * 16 / (ms * 1e-3)
+                    res[key].append({"warpgroups_per_sm": wgs, "ms": ms,
+                                     "tflops": rate / 1e12})
+                    print(f"  {key}: {wgs} warpgroups an SM: "
+                          f"{rate / 1e12:.1f} TFLOP/s ({ms:.3f} ms)", flush=True)
     print(json.dumps({"card": card, "sms": sms, **res}))
     return 0
 

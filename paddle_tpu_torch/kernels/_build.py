@@ -8,6 +8,11 @@ function's argument types and passes tensor pointers, ints and
 PyTorch's current stream (:func:`current_stream`).  A source newer than
 its library is rebuilt.
 
+Every source links against the CUDA runtime only.  A kernel that needs
+a driver-API function (``flash_attn_bwd_bf16.cu``'s TMA descriptors,
+``cuTensorMapEncodeTiled``) reaches it through the runtime's
+``cudaGetDriverEntryPoint``, so no source needs ``-lcuda``.
+
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine with no ``nvcc``.  :func:`build_all` starts
 one ``nvcc`` per source, all at once, so a fresh checkout pays the

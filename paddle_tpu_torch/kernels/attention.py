@@ -37,8 +37,11 @@ and ``mha_xla`` in the reference) is the training path's hot op:
   one to the wrapper's ``launches``.
 - :func:`flash_attention` is one ``torch.autograd.Function`` over the
   three: the forward saves (q, k, v, mask, seed, out, lse), so the
-  backward launches only the two backward kernels, with
-  ``delta = rowsum(dO * O)`` taken by a float32 torch reduction.
+  backward launches only the two backward kernels.  ``delta = rowsum(dO
+  * O)`` comes from K2 (``flash_attention_bwd_dq(delta=None, out=out)``):
+  the bfloat16 kernel computes it for its own rows and hands it to K3;
+  for float32 (and on the CPU) the wrapper takes it by a float32 torch
+  reduction, :func:`flash_attention_delta`.
 - :func:`mha_ref` is the port of ``mha_xla`` (the plain softmax chain
   with the ``_hash_dropout`` bits), the op's ``impl="xla"``.
 
@@ -491,6 +494,10 @@ _FWD_ARGS = [_PTR] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
     [ctypes.c_int] * 3 + [_PTR]
 _DQ_ARGS = [_PTR] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
     [ctypes.c_int] * 3 + [_PTR]
+# the bfloat16 K2 also takes O and the buffer it writes delta to (both
+# null where delta is given)
+_DQ_BF16_ARGS = [_PTR] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
+    [ctypes.c_int] * 3 + [_PTR]
 _DKV_ARGS = [_PTR] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
     [ctypes.c_int] * 3 + [_PTR]
 
@@ -527,7 +534,8 @@ def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         want = (torch.int32 if name == "seed" else
-                q.dtype if name in ("q", "k", "v", "do") else torch.float32)
+                q.dtype if name in ("q", "k", "v", "do", "out")
+                else torch.float32)
         if t.dtype != want:
             raise TypeError(f"flash attention kernel: {name} must be "
                             f"{want}, got {t.dtype}")
@@ -567,12 +575,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_bwd_shapes(q, lse, delta, do) -> None:
+def _check_bwd_shapes(q, lse, delta, do, out=None) -> None:
     B, H, Tq, _ = q.shape
-    if do.shape != q.shape or lse.numel() != B * H * Tq or \
-            delta.numel() != B * H * Tq:
-        raise ValueError("do must match q; lse and delta hold B*H*Tq "
-                         "values")
+    if do.shape != q.shape or (out is not None and out.shape != q.shape) \
+            or lse.numel() != B * H * Tq or \
+            (delta is not None and delta.numel() != B * H * Tq):
+        raise ValueError("do (and out) must match q; lse and delta hold "
+                         "B*H*Tq values")
 
 
 def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
@@ -613,35 +622,63 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal: bool = False,
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
                            causal: bool = False,
                            sm_scale: Optional[float] = None,
-                           dropout_rate: float = 0.0, seed=None):
+                           dropout_rate: float = 0.0, seed=None, out=None):
     """dq of flash attention from the forward's ``lse`` and ``delta``
     ([B*H, Tq] each; ring attention passes its global ones).  CPU
     tensors take the plain version; CUDA tensors launch
     ``flash_attn_bwd_dq`` (float32) or ``flash_attn_bwd_dq_bf16``, or
-    raise."""
+    raise.
+
+    With ``delta=None`` the forward's output ``out`` is required and the
+    call returns ``(dq, delta)``: the bfloat16 kernel computes delta =
+    rowsum(dO * O) for its own rows and writes it out for K3; for float32
+    and on the CPU it is :func:`flash_attention_delta`."""
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
+    want_delta = delta is None
+    if want_delta and out is None:
+        raise ValueError("flash_attention_bwd_dq: delta=None needs the "
+                         "forward's out")
     if q.device.type == "cpu":
-        return _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
-                        dropout_rate, seed, True, False)[0]
+        if want_delta:
+            delta = flash_attention_delta(out, do)
+        dq = _bwd_ref(q, k, v, kv_mask, lse, delta, do, causal, sm_scale,
+                      dropout_rate, seed, True, False)[0]
+        return (dq, delta) if want_delta else dq
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_flash(q, k, v, kv_mask, seed, lse=lse, delta=delta, do=do)
-    _check_bwd_shapes(q, lse, delta, do)
+    bf16 = q.dtype == torch.bfloat16
+    if want_delta and not bf16:
+        delta = flash_attention_delta(out, do)
+    # the bfloat16 kernel reads out in place of delta
+    extra = dict(out=out) if delta is None else dict(delta=delta)
+    _check_flash(q, k, v, kv_mask, seed, lse=lse, do=do, **extra)
+    _check_bwd_shapes(q, lse, delta, do, out if delta is None else None)
     B, H, Tq, Tk, D, c, sl2, rate, keep, bq, bk = _common(
         q, k, causal, sm_scale, dropout_rate)
     dq = torch.empty_like(q)
     lib, name = _FLASH_LIBS[q.dtype]["dq"]
-    fn = _flash_fn(lib, name, _DQ_ARGS)
     stream = _build.current_stream(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
-             _ptr(seed), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             dq.data_ptr(), B, H, Tq, Tk, D, c, sl2, float(sm_scale), rate,
-             keep, bq, bk, q.device.index, stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+            _ptr(seed), do.data_ptr(), lse.data_ptr())
+    tail = (B, H, Tq, Tk, D, c, sl2, float(sm_scale), rate, keep, bq, bk,
+            q.device.index, stream)
+    if bf16:
+        own = delta is None   # the kernel computes delta from out
+        if own:
+            delta = torch.empty(B * H, Tq, dtype=torch.float32,
+                                device=q.device)
+        fn = _flash_fn(lib, name, _DQ_BF16_ARGS)
+        err = fn(*args, None if own else delta.data_ptr(),
+                 out.data_ptr() if own else None,
+                 delta.data_ptr() if own else None, dq.data_ptr(), *tail)
+    else:
+        fn = _flash_fn(lib, name, _DQ_ARGS)
+        err = fn(*args, delta.data_ptr(), dq.data_ptr(), *tail)
     if err != 0:
         _raise_launch(lib, name, err)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return (dq, delta) if want_delta else dq
 
 
 def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
@@ -705,9 +742,9 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
         causal, sm_scale, rate = ctx.args
         do = do.contiguous()
-        delta = flash_attention_delta(out, do)
-        dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
-                                    causal, sm_scale, rate, seed)
+        dq, delta = flash_attention_bwd_dq(q, k, v, kv_mask, lse, None, do,
+                                           causal, sm_scale, rate, seed,
+                                           out=out)
         dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
                                          causal, sm_scale, rate, seed)
         return dq, dk, dv, None, None, None, None, None

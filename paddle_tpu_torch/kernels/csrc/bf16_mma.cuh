@@ -1,6 +1,6 @@
 // bfloat16 products on the tensor cores, and the copies that feed them:
-// the pieces the bfloat16 flash kernels (flash_attn_fwd_bf16.cu, K1;
-// flash_attn_bwd_bf16.cu, K2/K3) share.
+// the pieces of the bfloat16 flash forward (flash_attn_fwd_bf16.cu, K1).
+// (The bfloat16 backward, K2/K3, is built on wgmma: sm90.cuh.)
 //
 // A product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
 // bfloat16 operands, each product exact in float32, summed in a float32
@@ -146,38 +146,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int r0, i
       const int j = i / DP, c = i - j * DP;
       const bool ok = r0 + j < n_rows && c < D;
       dst[j * LD + c] = ok ? src[static_cast<size_t>(r0 + j) * D + c] : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
-
-// dst = bf16(float(src) * scale) over NR rows of DP columns (the
-// reference's _scaled_q: q pre-scaled in float32, rounded back)
-template <int DP, int LD, int NR, int NTHREADS>
-__device__ __forceinline__ void scale_rows(bf16* dst, const bf16* src, float scale, int tid) {
-  for (int i = tid; i < NR * DP / 2; i += NTHREADS) {
-    const int j = i / (DP / 2), c = (i % (DP / 2)) * 2;
-    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(src + j * LD + c);
-    *reinterpret_cast<__nv_bfloat162*>(dst + j * LD + c) = __floats2bfloat162_rn(
-        __bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
-  }
-}
-
-// the 16 x DP C fragments of a warp, times `scale`, rounded to bfloat16
-// into rows first_row + (0..15) of an [n_rows, D] matrix
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DP / 8][4],
-                                           int first_row, int n_rows, int D, float scale, int g,
-                                           int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = first_row + g + 8 * h;
-    if (row >= n_rows) continue;
-    bf16* op = dst + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const int d = dt * 8 + 2 * t;
-      if (d < D) op[d] = __float2bfloat16_rn(acc[dt][2 * h] * scale);
-      if (d + 1 < D) op[d + 1] = __float2bfloat16_rn(acc[dt][2 * h + 1] * scale);
     }
   }
 }

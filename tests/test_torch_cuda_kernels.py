@@ -47,7 +47,13 @@ same in bfloat16.  The flash kernels' bfloat16 mode (K1-K3 on bfloat16
 q, k, v) is held against the plain bfloat16 version at the same edges:
 head dims 32, 64, 128 and 40 (no 16-byte copies), odd lengths,
 dropout, all-masked rows, cross lengths, a bit-identical rerun; the
-kernels refuse float16 and mixed dtypes.
+kernels refuse float16 and mixed dtypes.  The bfloat16 K2/K3 (wgmma and
+TMA) also at lengths past their tiles (333 x 200, 200 x 333, causal,
+an all-masked row), at the ring's pair (B*H = 4, 4,096 keys; D = 32
+and 128), with K2's own delta (against ``flash_attention_delta`` within
+the float32 sum-order bound, bit-identical on a rerun), through
+``flash_attention``'s backward with no torch delta reduction, and their
+occupancy (one block an SM, shared memory within 232,448 bytes).
 """
 import math
 
@@ -425,6 +431,95 @@ def test_flash_bf16_backward_is_deterministic(dev):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
+
+
+@pytest.mark.parametrize("Tq,Tk", [(333, 200), (200, 333)])
+def test_flash_bf16_backward_past_its_tiles(dev, Tq, Tk):
+    """K2/K3 (wgmma, TMA) at lengths that are multiples of neither their
+    64-row tiles nor their 128-row blocks, Tq > Tk and Tq < Tk, causal,
+    dropout, an all-masked row."""
+    _flash_check_bf16(dev, 2, 3, Tq, Tk, 64, True, rate=0.1, seed=Tq,
+                      all_masked=True)
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_bf16_backward_at_the_ring_pair(dev, D):
+    """The bf16 ring's pair: B*H = 4, 4,096 queries and keys (128
+    blocks of 128 rows fill the card's 132 SMs once), ragged keys."""
+    _flash_check_bf16(dev, 1, 4, 4096, 4096, D, False, seed=D)
+
+
+def _delta_bound(out, do):
+    # two float32 sums of D products in other orders: D * 2^-23 * the
+    # largest row's sum of |dO * O|
+    return out.shape[-1] * 2.0 ** -23 * (out.float() * do.float()).abs() \
+        .sum(-1).max().item()
+
+
+@pytest.mark.parametrize("D,Tq,causal", [(64, 256, True), (128, 333, False),
+                                          (40, 77, True)])
+def test_flash_bf16_k2_computes_delta(dev, D, Tq, causal):
+    """With delta=None K2 computes rowsum(dO * O) for its rows (one
+    launch): it matches flash_attention_delta within the float32
+    sum-order bound, its dq matches the plain version, and a rerun is bit
+    for bit."""
+    q, k, v, do, mask = (x.bfloat16() if x.dim() == 4 else x
+                         for x in _flash_inputs(dev, 2, 3, Tq, Tq, D, seed=D))
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    out, lse = A.flash_attention_fwd(q, k, v, mask, causal, None, 0.1, s)
+    n = A.flash_attention_bwd_dq.launches
+    dq, delta = A.flash_attention_bwd_dq(q, k, v, mask, lse, None, do, causal,
+                                         None, 0.1, s, out=out)
+    again = A.flash_attention_bwd_dq(q, k, v, mask, lse, None, do, causal,
+                                     None, 0.1, s, out=out)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bwd_dq.launches == n + 2
+    want = A.flash_attention_delta(out, do)
+    assert delta.dtype == torch.float32 and delta.shape == want.shape
+    assert (delta - want).abs().max().item() <= _delta_bound(out, do)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], delta)
+    dq_r = A._bwd_ref(q, k, v, mask, lse, want, do, causal, D ** -0.5, 0.1, s,
+                      True, False)[0]
+    _bf16_close(dq, dq_r)
+
+
+def test_flash_bf16_autograd_takes_no_torch_delta(dev, monkeypatch):
+    """FlashAttentionFn's bf16 backward on the card runs K2 (with its own
+    delta) and K3, and no torch reduction for delta: with
+    flash_attention_delta made to raise, the gradients still match the
+    plain version's."""
+    q, k, v, do, mask = (x.bfloat16() if x.dim() == 4 else x
+                         for x in _flash_inputs(dev, 2, 2, 200, 200, 64,
+                                                seed=4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = A.flash_attention(*leaves, mask, True)
+    o_ref, l_ref = A.flash_attention_ref(q, k, v, mask, True)
+    want = A.flash_attention_bwd_ref(q, k, v, mask, o_ref, l_ref, do, True)
+
+    def no_delta(*a, **kw):
+        raise AssertionError("torch delta reduction on the card")
+    monkeypatch.setattr(A, "flash_attention_delta", no_delta)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        _bf16_close(a, b)
+
+
+def test_flash_bf16_backward_occupancy(dev):
+    """K2/K3 launch one block of two consumer warpgroups and a producer
+    warp an SM, within the 232,448 bytes of shared memory a block may
+    have, at every head-dim width."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("flash_attn_bwd_bf16").flash_attn_bwd_bf16_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for D in (32, 64, 128):
+        out = (ctypes.c_int * 8)()
+        assert fn(D, 0, out) == 0
+        for i in (0, 4):
+            assert out[i + 1] + out[i + 2] <= 232448
+            assert out[i + 3] == 1
 
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q, k, v, do, mask = _flash_inputs(dev, 1, 2, 16, 16, 32)

@@ -380,6 +380,34 @@ def test_bf16_gradients_hold_the_references_bar():
         assert rel < 0.02, rel
 
 
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_dq_takes_delta_from_out(dtype, causal):
+    """``flash_attention_bwd_dq(delta=None, out=out)`` (what the
+    backward calls; on the card the bfloat16 K2 computes delta itself)
+    returns the dq of the same call with delta given and, beside it,
+    delta = rowsum(dO * O) in float32, as ``_pallas_bwd`` takes it
+    (``paddle_tpu/kernels/attention.py:566-569``); without ``out`` it
+    raises."""
+    q, k, v, g, mask = _inputs(2, 2, 40, 56, 16, False, seed=5)
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(x).to(dt) for x in (q, k, v, g))
+    mask = torch.from_numpy(mask)
+    out, lse = TA.flash_attention_ref(q, k, v, mask, causal)
+    want = TA.flash_attention_delta(out, g)
+    dq = TA.flash_attention_bwd_dq(q, k, v, mask, lse, want, g, causal)
+    dq_own, delta = TA.flash_attention_bwd_dq(q, k, v, mask, lse, None, g,
+                                              causal, out=out)
+    assert torch.equal(dq_own, dq) and torch.equal(delta, want)
+    ref = jnp.sum(jnp.asarray(g.float().numpy()) *
+                  jnp.asarray(out.float().numpy()), axis=-1)
+    np.testing.assert_allclose(delta.numpy(),
+                               np.asarray(ref).reshape(delta.shape),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        TA.flash_attention_bwd_dq(q, k, v, mask, lse, None, g, causal)
+
 def test_kernel_dtype_rules():
     """What the kernels take (checked before a launch): q, k, v and dO
     of one dtype, float32 or bfloat16; mask, lse and delta float32; the
