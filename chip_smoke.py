@@ -61,20 +61,28 @@ non-zero; each phase's header gives its start in seconds):
    plain bfloat16 version at the training shapes (ragged masks, dropout
    0 and 0.1, causal and not, an all-masked row, head dims 32 and 128,
    odd lengths), K2/K3 from the plain forward's lse and delta, within
-   ``FLASH_BF16_REL`` and ``FLASH_BF16_LSE``; K2/K3 bit-identical on a
-   rerun; at ``bench_flash_attention_long``'s two shapes (B=4, T=8192,
+   ``FLASH_BF16_REL`` and ``FLASH_BF16_LSE``; K1/K2/K3 bit-identical on
+   a rerun; at ``bench_flash_attention_long``'s two shapes (B=4, T=8192,
    causal, (H, D) = (8, 64) and (4, 128)) against the float32 kernels on
    the same inputs upcast, within ``FLASH_BF16_VS_F32_REL``; at the bf16
    ring's pair (B=1, H=4, 4,096 x 4,096, D=128, ragged keys) against the
-   plain bfloat16 version.  K2's own delta (the backward passes none; K2
+   plain bfloat16 version: K2/K3, and K1 not causal with dropout 0.1 and
+   as the causal diagonal at rate 0, each timed beside SDPA bf16's
+   forward with the same mask.  K2's own delta (the backward passes none; K2
    computes rowsum(dO * O) for its rows and hands it to K3) is held to
    ``flash_attention_delta`` within the float32 sum-order bound
    (``delta_bound``).  Timed at the training shape (dropout 0.1), at the
    two long shapes and at the ring's pair beside the bound at the
    bfloat16 rate, SDPA in bfloat16 and the float32 kernels (not at the
-   pair).  The SASS of ``flash_attn_bwd_bf16.cu`` (``cuobjdump
-   -sass``) must hold ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA
-   loads) in K2 and in K3: the counts are logged.
+   pair).  The SASS of ``flash_attn_fwd_bf16.cu`` and
+   ``flash_attn_bwd_bf16.cu`` (``cuobjdump -sass``) must hold ``HGMMA``
+   (``wgmma``) and ``UTMALDG`` (TMA loads) in every K1, K2 and K3
+   kernel: the counts are logged.  K1's registers, shared memory, blocks
+   an SM and local bytes are logged at head dims 32, 64 and 128, with and
+   without dropout; a spill (local bytes) fails the phase, and so does a
+   wgmma group that ptxas serializes or waits for in K1 (C7512, C7515,
+   C7517 in ptxas' report: this run's build's, or, where the library was
+   current, a build of the same source made for the check).
 5. The training slice: Transformer-base through Program ->
    append_backward -> Executor.run with ``attention_impl="pallas"``.
    First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
@@ -1878,6 +1886,22 @@ def sass_counts(lib: str) -> dict:
     return out
 
 
+def ptxas_report(name: str) -> str:
+    """nvcc's and ptxas' report on ``csrc/<name>.cu``: that of this run's
+    build, else (the library was current before the run) that of a build
+    of the same source with the same flags into a temporary directory."""
+    from paddle_tpu_torch.kernels import _build
+    if name in _build.build_info:
+        return _build.build_info[name]["log"]
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(d, f"lib{name}.so"),
+             os.path.join(_build.CSRC_DIR, f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+    return out.stdout + out.stderr
+
+
 def top_kernels(fn, n=2) -> list:
     """Names of the ``n`` CUDA kernels with the most device time in one
     call of ``fn`` (which SDPA backend ran)."""
@@ -1916,6 +1940,26 @@ def flash_bwd_occupancy(A, D, Tq, Tk, dtype=torch.float32) -> dict:
     keys = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
     return {name: {k: out[4 * i + j] for j, k in enumerate(keys)}
             for i, name in enumerate(("bwd_dq", "bwd_dkv"))}
+
+
+def flash_fwd_bf16_occupancy(D) -> dict:
+    """The bfloat16 K1's registers a thread, shared memory a block,
+    resident blocks an SM and local (spill) bytes a thread at head dim D,
+    for the kernel D takes without dropout and the one with dropout
+    (``flash_attn_fwd_bf16_occupancy``)."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("flash_attn_fwd_bf16").flash_attn_fwd_bf16_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    err = fn(D, torch.cuda.current_device(), out)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_bf16_occupancy: cudaError {err}")
+    keys = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm",
+            "local_bytes")
+    return {name: {k: out[5 * i + j] for j, k in enumerate(keys)}
+            for i, name in enumerate(("no_dropout", "dropout"))}
 
 
 def time_flash(A, dev, causal, rate, dtype=torch.float32) -> dict:
@@ -2274,8 +2318,55 @@ def flash_ring_pair_bf16(A, dev) -> dict:
                   "sdpa_bwd_kernels": backend,
                   "bound_ms": work["bwd_dq"]["bound_ms"]
                   + work["bwd_dkv"]["bound_ms"]}
+    for s in sets:
+        del s["sdpa"], s["leaves"]
+    out["fwd"] = flash_ring_pair_fwd_bf16(A, dev, sets)
     del sets
     return out
+
+
+def flash_ring_pair_fwd_bf16(A, dev, sets) -> dict:
+    """K1 at the bf16 ring's pair: not causal with dropout 0.1 (an
+    off-diagonal hop) and the causal diagonal at rate 0, against the plain
+    bfloat16 version (FLASH_BF16_REL, bf16_lse_tol), then by device time
+    beside the bound at the bf16 rate and SDPA bf16's forward with the
+    same key mask (and the causal triangle)."""
+    import torch.nn.functional as F
+    _, _, T, D = sets[0]["q"].shape
+    seed = torch.tensor([71], dtype=torch.int32, device=dev)
+    tri = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    res = {}
+    for label, causal, rate in (("full_dropout", False, 0.1),
+                                ("diagonal", True, 0.0)):
+        sd = seed if rate > 0.0 else None
+        x = sets[0]
+        args = (x["q"], x["k"], x["v"], x["mask"], causal, None, rate, sd)
+        got, got_lse = A.flash_attention_fwd(*args)
+        want, want_lse = A.flash_attention_ref(*args)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want, FLASH_BF16_REL,
+                      f"bf16 ring pair K1 {label}")
+        lse_e = (got_lse - want_lse).abs().max().item()
+        if not lse_e <= bf16_lse_tol(D, rate):
+            raise AssertionError(f"bf16 ring pair K1 {label}: LSE off by "
+                                 f"{lse_e} > {bf16_lse_tol(D, rate)}")
+        del got, got_lse, want, want_lse
+        for s in sets:
+            s["bias"] = s["mask"][:, None, None, :] > 0
+            if causal:
+                s["bias"] = s["bias"] & tri
+        ms = device_ms(lambda s: A.flash_attention_fwd(
+            s["q"], s["k"], s["v"], s["mask"], causal, None, rate, sd), sets,
+            iters=20, name=flash_kernel_names(torch.bfloat16)["fwd"])
+        lib = device_ms(lambda s: F.scaled_dot_product_attention(
+            s["q"], s["k"], s["v"], attn_mask=s["bias"], dropout_p=rate),
+            sets, iters=20)
+        for s in sets:
+            del s["bias"]
+        res[label] = {"causal": causal, "rate": rate, "max_rel_err": rel,
+                      "lse_max_abs_diff": lse_e, "ms": ms, "library_ms": lib,
+                      **flash_work(x, causal)["fwd"]}
+    return res
 
 
 def check_and_time_flash_bf16(dev, flash) -> dict:
@@ -2324,26 +2415,52 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
             f"{bf16_lse_tol(D, rate)!r}); K2's own delta {delta_errs[name]!r} "
             f"(within delta_bound)")
         if name in FLASH_RERUN:
-            again = (A.flash_attention_bwd_dq(*bargs),
+            again = (*A.flash_attention_fwd(*args, causal, None, rate,
+                                            x["seed"]),
+                     A.flash_attention_bwd_dq(*bargs),
                      *A.flash_attention_bwd_dkv(*bargs))
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(again,
-                                                         (dq, dk, dv))):
-                raise AssertionError(f"bf16 {name}: K2/K3 differ on a rerun")
-            log(f"  bf16 {name}: K2/K3 bit-identical on a rerun")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    again, (out, lse, dq, dk, dv))):
+                raise AssertionError(f"bf16 {name}: K1/K2/K3 differ on a "
+                                     f"rerun")
+            log(f"  bf16 {name}: K1/K2/K3 bit-identical on a rerun")
             del again
         del x, out, lse, r_out, r_lse, dq, dk, dv, r_dq, r_dk, r_dv
     res = {"max_rel_err": errs, "max_abs_err": abs_errs,
            "delta_max_abs_err": delta_errs, "occupancy": {},
-           "sass": sass_counts("flash_attn_bwd_bf16")}
+           "fwd_occupancy": {},
+           "sass": {**sass_counts("flash_attn_fwd_bf16"),
+                    **sass_counts("flash_attn_bwd_bf16")}}
     for fn, n in res["sass"].items():
-        log(f"  bf16 backward SASS {fn}: {n['HGMMA']} HGMMA, {n['UTMALDG']} "
-            f"UTMALDG")
-    for k in ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"):
+        log(f"  bf16 SASS {fn}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG")
+    for k in ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+              "flash_bwd_dkv_bf16_kernel"):
         fns = [n for fn, n in res["sass"].items() if k in fn]
         if not fns or not all(n["HGMMA"] and n["UTMALDG"] for n in fns):
             raise AssertionError(f"{k}: no wgmma (HGMMA) or no TMA load "
                                  f"(UTMALDG) in its SASS: {fns}")
+    # K1's wgmma groups run whole: ptxas reports each group it serializes
+    # or waits for (C7512, C7515, C7517) when it builds the library
+    serial = [ln.strip() for ln in ptxas_report("flash_attn_fwd_bf16")
+              .splitlines()
+              if any(c in ln for c in ("C7512", "C7515", "C7517"))]
+    res["fwd_wgmma_serialized"] = len(serial)
+    if serial:
+        raise AssertionError("flash_attn_fwd_bf16: ptxas serializes or "
+                             f"waits on wgmma groups: {serial[:2]}")
+    log("  bf16 fwd: ptxas reports no serialized wgmma group")
+    for D in (32, 64, 128):
+        occ = res["fwd_occupancy"][f"D{D}"] = flash_fwd_bf16_occupancy(D)
+        for n, o in occ.items():
+            log(f"  bf16 fwd D={D} {n}: {o['registers']} registers a thread, "
+                f"{o['static_smem']} + {o['dynamic_smem']} bytes of shared "
+                f"memory a block, {o['blocks_per_sm']} blocks an SM, "
+                f"{o['local_bytes']} local bytes a thread")
+            if o["local_bytes"] or o["blocks_per_sm"] < 1:
+                raise AssertionError(f"bf16 K1 D={D} {n}: spills "
+                                     f"({o['local_bytes']} local bytes) or "
+                                     f"does not fit an SM: {o}")
     for D in (32, 64, 128):
         occ = res["occupancy"][f"D{D}"] = flash_bwd_occupancy(
             A, D, 256, 256, torch.bfloat16)
@@ -2386,6 +2503,11 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
     log(f"  bf16 ring pair B,H,Tq,Tk,D={r['shape']}: max|kernel - plain| / "
         f"max|plain| {r['max_rel_err']} (tolerance {FLASH_BF16_REL}), K2's "
         f"own delta {r['delta_max_abs_err']!r}")
+    for label, k in r["fwd"].items():
+        log(f"    fwd {label} (causal {k['causal']}, dropout {k['rate']}): "
+            f"max|K1 - plain| / max|plain| {k['max_rel_err']!r}, LSE "
+            f"{k['lse_max_abs_diff']!r}; {k['ms']!r} ms device, sdpa bf16 "
+            f"{k['library_ms']!r}, bound {k['bound_ms']!r} ({k['bound_by']})")
     for n in ("bwd_dq", "bwd_dkv"):
         log(f"    {n}: {r[n]['ms']!r} ms device, bound {r[n]['bound_ms']!r} "
             f"({r[n]['bound_by']})")
@@ -5445,7 +5567,7 @@ def main() -> int:
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for name in built:
         for line in _build.build_info[name]["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7515" in line:
                 log(f"  {name}: {line.strip()}")
 
     phase("3: kernels against their plain versions")
@@ -5570,15 +5692,20 @@ def main() -> int:
                                     ("ms", "f32_ms", "bound_ms")}
             if key == "fwd":
                 row[f"long_{label}"]["library_ms"] = r["fwd"]["library_ms"]
+        r = flash_bf16["ring_pair"]
         if key != "fwd":
-            r = flash_bf16["ring_pair"]
             row["ring_pair"] = {"ms": r[key]["ms"],
                                 "bound_ms": r[key]["bound_ms"],
                                 "pair_ms": r["bwd"]["ms"],
                                 "library_ms": r["bwd"]["library_ms"]}
-            kernel = flash_kernel_names(torch.bfloat16)[key]
-            row["sass"] = {fn: n for fn, n in flash_bf16["sass"].items()
-                           if kernel in fn}
+        else:
+            row["ring_pair"] = {label: {k: v[k] for k in (
+                "ms", "bound_ms", "library_ms", "max_rel_err")}
+                for label, v in r["fwd"].items()}
+            row["occupancy"] = flash_bf16["fwd_occupancy"]
+        kernel = flash_kernel_names(torch.bfloat16)[key]
+        row["sass"] = {fn: n for fn, n in flash_bf16["sass"].items()
+                       if kernel in fn}
         rows.append(row)
     for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
         t = lstm_k["ragged"][key]   # the training path's ragged lengths

@@ -25,7 +25,21 @@ of the repository, on one CUDA card, in one process.
   float32 torch reduction), with each build's registers, shared memory
   and blocks an SM, and its max error against the plain bf16 version
   (at T=8192, where the plain version's scores do not fit, against the
-  first build's output) and the bound at the bf16 rate;
+  first build's output), whether its outputs are bit for bit the first
+  build's, and the bound at the bf16 rate;
+- ``flash_fwd_bf16``: K1 in bfloat16 (``csrc/flash_attn_fwd_bf16.cu``)
+  at ``FLASH_FWD_BF16_AB_SHAPES``: (a) the training shape (B=32, H=8,
+  T=256, D=64, ragged key masks, dropout 0.1, not causal and causal),
+  (b, c) ``bench_flash_attention_long``'s B=4, T=8192, causal, (H, D) =
+  (8, 64) and (4, 128), (d) the bf16 ring's pair (B=1, H=4, 4,096 x
+  4,096, D=128, ragged keys, dropout 0.1) and its causal diagonal at rate
+  0.  Each build's device time, its max error against
+  the plain bf16 version (at T=8192, where the plain version's scores do
+  not fit, against the float32 K1 on the same inputs upcast, within
+  ``FLASH_BF16_VS_F32_REL``), whether its out and LSE are bit for bit
+  this build's, SDPA bf16's forward on the same inputs and mask (device
+  time), and the bound at the bf16 rate; this build's registers, shared
+  memory, blocks an SM and local bytes;
 - ``paged_decode``: K4 (``csrc/paged_decode_attn.cu``), float32 and int8
   at the decode shape and at the long-context case
   (``chip_smoke.PAGED_SHAPES``), cycling input sets past the L2.  Another
@@ -102,6 +116,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from chip_smoke import (DEEPFM_B, FLASH_BF16_REL,  # noqa: E402
+                        FLASH_BF16_VS_F32_REL,
                         FLASH_GRAD_TOL, FLASH_TIME_SHAPE, GRU_TIME_SHAPE,
                         INT8_DISPATCH_SHAPES, INT8_SHAPES, K4_KERNELS,
                         K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
@@ -179,7 +194,7 @@ def build_other(src_dir: str, out_dir: str, tag: str, name: str,
     if log.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}{log.stderr}")
     for line in (log.stdout + log.stderr).splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "C7515" in line:
             print(f"  {tag}:", line.strip(), flush=True)
     return ctypes.CDLL(lib)
 
@@ -411,7 +426,7 @@ def ab_flash_bwd_bf16(libs, dev) -> dict:
             want = A._bwd_ref(s["q"], s["k"], s["v"], s["mask"], s["lse"],
                               s["delta"], s["do"], causal, sm_scale_of(s["q"]),
                               rate, s["seed"], True, True)
-        first = None
+        first = bits = None
         for who in libs:
             calls[who]["bwd"](s)
             torch.cuda.synchronize()
@@ -419,6 +434,10 @@ def ab_flash_bwd_bf16(libs, dev) -> dict:
             if who == "this":
                 row["this_delta_max_abs_diff"] = (
                     s["own_delta"] - s["delta"]).abs().max().item()
+            if bits is None:
+                bits = got
+            row[f"{who}_bits_equal_first_build"] = all(
+                torch.equal(g, b) for g, b in zip(got, bits))
             ref = want if plain else first
             if ref is None:
                 first = got
@@ -449,6 +468,142 @@ def ab_flash_bwd_bf16(libs, dev) -> dict:
         res[label] = row
         print(label, json.dumps(row), flush=True)
         del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K1 in bfloat16
+# ---------------------------------------------------------------------------
+
+# name: (B, H, Tq, Tk, D, causal, dropout rate, ragged key mask)
+FLASH_FWD_BF16_AB_SHAPES = {
+    "a_train": (32, 8, 256, 256, 64, False, 0.1, True),
+    "a_train_causal": (32, 8, 256, 256, 64, True, 0.1, True),
+    "b_long_h8_d64": (4, 8, 8192, 8192, 64, True, 0.0, False),
+    "c_long_h4_d128": (4, 4, 8192, 8192, 128, True, 0.0, False),
+    "d_ring_pair": (1, 4, 4096, 4096, 128, False, 0.1, True),
+    "d_ring_diagonal": (1, 4, 4096, 4096, 128, True, 0.0, True),
+}
+
+
+def flash_fwd_bf16_call(lib):
+    """K1 bf16 of ``lib`` on an input set, into the set's out and lse."""
+    fn = lib.flash_attn_fwd_bf16
+    fn.argtypes, fn.restype = A._FWD_ARGS, ctypes.c_int
+
+    def run(s):
+        q, k = s["q"], s["k"]
+        B, H, Tq, Tk, D, c, sl2, r, keep, bq, bk = A._common(
+            q, k, s["causal"], sm_scale_of(q), s["rate"])
+        err = fn(q.data_ptr(), k.data_ptr(), s["v"].data_ptr(),
+                 A._ptr(s["mask"]), A._ptr(s["seed"]), s["out"].data_ptr(),
+                 s["lse"].data_ptr(), B, H, Tq, Tk, D, c, sl2, r, keep, bq, bk,
+                 q.device.index, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attn_fwd_bf16: cudaError {err}")
+    return run
+
+
+def flash_fwd_bf16_occupancy(lib, D: int, device: int):
+    """The occupancy entry of a build that has one (this checkout's):
+    {"no_dropout": ..., "dropout": ...} with OCC_KEYS and local bytes a
+    thread; None for a build without it."""
+    fn = getattr(lib, "flash_attn_fwd_bf16_occupancy", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    err = fn(D, device, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_bf16_occupancy: cudaError {err}")
+    keys = OCC_KEYS + ("local_bytes",)
+    return {k: {key: out[5 * i + j] for j, key in enumerate(keys)}
+            for i, k in enumerate(("no_dropout", "dropout"))}
+
+
+def ab_flash_fwd_bf16(libs, dev) -> dict:
+    import torch.nn.functional as F
+    res = {"occupancy": {t: {f"D{D}": flash_fwd_bf16_occupancy(lib, D,
+                                                               dev.index)
+                             for D in (32, 64, 128)}
+                         for t, lib in libs.items()}}
+    print(json.dumps(res["occupancy"]), flush=True)
+    calls = {t: flash_fwd_bf16_call(lib) for t, lib in libs.items()}
+    for label, shape in FLASH_FWD_BF16_AB_SHAPES.items():
+        B, H, Tq, Tk, D, causal, rate, ragged = shape
+        sets = []
+        one = B * H * (Tq + 2 * Tk) * D * 2
+        for i in range(max(2, math.ceil(2 * L2_BYTES / one))):
+            x = flash_as(flash_inputs(dev, B, H, Tq, Tk, D, seed=80 + i),
+                         torch.bfloat16)
+            if not ragged:
+                x["mask"] = None
+            if rate == 0.0:
+                x["seed"] = None
+            x.update(causal=causal, rate=rate, out=torch.empty_like(x["q"]),
+                     lse=torch.empty(B * H, Tq, device=dev))
+            # SDPA's mask: the key mask, and the causal triangle beside it
+            # (without a key mask, is_causal)
+            x["bias"] = x["mask"][:, None, None, :] > 0 if ragged else None
+            if causal and ragged:
+                x["bias"] = x["bias"] & torch.ones(
+                    Tq, Tk, dtype=torch.bool, device=dev).tril()
+            sets.append(x)
+        s = sets[0]
+        row = {"shape": list(shape), "input_sets": len(sets)}
+        plain = B * H * Tq * Tk <= FLASH_BF16_AB_PLAIN_PAIRS
+        args = (s["q"], s["k"], s["v"], s["mask"], causal, None, rate,
+                s["seed"])
+        if plain:
+            want, want_lse = A.flash_attention_ref(*args)
+            row["vs"] = "plain bf16"
+        else:
+            f32 = flash_as(s, torch.float32)
+            want, want_lse = A.flash_attention_fwd(
+                f32["q"], f32["k"], f32["v"], s["mask"], causal, None, rate,
+                s["seed"])
+            row["vs"] = "the float32 K1 on the same inputs"
+        bar = FLASH_BF16_REL if plain else FLASH_BF16_VS_F32_REL
+        mine = None
+        for who in ["this"] + [w for w in libs if w != "this"]:
+            calls[who](s)
+            torch.cuda.synchronize()
+            got = (s["out"].clone(), s["lse"].clone())
+            if who == "this":
+                mine = got
+                calls[who](s)
+                torch.cuda.synchronize()
+                row["this_rerun_bit_for_bit"] = (
+                    torch.equal(s["out"], got[0])
+                    and torch.equal(s["lse"], got[1]))
+            e = ((got[0].float() - want.float()).abs().max()
+                 / want.float().abs().max()).item()
+            row[f"{who}_max_rel_err"] = (repr(e) if math.isfinite(e)
+                                         and e <= bar else f"disagrees: {e}")
+            row[f"{who}_lse_max_abs_diff"] = (got[1] - want_lse).abs().max() \
+                .item()
+            row[f"{who}_bits_equal_this"] = (torch.equal(got[0], mine[0])
+                                             and torch.equal(got[1], mine[1]))
+        del want, want_lse
+        iters = 50 if Tq * Tk <= 1 << 20 else (20 if Tq * Tk <= 1 << 24 else 5)
+        for who in turns(libs):
+            ms = device_ms(calls[who], sets, iters=iters,
+                           name="flash_fwd_bf16_kernel")
+            row.setdefault(f"{who}_ms", []).append(ms)
+        row["sdpa_ms"] = device_ms(
+            lambda x: F.scaled_dot_product_attention(
+                x["q"], x["k"], x["v"], attn_mask=x["bias"], dropout_p=rate,
+                is_causal=causal and not ragged),
+            sets, iters=iters)
+        work = flash_work(dict(s, mask=s["mask"] if s["mask"] is not None
+                               else torch.ones(B, Tk, device=dev)), causal)
+        row.update(bound_ms=work["fwd"]["bound_ms"], ops=work["fwd"]["ops"],
+                   bound_by=work["fwd"]["bound_by"])
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del sets, s
         torch.cuda.empty_cache()
     return res
 
@@ -1104,6 +1259,7 @@ KERNELS = {
     "flash_bwd": ("flash_attn_bwd", ab_flash_bwd,
                   ("flash_attn_bwd_occupancy", FLASH_SHIM)),
     "flash_bwd_bf16": ("flash_attn_bwd_bf16", ab_flash_bwd_bf16, None),
+    "flash_fwd_bf16": ("flash_attn_fwd_bf16", ab_flash_fwd_bf16, None),
     "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
     "lstm_fwd": ("lstm_fwd", ab_lstm_fwd, None),
     "gru_fwd": ("gru_fwd", ab_gru_fwd, None),

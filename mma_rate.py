@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The rate of tensor-core products on one CUDA card: ``mma.sync``
 m16n8k8 TF32, the instruction the split-TF32 kernels (K1, K2, K3,
-K6-K8b) are built on, and m16n8k16 bf16 with float32 sums, the bfloat16
-forward's (K1 on bfloat16 inputs); and the warpgroup product ``wgmma``
-m64nNk16 bf16 with float32 sums (N = 64, 128, 256; A from shared memory
-and from registers), the bfloat16 backward's (K2, K3).
+K6-K8b) are built on, and m16n8k16 bf16 with float32 sums; the
+warpgroup product ``wgmma`` m64nNk16 bf16 with float32 sums (N = 64,
+128, 256; A from shared memory and from registers), the bfloat16 flash
+kernels' (K1, K2, K3); and ``ex2.approx``, the bfloat16 forward's other
+floor.
 
     python3 mma_rate.py
 
@@ -15,9 +16,14 @@ at 1, 2, 4 and 8 chains a warp and 4, 8 and 16 warps an SM, on every
 SM, for each instruction.  A second kernel has each warpgroup issue
 batches of eight ``wgmma`` on one accumulator from operands in shared
 memory (B, and A unless it comes from registers), then wait for them,
-at 1, 2 and 3 warpgroups an SM.  Prints the rate (2 * 16 * 8 * 8
+at 1, 2 and 3 warpgroups an SM.  A third kernel runs ``chains``
+independent chains of ``ex2.approx.ftz.f32`` a thread (the special-function
+unit's exp2, which the flash forward takes once a score) at 4, 8 and 16
+warps on one SM and on every SM.  Prints the rate (2 * 16 * 8 * 8
 operations a TF32 ``mma.sync``, 2 * 16 * 8 * 16 a bf16 one, 2 * 64 * N
-* 16 a ``wgmma``) of each, then one JSON line; fails without a card.
+* 16 a ``wgmma``; exp2s a second, and a clock an SM with the SM clock
+read in the loop: ``clock64`` against ``%globaltimer``) of each, then
+one JSON line; fails without a card.
 """
 import ctypes
 import json
@@ -142,6 +148,52 @@ extern "C" int wgmma_run(int n, int rs, int blocks, int iters, void* out, void* 
   }
 }
 
+// ---- ex2.approx.ftz.f32 (MUFU.EX2) ----------------------------------------
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// clk[4 b .. 4 b + 3]: block b's SM clock (clock64) and global time (ns)
+// at the start and at the end of its loop
+template <int CHAINS>
+__global__ void ex2_loop(float* out, long long* clk, int iters) {
+  float x[CHAINS];
+  for (int c = 0; c < CHAINS; ++c) x[c] = -1.0f - 1e-3f * (threadIdx.x + c);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    clk[4 * blockIdx.x] = clock64();
+    clk[4 * blockIdx.x + 1] = globaltimer();
+  }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c) asm volatile("ex2.approx.ftz.f32 %0, %0;\n" : "+f"(x[c]));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    clk[4 * blockIdx.x + 2] = clock64();
+    clk[4 * blockIdx.x + 3] = globaltimer();
+  }
+  float s = 0.0f;
+  for (int c = 0; c < CHAINS; ++c) s += x[c];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+extern "C" int ex2_run(int chains, int blocks, int threads, int iters, void* out,
+                       void* clk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  long long* c = static_cast<long long*>(clk);
+  switch (chains) {
+    case 4: ex2_loop<4><<<blocks, threads, 0, st>>>(o, c, iters); break;
+    case 8: ex2_loop<8><<<blocks, threads, 0, st>>>(o, c, iters); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int mma_run(int bf16, int chains, int blocks, int threads, int iters,
                        void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -261,6 +313,46 @@ def main() -> int:
                                      "tflops": rate / 1e12})
                     print(f"  {key}: {wgs} warpgroups an SM: "
                           f"{rate / 1e12:.1f} TFLOP/s ({ms:.3f} ms)", flush=True)
+        ex = lib_fn(lib, "ex2_run", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+        res["ex2_approx_ftz_f32"] = []
+        for n_sm in (1, sms):
+            for warps in (4, 8, 16):
+                for chains in (4, 8):
+                    threads = 32 * warps
+                    out = torch.empty(n_sm * threads, device="cuda")
+                    clk = torch.zeros(n_sm, 4, dtype=torch.int64, device="cuda")
+                    stream = torch.cuda.current_stream().cuda_stream
+                    ms = event_ms(lambda: ex(chains, n_sm, threads, iters,
+                                             out.data_ptr(), clk.data_ptr(),
+                                             stream))
+                    n = threads * chains * iters    # exp2s a block (an SM)
+                    rate = n_sm * n / (ms * 1e-3)
+                    # the third launch's loop, block by block: its cycles
+                    # (clock64) and nanoseconds (globaltimer)
+                    cyc = (clk[:, 2] - clk[:, 0]).double()
+                    ns = (clk[:, 3] - clk[:, 1]).double()
+                    per_clock = (n / cyc).max().item()
+                    mhz = (cyc / ns).mean().item() * 1e3
+                    res["ex2_approx_ftz_f32"].append({
+                        "sms": n_sm, "warps_per_sm": warps, "chains": chains,
+                        "ms": ms, "per_s": rate,
+                        "per_clock_per_sm": per_clock, "sm_mhz_in_run": mhz})
+                    print(f"  ex2.approx.ftz.f32: {n_sm} SMs, {warps} warps an "
+                          f"SM, {chains} chains a thread: {rate / 1e9:.1f} G/s "
+                          f"({ms:.3f} ms); {per_clock:.2f} a clock an SM at "
+                          f"{mhz:.0f} MHz (clock64 / globaltimer in the loop)",
+                          flush=True)
+    rows = res["ex2_approx_ftz_f32"]
+    best = max(rows, key=lambda r: r["per_s"] if r["sms"] == sms else 0.0)
+    one = max(r["per_s"] for r in rows if r["sms"] == 1)
+    print(f"  ex2 best: {best['per_s'] / 1e12:.3f} T/s on {sms} SMs, "
+          f"{one / 1e9:.2f} G/s on one; at most "
+          f"{max(r['per_clock_per_sm'] for r in rows):.2f} a clock an SM; the "
+          f"best run's SM clock {best['sm_mhz_in_run']:.0f} MHz", flush=True)
+    res["ex2_summary"] = {
+        "per_s_all_sms": best["per_s"], "per_s_one_sm": one,
+        "per_clock_per_sm": max(r["per_clock_per_sm"] for r in rows),
+        "sm_mhz_in_best_run": best["sm_mhz_in_run"]}
     print(json.dumps({"card": card, "sms": sms, **res}))
     return 0
 

@@ -9,9 +9,10 @@ PyTorch's current stream (:func:`current_stream`).  A source newer than
 its library is rebuilt.
 
 Every source links against the CUDA runtime only.  A kernel that needs
-a driver-API function (``flash_attn_bwd_bf16.cu``'s TMA descriptors,
-``cuTensorMapEncodeTiled``) reaches it through the runtime's
-``cudaGetDriverEntryPoint``, so no source needs ``-lcuda``.
+a driver-API function (the TMA descriptors of the bfloat16 flash
+kernels, ``cuTensorMapEncodeTiled`` in ``csrc/sm90.cuh``) reaches it
+through the runtime's ``cudaGetDriverEntryPoint``, so no source needs
+``-lcuda``.
 
 Nothing is compiled when a module is imported: the CPU tests import
 every module on a machine with no ``nvcc``.  :func:`build_all` starts

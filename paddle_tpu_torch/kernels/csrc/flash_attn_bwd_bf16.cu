@@ -90,6 +90,15 @@ namespace {
 using bf16 = __nv_bfloat16;
 using flash::kNegInf;
 using Args = flash::ArgsT<bf16>;
+using sm90::aligned16;
+using sm90::aligned_smem;
+using sm90::encode;
+using sm90::ex2;
+using sm90::kPanelRow;
+using sm90::scale_bytes;
+using sm90::tile_bytes;
+using sm90::tma_tile;
+using sm90::uniform;
 
 constexpr int kRowsWG = 64;                // rows a consumer warpgroup owns
 constexpr int kRows = 2 * kRowsWG;         // rows a block owns
@@ -100,7 +109,6 @@ constexpr int kThreads = 256 + kProducer;  // consumers 0..255, producer 256..38
 // thread): the producer keeps 24, the consumers take 240
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kPanelRow = 128;             // bytes of a panel row (64 bf16)
 constexpr unsigned kAll = 0xffffffffu;
 // a row whose lse is above this has softmax mass on an unmasked key, so a
 // masked or causally excluded key gives it p = exp2(-1e30 - lse) = 0
@@ -138,82 +146,6 @@ struct InfoDkv {
   uint32_t rx[kTile];
   uint32_t rs[kTile];
 };
-
-// bytes of an R-row tile of DP columns (DP / 64 panels)
-template <int DP>
-__host__ __device__ constexpr int tile_bytes(int R) {
-  return (DP / 64) * R * kPanelRow;
-}
-
-// byte offset of element (r, c) in an R-row panel tile
-__device__ __forceinline__ int swz(int r, int c, int R) {
-  return (c >> 6) * R * kPanelRow + r * kPanelRow + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
-         ((c & 7) << 1);
-}
-
-// rows r0..r0+R-1 of an [n_rows, D] bfloat16 matrix into an R-row panel
-// tile, zero past n_rows and D, by plain loads (the producer's path where
-// TMA cannot describe the tensor); `scaled`, if given, receives
-// bf16(x * scale) at the same place
-template <int DP, int R>
-__device__ void stage_plain(unsigned char* dst, const bf16* src, int r0, int n_rows, int D,
-                            int tid, unsigned char* scaled = nullptr, float scale = 0.0f) {
-  for (int i = tid; i < R * DP; i += kProducer) {
-    const int r = i / DP, c = i - r * DP;
-    const bool ok = r0 + r < n_rows && c < D;
-    const bf16 x = ok ? src[static_cast<size_t>(r0 + r) * D + c] : __float2bfloat16_rn(0.0f);
-    const int off = swz(r, c, R);
-    *reinterpret_cast<bf16*>(dst + off) = x;
-    if (scaled != nullptr) {
-      *reinterpret_cast<bf16*>(scaled + off) = __float2bfloat16_rn(__bfloat162float(x) * scale);
-    }
-  }
-}
-
-// an R-row tile by TMA: one box of 64 columns a panel
-template <int DP, int R>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int bh) {
-#pragma unroll
-  for (int p = 0; p < DP / 64; ++p) {
-    sm90::tma_load_3d(dst + p * R * kPanelRow, map, bar, p * 64, row, bh);
-  }
-}
-
-// dst = bf16(float(src) * scale) over `bytes` of bfloat16 (the
-// reference's _scaled_q), 16 bytes a thread at a time
-__device__ __forceinline__ void scale_bytes(unsigned char* dst, const unsigned char* src,
-                                            int bytes, float scale, int tid, int nthreads) {
-  for (int i = tid * 16; i < bytes; i += nthreads * 16) {
-    uint4 v = *reinterpret_cast<const uint4*>(src + i);
-    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-      const __nv_bfloat162 y =
-          __floats2bfloat162_rn(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
-      w[j] = *reinterpret_cast<const uint32_t*>(&y);
-    }
-    *reinterpret_cast<uint4*>(dst + i) = v;
-  }
-}
-
-// a value read from shared memory, the same in every lane, broadcast from
-// lane 0 so that the compiler sees it uniform: a branch on it is not
-// divergent, and wgmma groups inside stay whole
-__device__ __forceinline__ int uniform(int x) { return __shfl_sync(kAll, x, 0); }
-
-// 2^x (ex2.approx: 2 ulp; -1e30 gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int DP>
 __device__ __forceinline__ void rs_dp(float (&d)[DP / 2], const uint32_t (&a)[4], uint64_t b);
@@ -329,8 +261,8 @@ __device__ __forceinline__ void dq_ds(uint32_t (&ds)[4][4], const float (&sc)[32
       }
       d4[e] = p * (dpv - r.delta[h]);
     }
-    ds[j >> 1][(j & 1) * 2] = pack(d4[0], d4[1]);
-    ds[j >> 1][(j & 1) * 2 + 1] = pack(d4[2], d4[3]);
+    ds[j >> 1][(j & 1) * 2] = sm90::pack_bf16x2(d4[0], d4[1]);
+    ds[j >> 1][(j & 1) * 2 + 1] = sm90::pack_bf16x2(d4[2], d4[3]);
   }
 }
 
@@ -383,10 +315,10 @@ __device__ __forceinline__ void dkv_pds(uint32_t (&pa)[4][4], uint32_t (&dsa)[4]
       pd[e] = p * drop;
       ds[e] = p * (dp[4 * j + e] * drop - ((e & 1) ? d2.y : d2.x));
     }
-    pa[j >> 1][(j & 1) * 2] = pack(pd[0], pd[1]);
-    pa[j >> 1][(j & 1) * 2 + 1] = pack(pd[2], pd[3]);
-    dsa[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-    dsa[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+    pa[j >> 1][(j & 1) * 2] = sm90::pack_bf16x2(pd[0], pd[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = sm90::pack_bf16x2(pd[2], pd[3]);
+    dsa[j >> 1][(j & 1) * 2] = sm90::pack_bf16x2(ds[0], ds[1]);
+    dsa[j >> 1][(j & 1) * 2 + 1] = sm90::pack_bf16x2(ds[2], ds[3]);
   }
 }
 
@@ -417,37 +349,6 @@ struct DkvLayout {
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// barriers: [0] the resident rows; load, full, empty a stage
-struct Bars {
-  uint64_t* res;
-  uint64_t* load;
-  uint64_t* full;
-  uint64_t* empty;
-};
-
-__device__ __forceinline__ Bars bars_at(unsigned char* p, int stages) {
-  uint64_t* b = reinterpret_cast<uint64_t*>(p);
-  return Bars{b, b + 1, b + 1 + stages, b + 1 + 2 * stages};
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~static_cast<uintptr_t>(1023));
-}
-
-__device__ __forceinline__ void init_bars(const Bars& b, int stages) {
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(b.res, kProducer);
-    for (int s = 0; s < stages; ++s) {
-      sm90::mbar_init(b.load + s, 1);
-      sm90::mbar_init(b.full + s, kProducer);
-      sm90::mbar_init(b.empty + s, 256);
-    }
-    sm90::mbar_init_fence();
-  }
-  __syncthreads();
-}
-
 // ---- K2: dq ----------------------------------------------------------------
 
 template <int DP>
@@ -461,9 +362,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = aligned_smem(smem_raw);
   constexpr int kStages = L::kStages;
-  const Bars bar = bars_at(sm + L::kBars, kStages);
+  const sm90::Bars bar = sm90::bars_at(sm + L::kBars, kStages);
   InfoDq* info = reinterpret_cast<InfoDq*>(sm + L::kInfo);
-  init_bars(bar, kStages);
+  sm90::init_bars(bar, kStages, kProducer, 256);
 
   const Args& a = P.a;
   const int bh = blockIdx.x;
@@ -493,8 +394,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_arrive(bar.res);
       }
     } else {
-      stage_plain<DP, kRows>(sm + L::kQt, a.q + qoff, row0, Tq, D, tid);
-      stage_plain<DP, kRows>(sm + L::kDo, a.dout + qoff, row0, Tq, D, tid);
+      sm90::stage_plain<DP, kRows, kProducer>(sm + L::kQt, a.q + qoff, row0, Tq, D, tid);
+      sm90::stage_plain<DP, kRows, kProducer>(sm + L::kDo, a.dout + qoff, row0, Tq, D, tid);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(bar.res);
     }
@@ -554,8 +455,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       } else {
         const size_t koff = static_cast<size_t>(bh) * Tk * D;
-        stage_plain<DP, kTile>(st, a.k + koff, k0, Tk, D, tid);
-        stage_plain<DP, kTile>(st + tile_bytes<DP>(kTile), a.v + koff, k0, Tk, D, tid);
+        sm90::stage_plain<DP, kTile, kProducer>(st, a.k + koff, k0, Tk, D, tid);
+        sm90::stage_plain<DP, kTile, kProducer>(st + tile_bytes<DP>(kTile), a.v + koff, k0, Tk,
+                                                D, tid);
         if (tid == 0) sm90::mbar_arrive(bar.load + s);
       }
       InfoDq* inf = info + s;
@@ -709,9 +611,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = aligned_smem(smem_raw);
   constexpr int kStages = L::kStages;
-  const Bars bar = bars_at(sm + L::kBars, kStages);
+  const sm90::Bars bar = sm90::bars_at(sm + L::kBars, kStages);
   InfoDkv* info = reinterpret_cast<InfoDkv*>(sm + L::kInfo);
-  init_bars(bar, kStages);
+  sm90::init_bars(bar, kStages, kProducer, 256);
 
   const Args& a = P.a;
   const int bh = blockIdx.x;
@@ -743,8 +645,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_arrive(bar.res);
       }
     } else {
-      stage_plain<DP, kRows>(sm + L::kK, a.k + koff, key0, Tk, D, tid);
-      stage_plain<DP, kRows>(sm + L::kV, a.v + koff, key0, Tk, D, tid);
+      sm90::stage_plain<DP, kRows, kProducer>(sm + L::kK, a.k + koff, key0, Tk, D, tid);
+      sm90::stage_plain<DP, kRows, kProducer>(sm + L::kV, a.v + koff, key0, Tk, D, tid);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(bar.res);
     }
@@ -821,8 +723,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_tile<DP, kTile>(st + kDo, &tm_do, bar.load + s, i0, bh);
         }
       } else {
-        stage_plain<DP, kTile>(st + kQ, a.q + qoff, i0, Tq, D, tid, st + kQt, a.scale_log2);
-        stage_plain<DP, kTile>(st + kDo, a.dout + qoff, i0, Tq, D, tid);
+        sm90::stage_plain<DP, kTile, kProducer>(st + kQ, a.q + qoff, i0, Tq, D, tid, st + kQt, a.scale_log2);
+        sm90::stage_plain<DP, kTile, kProducer>(st + kDo, a.dout + qoff, i0, Tq, D, tid);
         if (tid == 0) sm90::mbar_arrive(bar.load + s);
       }
       InfoDkv* inf = info + s;
@@ -933,48 +835,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- host ----------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, a driver-API function, reached through the
-// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeFn>(p);
-  }
-  return fn;
-}
-
-// the 3-D view [BH, T, D] of a bfloat16 tensor, boxes of 64 columns x
-// `rows` rows of one (batch, head), 128-byte swizzle, zeros out of bounds
-bool encode(CUtensorMap* m, const void* base, int BH, int T, int D, int rows) {
-  const EncodeFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(T) * D * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // dq: q/dO boxes of 128 rows, K/V of 64; dkv: the other way round
 template <typename K>

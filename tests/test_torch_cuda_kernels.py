@@ -53,7 +53,14 @@ an all-masked row), at the ring's pair (B*H = 4, 4,096 keys; D = 32
 and 128), with K2's own delta (against ``flash_attention_delta`` within
 the float32 sum-order bound, bit-identical on a rerun), through
 ``flash_attention``'s backward with no torch delta reduction, and their
-occupancy (one block an SM, shared memory within 232,448 bytes).
+occupancy (one block an SM, shared memory within 232,448 bytes).  The
+bfloat16 K1 (wgmma, TMA, two consumer warpgroups that pair causal
+q-blocks i and n - 1 - i) alone: causal lengths with an odd middle
+q-block and a ragged last one (320, 333 x 200, 200 x 333, dropout, an
+all-masked row) at D = 64 and 128, fewer queries than a q-block, a q off
+16 bytes and D = 40 (the producer's plain loads), the ring's pair
+(4,096 x 4,096, D = 64 and 128, causal and not), a bit-identical rerun,
+and its occupancy with no local (spill) bytes.
 """
 import math
 
@@ -520,6 +527,114 @@ def test_flash_bf16_backward_occupancy(dev):
         for i in (0, 4):
             assert out[i + 1] + out[i + 2] <= 232448
             assert out[i + 3] == 1
+
+def _fwd_check_bf16(dev, q, k, v, mask, causal, rate, seed=0):
+    """K1 bf16 alone against the plain bf16 version: out within one
+    rounding of max|ref|, the LSE within BF16_LSE_ATOL (plus the ones
+    lane's share), one launch; returns (out, lse)."""
+    s = torch.tensor([777 + seed], dtype=torch.int32, device=dev)
+    n = A.flash_attention_fwd.launches
+    out, lse = A.flash_attention_fwd(q, k, v, mask, causal, None, rate, s)
+    torch.cuda.synchronize()
+    assert A.flash_attention_fwd.launches == n + 1
+    o_ref, l_ref = A.flash_attention_ref(q, k, v, mask, causal, None, rate, s)
+    D = q.shape[-1]
+    lse_tol = BF16_LSE_ATOL + (2.0 ** -8 / math.log(2.0)
+                               if D < 128 and rate == 0.0 else 0.0)
+    assert (lse - l_ref).abs().max() <= lse_tol
+    _bf16_close(out, o_ref)
+    return out, lse
+
+
+def _bf16_qkv(dev, B, H, Tq, Tk, D, seed, all_masked=False):
+    q, k, v, _, mask = _flash_inputs(dev, B, H, Tq, Tk, D, seed, all_masked)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), mask
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Tq,Tk", [(320, 320), (333, 200), (200, 333)])
+def test_flash_bf16_forward_pairs_causal_q_blocks(dev, Tq, Tk, D):
+    """Causal K1 bf16 pairs q-blocks i and n - 1 - i of 64 rows in a
+    block: Tq = 320 has an odd middle q-block (one consumer idle), 333 a
+    ragged last one; cross lengths both ways, dropout, an all-masked
+    row."""
+    q, k, v, mask = _bf16_qkv(dev, 2, 3, Tq, Tk, D, seed=Tq + D,
+                              all_masked=True)
+    _fwd_check_bf16(dev, q, k, v, mask, True, 0.1, seed=Tq)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq", [1, 40, 63])
+def test_flash_bf16_forward_fewer_queries_than_a_q_block(dev, Tq, causal):
+    """Tq < 64: one q-block, the second consumer idle."""
+    q, k, v, mask = _bf16_qkv(dev, 2, 3, Tq, 100, 64, seed=Tq)
+    _fwd_check_bf16(dev, q, k, v, mask, causal, 0.0)
+    _fwd_check_bf16(dev, q, k, v, mask, causal, 0.1, seed=1)
+
+
+@pytest.mark.parametrize("D", [40, 64])
+def test_flash_bf16_forward_where_tma_cannot_describe_the_tensors(dev, D):
+    """A q that starts 2 bytes past a 16-byte boundary (a view into a
+    larger buffer, contiguous) and D = 40 (a row stride that is not a
+    multiple of 16 bytes) take the producer's plain loads into the same
+    swizzled layout."""
+    q, k, v, mask = _bf16_qkv(dev, 2, 2, 200, 200, D, seed=D, all_masked=True)
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 != 0
+    for causal, rate in ((False, 0.1), (True, 0.0)):
+        got, lse = _fwd_check_bf16(dev, q_off, k, v, mask, causal, rate)
+        want, want_lse = A.flash_attention_fwd(
+            q, k, v, mask, causal, None, rate,
+            torch.tensor([777], dtype=torch.int32, device=dev))
+        if D % 8 == 0:   # q by TMA stages the same tiles: the same bits
+            assert torch.equal(got, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_forward_at_the_ring_pair(dev, D, causal):
+    """The bf16 ring's pair (B*H = 4, 4,096 queries and keys, ragged
+    keys): an off-diagonal hop (dropout 0.1) and the causal diagonal (rate
+    0), whose pairing halves its blocks' work."""
+    q, k, v, mask = _bf16_qkv(dev, 1, 4, 4096, 4096, D, seed=D)
+    lens = torch.tensor([3 * 4096 // 4], device=dev)
+    mask = (torch.arange(4096, device=dev)[None] < lens[:, None]).float()
+    _fwd_check_bf16(dev, q, k, v, mask, causal, 0.0 if causal else 0.1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_forward_is_deterministic(dev, causal):
+    """K1 bf16 at the bench shape (B=32, H=8, T=256, D=64, dropout 0.1):
+    a rerun gives the same bits."""
+    q, k, v, mask = _bf16_qkv(dev, 32, 8, 256, 256, 64, seed=9)
+    s = torch.tensor([5], dtype=torch.int32, device=dev)
+    first = A.flash_attention_fwd(q, k, v, mask, causal, None, 0.1, s)
+    second = A.flash_attention_fwd(q, k, v, mask, causal, None, 0.1, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_flash_bf16_forward_occupancy(dev):
+    """K1 bf16 (wgmma, TMA) launches one block of two consumer
+    warpgroups and a producer an SM, within the 232,448 bytes of shared
+    memory a block may have, and spills nothing (no local bytes), at every
+    head-dim width, with and without dropout."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("flash_attn_fwd_bf16").flash_attn_fwd_bf16_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for D in (32, 64, 96, 128):
+        out = (ctypes.c_int * 10)()
+        assert fn(D, 0, out) == 0
+        for i in (0, 5):
+            assert out[i + 1] + out[i + 2] <= 232448
+            assert out[i + 3] == 1
+            assert out[i + 4] == 0, f"D={D}: {out[i + 4]} local bytes"
+
 
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q, k, v, do, mask = _flash_inputs(dev, 1, 2, 16, 16, 32)
