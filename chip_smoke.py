@@ -82,7 +82,13 @@ non-zero; each phase's header gives its start in seconds):
    without dropout; a spill (local bytes) fails the phase, and so does a
    wgmma group that ptxas serializes or waits for in K1 (C7512, C7515,
    C7517 in ptxas' report: this run's build's, or, where the library was
-   current, a build of the same source made for the check).
+   current, a build of the same source made for the check), or stack or
+   spill bytes in any K1 instantiation, the ring's included (every flash
+   library's registers and spills are logged).  The ring entries of K1-K3
+   (``flash_attention_*_ring``, one launch a hop) are held against their
+   plain loops on the card at 200-row shards (``RING_ENTRY_CASES``), and
+   each kernel's first hop gives the same bits in one launch a pair as in
+   one launch for the hop.
 5. The training slice: Transformer-base through Program ->
    append_backward -> Executor.run with ``attention_impl="pallas"``.
    First a 2-layer program at full width (B=4, T=64, dropout 0) runs one
@@ -278,17 +284,19 @@ non-zero; each phase's header gives its start in seconds):
    max|ref| of the predictor with ``ir_optim`` off, on a batch of 32;
    dispatch ms of both.
 13. Ring attention (K11, ``kernels/attention.py: ring_attention``: the
-   ring over K1-K3, no kernel of its own) and the multi-device plane's
-   first slice.  13a: at ``bench_ring_shard``'s shapes (``bench.py:728``:
+   hop route over the ring entries of K1-K3, one launch of each a hop on
+   each device, the merges and gradient sums in their epilogues) and the
+   multi-device plane's first slice.  13a: at ``bench_ring_shard``'s shapes (``bench.py:728``:
    B=1, H=4, D=128, a 4,096-token shard a device, sp=4 over one card, so
    T=16,384; float32; ragged key masks), causal and not, dropout 0 and
    0.1: the ring against the plain ring (``ring_attention_ref``,
    forward and autograd backward) on the card and, at rate 0, against
    single K1/K2/K3 launches over the whole sequence, within phase 3b's
-   tolerances; K1, K2 and K3 each launch exactly sp**2 (16) times a
-   ring, or sp(sp+1)/2 (10) causal.  Device times (the profiler) of the
-   ring's forward and backward with their kernels' share and the rest
-   (merges, delta, shard copies, hops), beside the summed pair bounds;
+   tolerances; K1, K2 and K3 each launch exactly sp (4) times a ring,
+   causal or not (a hop's one launch).  Device times (the profiler) of
+   the ring's forward and backward with their kernels' share and the
+   walk's rest (the pair seeds, the float32 delta), beside the summed
+   pair bounds;
    CUDA-event times of a diagonal pair and an off-diagonal full pair
    (the two hop kinds the bench reports), of SDPA over the whole 16,384
    tokens (forward and autograd backward, a yardstick the port never
@@ -308,8 +316,8 @@ non-zero; each phase's header gives its start in seconds):
    why the gradients are held in relative L2); the CPU's own spread
    (its ring against ``impl="xla"``) is printed beside.  Then the full
    model (6+6 layers, T=4096, B=2, dropout 0.1) trains 4 steps: losses
-   finite, K1, K2 and K3 exactly 252 launches a step each (6 x 16
-   encoder, 6 x 10 causal decoder, 6 x 16 cross), no gradient re-runs
+   finite, K1, K2 and K3 exactly 72 launches a step each (6 x 4
+   encoder, 6 x 4 causal decoder, 6 x 4 cross), no gradient re-runs
    its forward; step ms, tokens/s, peak memory and one profiled step.
    One more step copies the inputs of three ring ops (the first
    encoder self-attention, causal decoder self-attention and
@@ -319,8 +327,10 @@ non-zero; each phase's header gives its start in seconds):
    tolerances, its forward bit-identical to the step's output.  Then
    the same model with ``impl="pallas"`` beside it (18 launches a
    step).  13c: with two or more cards, 13a's checks with the shards
-   on distinct cards (the hops copy between cards), bit-identical to
-   the one-card ring; with one card, one line says it was not run.
+   on distinct cards (the hops copy K/V and the dk/dv accumulators
+   between cards; 16 launches of each kernel a ring, 10 causal, on four
+   cards), bit-identical to the one-card ring; with one card, one line
+   says it was not run.
    Run it alone with ``python3 -c "import chip_smoke as c; from
    paddle_tpu_torch.platform import get_device; c.run_ring(get_device(),
    c.nvidia_smi_line())"`` from the root (about three minutes).
@@ -332,7 +342,7 @@ non-zero; each phase's header gives its start in seconds):
    steps, its time the ring's forward + backward at 13a's shape, its
    error the worst of 13a's and 13b's path checks; its ``bf16_*`` keys
    the bfloat16 ring's).  The bfloat16 K1-K3 rows' launches are those
-   of 13a's bfloat16 ring (a ring op's 16 each).
+   of 13a's bfloat16 ring (a ring op's 4 each).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -347,6 +357,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -706,30 +717,42 @@ def time_ms(fn, sets, iters=300, warmup=10) -> float:
 PROFILER_LOSSES = []
 
 
-def device_ms_by_name(fn, sets, iters, names) -> dict:
+def device_ms_by_name(fn, sets, iters, names, expect=None) -> dict:
     """Mean device time per call over ``iters`` calls (after warm-up) of
     the CUDA kernels and copies whose names contain each of ``names``
-    (None: all of them): the median over three torch profiler sessions
-    (five after a loss).
+    (None: all of them): the median over three torch profiler sessions,
+    or over the whole ones of more after a loss.
     The profiler drops a session's device records now and then, all of
     them or some, whether the session waits before or after its work
-    (``profiler_loss.py`` measures how often); a loss only lowers a
-    session's sum, so the median holds unless two sessions of the three
-    lose; then two more sessions run and the median is over all five.
-    Sessions whose record counts differ are logged and listed in
-    ``PROFILER_LOSSES``; a name with no time in the median raises."""
+    (``profiler_loss.py`` measures how often; on some hosts most short
+    sessions lose a block of records); a loss only lowers a session's
+    sum.  A session is whole when it holds as many records as the most
+    any session held and, for each name of ``expect`` (name -> records
+    one call makes, its launches), ``iters`` times that many: then a
+    loss that every session suffers alike is seen too.  Sessions run
+    until three are whole (five at most, eight with ``expect``) and the
+    median is over the whole ones; where none is, over those with the
+    most records, logged as lossy.  Sessions that disagree are logged
+    and listed in ``PROFILER_LOSSES``; a name with no time raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    expect = expect or {}
     for i in range(5):
         fn(sets[i % len(sets)])
     per = {name: [] for name in names}
-    counts = []
+    counts, named = [], []
 
     def median(v):
         return sorted(v)[len(v) // 2]
 
-    for session in range(5):
-        if session == 3 and all(median(v) > 0 for v in per.values()):
+    def whole():
+        return [i for i, c in enumerate(counts) if c == max(counts) and all(
+            named[i][n] >= iters * k for n, k in expect.items())]
+
+    for session in range(8 if expect else 5):
+        if session >= 3 and len(whole()) >= 3 and (expect or (
+                len(set(counts)) == 1
+                and all(median(v) > 0 for v in per.values()))):
             break
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -739,17 +762,27 @@ def device_ms_by_name(fn, sets, iters, names) -> dict:
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         counts.append(len(events))
+        named.append({n: sum(n in e.name for e in events) for n in expect})
         for name in names:
             per[name].append(sum(
                 e.time_range.end - e.time_range.start for e in events
                 if name is None or name in e.name) / iters / 1e3)
-    if len(set(counts)) > 1:
+    keep = whole()
+    if not keep:
+        keep = [i for i, c in enumerate(counts) if c == max(counts)]
+        where = (f"{names} over {iters} calls: no session holds every record "
+                 f"of {expect}: {named}; device records {counts}")
+        PROFILER_LOSSES.append(where)
+        log(f"  profiler lossy ({where}); taking the median of the "
+            f"{len(keep)} with the most")
+    elif len(set(counts)) > 1 or len(keep) < len(counts):
         where = f"{names} over {iters} calls: device records {counts}"
         PROFILER_LOSSES.append(where)
-        log(f"  profiler sessions disagree ({where}); taking the median")
+        log(f"  profiler sessions disagree ({where}); taking the median of "
+            f"the {len(keep)} whole ones")
     out = {}
     for name in names:
-        out[name] = median(per[name])
+        out[name] = median([per[name][i] for i in keep])
         if not out[name] > 0:
             raise AssertionError(f"the profiler recorded no device time for "
                                  f"{name or 'the call'} in most of "
@@ -1902,6 +1935,23 @@ def ptxas_report(name: str) -> str:
     return out.stdout + out.stderr
 
 
+def ptxas_entries(report: str) -> dict:
+    """Per kernel entry of a ptxas report: registers a thread, stack
+    frame and spill bytes, and whether it is a ring instantiation (the
+    flash kernels' last template argument, RING, true)."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'")[0]
+        nums = {k: re.search(pat, chunk) for k, pat in (
+            ("registers", r"Used (\d+) registers"),
+            ("stack", r"(\d+) bytes stack frame"),
+            ("spill_stores", r"(\d+) bytes spill stores"),
+            ("spill_loads", r"(\d+) bytes spill loads"))}
+        out[name] = {k: int(m.group(1)) if m else 0 for k, m in nums.items()}
+        out[name]["ring"] = bool(re.search(r"Lb1EEEv", name))
+    return out
+
+
 def top_kernels(fn, n=2) -> list:
     """Names of the ``n`` CUDA kernels with the most device time in one
     call of ``fn`` (which SDPA backend ran)."""
@@ -2369,6 +2419,151 @@ def flash_ring_pair_fwd_bf16(A, dev, sets) -> dict:
     return res
 
 
+# the ring entries at the entry level: B, H, sp and a shard of S rows, S
+# a multiple of neither K1's 64/128-key tiles nor the backward's 64; the
+# cases (dtype, D, dropout rate) reach each bfloat16 K1 tiling (128-key
+# tiles at D=64 without dropout, 64-key ones with it or at D=128)
+RING_ENTRY_SHAPE = (2, 2, 4, 200)
+RING_ENTRY_CASES = ((torch.float32, 64, 0.1), (torch.bfloat16, 64, 0.0),
+                    (torch.bfloat16, 128, 0.1))
+
+
+def ring_entry_walk(A, x, sp, causal, rate, plain, fwd=None):
+    """Every hop of a ring on one card through the ring entries (or,
+    ``plain``, their plain loops, run on the card's tensors): K1's hops
+    to (out, lse); given ``fwd`` = (out, lse), K2's and K3's hops from
+    them to (dq, dk, dv)."""
+    q, k, v, m, do = (x[n] for n in ("q", "k", "v", "mask", "do"))
+    B, H, T, D = q.shape
+    f32 = q.dtype == torch.float32
+    seeds = A._seed_grid(x["seed"], sp)
+    sm = float(1.0 / math.sqrt(D))
+    hops = [h[0][1] for h in A.ring_hops([q.device] * sp, causal)]
+    acc = (lambda t: t) if f32 else (  # noqa: E731
+        lambda t: torch.empty(t.shape, device=t.device))
+    if fwd is None:
+        run = A._fwd_ring_plain if plain else A.flash_attention_fwd_ring
+        out = torch.empty_like(q)
+        lse = torch.empty(B * H, T, device=q.device)
+        o_acc = acc(out)
+        for pairs in hops:
+            run(q, k, v, m, seeds, pairs, o_acc, lse, out, sm, rate)
+        return out, lse
+    out, lse = fwd
+    delta = (A.flash_attention_delta(out, do) if f32
+             else torch.empty(B * H, T, device=q.device))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_acc, dk_acc, dv_acc = acc(dq), acc(dk), acc(dv)
+    for t, pairs in enumerate(hops):
+        own = out if (not f32 and t == 0) else None
+        if plain:
+            A._dq_ring_plain(q, k, v, m, seeds, pairs, lse, delta, do, dq_acc,
+                             dq, sm, rate, own)
+            A._dkv_ring_plain(q, k, v, m, seeds, pairs, lse, delta, do,
+                              dk_acc, dv_acc, dk, dv, sm, rate)
+        else:
+            A.flash_attention_bwd_dq_ring(q, k, v, m, seeds, pairs, lse,
+                                          delta, do, dq_acc, dq, sm, rate,
+                                          out=own)
+            A.flash_attention_bwd_dkv_ring(q, k, v, m, seeds, pairs, lse,
+                                           delta, do, dk_acc, dv_acc, dk, dv,
+                                           sm, rate)
+    return dq, dk, dv
+
+
+def check_ring_entries(A, dev) -> dict:
+    """Phase 3b's ring-entry check: the ring entries of K1, K2 and K3
+    (one launch a hop) against their plain loops on the same inputs, at
+    RING_ENTRY_SHAPE (shards of 200 rows), RING_ENTRY_CASES, causal and
+    not, ragged keys: K1's out and lse after the last
+    hop, then K2/K3 from the plain forward's (out, lse) to dq, dk, dv,
+    within phase 3b's tolerances.  Then each kernel's first hop with one
+    launch a pair against the whole table's one launch: bit for bit (a
+    pair's arithmetic does not depend on the grid it shares)."""
+    B, H, sp, S = RING_ENTRY_SHAPE
+    res = {}
+    for dtype, D, rate in RING_ENTRY_CASES:
+        for causal in (False, True):
+            name = f"{str(dtype)[6:]}_d{D}_{'causal' if causal else 'full'}"
+            x = flash_as(flash_inputs(dev, B, H, sp * S, sp * S, D,
+                                      seed=150 + D + causal), dtype)
+            got = ring_entry_walk(A, x, sp, causal, rate, False)
+            ref = ring_entry_walk(A, x, sp, causal, rate, True)
+            gb = ring_entry_walk(A, x, sp, causal, rate, False, fwd=ref)
+            rb = ring_entry_walk(A, x, sp, causal, rate, True, fwd=ref)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1] > 1e29, ref[1] > 1e29):
+                raise AssertionError(f"ring entries {name}: empty rows "
+                                     f"differ")
+            has = ref[1] < 1e29
+            lse_err = (got[1][has] - ref[1][has]).abs().max().item()
+            if dtype == torch.float32:
+                e = {"out": worst(got[0], ref[0], FLASH_FWD_TOL)}
+                for n, a, b in zip(("dq", "dk", "dv"), gb, rb):
+                    e[n] = worst(a, b, FLASH_GRAD_TOL)
+                lse_tol = FLASH_FWD_TOL[0]
+            else:
+                e = {"out": rel_err(got[0], ref[0], FLASH_BF16_REL,
+                                    f"ring entries {name} out")}
+                for n, a, b in zip(("dq", "dk", "dv"), gb, rb):
+                    e[n] = rel_err(a, b, FLASH_BF16_REL,
+                                   f"ring entries {name} {n}")
+                lse_tol = bf16_lse_tol(D, rate)
+            if not lse_err <= lse_tol:
+                raise AssertionError(f"ring entries {name}: lse off by "
+                                     f"{lse_err} > {lse_tol}")
+            e["lse"] = lse_err
+            res[name] = {"max_err": e, "grid_independent":
+                         ring_entry_grid_check(A, x, sp, causal)}
+            log(f"  ring entries {name} (B,H={B},{H}, sp={sp}, S={S}, "
+                f"dropout {rate}): vs plain {e}; first hop one launch a "
+                f"pair = one launch a hop, bit for bit")
+            del x, got, ref, gb, rb
+    return res
+
+
+def ring_entry_grid_check(A, x, sp, causal) -> bool:
+    """K1's, K2's and K3's first hop through one launch of the whole
+    table and through one launch a pair, on zeroed buffers: every
+    output bit for bit equal, else raises."""
+    q, k, v, m, do = (x[n] for n in ("q", "k", "v", "mask", "do"))
+    B, H, T, D = q.shape
+    seeds = A._seed_grid(x["seed"], sp)
+    sm = float(1.0 / math.sqrt(D))
+    hop0 = A.ring_hops([q.device] * sp, causal)[0][0][1]
+    f32 = q.dtype == torch.float32
+    runs = []
+    for tables in ([hop0], [[p] for p in hop0]):
+        z = lambda t, dt=torch.float32: torch.zeros(  # noqa: E731
+            t.shape, dtype=dt, device=q.device)
+        out, o_acc, lse = z(q, q.dtype), z(q), torch.zeros(
+            B * H, T, device=q.device)
+        delta = torch.zeros(B * H, T, device=q.device)
+        g = {n: z(t, q.dtype) for n, t in (("dq", q), ("dk", k), ("dv", v))}
+        ga = {n: z(t) for n, t in (("dq", q), ("dk", k), ("dv", v))}
+        for tb in tables:
+            A.flash_attention_fwd_ring(q, k, v, m, seeds, tb, o_acc, lse,
+                                       out, sm, 0.1)
+        kl = lse.masked_fill(lse < -1e29, 1e30)  # every row in kernel form
+        if f32:
+            delta.copy_(A.flash_attention_delta(out, do))
+        for tb in tables:
+            A.flash_attention_bwd_dq_ring(q, k, v, m, seeds, tb, kl, delta,
+                                          do, ga["dq"], g["dq"], sm, 0.1,
+                                          out=None if f32 else out)
+        for tb in tables:
+            A.flash_attention_bwd_dkv_ring(q, k, v, m, seeds, tb, kl, delta,
+                                           do, ga["dk"], ga["dv"], g["dk"],
+                                           g["dv"], sm, 0.1)
+        torch.cuda.synchronize()
+        runs.append([out, o_acc, lse, delta, *g.values(), *ga.values()])
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    if not all(same):
+        raise AssertionError(f"ring entries: one launch a pair differs from "
+                             f"the hop's one launch: {same}")
+    return True
+
+
 def check_and_time_flash_bf16(dev, flash) -> dict:
     """Phase 3b's bfloat16 part (module doc); ``flash`` is the float32
     part's result, whose kernel times at the same shape stand beside."""
@@ -2450,6 +2645,26 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
         raise AssertionError("flash_attn_fwd_bf16: ptxas serializes or "
                              f"waits on wgmma groups: {serial[:2]}")
     log("  bf16 fwd: ptxas reports no serialized wgmma group")
+    # every K1 instantiation, the ring's included, keeps 0 local bytes
+    ents = res["fwd_ptxas"] = ptxas_entries(
+        ptxas_report("flash_attn_fwd_bf16"))
+    ring = [e for e in ents.values() if e["ring"]]
+    local = {n: e for n, e in ents.items()
+             if e["stack"] or e["spill_stores"] or e["spill_loads"]}
+    if not ring or local:
+        raise AssertionError(f"flash_attn_fwd_bf16: {len(ring)} ring "
+                             f"instantiations; local bytes in {local}")
+    log(f"  bf16 fwd: {len(ents)} instantiations ({len(ring)} ring), "
+        f"registers {sorted({e['registers'] for e in ents.values()})}, 0 "
+        f"stack and spill bytes in every one")
+    for lib in ("flash_attn_bwd_bf16", "flash_attn_fwd", "flash_attn_bwd"):
+        ents = res[f"ptxas_{lib}"] = ptxas_entries(ptxas_report(lib))
+        for kind in (False, True):
+            e = [x for x in ents.values() if x["ring"] == kind]
+            log(f"  {lib} {'ring' if kind else 'plain'} instantiations: "
+                f"{len(e)}, registers {sorted({x['registers'] for x in e})}"
+                f", spill stores {sorted({x['spill_stores'] for x in e})} "
+                f"bytes")
     for D in (32, 64, 128):
         occ = res["fwd_occupancy"][f"D{D}"] = flash_fwd_bf16_occupancy(D)
         for n, o in occ.items():
@@ -2499,6 +2714,8 @@ def check_and_time_flash_bf16(dev, flash) -> dict:
                 + (f", sdpa bf16 {k['library_ms']!r}" if "library_ms" in k
                    else ""))
         torch.cuda.empty_cache()
+    res["ring_entries"] = check_ring_entries(A, dev)
+    torch.cuda.empty_cache()
     r = res["ring_pair"] = flash_ring_pair_bf16(A, dev)
     log(f"  bf16 ring pair B,H,Tq,Tk,D={r['shape']}: max|kernel - plain| / "
         f"max|plain| {r['max_rel_err']} (tolerance {FLASH_BF16_REL}), K2's "
@@ -4940,10 +5157,11 @@ def run_conv(dev, card: str) -> dict:
 # phase 13: ring attention (K11) and Transformer-base on a mesh's sp axis
 # ---------------------------------------------------------------------------
 
-def ring_pairs(causal: bool) -> int:
+def ring_launches(A, devices, causal: bool) -> int:
     """K1 launches of one ring forward (and K2's, K3's of its backward):
-    sp**2, or sp * (sp + 1) / 2 under causal."""
-    return RING_SP * (RING_SP + 1) // 2 if causal else RING_SP * RING_SP
+    one a hop on each device holding a pair of the hop (``ring_hops``):
+    sp on one card, causal or not; 16, or 10 causal, on four cards."""
+    return sum(len(h) for h in A.ring_hops(devices, causal))
 
 
 def ring_inputs(dev, seed) -> dict:
@@ -5036,11 +5254,11 @@ def check_ring_case(A, devices, x, causal, rate, time_plain,
     got = ring_run(A, devices, x, causal, rate)
     torch.cuda.synchronize()
     launches = tuple(b - a for a, b in zip(n0, flash_launches(A)))
-    want = ring_pairs(causal)
+    want = ring_launches(A, devices, causal)
     if launches != (want,) * 3:
         raise AssertionError(f"ring launches K1/K2/K3 {launches}, expected "
                              f"{want} each (sp = {RING_SP}, causal "
-                             f"{causal})")
+                             f"{causal}: one a hop)")
     res = {"launches": launches}
     ref = ring_run(A, devices, x, causal, rate, plain=True)
     torch.cuda.synchronize()
@@ -5063,35 +5281,35 @@ def check_ring_case(A, devices, x, causal, rate, time_plain,
     if not timed:
         torch.cuda.empty_cache()
         return res
-    # RingAttentionFn's forward and backward bodies, called on this thread
-    # (the autograd engine would run the backward on its own)
+    # RingAttentionFn's forward and backward bodies (the hop route),
+    # called on this thread (the autograd engine would run the backward
+    # on its own)
     devices = tuple(devices)
     sm = float(1.0 / math.sqrt(RING_SHAPE[3]))
     args = (x["mask"], x["seed"], devices, causal, sm, rate)
-    saved = A._ring_forward(x["q"], x["k"], x["v"], *args,
-                            A.flash_attention_fwd)
+    saved = A._ring_hop_forward(x["q"], x["k"], x["v"], *args)
 
     def fwd(_):
-        return A._ring_forward(x["q"], x["k"], x["v"], *args,
-                               A.flash_attention_fwd)
+        return A._ring_hop_forward(x["q"], x["k"], x["v"], *args)
 
     def bwd(_):
-        return A._ring_backward(x["q"], x["k"], x["v"], x["mask"], x["seed"],
-                                *saved, x["do"], devices, causal, sm, rate,
-                                A.flash_attention_bwd_dq,
-                                A.flash_attention_bwd_dkv)
+        return A._ring_hop_backward(x["q"], x["k"], x["v"], x["mask"],
+                                    x["seed"], *saved, x["do"], devices,
+                                    causal, sm, rate)
     kn = flash_kernel_names(x["q"].dtype)
-    kf = device_ms_by_name(fwd, [None], 3, [None, kn["fwd"]])
+    kf = device_ms_by_name(fwd, [None], 3, [None, kn["fwd"]],
+                           {kn["fwd"]: want})
     kb = device_ms_by_name(bwd, [None], 3, [None, kn["bwd_dq"],
-                                            kn["bwd_dkv"]])
+                                            kn["bwd_dkv"]],
+                           {kn["bwd_dq"]: want, kn["bwd_dkv"]: want})
     res["fwd"] = {"ms": kf[None], "kernel_ms": kf[kn["fwd"]],
                   "event_ms": time_ms(fwd, [None], iters=3)}
     res["bwd"] = {"ms": kb[None],
                   "kernel_ms": kb[kn["bwd_dq"]] + kb[kn["bwd_dkv"]],
                   "event_ms": time_ms(bwd, [None], iters=3)}
     for n in ("fwd", "bwd"):
-        # the merges, delta, shard copies and hops: the ring's device time
-        # beside its kernels'
+        # the walk's rest (the pair seeds, the float32 delta, buffers):
+        # the ring's device time beside its kernels'
         res[n]["overhead_ms"] = res[n]["ms"] - res[n]["kernel_ms"]
     work = ring_work(x, causal)
     for n in ("fwd", "bwd"):
@@ -5180,10 +5398,10 @@ def check_and_time_ring(dev, dtype=torch.float32) -> dict:
         log(f"  {name} {dtype} B,H,T,D={list(RING_SHAPE)} sp={RING_SP} "
             f"causal={causal} dropout={rate}: launches {r['launches']}; "
             f"forward {f['ms']!r} ms device ({f['event_ms']!r} by events), K1 "
-            f"{f['kernel_ms']!r}, merges/hops {f['overhead_ms']!r}, bound "
+            f"{f['kernel_ms']!r}, the walk's rest {f['overhead_ms']!r}, bound "
             f"{f['bound_ms']!r} ({f['bound_by']}); backward {b['ms']!r} ms "
-            f"({b['event_ms']!r}), K2+K3 {b['kernel_ms']!r}, delta/hops/"
-            f"accumulation {b['overhead_ms']!r}, bound {b['bound_ms']!r}; "
+            f"({b['event_ms']!r}), K2+K3 {b['kernel_ms']!r}, the walk's rest "
+            f"{b['overhead_ms']!r}, bound {b['bound_ms']!r}; "
             f"SDPA over T={RING_SHAPE[2]} fwd {r['library_fwd_ms']!r} + bwd "
             f"{r['library_bwd_ms']!r} ms; plain ring "
             f"{r.get('plain_ms', 'not timed')!r} ms")
@@ -5198,8 +5416,9 @@ def check_and_time_ring(dev, dtype=torch.float32) -> dict:
 
 def check_ring_on_distinct_cards(dev) -> dict:
     """Phase 13c: the 13a checks with the four shards on distinct cards
-    (cycling over those present), each result bit-identical to the
-    one-card ring's on the same inputs, and the wall ms of a forward +
+    (cycling over those present), float32 with dropout and causal, and
+    bfloat16 with dropout, each result bit-identical to the one-card
+    ring's on the same inputs, and the wall ms of a forward +
     backward."""
     n = torch.cuda.device_count()
     if n < 2:
@@ -5210,15 +5429,17 @@ def check_ring_on_distinct_cards(dev) -> dict:
     devices = [torch.device("cuda", i % n) for i in range(RING_SP)]
     one, many = [dev] * RING_SP, devices
     out = {"run": True, "devices": [str(d) for d in devices]}
-    for i, name in enumerate(("full_dropout", "causal")):
-        causal, rate = RING_CASES[name]
+    for i, name in enumerate(("full_dropout", "causal", "bf16_full_dropout")):
+        causal, rate = RING_CASES[name.replace("bf16_", "")]
         x = ring_inputs(dev, seed=80 + i)
+        if name.startswith("bf16"):
+            x = flash_as(x, torch.bfloat16)
         n0 = flash_launches(A)
         got = ring_run(A, many, x, causal, rate)
         for d in set(devices):
             torch.cuda.synchronize(d)
         launches = tuple(b - a for a, b in zip(n0, flash_launches(A)))
-        if launches != (ring_pairs(causal),) * 3:
+        if launches != (ring_launches(A, many, causal),) * 3:
             raise AssertionError(f"13c {name}: launches {launches}")
         base = ring_run(A, one, x, causal, rate)
         same = {k: bool(torch.equal(got[k], base[k])) for k in got}
@@ -5342,7 +5563,7 @@ def check_ring_step_against_cpu(dev) -> dict:
                 main, feed=feed, fetch_list=fetch, scope=scope)
         out[name + "_launches"] = tuple(
             b - a for a, b in zip(n0, flash_launches(A)))
-    want = (cfg["n_layer"] * (2 * ring_pairs(False) + ring_pairs(True))
+    want = (cfg["n_layer"] * 3 * ring_launches(A, [dev] * RING_SP, False)
             if torch.device(dev).type == "cuda" else 0)
     if out["gpu_launches"] != (want,) * 3 or \
             out["cpu_launches"] != (0, 0, 0):
@@ -5398,6 +5619,51 @@ def ring_op_calls(store: dict, at: dict):
         A.ring_attention = fn
 
 
+def ring_dropout_grid(A, seed, B, H, Tq, Tk, sp, causal, rate, dtype,
+                      device):
+    """The ring's dropout multipliers over the whole [B, H, Tq, Tk]: pair
+    (i, j)'s block keyed on its pair seed, as the kernels' tile hash;
+    pairs the ring leaves out (above the diagonal under causal) stay 0."""
+    Sq, Sk = Tq // sp, Tk // sp
+    out = torch.zeros(B, H, Tq, Tk, dtype=dtype, device=device)
+    for i in range(sp):
+        for j in range(sp):
+            if causal and j > i:
+                continue
+            s = A._pair_seed(seed, i, j).reshape(1)
+            out[:, :, i * Sq:(i + 1) * Sq, j * Sk:(j + 1) * Sk] = \
+                A.tile_dropout_ref(s, B, H, Sq, Sk, rate, device)[..., :Sk]
+    return out
+
+
+def attention_whole(q, k, v, mask, drop, causal, sm_scale):
+    """softmax(q k^T * sm_scale, masks) * drop @ v in q's dtype: the
+    ring's function as one softmax over every key, without its pairs
+    (every row needs a valid key)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    s = s.masked_fill(~(mask[:, None, None, :] > 0), -math.inf)
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        tri = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~tri, -math.inf)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1) * drop, v)
+
+
+def ring_float64(A, c, x) -> dict:
+    """The ring op ``c``'s function on ``x`` in float64, forward and
+    autograd backward (``attention_whole`` with the ring's dropout bits):
+    out, dq, dk, dv."""
+    B, H, Tq, _ = x["q"].shape
+    drop = ring_dropout_grid(A, x["seed"], B, H, Tq, x["k"].shape[2],
+                             len(c["devices"]), c["causal"], c["rate"],
+                             torch.float64, x["q"].device)
+    leaves = [x[n].double().requires_grad_(True) for n in ("q", "k", "v")]
+    out = attention_whole(*leaves, x["mask"].double(), drop, c["causal"],
+                          c["sm_scale"])
+    g = torch.autograd.grad(out, leaves, x["do"].double())
+    return dict(out=out.detach(), dq=g[0], dk=g[1], dv=g[2])
+
+
 def check_ring_on_path(A, calls) -> dict:
     """K11 on the path's own inputs, copied from one T=4096 ring step
     (``ring_op_calls``): an encoder self-attention, a causal decoder
@@ -5432,10 +5698,19 @@ def check_ring_on_path(A, calls) -> dict:
             got, ref, f"{name} (B,H,T,D {[B, H, T, D]}, sp "
                       f"{len(c['devices'])}, causal {c['causal']}, "
                       f"dropout {c['rate']}) vs plain ring")
+        # both against the same function in float64: how much of their
+        # difference is each one's own float32 error
+        r64 = ring_float64(A, c, x)
+        e64 = {who: {n: ((r[n].double() - r64[n]).abs().max()
+                         / r64[n].abs().max()).item() for n in r64}
+               for who, r in (("ring", got), ("plain_ring", ref))}
+        log(f"    vs float64, max|d| / max|ref64|: ring {e64['ring']}, "
+            f"plain ring {e64['plain_ring']}")
         out[name] = {"max_abs_err": err, "shape": [B, H, T, D],
                      "causal": c["causal"], "rate": c["rate"],
-                     "masked_key_share": float(1 - c["mask"].mean())}
-        del got, ref, x
+                     "masked_key_share": float(1 - c["mask"].mean()),
+                     "vs_float64": e64}
+        del got, ref, x, r64
     return out
 
 
@@ -5472,7 +5747,8 @@ def train_arm(dev, card, impl) -> dict:
     launches = flash_launches(A)
     recomputes = lowering.grad_recomputes
     n = cfg["n_layer"]
-    per_step = (n * (2 * ring_pairs(False) + ring_pairs(True))
+    per_step = (n * (2 * ring_launches(A, [dev] * RING_SP, False)
+                     + ring_launches(A, [dev] * RING_SP, True))
                 if impl == "ring" else 3 * n)
     want = per_step * RING_TRAIN_STEPS
     log(f"  {impl}: {RING_TRAIN_STEPS} steps, launches K1/K2/K3 {launches} "

@@ -7,10 +7,15 @@ of the repository, on one CUDA card, in one process.
 
 <kernel> is one of
 
+- ``flash_fwd``: K1 in float32 (``csrc/flash_attn_fwd.cu``) at the
+  training shape (dropout 0.1, not causal and causal) and at B=4, H=8,
+  T=8192, D=64 causal: each build's outputs bit for bit against this
+  one's, and its device time;
 - ``flash_bwd``: K2/K3 (``csrc/flash_attn_bwd.cu``) at the bench shape
   (B=32, H=8, T=256, D=64, ragged key masks), dropout 0.1 (not causal and
   causal) and rate 0, with each build's registers, shared memory and
-  resident blocks an SM.  A source with no occupancy query of its own
+  resident blocks an SM, and whether its dq, dk, dv are bit for bit this
+  build's.  A source with no occupancy query of its own
   (PR 2's kernels, templates in an anonymous namespace) is compiled with
   a small shim that includes it and reports them;
 - ``flash_bwd_bf16``: K2/K3 in bfloat16 (``csrc/flash_attn_bwd_bf16.cu``)
@@ -87,6 +92,18 @@ of the repository, on one CUDA card, in one process.
   version's entry point (21 arguments, int64 ids) behind a copy of the
   wrapper it had.  The host cost of each piece of both launch paths is
   timed too (``launch_pieces``);
+- ``ring_bf16``: ring attention (K11) in bfloat16 at 13a's shape
+  (``chip_smoke.RING_SHAPE``: B=1, H=4, D=128, sp=4 on the card,
+  T=16,384, ragged keys), dropout 0.1 and causal at rate 0: the ring's
+  forward and backward bodies (``RingAttentionFn``'s), each build's
+  device time with its K1 (K2 + K3) share and the rest, and CUDA-event
+  times.  The other directory holds another checkout's whole kernels
+  package (``git archive <commit> paddle_tpu_torch/kernels | tar -x -C
+  <dir>``), loaded as a package of its own that builds its sources into
+  its own ``build/``; a package without the hop route
+  (``_ring_hop_forward``) runs its pair-by-pair walk.  Each build's
+  output and gradients against this one's (max error, bit equality);
+- ``ring_f32``: the same in float32;
 - ``int8_fc``: K5 (``csrc/int8_fc.cu``) at the int8 Transformer's four
   bucket-8 shapes (``chip_smoke.INT8_SHAPES``) with the path's acts, on
   quantized activations, cycling input sets past the L2, and their sum
@@ -98,7 +115,9 @@ Every source keeps its C entry points.  Each kernel is checked against
 this checkout's plain version (a disagreement is reported, not raised, so
 a variant built to find where the time goes can be timed too) and its
 device time taken (``chip_smoke.py``'s ``device_ms``, the torch
-profiler's median of three sessions) in turns, other, this, this, other.
+profiler's median of three sessions) in turns, other, this, this, other;
+the flash modes time by CUDA events where the profiler lost most
+sessions' records (``flash_ms``; the row lists them).
 One JSON line at the end; run on a card, it fails without one.
 """
 import ctypes
@@ -116,7 +135,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from chip_smoke import (DEEPFM_B, FLASH_BF16_REL,  # noqa: E402
-                        FLASH_BF16_VS_F32_REL,
+                        FLASH_BF16_VS_F32_REL, RING_SP,
                         FLASH_GRAD_TOL, FLASH_TIME_SHAPE, GRU_TIME_SHAPE,
                         INT8_DISPATCH_SHAPES, INT8_SHAPES, K4_KERNELS,
                         K8B_LAUNCHES, L2_BYTES, LSTM_SHORTEST,
@@ -124,8 +143,9 @@ from chip_smoke import (DEEPFM_B, FLASH_BF16_REL,  # noqa: E402
                         SPARSE_EMBED, SPARSE_FIELDS, SPARSE_HYPER,
                         SPARSE_ROWS, SPARSE_TIME_SETS, bits_equal,
                         device_ms, device_ms_by_name, flash_as,
-                        flash_inputs, flash_work, gather_work, gru_inputs,
-                        int8_case, lstm_inputs, nvidia_smi_line, paged_inputs, sparse_ids, time_ms,
+                        flash_inputs, flash_kernel_names, flash_work, gather_work, gru_inputs,
+                        int8_case, lstm_inputs, nvidia_smi_line, paged_inputs,
+                        ring_inputs, sparse_ids, time_ms,
                         update_tables, work, worst, zipf_ids)
 from paddle_tpu_torch.core.selected_rows import SelectedRows  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
@@ -204,6 +224,19 @@ def turns(libs) -> list:
     return [w for o in libs if o != "this" for w in (o, "this", "this", o)]
 
 
+def flash_ms(fn, sets, iters, name, row, key) -> float:
+    """``device_ms``, or where the profiler recorded no device time in
+    most of its sessions (it drops records now and then, more often on
+    some hosts), CUDA events around ``iters`` calls (at least 20); the
+    keys so timed are listed under ``row["event_timed"]``."""
+    try:
+        return device_ms(fn, sets, iters=iters, name=name)
+    except AssertionError as e:
+        row.setdefault("event_timed", []).append(key)
+        print(f"  {key}: {e}; timed by CUDA events", flush=True)
+        return time_ms(fn, sets, iters=max(iters, 20), warmup=3)
+
+
 def err_of(got, want) -> str:
     e = max((g - w).abs().max().item() for g, w in zip(got, want))
     return repr(e) if math.isfinite(e) else f"disagrees: {e}"
@@ -273,11 +306,16 @@ def ab_flash_bwd(libs, dev) -> dict:
         want = A.flash_attention_bwd_ref(
             s["q"], s["k"], s["v"], s["mask"], s["out"], s["lse"], s["do"],
             causal, None, rate, s["seed"], delta=s["delta"])
-        row = {}
-        for who, lib in libs.items():
+        row, mine = {}, None
+        for who in ["this"] + [w for w in libs if w != "this"]:
+            lib = libs[who]
             for which in ("bwd_dq", "bwd_dkv"):
                 flash_call(lib, which, s, causal, rate)
             torch.cuda.synchronize()
+            got = [s[n].clone() for n in ("dq", "dk", "dv")]
+            mine = got if who == "this" else mine
+            row[f"{who}_bits_equal_this"] = all(
+                torch.equal(a, b) for a, b in zip(got, mine))
             try:   # max |kernel - plain| over dq, dk, dv
                 row[f"{who}_max_abs_err"] = repr(max(
                     worst(s[n], w, FLASH_GRAD_TOL)
@@ -286,13 +324,55 @@ def ab_flash_bwd(libs, dev) -> dict:
                 row[f"{who}_max_abs_err"] = f"disagrees: {e}"
         for which in ("bwd_dq", "bwd_dkv"):
             for who in turns(libs):
-                ms = device_ms(lambda x: flash_call(libs[who], which, x,
-                                                    causal, rate),
-                               sets, iters=50, name=f"flash_{which}_kernel")
+                ms = flash_ms(lambda x: flash_call(libs[who], which, x,
+                                                   causal, rate),
+                              sets, 50, f"flash_{which}_kernel", row,
+                              f"{who}_{which}")
                 row.setdefault(f"{who}_{which}_ms", []).append(ms)
         res[label] = row
         print(label, json.dumps(row), flush=True)
         del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+def ab_flash_fwd(libs, dev) -> dict:
+    """K1 in float32 at the training shape (dropout 0.1, not causal and
+    causal) and at B=4, H=8, T=8192, D=64 causal: each build's outputs
+    bit for bit against this one's, its error against the plain version
+    (at T=256), and its device time in turns."""
+    res = {}
+    for label, (B, H, T, D, causal, rate) in (
+            ("self_dropout", (32, 8, 256, 64, False, 0.1)),
+            ("causal_dropout", (32, 8, 256, 64, True, 0.1)),
+            ("long_causal", (4, 8, 8192, 64, True, 0.0))):
+        one = B * H * 3 * T * D * 4
+        sets = [flash_inputs(dev, B, H, T, T, D, seed=60 + i)
+                for i in range(max(2, math.ceil(2 * L2_BYTES / one)))]
+        for x in sets:
+            x.update(causal=causal, rate=rate, out=torch.empty_like(x["q"]),
+                     lse=torch.empty(B * H, T, device=dev))
+        calls = {t: flash_fwd_call(lib, "flash_attn_fwd")
+                 for t, lib in libs.items()}
+        s, row, mine = sets[0], {"shape": [B, H, T, D, causal, rate]}, None
+        for who in ["this"] + [w for w in libs if w != "this"]:
+            calls[who](s)
+            torch.cuda.synchronize()
+            got = (s["out"].clone(), s["lse"].clone())
+            mine = got if who == "this" else mine
+            row[f"{who}_bits_equal_this"] = (torch.equal(got[0], mine[0])
+                                             and torch.equal(got[1], mine[1]))
+        if T * T <= 1 << 20:
+            want, _ = A.flash_attention_ref(s["q"], s["k"], s["v"], s["mask"],
+                                            causal, None, rate, s["seed"])
+            row["this_max_abs_err"] = (mine[0] - want).abs().max().item()
+        for who in turns(libs):
+            ms = flash_ms(calls[who], sets, 50 if T <= 256 else 5,
+                          "flash_fwd_kernel", row, who)
+            row.setdefault(f"{who}_ms", []).append(ms)
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del sets, s
         torch.cuda.empty_cache()
     return res
 
@@ -456,8 +536,8 @@ def ab_flash_bwd_bf16(libs, dev) -> dict:
                  "bwd_dkv": "flash_bwd_dkv_bf16_kernel", "bwd": None}
         for which, name in names.items():
             for who in turns(libs):
-                ms = device_ms(calls[who][which], sets, iters=iters,
-                               name=name)
+                ms = flash_ms(calls[who][which], sets, iters, name, row,
+                              f"{who}_{which}")
                 row.setdefault(f"{who}_{which}_ms", []).append(ms)
         work = flash_work(dict(sets[0], mask=sets[0]["mask"] if
                                sets[0]["mask"] is not None else
@@ -487,9 +567,10 @@ FLASH_FWD_BF16_AB_SHAPES = {
 }
 
 
-def flash_fwd_bf16_call(lib):
-    """K1 bf16 of ``lib`` on an input set, into the set's out and lse."""
-    fn = lib.flash_attn_fwd_bf16
+def flash_fwd_call(lib, name="flash_attn_fwd_bf16"):
+    """K1 of ``lib`` (its entry ``name``: bf16, or float32's
+    ``flash_attn_fwd``) on an input set, into the set's out and lse."""
+    fn = getattr(lib, name)
     fn.argtypes, fn.restype = A._FWD_ARGS, ctypes.c_int
 
     def run(s):
@@ -501,7 +582,7 @@ def flash_fwd_bf16_call(lib):
                  s["lse"].data_ptr(), B, H, Tq, Tk, D, c, sl2, r, keep, bq, bk,
                  q.device.index, torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"flash_attn_fwd_bf16: cudaError {err}")
+            raise RuntimeError(f"{name}: cudaError {err}")
     return run
 
 
@@ -530,7 +611,7 @@ def ab_flash_fwd_bf16(libs, dev) -> dict:
                              for D in (32, 64, 128)}
                          for t, lib in libs.items()}}
     print(json.dumps(res["occupancy"]), flush=True)
-    calls = {t: flash_fwd_bf16_call(lib) for t, lib in libs.items()}
+    calls = {t: flash_fwd_call(lib) for t, lib in libs.items()}
     for label, shape in FLASH_FWD_BF16_AB_SHAPES.items():
         B, H, Tq, Tk, D, causal, rate, ragged = shape
         sets = []
@@ -589,8 +670,8 @@ def ab_flash_fwd_bf16(libs, dev) -> dict:
         del want, want_lse
         iters = 50 if Tq * Tk <= 1 << 20 else (20 if Tq * Tk <= 1 << 24 else 5)
         for who in turns(libs):
-            ms = device_ms(calls[who], sets, iters=iters,
-                           name="flash_fwd_bf16_kernel")
+            ms = flash_ms(calls[who], sets, iters, "flash_fwd_bf16_kernel",
+                          row, who)
             row.setdefault(f"{who}_ms", []).append(ms)
         row["sdpa_ms"] = device_ms(
             lambda x: F.scaled_dot_product_attention(
@@ -1254,10 +1335,126 @@ def ab_int8_fc(libs, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# K11: the ring in bfloat16
+# ---------------------------------------------------------------------------
+
+def load_kernels(src_dir: str, tag: str):
+    """The ``attention`` module of another checkout's kernels package
+    (``<src_dir>/paddle_tpu_torch/kernels``), imported as the package
+    ``<tag>_kernels``: its relative imports stay inside it, and its
+    ``_build`` builds its own sources into its own ``build/``."""
+    import importlib
+    import importlib.util
+    path = os.path.join(os.path.abspath(src_dir), "paddle_tpu_torch",
+                        "kernels")
+    name = f"{tag}_kernels"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    SOURCES[tag] = path
+    return importlib.import_module(f"{name}.attention")
+
+
+def ring_bodies(mod, x, devices, causal, rate):
+    """(forward, backward) of ``mod``'s ring, ``RingAttentionFn``'s two
+    bodies: the hop route where the module has one, else the
+    pair-by-pair walk over its K1-K3 wrappers."""
+    q, k, v, m, seed, do = (x[n] for n in ("q", "k", "v", "mask", "seed",
+                                           "do"))
+    sm = sm_scale_of(q)
+    args = (m, seed, devices, causal, sm, rate)
+    if hasattr(mod, "_ring_hop_forward"):
+        def fwd(_):
+            return mod._ring_hop_forward(q, k, v, *args)
+        saved = fwd(None)
+
+        def bwd(_):
+            return mod._ring_hop_backward(q, k, v, m, seed, *saved, do,
+                                          devices, causal, sm, rate)
+    else:
+        def fwd(_):
+            return mod._ring_forward(q, k, v, *args, mod.flash_attention_fwd)
+        saved = fwd(None)
+
+        def bwd(_):
+            return mod._ring_backward(q, k, v, m, seed, *saved, do, devices,
+                                      causal, sm, rate,
+                                      mod.flash_attention_bwd_dq,
+                                      mod.flash_attention_bwd_dkv)
+    return fwd, bwd
+
+
+def ab_ring(mods, dev, dtype=torch.bfloat16) -> dict:
+    devices = (dev,) * RING_SP
+    kn = flash_kernel_names(dtype)
+    res = {}
+    for label, causal, rate in (("full_dropout", False, 0.1),
+                                ("causal", True, 0.0)):
+        x = flash_as(ring_inputs(dev, seed=70), dtype)
+        row, outs = {}, {}
+        for who, mod in mods.items():
+            leaves = [x[n].clone().requires_grad_(True)
+                      for n in ("q", "k", "v")]
+            o = mod.ring_attention(*leaves, x["mask"], list(devices), causal,
+                                   None, rate, x["seed"])
+            outs[who] = (o.detach(),) + torch.autograd.grad(o, leaves,
+                                                            x["do"])
+            torch.cuda.synchronize()
+        for who in mods:
+            row[f"{who}_max_abs_err_vs_this"] = err_of(outs[who],
+                                                       outs["this"])
+            row[f"{who}_bit_equal_this"] = all(
+                torch.equal(a, b) for a, b in zip(outs[who], outs["this"]))
+        del outs
+        for who in turns(mods):
+            mod = mods[who]
+            fwd, bwd = ring_bodies(mod, x, devices, causal, rate)
+            # each kernel's launches a call: a session short of them lost
+            # records (device_ms_by_name's expect)
+            n0 = (mod.flash_attention_fwd.launches,
+                  mod.flash_attention_bwd_dq.launches)
+            fwd(None)
+            bwd(None)
+            n_fwd = mod.flash_attention_fwd.launches - n0[0]
+            n_bwd = mod.flash_attention_bwd_dq.launches - n0[1]
+            t = {"fwd_event_ms": time_ms(fwd, [None], iters=10),
+                 "bwd_event_ms": time_ms(bwd, [None], iters=10)}
+            t["total_event_ms"] = t["fwd_event_ms"] + t["bwd_event_ms"]
+            try:
+                kf = device_ms_by_name(fwd, [None], 3, [None, kn["fwd"]],
+                                       {kn["fwd"]: n_fwd})
+                kb = device_ms_by_name(bwd, [None], 3,
+                                       [None, kn["bwd_dq"], kn["bwd_dkv"]],
+                                       {kn["bwd_dq"]: n_bwd,
+                                        kn["bwd_dkv"]: n_bwd})
+                t.update(fwd_ms=kf[None], fwd_kernel_ms=kf[kn["fwd"]],
+                         bwd_ms=kb[None],
+                         bwd_kernel_ms=kb[kn["bwd_dq"]] + kb[kn["bwd_dkv"]])
+                t["rest_ms"] = (t["fwd_ms"] - t["fwd_kernel_ms"]
+                                + t["bwd_ms"] - t["bwd_kernel_ms"])
+                t["total_ms"] = t["fwd_ms"] + t["bwd_ms"]
+            except AssertionError as e:   # the profiler lost the records
+                print(f"  {who} {label}: {e}; CUDA events only", flush=True)
+            for key, val in t.items():
+                row.setdefault(f"{who}_{key}", []).append(val)
+            del fwd, bwd
+            torch.cuda.empty_cache()
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
 # kernel: (csrc source, its A/B, the shim for sources without a query)
 KERNELS = {
     "flash_bwd": ("flash_attn_bwd", ab_flash_bwd,
                   ("flash_attn_bwd_occupancy", FLASH_SHIM)),
+    "flash_fwd": ("flash_attn_fwd", ab_flash_fwd, None),
     "flash_bwd_bf16": ("flash_attn_bwd_bf16", ab_flash_bwd_bf16, None),
     "flash_fwd_bf16": ("flash_attn_fwd_bf16", ab_flash_fwd_bf16, None),
     "paged_decode": ("paged_decode_attn", ab_paged_decode, None),
@@ -1267,6 +1464,10 @@ KERNELS = {
     "sparse_update": ("sparse_update", ab_sparse_update, None),
     "sparse_gather": ("sparse_gather", ab_sparse_gather, None),
     "int8_fc": ("int8_fc", ab_int8_fc, None),
+    # the ring's whole kernels package, not one source
+    "ring_bf16": (None, ab_ring, None),
+    "ring_f32": (None, lambda mods, dev: ab_ring(mods, dev, torch.float32),
+                 None),
 }
 
 
@@ -1284,10 +1485,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for kernel in kernels:
             src, run, shim = KERNELS[kernel]
-            libs = {"this": _build.load(src)}
+            libs = {"this": A if src is None else _build.load(src)}
             for i, d in enumerate(sys.argv[2:]):
                 tag = f"other{i}_{os.path.basename(os.path.normpath(d))}"
-                libs[tag] = build_other(d, tmp, tag, src, shim)
+                libs[tag] = (load_kernels(d, tag) if src is None else
+                             build_other(d, tmp, tag, src, shim))
             res[kernel] = run(libs, dev)
     print(json.dumps(res))
     return 0

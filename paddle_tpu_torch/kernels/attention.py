@@ -46,13 +46,18 @@ and ``mha_xla`` in the reference) is the training path's hot op:
   with the ``_hash_dropout`` bits), the op's ``impl="xla"``.
 
 Ring attention (``ring_attention``/``_ring_flash``, K11 of the
-reference, ``paddle_tpu/kernels/attention.py:694-935``) has no kernel
-of its own: :func:`ring_attention` composes K1–K3 over the shard pairs
-of a sequence cut across a list of devices, with the log2-mass merge in
-torch ops, as the reference composes its Pallas launchers with
-``jnp`` (in bfloat16 each pair's output is merged, and its gradients
-summed, in float32); :func:`ring_attention_ref` is the same ring over
-the plain pair functions.
+reference, ``paddle_tpu/kernels/attention.py:694-935``) runs K1–K3 over
+the shard pairs of a sequence cut across a list of devices, one launch
+a hop on each distinct device: :func:`ring_hops` lays out the hops'
+pair tables, and the ring entries of the three kernels
+(:func:`flash_attention_fwd_ring`, :func:`flash_attention_bwd_dq_ring`,
+:func:`flash_attention_bwd_dkv_ring`) run every pair of a table on the
+whole tensors, a shard being a row offset, with the log2-mass merge and
+the float32 gradient sums in their epilogues (each pair's output and
+gradients rounded to q's dtype first, as the reference's pairs are).
+:func:`ring_attention_ref` is the plain ring: the pair-by-pair walk over
+the plain pair functions with the merges and sums in torch ops, as the
+reference composes its Pallas launchers with ``jnp``.
 """
 from __future__ import annotations
 
@@ -483,11 +488,21 @@ def flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, do,
 _FLASH_LIBS = {
     torch.float32: dict(fwd=("flash_attn_fwd", "flash_attn_fwd"),
                         dq=("flash_attn_bwd", "flash_attn_bwd_dq"),
-                        dkv=("flash_attn_bwd", "flash_attn_bwd_dkv")),
+                        dkv=("flash_attn_bwd", "flash_attn_bwd_dkv"),
+                        fwd_ring=("flash_attn_fwd", "flash_attn_fwd_ring"),
+                        dq_ring=("flash_attn_bwd", "flash_attn_bwd_dq_ring"),
+                        dkv_ring=("flash_attn_bwd",
+                                  "flash_attn_bwd_dkv_ring")),
     torch.bfloat16: dict(fwd=("flash_attn_fwd_bf16", "flash_attn_fwd_bf16"),
                          dq=("flash_attn_bwd_bf16", "flash_attn_bwd_dq_bf16"),
                          dkv=("flash_attn_bwd_bf16",
-                              "flash_attn_bwd_dkv_bf16")),
+                              "flash_attn_bwd_dkv_bf16"),
+                         fwd_ring=("flash_attn_fwd_bf16",
+                                   "flash_attn_fwd_bf16_ring"),
+                         dq_ring=("flash_attn_bwd_bf16",
+                                  "flash_attn_bwd_dq_bf16_ring"),
+                         dkv_ring=("flash_attn_bwd_bf16",
+                                   "flash_attn_bwd_dkv_bf16_ring")),
 }
 _PTR = ctypes.c_void_p
 _FWD_ARGS = [_PTR] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
@@ -520,8 +535,9 @@ def _raise_launch(lib: str, name: str, err: int):
 
 def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
     """What the flash kernels take; anything else raises (no fallback).
-    q, k, v (and dO) share one dtype, float32 or bfloat16; the mask, lse
-    and delta are float32, the seed int32."""
+    q, k, v (and dO, out, dq, dk, dv) share one dtype, float32 or
+    bfloat16; the mask, lse, delta and the ring's accumulators are
+    float32, the seed (and the ring's seed grid) int32."""
     if q.dtype not in _FLASH_LIBS:
         raise TypeError(f"flash attention kernel: q must be float32 or "
                         f"bfloat16, got {q.dtype}")
@@ -533,8 +549,9 @@ def _check_flash(q, k, v, kv_mask, seed, **extra) -> None:
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        want = (torch.int32 if name == "seed" else
-                q.dtype if name in ("q", "k", "v", "do", "out")
+        want = (torch.int32 if name in ("seed", "seeds") else
+                q.dtype if name in ("q", "k", "v", "do", "out", "dq", "dk",
+                                    "dv")
                 else torch.float32)
         if t.dtype != want:
             raise TypeError(f"flash attention kernel: {name} must be "
@@ -624,10 +641,9 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
                            sm_scale: Optional[float] = None,
                            dropout_rate: float = 0.0, seed=None, out=None):
     """dq of flash attention from the forward's ``lse`` and ``delta``
-    ([B*H, Tq] each; ring attention passes its global ones).  CPU
-    tensors take the plain version; CUDA tensors launch
-    ``flash_attn_bwd_dq`` (float32) or ``flash_attn_bwd_dq_bf16``, or
-    raise.
+    ([B*H, Tq] each).  CPU tensors take the plain version; CUDA tensors
+    launch ``flash_attn_bwd_dq`` (float32) or ``flash_attn_bwd_dq_bf16``,
+    or raise.
 
     With ``delta=None`` the forward's output ``out`` is required and the
     call returns ``(dq, delta)``: the bfloat16 kernel computes delta =
@@ -836,10 +852,16 @@ def _gather(xs, dim: int, device):
     return torch.cat([x.to(device, non_blocking=True) for x in xs], dim=dim)
 
 
+def _seed_grid(seed0, sp: int) -> torch.Tensor:
+    """The [sp, sp] pair-seed grid on ``seed0``'s device: (i, j) holds
+    q shard i's and kv shard j's :func:`_pair_seed`."""
+    idx = torch.arange(sp, device=seed0.device)
+    return _pair_seed(seed0, idx[:, None], idx[None]).contiguous()
+
+
 def _pair_seeds(seed0, devices) -> list:
     """Row i of the [sp, sp] pair-seed grid, on ``devices[i]``."""
-    idx = torch.arange(len(devices), device=seed0.device)
-    grid = _pair_seed(seed0, idx[:, None], idx[None])
+    grid = _seed_grid(seed0, len(devices))
     return [row.to(d) for row, d in zip(grid, devices)]
 
 
@@ -853,6 +875,9 @@ def _ring_check(q, k, devices) -> None:
     if any(torch.device(d).type != q.device.type for d in devices):
         raise ValueError(f"ring devices {devices} are not all of q's "
                          f"device type ({q.device.type})")
+    if k.device != q.device:
+        raise ValueError(f"k is on {k.device}, q on {q.device}: the ring "
+                         f"takes whole tensors on one device")
 
 
 def _ring_forward(q, k, v, kv_mask, seed, devices, causal, sm_scale, rate,
@@ -950,19 +975,494 @@ def _plain_dkv(*args):
     return _bwd_ref(*args, False, True)[1:]
 
 
+# ---- the hop route: one launch of each kernel a hop on each device -------
+
+# a pair's flags in a hop table (csrc/flash_attn_common.cuh, Ring): the
+# causal diagonal, the first hop (the accumulators are written, not
+# read), and the last pair of its q shard (K1's out and lse, K2's dq are
+# written in their final form) or of its kv shard (K3's dk, dv)
+RING_CAUSAL, RING_FIRST, RING_LAST_Q, RING_LAST_KV = 1, 2, 4, 8
+RING_MAX_PAIRS = 64     # pairs a launch's table holds (kRingMaxPairs)
+RING_MAX_SHARDS = 4096  # a shard index takes 12 bits of a table entry
+
+
+def ring_hops(devices, causal: bool) -> list:
+    """The hop route's launches: for each hop t = 0 .. sp - 1 a list of
+    ``(device, pairs)``, one entry for each distinct device (in the order
+    they first appear in ``devices``) that holds the q shard of a pair of
+    that hop.  ``pairs`` are ``(i, j, flags)`` in the reference's order,
+    q shard i ascending: at hop t, q shard i meets kv shard j = (i - t)
+    mod sp, and under ``causal`` a pair above the diagonal (j > i) is
+    left out.  Pure Python on ``torch.device`` objects: no tensor."""
+    devices = [torch.device(d) for d in devices]
+    sp = len(devices)
+    places = list(dict.fromkeys(devices))
+    hops = []
+    for t in range(sp):
+        by = {d: [] for d in places}
+        for i in range(sp):
+            j = (i - t) % sp
+            if causal and j > i:
+                continue
+            f = RING_FIRST if t == 0 else 0
+            if causal and t == 0:
+                f |= RING_CAUSAL
+            if t == (i if causal else sp - 1):
+                f |= RING_LAST_Q
+            if t == (sp - 1 - j if causal else sp - 1):
+                f |= RING_LAST_KV
+            by[devices[i]].append((i, j, f))
+        hops.append([(d, p) for d, p in by.items() if p])
+    return hops
+
+
+def _rows(x, i: int, n: int, dim: int = 2):
+    """Shard i's rows of a whole tensor: ``n`` rows along ``dim`` from i*n."""
+    return x.narrow(dim, i * n, n)
+
+
+def _pair_inputs(q, k, v, kv_mask, seeds, i, j, Sq, Sk):
+    """Pair (i, j)'s shards as contiguous copies, for the plain entries."""
+    return (_rows(q, i, Sq).contiguous(), _rows(k, j, Sk).contiguous(),
+            _rows(v, j, Sk).contiguous(),
+            None if kv_mask is None else _rows(kv_mask, j, Sk, 1).contiguous(),
+            seeds[i, j:j + 1])
+
+
+def _fwd_ring_plain(q, k, v, kv_mask, seeds, pairs, o_acc, lse_acc, out,
+                    sm_scale, rate):
+    """The plain K1 ring entry: each pair of the table through
+    :func:`flash_attention_ref`, its output widened to float32 and merged
+    into shard i's accumulators by :func:`_merge_partial`."""
+    B, H, Tq, _ = q.shape
+    sp = seeds.shape[0]
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    lse4 = lse_acc.view(B, H, Tq, 1)
+    for i, j, f in pairs:
+        qi, kj, vj, mj, sd = _pair_inputs(q, k, v, kv_mask, seeds, i, j, Sq, Sk)
+        o_p, lse_p = flash_attention_ref(qi, kj, vj, mj,
+                                         bool(f & RING_CAUSAL), sm_scale,
+                                         rate, sd)
+        o_t = o_p.float()
+        lse_t = _mass_lse(lse_p.reshape(B, H, Sq, 1))
+        o_a, l_a = _rows(o_acc, i, Sq), _rows(lse4, i, Sq)
+        if not f & RING_FIRST:
+            o_t, lse_t = _merge_partial(o_a.contiguous(), l_a.contiguous(),
+                                        o_t, lse_t)
+        if f & RING_LAST_Q:
+            _rows(out, i, Sq).copy_(o_t.to(out.dtype))
+            l_a.copy_(_kernel_lse(lse_t))
+        else:
+            o_a.copy_(o_t)
+            l_a.copy_(lse_t)
+
+
+def _sum_into(acc, dst, part, first: bool, last: bool) -> None:
+    """acc += part in float32 (acc = part on the first hop); on the last,
+    the sum goes to ``dst`` in its dtype instead."""
+    total = part if first else acc.contiguous() + part
+    (dst if last else acc).copy_(total.to(dst.dtype) if last else total)
+
+
+def _dq_ring_plain(q, k, v, kv_mask, seeds, pairs, lse, delta, do, dq_acc,
+                   dq, sm_scale, rate, out):
+    """The plain K2 ring entry: each pair's dq by :func:`_bwd_ref` (q's
+    dtype), widened and summed into shard i's rows of ``dq_acc``; with
+    ``out`` each pair's delta rows are written first (K2's own delta)."""
+    Tq = q.shape[2]
+    sp = seeds.shape[0]
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    for i, j, f in pairs:
+        qi, kj, vj, mj, sd = _pair_inputs(q, k, v, kv_mask, seeds, i, j, Sq, Sk)
+        doi = _rows(do, i, Sq).contiguous()
+        if out is not None:
+            _rows(delta, i, Sq, 1).copy_(
+                flash_attention_delta(_rows(out, i, Sq).contiguous(), doi))
+        dq_p = _bwd_ref(qi, kj, vj, mj, _rows(lse, i, Sq, 1).contiguous(),
+                        _rows(delta, i, Sq, 1).contiguous(), doi,
+                        bool(f & RING_CAUSAL), sm_scale, rate, sd, True,
+                        False)[0]
+        _sum_into(_rows(dq_acc, i, Sq), _rows(dq, i, Sq), dq_p.float(),
+                  bool(f & RING_FIRST), bool(f & RING_LAST_Q))
+
+
+def _dkv_ring_plain(q, k, v, kv_mask, seeds, pairs, lse, delta, do, dk_acc,
+                    dv_acc, dk, dv, sm_scale, rate):
+    """The plain K3 ring entry: each pair's dk, dv by :func:`_bwd_ref`,
+    widened and summed into kv shard j's rows of the accumulators."""
+    Tq = q.shape[2]
+    sp = seeds.shape[0]
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    for i, j, f in pairs:
+        qi, kj, vj, mj, sd = _pair_inputs(q, k, v, kv_mask, seeds, i, j, Sq, Sk)
+        _, dk_p, dv_p = _bwd_ref(qi, kj, vj, mj,
+                                 _rows(lse, i, Sq, 1).contiguous(),
+                                 _rows(delta, i, Sq, 1).contiguous(),
+                                 _rows(do, i, Sq).contiguous(),
+                                 bool(f & RING_CAUSAL), sm_scale, rate, sd,
+                                 False, True)
+        for acc, dst, part in ((dk_acc, dk, dk_p), (dv_acc, dv, dv_p)):
+            _sum_into(_rows(acc, j, Sk), _rows(dst, j, Sk), part.float(),
+                      bool(f & RING_FIRST), bool(f & RING_LAST_KV))
+
+
+def _ring_words(pairs):
+    """A hop table as the kernels read it: i | j << 12 | flags << 24."""
+    if not 0 < len(pairs) <= RING_MAX_PAIRS:
+        raise ValueError(f"a ring launch takes 1 to {RING_MAX_PAIRS} pairs, "
+                         f"got {len(pairs)}")
+    return (ctypes.c_uint32 * len(pairs))(
+        *(i | j << 12 | f << 24 for i, j, f in pairs))
+
+
+def _check_ring(q, k, v, kv_mask, seeds, pairs, **extra):
+    """What the ring entries take: the whole tensors of
+    :func:`_check_flash` (lse, delta [B*H, Tq]; accumulators and outputs
+    of q's or k's shape), an int32 [sp, sp] seed grid, a table of pairs
+    of shards below sp."""
+    _check_flash(q, k, v, kv_mask, None, seeds=seeds, **extra)
+    B, H, Tq, D = q.shape
+    sp = seeds.shape[0]
+    if seeds.shape != (sp, sp) or not 0 < sp < RING_MAX_SHARDS:
+        raise ValueError(f"the pair seeds are an [sp, sp] grid with sp < "
+                         f"{RING_MAX_SHARDS}, got {tuple(seeds.shape)}")
+    if Tq % sp or k.shape[2] % sp:
+        raise ValueError(f"Tq={Tq} and Tk={k.shape[2]} must be multiples of "
+                         f"sp={sp}")
+    for name, t in extra.items():
+        want = (B * H * Tq if name in ("lse", "lse_acc", "delta") else
+                k.numel() if name in ("dk", "dv", "dk_acc", "dv_acc")
+                else q.numel())
+        if t.numel() != want:
+            raise ValueError(f"ring entry: {name} holds {t.numel()} values, "
+                             f"not {want}")
+    if any(not (0 <= i < sp and 0 <= j < sp) for i, j, _ in pairs):
+        raise ValueError(f"a pair's shards lie outside 0..{sp - 1}: {pairs}")
+
+
+def _ring_common(q, k, seeds, sm_scale, rate):
+    """(B, H, sp, Sq, Sk, D, scale_log2, rate, keep, bq, bk) of a ring
+    launch: the pairs' shard lengths and their logical tiles."""
+    B, H, Tq, D = q.shape
+    sp = seeds.shape[0]
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    bq, bk = resolve_blocks(Sq, Sk)
+    rate = float(rate or 0.0)
+    keep = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    return B, H, sp, Sq, Sk, D, _scale_log2(sm_scale), rate, keep, bq, bk
+
+
+_FWD_RING_ARGS = [_PTR] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + \
+    [ctypes.c_int] * 3 + [_PTR, ctypes.c_int, _PTR]
+_BWD_RING_ARGS = [_PTR] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + \
+    [ctypes.c_int] * 3 + [_PTR, ctypes.c_int, _PTR]
+
+
+def flash_attention_fwd_ring(q, k, v, kv_mask, seeds, pairs, o_acc, lse_acc,
+                             out, sm_scale: float, dropout_rate: float = 0.0):
+    """One hop of ring attention's forward: K1 on every pair ``(i, j,
+    flags)`` of ``pairs`` (:func:`ring_hops`), q shard i of the whole q
+    [B, H, Tq, D] against kv shard j of the whole k, v [B, H, Tk, D] and
+    kv_mask [B, Tk] (shards of Tq / sp and Tk / sp rows, sp =
+    ``seeds.shape[0]``; the pair's dropout seed is ``seeds[i, j]``).  Each
+    pair's output, rounded to q's dtype, merges into shard i's rows of
+    the float32 ``o_acc`` [B, H, Tq, D] and ``lse_acc`` [B*H, Tq] (log2
+    masses) in place; the first hop writes them, and a q shard's last
+    pair writes ``out`` (q's dtype; for float32 it may be ``o_acc``
+    itself) and ``lse_acc`` in the kernels' form (+1e30 for an empty row).
+
+    CPU tensors take the plain loop :func:`_fwd_ring_plain`; CUDA tensors
+    launch ``flash_attn_fwd_ring`` or ``flash_attn_fwd_bf16_ring`` once,
+    or raise.  Each launch adds one to ``flash_attention_fwd.launches``."""
+    if q.device.type == "cpu":
+        return _fwd_ring_plain(q, k, v, kv_mask, seeds, pairs, o_acc,
+                               lse_acc, out, sm_scale, dropout_rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_ring(q, k, v, kv_mask, seeds, pairs, o_acc=o_acc,
+                lse_acc=lse_acc, out=out)
+    B, H, sp, Sq, Sk, D, sl2, rate, keep, bq, bk = _ring_common(
+        q, k, seeds, sm_scale, dropout_rate)
+    lib, name = _FLASH_LIBS[q.dtype]["fwd_ring"]
+    fn = _flash_fn(lib, name, _FWD_RING_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             seeds.data_ptr(), o_acc.data_ptr(), lse_acc.data_ptr(),
+             out.data_ptr(), B, H, sp, Sq, Sk, D, sl2, rate, keep, bq, bk,
+             len(pairs), ctypes.cast(_ring_words(pairs), _PTR),
+             q.device.index, _build.current_stream(q))
+    if err != 0:
+        _raise_launch(lib, name, err)
+    flash_attention_fwd.launches += 1
+
+
+def flash_attention_bwd_dq_ring(q, k, v, kv_mask, seeds, pairs, lse, delta,
+                                do, dq_acc, dq, sm_scale: float,
+                                dropout_rate: float = 0.0, out=None):
+    """One hop of ring attention's dq: K2 on every pair of ``pairs`` (as
+    :func:`flash_attention_fwd_ring`) with the ring's merged ``lse`` and
+    ``delta`` ([B*H, Tq], the kernels' form); each pair's dq, rounded to
+    q's dtype, is added in float32 to shard i's rows of ``dq_acc`` (the
+    first hop writes them), and a q shard's last pair writes ``dq`` in
+    q's dtype (for float32 ``dq`` may be ``dq_acc``).  With ``out`` (the
+    bfloat16 route's first hop) the pairs write their shard's rows of
+    ``delta`` = rowsum(dO * O) before using them.
+
+    CPU tensors take :func:`_dq_ring_plain`; CUDA tensors launch
+    ``flash_attn_bwd_dq_ring`` or ``flash_attn_bwd_dq_bf16_ring`` once,
+    or raise.  Each launch adds one to ``flash_attention_bwd_dq.launches``."""
+    if q.device.type == "cpu":
+        return _dq_ring_plain(q, k, v, kv_mask, seeds, pairs, lse, delta, do,
+                              dq_acc, dq, sm_scale, dropout_rate, out)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    bf16 = q.dtype == torch.bfloat16
+    if out is not None and not bf16:
+        raise ValueError("the float32 K2 reads delta; pass out=None")
+    extra = dict(out=out) if out is not None else {}
+    _check_ring(q, k, v, kv_mask, seeds, pairs, lse=lse, delta=delta, do=do,
+                dq_acc=dq_acc, dq=dq, **extra)
+    B, H, sp, Sq, Sk, D, sl2, rate, keep, bq, bk = _ring_common(
+        q, k, seeds, sm_scale, dropout_rate)
+    lib, name = _FLASH_LIBS[q.dtype]["dq_ring"]
+    fn = _flash_fn(lib, name, _BWD_RING_ARGS)
+    own = out is not None
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             seeds.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             None if own else delta.data_ptr(), _ptr(out),
+             delta.data_ptr() if own else None, dq_acc.data_ptr(),
+             dq.data_ptr(), B, H, sp, Sq, Sk, D, sl2, float(sm_scale), rate,
+             keep, bq, bk, len(pairs), ctypes.cast(_ring_words(pairs), _PTR),
+             q.device.index, _build.current_stream(q))
+    if err != 0:
+        _raise_launch(lib, name, err)
+    flash_attention_bwd_dq.launches += 1
+
+
+def flash_attention_bwd_dkv_ring(q, k, v, kv_mask, seeds, pairs, lse, delta,
+                                 do, dk_acc, dv_acc, dk, dv, sm_scale: float,
+                                 dropout_rate: float = 0.0):
+    """One hop of ring attention's dk, dv: K3 on every pair of ``pairs``
+    (as :func:`flash_attention_bwd_dq_ring`); each pair's dk and dv,
+    rounded to k's dtype, are added in float32 to kv shard j's rows of
+    ``dk_acc`` and ``dv_acc`` [B, H, Tk, D] (the first hop writes them),
+    and a kv shard's last pair writes ``dk``, ``dv`` in k's dtype.
+
+    CPU tensors take :func:`_dkv_ring_plain`; CUDA tensors launch
+    ``flash_attn_bwd_dkv_ring`` or ``flash_attn_bwd_dkv_bf16_ring`` once,
+    or raise.  Each launch adds one to ``flash_attention_bwd_dkv.launches``."""
+    if q.device.type == "cpu":
+        return _dkv_ring_plain(q, k, v, kv_mask, seeds, pairs, lse, delta,
+                               do, dk_acc, dv_acc, dk, dv, sm_scale,
+                               dropout_rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_ring(q, k, v, kv_mask, seeds, pairs, lse=lse, delta=delta, do=do,
+                dk_acc=dk_acc, dv_acc=dv_acc, dk=dk, dv=dv)
+    B, H, sp, Sq, Sk, D, sl2, rate, keep, bq, bk = _ring_common(
+        q, k, seeds, sm_scale, dropout_rate)
+    lib, name = _FLASH_LIBS[q.dtype]["dkv_ring"]
+    fn = _flash_fn(lib, name, _BWD_RING_ARGS)
+    # as flash_attention_bwd_dkv: the float32 kernel's q tile is pre-scaled
+    dk_scale = (float(sm_scale) / sl2 if q.dtype == torch.float32
+                else float(sm_scale))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+             seeds.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk_acc.data_ptr(), dv_acc.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, H, sp, Sq, Sk, D, sl2, dk_scale,
+             rate, keep, bq, bk, len(pairs),
+             ctypes.cast(_ring_words(pairs), _PTR), q.device.index,
+             _build.current_stream(q))
+    if err != 0:
+        _raise_launch(lib, name, err)
+    flash_attention_bwd_dkv.launches += 1
+
+
+class _Frames:
+    """The hop route's tensors on each distinct device of the ring, whole
+    size, a shard addressed by its rows: on q's device (home) the whole
+    tensors themselves, elsewhere tensors of their size that hold the rows
+    of the shards copied there.  On one device (a mesh that repeats one
+    card) nothing is copied."""
+
+    def __init__(self, devices, home):
+        self.devices = list(devices)
+        self.home = home
+        self.places = list(dict.fromkeys(self.devices))
+
+    def holding(self, x, dim: int):
+        """``x`` on every place: itself at home; elsewhere a tensor of its
+        size holding the rows of the shards whose devices are there."""
+        if x is None:
+            return {d: None for d in self.places}
+        n = x.shape[dim] // len(self.devices)
+        out = {}
+        for d in self.places:
+            if d == x.device:
+                out[d] = x
+                continue
+            f = torch.empty(x.shape, dtype=x.dtype, device=d)
+            for i, di in enumerate(self.devices):
+                if di == d:
+                    _rows(f, i, n, dim).copy_(_rows(x, i, n, dim),
+                                              non_blocking=True)
+            out[d] = f
+        return out
+
+    def new(self, shape, dtype, home=None):
+        """Uninitialised tensors on every place (``home`` at home)."""
+        return {d: home if home is not None and d == self.home else
+                torch.empty(shape, dtype=dtype, device=d)
+                for d in self.places}
+
+    def gather(self, frames, n: int, dim: int, where) -> torch.Tensor:
+        """The home tensor, with shard i's rows copied in from
+        ``where[i]``'s frame where that is not home."""
+        dst = frames[self.home] if self.home in frames else None
+        if dst is None:
+            ref = next(iter(frames.values()))
+            dst = torch.empty(ref.shape, dtype=ref.dtype, device=self.home)
+        for i, d in enumerate(where):
+            if d != self.home:
+                _rows(dst, i, n, dim).copy_(_rows(frames[d], i, n, dim),
+                                            non_blocking=True)
+        return dst
+
+
+def _ring_places(q, devices):
+    """The ring's devices as ``torch.device`` objects, a bare ``cuda``
+    taken as the current card."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return tuple(out)
+
+
+def _fetch(frames, have, devices, i, j, n_of, dims, place):
+    """Before pair (i, j) runs on ``place``: kv shard j's rows of each
+    frame in ``frames`` copied there from the ring's previous position
+    (devices[i - 1]), where ``place`` does not hold them yet."""
+    if j in have[place]:
+        return
+    src = devices[i - 1]
+    for fr, n, dim in zip(frames, n_of, dims):
+        if fr[place] is not None:
+            _rows(fr[place], j, n, dim).copy_(_rows(fr[src], j, n, dim),
+                                              non_blocking=True)
+    have[place].add(j)
+
+
+def _kv_held(fr, devices, k):
+    """Which kv shards each place holds at the start: all of them at
+    home (the whole k), else those of its own positions."""
+    return {d: set(range(len(devices))) if d == k.device
+            else {i for i, di in enumerate(devices) if di == d}
+            for d in fr.places}
+
+
+def _ring_hop_forward(q, k, v, kv_mask, seed, devices, causal, sm_scale,
+                      rate):
+    """Ring attention's forward by the hop route (``_ring_fwd``,
+    ``paddle_tpu/kernels/attention.py:797-849``): one K1 ring launch a
+    hop on each device.  Returns (out [B, H, Tq, D] in q's dtype, lse
+    [B*H, Tq] in the kernels' form), both on q's device."""
+    sp = len(devices)
+    B, H, Tq, D = q.shape
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    fr = _Frames(devices, q.device)
+    grid = _seed_grid(seed, sp)
+    seeds = {d: grid.to(d) for d in fr.places}
+    qf = fr.holding(q, 2)
+    kf, vf, mf = fr.holding(k, 2), fr.holding(v, 2), fr.holding(kv_mask, 1)
+    have = _kv_held(fr, devices, k)
+    out = fr.new(q.shape, q.dtype, torch.empty_like(q))
+    lse = fr.new((B * H, Tq), torch.float32)
+    o_acc = (out if q.dtype == torch.float32
+             else fr.new(q.shape, torch.float32))
+    for hop in ring_hops(devices, causal):
+        for d, pairs in hop:
+            for i, j, _ in pairs:
+                _fetch((kf, vf, mf), have, devices, i, j, (Sk, Sk, Sk),
+                       (2, 2, 1), d)
+            with _on(d):
+                flash_attention_fwd_ring(qf[d], kf[d], vf[d], mf[d],
+                                         seeds[d], pairs, o_acc[d], lse[d],
+                                         out[d], sm_scale, rate)
+    return (fr.gather(out, Sq, 2, devices), fr.gather(lse, Sq, 1, devices))
+
+
+def _ring_hop_backward(q, k, v, kv_mask, seed, out, lse, do, devices, causal,
+                       sm_scale, rate):
+    """Ring attention's backward by the hop route (``_ring_vjp_bwd``,
+    ``paddle_tpu/kernels/attention.py:858-932``): a K2 and a K3 ring
+    launch a hop on each device, every pair with the ring's merged lse
+    (the kernels' form) and delta.  In float32 delta is one
+    :func:`flash_attention_delta` over the whole (out, dO); in bfloat16
+    the first hop's K2 writes it.  dk/dv accumulate with their kv shard:
+    on distinct devices a shard's accumulator rows move to the device of
+    its next pair, and its last pair's device holds the result."""
+    sp = len(devices)
+    B, H, Tq, D = q.shape
+    Sq, Sk = Tq // sp, k.shape[2] // sp
+    f32 = q.dtype == torch.float32
+    fr = _Frames(devices, q.device)
+    grid = _seed_grid(seed, sp)
+    seeds = {d: grid.to(d) for d in fr.places}
+    qf, dof, lsef = fr.holding(q, 2), fr.holding(do, 2), fr.holding(lse, 1)
+    kf, vf, mf = fr.holding(k, 2), fr.holding(v, 2), fr.holding(kv_mask, 1)
+    have = _kv_held(fr, devices, k)
+    outf = None if f32 else fr.holding(out, 2)
+    delta = (fr.holding(flash_attention_delta(out, do), 1) if f32
+             else fr.new((B * H, Tq), torch.float32))
+    dq = fr.new(q.shape, q.dtype, torch.empty_like(q))
+    dk = fr.new(k.shape, k.dtype, torch.empty_like(k))
+    dv = fr.new(v.shape, v.dtype, torch.empty_like(v))
+    dq_acc = dq if f32 else fr.new(q.shape, torch.float32)
+    dk_acc = dk if f32 else fr.new(k.shape, torch.float32)
+    dv_acc = dv if f32 else fr.new(v.shape, torch.float32)
+    owner = list(devices)  # where kv shard j's dk/dv accumulators are
+    for t, hop in enumerate(ring_hops(devices, causal)):
+        for d, pairs in hop:
+            for i, j, _ in pairs:
+                _fetch((kf, vf, mf), have, devices, i, j, (Sk, Sk, Sk),
+                       (2, 2, 1), d)
+                if owner[j] != d:
+                    for acc in (dk_acc, dv_acc):
+                        _rows(acc[d], j, Sk).copy_(_rows(acc[owner[j]], j, Sk),
+                                                   non_blocking=True)
+                    owner[j] = d
+            with _on(d):
+                flash_attention_bwd_dq_ring(
+                    qf[d], kf[d], vf[d], mf[d], seeds[d], pairs, lsef[d],
+                    delta[d], dof[d], dq_acc[d], dq[d], sm_scale, rate,
+                    out=outf[d] if outf is not None and t == 0 else None)
+                flash_attention_bwd_dkv_ring(
+                    qf[d], kf[d], vf[d], mf[d], seeds[d], pairs, lsef[d],
+                    delta[d], dof[d], dk_acc[d], dv_acc[d], dk[d], dv[d],
+                    sm_scale, rate)
+    return (fr.gather(dq, Sq, 2, devices), fr.gather(dk, Sk, 2, owner),
+            fr.gather(dv, Sk, 2, owner))
+
+
 class RingAttentionFn(torch.autograd.Function):
-    """Forward: the ring over K1; backward: the ring over K2 and K3 on
-    the saved (q, k, v, mask, seed, out, lse), with no re-run of the
-    forward.  ``plain`` takes the pairs' plain versions on any device
+    """Forward: the hop route over K1's ring entry; backward: the hop
+    route over K2's and K3's on the saved (q, k, v, mask, seed, out, lse),
+    with no re-run of the forward.  ``plain`` takes the plain ring, the
+    pair-by-pair walk over the plain pair functions, on any device
     (:func:`ring_attention_ref`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, seed, devices, causal, sm_scale,
                 dropout_rate, plain):
-        out, lse = _ring_forward(q, k, v, kv_mask, seed, devices, causal,
-                                 sm_scale, dropout_rate,
-                                 flash_attention_ref if plain
-                                 else flash_attention_fwd)
+        if plain:
+            out, lse = _ring_forward(q, k, v, kv_mask, seed, devices, causal,
+                                     sm_scale, dropout_rate,
+                                     flash_attention_ref)
+        else:
+            out, lse = _ring_hop_forward(q, k, v, kv_mask, seed, devices,
+                                         causal, sm_scale, dropout_rate)
         ctx.save_for_backward(q, k, v, kv_mask, seed, out, lse)
         ctx.args = (devices, causal, sm_scale, dropout_rate, plain)
         return out
@@ -971,17 +1471,20 @@ class RingAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kv_mask, seed, out, lse = ctx.saved_tensors
         devices, causal, sm_scale, rate, plain = ctx.args
-        pairs = ((_plain_dq, _plain_dkv) if plain
-                 else (flash_attention_bwd_dq, flash_attention_bwd_dkv))
-        dq, dk, dv = _ring_backward(q, k, v, kv_mask, seed, out, lse,
-                                    do.contiguous(), devices, causal,
-                                    sm_scale, rate, *pairs)
+        if plain:
+            dq, dk, dv = _ring_backward(q, k, v, kv_mask, seed, out, lse,
+                                        do.contiguous(), devices, causal,
+                                        sm_scale, rate, _plain_dq, _plain_dkv)
+        else:
+            dq, dk, dv = _ring_hop_backward(q, k, v, kv_mask, seed, out, lse,
+                                            do.contiguous(), devices, causal,
+                                            sm_scale, rate)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _ring(q, k, v, kv_mask, devices, causal, sm_scale, dropout_rate,
           dropout_seed, plain):
-    devices = tuple(torch.device(d) for d in devices)
+    devices = _ring_places(q, devices)
     _ring_check(q, k, devices)
     if sm_scale is None:
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
@@ -1003,20 +1506,23 @@ def ring_attention(q, k, v, kv_mask, devices, causal: bool = False,
     whole; the sequence axis is cut into ``sp = len(devices)`` contiguous
     shards, shard i on ``devices[i]`` (a mesh's ``sp`` axis gives them:
     ``Mesh.axis_devices``).  Devices may repeat: one card then holds every
-    shard, and a hop copies nothing.  Each q shard runs K1 against its
-    own K/V shard (``causal`` on this diagonal pair), then, as the K/V
-    shards move one step round the ring (``tensor.to`` the next device),
-    against every other shard without the causal mask; under ``causal``
-    a pair above the diagonal (kv index > q index, a host int) is
-    skipped and launches nothing.  Partials merge by their log2 masses
-    in float32, in the reference's hop order.  Dropout keys each pair on
-    :func:`_pair_seed`.  The backward runs K2 and K3 for the same pairs
-    from the saved forward.
+    shard, and nothing is copied.  Hop t pairs q shard i with kv shard
+    (i - t) mod sp (``causal`` on the diagonal hop 0; under ``causal`` a
+    pair above the diagonal is left out), in the reference's order, and
+    runs as one ring launch of K1 on each distinct device, which carries
+    that hop's pairs of the q shards it holds (:func:`ring_hops`); the
+    launch reads its shards in place, as rows of the whole tensors, and
+    merges each pair's output (rounded to q's dtype) by its log2 mass
+    into float32 accumulators in its epilogue.  Between hops a device
+    that lacks a kv shard takes it (``tensor.copy_``) from the ring's
+    previous position.  Dropout keys each pair on :func:`_pair_seed`.
+    The backward runs K2 and K3 the same way from the saved forward, dq
+    summed on its shard, dk/dv with their kv shard.
 
-    Launches per call: K1 ``sp**2`` times, or ``sp * (sp + 1) / 2``
-    under ``causal``; the backward the same counts of K2 and of K3.
-    CPU tensors take the plain pair functions (no launch), as the other
-    wrappers do."""
+    Launches per call: K1 once a hop on each device that has a pair in
+    it: ``sp`` times on one card, causal or not; the backward the same
+    counts of K2 and of K3.  CPU tensors take the ring entries' plain
+    loops (no launch), as the other wrappers do."""
     return _ring(q, k, v, kv_mask, devices, causal, sm_scale,
                  dropout_rate, dropout_seed, plain=False)
 
@@ -1024,9 +1530,11 @@ def ring_attention(q, k, v, kv_mask, devices, causal: bool = False,
 def ring_attention_ref(q, k, v, kv_mask, devices, causal: bool = False,
                        sm_scale: Optional[float] = None,
                        dropout_rate: float = 0.0, dropout_seed=None):
-    """The plain ring: :func:`ring_attention` over
-    :func:`flash_attention_ref` and the plain backward pair by pair, on
-    any device; differentiable the same way."""
+    """The plain ring: the reference's walk pair by pair over
+    :func:`flash_attention_ref` and the plain backward, with the merges,
+    casts and gradient sums in torch ops and every shard copied to its
+    device, on any device; differentiable the same way.  The hop route's
+    yardstick."""
     return _ring(q, k, v, kv_mask, devices, causal, sm_scale,
                  dropout_rate, dropout_seed, plain=True)
 
@@ -1071,11 +1579,15 @@ def mha_ref(q, k, v, kv_mask=None, causal: bool = False,
 
 
 __all__ = ["FLASH_MAX_HEAD_DIM", "FlashAttentionFn", "LOG2E",
-           "MAX_HEAD_DIM", "NEG_INF", "RING_PAIR_SALT", "RingAttentionFn",
-           "decode_attention", "decode_splits",
+           "MAX_HEAD_DIM", "NEG_INF", "RING_CAUSAL", "RING_FIRST",
+           "RING_LAST_KV", "RING_LAST_Q", "RING_MAX_PAIRS", "RING_PAIR_SALT",
+           "RingAttentionFn", "decode_attention", "decode_splits",
            "flash_attention",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ring",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_ring",
            "flash_attention_bwd_ref", "flash_attention_delta",
-           "flash_attention_fwd", "flash_attention_ref", "hash_dropout_ref",
+           "flash_attention_fwd", "flash_attention_fwd_ring",
+           "flash_attention_ref", "hash_dropout_ref",
            "mha_ref", "paged_attention_ref", "resolve_blocks",
-           "ring_attention", "ring_attention_ref", "tile_dropout_ref"]
+           "ring_attention", "ring_attention_ref", "ring_hops",
+           "tile_dropout_ref"]

@@ -68,10 +68,16 @@
 // that, their time going to fragment loads and splits, the accumulators'
 // adds, and the exp2 and dropout hash of each score (PERF.md).
 //
-// Entry points: flash_attn_bwd_dq() and flash_attn_bwd_dkv(), plain C
-// functions called through ctypes on PyTorch's current stream.  Each
-// launches and returns cudaGetLastError(); neither synchronises or
-// allocates.  flash_attn_bwd_occupancy() reports each kernel's registers,
+// Ring attention (flash_attn_common.cuh): flash_attn_bwd_dq_ring() and
+// flash_attn_bwd_dkv_ring() run one hop's pairs as one launch of the same
+// kernels instantiated for the ring, whose blocks read their pair's
+// shards as rows of the whole tensors and add the pair's gradients to
+// float32 accumulators where the plain kernels write them.
+//
+// Entry points: flash_attn_bwd_dq(), flash_attn_bwd_dkv() and their _ring
+// twins, plain C functions called through ctypes on PyTorch's current
+// stream.  Each launches and returns cudaGetLastError(); none
+// synchronises or allocates.  flash_attn_bwd_occupancy() reports each kernel's registers,
 // shared memory and resident blocks an SM.
 
 #include "flash_attn_common.cuh"
@@ -387,8 +393,35 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[DP / 8
   }
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
+// ring: the 16 x DP C fragments times `scale` (a pair's gradient rows)
+// added to rows first_row + (0..15) of a float32 accumulator [n_rows, D]
+// (written on the first hop); on the last, the sums go to `dst` instead
+template <int DP>
+__device__ __forceinline__ void sum_rows(float* acc, float* dst, const float (&g)[DP / 8][4],
+                                         int first_row, int n_rows, int D, float scale,
+                                         bool first, bool last, int gi, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = first_row + gi + 8 * h;
+    if (row >= n_rows) continue;
+    float* ap = acc + static_cast<size_t>(row) * D;
+    float* op = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = dt * 8 + 2 * q + e;
+        if (d >= D) continue;
+        const float x = g[dt][2 * h + e] * scale;
+        (last ? op : ap)[d] = first ? x : ap[d] + x;
+      }
+    }
+  }
+}
+
+template <int DP, bool VEC, bool RING>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const Args a, const __grid_constant__ flash::Ring r) {
   constexpr int LD = DP + 4;
   constexpr int DT = DP / 8;
   extern __shared__ __align__(16) float smem[];
@@ -404,23 +437,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, r, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
   // causal: the last q-blocks visit the most keys, so they are launched
   // first and the short ones fill the tail
-  const int row0 = static_cast<int>(a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int row0 = static_cast<int>(causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int D = a.D, Tq = a.Tq, Tk = a.Tk;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
-  const float* kbase = a.k + static_cast<size_t>(bh) * Tk * D;
-  const float* vbase = a.v + static_cast<size_t>(bh) * Tk * D;
-  const float* mrow = a.mask ? a.mask + static_cast<size_t>(b) * Tk : nullptr;
+  const size_t qrow = RING ? pc.qrow : static_cast<size_t>(bh) * Tq;
+  const size_t qoff = RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D;
+  const float* kbase = a.k + (RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D);
+  const float* vbase = a.v + (RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D);
+  const float* mrow =
+      a.mask ? a.mask + (RING ? pc.mrow : static_cast<size_t>(b) * Tk) : nullptr;
 
   // the resident rows land with the first tile (Q is scaled after)
   stage_rows<DP, VEC, kRows>(Qs, Os, a.q + qoff, a.dout + qoff, row0, Tq, D, tid);
 
   // this thread's two rows (fragment rows g and g + 8 of its warp)
   const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
-  const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+  const uint32_t seed = flash::seed_of<RING>(a, r, blockIdx.z);
   const uint32_t threshold = drop_threshold(a.rate);
   float lse[2], delta[2];
   int kend[2];
@@ -430,10 +468,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   for (int h = 0; h < 2; ++h) {
     const int row = rows[h];
     const bool ok = row < Tq;
-    const size_t ridx = static_cast<size_t>(bh) * Tq + (ok ? row : 0);
+    const size_t ridx = qrow + (ok ? row : 0);
     lse[h] = ok ? a.lse[ridx] : 0.0f;
     delta[h] = ok ? a.delta[ridx] : 0.0f;
-    kend[h] = ok ? flash::key_end(row, Tk, a.causal, a.bq, a.bk) : 0;
+    kend[h] = ok ? flash::key_end(row, Tk, causal, a.bq, a.bk) : 0;
     row_x[h] = flash::drop_row_x(row, a.bq);
     row_salt[h] = flash::drop_row_salt(row, a.bq, seed, bh);
     mass = mass && (!ok || lse[h] > kHasMass);
@@ -442,12 +480,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
   const int wfirst = row0 + warp * 16;
   const int wlast = min(wfirst + 15, Tq - 1);
   if (lane == 0) {
-    w_kend[warp] = wfirst < Tq ? flash::key_end(wlast, Tk, a.causal, a.bq, a.bk) : 0;
+    w_kend[warp] = wfirst < Tq ? flash::key_end(wlast, Tk, causal, a.bq, a.bk) : 0;
     w_mass[warp] = mass;
     w_last[warp] = wlast;
   }
   const int last_row = min(row0 + kRows, Tq) - 1;
-  const int kend_blk = min(flash::key_end(last_row, Tk, a.causal, a.bq, a.bk), Tk);
+  const int kend_blk = min(flash::key_end(last_row, Tk, causal, a.bq, a.bk), Tk);
   const int ntiles = (kend_blk + kTile - 1) / kTile;
   tile_bits<true>(any_valid, ntiles, warp, lane, [&](int key) {
     return key < Tk && (mrow == nullptr || mrow[key] > 0.0f);
@@ -461,7 +499,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     const int k0 = t * kTile;
     if (k0 >= w_kend[w]) return false;
     if (!w_mass[w]) return true;
-    return bit(any_valid, t) && !(a.causal && k0 > w_last[w]);
+    return bit(any_valid, t) && !(causal && k0 > w_last[w]);
   };
   auto next_live = [&](int t) {
     for (; t < ntiles; ++t) {
@@ -526,7 +564,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
           const int h = e >> 1;
           const int jj = nt * 8 + 2 * q + (e & 1);
           const int key = k0 + jj;
-          const bool keep = __uint_as_float(inf[jj]) > 0.0f && (!a.causal || key <= rows[h]);
+          const bool keep = __uint_as_float(inf[jj]) > 0.0f && (!causal || key <= rows[h]);
           const float p = (key < kend[h] && key < Tk)
                               ? exp2f((keep ? s[nt][e] : kNegInf) - lse[h])
                               : 0.0f;
@@ -543,11 +581,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     t = tn;
   }
   cp_async_wait<0>();  // the resident rows, where no tile was live
-  store_rows<DP>(a.out + qoff, dq, row0 + warp * 16, Tq, D, a.grad_scale, g, q);
+  if constexpr (RING) {
+    sum_rows<DP>(r.acc + qoff, a.out + qoff, dq, row0 + warp * 16, Tq, D, a.grad_scale,
+                 (pc.flags & flash::kRingFirst) != 0u, (pc.flags & flash::kRingLastQ) != 0u, g, q);
+  } else {
+    store_rows<DP>(a.out + qoff, dq, row0 + warp * 16, Tq, D, a.grad_scale, g, q);
+  }
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
+template <int DP, bool VEC, bool RING>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const Args a, const __grid_constant__ flash::Ring r) {
   constexpr int LD = DP + 4;
   constexpr int DT = DP / 8;
   extern __shared__ __align__(16) float smem[];
@@ -563,22 +607,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, r, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
   const int key0 = blockIdx.y * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int D = a.D, Tq = a.Tq, Tk = a.Tk;
-  const size_t koff = static_cast<size_t>(bh) * Tk * D;
-  const float* qbase = a.q + static_cast<size_t>(bh) * Tq * D;
-  const float* dobase = a.dout + static_cast<size_t>(bh) * Tq * D;
-  const float* lbase = a.lse + static_cast<size_t>(bh) * Tq;
-  const float* dbase = a.delta + static_cast<size_t>(bh) * Tq;
+  const size_t koff = RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D;
+  const float* qbase = a.q + (RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D);
+  const float* dobase = a.dout + (RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D);
+  const float* lbase = a.lse + (RING ? pc.qrow : static_cast<size_t>(bh) * Tq);
+  const float* dbase = a.delta + (RING ? pc.qrow : static_cast<size_t>(bh) * Tq);
 
   // the resident rows land with the first tile
   stage_rows<DP, VEC, kRows>(Ks, Vs, a.k + koff, a.v + koff, key0, Tk, D, tid);
 
   // this thread's two keys (fragment rows g and g + 8 of its warp)
   const int keys[2] = {key0 + warp * 16 + g, key0 + warp * 16 + g + 8};
-  const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+  const uint32_t seed = flash::seed_of<RING>(a, r, blockIdx.z);
   const uint32_t threshold = drop_threshold(a.rate);
   bool valid[2];
   int rbeg[2];
@@ -587,15 +634,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
   for (int h = 0; h < 2; ++h) {
     const int key = keys[h];
     const bool ok = key < Tk;
-    valid[h] = ok && (a.mask == nullptr || a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
-    rbeg[h] = ok ? flash::row_begin(key, Tq, a.causal, a.bq, a.bk) : Tq;
+    valid[h] = ok && (a.mask == nullptr ||
+                      a.mask[(RING ? pc.mrow : static_cast<size_t>(b) * Tk) + key] > 0.0f);
+    rbeg[h] = ok ? flash::row_begin(key, Tq, causal, a.bq, a.bk) : Tq;
     key_x[h] = flash::drop_key_x(key, a.bk);
     key_salt[h] = flash::drop_key_salt(key, a.bk);
   }
   const bool any = __any_sync(0xffffffffu, valid[0] || valid[1]);
   const int wfirst = key0 + warp * 16;
   if (lane == 0) {
-    w_rbeg[warp] = wfirst < Tk ? flash::row_begin(wfirst, Tq, a.causal, a.bq, a.bk) : 1 << 30;
+    w_rbeg[warp] = wfirst < Tk ? flash::row_begin(wfirst, Tq, causal, a.bq, a.bk) : 1 << 30;
     w_any[warp] = any;
     w_first[warp] = wfirst;
   }
@@ -611,7 +659,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
     const int i0 = t * kTile;
     if (i0 + kTile <= w_rbeg[w]) return false;
     if (!bit(all_mass, t)) return true;
-    return w_any[w] && !(a.causal && i0 + kTile - 1 < w_first[w]);
+    return w_any[w] && !(causal && i0 + kTile - 1 < w_first[w]);
   };
   auto next_live = [&](int t) {
     for (; t < ntiles; ++t) {
@@ -643,7 +691,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
 
   // the block starts at the reference's clamped first q-block of its
   // first key (_first_qb), a multiple of bq and so of the tile
-  int t = next_live(flash::row_begin(key0, Tq, a.causal, a.bq, a.bk) / kTile);
+  int t = next_live(flash::row_begin(key0, Tq, causal, a.bq, a.bk) / kTile);
   if (t < ntiles) load(t, 0);
   cp_async_commit();
   for (int st = 0; t < ntiles; st ^= 1) {
@@ -678,7 +726,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
           const int h = e >> 1;
           const int jj = nt * 8 + 2 * q + (e & 1);
           const int row = i0 + jj;
-          const bool keep = valid[h] && (!a.causal || keys[h] <= row);
+          const bool keep = valid[h] && (!causal || keys[h] <= row);
           const float p = (row >= rbeg[h] && row < Tq)
                               ? exp2f((keep ? s[nt][e] : kNegInf) -
                                       __uint_as_float(inf[jj]))
@@ -697,8 +745,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
     t = tn;
   }
   cp_async_wait<0>();  // the resident rows, where no tile was live
-  store_rows<DP>(a.dk + koff, dk, key0 + warp * 16, Tk, D, a.grad_scale, g, q);
-  store_rows<DP>(a.dv + koff, dv, key0 + warp * 16, Tk, D, 1.0f, g, q);
+  if constexpr (RING) {
+    const bool first = (pc.flags & flash::kRingFirst) != 0u;
+    const bool last = (pc.flags & flash::kRingLastKv) != 0u;
+    sum_rows<DP>(r.acc + koff, a.dk + koff, dk, key0 + warp * 16, Tk, D, a.grad_scale, first,
+                 last, g, q);
+    sum_rows<DP>(r.acc2 + koff, a.dv + koff, dv, key0 + warp * 16, Tk, D, 1.0f, first, last, g,
+                 q);
+  } else {
+    store_rows<DP>(a.dk + koff, dk, key0 + warp * 16, Tk, D, a.grad_scale, g, q);
+    store_rows<DP>(a.dv + koff, dv, key0 + warp * 16, Tk, D, 1.0f, g, q);
+  }
 }
 
 // dynamic shared memory of a launch: the fixed part and the live-tile bits
@@ -708,27 +765,40 @@ size_t smem_bytes(int n_streamed) {
 }
 
 template <typename K>
-cudaError_t launch_kernel(K kernel, const Args& a, int n_own, size_t smem, cudaStream_t st) {
+cudaError_t launch_kernel(K kernel, const Args& a, const flash::Ring& r, int n_pairs, int n_own,
+                          size_t smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (n_own + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  // a ring launch: every pair's blocks, the pair in z
+  const dim3 grid(a.B * a.H, (n_own + kRows - 1) / kRows, n_pairs);
+  kernel<<<grid, kThreads, smem, st>>>(a, r);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dq(const Args& a, cudaStream_t st) {
+template <int DP, bool RING>
+cudaError_t launch_dq(const Args& a, const flash::Ring& r, cudaStream_t st) {
   const size_t smem = smem_bytes<DP>(a.Tk);
-  return a.D % 4 == 0 ? launch_kernel(flash_bwd_dq_kernel<DP, true>, a, a.Tq, smem, st)
-                      : launch_kernel(flash_bwd_dq_kernel<DP, false>, a, a.Tq, smem, st);
+  const int n = RING ? r.n : 1;
+  return a.D % 4 == 0
+             ? launch_kernel(flash_bwd_dq_kernel<DP, true, RING>, a, r, n, a.Tq, smem, st)
+             : launch_kernel(flash_bwd_dq_kernel<DP, false, RING>, a, r, n, a.Tq, smem, st);
 }
 
-template <int DP>
-cudaError_t launch_dkv(const Args& a, cudaStream_t st) {
+template <int DP, bool RING>
+cudaError_t launch_dkv(const Args& a, const flash::Ring& r, cudaStream_t st) {
   const size_t smem = smem_bytes<DP>(a.Tq);
-  return a.D % 4 == 0 ? launch_kernel(flash_bwd_dkv_kernel<DP, true>, a, a.Tk, smem, st)
-                      : launch_kernel(flash_bwd_dkv_kernel<DP, false>, a, a.Tk, smem, st);
+  const int n = RING ? r.n : 1;
+  return a.D % 4 == 0
+             ? launch_kernel(flash_bwd_dkv_kernel<DP, true, RING>, a, r, n, a.Tk, smem, st)
+             : launch_kernel(flash_bwd_dkv_kernel<DP, false, RING>, a, r, n, a.Tk, smem, st);
+}
+
+template <bool DQ, bool RING>
+cudaError_t launch_d(const Args& a, const flash::Ring& r, cudaStream_t st) {
+  if (a.D <= 32) return DQ ? launch_dq<32, RING>(a, r, st) : launch_dkv<32, RING>(a, r, st);
+  if (a.D <= 64) return DQ ? launch_dq<64, RING>(a, r, st) : launch_dkv<64, RING>(a, r, st);
+  return DQ ? launch_dq<128, RING>(a, r, st) : launch_dkv<128, RING>(a, r, st);
 }
 
 // registers a thread, static and dynamic shared memory a block, resident
@@ -753,9 +823,9 @@ cudaError_t occupancy(K kernel, size_t smem, int* out) {
 
 template <int DP>
 cudaError_t occupancy_dp(int Tq, int Tk, int* out) {
-  cudaError_t err = occupancy(flash_bwd_dq_kernel<DP, true>, smem_bytes<DP>(Tk), out);
+  cudaError_t err = occupancy(flash_bwd_dq_kernel<DP, true, false>, smem_bytes<DP>(Tk), out);
   if (err != cudaSuccess) return err;
-  return occupancy(flash_bwd_dkv_kernel<DP, true>, smem_bytes<DP>(Tq), out + 4);
+  return occupancy(flash_bwd_dkv_kernel<DP, true, false>, smem_bytes<DP>(Tq), out + 4);
 }
 
 bool bad_shape(int B, int H, int Tq, int Tk, int D, int bq, int bk) {
@@ -809,10 +879,8 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   Args a = make_args(q, k, v, mask, seed, dout, lse, delta, B, H, Tq, Tk, D,
                      causal, scale_log2, dq_scale, rate, keep_scale, bq, bk);
   a.out = static_cast<float*>(dq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return static_cast<int>(launch_dq<32>(a, st));
-  if (D <= 64) return static_cast<int>(launch_dq<64>(a, st));
-  return static_cast<int>(launch_dq<128>(a, st));
+  return static_cast<int>(
+      launch_d<true, false>(a, flash::Ring{}, static_cast<cudaStream_t>(stream)));
 }
 
 // as flash_attn_bwd_dq, writing dk/dv [B, H, Tk, D]; dk_scale is
@@ -831,10 +899,75 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                      causal, scale_log2, dk_scale, rate, keep_scale, bq, bk);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
+  return static_cast<int>(
+      launch_d<false, false>(a, flash::Ring{}, static_cast<cudaStream_t>(stream)));
+}
+
+// Ring attention's hop launches (flash_attn_common.cuh): q/dout [B, H, sp
+// * Sq, D], k/v [B, H, sp * Sk, D] float32 whole; mask [B, sp * Sk]
+// float32 or null; seeds [sp, sp] int32; lse/delta [B*H, sp * Sq]
+// float32; the n_pairs entries of `pairs` (host memory, i | j << 12 |
+// flags << 24).  K2 adds each pair's dq to acc1 [B, H, sp * Sq, D]
+// float32 and writes out1 (may be acc1) on a q shard's last pair; K3 its
+// dk, dv to acc1, acc2 [B, H, sp * Sk, D] and writes out1, out2 on a kv
+// shard's last pair.  o and delta_out must be null (the float32 K2 reads
+// delta).  grad_scale as flash_attn_bwd_dq's dq_scale or
+// flash_attn_bwd_dkv's dk_scale.  Returns a cudaError_t.
+static int bwd_ring(bool dq, const void* q, const void* k, const void* v, const void* mask,
+                    const void* seeds, const void* dout, const void* lse, const void* delta,
+                    const void* o, const void* delta_out, void* acc1, void* acc2, void* out1,
+                    void* out2, int B, int H, int sp, int Sq, int Sk, int D, float scale_log2,
+                    float grad_scale, float rate, float keep_scale, int bq, int bk, int n_pairs,
+                    const uint32_t* pairs, int device, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, bq, bk) || sp <= 0 || sp >= 4096 || n_pairs <= 0 ||
+      n_pairs > flash::kRingMaxPairs || seeds == nullptr || delta == nullptr || o != nullptr ||
+      delta_out != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args a = make_args(q, k, v, mask, nullptr, dout, lse, delta, B, H, Sq, Sk, D, 0, scale_log2,
+                     grad_scale, rate, keep_scale, bq, bk);
+  flash::Ring r{};
+  r.n = n_pairs;
+  r.sp = sp;
+  r.Sq = Sq;
+  r.Sk = Sk;
+  r.seeds = static_cast<const int32_t*>(seeds);
+  r.acc = static_cast<float*>(acc1);
+  r.acc2 = static_cast<float*>(acc2);
+  for (int i = 0; i < n_pairs; ++i) r.pair[i] = pairs[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return static_cast<int>(launch_dkv<32>(a, st));
-  if (D <= 64) return static_cast<int>(launch_dkv<64>(a, st));
-  return static_cast<int>(launch_dkv<128>(a, st));
+  if (dq) {
+    a.out = static_cast<float*>(out1);
+    return static_cast<int>(launch_d<true, true>(a, r, st));
+  }
+  a.dk = static_cast<float*>(out1);
+  a.dv = static_cast<float*>(out2);
+  return static_cast<int>(launch_d<false, true>(a, r, st));
+}
+
+int flash_attn_bwd_dq_ring(const void* q, const void* k, const void* v, const void* mask,
+                           const void* seeds, const void* dout, const void* lse,
+                           const void* delta, const void* o, void* delta_out, void* dq_acc,
+                           void* dq, int B, int H, int sp, int Sq, int Sk, int D,
+                           float scale_log2, float dq_scale, float rate, float keep_scale,
+                           int bq, int bk, int n_pairs, const uint32_t* pairs, int device,
+                           void* stream) {
+  return bwd_ring(true, q, k, v, mask, seeds, dout, lse, delta, o, delta_out, dq_acc, nullptr,
+                  dq, nullptr, B, H, sp, Sq, Sk, D, scale_log2, dq_scale, rate, keep_scale, bq,
+                  bk, n_pairs, pairs, device, stream);
+}
+
+int flash_attn_bwd_dkv_ring(const void* q, const void* k, const void* v, const void* mask,
+                            const void* seeds, const void* dout, const void* lse,
+                            const void* delta, void* dk_acc, void* dv_acc, void* dk, void* dv,
+                            int B, int H, int sp, int Sq, int Sk, int D, float scale_log2,
+                            float dk_scale, float rate, float keep_scale, int bq, int bk,
+                            int n_pairs, const uint32_t* pairs, int device, void* stream) {
+  return bwd_ring(false, q, k, v, mask, seeds, dout, lse, delta, nullptr, nullptr, dk_acc,
+                  dv_acc, dk, dv, B, H, sp, Sq, Sk, D, scale_log2, dk_scale, rate, keep_scale,
+                  bq, bk, n_pairs, pairs, device, stream);
 }
 
 // out[0..3]: K2's registers a thread, static and dynamic shared memory

@@ -74,10 +74,16 @@
 // 15.2 us.  Both are bound by the bytes.  At B=4, T=8192, causal they
 // are bound by the operations: 0.417 ms (K2) and 0.556 ms (K3).
 //
-// Entry points: flash_attn_bwd_dq_bf16() and flash_attn_bwd_dkv_bf16(),
-// plain C functions called through ctypes on PyTorch's current stream.
-// Each launches and returns a cudaError_t; neither synchronises or
-// allocates.  flash_attn_bwd_bf16_occupancy() reports each kernel's
+// Ring attention (flash_attn_common.cuh): flash_attn_bwd_dq_bf16_ring()
+// and flash_attn_bwd_dkv_bf16_ring() run one hop's pairs as one launch of
+// the same kernels instantiated for the ring.  Their tensor maps view each
+// whole tensor as [B*H*sp, S, D], a plane a shard; their epilogues round
+// each pair's gradients to bfloat16 and add them to float32 accumulators.
+//
+// Entry points: flash_attn_bwd_dq_bf16(), flash_attn_bwd_dkv_bf16() and
+// their _ring twins, plain C functions called through ctypes on PyTorch's
+// current stream.  Each launches and returns a cudaError_t; none
+// synchronises or allocates.  flash_attn_bwd_bf16_occupancy() reports each kernel's
 // registers, shared memory and resident blocks an SM.
 
 #include <cuda_bf16.h>
@@ -120,6 +126,7 @@ struct Params {
   float* delta_out;   // K2: [B*H, Tq] delta it computed, or null
   int tma;            // tiles by TMA (else plain loads by the producer)
   int vec;            // 16-byte loads of O and dO for K2's delta
+  flash::Ring ring;   // a ring launch's pairs (flash_attn_common.cuh)
 };
 
 // K2 per stage: which tile, the consumers that visit it, the keys' mask
@@ -210,6 +217,38 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DP / 2]
   }
 }
 
+// ring: the warpgroup's C fragments times `scale`, rounded to bfloat16 (a
+// pair's gradient rows, as the plain kernel writes them), added to rows
+// first_row + (0..63) of a float32 accumulator [n_rows, D] (written on the
+// first hop); on the last the sums go to `dst` in bfloat16 instead
+template <int DP>
+__device__ __forceinline__ void sum_rows(float* acc, bf16* dst, const float (&g)[DP / 2],
+                                         int first_row, int n_rows, int D, float scale,
+                                         bool first, bool last, int wwarp, int gi, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = first_row + wwarp * 16 + gi + 8 * h;
+    if (row >= n_rows) continue;
+    float* ap = acc + static_cast<size_t>(row) * D;
+    bf16* op = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = j * 8 + 2 * t + e;
+        if (d >= D) continue;
+        const float x = __bfloat162float(__float2bfloat16_rn(g[4 * j + 2 * h + e] * scale));
+        const float y = first ? x : ap[d] + x;
+        if (last) {
+          op[d] = __float2bfloat16_rn(y);
+        } else {
+          ap[d] = y;
+        }
+      }
+    }
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
@@ -230,7 +269,7 @@ struct Rows {
 template <bool FULL>
 __device__ __forceinline__ void dq_ds(uint32_t (&ds)[4][4], const float (&sc)[32],
                                       const float (&dp)[32], const InfoDq* inf, const Rows& r,
-                                      const Args& a, uint32_t threshold, int t) {
+                                      const Args& a, int causal, uint32_t threshold, int t) {
   const int k0 = inf->tile * kTile;
   const uint32_t bits0 = inf->bits[0], bits1 = inf->bits[1];
 #pragma unroll
@@ -250,7 +289,7 @@ __device__ __forceinline__ void dq_ds(uint32_t (&ds)[4][4], const float (&sc)[32
         p = ex2(sc[4 * j + e] - r.lse[h]);
       } else {
         const int key = k0 + c;
-        const bool keep = ((bw >> (c & 31)) & 1u) && (!a.causal || key <= r.row[h]);
+        const bool keep = ((bw >> (c & 31)) & 1u) && (!causal || key <= r.row[h]);
         p = key < r.kend[h] && key < a.Tk ? ex2((keep ? sc[4 * j + e] : kNegInf) - r.lse[h])
                                           : 0.0f;
       }
@@ -283,7 +322,7 @@ template <bool FULL>
 __device__ __forceinline__ void dkv_pds(uint32_t (&pa)[4][4], uint32_t (&dsa)[4][4],
                                         const float (&sc)[32], const float (&dp)[32],
                                         const InfoDkv* inf, const Keys& k, const Args& a,
-                                        uint32_t threshold, int t) {
+                                        int causal, uint32_t threshold, int t) {
   const int i0 = inf->tile * kTile;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -304,7 +343,7 @@ __device__ __forceinline__ void dkv_pds(uint32_t (&pa)[4][4], uint32_t (&dsa)[4]
       if (FULL) {
         p = ex2(sc[4 * j + e] - lse);
       } else {
-        const bool keep = k.valid[h] && (!a.causal || k.key[h] <= row);
+        const bool keep = k.valid[h] && (!causal || k.key[h] <= row);
         p = row >= k.rbeg[h] && row < a.Tq ? ex2((keep ? sc[4 * j + e] : kNegInf) - lse) : 0.0f;
       }
       float drop = 1.0f;
@@ -351,7 +390,7 @@ struct DkvLayout {
 
 // ---- K2: dq ----------------------------------------------------------------
 
-template <int DP>
+template <int DP, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_bf16_kernel(const __grid_constant__ Params P,
                              const __grid_constant__ CUtensorMap tm_q,
@@ -369,11 +408,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Args& a = P.a;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, P.ring, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
+  const int qplane = RING ? pc.qplane : bh, kplane = RING ? pc.kplane : bh;
   // causal: the last q-blocks visit the most keys, so they are launched
   // first and the short ones fill the tail
-  const int row0 = static_cast<int>(a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int row0 = static_cast<int>(causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
   const int Tq = a.Tq, Tk = a.Tk, D = a.D;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
+  const size_t qrow = RING ? pc.qrow : static_cast<size_t>(bh) * Tq;
+  const size_t qoff = RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D;
 
   // the warpgroup (2: the producer), broadcast from lane 0 so the compiler
   // sees it uniform: it keeps the wgmma groups whole and each branch's
@@ -383,13 +427,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ===== producer =====
     sm90::setmaxnreg_dec<kProducerRegs>();
     const int tid = threadIdx.x - 256, lane = tid & 31;
-    const float* mrow = a.mask ? a.mask + static_cast<size_t>(b) * Tk : nullptr;
+    const float* mrow =
+        a.mask ? a.mask + (RING ? pc.mrow : static_cast<size_t>(b) * Tk) : nullptr;
     // the resident rows: q (scaled by the consumers) and dO
     if (P.tma) {
       if (tid == 0) {
         sm90::mbar_expect_tx(bar.res, 2 * tile_bytes<DP>(kRows));
-        tma_tile<DP, kRows>(sm + L::kQt, &tm_q, bar.res, row0, bh);
-        tma_tile<DP, kRows>(sm + L::kDo, &tm_do, bar.res, row0, bh);
+        tma_tile<DP, kRows>(sm + L::kQt, &tm_q, bar.res, row0, qplane);
+        tma_tile<DP, kRows>(sm + L::kDo, &tm_do, bar.res, row0, qplane);
       } else {
         sm90::mbar_arrive(bar.res);
       }
@@ -413,19 +458,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int w = 0; w < 2; ++w) {
       const int rw0 = row0 + w * kRowsWG;
       wlast[w] = min(rw0 + kRowsWG - 1, Tq - 1);
-      wkend[w] = rw0 < Tq ? flash::key_end(wlast[w], Tk, a.causal, a.bq, a.bk) : 0;
+      wkend[w] = rw0 < Tq ? flash::key_end(wlast[w], Tk, causal, a.bq, a.bk) : 0;
       // the first row's, the least: a full tile ends before it
-      wkend0[w] = rw0 + kRowsWG <= Tq ? flash::key_end(rw0, Tk, a.causal, a.bq, a.bk) : 0;
+      wkend0[w] = rw0 + kRowsWG <= Tq ? flash::key_end(rw0, Tk, causal, a.bq, a.bk) : 0;
       bool m = true;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = rw0 + lane + 32 * i;
-        m = m && (row >= Tq || a.lse[static_cast<size_t>(bh) * Tq + row] > kHasMass);
+        m = m && (row >= Tq || a.lse[qrow + row] > kHasMass);
       }
       wmass[w] = __all_sync(kAll, m);
     }
     const int last_row = min(row0 + kRows, Tq) - 1;
-    const int kend_blk = min(flash::key_end(last_row, Tk, a.causal, a.bq, a.bk), Tk);
+    const int kend_blk = min(flash::key_end(last_row, Tk, causal, a.bq, a.bk), Tk);
     const int ntiles = (kend_blk + kTile - 1) / kTile;
     int s = 0;
     uint32_t ph = 0;
@@ -440,9 +485,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = 0; w < 2; ++w) {
         const int rw0 = row0 + w * kRowsWG;
         live[w] = k0 < wkend[w] &&
-                  (!wmass[w] || ((bits[0] | bits[1]) != 0u && !(a.causal && k0 > wlast[w])));
+                  (!wmass[w] || ((bits[0] | bits[1]) != 0u && !(causal && k0 > wlast[w])));
         full[w] = (bits[0] & bits[1]) == kAll && k0 + kTile <= wkend0[w] &&
-                  (!a.causal || k0 + kTile - 1 <= rw0);
+                  (!causal || k0 + kTile - 1 <= rw0);
       }
       if (!live[0] && !live[1]) continue;
       sm90::mbar_wait(bar.empty + s, ph ^ 1);
@@ -450,11 +495,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (P.tma) {
         if (tid == 0) {
           sm90::mbar_expect_tx(bar.load + s, L::kStageBytes);
-          tma_tile<DP, kTile>(st, &tm_k, bar.load + s, k0, bh);
-          tma_tile<DP, kTile>(st + tile_bytes<DP>(kTile), &tm_v, bar.load + s, k0, bh);
+          tma_tile<DP, kTile>(st, &tm_k, bar.load + s, k0, kplane);
+          tma_tile<DP, kTile>(st + tile_bytes<DP>(kTile), &tm_v, bar.load + s, k0, kplane);
         }
       } else {
-        const size_t koff = static_cast<size_t>(bh) * Tk * D;
+        const size_t koff = RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D;
         sm90::stage_plain<DP, kTile, kProducer>(st, a.k + koff, k0, Tk, D, tid);
         sm90::stage_plain<DP, kTile, kProducer>(st + tile_bytes<DP>(kTile), a.v + koff, k0, Tk,
                                                 D, tid);
@@ -494,17 +539,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int w = role, wt = threadIdx.x & 127;
     const int wwarp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     const int rw0 = row0 + w * kRowsWG;
-    const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+    const uint32_t seed = flash::seed_of<RING>(a, P.ring, blockIdx.z);
     const uint32_t threshold = flash::drop_threshold(a.rate);
     Rows r;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = rw0 + wwarp * 16 + g + 8 * h;
       const bool ok = row < Tq;
-      const size_t ridx = static_cast<size_t>(bh) * Tq + (ok ? row : 0);
+      const size_t ridx = qrow + (ok ? row : 0);
       r.row[h] = row;
       r.lse[h] = ok ? a.lse[ridx] : 0.0f;
-      r.kend[h] = ok ? flash::key_end(row, Tk, a.causal, a.bq, a.bk) : 0;
+      r.kend[h] = ok ? flash::key_end(row, Tk, causal, a.bq, a.bk) : 0;
       r.x[h] = flash::drop_row_x(row, a.bq);
       r.salt[h] = flash::drop_row_salt(row, a.bq, seed, bh);
       if (a.delta != nullptr) {
@@ -578,9 +623,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::fence_regs(dp);
         uint32_t ds[4][4];
         if (uniform(inf->full[w])) {
-          dq_ds<true>(ds, sc, dp, inf, r, a, threshold, t);
+          dq_ds<true>(ds, sc, dp, inf, r, a, causal, threshold, t);
         } else {
-          dq_ds<false>(ds, sc, dp, inf, r, a, threshold, t);
+          dq_ds<false>(ds, sc, dp, inf, r, a, causal, threshold, t);
         }
         sm90::wgmma_fence();
         product_rs<DP>(dq, ds, kt);
@@ -594,13 +639,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         ph ^= 1;
       }
     }
-    store_rows<DP>(a.out + qoff, dq, rw0, Tq, D, a.grad_scale, wwarp, g, t);
+    if constexpr (RING) {
+      sum_rows<DP>(P.ring.acc + qoff, a.out + qoff, dq, rw0, Tq, D, a.grad_scale,
+                   (pc.flags & flash::kRingFirst) != 0u, (pc.flags & flash::kRingLastQ) != 0u,
+                   wwarp, g, t);
+    } else {
+      store_rows<DP>(a.out + qoff, dq, rw0, Tq, D, a.grad_scale, wwarp, g, t);
+    }
   }
 }
 
 // ---- K3: dk, dv ------------------------------------------------------------
 
-template <int DP>
+template <int DP, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ Params P,
                               const __grid_constant__ CUtensorMap tm_q,
@@ -618,9 +669,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Args& a = P.a;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, P.ring, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
+  const int qplane = RING ? pc.qplane : bh, kplane = RING ? pc.kplane : bh;
+  const size_t mrow = RING ? pc.mrow : static_cast<size_t>(b) * a.Tk;
   const int key0 = blockIdx.y * kRows;
   const int Tq = a.Tq, Tk = a.Tk, D = a.D;
-  const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const size_t koff = RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D;
   constexpr int kQ = 0, kQt = tile_bytes<DP>(kTile), kDo = 2 * tile_bytes<DP>(kTile);
 
   // the warpgroup (2: the producer), broadcast from lane 0 so the compiler
@@ -631,16 +687,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ===== producer =====
     sm90::setmaxnreg_dec<kProducerRegs>();
     const int tid = threadIdx.x - 256, lane = tid & 31;
-    const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
-    const size_t qoff = static_cast<size_t>(bh) * Tq * D;
-    const float* lbase = a.lse + static_cast<size_t>(bh) * Tq;
-    const float* dbase = a.delta + static_cast<size_t>(bh) * Tq;
+    const uint32_t seed = flash::seed_of<RING>(a, P.ring, blockIdx.z);
+    const size_t qoff = RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D;
+    const float* lbase = a.lse + (RING ? pc.qrow : static_cast<size_t>(bh) * Tq);
+    const float* dbase = a.delta + (RING ? pc.qrow : static_cast<size_t>(bh) * Tq);
     // the resident keys: K and V
     if (P.tma) {
       if (tid == 0) {
         sm90::mbar_expect_tx(bar.res, 2 * tile_bytes<DP>(kRows));
-        tma_tile<DP, kRows>(sm + L::kK, &tm_k, bar.res, key0, bh);
-        tma_tile<DP, kRows>(sm + L::kV, &tm_v, bar.res, key0, bh);
+        tma_tile<DP, kRows>(sm + L::kK, &tm_k, bar.res, key0, kplane);
+        tma_tile<DP, kRows>(sm + L::kV, &tm_v, bar.res, key0, kplane);
       } else {
         sm90::mbar_arrive(bar.res);
       }
@@ -657,16 +713,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
       wfirst[w] = key0 + w * kRowsWG;
-      wrbeg[w] = wfirst[w] < Tk ? flash::row_begin(wfirst[w], Tq, a.causal, a.bq, a.bk) : Tq;
+      wrbeg[w] = wfirst[w] < Tk ? flash::row_begin(wfirst[w], Tq, causal, a.bq, a.bk) : Tq;
       // the last key's, the greatest: a full tile starts after it
       const int last = wfirst[w] + kRowsWG - 1;
-      wrbeg1[w] = last < Tk ? flash::row_begin(last, Tq, a.causal, a.bq, a.bk) : Tq;
+      wrbeg1[w] = last < Tk ? flash::row_begin(last, Tq, causal, a.bq, a.bk) : Tq;
       bool any = false, all = true;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int key = wfirst[w] + lane + 32 * i;
-        const bool ok =
-            key < Tk && (a.mask == nullptr || a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
+        const bool ok = key < Tk && (a.mask == nullptr || a.mask[mrow + key] > 0.0f);
         any = any || ok;
         all = all && ok;
       }
@@ -675,7 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // the block starts at the reference's clamped first q-block of its
     // first key (_first_qb)
-    const int t0 = flash::row_begin(key0, Tq, a.causal, a.bq, a.bk) / kTile;
+    const int t0 = flash::row_begin(key0, Tq, causal, a.bq, a.bk) / kTile;
     const int ntiles = (Tq + kTile - 1) / kTile;
     // the lse and delta of a tile's rows lane and lane + 32, loaded a tile
     // ahead of their use (+1e30: past Tq, no row)
@@ -709,9 +764,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
         live[w] = wfirst[w] < Tk && i0 + kTile > wrbeg[w] &&
-                  (!mass || (wany[w] && !(a.causal && i0 + kTile - 1 < wfirst[w])));
+                  (!mass || (wany[w] && !(causal && i0 + kTile - 1 < wfirst[w])));
         full[w] = wall[w] && i0 + kTile <= Tq && i0 >= wrbeg1[w] &&
-                  (!a.causal || i0 >= wfirst[w] + kRowsWG - 1);
+                  (!causal || i0 >= wfirst[w] + kRowsWG - 1);
       }
       if (!live[0] && !live[1]) continue;
       sm90::mbar_wait(bar.empty + s, ph ^ 1);
@@ -719,8 +774,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (P.tma) {
         if (tid == 0) {
           sm90::mbar_expect_tx(bar.load + s, 2 * tile_bytes<DP>(kTile));
-          tma_tile<DP, kTile>(st + kQ, &tm_q, bar.load + s, i0, bh);
-          tma_tile<DP, kTile>(st + kDo, &tm_do, bar.load + s, i0, bh);
+          tma_tile<DP, kTile>(st + kQ, &tm_q, bar.load + s, i0, qplane);
+          tma_tile<DP, kTile>(st + kDo, &tm_do, bar.load + s, i0, qplane);
         }
       } else {
         sm90::stage_plain<DP, kTile, kProducer>(st + kQ, a.q + qoff, i0, Tq, D, tid, st + kQt, a.scale_log2);
@@ -774,8 +829,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int key = kw0 + wwarp * 16 + g + 8 * h;
       const bool ok = key < Tk;
       k.key[h] = key;
-      k.valid[h] = ok && (a.mask == nullptr || a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
-      k.rbeg[h] = ok ? flash::row_begin(key, Tq, a.causal, a.bq, a.bk) : Tq;
+      k.valid[h] = ok && (a.mask == nullptr || a.mask[mrow + key] > 0.0f);
+      k.rbeg[h] = ok ? flash::row_begin(key, Tq, causal, a.bq, a.bk) : Tq;
       k.x[h] = flash::drop_key_x(key, a.bk);
       k.salt[h] = flash::drop_key_salt(key, a.bk);
     }
@@ -811,9 +866,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::fence_regs(dp);
         uint32_t pa[4][4], dsa[4][4];
         if (uniform(inf->full[w])) {
-          dkv_pds<true>(pa, dsa, sc, dp, inf, k, a, threshold, t);
+          dkv_pds<true>(pa, dsa, sc, dp, inf, k, a, causal, threshold, t);
         } else {
-          dkv_pds<false>(pa, dsa, sc, dp, inf, k, a, threshold, t);
+          dkv_pds<false>(pa, dsa, sc, dp, inf, k, a, causal, threshold, t);
         }
         sm90::wgmma_fence();
         product_rs<DP>(dv, pa, st + kDo);
@@ -829,15 +884,27 @@ __global__ void __launch_bounds__(kThreads, 1)
         ph ^= 1;
       }
     }
-    store_rows<DP>(a.dk + koff, dk, kw0, Tk, D, a.grad_scale, wwarp, g, t);
-    store_rows<DP>(a.dv + koff, dv, kw0, Tk, D, 1.0f, wwarp, g, t);
+    if constexpr (RING) {
+      const bool first = (pc.flags & flash::kRingFirst) != 0u;
+      const bool last = (pc.flags & flash::kRingLastKv) != 0u;
+      sum_rows<DP>(P.ring.acc + koff, a.dk + koff, dk, kw0, Tk, D, a.grad_scale, first, last,
+                   wwarp, g, t);
+      sum_rows<DP>(P.ring.acc2 + koff, a.dv + koff, dv, kw0, Tk, D, 1.0f, first, last, wwarp, g,
+                   t);
+    } else {
+      store_rows<DP>(a.dk + koff, dk, kw0, Tk, D, a.grad_scale, wwarp, g, t);
+      store_rows<DP>(a.dv + koff, dv, kw0, Tk, D, 1.0f, wwarp, g, t);
+    }
   }
 }
 
 // ---- host ----------------------------------------------------------------
 
-// dq: q/dO boxes of 128 rows, K/V of 64; dkv: the other way round
-template <typename K>
+// dq: q/dO boxes of 128 rows, K/V of 64; dkv: the other way round.  A
+// ring launch reads each tensor as [B*H*sp, S, D], a plane a shard (TMA's
+// zeros end a shard as they end a plain tensor), and its grid holds every
+// pair's blocks, the pair in z.
+template <bool RING, typename K>
 cudaError_t launch(K kernel, Params& P, int n_own, int q_rows, int k_rows, size_t smem,
                    cudaStream_t st) {
   const Args& a = P.a;
@@ -846,29 +913,31 @@ cudaError_t launch(K kernel, Params& P, int n_own, int q_rows, int k_rows, size_
   if (err != cudaSuccess) return err;
   CUtensorMap tq{}, tdo{}, tk{}, tv{};
   const int BH = a.B * a.H;
+  const int planes = RING ? BH * P.ring.sp : BH;
   P.tma = a.D % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
           aligned16(a.dout);
-  if (P.tma && !(encode(&tq, a.q, BH, a.Tq, a.D, q_rows) &&
-                 encode(&tdo, a.dout, BH, a.Tq, a.D, q_rows) &&
-                 encode(&tk, a.k, BH, a.Tk, a.D, k_rows) &&
-                 encode(&tv, a.v, BH, a.Tk, a.D, k_rows))) {
+  if (P.tma && !(encode(&tq, a.q, planes, a.Tq, a.D, q_rows) &&
+                 encode(&tdo, a.dout, planes, a.Tq, a.D, q_rows) &&
+                 encode(&tk, a.k, planes, a.Tk, a.D, k_rows) &&
+                 encode(&tv, a.v, planes, a.Tk, a.D, k_rows))) {
     return cudaErrorInvalidValue;
   }
   P.vec = P.tma && (P.o == nullptr || aligned16(P.o));
-  const dim3 grid(BH, (n_own + kRows - 1) / kRows);
+  const dim3 grid(BH, (n_own + kRows - 1) / kRows, RING ? P.ring.n : 1);
   kernel<<<grid, kThreads, smem, st>>>(P, tq, tdo, tk, tv);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool RING>
 cudaError_t launch_dq(Params& P, cudaStream_t st) {
-  return launch(flash_bwd_dq_bf16_kernel<DP>, P, P.a.Tq, kRows, kTile, DqLayout<DP>::kBytes, st);
+  return launch<RING>(flash_bwd_dq_bf16_kernel<DP, RING>, P, P.a.Tq, kRows, kTile,
+                      DqLayout<DP>::kBytes, st);
 }
 
-template <int DP>
+template <int DP, bool RING>
 cudaError_t launch_dkv(Params& P, cudaStream_t st) {
-  return launch(flash_bwd_dkv_bf16_kernel<DP>, P, P.a.Tk, kTile, kRows, DkvLayout<DP>::kBytes,
-                st);
+  return launch<RING>(flash_bwd_dkv_bf16_kernel<DP, RING>, P, P.a.Tk, kTile, kRows,
+                      DkvLayout<DP>::kBytes, st);
 }
 
 // registers a thread, static and dynamic shared memory a block, resident
@@ -893,9 +962,9 @@ cudaError_t occupancy(K kernel, size_t smem, int* out) {
 
 template <int DP>
 cudaError_t occupancy_dp(int* out) {
-  cudaError_t err = occupancy(flash_bwd_dq_bf16_kernel<DP>, DqLayout<DP>::kBytes, out);
+  cudaError_t err = occupancy(flash_bwd_dq_bf16_kernel<DP, false>, DqLayout<DP>::kBytes, out);
   if (err != cudaSuccess) return err;
-  return occupancy(flash_bwd_dkv_bf16_kernel<DP>, DkvLayout<DP>::kBytes, out + 4);
+  return occupancy(flash_bwd_dkv_bf16_kernel<DP, false>, DkvLayout<DP>::kBytes, out + 4);
 }
 
 bool bad_shape(int B, int H, int Tq, int Tk, int D, int bq, int bk) {
@@ -957,8 +1026,8 @@ int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v, const vo
     P.delta_out = static_cast<float*>(delta_out);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return static_cast<int>(launch_dq<64>(P, st));
-  return static_cast<int>(launch_dq<128>(P, st));
+  if (D <= 64) return static_cast<int>(launch_dq<64, false>(P, st));
+  return static_cast<int>(launch_dq<128, false>(P, st));
 }
 
 // as flash_attn_bwd_dq_bf16 with delta given, writing dk/dv [B, H, Tk, D]
@@ -978,8 +1047,77 @@ int flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v, const v
   P.a.dk = static_cast<bf16*>(dk);
   P.a.dv = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return static_cast<int>(launch_dkv<64>(P, st));
-  return static_cast<int>(launch_dkv<128>(P, st));
+  if (D <= 64) return static_cast<int>(launch_dkv<64, false>(P, st));
+  return static_cast<int>(launch_dkv<128, false>(P, st));
+}
+
+// Ring attention's hop launches, with flash_attn_bwd_dq_ring()'s and
+// flash_attn_bwd_dkv_ring()'s arguments (flash_attn_bwd.cu) in bfloat16:
+// q, k, v, dout, o and the outputs bfloat16, the accumulators float32.
+// Each pair's gradients are rounded to bfloat16 before they are added; a
+// shard's last pair writes dq (dk, dv) in bfloat16.  K2 with delta null
+// computes the pairs' q-shard rows of delta from o into delta_out (the
+// first hop), as flash_attn_bwd_dq_bf16 does.
+static int bwd_ring(bool dq, const void* q, const void* k, const void* v, const void* mask,
+                    const void* seeds, const void* dout, const void* lse, const void* delta,
+                    const void* o, void* delta_out, void* acc1, void* acc2, void* out1,
+                    void* out2, int B, int H, int sp, int Sq, int Sk, int D, float scale_log2,
+                    float grad_scale, float rate, float keep_scale, int bq, int bk, int n_pairs,
+                    const uint32_t* pairs, int device, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, bq, bk) || sp <= 0 || sp >= 4096 || n_pairs <= 0 ||
+      n_pairs > flash::kRingMaxPairs || seeds == nullptr ||
+      (delta == nullptr && (!dq || o == nullptr || delta_out == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params P = make_params(q, k, v, mask, nullptr, dout, lse, delta, B, H, Sq, Sk, D, 0,
+                         scale_log2, grad_scale, rate, keep_scale, bq, bk);
+  flash::Ring& r = P.ring;
+  r.n = n_pairs;
+  r.sp = sp;
+  r.Sq = Sq;
+  r.Sk = Sk;
+  r.seeds = static_cast<const int32_t*>(seeds);
+  r.acc = static_cast<float*>(acc1);
+  r.acc2 = static_cast<float*>(acc2);
+  for (int i = 0; i < n_pairs; ++i) r.pair[i] = pairs[i];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dq) {
+    P.a.out = static_cast<bf16*>(out1);
+    if (delta == nullptr) {
+      P.o = static_cast<const bf16*>(o);
+      P.delta_out = static_cast<float*>(delta_out);
+    }
+    return static_cast<int>(D <= 64 ? launch_dq<64, true>(P, st) : launch_dq<128, true>(P, st));
+  }
+  P.a.dk = static_cast<bf16*>(out1);
+  P.a.dv = static_cast<bf16*>(out2);
+  return static_cast<int>(D <= 64 ? launch_dkv<64, true>(P, st) : launch_dkv<128, true>(P, st));
+}
+
+int flash_attn_bwd_dq_bf16_ring(const void* q, const void* k, const void* v, const void* mask,
+                                const void* seeds, const void* dout, const void* lse,
+                                const void* delta, const void* o, void* delta_out, void* dq_acc,
+                                void* dq, int B, int H, int sp, int Sq, int Sk, int D,
+                                float scale_log2, float dq_scale, float rate, float keep_scale,
+                                int bq, int bk, int n_pairs, const uint32_t* pairs, int device,
+                                void* stream) {
+  return bwd_ring(true, q, k, v, mask, seeds, dout, lse, delta, o, delta_out, dq_acc, nullptr,
+                  dq, nullptr, B, H, sp, Sq, Sk, D, scale_log2, dq_scale, rate, keep_scale, bq,
+                  bk, n_pairs, pairs, device, stream);
+}
+
+int flash_attn_bwd_dkv_bf16_ring(const void* q, const void* k, const void* v, const void* mask,
+                                 const void* seeds, const void* dout, const void* lse,
+                                 const void* delta, void* dk_acc, void* dv_acc, void* dk,
+                                 void* dv, int B, int H, int sp, int Sq, int Sk, int D,
+                                 float scale_log2, float dk_scale, float rate, float keep_scale,
+                                 int bq, int bk, int n_pairs, const uint32_t* pairs, int device,
+                                 void* stream) {
+  return bwd_ring(false, q, k, v, mask, seeds, dout, lse, delta, nullptr, nullptr, dk_acc,
+                  dv_acc, dk, dv, B, H, sp, Sq, Sk, D, scale_log2, dk_scale, rate, keep_scale,
+                  bq, bk, n_pairs, pairs, device, stream);
 }
 
 // out[0..3]: K2's registers a thread, static and dynamic shared memory

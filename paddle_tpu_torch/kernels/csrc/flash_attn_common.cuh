@@ -25,6 +25,20 @@
 //   zero rows and masks them) are never read: their contribution is
 //   added in closed form where it is not zero (the softmax mass of an
 //   all-masked row in the forward).
+//
+// Ring attention's hop launches (the *_ring entries, one template
+// instantiation of each kernel beside its plain one) run several
+// (q-shard i, kv-shard j) pairs of one hop over the WHOLE tensors q, k,
+// v, dO [B, H, T, D] (T = sp * S), the mask [B, Tk] and lse, delta [B*H,
+// Tq]: a shard is a row offset, so nothing is copied.  A pair computes
+// exactly what the plain kernel computes on the shards (Tq = Sq, Tk = Sk
+// and their logical tiles, the pair's own causal flag and dropout seed),
+// and its epilogue folds the result into float32 accumulators of the
+// whole length: K1 merges its output, rounded to the output dtype, by
+// log2 mass (the reference's _merge_partial); K2 and K3 add their
+// gradients, rounded likewise.  No two pairs of a hop share a q shard or
+// a kv shard, so no two blocks write the same rows and no atomics are
+// needed; the sums follow the hops, the reference's order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -190,5 +204,97 @@ struct ArgsT {
   int bq, bk;            // the reference's logical tile sizes
 };
 using Args = ArgsT<float>;
+
+// ---- ring attention's hop launches ----------------------------------------
+
+constexpr int kRingMaxPairs = 64;  // pairs a launch's table holds
+// a pair's flags: the causal diagonal; the first hop (the accumulators are
+// written, not read); the last pair of its q shard (K1's out and lse, K2's
+// dq written in their final form) or of its kv shard (K3's dk, dv)
+constexpr uint32_t kRingCausal = 1u, kRingFirst = 2u, kRingLastQ = 4u, kRingLastKv = 8u;
+
+// a launch's pair table, passed by value in the kernel's parameters (no
+// copy to the device, no sync): entry i | j << 12 | flags << 24
+struct Ring {
+  int n;                 // pairs in the table
+  int sp;                // shards
+  int Sq, Sk;            // rows of a q shard and of a kv shard
+  const int32_t* seeds;  // [sp, sp] pair dropout seeds
+  float* acc;            // K1: o_acc [B, H, Tq, D]; K2: dq_acc; K3: dk_acc [B, H, Tk, D]
+  float* acc2;           // K1: lse_acc [B*H, Tq] (log2 masses); K3: dv_acc
+  uint32_t pair[kRingMaxPairs];
+};
+
+// where a block's pair lies in the whole tensors: rows of the [B*H*Tq]
+// and [B*H*Tk] planes and of the [B*Tk] mask where its shards start, the
+// TMA planes of the [B*H*sp, S, D] views, and its causal flag.  The plain
+// kernels (RING false) take the tensors as they are.
+struct PairAt {
+  uint32_t flags;
+  int causal;
+  size_t qrow, krow, mrow;
+  int qplane, kplane;
+};
+
+// pair_at(a, r, bh, z): block (bh, *, z)'s pair.  A ring launch's grid
+// takes the pair in z, its slowest dimension: a pair's blocks run
+// together, as a plain launch's, and share their K/V tiles in the L2.
+template <bool RING, typename T>
+__device__ __forceinline__ PairAt pair_at(const ArgsT<T>& a, const Ring& r, int bh, int z) {
+  PairAt p;
+  if constexpr (RING) {
+    const uint32_t e = r.pair[z];
+    const int i = static_cast<int>(e & 0xfffu), j = static_cast<int>((e >> 12) & 0xfffu);
+    p.flags = e >> 24;
+    p.causal = (p.flags & kRingCausal) != 0u;
+    const size_t tq = static_cast<size_t>(r.sp) * r.Sq, tk = static_cast<size_t>(r.sp) * r.Sk;
+    p.qrow = static_cast<size_t>(bh) * tq + static_cast<size_t>(i) * r.Sq;
+    p.krow = static_cast<size_t>(bh) * tk + static_cast<size_t>(j) * r.Sk;
+    p.mrow = static_cast<size_t>(bh / a.H) * tk + static_cast<size_t>(j) * r.Sk;
+    p.qplane = bh * r.sp + i;
+    p.kplane = bh * r.sp + j;
+  } else {
+    p.flags = 0u;
+    p.causal = a.causal;
+    p.qrow = static_cast<size_t>(bh) * a.Tq;
+    p.krow = static_cast<size_t>(bh) * a.Tk;
+    p.mrow = static_cast<size_t>(bh / a.H) * a.Tk;
+    p.qplane = p.kplane = bh;
+  }
+  return p;
+}
+
+// block (*, *, z)'s dropout seed: its pair's from the [sp, sp] grid, or
+// the plain kernels' one seed (0 without one)
+template <bool RING, typename T>
+__device__ __forceinline__ uint32_t seed_of(const ArgsT<T>& a, const Ring& r, int z) {
+  if constexpr (RING) {
+    const uint32_t e = r.pair[z];
+    return static_cast<uint32_t>(r.seeds[(e & 0xfffu) * r.sp + ((e >> 12) & 0xfffu)]);
+  } else {
+    return a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+  }
+}
+
+// K1's merge weights for one row: the pair's partial (lse_p in the
+// kernels' form, +1e30 for a row with no key, which is the merge's
+// identity -1e30) merged into the carried (o_a, lse_a) as the reference's
+// _merge_partial: lse_t = logaddexp2(lse_a, lse_p), o = o_a * wa + o_p *
+// wp.  An identity partial leaves (o_a, lse_a) as they are, bit for bit.
+// The first hop takes the partial alone (wa = 0; o_a is not read).
+struct RingMerge {
+  float wa, wp, lse;
+};
+__device__ __forceinline__ RingMerge ring_merge(float lse_a, float lse_p, bool first) {
+  const float lp = lse_p > 1e29f ? kNegInf : lse_p;
+  if (first) return RingMerge{0.0f, 1.0f, lp};
+  const float mx = fmaxf(lse_a, lp), mn = fminf(lse_a, lp);
+  const float lt = mx + log2f(1.0f + exp2f(mn - mx));
+  return RingMerge{exp2f(lse_a - lt), exp2f(lp - lt), lt};
+}
+
+// the merged LSE as the backward kernels read it (the reference's
+// _kernel_lse): the identity -1e30 back to the empty-row sentinel +1e30
+__device__ __forceinline__ float kernel_lse(float lse) { return lse < -1e29f ? 1e30f : lse; }
 
 }  // namespace flash

@@ -36,9 +36,16 @@
 // is the split of each K/V element per warp, the exp2 and the dropout
 // hash of each score, and the rescale of O once a tile.
 //
-// Entry point: flash_attn_fwd(), a plain C function called through
-// ctypes on PyTorch's current stream.  It launches and returns
-// cudaGetLastError(); it never synchronises and allocates nothing.
+// Ring attention (flash_attn_common.cuh): flash_attn_fwd_ring() runs one
+// hop's pairs as one launch of the same kernel instantiated for the ring,
+// whose blocks read their pair's shards as rows of the whole tensors and
+// merge the pair's output into float32 accumulators (the reference's
+// log2-mass merge) where the plain kernel writes it.
+//
+// Entry points: flash_attn_fwd() and flash_attn_fwd_ring(), plain C
+// functions called through ctypes on PyTorch's current stream.  They
+// launch and return cudaGetLastError(); they never synchronise and
+// allocate nothing.
 
 #include "flash_attn_common.cuh"
 #include "tf32x3.cuh"
@@ -80,8 +87,9 @@ __device__ __forceinline__ float drop_of(uint32_t row_x, uint32_t row_salt, uint
   return u >= rate ? keep : 0.0f;
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+template <int DP, bool VEC, bool RING>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const Args a, const __grid_constant__ flash::Ring r) {
   constexpr int LD = DP + 4;
   constexpr int NT = kKeys / 8;  // 8-key column tiles of S
   constexpr int DT = DP / 8;     // 8-wide column tiles of O
@@ -93,39 +101,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, r, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
   const int row0 = blockIdx.y * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int D = a.D, Tq = a.Tq, Tk = a.Tk;
-  const float* kbase = a.k + static_cast<size_t>(bh) * Tk * D;
-  const float* vbase = a.v + static_cast<size_t>(bh) * Tk * D;
+  const size_t qrow = RING ? pc.qrow : static_cast<size_t>(bh) * Tq;
+  const float* kbase = a.k + (RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D);
+  const float* vbase = a.v + (RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D);
+  const size_t mrow = RING ? pc.mrow : static_cast<size_t>(b) * Tk;
 
   for (int i = tid; i < kRows * DP; i += kThreads) {
-    const int r = i / DP, d = i - r * DP;
-    const int row = row0 + r;
-    Qs[r * LD + d] = (row < Tq && d < D)
-                         ? a.q[(static_cast<size_t>(bh) * Tq + row) * D + d] * a.scale_log2
-                         : 0.0f;
+    const int rr = i / DP, d = i - rr * DP;
+    const int row = row0 + rr;
+    Qs[rr * LD + d] = (row < Tq && d < D)
+                          ? a.q[(qrow + row) * D + d] * a.scale_log2
+                          : 0.0f;
   }
 
   // this thread's two rows (fragment rows g and g + 8 of its warp)
   const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
   int kend[2];
   uint32_t row_x[2], row_salt[2];
-  const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+  const uint32_t seed = flash::seed_of<RING>(a, r, blockIdx.z);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = rows[h];
-    kend[h] = row < Tq ? flash::key_end(row, Tk, a.causal, a.bq, a.bk) : 0;
+    kend[h] = row < Tq ? flash::key_end(row, Tk, causal, a.bq, a.bk) : 0;
     const uint32_t qi = static_cast<uint32_t>(row / a.bq);
     row_x[h] = (static_cast<uint32_t>(row) - qi * a.bq) * 0x9E3779B1u;
     row_salt[h] = seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du + qi * 0x27D4EB2Fu;
   }
   // keys past the frontier of the warp's (and the block's) last row weigh nothing
   const int wlast = min(row0 + warp * 16 + 15, Tq - 1);
-  const int wkend = row0 + warp * 16 < Tq ? flash::key_end(wlast, Tk, a.causal, a.bq, a.bk) : 0;
+  const int wkend = row0 + warp * 16 < Tq ? flash::key_end(wlast, Tk, causal, a.bq, a.bk) : 0;
   const int last_row = min(row0 + kRows, Tq) - 1;
-  const int kend_blk = min(flash::key_end(last_row, Tk, a.causal, a.bq, a.bk), Tk);
+  const int kend_blk = min(flash::key_end(last_row, Tk, causal, a.bq, a.bk), Tk);
   const int ntiles = (kend_blk + kKeys - 1) / kKeys;
 
   auto load = [&](int tile, int st) {
@@ -152,8 +165,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     for (int j = tid; j < kKeys; j += kThreads) {
       const int key = k0 + j;
       uint32_t* inf = info + st * 3 * kKeys;
-      inf[j] = key < Tk && (a.mask == nullptr ||
-                            a.mask[static_cast<size_t>(b) * Tk + key] > 0.0f);
+      inf[j] = key < Tk && (a.mask == nullptr || a.mask[mrow + key] > 0.0f);
       const uint32_t kb = static_cast<uint32_t>(key / a.bk);
       inf[kKeys + j] = (static_cast<uint32_t>(key) - kb * a.bk) * 0x85EBCA77u;
       inf[2 * kKeys + j] = kb * 0x165667B1u;
@@ -212,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
           const int h = e >> 1;
           const int jj = nt * 8 + 2 * q + (e & 1);
           const int key = k0 + jj;
-          const bool keep = inf[jj] != 0u && (!a.causal || key <= rows[h]);
+          const bool keep = inf[jj] != 0u && (!causal || key <= rows[h]);
           const float sc = keep ? s[nt][e] : kNegInf;
           s[nt][e] = (key < kend[h] && key < Tk) ? sc : -INFINITY;
           mx[h] = fmaxf(mx[h], s[nt][e]);
@@ -270,6 +282,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     __syncthreads();  // the stage is free for the tile after next
   }
 
+  // ring: the carried lse of each row, read by the row's four threads
+  // before its first thread writes it
+  float lse_a[2] = {0.0f, 0.0f};
+  const bool first = (pc.flags & flash::kRingFirst) != 0u;
+  const bool last = (pc.flags & flash::kRingLastQ) != 0u;
+  if constexpr (RING) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!first && rows[h] < Tq) lse_a[h] = r.acc2[qrow + rows[h]];
+    }
+    __syncwarp();
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -280,7 +304,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     // mass 1 each to a row whose every visited key is masked, else 0
     if (m[h] == kNegInf && kend[h] > Tk) l[h] += static_cast<float>(kend[h] - Tk);
     const float inv = 1.0f / fmaxf(l[h], 1e-30f);
-    float* op = a.out + (static_cast<size_t>(bh) * Tq + row) * D;
+    float* op = a.out + (qrow + row) * D;
+    if constexpr (RING) {
+      // merge into the accumulators (float32 output: o_acc may be out)
+      const flash::RingMerge w = flash::ring_merge(lse_a[h], flash::lse_of(m[h], l[h]), first);
+      float* ap = r.acc + (qrow + row) * D;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = dt * 8 + 2 * q + e;
+          if (d >= D) continue;
+          const float x = o[dt][2 * h + e] * inv;
+          const float y = first ? x : ap[d] * w.wa + x * w.wp;
+          (last ? op : ap)[d] = y;
+        }
+      }
+      if (q == 0) r.acc2[qrow + row] = last ? flash::kernel_lse(w.lse) : w.lse;
+      continue;
+    }
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const int d = dt * 8 + 2 * q;
@@ -291,21 +333,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   }
 }
 
-template <int DP, bool VEC>
-cudaError_t launch(const Args& a, cudaStream_t st) {
+template <int DP, bool VEC, bool RING>
+cudaError_t launch(const Args& a, const flash::Ring& r, cudaStream_t st) {
   constexpr size_t smem = sizeof(float) * smem_floats<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP, VEC, RING>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.Tq + kRows - 1) / kRows);
-  flash_fwd_kernel<DP, VEC><<<grid, kThreads, smem, st>>>(a);
+  // a ring launch: every pair's blocks, the pair in z
+  const dim3 grid(a.B * a.H, (a.Tq + kRows - 1) / kRows, RING ? r.n : 1);
+  flash_fwd_kernel<DP, VEC, RING><<<grid, kThreads, smem, st>>>(a, r);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dp(const Args& a, cudaStream_t st) {
-  return a.D % 4 == 0 ? launch<DP, true>(a, st) : launch<DP, false>(a, st);
+template <int DP, bool RING>
+cudaError_t launch_dp(const Args& a, const flash::Ring& r, cudaStream_t st) {
+  return a.D % 4 == 0 ? launch<DP, true, RING>(a, r, st) : launch<DP, false, RING>(a, r, st);
+}
+
+template <bool RING>
+cudaError_t launch_d(const Args& a, const flash::Ring& r, cudaStream_t st) {
+  if (a.D <= 32) return launch_dp<32, RING>(a, r, st);
+  if (a.D <= 64) return launch_dp<64, RING>(a, r, st);
+  return launch_dp<128, RING>(a, r, st);
 }
 
 }  // namespace
@@ -342,9 +392,49 @@ int flash_attn_fwd(const void* q, const void* k, const void* v,
   a.keep_scale = keep_scale;
   a.bq = bq; a.bk = bk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return static_cast<int>(launch_dp<32>(a, st));
-  if (D <= 64) return static_cast<int>(launch_dp<64>(a, st));
-  return static_cast<int>(launch_dp<128>(a, st));
+  return static_cast<int>(launch_d<false>(a, flash::Ring{}, st));
+}
+
+// Ring attention's hop launch (flash_attn_common.cuh): q [B, H, sp * Sq,
+// D], k/v [B, H, sp * Sk, D] float32 whole; mask [B, sp * Sk] float32 or
+// null; seeds [sp, sp] int32; the n_pairs entries of `pairs` (host
+// memory, i | j << 12 | flags << 24); o_acc [B, H, sp * Sq, D] and
+// lse_acc [B*H, sp * Sq] float32 accumulators; out [B, H, sp * Sq, D]
+// (may be o_acc).  bq, bk are the pairs' logical tiles.  All contiguous
+// and on `device`; the launch goes to `stream`.  Returns a cudaError_t.
+int flash_attn_fwd_ring(const void* q, const void* k, const void* v, const void* mask,
+                        const void* seeds, void* o_acc, void* lse_acc, void* out, int B, int H,
+                        int sp, int Sq, int Sk, int D, float scale_log2, float rate,
+                        float keep_scale, int bq, int bk, int n_pairs, const uint32_t* pairs,
+                        int device, void* stream) {
+  if (B <= 0 || H <= 0 || sp <= 0 || sp >= 4096 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128 ||
+      bq <= 0 || bk <= 0 || n_pairs <= 0 || n_pairs > flash::kRingMaxPairs ||
+      (Sq + kRows - 1) / kRows > 65535 || seeds == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.mask = static_cast<const float*>(mask);
+  a.out = static_cast<float*>(out);
+  a.B = B; a.H = H; a.Tq = Sq; a.Tk = Sk; a.D = D;
+  a.scale_log2 = scale_log2;
+  a.rate = rate;
+  a.keep_scale = keep_scale;
+  a.bq = bq; a.bk = bk;
+  flash::Ring r{};
+  r.n = n_pairs;
+  r.sp = sp;
+  r.Sq = Sq;
+  r.Sk = Sk;
+  r.seeds = static_cast<const int32_t*>(seeds);
+  r.acc = static_cast<float*>(o_acc);
+  r.acc2 = static_cast<float*>(lse_acc);
+  for (int i = 0; i < n_pairs; ++i) r.pair[i] = pairs[i];
+  return static_cast<int>(launch_d<true>(a, r, static_cast<cudaStream_t>(stream)));
 }
 
 const char* flash_attn_fwd_error_string(int code) {

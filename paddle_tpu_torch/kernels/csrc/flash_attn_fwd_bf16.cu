@@ -90,9 +90,17 @@
 // of it (blocks that stream the tiles and compute nothing move ~5.3 TB/s
 // at (b)).
 //
-// Entry points: flash_attn_fwd_bf16(), a plain C function called through
-// ctypes on PyTorch's current stream, with flash_attn_fwd()'s arguments;
-// it launches and returns a cudaError_t, never synchronises and allocates
+// Ring attention (flash_attn_common.cuh): flash_attn_fwd_bf16_ring() runs
+// one hop's pairs as one launch of the same kernel instantiated for the
+// ring.  Its tensor maps view each whole tensor as [B*H*sp, S, D], a plane
+// a shard, so a pair's tiles end at its shard's end with TMA's zeros, as
+// a plain launch's end at its tensor's; its epilogue rounds the pair's
+// output to bfloat16 and merges it into float32 accumulators.
+//
+// Entry points: flash_attn_fwd_bf16() and flash_attn_fwd_bf16_ring(),
+// plain C functions called through ctypes on PyTorch's current stream,
+// with flash_attn_fwd()'s and flash_attn_fwd_ring()'s arguments; they
+// launch and return a cudaError_t, never synchronise and allocate
 // nothing.  flash_attn_fwd_bf16_occupancy() reports the kernels'
 // registers, shared memory, resident blocks and local (spill) bytes.
 
@@ -143,6 +151,7 @@ struct Params {
   Args a;
   int tma;   // tiles by TMA (else plain loads by the producer)
   int pair;  // causal: pair q-blocks i and n - 1 - i (else neighbours)
+  flash::Ring ring;  // a ring launch's pairs (flash_attn_common.cuh)
 };
 
 // per stage: which tile, the consumers that visit it (live) and those that
@@ -235,7 +244,7 @@ template <int KN, int MODE, bool FULL>
 __device__ __forceinline__ void softmax(const float (&s0)[KN / 2], uint32_t (&pk)[KN / 16][4],
                                         float (&m)[2], float (&l)[2], float (&alpha)[2],
                                         const Info<KN>* inf, const Rows& r, const Args& a,
-                                        uint32_t threshold, int t) {
+                                        int causal, uint32_t threshold, int t) {
   float s[KN / 2];
 #pragma unroll
   for (int i = 0; i < KN / 2; ++i) s[i] = s0[i];
@@ -247,7 +256,7 @@ __device__ __forceinline__ void softmax(const float (&s0)[KN / 2], uint32_t (&pk
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1, c = 8 * j + 2 * t + (e & 1), key = k0 + c;
-        const bool keep = ((bw >> (c & 31)) & 1u) && (!a.causal || key <= r.row[h]);
+        const bool keep = ((bw >> (c & 31)) & 1u) && (!causal || key <= r.row[h]);
         s[4 * j + e] = key < r.kvis[h] ? (keep ? s[4 * j + e] : kNegInf) : -INFINITY;
       }
     }
@@ -318,7 +327,7 @@ __device__ __forceinline__ void fence_p(uint32_t (&p)[KN / 16][4]) {
   }
 }
 
-template <int DP, int MODE>
+template <int DP, int MODE, bool RING>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ Params P,
                           const __grid_constant__ CUtensorMap tm_q,
@@ -336,6 +345,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Args& a = P.a;
   const int Tq = a.Tq, Tk = a.Tk, D = a.D;
   const int bh = blockIdx.x;
+  // a ring launch's pair (the plain kernel keeps its own expressions)
+  const flash::PairAt pc = flash::pair_at<RING>(a, P.ring, bh, blockIdx.z);
+  const int causal = RING ? pc.causal : a.causal;
+  const int qplane = RING ? pc.qplane : bh, kplane = RING ? pc.kplane : bh;
+  // (a plain launch pairs only where it is causal)
+  const bool paired = RING ? P.pair && causal : P.pair;
   const int nblk = gridDim.y, y = blockIdx.y;
   // the consumers' first rows: paired, q-blocks i and n - 1 - i of 64
   // rows (the same causal work in every block); else neighbours, the
@@ -343,9 +358,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // its q-block is consumer 0's (the odd middle one) or past Tq, and then
   // loads consumer 0's rows.
   const int nqb = (Tq + kRowsWG - 1) / kRowsWG;
-  const int by = a.causal ? nblk - 1 - y : y;
-  const int row0 = P.pair ? y * kRowsWG : by * 2 * kRowsWG;
-  const int r1 = P.pair ? (nqb - 1 - y) * kRowsWG : row0 + kRowsWG;
+  const int by = causal ? nblk - 1 - y : y;
+  const int row0 = paired ? y * kRowsWG : by * 2 * kRowsWG;
+  const int r1 = paired ? (nqb - 1 - y) * kRowsWG : row0 + kRowsWG;
   const bool has1 = r1 < Tq && r1 != row0;
   const int row1 = has1 ? r1 : row0;
 
@@ -357,14 +372,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ===== producer =====
     sm90::setmaxnreg_dec<kProducerRegs>();
     const int tid = threadIdx.x - 256, lane = tid & 31;
-    const size_t qoff = static_cast<size_t>(bh) * Tq * D;
-    const size_t koff = static_cast<size_t>(bh) * Tk * D;
+    const size_t qoff = RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D;
+    const size_t koff = RING ? pc.krow * D : static_cast<size_t>(bh) * Tk * D;
     // the q tiles
     if (P.tma) {
       if (tid == 0) {
         sm90::mbar_expect_tx(bar.res, 2 * L::kQTile);
-        sm90::tma_tile<DP, kRowsWG>(sm + L::kQ, &tm_q, bar.res, row0, bh);
-        sm90::tma_tile<DP, kRowsWG>(sm + L::kQ + L::kQTile, &tm_q, bar.res, row1, bh);
+        sm90::tma_tile<DP, kRowsWG>(sm + L::kQ, &tm_q, bar.res, row0, qplane);
+        sm90::tma_tile<DP, kRowsWG>(sm + L::kQ + L::kQTile, &tm_q, bar.res, row1, qplane);
       } else {
         sm90::mbar_arrive(bar.res);
       }
@@ -384,12 +399,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool own = w == 0 || has1;
       first[w] = w == 0 ? row0 : row1;
       last[w] = min(first[w] + kRowsWG - 1, Tq - 1);
-      wkend[w] = own ? flash::key_end(last[w], Tk, a.causal, a.bq, a.bk) : 0;
-      wkend0[w] = own ? flash::key_end(first[w], Tk, a.causal, a.bq, a.bk) : 0;
+      wkend[w] = own ? flash::key_end(last[w], Tk, causal, a.bq, a.bk) : 0;
+      wkend0[w] = own ? flash::key_end(first[w], Tk, causal, a.bq, a.bk) : 0;
     }
     const int kend_blk = min(max(wkend[0], wkend[1]), Tk);
     const int ntiles = (kend_blk + KN - 1) / KN;
-    const float* mrow = a.mask ? a.mask + static_cast<size_t>(bh / a.H) * Tk : nullptr;
+    const float* mrow =
+        a.mask ? a.mask + (RING ? pc.mrow : static_cast<size_t>(bh / a.H) * Tk) : nullptr;
     auto valid = [&](int key) {
       return key < Tk && (mrow == nullptr || mrow[key] > 0.0f);
     };
@@ -423,11 +439,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         // every row of the consumer has softmax mass on key fk (visited:
         // fk <= row < its key end), so a tile whose pairs are all masked or
         // causally excluded gives it p = 0 only
-        const bool mass = fk < Tk && (!a.causal || fk <= first[w]);
+        const bool mass = fk < Tk && (!causal || fk <= first[w]);
         // past its frontier, or past its rows' causal end: no live tile on
-        const bool over = k0 >= wkend[w] || (mass && a.causal && k0 > last[w]);
+        const bool over = k0 >= wkend[w] || (mass && causal && k0 > last[w]);
         live[w] = !over && !(mass && !any);
-        full[w] = all && k0 + KN <= wkend0[w] && (!a.causal || k0 + KN - 1 <= first[w]);
+        full[w] = all && k0 + KN <= wkend0[w] && (!causal || k0 + KN - 1 <= first[w]);
       }
       if (!live[0] && !live[1]) continue;
       sm90::mbar_wait(bar.empty + s, ph ^ 1);
@@ -435,8 +451,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (P.tma) {
         if (tid == 0) {
           sm90::mbar_expect_tx(bar.load + s, L::kStageBytes);
-          sm90::tma_tile<DP, KN>(st, &tm_k, bar.load + s, k0, bh);
-          sm90::tma_tile<DP, KN>(st + tile_bytes<DP>(KN), &tm_v, bar.load + s, k0, bh);
+          sm90::tma_tile<DP, KN>(st, &tm_k, bar.load + s, k0, kplane);
+          sm90::tma_tile<DP, KN>(st + tile_bytes<DP>(KN), &tm_v, bar.load + s, k0, kplane);
         }
       } else {
         sm90::stage_plain<DP, KN, kProducer>(st, a.k + koff, k0, Tk, D, tid);
@@ -481,14 +497,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int wwarp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     const bool own = w == 0 || has1;
     const int rw0 = w == 0 ? row0 : row1;
-    const uint32_t seed = a.seed ? static_cast<uint32_t>(a.seed[0]) : 0u;
+    const uint32_t seed = flash::seed_of<RING>(a, P.ring, blockIdx.z);
     const uint32_t threshold = flash::drop_threshold(a.rate);
     Rows r;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = rw0 + wwarp * 16 + g + 8 * h;
       r.row[h] = row;
-      r.kvis[h] = own && row < Tq ? min(flash::key_end(row, Tk, a.causal, a.bq, a.bk), Tk) : 0;
+      r.kvis[h] = own && row < Tq ? min(flash::key_end(row, Tk, causal, a.bq, a.bk), Tk) : 0;
       r.x[h] = flash::drop_row_x(row, a.bq);
       r.salt[h] = flash::drop_row_salt(row, a.bq, seed, bh);
     }
@@ -541,9 +557,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (live) {
         sm90::fence_regs(sc);
         if (uniform(inf->full[w])) {
-          softmax<KN, MODE, true>(sc, dst, m, l, alpha, inf, r, a, threshold, t);
+          softmax<KN, MODE, true>(sc, dst, m, l, alpha, inf, r, a, causal, threshold, t);
         } else {
-          softmax<KN, MODE, false>(sc, dst, m, l, alpha, inf, r, a, threshold, t);
+          softmax<KN, MODE, false>(sc, dst, m, l, alpha, inf, r, a, causal, threshold, t);
         }
       }
       sm90::wgmma_wait<0>();
@@ -582,9 +598,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
 
-    bf16* out = a.out + static_cast<size_t>(bh) * Tq * D;
+    bf16* out = a.out + (RING ? pc.qrow * D : static_cast<size_t>(bh) * Tq * D);
     // two columns a store where rows keep them 4-byte aligned
     const bool pair = (D % 2 == 0) && (reinterpret_cast<uintptr_t>(a.out) & 3u) == 0;
+    // ring: the carried lse of each row, read by the row's four threads
+    // before its first thread writes it
+    const bool first = (pc.flags & flash::kRingFirst) != 0u;
+    const bool last_hop = (pc.flags & flash::kRingLastQ) != 0u;
+    float lse_a[2] = {0.0f, 0.0f};
+    if constexpr (RING) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!first && own && r.row[h] < Tq) lse_a[h] = P.ring.acc2[pc.qrow + r.row[h]];
+      }
+      __syncwarp();
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(kAll, l[h], 1);
@@ -593,10 +621,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!own || row >= Tq) continue;
       // the reference's zero-padded keys in [Tk, kend) score -1e30: they add
       // mass 1 each to a row whose every visited key is masked, else 0
-      const int kend = flash::key_end(row, Tk, a.causal, a.bq, a.bk);
+      const int kend = flash::key_end(row, Tk, causal, a.bq, a.bk);
       if (m[h] == kNegInf && kend > Tk) l[h] += static_cast<float>(kend - Tk);
       const float den = fmaxf(l[h], 1e-30f);
       bf16* op = out + static_cast<size_t>(row) * D;
+      if constexpr (RING) {
+        // the pair's output rounded to bfloat16, merged into the float32
+        // accumulators; a q shard's last pair writes out instead
+        const flash::RingMerge wm = flash::ring_merge(lse_a[h], flash::lse_of(m[h], l[h]), first);
+        float* ap = P.ring.acc + (pc.qrow + row) * D;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = j * 8 + 2 * t + e;
+            if (d >= D) continue;
+            const float x = __bfloat162float(__float2bfloat16_rn(o[4 * j + 2 * h + e] / den));
+            const float y = first ? x : ap[d] * wm.wa + x * wm.wp;
+            if (last_hop) {
+              op[d] = __float2bfloat16_rn(y);
+            } else {
+              ap[d] = y;
+            }
+          }
+        }
+        if (t == 0) P.ring.acc2[pc.qrow + row] = last_hop ? flash::kernel_lse(wm.lse) : wm.lse;
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int d = j * 8 + 2 * t;
@@ -615,20 +666,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host ------------------------------------------------------------------
 
-template <int DP, int MODE>
+template <int DP, int MODE, bool RING>
 cudaError_t launch(Params& P, cudaStream_t st) {
   using L = Layout<DP, MODE>;
-  const auto kernel = flash_fwd_bf16_kernel<DP, MODE>;
+  const auto kernel = flash_fwd_bf16_kernel<DP, MODE, RING>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kBytes);
   if (err != cudaSuccess) return err;
   const Args& a = P.a;
   const int BH = a.B * a.H;
+  // a ring launch reads each tensor as [B*H*sp, S, D]: a plane a shard,
+  // so TMA's zeros past S end a shard as they end a plain tensor
+  const int planes = RING ? BH * P.ring.sp : BH;
   CUtensorMap tq{}, tk{}, tv{};
   P.tma = a.D % 8 == 0 && sm90::aligned16(a.q) && sm90::aligned16(a.k) && sm90::aligned16(a.v);
-  if (P.tma && !(sm90::encode(&tq, a.q, BH, a.Tq, a.D, kRowsWG) &&
-                 sm90::encode(&tk, a.k, BH, a.Tk, a.D, L::kKeys) &&
-                 sm90::encode(&tv, a.v, BH, a.Tk, a.D, L::kKeys))) {
+  if (P.tma && !(sm90::encode(&tq, a.q, planes, a.Tq, a.D, kRowsWG) &&
+                 sm90::encode(&tk, a.k, planes, a.Tk, a.D, L::kKeys) &&
+                 sm90::encode(&tv, a.v, planes, a.Tk, a.D, L::kKeys))) {
     return cudaErrorInvalidValue;
   }
   // 128 query rows a block, causal or not (two 64-row q-blocks).  Causal
@@ -636,17 +690,35 @@ cudaError_t launch(Params& P, cudaStream_t st) {
   // block an SM): every block then does the same work, and the wave ends
   // with its blocks.  Over more waves neighbours do better, the longest
   // first: both consumers visit every tile (a lone consumer leaves the
-  // tensor cores idle through its softmax and reads its K/V alone).
-  const dim3 grid(BH, (a.Tq + 2 * kRowsWG - 1) / (2 * kRowsWG));
+  // tensor cores idle through its softmax and reads its K/V alone).  A
+  // ring launch's grid holds every pair's blocks (the pair in z), and the
+  // choice follows that whole grid.
+  const dim3 grid(BH, (a.Tq + 2 * kRowsWG - 1) / (2 * kRowsWG), RING ? P.ring.n : 1);
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return err;
-  P.pair = a.causal && static_cast<long long>(grid.x) * grid.y <= sms;
+  bool causal = a.causal != 0;
+  if constexpr (RING) {
+    for (int i = 0; i < P.ring.n; ++i) {
+      causal = causal || ((P.ring.pair[i] >> 24) & flash::kRingCausal) != 0u;
+    }
+  }
+  P.pair = causal && static_cast<long long>(grid.x) * grid.y * grid.z <= sms;
   kernel<<<grid, kThreads, L::kBytes, st>>>(P, tq, tk, tv);
   return cudaGetLastError();
+}
+
+template <bool RING>
+cudaError_t launch_mode(Params& P, cudaStream_t st) {
+  const int D = P.a.D;
+  if (P.a.rate > 0.0f) {
+    return D <= 64 ? launch<64, kDrop, RING>(P, st) : launch<128, kDrop, RING>(P, st);
+  }
+  if (D <= 64) return launch<64, kOnes, RING>(P, st);
+  return D < 128 ? launch<128, kOnes, RING>(P, st) : launch<128, kPlain, RING>(P, st);
 }
 
 // registers a thread, static and dynamic shared memory a block, resident
@@ -654,7 +726,7 @@ cudaError_t launch(Params& P, cudaStream_t st) {
 template <int DP, int MODE>
 cudaError_t occupancy(int* out) {
   using L = Layout<DP, MODE>;
-  const auto kernel = flash_fwd_bf16_kernel<DP, MODE>;
+  const auto kernel = flash_fwd_bf16_kernel<DP, MODE, false>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kBytes);
@@ -705,12 +777,47 @@ int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, const void*
   a.rate = rate;
   a.keep_scale = keep_scale;
   a.bq = bq; a.bk = bk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rate > 0.0f) {
-    return static_cast<int>(D <= 64 ? launch<64, kDrop>(P, st) : launch<128, kDrop>(P, st));
+  return static_cast<int>(launch_mode<false>(P, static_cast<cudaStream_t>(stream)));
+}
+
+// Ring attention's hop launch, with flash_attn_fwd_ring()'s arguments
+// (flash_attn_fwd.cu) in bfloat16: q, k, v and out bfloat16, the
+// accumulators float32.  Each pair's output is rounded to bfloat16
+// before it is merged; a q shard's last pair writes out in bfloat16.
+int flash_attn_fwd_bf16_ring(const void* q, const void* k, const void* v, const void* mask,
+                             const void* seeds, void* o_acc, void* lse_acc, void* out, int B,
+                             int H, int sp, int Sq, int Sk, int D, float scale_log2, float rate,
+                             float keep_scale, int bq, int bk, int n_pairs,
+                             const uint32_t* pairs, int device, void* stream) {
+  if (B <= 0 || H <= 0 || sp <= 0 || sp >= 4096 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128 ||
+      bq <= 0 || bk <= 0 || n_pairs <= 0 || n_pairs > flash::kRingMaxPairs ||
+      (Sq + 2 * kRowsWG - 1) / (2 * kRowsWG) > 65535 || seeds == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (D <= 64) return static_cast<int>(launch<64, kOnes>(P, st));
-  return static_cast<int>(D < 128 ? launch<128, kOnes>(P, st) : launch<128, kPlain>(P, st));
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params P{};
+  Args& a = P.a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.mask = static_cast<const float*>(mask);
+  a.out = static_cast<bf16*>(out);
+  a.B = B; a.H = H; a.Tq = Sq; a.Tk = Sk; a.D = D;
+  a.scale_log2 = scale_log2;
+  a.rate = rate;
+  a.keep_scale = keep_scale;
+  a.bq = bq; a.bk = bk;
+  flash::Ring& r = P.ring;
+  r.n = n_pairs;
+  r.sp = sp;
+  r.Sq = Sq;
+  r.Sk = Sk;
+  r.seeds = static_cast<const int32_t*>(seeds);
+  r.acc = static_cast<float*>(o_acc);
+  r.acc2 = static_cast<float*>(lse_acc);
+  for (int i = 0; i < n_pairs; ++i) r.pair[i] = pairs[i];
+  return static_cast<int>(launch_mode<true>(P, static_cast<cudaStream_t>(stream)));
 }
 
 // out[0..4]: the registers a thread, static and dynamic shared memory

@@ -311,14 +311,16 @@ def ring_runs():
         build_strategy=BuildStrategy(mesh_shape={"sp": SP}),
         places=["cpu"] * SP)
     calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    pairs = {"fwd": 0, "dq": 0, "dkv": 0}
     wrapped = {}
-    for key, name in (("fwd", "flash_attention_fwd"),
-                      ("dq", "flash_attention_bwd_dq"),
-                      ("dkv", "flash_attention_bwd_dkv")):
+    for key, name in (("fwd", "flash_attention_fwd_ring"),
+                      ("dq", "flash_attention_bwd_dq_ring"),
+                      ("dkv", "flash_attention_bwd_dkv_ring")):
         fn = getattr(TA, name)
 
         def wrap(*a, _key=key, _fn=fn, **kw):
             calls[_key] += 1
+            pairs[_key] += len(a[5])
             return _fn(*a, **kw)
         wrapped[name] = fn
         setattr(TA, name, wrap)
@@ -331,7 +333,7 @@ def ring_runs():
             setattr(TA, name, fn)
     return dict(params=params, ref=ref, ref_final=ref_final, got=got,
                 final=tscope.to_numpy(params), init=init, calls=calls,
-                n_ring=n_ring,
+                pairs=pairs, n_ring=n_ring,
                 recomputes=t_lowering.grad_recomputes - recomputes)
 
 
@@ -352,13 +354,16 @@ def test_ring_transformer_two_adam_steps_match(ring_runs):
 
 def test_ring_transformer_runs_every_attention_op_on_the_ring(ring_runs):
     """6 attention ops at 2 layers (encoder self, decoder self, cross),
-    each a ring over 4 shards: 16 pairs, 10 for the causal decoder
+    each a ring over 4 shards on one device: one call of each ring entry
+    a hop, 4 a ring op, carrying 16 pairs, 10 for the causal decoder
     self-attention, in the forward and again for K2 and K3 in the
     backward; no gradient re-runs its forward."""
     r = ring_runs
     assert r["n_ring"] == 3 * SMALL["n_layer"]
-    per_step = SMALL["n_layer"] * (SP * SP + SP * (SP + 1) // 2 + SP * SP)
+    per_step = SMALL["n_layer"] * 3 * SP
     assert r["calls"] == {k: per_step * STEPS for k in ("fwd", "dq", "dkv")}
+    per_step = SMALL["n_layer"] * (SP * SP + SP * (SP + 1) // 2 + SP * SP)
+    assert r["pairs"] == {k: per_step * STEPS for k in ("fwd", "dq", "dkv")}
     assert r["recomputes"] == 0
 
 

@@ -216,7 +216,8 @@ def test_merge_identities_match_reference():
 def test_plain_ring_equals_whole_sequence_attention(causal):
     """The plain ring (``ring_attention_ref``, forward and backward)
     against ``mha_ref`` over the whole sequence; the differentiable ring
-    on the CPU takes the same plain pairs, so it equals the plain ring
+    on the CPU (the hop route through the ring entries' plain loops) runs
+    the same plain pairs in the same order, so it equals the plain ring
     bit for bit."""
     q, k, v, g, mask = _inputs(2, 2, 64, 16, seed=4)
     gt, mt = torch.tensor(g), torch.tensor(mask)
@@ -240,27 +241,165 @@ def test_plain_ring_equals_whole_sequence_attention(causal):
 @pytest.mark.parametrize("sp,causal", [(4, False), (4, True), (8, True),
                                        (1, False)])
 def test_pair_counts_and_no_cpu_launch(sp, causal, monkeypatch):
-    """The pair calls ``chip_smoke.py`` counts as launches on the card:
-    K1 ``sp**2`` times a forward (``sp * (sp + 1) / 2`` causal), K2 and
-    K3 as many times a backward; on the CPU no launch counter moves."""
+    """The hop route's calls ``chip_smoke.py`` counts as launches on the
+    card: on one device each ring entry runs once a hop, ``sp`` times a
+    pass (K1 a forward, K2 and K3 a backward), and its tables hold every
+    pair once, ``sp**2`` of them (``sp * (sp + 1) / 2`` causal); on the
+    CPU no launch counter moves."""
     calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    pairs = {"fwd": [], "dq": [], "dkv": []}
 
     def counted(key, fn):
         def wrap(*a, **kw):
             calls[key] += 1
+            pairs[key] += [(i, j) for i, j, _ in a[5]]
             return fn(*a, **kw)
         return wrap
 
-    monkeypatch.setattr(TA, "flash_attention_fwd",
-                        counted("fwd", TA.flash_attention_fwd))
-    monkeypatch.setattr(TA, "flash_attention_bwd_dq",
-                        counted("dq", TA.flash_attention_bwd_dq))
-    monkeypatch.setattr(TA, "flash_attention_bwd_dkv",
-                        counted("dkv", TA.flash_attention_bwd_dkv))
+    monkeypatch.setattr(TA, "flash_attention_fwd_ring",
+                        counted("fwd", TA.flash_attention_fwd_ring))
+    monkeypatch.setattr(TA, "flash_attention_bwd_dq_ring",
+                        counted("dq", TA.flash_attention_bwd_dq_ring))
+    monkeypatch.setattr(TA, "flash_attention_bwd_dkv_ring",
+                        counted("dkv", TA.flash_attention_bwd_dkv_ring))
     q, k, v, g, mask = _inputs(1, 2, 32, 8)
+    n0 = (TA.flash_attention_fwd.launches,
+          TA.flash_attention_bwd_dq.launches,
+          TA.flash_attention_bwd_dkv.launches)
     _port(q, k, v, mask, g, sp, causal)
-    want = sp * (sp + 1) // 2 if causal else sp * sp
-    assert calls == {"fwd": want, "dq": want, "dkv": want}
+    assert calls == {"fwd": sp, "dq": sp, "dkv": sp}
+    want = sorted((i, j) for i in range(sp) for j in range(sp)
+                  if not (causal and j > i))
+    assert len(want) == (sp * (sp + 1) // 2 if causal else sp * sp)
+    for key in pairs:
+        assert sorted(pairs[key]) == want, key
+    assert (TA.flash_attention_fwd.launches,
+            TA.flash_attention_bwd_dq.launches,
+            TA.flash_attention_bwd_dkv.launches) == n0
+
+
+# (sp, causal, B, T, D, mask, rate, dtype): the hop route against the
+# plain ring; T=36 over sp=4 makes 9-row shards (not a multiple of 8)
+HOP_CASES = {
+    "f32_sp4": (4, False, 2, 64, 16, "mask", 0.0, torch.float32),
+    "f32_sp4_causal_partial_rows": (4, True, 2, 64, 16, "partial", 0.0,
+                                    torch.float32),
+    "f32_sp4_causal_s9_dropout": (4, True, 2, 36, 16, "mask", 0.3,
+                                  torch.float32),
+    "f32_sp8_causal_mask_none": (8, True, 1, 64, 8, None, 0.0,
+                                 torch.float32),
+    "bf16_sp4_dropout": (4, False, 1, 64, 16, "mask", 0.3, torch.bfloat16),
+    "bf16_sp4_causal_partial_rows": (4, True, 2, 64, 16, "partial", 0.0,
+                                     torch.bfloat16),
+    "bf16_sp4_s9": (4, False, 2, 36, 16, "mask", 0.1, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOP_CASES))
+def test_hop_route_equals_plain_ring(name):
+    """The hop route (``ring_attention``: one call of each ring entry a
+    hop, the pairs' shards read as rows of the whole tensors, merges and
+    sums in the entries) against the plain ring's pair-by-pair walk
+    (``ring_attention_ref``), forward and backward: bit for bit, on one
+    device and with the shards on two alternating places (``cpu:0``,
+    ``cpu:1``: distinct devices to the route, so its frames, copies
+    between hops, travelling dk/dv accumulators and gathers run)."""
+    sp, causal, B, T, D, kind, rate, dtype = HOP_CASES[name]
+    q, k, v, g, mask = _inputs(B, 2, T, D, seed=23, keys_in_last_shard=(
+        sp if kind == "partial" else None))
+    m = None if kind is None else torch.tensor(mask)
+    s = torch.tensor([7], dtype=torch.int32) if rate else None
+
+    def run(fn, devices):
+        leaves = [torch.tensor(x, dtype=dtype, requires_grad=True)
+                  for x in (q, k, v)]
+        out = fn(*leaves, m, devices, causal, None, rate, s)
+        return (out.detach(),) + torch.autograd.grad(
+            out, leaves, torch.tensor(g, dtype=dtype))
+
+    ref = run(TA.ring_attention_ref, ["cpu"] * sp)
+    for devices in (["cpu"] * sp, [f"cpu:{i % 2}" for i in range(sp)]):
+        got = run(TA.ring_attention, devices)
+        for n, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+            assert a.dtype == dtype
+            assert torch.equal(a, b), (n, devices)
+
+
+def test_ring_hops_group_pairs_by_device():
+    """The hop tables from a device list alone: each hop's pairs grouped
+    by the device of their q shard, devices in the order they first
+    appear, pairs in the reference's order (q shard ascending, kv shard
+    (i - t) mod sp), the flags marking the causal diagonal, the first hop
+    and each shard's last pair."""
+    c0, c1 = torch.device("cuda:0"), torch.device("cuda:1")
+    F, C = TA.RING_FIRST, TA.RING_CAUSAL
+    LQ, LK = TA.RING_LAST_Q, TA.RING_LAST_KV
+    hops = TA.ring_hops([c0, c1, c0, c1], causal=False)
+    assert [[(d, [(i, j) for i, j, _ in p]) for d, p in h] for h in hops] == [
+        [(c0, [(0, 0), (2, 2)]), (c1, [(1, 1), (3, 3)])],
+        [(c0, [(0, 3), (2, 1)]), (c1, [(1, 0), (3, 2)])],
+        [(c0, [(0, 2), (2, 0)]), (c1, [(1, 3), (3, 1)])],
+        [(c0, [(0, 1), (2, 3)]), (c1, [(1, 2), (3, 0)])]]
+    assert {f for h in hops[:1] for _, p in h for _, _, f in p} == {F}
+    assert {f for h in hops[1:3] for _, p in h for _, _, f in p} == {0}
+    assert {f for _, p in hops[3] for _, _, f in p} == {LQ | LK}
+    hops = TA.ring_hops([c1, c0, c1, c0], causal=True)
+    assert hops == [
+        [(c1, [(0, 0, F | C | LQ), (2, 2, F | C)]),
+         (c0, [(1, 1, F | C), (3, 3, F | C | LK)])],
+        [(c1, [(2, 1, 0)]), (c0, [(1, 0, LQ), (3, 2, LK)])],
+        [(c1, [(2, 0, LQ)]), (c0, [(3, 1, LK)])],
+        [(c0, [(3, 0, LQ | LK)])]]
+    # one card: one launch a hop carrying every pair of the hop
+    hops = TA.ring_hops(["cuda:0"] * 4, causal=True)
+    assert [len(h) for h in hops] == [1] * 4
+    assert [len(h[0][1]) for h in hops] == [4, 3, 2, 1]
+    assert TA.ring_hops(["cpu"], causal=False) == [
+        [(torch.device("cpu"), [(0, 0, F | LQ | LK)])]]
+
+
+def test_plain_merge_leaves_accumulators_on_an_empty_partial(monkeypatch):
+    """The plain K1 ring entry's merge: a pair whose rows have no key
+    (the kernels' lse sentinel +1e30, the merge's identity) leaves those
+    rows of (o_acc, lse_acc) bit for bit, merges the other rows, and on
+    the shard's last pair writes out from the untouched accumulator and
+    the lse in the kernels' form."""
+    B, H, T, D, sp = 1, 2, 16, 4, 2
+    rs = np.random.RandomState(3)
+    q = torch.tensor(rs.randn(B, H, T, D).astype("float32"))
+    o_acc = torch.tensor(rs.randn(B, H, T, D).astype("float32"))
+    lse_acc = torch.tensor(rs.randn(B * H, T).astype("float32") * 4)
+    lse_acc[0, 2] = -1e30               # an empty row in the carry too
+    o_p = torch.tensor(rs.randn(B, H, T // sp, D).astype("float32"))
+    lse_p = torch.tensor(rs.randn(B * H, T // sp).astype("float32"))
+    empty = torch.zeros(B * H, T // sp, dtype=torch.bool)
+    empty[0, :3] = True
+    empty[1, 5] = True
+    lse_p[empty] = 1e30
+    o_p.reshape(B * H, T // sp, D)[empty] = 0.0
+    monkeypatch.setattr(TA, "flash_attention_ref",
+                        lambda *a, **kw: (o_p.clone(), lse_p.clone()))
+    seeds = torch.zeros(sp, sp, dtype=torch.int32)
+    for last in (False, True):
+        o_a, l_a = o_acc.clone(), lse_acc.clone()
+        out = torch.full_like(q, float("nan"))
+        pairs = [(1, 0, TA.RING_LAST_Q if last else 0)]
+        TA._fwd_ring_plain(q, q, q, None, seeds, pairs, o_a, l_a, out, 0.5,
+                           0.0)
+        rows = torch.zeros(B * H, T, dtype=torch.bool)
+        rows[:, T // sp:] = empty
+        o_now = (out if last else o_a).reshape(B * H, T, D)
+        assert torch.equal(o_now[rows], o_acc.reshape(B * H, T, D)[rows])
+        want_lse = lse_acc[rows]
+        if last:
+            want_lse = TA._kernel_lse(want_lse)
+        assert torch.equal(l_a[rows], want_lse)
+        # the other rows of shard 1 did merge; shard 0 is untouched
+        moved = ~rows
+        moved[:, :T // sp] = False
+        assert (o_now[moved] != o_acc.reshape(B * H, T, D)[moved]).any()
+        assert torch.equal(o_a[:, :, :T // sp], o_acc[:, :, :T // sp])
+        assert torch.equal(l_a[:, :T // sp], lse_acc[:, :T // sp])
 
 
 def test_cpu_ring_moves_no_launch_counter():
