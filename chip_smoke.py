@@ -7,8 +7,8 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 6 (each one that fails raises, and the script exits
-non-zero; each phase's header gives its start in seconds):
+13a in bfloat16, 14, 15, 6 (each one that fails raises, and the script
+exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -334,6 +334,48 @@ non-zero; each phase's header gives its start in seconds):
    Run it alone with ``python3 -c "import chip_smoke as c; from
    paddle_tpu_torch.platform import get_device; c.run_ring(get_device(),
    c.nvidia_smi_line())"`` from the root (about three minutes).
+14. ``Executor.run_steps`` and the deferred fetches at phase 5's
+   configuration (Transformer-base 6+6, d_model 512, vocab 32000, B=32,
+   T=256, dropout 0.1, float32, ``attention_impl="pallas"``), over 24
+   distinct seeded batches (K=24, ``bench.py:268``'s ``scan_steps``),
+   after one warm-up step on a throwaway copy, three ways from one
+   copied start (the startup's tensors and its generator's state): (a) 24 ``run(..., sync=True)`` calls, (b) 24
+   ``run()`` calls whose deferred losses are read after the 24th, (c)
+   one ``run_steps`` over the stacked feeds.  The 24 losses, every
+   tensor of the scope after step 24 and the generator's state must be
+   bit for bit equal across the three; K1, K2 and K3 must each launch
+   exactly 18 x 24 = 432 times in (c), and no gradient may re-run its
+   forward; in (b) all 24 fetches must still be pending after the 24th
+   ``run``, and the first read must materialize all 24 in one batch
+   with one synchronisation.  Printed, not gated: each arm's wall a step
+   (host clock), its synchronizing calls a step (torch's sync debug
+   mode, with the lines that made them; it does not see an event's
+   wait, so the deferred read's one synchronisation is counted by
+   ``LazyFetch.syncs``) and its peak memory (also above what the arm
+   found allocated: the earlier arms' scopes stay), and the
+   device idle share of a profiled 2-step ``run_steps``.
+15. The trainable control flow at machine translation's width (B=64,
+   T=32, H=256).  This phase runs no TPU kernel (the sub-blocks' cells
+   take their plain versions, as in the reference), and no hand-written
+   kernel's counter may move over it.  15a: the ``while`` recurrence
+   h = tanh(h w + x_t) of ``tests/test_decode.py:72`` with
+   ``max_iters`` = T, its training form (the masked scan) and
+   ``while_grad``: loss, x@GRAD and w@GRAD on the card against the same
+   recurrence as a ``StaticRNN`` on the card (the reference's own bar,
+   ``CF_GRAD_TOL``) and against the port on the CPU from the same
+   weights (``TRAIN_GRAD_TOL`` of max|ref|), also with the condition
+   false at T/2 (an early exit) and true for 2T iterations (truncated at
+   the bound); one training run with a card-resident feed and deferred
+   fetches must make no synchronizing call (sync debug mode).  15b:
+   ``tests/test_contrib_decoder.py``'s model (a ``sequence_pool``
+   encoder, a ``StateCell`` fc cell, ``TrainingDecoder`` over
+   ``DynamicRNN``, Adam) at vocab 10000/10000, emb 256, hid 256, T=32,
+   its token loss masked by ragged target lengths (8..32): one step at
+   B=8 on the card and on the CPU from copied starts (the loss and every
+   gradient within ``TRAIN_GRAD_TOL``), then 12 steps at B=64 on one
+   batch (loss finite and falling; step ms and peak memory printed).
+   15c: ``conditional_block`` with the flag 1 and 0, and ``IfElse`` on
+   each row's sign: forward and gradients, card against CPU.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -342,7 +384,9 @@ non-zero; each phase's header gives its start in seconds):
    steps, its time the ring's forward + backward at 13a's shape, its
    error the worst of 13a's and 13b's path checks; its ``bf16_*`` keys
    the bfloat16 ring's).  The bfloat16 K1-K3 rows' launches are those
-   of 13a's bfloat16 ring (a ring op's 4 each).
+   of 13a's bfloat16 ring (a ring op's 4 each).  The float32 K1-K3 rows
+   add their launches in phase 14's 24-step ``run_steps``
+   (``run_steps_launches``, 432 each).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -363,6 +407,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -615,6 +660,18 @@ RING_PARITY_B = 2
 RING_ATTN_TOL = 1e-4
 RING_GRAD_L2 = 5e-3
 RING_TRAIN = dict(TRAIN, max_len=4096, attention_impl="ring")
+# phase 14: run_steps over K stacked batches (bench.py:268's scan_steps)
+STEPS_K = 24
+STEPS_PROFILE_K = 2            # the profiled run_steps (idle share)
+# phase 15: the trainable control flow at machine translation's width
+CF_B, CF_T, CF_H = GRU_TIME_SHAPE
+# the while recurrence against the same recurrence as a StaticRNN on the
+# card: the reference's own bar (tests/test_decode.py:131-133)
+CF_LOSS_RTOL = 1e-5
+CF_GRAD_TOL = (1e-4, 1e-6)     # rtol, atol
+# the contrib decoder model (tests/test_contrib_decoder.py) at MT's width
+DEC = dict(vocab=10000, emb=256, hid=256, T=32)
+DEC_PARITY_B, DEC_B, DEC_STEPS = 8, 64, 12
 RING_TRAIN_B, RING_TRAIN_STEPS = 2, 4
 
 
@@ -3053,8 +3110,8 @@ def check_train_step_against_cpu(dev, dtype="float32") -> dict:
 
 def profile_step(exe, main, feed, loss, focus, count=()) -> dict:
     """One training step under the torch profiler (``profile_call``)."""
-    return profile_call(lambda: exe.run(main, feed=feed, fetch_list=[loss]),
-                        focus, count)
+    return profile_call(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        sync=True), focus, count)
 
 
 def profile_call(run, focus, count=()) -> dict:
@@ -3158,7 +3215,7 @@ def run_training(dev, card: str, dtype="float32") -> dict:
     with fluid.scope_guard(scope):
         for _ in range(TRAIN_STEPS):
             t = time.perf_counter()
-            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
             step_ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(l))
     launches = flash_launches(A)
@@ -3321,7 +3378,7 @@ def run_stacked_lstm(dev, card: str) -> dict:
     with fluid.scope_guard(scope):
         for _ in range(LSTM_STEPS):
             t = time.perf_counter()
-            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
             step_ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(l))
     launches = lstm_launches(R)
@@ -3507,7 +3564,7 @@ def train_deepfm(exe, main, loss, feed, scope, flag: bool) -> dict:
     with fluid.scope_guard(scope):
         for _ in range(DEEPFM_STEPS):
             t = time.perf_counter()
-            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
             step_ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(l))
     launches = sparse_launches(S)
@@ -3706,7 +3763,7 @@ def run_machine_translation(dev, card: str) -> dict:
     with fluid.scope_guard(scope):
         for _ in range(MT_STEPS):
             t = time.perf_counter()
-            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
             step_ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(l))
     launches = gru_launches(R)
@@ -4003,7 +4060,7 @@ def stamped_io(pred, feed) -> tuple:
     names = [op.inputs["X"][0] for op in ops] + \
         [op.outputs["Out"][0] for op in ops]
     vals = pred._exe.run(pred.program(), feed=feed, fetch_list=names,
-                         scope=pred._scope)
+                         scope=pred._scope, sync=True)
     return ops, vals[:len(ops)], vals[len(ops):]
 
 
@@ -4616,7 +4673,8 @@ def run_mt_beam(dev, card: str) -> dict:
     for _ in range(MT_DECODES):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope)
+        exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope,
+                sync=True)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
     if gru_launches(R) != (2 * MT_DECODES, 0):
@@ -4633,7 +4691,8 @@ def run_mt_beam(dev, card: str) -> dict:
         f"(all {[round(x, 2) for x in ms]}), {T} iterations, one host "
         f"read of the loop condition each")
     prof = profile_call(
-        lambda: exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope),
+        lambda: exe.run(main, feed=feed, fetch_list=fetch[:3], scope=scope,
+                        sync=True),
         ("gru_fwd_recurrence",))
     out["profile"] = prof
     log(f"  profiled decode [{card}]: " + json.dumps(
@@ -4904,7 +4963,7 @@ def train_conv(dev, card: str, name: str, build, image, classes, B, steps,
     with fluid.scope_guard(scope):
         for _ in range(steps):
             t = time.perf_counter()
-            (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+            (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
             step_ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(np.asarray(l, np.float32)))
     if not all(math.isfinite(x) for x in losses):
@@ -5727,11 +5786,12 @@ def train_arm(dev, card, impl) -> dict:
     fluid.Executor(dev).run(startup, scope=scope)
     if impl == "ring":
         exe = ring_executor(main, [dev] * RING_SP, scope, loss)
-        run = lambda: exe.run(fetch_list=[loss], feed=feed)  # noqa: E731
+        run = lambda: exe.run(fetch_list=[loss], feed=feed,  # noqa: E731
+                              sync=True)
     else:
         exe = fluid.Executor(dev)
         run = lambda: exe.run(main, feed=feed, fetch_list=[loss],  # noqa
-                              scope=scope)
+                              scope=scope, sync=True)
     feed = train_feed(RING_TRAIN_B, cfg["max_len"], cfg["tgt_vocab"],
                       seed=11)
     torch.cuda.synchronize()
@@ -5810,6 +5870,542 @@ def run_ring(dev, card: str) -> dict:
         f"{out['pallas']['step_ms_median']!r}")
     log("  13c: the shards on distinct cards")
     out["distinct_cards"] = check_ring_on_distinct_cards(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: run_steps and deferred fetches at Transformer-base width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the synchronizing CUDA calls made inside (torch's sync debug
+    mode, "warn"): yields a dict whose ``n`` and ``where`` (the Python
+    lines that made them) are filled when the block ends."""
+    box = {"n": 0, "where": {}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            box["n"] += 1
+            at = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            box["where"][at] = box["where"].get(at, 0) + 1
+
+
+def copy_scope(src, dev):
+    """A scope holding device copies of ``src``'s tensors and a
+    generator in ``src``'s generator's state: one copied start."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    dst = fluid.Scope()
+    for n, v in src.vars.items():
+        if isinstance(v, torch.Tensor):
+            dst.set_var(n, v.clone())
+    g = src.find_var(RNG_STATE_VAR)
+    if isinstance(g, torch.Generator):
+        h = torch.Generator(device=dev)
+        h.set_state(g.get_state())
+        dst.set_var(RNG_STATE_VAR, h)
+    return dst
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def scopes_differ(a, b) -> list:
+    """The names whose tensors (or generator states) are not bit for bit
+    equal in scopes ``a`` and ``b``."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    out = [n for n in sorted(set(a.vars) | set(b.vars))
+           if n != RNG_STATE_VAR and not (
+               isinstance(a.vars.get(n), torch.Tensor)
+               and isinstance(b.vars.get(n), torch.Tensor)
+               and a.vars[n].dtype == b.vars[n].dtype
+               and a.vars[n].shape == b.vars[n].shape
+               and torch.equal(bits(a.vars[n]), bits(b.vars[n])))]
+    ga, gb = a.find_var(RNG_STATE_VAR), b.find_var(RNG_STATE_VAR)
+    if (ga is None) != (gb is None) or (
+            ga is not None and not torch.equal(ga.get_state(),
+                                               gb.get_state())):
+        out.append(RNG_STATE_VAR)
+    return out
+
+
+def run_steps_phase(dev, card: str) -> dict:
+    """Phase 14 (module doc): 24 steps three ways from one copied start,
+    bit for bit; K1-K3 launches, deferred reads and syncs counted."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.core.executor import LazyFetch
+    from paddle_tpu_torch.kernels import attention as A
+    main, startup, loss, _ = build_transformer(TRAIN)
+    exe = fluid.Executor(dev)
+    start = fluid.Scope()
+    exe.run(startup, scope=start)
+    T, V = TRAIN["max_len"], TRAIN["tgt_vocab"]
+    feeds = [train_feed(TRAIN_B, T, V, seed=1000 + i) for i in range(STEPS_K)]
+    stacked = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    # one step on a throwaway copy first: the plan, the executor's
+    # constants and the libraries' first calls are no arm's cost
+    exe.run(main, feed=feeds[0], fetch_list=[loss],
+            scope=copy_scope(start, dev), sync=True)
+    lowering.grad_recomputes = 0
+    out, scopes, losses = {"K": STEPS_K}, {}, {}
+
+    def arm(name, body):
+        scope = scopes[name] = copy_scope(start, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the earlier arms' scopes stay for the comparison: the peak is
+        # also given above what is allocated when the arm starts
+        held = torch.cuda.memory_allocated()
+        n0 = flash_launches(A)
+        t0 = time.perf_counter()
+        with counting_syncs() as syncs:
+            losses[name] = body(scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(b - a for a, b in zip(n0, flash_launches(A)))
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {"wall_ms_per_step": wall * 1e3 / STEPS_K,
+                     "launches": launches,
+                     "syncs": syncs["n"],
+                     "syncs_per_step": syncs["n"] / STEPS_K,
+                     "sync_sites": syncs["where"],
+                     "max_memory_allocated": peak,
+                     "peak_above_start": peak - held}
+        log(f"  ({name}) [{card}]: {out[name]['wall_ms_per_step']!r} ms a "
+            f"step (host clock, {STEPS_K} steps), K1/K2/K3 launches "
+            f"{launches}, {syncs['n']} synchronizing calls "
+            f"({out[name]['syncs_per_step']!r} a step) at {syncs['where']}, "
+            f"max memory allocated {peak} ({peak - held} above the "
+            f"{held} held at the arm's start)")
+
+    def synced(scope):
+        return [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                        sync=True)[0] for f in feeds]
+
+    deferred = {}
+
+    def lazy(scope):
+        got = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+               for f in feeds]
+        deferred["all_pending"] = all(isinstance(g, LazyFetch) and g.pending
+                                      for g in got)
+        b0, s0 = LazyFetch.batches, LazyFetch.syncs
+        float(got[0])                   # the first read
+        deferred["batches"] = LazyFetch.batches - b0
+        deferred["syncs"] = LazyFetch.syncs - s0
+        deferred["read_by_first"] = sum(not g.pending for g in got)
+        return [np.asarray(g) for g in got]
+
+    def scanned(scope):
+        (stack,) = exe.run_steps(main, feed=stacked, fetch_list=[loss],
+                                 scope=scope)
+        return list(stack)
+
+    arm("a_run_sync", synced)
+    arm("b_run_deferred", lazy)
+    arm("c_run_steps", scanned)
+    recomputes = lowering.grad_recomputes
+    out["deferred"] = deferred
+    out["losses"] = [float(x) for x in losses["a_run_sync"]]
+    log(f"  (b) deferred: all {STEPS_K} pending before the first read "
+        f"{deferred['all_pending']}; the first read materialized "
+        f"{deferred['read_by_first']} in {deferred['batches']} batch with "
+        f"{deferred['syncs']} synchronisation")
+    want = (3 * TRAIN["n_layer"] * STEPS_K
+            if torch.device(dev).type == "cuda" else 0)
+    if out["c_run_steps"]["launches"] != (want,) * 3 or recomputes != 0:
+        raise AssertionError(
+            f"run_steps: K1/K2/K3 launches {out['c_run_steps']['launches']} "
+            f"(want {want} each), grad recomputes {recomputes} (want 0)")
+    if not (deferred["all_pending"] and deferred["batches"] == 1
+            and deferred["syncs"] == (torch.device(dev).type == "cuda")
+            and deferred["read_by_first"] == STEPS_K):
+        raise AssertionError(f"deferred fetches: {deferred}")
+    ref = np.asarray(losses["a_run_sync"], np.float32)
+    for name in ("b_run_deferred", "c_run_steps"):
+        got = np.asarray(losses[name], np.float32).reshape(ref.shape)
+        if not np.array_equal(got.view(np.uint32), ref.view(np.uint32)):
+            raise AssertionError(f"{name}: losses differ from (a): "
+                                 f"{got.tolist()} vs {ref.tolist()}")
+        bad = scopes_differ(scopes["a_run_sync"], scopes[name])
+        if bad:
+            raise AssertionError(f"{name}: state after step {STEPS_K} "
+                                 f"differs from (a) in {bad[:8]} "
+                                 f"({len(bad)} names)")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite losses {out['losses']}")
+    n_state = sum(isinstance(v, torch.Tensor)
+                  for v in scopes["a_run_sync"].vars.values())
+    out["state_tensors_equal"] = n_state
+    log(f"  {STEPS_K} losses and {n_state} state tensors and the generator "
+        f"bit for bit equal across (a), (b), (c); losses "
+        f"{out['losses'][0]!r} .. {out['losses'][-1]!r}; grad recomputes "
+        f"{recomputes}")
+    scope = scopes["c_run_steps"]
+    part = {k: v[:STEPS_PROFILE_K] for k, v in stacked.items()}
+    prof = profile_call(lambda: exe.run_steps(main, feed=part,
+                                              fetch_list=[loss],
+                                              scope=scope),
+                        tuple(flash_kernel_names(torch.float32).values()))
+    out["c_run_steps"]["profile"] = {k: v for k, v in prof.items()
+                                     if k != "top_kernels"}
+    log(f"  profiled run_steps of {STEPS_PROFILE_K} steps [{card}]: "
+        + json.dumps(out["c_run_steps"]["profile"]))
+    del scopes, scope, start, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the trainable control flow at machine translation's width
+# ---------------------------------------------------------------------------
+
+def cf_program(kind: str, trips: int, w0):
+    """The recurrence h = tanh(h w + x_t) of tests/test_decode.py:72 at
+    [CF_B, CF_T, CF_H]: ``kind`` "while" runs ``trips`` iterations of a
+    While(max_iters=CF_T) (fewer: an early exit; more: truncated at the
+    bound), "static_rnn" all CF_T steps.  (main, startup, fetch)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    L = fluid.layers
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        x = L.data("x", [CF_T, CF_H], stop_gradient=False)
+        w = L.create_parameter(
+            [CF_H, CF_H], "float32", name="w",
+            default_initializer=fluid.initializer.NumpyArrayInitializer(w0))
+        if kind == "while":
+            xt = L.transpose(x, perm=[1, 0, 2])
+            h = L.fill_constant([CF_B, CF_H], "float32", 0.0)
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", trips)
+            cond = L.less_than(i, n)
+            with L.While(cond, max_iters=CF_T).block():
+                x_t = L.array_read(xt, i)
+                L.assign(L.tanh(L.elementwise_add(L.mul(h, w), x_t)), h)
+                L.increment(i, 1)
+                L.less_than(i, n, cond=cond)
+            last = h
+        else:
+            rnn = L.StaticRNN()
+            with rnn.step():
+                x_t = rnn.step_input(x)
+                mem = rnn.memory(shape=[CF_H], batch_ref=x_t,
+                                 init_value=0.0)
+                new = L.tanh(L.elementwise_add(L.mul(mem, w), x_t))
+                rnn.update_memory(mem, new)
+                rnn.step_output(new)
+            last = L.squeeze(L.slice(rnn(), axes=[1], starts=[CF_T - 1],
+                                     ends=[CF_T]), [1])
+        loss = L.mean(L.square(last))
+        fluid.append_backward(loss)
+    return main, startup, [loss.name, "x@GRAD", "w@GRAD"]
+
+
+def cf_run(main, startup, fetch, feed, device):
+    """Run ``main`` once on ``device`` from its startup's values."""
+    import paddle_tpu_torch as fluid
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    exe.run(startup, scope=scope)
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   sync=True)
+
+
+def cf_close(got, ref, label, rtol, atol) -> float:
+    """Each of ``got`` within rtol/atol of ``ref``; returns the worst
+    max|d| / max|ref|."""
+    worst = 0.0
+    for name, g, r in zip(("loss", "x@GRAD", "w@GRAD"), got, ref):
+        g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
+        if not (np.isfinite(g).all() and np.allclose(g, r, rtol=rtol,
+                                                     atol=atol)):
+            raise AssertionError(f"{label}: {name} max|d| "
+                                 f"{np.abs(g - r).max()!r} (rtol {rtol}, "
+                                 f"atol {atol})")
+        worst = max(worst, float(np.abs(g - r).max())
+                    / max(float(np.abs(r).max()), 1e-30))
+    return worst
+
+
+def check_training_while(dev, card: str) -> dict:
+    """Phase 15a: the training while against the StaticRNN on the card
+    and against the port on the CPU; an early exit and a truncation; no
+    host read in the training form."""
+    rs = np.random.RandomState(15)
+    w0 = (rs.randn(CF_H, CF_H) / np.sqrt(CF_H)).astype("float32")
+    x = rs.randn(CF_B, CF_T, CF_H).astype("float32")
+    out = {}
+    scan = cf_run(*cf_program("static_rnn", CF_T, w0), {"x": x}, dev)
+    for label, trips in (("full", CF_T), ("early_exit", CF_T // 2),
+                         ("truncated", 2 * CF_T)):
+        prog = cf_program("while", trips, w0)
+        card_out = cf_run(*prog, {"x": x}, dev)
+        cpu_out = cf_run(*prog, {"x": x}, "cpu")
+        r = {"vs_cpu": cf_close(card_out, cpu_out, f"{label} card vs CPU",
+                                TRAIN_GRAD_TOL, 1e-6),
+             "loss": float(card_out[0])}
+        if trips >= CF_T:   # all CF_T steps: the StaticRNN's recurrence
+            r["vs_static_rnn"] = cf_close(card_out, scan,
+                                          f"{label} while vs StaticRNN",
+                                          *CF_GRAD_TOL)
+        out[label] = r
+        if label == "full":
+            cpu_full = cpu_out
+    # no host read: a card-resident feed, deferred fetches, the plan built
+    import paddle_tpu_torch as fluid
+    main, startup, fetch = cf_program("while", CF_T, w0)
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    xd = torch.from_numpy(x).to(dev)
+    exe.run(main, feed={"x": xd}, fetch_list=fetch, scope=scope, sync=True)
+    torch.cuda.synchronize()
+    with counting_syncs() as syncs:
+        got = exe.run(main, feed={"x": xd}, fetch_list=fetch, scope=scope)
+    out["syncs_in_run"] = syncs["n"]
+    out["sync_sites"] = syncs["where"]
+    shown = {k: v for k, v in out.items()
+             if k not in ("syncs_in_run", "sync_sites")}
+    log(f"  15a while h = tanh(h w + x_t), B={CF_B} T={CF_T} H={CF_H} "
+        f"[{card}]: {json.dumps(shown)}; synchronizing calls in one "
+        f"training run with a card-resident feed: {syncs['n']} "
+        f"{syncs['where']}")
+    if syncs["n"]:
+        raise AssertionError(f"the training while read the card from the "
+                             f"host: {syncs['where']}")
+    cf_close(got, cpu_full, "card-resident feed vs CPU", TRAIN_GRAD_TOL,
+             1e-6)
+    return out
+
+
+def build_decoder(seed: int = 3):
+    """tests/test_contrib_decoder.py's model at DEC's width, its token
+    loss masked by the target lengths: (main, startup, loss, params)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib.decoder import (InitState, StateCell,
+                                                  TrainingDecoder)
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    L = fluid.layers
+    V, E, H, T = DEC["vocab"], DEC["emb"], DEC["hid"], DEC["T"]
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        src = L.data("src", [1], dtype="int64", lod_level=1)
+        tgt = L.data("tgt", [1], dtype="int64", lod_level=1)
+        lbl = L.data("lbl", [T, 1], dtype="int64")
+        lmask = L.data("lbl_mask", [T, 1])
+        enc = L.sequence_pool(L.embedding(
+            src, [V, E], param_attr=fluid.ParamAttr(name="dec.src_emb")),
+            "first")
+        h0 = L.fc(enc, H, act="tanh",
+                  param_attr=fluid.ParamAttr(name="dec.h0.w"),
+                  bias_attr=fluid.ParamAttr(name="dec.h0.b"))
+        cell = StateCell(inputs={"x": None},
+                         states={"h": InitState(init=h0)}, out_state="h")
+
+        @cell.state_updater
+        def updater(c):
+            c.set_state("h", L.fc(
+                L.concat([c.get_input("x"), c.get_state("h")], axis=1), H,
+                act="tanh", param_attr=fluid.ParamAttr(name="dec.cell.w"),
+                bias_attr=fluid.ParamAttr(name="dec.cell.b")))
+
+        decoder = TrainingDecoder(cell)
+        tgt_emb = L.embedding(tgt, [V, E],
+                              param_attr=fluid.ParamAttr(name="dec.tgt_emb"))
+        with decoder.block():
+            cur = decoder.step_input(tgt_emb)
+            decoder.state_cell.compute_state(inputs={"x": cur})
+            decoder.state_cell.update_states()
+            decoder.output(L.fc(decoder.state_cell.get_state("h"), V,
+                                act="softmax",
+                                param_attr=fluid.ParamAttr(name="dec.out.w"),
+                                bias_attr=fluid.ParamAttr(name="dec.out.b")))
+        tok = L.elementwise_mul(L.cross_entropy(decoder(), lbl), lmask)
+        loss = L.mean(tok)
+        fluid.optimizer.Adam(5e-3).minimize(loss)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def decoder_feed(B: int, seed: int) -> dict:
+    """The copy task of tests/test_contrib_decoder.py:66 at DEC's width:
+    ragged target lengths (MT_SHORTEST..T), labels masked past them."""
+    rs = np.random.RandomState(seed)
+    V, T = DEC["vocab"], DEC["T"]
+    src = rs.randint(2, V, (B, T)).astype("int64")
+    tgt = np.zeros((B, T), "int64")
+    lbl = np.zeros((B, T, 1), "int64")
+    tgt[:, 1:] = src[:, :1]
+    lbl[:, :-1, 0] = src[:, :1]
+    lbl[:, -1, 0] = 1
+    tlen = rs.randint(MT_SHORTEST, T + 1, (B,)).astype("int64")
+    mask = (np.arange(T)[None, :] < tlen[:, None]).astype("float32")
+    return {"src": src[..., None], "src@LEN": np.full((B,), T, "int64"),
+            "tgt": tgt[..., None], "tgt@LEN": tlen, "lbl": lbl,
+            "lbl_mask": mask[..., None]}
+
+
+def check_training_decoder(dev, card: str) -> dict:
+    """Phase 15b: one step card vs CPU from copied starts, then DEC_STEPS
+    steps at DEC_B."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, params = build_decoder()
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    feed = decoder_feed(DEC_PARITY_B, seed=5)
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+    got = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        got[name] = fluid.Executor(device).run(main, feed=feed,
+                                               fetch_list=fetch, scope=scope,
+                                               sync=True)
+    l_cpu, l_gpu = float(got["cpu"][0]), float(got["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not math.isfinite(l_gpu) or loss_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"decoder loss card {l_gpu} vs CPU {l_cpu}")
+    ratios = {}
+    for name, g, r in zip(params, got["gpu"][1:], got["cpu"][1:]):
+        scale = float(np.abs(r).max())
+        ratios[name] = float(np.abs(g - r).max()) / max(scale, 1e-30)
+        if not (scale > 0 and np.isfinite(g).all()
+                and ratios[name] <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"decoder gradient of {name}: max|ref| "
+                                 f"{scale}, ratio {ratios[name]}")
+    worst = max(ratios, key=ratios.get)
+    out = {"parity": {"loss_gpu": l_gpu, "loss_cpu": l_cpu,
+                      "loss_rel_diff": loss_rel, "n_grads": len(params),
+                      "worst_grad_ratio": ratios[worst],
+                      "worst_grad_param": worst}}
+    log(f"  15b decoder step B={DEC_PARITY_B}, card vs CPU: loss "
+        f"{l_gpu!r} vs {l_cpu!r} (rel {loss_rel!r}), {len(params)} "
+        f"gradients, worst max|d|/max|ref| {ratios[worst]!r} ({worst}; "
+        f"tolerance {TRAIN_GRAD_TOL})")
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = decoder_feed(DEC_B, seed=11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(DEC_STEPS):
+        t = time.perf_counter()
+        (l,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       sync=True)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(l))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"decoder loss not finite and falling: "
+                             f"{losses}")
+    med = float(np.median(step_ms[2:]))
+    out.update({"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    log(f"  15b decoder training B={DEC_B} [{card}]: step ms median {med!r} "
+        f"(steps 3..{DEC_STEPS}, all {[round(x, 2) for x in step_ms]}), "
+        f"loss {losses[0]!r} -> {losses[-1]!r}, max memory allocated "
+        f"{out['max_memory_allocated']} bytes")
+    return out
+
+
+def cond_programs(flag_kind: str):
+    """Phase 15c's programs at [CF_B, CF_H]: "cond" a conditional_block
+    that replaces y = fc(x) by 3 fc2(x) when the fed flag holds, "ifelse"
+    an IfElse on the sign of each row's sum.  (main, startup, fetch)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    L = fluid.layers
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 5
+    with program_guard(main, startup), unique_name.guard():
+        x = L.data("x", [CF_H], stop_gradient=False)
+        if flag_kind == "cond":
+            c = L.data("c", [1], append_batch_size=False)
+            y = L.fc(x, CF_H, act="tanh",
+                     param_attr=fluid.ParamAttr(name="cf.w1"))
+            with L.ConditionalBlock([L.cast(c, "bool")]).block():
+                L.assign(L.scale(L.fc(x, CF_H, param_attr=fluid.ParamAttr(
+                    name="cf.w2")), scale=3.0), y)
+        else:
+            cond = L.less_than(L.reduce_sum(x, dim=1, keep_dim=True),
+                               L.fill_constant([CF_B, 1], "float32", 0.0))
+            ie = L.IfElse(cond)
+            with ie.true_block():
+                ie.output(L.fc(ie.input(x), CF_H, act="tanh",
+                               param_attr=fluid.ParamAttr(name="cf.w1")))
+            with ie.false_block():
+                ie.output(L.square(ie.input(x)))
+            (y,) = ie()
+        loss = L.mean(L.square(y))
+        fluid.append_backward(loss)
+    params = sorted(p.name for p in main.all_parameters())
+    return main, startup, [loss.name, y.name, "x@GRAD"] + \
+        [p + "@GRAD" for p in params]
+
+
+def check_cond_and_ifelse(dev, card: str) -> dict:
+    """Phase 15c: conditional_block (flag 1 and 0) and IfElse, forward
+    and gradients, card against CPU from copied starts."""
+    import paddle_tpu_torch as fluid
+    rs = np.random.RandomState(7)
+    x = rs.randn(CF_B, CF_H).astype("float32")
+    out = {}
+    for label, kind, extra in (("cond_1", "cond", {"c": np.ones(1, "float32")}),
+                               ("cond_0", "cond", {"c": np.zeros(1, "float32")}),
+                               ("ifelse", "ifelse", {})):
+        main, startup, fetch = cond_programs(kind)
+        init = fluid.Scope()
+        fluid.Executor("cpu").run(startup, scope=init)
+        values = init.to_numpy()
+        res = {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            scope = fluid.Scope()
+            scope.load_numpy(values, device=device)
+            res[name] = fluid.Executor(device).run(
+                main, feed=dict(extra, x=x), fetch_list=fetch, scope=scope,
+                sync=True)
+        worst = 0.0
+        for name, g, r in zip(fetch, res["gpu"], res["cpu"]):
+            g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
+            scale = float(np.abs(r).max())
+            ratio = float(np.abs(g - r).max()) / max(scale, 1e-30)
+            if not np.isfinite(g).all() or (scale > 0
+                                            and ratio > TRAIN_GRAD_TOL) \
+                    or (scale == 0 and np.abs(g).max() > 0):
+                raise AssertionError(f"15c {label}: {name} card vs CPU "
+                                     f"max|d|/max|ref| {ratio}")
+            worst = max(worst, ratio)
+        out[label] = {"worst_ratio": worst, "fetches": len(fetch),
+                      "loss": float(res["gpu"][0])}
+    log(f"  15c conditional_block and IfElse, B={CF_B} H={CF_H}, card vs "
+        f"CPU [{card}]: {json.dumps(out)} (tolerance {TRAIN_GRAD_TOL} of "
+        f"max|ref|)")
+    return out
+
+
+def run_control_flow(dev, card: str) -> dict:
+    """Phase 15 (module doc): no hand-written kernel may launch."""
+    before = kernel_launches()
+    out = {"while": check_training_while(dev, card),
+           "decoder": check_training_decoder(dev, card),
+           "cond": check_cond_and_ifelse(dev, card)}
+    moved = {k: v - before[k] for k, v in kernel_launches().items()
+             if v != before[k]}
+    if moved:
+        raise AssertionError(f"phase 15 launched kernels: {moved}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5903,6 +6499,12 @@ def main() -> int:
     phase("13a, bfloat16: the ring over the bfloat16 K1-K3")
     ring["kernel_bf16"] = check_and_time_ring(dev, torch.bfloat16)
 
+    phase("14: run_steps and deferred fetches at Transformer-base width")
+    steps = run_steps_phase(dev, card)
+
+    phase("15: the trainable control flow at machine translation's width")
+    control_flow = run_control_flow(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -5933,6 +6535,7 @@ def main() -> int:
             "source": f"paddle_tpu_torch/kernels/csrc/{src}",
             "replaces": f"paddle_tpu/kernels/attention.py:{line}",
             "launches": train["launches"][i],
+            "run_steps_launches": steps["c_run_steps"]["launches"][i],
             "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -6098,6 +6701,7 @@ def main() -> int:
                    "mt_training": mt_train, "int8_fc": int8_k,
                    "int8_serving": serving, "mt_beam": mt_beam,
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
+                   "run_steps": steps, "control_flow": control_flow,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -58,7 +58,8 @@ def arm(dev, dtype, layout, B, drops: bool) -> dict:
             with fluid.scope_guard(scope):
                 for _ in range(STEPS):
                     t = time.perf_counter()
-                    (l,) = exe.run(main, feed=feed, fetch_list=[loss])
+                    (l,) = exe.run(main, feed=feed, fetch_list=[loss],
+                                   sync=True)
                     ms.append((time.perf_counter() - t) * 1e3)
                     losses.append(float(np.asarray(l, np.float32)))
         except torch.cuda.OutOfMemoryError as e:

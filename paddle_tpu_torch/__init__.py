@@ -17,7 +17,9 @@ on its ``fused_attention`` op::
     exe.run(startup)
     loss, = exe.run(main, feed=..., fetch_list=[avg_cost])
 
-and serving a saved model, float32 or int8: ``io.save_inference_model``,
+(``Executor.run_steps`` runs K such steps over stacked feeds in one
+call, and ``run`` defers its fetches, ``LazyFetch``, unless
+``sync=True``); and serving a saved model, float32 or int8: ``io.save_inference_model``,
 ``inference.create_predictor`` (with ``AnalysisConfig.enable_int8()``)
 and ``serving.ModelManager``'s dynamic batching.  Beam-search decoding
 runs in both planes: a ``While`` program of ``beam_search`` steps
@@ -36,7 +38,18 @@ from . import layers, optimizer  # noqa: F401
 from . import executor, framework  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.backward import append_backward  # noqa: F401
-from .core.executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
+from .core.executor import (  # noqa: F401
+    Executor,
+    LazyFetch,
+    Scope,
+    global_scope,
+    scope_guard,
+)
+from .data_feeder import DataFeeder  # noqa: F401
+from .lod_tensor import (  # noqa: F401
+    LoDTensor, create_lod_tensor, create_random_int_lodtensor)
+Tensor = LoDTensor  # reference __init__.py:51 alias
+LoDTensorArray = list  # reference core type: a list of LoDTensors
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.program import (  # noqa: F401
     Program,
@@ -54,9 +67,11 @@ from .parallel import (  # noqa: F401
     ParallelExecutor,
 )
 
-__all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "ExecutionStrategy",
-           "Executor", "ParallelExecutor", "ParamAttr", "Program",
-           "Scope", "append_backward", "contrib", "decode",
+__all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "DataFeeder",
+           "ExecutionStrategy", "Executor", "LazyFetch", "LoDTensor",
+           "LoDTensorArray", "ParallelExecutor", "Tensor", "ParamAttr", "Program",
+           "Scope", "append_backward", "contrib", "create_lod_tensor",
+           "create_random_int_lodtensor", "decode",
            "default_main_program", "default_startup_program", "get_flags",
            "global_scope", "inference", "initializer", "io", "layers",
            "optimizer", "parallel", "platform", "serving",

@@ -1,8 +1,12 @@
-"""High-level decoder API: InitState / StateCell / BeamSearchDecoder /
-IncrementalBeamDecoder (reference contrib/decoder/beam_search_decoder.py:75).
+"""High-level decoder API: InitState / StateCell / TrainingDecoder /
+BeamSearchDecoder / IncrementalBeamDecoder (reference
+contrib/decoder/beam_search_decoder.py:75).
 
 The port of ``paddle_tpu/contrib/decoder.py``: the same calls build the
-same programs, byte for byte.  ``BeamSearchDecoder`` keeps a FIXED
+same programs, byte for byte.  ``TrainingDecoder`` drives the
+length-masked ``DynamicRNN`` (state memories become ``rnn.memory`` /
+``update_memory`` pairs, the ``_MemoryState`` role).
+``BeamSearchDecoder`` keeps a FIXED
 ``[beam]`` width: states are loop-carried ``[beam, ...]`` variables,
 and after each ``layers.beam_search`` step the decoder gathers them by
 the returned parent pointers (the fixed-width analogue of the
@@ -10,21 +14,21 @@ reference's ``sequence_expand`` LoD fan-out).  Early stop folds into
 ``beam_search_decode``'s end_id truncation instead of a mid-loop
 break.  ``IncrementalBeamDecoder`` carries the beam across executor
 dispatches, one step at a time.
-
-``TrainingDecoder`` is not ported yet: it drives the ``DynamicRNN``
-layer, which the port lacks (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
+
+import contextlib
 
 from .. import layers as L
 from ..layer_helper import LayerHelper
 from ..layers.nn import _tile_rows
 
-__all__ = ["InitState", "StateCell", "BeamSearchDecoder",
-           "IncrementalBeamDecoder"]
+__all__ = ["InitState", "StateCell", "TrainingDecoder",
+           "BeamSearchDecoder", "IncrementalBeamDecoder"]
 
 
 class _DecoderType:
+    TRAINING = 1
     BEAM_SEARCH = 2
 
 
@@ -32,8 +36,9 @@ class InitState:
     """Initial hidden state: either an explicit variable or a constant
     tensor shaped like ``init_boot`` (reference
     beam_search_decoder.py:43).  ``need_reorder`` is accepted for API
-    parity and ignored: the fixed-width beam never reorders rows
-    outside its parent gather."""
+    parity and ignored: the padded-sequence DynamicRNN never reorders
+    rows, and the fixed-width beam reorders them only by its parent
+    gather."""
 
     def __init__(self, init=None, shape=None, value=0.0, init_boot=None,
                  need_reorder=False, dtype="float32"):
@@ -55,6 +60,21 @@ class InitState:
     @property
     def need_reorder(self):
         return self._need_reorder
+
+
+class _MemoryState:
+    """Training-mode state: a DynamicRNN memory (reference
+    beam_search_decoder.py:99)."""
+
+    def __init__(self, rnn, init_state):
+        self._rnn = rnn
+        self._mem = rnn.memory(init=init_state.value)
+
+    def get_state(self):
+        return self._mem
+
+    def update_state(self, state):
+        self._rnn.update_memory(self._mem, state)
 
 
 class _BeamState:
@@ -128,7 +148,9 @@ class StateCell:
                     raise ValueError(
                         f"state {state_name} is {type(state)}, expected "
                         "InitState")
-                if dec.type == _DecoderType.BEAM_SEARCH:
+                if dec.type == _DecoderType.TRAINING:
+                    holder[id(dec)] = _MemoryState(dec.dynamic_rnn, state)
+                elif dec.type == _DecoderType.BEAM_SEARCH:
                     holder[id(dec)] = _BeamState(
                         dec._carried_state(state_name, state))
                 else:
@@ -187,6 +209,71 @@ class StateCell:
 
     def out_state(self):
         return self._cur_states[self._out_state]
+
+
+class TrainingDecoder:
+    """Teacher-forced decoder over the masked-scan DynamicRNN (reference
+    beam_search_decoder.py:380 — same block/step_input/static_input/
+    output surface)."""
+
+    BEFORE_DECODER = 0
+    IN_DECODER = 1
+    AFTER_DECODER = 2
+
+    def __init__(self, state_cell, name=None):
+        self._helper = LayerHelper("training_decoder", name=name)
+        self._status = TrainingDecoder.BEFORE_DECODER
+        self._dynamic_rnn = L.DynamicRNN()
+        self._type = _DecoderType.TRAINING
+        self._state_cell = state_cell
+        self._state_cell._enter_decoder(self)
+
+    @contextlib.contextmanager
+    def block(self):
+        if self._status != TrainingDecoder.BEFORE_DECODER:
+            raise ValueError("decoder.block() can only be invoked once")
+        self._status = TrainingDecoder.IN_DECODER
+        with self._dynamic_rnn.block():
+            yield
+        self._status = TrainingDecoder.AFTER_DECODER
+        self._state_cell._leave_decoder(self)
+
+    @property
+    def state_cell(self):
+        self._assert_in_decoder_block("state_cell")
+        return self._state_cell
+
+    @property
+    def dynamic_rnn(self):
+        return self._dynamic_rnn
+
+    @property
+    def type(self):
+        return self._type
+
+    def step_input(self, x):
+        self._assert_in_decoder_block("step_input")
+        return self._dynamic_rnn.step_input(x)
+
+    def static_input(self, x):
+        self._assert_in_decoder_block("static_input")
+        return self._dynamic_rnn.static_input(x)
+
+    def output(self, *outputs):
+        self._assert_in_decoder_block("output")
+        self._dynamic_rnn.output(*outputs)
+
+    def __call__(self, *args, **kwargs):
+        if self._status != TrainingDecoder.AFTER_DECODER:
+            raise ValueError("Output of training decoder can only be "
+                             "visited outside the block.")
+        return self._dynamic_rnn(*args, **kwargs)
+
+    def _assert_in_decoder_block(self, method):
+        if self._status != TrainingDecoder.IN_DECODER:
+            raise ValueError(
+                f"{method} should be invoked inside block of "
+                "TrainingDecoder object.")
 
 
 class BeamSearchDecoder:
@@ -450,7 +537,7 @@ class IncrementalBeamDecoder:
                                              "float32").reshape(bw, -1)}
         sel_ids, sel_scores, parent = self._exe.run(
             self._step_prog, feed=feed, fetch_list=self._step_fetches,
-            scope=self._scope)
+            scope=self._scope, sync=True)
         sel_ids = np.asarray(sel_ids).reshape(bw, 1)
         sel_scores = np.asarray(sel_scores).reshape(bw, 1)
         parent = np.asarray(parent).reshape(bw)
@@ -509,6 +596,6 @@ class IncrementalBeamDecoder:
                 "ibd_arr_scores": np.stack(self._scores),
                 "ibd_arr_len": np.asarray([t], "int64")}
         out = self._exe.run(prog, feed=feed, fetch_list=fetches,
-                            scope=self._scope)
+                            scope=self._scope, sync=True)
         ids, scores, cand_len, src_len = (np.asarray(v) for v in out)
         return BeamDecodeResult(ids, scores, cand_len, src_len)

@@ -328,9 +328,9 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
 def _lower_op(ctx, program, block, op, pos, env, plan, tapes) -> None:
     """Run one op through its rule (or its grad op through its forward's
     tape) and store its outputs in ``env``."""
-    ins = _gather_ins(op, env)
     try:
         if _is_grad_op(op):
+            ins = _gather_ins(op, env)
             base = registry.get(_base_type(op))
             fwd = plan.grad_fwd.get(pos)
             if base.grad is not None:
@@ -349,6 +349,7 @@ def _lower_op(ctx, program, block, op, pos, env, plan, tapes) -> None:
         else:
             opdef = registry.get(op.type)
             rule = _rule(program, op, env, opdef)
+            ins = _gather_ins(op, env)
             wanted = plan.taped.get(pos)
             if wanted:
                 leaves, outs = _run_with_leaves(opdef, rule, ctx, ins,

@@ -104,7 +104,7 @@ class Predictor:
         with self._lock:
             return self._exe.run(self._program, feed=inputs,
                                  fetch_list=self._fetch_names,
-                                 scope=self._scope)
+                                 scope=self._scope, sync=True)
 
     # -- warm start (serving plane) ---------------------------------------
     def warm_start(self, feed_specs) -> dict:

@@ -1,13 +1,12 @@
-"""Control-flow layers: StaticRNN, While, the TensorArray layers and
-beam search.
+"""Control-flow layers: While, StaticRNN, DynamicRNN, ConditionalBlock,
+Switch, IfElse, the TensorArray layers, beam search and the LoD
+rank-table layers.
 
-The part of ``paddle_tpu/layers/control_flow.py`` that machine
-translation's training and beam-search programs call, copied unchanged:
-the same calls build the same ``static_rnn``/``while`` ops and
-sub-blocks, byte for byte (``Program.serialize``).  The ops' rules run
-the sub-blocks step by step (``ops/control_flow_ops.py``).
-ConditionalBlock, Switch, IfElse, DynamicRNN and the LoD rank-table
-layers are not ported yet.
+``paddle_tpu/layers/control_flow.py``, copied unchanged: the same calls
+build the same ``while``/``static_rnn``/``dynamic_rnn``/
+``conditional_block`` ops and sub-blocks, byte for byte
+(``Program.serialize``).  The ops' rules run the sub-blocks through
+their ops (``ops/control_flow_ops.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from typing import List, Optional
 
 from ..core.program import Variable, default_main_program
 from ..layer_helper import LayerHelper
+from .nn import _unary
 
 
 def _written_names(block) -> List[str]:
@@ -130,7 +130,7 @@ class _WhileGuard(BlockGuard):
 
 class StaticRNN:
     """Fixed-length RNN over [B, T, ...] step inputs (control_flow.py:429;
-    lowers to lax.scan → trains via reverse-scan vjp)."""
+    its op runs the sub-block a step at a time under one tape)."""
 
     BEFORE_RNN_BLOCK = 0
     IN_RNN_BLOCK = 1
@@ -255,6 +255,153 @@ class _RnnGuard(BlockGuard):
             self.rnn.status = StaticRNN.AFTER_RNN_BLOCK
             self.rnn._complete()
         return False
+
+
+class ConditionalBlock:
+    """Run a block iff condition (control_flow.py:1203)."""
+
+    def __init__(self, inputs, is_scalar_condition=True, name=None):
+        self.helper = LayerHelper("conditional_block", name=name)
+        self.cond = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+
+    def block(self):
+        return _CondGuard(self)
+
+
+class _CondGuard(BlockGuard):
+    def __init__(self, cb: ConditionalBlock):
+        super().__init__(default_main_program())
+        self.cb = cb
+
+    def __exit__(self, exc_type, *a):
+        if exc_type is not None:
+            self.program._rollback()
+            return False
+        sub = self.block
+        self.program._rollback()
+        parent = self.program.current_block()
+        carries = [n for n in _written_names(sub)
+                   if parent.var_or_none(n) is not None]
+        cond_name = self.cb.cond.name
+        captured = [n for n in _captured_names(sub, [cond_name] + carries)
+                    if parent.var_or_none(n) is not None]
+        _unstop_float_carries(parent, carries)
+        init_names = _copy_carry_inits(parent, sub.idx, carries)
+        parent.append_op(
+            "conditional_block",
+            {"Condition": [cond_name], "X": carries, "Captured": captured,
+             "Init": init_names},
+            {"Out": carries},
+            {"sub_block": sub.idx, "carry_vars": carries,
+             "captured_vars": captured},
+        )
+        return False
+
+
+class Switch:
+    """case/default sugar over ConditionalBlock (control_flow.py:1285)."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.pre_not_conditions: List[Variable] = []
+
+    def case(self, condition):
+        from . import nn
+        if self.pre_not_conditions:
+            not_prev = _unary("logical_not", self.pre_not_conditions[-1],
+                              out_dtype="bool")
+            cond = self._and(not_prev, condition)
+        else:
+            cond = condition
+        self.pre_not_conditions.append(
+            self._or(self.pre_not_conditions[-1], condition)
+            if self.pre_not_conditions else condition)
+        return ConditionalBlock([cond]).block()
+
+    def default(self):
+        assert self.pre_not_conditions, "default needs a prior case"
+        not_all = _unary("logical_not", self.pre_not_conditions[-1],
+                         out_dtype="bool")
+        return ConditionalBlock([not_all]).block()
+
+    def _and(self, a, b):
+        helper = LayerHelper("logical_and")
+        out = helper.create_variable_for_type_inference("bool", shape=a.shape)
+        helper.append_op("logical_and", {"X": [a], "Y": [b]}, {"Out": [out]})
+        return out
+
+    def _or(self, a, b):
+        helper = LayerHelper("logical_or")
+        out = helper.create_variable_for_type_inference("bool", shape=a.shape)
+        helper.append_op("logical_or", {"X": [a], "Y": [b]}, {"Out": [out]})
+        return out
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class DynamicRNN(StaticRNN):
+    """Variable-length RNN over padded sequences (control_flow.py:1541).
+
+    The reference sorts sequences with a LoDRankTable and shrinks the
+    batch per step; the padded form runs over [B, T, ...] and masks
+    memory updates + outputs by each row's sequence length (the ``@LEN``
+    companion of the lod_level>=1 input): rows past their length keep
+    their last state and emit zeros.  Differentiated through one tape,
+    as StaticRNN (``ops/control_flow_ops.py``).
+    """
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(name=name)
+        self._seq_len_name = None
+
+    def block(self):  # reference API name
+        return self.step()
+
+    def step_input(self, x: Variable) -> Variable:
+        from .nn import seq_len_var
+
+        lv = seq_len_var(x)
+        if lv is None:
+            raise ValueError(
+                f"DynamicRNN.step_input needs a sequence input with a "
+                f"length companion (data(lod_level=1)); {x.name!r} has "
+                f"none — use StaticRNN for fixed-length input")
+        if self._seq_len_name is None:
+            self._seq_len_name = lv.name
+        return super().step_input(x)
+
+    def _complete(self):
+        sub = self._sub_block
+        parent = sub.parent_block
+        assert all(rec[2] is not None for rec in self._memories), \
+            "every memory needs update_memory"
+        inner_defined = [inner.name for _, inner in self._step_inputs] + \
+            [rec[0] for rec in self._memories]
+        captured = _captured_names(sub, inner_defined)
+        parent.append_op(
+            "dynamic_rnn",
+            {"X": [outer for outer, _ in self._step_inputs],
+             "Init": [rec[1] for rec in self._memories],
+             "Captured": captured,
+             "SeqLen": [self._seq_len_name]},
+            {"Out": [outer.name for _, outer in self._outputs]},
+            {"sub_block": sub.idx,
+             "step_inputs": [outer for outer, _ in self._step_inputs],
+             "step_input_vars": [inner.name for _, inner in self._step_inputs],
+             "memories": self._memories,
+             "step_outputs": [[inner, outer.name]
+                              for inner, outer in self._outputs]},
+        )
+        # outputs are padded sequences with the same lengths as the input
+        from .nn import _alias_len
+
+        seq_len = parent.var(self._seq_len_name)
+        for _, outer in self._outputs:
+            _alias_len(outer, seq_len)
 
 
 def less_than(x, y, cond=None):
@@ -385,6 +532,220 @@ def beam_search_decode(ids_array, parents_array, beam_size, end_id,
     return BeamDecodeResult(sents, scores, cand_len, src_len)
 
 
-__all__ = ["BeamDecodeResult", "StaticRNN", "While", "array_length",
-           "array_read", "array_write", "beam_search", "beam_search_decode",
-           "create_array", "less_than"]
+# ---------------------------------------------------------------------------
+# LoD rank-table machinery (reference layers/control_flow.py lod_rank_table
+# family + IfElse).  A RankTable is a pair of [B] vars: sequence indices in
+# descending-length order and the lengths in that order.
+# ---------------------------------------------------------------------------
+
+class RankTable:
+    """LoDRankTable analogue (framework/lod_rank_table.h) on the padded
+    contract."""
+
+    def __init__(self, rank_idx: Variable, rank_len: Variable):
+        self.rank_idx = rank_idx
+        self.rank_len = rank_len
+
+
+def lod_rank_table(x, level=0):
+    """Build a rank table from x's @LEN companion (level-1 sequences;
+    reference lod_rank_table_op.cc)."""
+    from .nn import seq_len_var
+
+    if level != 0:
+        raise ValueError(
+            "lod_rank_table: only level-0 of the level-1 padded contract "
+            "exists (nested LoD has no rank table)")
+    sl = seq_len_var(x)
+    if sl is None:
+        raise ValueError(f"lod_rank_table: {x.name!r} has no @LEN companion")
+    helper = LayerHelper("lod_rank_table")
+    idx = helper.create_variable_for_type_inference(
+        "int64", shape=(x.shape[0],), stop_gradient=True)
+    lens = helper.create_variable_for_type_inference(
+        "int64", shape=(x.shape[0],), stop_gradient=True)
+    helper.append_op("lod_rank_table", {"SeqLen": [sl]},
+                     {"RankIdx": [idx], "RankLen": [lens]}, {})
+    return RankTable(idx, lens)
+
+
+def max_sequence_len(rank_table):
+    """Longest sequence length in the table (max_sequence_len_op.cc)."""
+    helper = LayerHelper("max_sequence_len")
+    out = helper.create_variable_for_type_inference(
+        "int64", shape=(1,), stop_gradient=True)
+    helper.append_op("max_sequence_len",
+                     {"RankLen": [rank_table.rank_len]}, {"Out": [out]}, {})
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """Gather rows into rank order (reorder_lod_tensor_by_rank_op.cc)."""
+    from .nn import seq_len_var, _alias_len
+
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    ins = {"X": [x], "RankIdx": [rank_table.rank_idx]}
+    outs = {"Out": [out]}
+    sl = seq_len_var(x)
+    if sl is not None:
+        new_len = helper.create_variable_for_type_inference(
+            "int64", shape=(x.shape[0],), stop_gradient=True)
+        ins["SeqLen"] = [sl]
+        outs["OutLen"] = [new_len]
+    helper.append_op("reorder_lod_tensor_by_rank", ins, outs, {})
+    if sl is not None:
+        _alias_len(out, new_len)
+    return out
+
+
+def lod_tensor_to_array(x, table):
+    """[B,T,...] -> TensorArray [T,B,...] in rank order
+    (lod_tensor_to_array_op.cc; the array is full-batch per step, see
+    ops/array_ops.py)."""
+    helper = LayerHelper("lod_tensor_to_array")
+    T = x.shape[1]
+    arr = helper.create_variable_for_type_inference(
+        x.dtype, shape=(T, x.shape[0]) + tuple(x.shape[2:]))
+    ln = arr.block.create_var(name=arr.name + "@ALEN", dtype="int64",
+                              shape=(1,))
+    helper.append_op("lod_tensor_to_array",
+                     {"X": [x], "RankIdx": [table.rank_idx]},
+                     {"Out": [arr], "LenOut": [ln]}, {})
+    return arr
+
+
+def array_to_lod_tensor(x, table):
+    """Inverse of lod_tensor_to_array (array_to_lod_tensor_op.cc)."""
+    from .nn import _alias_len
+
+    helper = LayerHelper("array_to_lod_tensor")
+    out = helper.create_variable_for_type_inference(
+        x.dtype, shape=(x.shape[1], x.shape[0]) + tuple(x.shape[2:]))
+    out_len = helper.create_variable_for_type_inference(
+        "int64", shape=(x.shape[1],), stop_gradient=True)
+    helper.append_op("array_to_lod_tensor",
+                     {"X": [x], "RankIdx": [table.rank_idx],
+                      "RankLen": [table.rank_len]},
+                     {"Out": [out], "OutLen": [out_len]}, {})
+    _alias_len(out, out_len)  # lengths restored to original row order
+    return out
+
+
+def shrink_memory(x, i, table):
+    """Zero memory rows of finished sequences at step i
+    (shrink_rnn_memory_op.cc; masked instead of sliced: static shapes)."""
+    helper = LayerHelper("shrink_rnn_memory")
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op("shrink_rnn_memory",
+                     {"X": [x], "I": [i], "RankLen": [table.rank_len]},
+                     {"Out": [out]}, {})
+    return out
+
+
+def split_lod_tensor(input, mask, level=0):
+    """Route rows by boolean mask into (true, false) full-batch tensors
+    with unselected rows zeroed (split_lod_tensor_op.cc redesign)."""
+    helper = LayerHelper("split_lod_tensor")
+    out_true = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape)
+    out_false = helper.create_variable_for_type_inference(
+        input.dtype, shape=input.shape)
+    helper.append_op("split_lod_tensor",
+                     {"X": [input], "Mask": [mask]},
+                     {"OutTrue": [out_true], "OutFalse": [out_false]}, {})
+    return out_true, out_false
+
+
+def merge_lod_tensor(in_true, in_false, x, mask, level=0):
+    """Row-wise select (merge_lod_tensor_op.cc)."""
+    helper = LayerHelper("merge_lod_tensor")
+    out = helper.create_variable_for_type_inference(
+        in_true.dtype, shape=in_true.shape)
+    helper.append_op("merge_lod_tensor",
+                     {"InTrue": [in_true], "InFalse": [in_false],
+                      "Mask": [mask], "X": [x]},
+                     {"Out": [out]}, {})
+    return out
+
+
+class IfElse:
+    """Row-wise if-else (reference layers/control_flow.py IfElse).
+
+    The reference's redesign, copied: the reference splits the batch by
+    ``cond`` and runs each block on its subset; here both blocks run on
+    the full batch (unselected rows zeroed by split_lod_tensor) and the
+    outputs merge row-wise, with static shapes.  Contract unchanged for
+    row-wise blocks (each output row depends only on its input row).
+
+    Usage matches the reference::
+
+        ie = fluid.layers.IfElse(cond)      # cond: [B, 1] bool
+        with ie.true_block():
+            d = ie.input(x)
+            ie.output(some_layers(d))
+        with ie.false_block():
+            d = ie.input(x)
+            ie.output(other_layers(d))
+        out, = ie()
+    """
+
+    OUT, IN_TRUE, IN_FALSE = 0, 1, 2
+
+    def __init__(self, cond, name=None):
+        self.cond = cond
+        self.status = self.OUT
+        self._splits = {}     # input name -> (true_masked, false_masked)
+        self._outputs = {self.IN_TRUE: [], self.IN_FALSE: []}
+
+    def _guard(self, status):
+        import contextlib
+
+        @contextlib.contextmanager
+        def guard():
+            if self.status != self.OUT:
+                raise ValueError("cannot nest IfElse blocks")
+            self.status = status
+            try:
+                yield
+            finally:
+                self.status = self.OUT
+        return guard()
+
+    def true_block(self):
+        return self._guard(self.IN_TRUE)
+
+    def false_block(self):
+        return self._guard(self.IN_FALSE)
+
+    def input(self, x):
+        if self.status == self.OUT:
+            raise ValueError("IfElse.input() must be called inside a block")
+        if x.name not in self._splits:
+            self._splits[x.name] = split_lod_tensor(x, self.cond)
+        t, f = self._splits[x.name]
+        return t if self.status == self.IN_TRUE else f
+
+    def output(self, *outs):
+        if self.status == self.OUT:
+            raise ValueError("IfElse.output() must be called inside a block")
+        self._outputs[self.status].extend(outs)
+
+    def __call__(self):
+        t_outs = self._outputs[self.IN_TRUE]
+        f_outs = self._outputs[self.IN_FALSE]
+        if len(t_outs) != len(f_outs):
+            raise ValueError(
+                f"IfElse blocks produced {len(t_outs)} vs {len(f_outs)} "
+                "outputs; both blocks must ie.output() the same arity")
+        return [merge_lod_tensor(t, f, t, self.cond)
+                for t, f in zip(t_outs, f_outs)]
+
+
+__all__ = ["BeamDecodeResult", "ConditionalBlock", "DynamicRNN", "IfElse",
+           "RankTable", "StaticRNN", "Switch", "While", "array_length",
+           "array_read", "array_to_lod_tensor", "array_write",
+           "beam_search", "beam_search_decode", "create_array", "less_than",
+           "lod_rank_table", "lod_tensor_to_array", "max_sequence_len",
+           "merge_lod_tensor", "reorder_lod_tensor_by_rank", "shrink_memory",
+           "split_lod_tensor"]

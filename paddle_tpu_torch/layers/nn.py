@@ -461,6 +461,17 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out_shape = tuple(x.shape[:x_num_col_dims]) + tuple(y.shape[y_num_col_dims:])
+    out = helper.create_variable_for_type_inference(x.dtype, shape=out_shape)
+    helper.append_op(
+        "mul", {"X": [x], "Y": [y]}, {"Out": [out]},
+        {"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims},
+    )
+    return out
+
+
 def _tile_rows(x, times):
     """[B, ...] -> [B*times, ...] repeating each row (beam fan-out;
     shared by models/machine_translation.py and contrib/decoder.py)."""
@@ -716,6 +727,7 @@ __all__ = [
     "log",
     "matmul",
     "mean",
+    "mul",
     "pool2d",
     "reduce_sum",
     "relu",

@@ -1,12 +1,24 @@
 """Tensor creation/assignment layers: the part of
-``paddle_tpu/layers/tensor.py`` the Transformer and machine translation
-use, copied unchanged."""
+``paddle_tpu/layers/tensor.py`` the Transformer, machine translation
+and the control-flow programs use, copied unchanged."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..core.program import Variable
 from ..layer_helper import LayerHelper
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """Standalone trainable parameter (reference layers/tensor.py
+    create_parameter)."""
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
@@ -73,5 +85,5 @@ def increment(x, value=1.0, in_place=True):
     return out
 
 
-__all__ = ["assign", "cast", "fill_constant", "fill_constant_batch_size_like",
+__all__ = ["assign", "cast", "create_parameter", "fill_constant", "fill_constant_batch_size_like",
            "increment", "ones", "zeros"]

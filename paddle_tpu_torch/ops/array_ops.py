@@ -1,8 +1,11 @@
 """TensorArray and beam-search op rules: the dynamic-decode toolkit.
 
-The port of ``paddle_tpu/ops/array_ops.py`` (``array_write``,
-``array_read``, ``beam_search``, ``beam_search_decode``; the LoD
-rank-table ops of the same file are not ported yet).
+The port of ``paddle_tpu/ops/array_ops.py``: ``array_write``,
+``array_read``, ``beam_search``, ``beam_search_decode`` and the LoD
+rank-table ops (``lod_rank_table``, ``max_sequence_len``,
+``reorder_lod_tensor_by_rank``, ``lod_tensor_to_array``,
+``array_to_lod_tensor``, ``shrink_rnn_memory``, ``split_lod_tensor``,
+``merge_lod_tensor``, ``lod_array_length``) on the padded contract.
 
 A TensorArray is a preallocated ``[max_len, ...]`` tensor plus an int64
 ``@ALEN`` length, as in the reference.  ``array_write`` writes out of
@@ -145,3 +148,103 @@ def _beam_search_decode(ctx, ins, attrs):
     if scores is not None:
         out["SentenceScores"] = [sent_scores]
     return out
+
+
+# ---------------------------------------------------------------------------
+# LoD rank-table machinery (lod_rank_table_op.cc, lod_tensor_to_array_op.cc,
+# array_to_lod_tensor_op.cc, shrink_rnn_memory_op.cc,
+# reorder_lod_tensor_by_rank_op.cc, max_sequence_len_op.cc,
+# split_lod_tensor / merge_lod_tensor) on the padded contract, as the
+# reference redesigned them.  A rank table is two [B] vectors: the
+# sequence indices sorted stably by descending length, and the lengths in
+# that order.  Every rule keeps the full batch and masks instead of
+# slicing, so no rule reads a length back to the host.
+# ---------------------------------------------------------------------------
+
+def _rows_mask(mask, like):
+    """A [B] bool mask shaped to broadcast over ``like``'s rows."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+@register("lod_rank_table", no_grad_slots=("SeqLen",))
+def _lod_rank_table(ctx, ins, attrs):
+    seq_len = ins["SeqLen"][0].long()
+    # stable: ties keep their original order (lod_rank_table_op.cc)
+    order = torch.argsort(-seq_len, stable=True)
+    return {"RankIdx": [order], "RankLen": [seq_len[order]]}
+
+
+@register("max_sequence_len", no_grad_slots=("RankLen",))
+def _max_sequence_len(ctx, ins, attrs):
+    return {"Out": [ins["RankLen"][0][:1]]}
+
+
+@register("reorder_lod_tensor_by_rank", no_grad_slots=("RankIdx", "SeqLen"))
+def _reorder_by_rank(ctx, ins, attrs):
+    idx = ins["RankIdx"][0].long()
+    out = {"Out": [ins["X"][0].index_select(0, idx)]}
+    if ins.get("SeqLen"):
+        out["OutLen"] = [ins["SeqLen"][0].index_select(0, idx)]
+    return out
+
+
+@register("lod_tensor_to_array", no_grad_slots=("RankIdx",))
+def _lod_tensor_to_array(ctx, ins, attrs):
+    """[B, T, ...] -> TensorArray [T, B, ...] with the sequences in rank
+    order.  The reference's batch shrinks as sequences end; the padded
+    form keeps the full batch (shrink_rnn_memory masks)."""
+    x = ins["X"][0]
+    arr = x.index_select(0, ins["RankIdx"][0].long()).transpose(0, 1)
+    return {"Out": [arr],
+            "LenOut": [torch.full((1,), arr.shape[0], dtype=torch.int64,
+                                  device=x.device)]}
+
+
+@register("array_to_lod_tensor", no_grad_slots=("RankIdx", "RankLen"))
+def _array_to_lod_tensor(ctx, ins, attrs):
+    """The inverse: rows back to their original order, and the lengths
+    with them (array_to_lod_tensor_op.cc restores the original LoD)."""
+    idx = ins["RankIdx"][0].long()
+    inv = torch.empty_like(idx).scatter_(
+        0, idx, torch.arange(idx.shape[0], device=idx.device))
+    out = {"Out": [ins["X"][0].transpose(0, 1).index_select(0, inv)]}
+    if ins.get("RankLen"):
+        out["OutLen"] = [ins["RankLen"][0].index_select(0, inv)]
+    return out
+
+
+@register("shrink_rnn_memory", no_grad_slots=("I", "RankLen"))
+def _shrink_rnn_memory(ctx, ins, attrs):
+    """At step i keep the memory rows of the sequences still running
+    (rank-ordered rows 0..n_active) and zero the rest."""
+    x = ins["X"][0]
+    active = (ins["RankLen"][0] > ins["I"][0].reshape(())).sum()
+    keep = torch.arange(x.shape[0], device=x.device) < active
+    return {"Out": [torch.where(_rows_mask(keep, x), x,
+                                torch.zeros((), dtype=x.dtype,
+                                            device=x.device))]}
+
+
+@register("split_lod_tensor", no_grad_slots=("Mask",))
+def _split_lod_tensor(ctx, ins, attrs):
+    """Route rows by a boolean mask: both outputs keep the full batch,
+    the rows the other side takes zeroed (the IfElse contract)."""
+    x = ins["X"][0]
+    m = _rows_mask(ins["Mask"][0].reshape(-1).to(torch.bool), x)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return {"OutTrue": [torch.where(m, x, zero)],
+            "OutFalse": [torch.where(m, zero, x)]}
+
+
+@register("merge_lod_tensor", no_grad_slots=("Mask",))
+def _merge_lod_tensor(ctx, ins, attrs):
+    """out[i] = in_true[i] where mask[i] else in_false[i]."""
+    t, f = ins["InTrue"][0], ins["InFalse"][0]
+    m = _rows_mask(ins["Mask"][0].reshape(-1).to(torch.bool), t)
+    return {"Out": [torch.where(m, t, f)]}
+
+
+@register("lod_array_length", no_grad_slots=("ArrayLen",))
+def _lod_array_length(ctx, ins, attrs):
+    """The written-slot count of a TensorArray."""
+    return {"Out": [ins["ArrayLen"][0].reshape(1).long()]}

@@ -1,31 +1,40 @@
 """Control-flow op rules: ``static_rnn`` (and ``dynamic_rnn``, its
-length-masked form) and ``while`` over a sub-block.
+length-masked form), ``while`` and ``conditional_block`` over a
+sub-block.
 
 The port of ``paddle_tpu/ops/control_flow_ops.py``.  The reference
-lowers a sub-block to ``lax.scan`` and differentiates the scan with
-``jax.vjp``.  The port has no trace: it runs the sub-block step by step
-through its ops' rules (``core/lowering.py: run_block``), in an
-environment that keeps autograd's graph, so the steps chain into one
-graph.  The gradient follows the interpreter's tape design: the
-executor runs ``static_rnn`` under autograd on leaf copies of the float
-``X``, ``Init`` and ``Captured`` inputs its grad op asks for, and
-``static_rnn_grad`` calls ``torch.autograd.grad`` on that tape; nothing
-is run twice.
+lowers a sub-block to ``lax.scan``/``lax.while_loop``/``lax.cond`` and
+differentiates it with ``jax.vjp``.  The port has no trace: it runs the
+sub-block through its ops' rules (``core/lowering.py: run_block``), in
+an environment that keeps autograd's graph, so the steps chain into one
+graph.  The gradients follow the interpreter's tape design: the
+executor runs the forward op under autograd on leaf copies of the float
+inputs its grad op asks for (``X``, ``Init`` and ``Captured`` for
+``static_rnn``; the float carries ``X`` and the captured vars
+``Captured`` for ``while`` and ``conditional_block``), and the grad op
+(``static_rnn_grad``, ``while_grad``, ``conditional_block_grad``) calls
+``torch.autograd.grad`` on that tape; nothing is run twice.  At the
+forward op's position a carry's input is the value its ``@INIT``
+snapshot copies (the layers emit the ``assign`` just before the op), so
+the leaves are the reference's primal inputs (``_carry_inits``).
 
 The handlers see program variables by name, as the reference's do:
 ``CONTROL_FLOW_OPS[type](program, op, env)`` returns the op's rule
 ``(ctx, ins, attrs) -> outs`` over its slot values, and the rule may
 write names outside the op's output slots into ``env`` (a memory's
-final value, ``<mem>@LAST``).
+final value, ``<mem>@LAST``; the loop condition's final value).
 
-``while`` runs in its inference form (the reference's
-``lax.while_loop``): the sub-block runs through ``run_block`` until the
-condition var is false, with ``max_iters``, when set, a hard cap.  The
-condition is read on the host once an iteration, one device sync a
-step.  Its training form (``max_iters`` under a training context: the
-reference's masked scan, with ``while_grad``) and ``conditional_block``
-are registered, so that ``append_backward`` builds their grad ops as the
-reference does, but running either raises ``NotImplementedError``.
+``while`` has two forms, as in the reference.  Under a training context
+with ``max_iters`` set it is the reference's masked scan: exactly
+``max_iters`` iterations, each carry and the condition selected with
+``torch.where`` on the device condition, so the loop makes no host read
+and a NaN or Inf made in a masked iteration is dropped as ``jnp.where``
+drops it; forward and gradient truncate together at the bound.
+Otherwise (inference, or no bound) the sub-block runs while the
+condition holds, read on the host once an iteration, with ``max_iters``,
+when set, a hard cap.  ``conditional_block`` reads its condition on the
+host once and runs the sub-block only when it holds; the carries keep
+their prior values otherwise.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from typing import Dict
 
 import torch
 
-from ..core.registry import register, register_grad
+from ..core.registry import register
 
 
 def _never(ctx, ins, attrs):  # pragma: no cover
@@ -45,13 +54,6 @@ register("static_rnn", no_grad_slots=())(_never)
 register("dynamic_rnn", no_grad_slots=("SeqLen",))(_never)
 register("while", no_grad_slots=("Condition", "Init"))(_never)
 register("conditional_block", no_grad_slots=("Condition", "Init"))(_never)
-
-
-@register_grad("while")
-def _while_grad(ctx, ins, attrs):
-    raise NotImplementedError(
-        "while_grad (the reference's vjp over its masked scan) is not "
-        "ported yet (ROADMAP queue 1 item 4)")
 
 
 def _mask_to(active, new, old):
@@ -110,11 +112,12 @@ def lower_while(program, op, env: Dict):
     """while (while_op.cc:36; the reference's ``lower_while``).  attrs:
     sub_block, carry_vars (the condition var first), captured_vars,
     max_iters.  Binds the captured vars, the condition and the carries,
-    then repeats the sub-block, which must reassign the condition var,
-    while that var holds and fewer than ``max_iters`` (when set)
-    iterations have run.  The carries' final values are the op's Out;
-    the condition's final value is written to ``env`` by name, as the
-    reference's handler does."""
+    then runs the sub-block, which must reassign the condition var:
+    under a training context with ``max_iters``, as the masked scan
+    (module doc); otherwise while the condition holds and fewer than
+    ``max_iters`` (when set) iterations have run.  The carries' final
+    values are the op's Out; the condition's final value is written to
+    ``env`` by name, as the reference's handler does."""
     from ..core.lowering import run_block
 
     sub = program.blocks[op.attr("sub_block")]
@@ -123,42 +126,80 @@ def lower_while(program, op, env: Dict):
     captured = op.input("Captured")
     max_iters = int(op.attr("max_iters", 0) or 0)
 
+    def body(ctx, cond, carry, outer):
+        benv = dict(outer)
+        benv[cond_name] = cond
+        benv.update(zip(carry_names, carry))
+        run_block(ctx, program, sub, benv)
+        return benv[cond_name], [benv[n] for n in carry_names]
+
     def rule(ctx, ins, attrs):
-        if max_iters and ctx.training:
+        if not max_iters and torch.is_grad_enabled():
+            # a tape asks for while_grad (reference lower_while_grad)
             raise NotImplementedError(
-                "the training form of the 'while' op (max_iters under a "
-                "training executor: the reference's masked scan, and "
-                "while_grad) is not ported yet (ROADMAP queue 1 item 4); "
-                "an inference executor runs the loop")
-        benv = dict(zip(captured, ins.get("Captured", [])))
-        benv[cond_name] = ins["Condition"][0]
-        benv.update(zip(carry_names, ins.get("X", [])))
-        n = 0
-        while (not max_iters or n < max_iters) \
-                and bool(benv[cond_name].reshape(())):
-            run_block(ctx, program, sub, benv)
-            n += 1
-        env[cond_name] = benv[cond_name]
-        return {"Out": [benv[c] for c in carry_names]}
+                "gradient of While requires max_iters (a static trip-count "
+                "bound): While(cond, max_iters=N)")
+        outer = dict(zip(captured, ins.get("Captured", [])))
+        cond = ins["Condition"][0]
+        carry = list(ins.get("X", []))
+        if max_iters and ctx.training:
+            for _ in range(max_iters):
+                new_cond, new = body(ctx, cond, carry, outer)
+                active = cond.reshape(()).to(torch.bool)
+                carry = [torch.where(active, n.to(c.dtype), c)
+                         for n, c in zip(new, carry)]
+                cond = torch.where(active, new_cond.to(cond.dtype), cond)
+        else:
+            n = 0
+            while (not max_iters or n < max_iters) \
+                    and bool(cond.reshape(())):
+                cond, carry = body(ctx, cond, carry, outer)
+                n += 1
+        env[cond_name] = cond
+        return {"Out": carry}
 
     return rule
 
 
-def _not_ported(program, op, env: Dict):
+def lower_conditional_block(program, op, env: Dict):
+    """conditional_block (conditional_block_op.cc; the reference's
+    ``lower_conditional_block``).  attrs: sub_block, carry_vars,
+    captured_vars.  The scalar condition is read on the host; when it
+    holds the sub-block runs on the captured vars and the carries and
+    the carries' new values are the op's Out, else the carries keep
+    their prior values."""
+    from ..core.lowering import run_block
+
+    sub = program.blocks[op.attr("sub_block")]
+    carry_names = list(op.attr("carry_vars"))
+    captured = op.input("Captured")
+    for n in carry_names:
+        if n not in env:
+            raise RuntimeError(
+                f"conditional_block carry {n!r} has no prior value; "
+                f"initialize it before the block (layers.fill_constant)")
+
     def rule(ctx, ins, attrs):
-        raise NotImplementedError(
-            f"the {op.type!r} op is not ported yet (ROADMAP queue 1 "
-            f"item 4)")
+        carry = list(ins.get("X", []))
+        if not bool(ins["Condition"][0].reshape(())):
+            return {"Out": carry}
+        benv = dict(zip(captured, ins.get("Captured", [])))
+        benv.update(zip(carry_names, carry))
+        run_block(ctx, program, sub, benv)
+        return {"Out": [benv[n] for n in carry_names]}
+
     return rule
 
 
-# forward handlers; a grad op of these types (static_rnn_grad, ...) is
-# served from its forward's tape (core/lowering.py)
+# forward handlers; a grad op of these types (static_rnn_grad,
+# while_grad, conditional_block_grad) is served from its forward's tape
+# (core/lowering.py)
 CONTROL_FLOW_OPS = {
     "static_rnn": lower_static_rnn,
     "dynamic_rnn": lower_static_rnn,
     "while": lower_while,
-    "conditional_block": _not_ported,
+    "conditional_block": lower_conditional_block,
 }
 
-__all__ = ["CONTROL_FLOW_OPS", "lower_static_rnn", "lower_while"]
+__all__ = ["CONTROL_FLOW_OPS", "lower_conditional_block", "lower_static_rnn",
+           "lower_while"]

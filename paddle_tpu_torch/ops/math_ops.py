@@ -1,6 +1,7 @@
 """Math op rules: elementwise (with axis-broadcast), relu, sigmoid,
 tanh, gelu, log, square, pow, softmax, reductions, ``mul``, ``matmul``,
-``scale``, ``sum``, ``cast``, ``mean``, ``less_than``.
+``scale``, ``sum``, ``cast``, ``mean``, the comparisons and the logical
+ops.
 
 The port of the part of ``paddle_tpu/ops/math_ops.py`` that the
 Transformer's, the stacked LSTM's, DeepFM's and machine translation's
@@ -192,11 +193,19 @@ def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
 
 
-@register("less_than", no_grad_slots=("X", "Y"))
-def _less_than(ctx, ins, attrs):
-    """compare_op.cc: ``X < Y`` with Y axis-broadcast, a bool tensor."""
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [torch.lt(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+# compare_op.cc / logical_op.cc: bool results, Y axis-broadcast
+for _name, _fn in (("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("equal", torch.eq), ("not_equal", torch.ne),
+                   ("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    register(_name, no_grad_slots=("X", "Y"))(_ew(_fn))
+
+
+@register("logical_not", no_grad_slots=("X",))
+def _logical_not(ctx, ins, attrs):
+    return {"Out": [torch.logical_not(ins["X"][0])]}
 
 
 @register_grad("cast")

@@ -130,6 +130,38 @@ def _gather(ctx, ins, attrs):
                                 + tuple(x.shape[axis + 1:]))]}
 
 
+@register_grad("gather")
+def _gather_grad(ctx, ins, attrs):
+    """X-grad of the gather (``jnp.take``'s vjp): the cotangent's slices
+    added into a zero X at their indices.  ``index_put_(accumulate=True)``
+    sums the duplicates of an index in their order on every device and
+    the same in every run (on the card ``index_add_`` would add with
+    atomics in no fixed order)."""
+    x, g = ins["X"][0], ins["Out@GRAD"][0]
+    axis = attrs.get("axis", 0) % x.dim()
+    idx = ins["Index"][0].reshape(-1).long()
+    g = g.reshape(tuple(x.shape[:axis]) + (idx.numel(),)
+                  + tuple(x.shape[axis + 1:])).movedim(axis, 0).to(x.dtype)
+    dx = torch.zeros((x.shape[axis],) + tuple(g.shape[1:]), dtype=x.dtype,
+                     device=x.device)
+    dx.index_put_((idx,), g, accumulate=True)
+    return {"X@GRAD": [dx.movedim(0, axis)]}
+
+
+@register_grad("expand")
+def _expand_grad(ctx, ins, attrs):
+    """X-grad of the tile: the cotangent summed over the copies of each
+    axis (``jnp.tile``'s vjp)."""
+    x, g = ins["X"][0], ins["Out@GRAD"][0]
+    times = tuple(attrs["expand_times"])
+    n = max(x.dim(), len(times))
+    reps = (1,) * (n - len(times)) + times
+    shape = (1,) * (n - x.dim()) + tuple(x.shape)
+    g = g.reshape([v for r, d in zip(reps, shape) for v in (r, d)])
+    return {"X@GRAD": [g.sum(dim=tuple(range(0, 2 * n, 2)))
+                       .reshape(x.shape).to(x.dtype)]}
+
+
 @register("concat")
 def _concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}

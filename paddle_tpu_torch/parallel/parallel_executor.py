@@ -172,7 +172,10 @@ class ParallelExecutor(Executor):
 
     # -- public API (reference parallel_executor.py:169 signature) ---------
     def run(self, fetch_list=None, feed=None, feed_dict=None,
-            return_numpy: bool = True, program=None, scope=None, **kwargs):
+            return_numpy: bool = True, program=None, scope=None,
+            sync: bool = False, **kwargs):
+        """One step (``Executor.run``); ``sync`` as there: numpy fetches
+        with it, deferred fetches (``LazyFetch``) without."""
         feed = feed if feed is not None else (feed_dict or {})
         if program is None:
             # the padding policy belongs to the configured program
@@ -183,7 +186,7 @@ class ParallelExecutor(Executor):
             program=program if program is not None else self._program,
             feed=feed, fetch_list=fetch_list,
             scope=scope if scope is not None else self._scope,
-            return_numpy=return_numpy)
+            return_numpy=return_numpy, sync=sync)
         if true_batch is not None:
             # cut padding rows only from batch-aligned fetches: a var whose
             # declared leading dim is the batch (-1); a weight that happens

@@ -52,6 +52,8 @@ PROGRAM_MODULES = [
     "io.py", "inference/passes.py", "inference/predictor.py",
     "serving/batcher.py", "serving/model_registry.py",
     "parallel/strategy.py", "parallel/parallel_executor.py",
+    "lod_tensor.py", "data_feeder.py", "ops/array_ops.py",
+    "contrib/decoder.py",
 ]
 
 
