@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 14, 15, 6 (each one that fails raises, and the script
+13a in bfloat16, 14, 15, 16, 6 (each one that fails raises, and the script
 exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -376,6 +376,34 @@ exits non-zero; each phase's header gives its start in seconds):
    batch (loss finite and falling; step ms and peak memory printed).
    15c: ``conditional_block`` with the flag 1 and 0, and ``IfElse`` on
    each row's sign: forward and gradients, card against CPU.
+16. The book models (``models/book.py``) and the op rules they brought.
+   16a: each of the 24 new op types (the 18 sequence ops, ``warpctc``,
+   ``ctc_align``, ``linear_chain_crf``, ``crf_decoding``, ``cos_sim``,
+   ``arg_max``) and the 7 nested (``SeqLen2``) forms on the card and on
+   the CPU from the same seeded inputs, forward and the gradient of
+   sum(out * cot) through autograd: integer outputs exactly, float ones
+   within ``BOOK_OP_REL`` of max|ref|; no kernel launches.  16b: the five
+   book cases, 5 SGD steps each on the card and on the CPU from the
+   CPU startup's values: fit_a_line, word2vec dense and sparse (four
+   lookups of one table: four ``SelectedRows`` into ``sum``) and the
+   recommender at ``book.py``'s default widths, losses within
+   ``BOOK_LOSS_RTOL`` and no hand-written kernel launched; SRL at the
+   book's width (word_dim 32, hidden_dim 512 so H=128, depth 8, B=10,
+   ragged lengths up to T=64, CoNLL-05's vocabularies): K6 and K7
+   exactly 8 launches a step each (the eligibility gate must pass; no
+   scan), each LSTM op and grad of the first step replayed on CPU copies
+   of its own inputs at phase 7's gates (``K6_FWD_ATOL``,
+   ``K7_GRAD_REL``), losses and the CRF transition within 1e-4, the
+   LSTM weights after the steps within ``K7_GRAD_REL`` of max|ref|, the
+   frozen ``emb`` table unchanged.  Each case prints its wall median a
+   step (``sync=True``), a profiled step's busy time and idle share,
+   its synchronizing calls a step and its peak memory.  Then K6 and K7
+   at SRL's shape against their plain versions, by device time beside
+   their bounds and cuDNN's LSTM, and ``linear_chain_crf`` forward +
+   backward's device time there.  Alone: ``python3 -c "import
+   chip_smoke as c; from paddle_tpu_torch.kernels import _build; from
+   paddle_tpu_torch.platform import get_device; _build.build_all();
+   c.run_book(get_device(), c.nvidia_smi_line())"``.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -386,7 +414,10 @@ exits non-zero; each phase's header gives its start in seconds):
    the bfloat16 ring's).  The bfloat16 K1-K3 rows' launches are those
    of 13a's bfloat16 ring (a ring op's 4 each).  The float32 K1-K3 rows
    add their launches in phase 14's 24-step ``run_steps``
-   (``run_steps_launches``, 432 each).
+   (``run_steps_launches``, 432 each); K6 and K7 add their launches a
+   step of SRL (``srl_launches``, 8) and their device times at SRL's
+   shape beside its bound and cuDNN's (``srl_ms``, ``srl_bound_ms``,
+   ``srl_library_ms``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -673,6 +704,26 @@ CF_GRAD_TOL = (1e-4, 1e-6)     # rtol, atol
 DEC = dict(vocab=10000, emb=256, hid=256, T=32)
 DEC_PARITY_B, DEC_B, DEC_STEPS = 8, 64, 12
 RING_TRAIN_B, RING_TRAIN_STEPS = 2, 4
+# phase 16: the book models.  16a: each new op type's rule on the card
+# against the same rule on the CPU: float outputs and gradients within
+# 1e-5 of max|ref| (the card's own float32 reductions and atomics),
+# integer outputs exactly
+BOOK_OP_REL = 1e-5
+BOOK_STEPS = 5
+BOOK_LOSS_RTOL = 1e-4          # every step's loss, card vs CPU, relative
+SRL_CRF_RTOL = 1e-4            # SRL's CRF transition after the steps
+# label_semantic_roles at the book's width: CoNLL-05's vocabularies as the
+# book's chapter gives them (they set only the tables' rows), the book's
+# batch of 10, sentences up to 64 words
+SRL_WORD_DICT = 44068
+SRL_PRED_DICT = 3162
+SRL_LABEL_DICT = 59
+SRL_MARK_DICT = 2
+SRL_B, SRL_T = 10, 64
+SRL_SHORTEST = 8               # ragged batches keep 8..SRL_T words a row
+SRL = dict(word_dict=SRL_WORD_DICT, pred_dict=SRL_PRED_DICT,
+           mark_dict=SRL_MARK_DICT, label_dict=SRL_LABEL_DICT,
+           max_len=SRL_T, word_dim=32, hidden_dim=512, depth=8, lr=0.01)
 
 
 def log(*a) -> None:
@@ -4374,24 +4425,26 @@ def run_int8_serving(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def captured_inputs(op_type: str, store: list):
-    """Copy the inputs of the first call of ``op_type``'s rule into
-    ``store`` while the block runs (the rule itself runs unchanged)."""
+def captured_inputs(op_type: str, store: list, grad: bool = False):
+    """Copy the inputs of every call of ``op_type``'s rule (its explicit
+    grad rule with ``grad``) into ``store`` while the block runs, in
+    call order (the rule itself runs unchanged)."""
     from paddle_tpu_torch.core import registry
     opdef = registry.get(op_type)
-    rule = opdef.lower
+    attr = "grad" if grad else "lower"
+    rule = getattr(opdef, attr)
 
     def capture(ctx, ins, attrs):
-        if not store:
-            store.append(({s: [v.clone() for v in vs] for s, vs in
-                           ins.items()}, dict(attrs)))
+        store.append(({s: [None if v is None else v.detach().clone()
+                           for v in vs]
+                       for s, vs in ins.items()}, dict(attrs)))
         return rule(ctx, ins, attrs)
 
-    opdef.lower = capture
+    setattr(opdef, attr, capture)
     try:
         yield
     finally:
-        opdef.lower = rule
+        setattr(opdef, attr, rule)
 
 
 def rule_card_vs_cpu(op_type: str, ins: dict, attrs: dict) -> list:
@@ -6409,6 +6462,518 @@ def run_control_flow(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the book models and their op rules
+# ---------------------------------------------------------------------------
+
+def book_op_cases() -> dict:
+    """Phase 16a's cases: name -> (op type, {slot: [numpy arrays]},
+    attrs, [(slot, j) float inputs to differentiate]).  Each of the 24
+    op types the book models brought (18 sequence ops, the 4 CTC/CRF
+    ops, cos_sim, arg_max) and the 7 nested forms, at the book paths'
+    widths: sequences B=16, T=64, D=32; the CRF at SRL's B=10, T=64, 59
+    tags; cos_sim at the recommender's 200-wide towers."""
+    rs = np.random.RandomState(16)
+
+    def f(*shape):
+        return rs.randn(*shape).astype("float32")
+
+    def i(lo, hi, *shape):
+        return rs.randint(lo, hi, shape).astype("int64")
+
+    B, T, D = 16, 64, 32
+    lens = i(1, T + 1, B)
+    lens[:2] = (T, 0)                       # a full row and an empty one
+    lens2 = i(0, 9, 4, 6)                   # nested [B=4, S=6], W=8
+    C, L = 32, 16
+    ctc_logit_len = i(L + 1, T + 1, 8)
+    ctc_logit_len[0] = T
+    crf_lens = i(4, SRL_T + 1, SRL_B)
+    crf_lens[0] = SRL_T
+    cases = {
+        "sequence_softmax": ("sequence_softmax",
+                             {"X": [f(B, T)], "SeqLen": [lens]}, {},
+                             [("X", 0)]),
+        "sequence_expand": ("sequence_expand", {"X": [f(B, D)],
+                                                "Y": [f(B, T, D)]}, {},
+                            [("X", 0)]),
+        "sequence_reverse": ("sequence_reverse", {"X": [f(B, T, D)],
+                                                  "SeqLen": [lens]}, {},
+                             [("X", 0)]),
+        "sequence_concat": ("sequence_concat", {"X": [f(B, T, D),
+                                                      f(B, 16, D)]}, {},
+                            [("X", 0), ("X", 1)]),
+        "sequence_first_step": ("sequence_first_step", {"X": [f(B, T, D)]},
+                                {}, [("X", 0)]),
+        "sequence_conv": ("sequence_conv", {"X": [f(B, T, D)],
+                                            "Filter": [f(3 * D, D)],
+                                            "SeqLen": [lens]},
+                          {"contextLength": 3, "contextStart": -1,
+                           "contextStride": 1}, [("X", 0), ("Filter", 0)]),
+        "sequence_slice": ("sequence_slice", {
+            "X": [f(B, T, D)], "Offset": [i(0, T // 2, B, 1)],
+            "Length": [i(0, T // 2 + 1, B, 1)]}, {}, [("X", 0)]),
+        "sequence_erase": ("sequence_erase", {"X": [i(0, 6, B, T, 1)],
+                                              "SeqLen": [lens]},
+                           {"tokens": [0, 3]}, []),
+        "sequence_enumerate": ("sequence_enumerate", {"X": [i(0, 50, B, T)],
+                                                      "SeqLen": [lens]},
+                               {"win_size": 3, "pad_value": -1}, []),
+        "sequence_expand_as": ("sequence_expand_as", {
+            "X": [f(B, D)], "Y": [f(B, T, 8)], "SeqLen": [lens]}, {},
+            [("X", 0)]),
+        "sequence_pad": ("sequence_pad", {"X": [f(B, T, D)], "PadValue": [
+            np.array([-1.5], "float32")], "SeqLen": [lens]},
+            {"padded_length": T + 8}, [("X", 0)]),
+        "sequence_unpad": ("sequence_unpad", {"X": [f(B, T, D)],
+                                              "Length": [lens]}, {},
+                           [("X", 0)]),
+        "sequence_reshape": ("sequence_reshape", {"X": [f(B, T, D)],
+                                                  "SeqLen": [lens]},
+                             {"new_dim": 2 * D}, [("X", 0)]),
+        "row_conv": ("row_conv", {"X": [f(B, T, D)], "Filter": [f(4, D)],
+                                  "SeqLen": [lens]}, {},
+                     [("X", 0), ("Filter", 0)]),
+        "sequence_mask": ("sequence_mask", {"X": [lens]},
+                          {"maxlen": T, "out_dtype": "int64"}, []),
+        "im2sequence": ("im2sequence", {"X": [f(4, 3, 32, 32)]},
+                        {"kernels": [3, 3], "strides": [2, 2],
+                         "paddings": [1, 1, 2, 0]}, [("X", 0)]),
+        "sequence_scatter": ("sequence_scatter", {
+            "X": [f(B, 40, D)], "Ids": [i(0, 40, B, T)],
+            "Updates": [f(B, T, D)], "SeqLen": [lens]}, {},
+            [("X", 0), ("Updates", 0)]),
+        "lod_reset": ("lod_reset", {"X": [f(B, T, D)], "TargetLenTensor": [
+            i(0, T + 1, B)]}, {}, [("X", 0)]),
+        "warpctc": ("warpctc", {"Logits": [f(8, T, C)],
+                                "Label": [i(1, C, 8, L)],
+                                "LogitsLength": [ctc_logit_len],
+                                "LabelLength": [i(0, L + 1, 8)]},
+                    {"blank": 0}, [("Logits", 0)]),
+        "ctc_align": ("ctc_align", {"Input": [i(0, 5, B, T)],
+                                    "InputLength": [lens]},
+                      {"blank": 0, "merge_repeated": True}, []),
+        "linear_chain_crf": ("linear_chain_crf", {
+            "Emission": [f(SRL_B, SRL_T, SRL_LABEL_DICT)],
+            "Transition": [f(SRL_LABEL_DICT + 2, SRL_LABEL_DICT) * 0.5],
+            "Label": [i(0, SRL_LABEL_DICT, SRL_B, SRL_T, 1)],
+            "Length": [crf_lens]}, {},
+            [("Emission", 0), ("Transition", 0)]),
+        "crf_decoding": ("crf_decoding", {
+            "Emission": [f(SRL_B, SRL_T, SRL_LABEL_DICT)],
+            "Transition": [f(SRL_LABEL_DICT + 2, SRL_LABEL_DICT) * 0.5],
+            "Length": [crf_lens]}, {}, []),
+        "cos_sim": ("cos_sim", {"X": [f(32, 200)], "Y": [f(32, 200)]}, {},
+                    [("X", 0), ("Y", 0)]),
+        "arg_max": ("arg_max", {"X": [f(B, T, C)]}, {"axis": -1}, []),
+    }
+    for name, attrs in (("pool_sum", {"pooltype": "SUM"}),
+                        ("pool_max", {"pooltype": "MAX"}),
+                        ("softmax", {}), ("reverse", {}),
+                        ("first_step", {}), ("last_step", {}),
+                        ("pad", {"padded_length": 10}), ("unpad", {})):
+        op = ("sequence_pool" if name.startswith("pool")
+              else "sequence_" + name)
+        ins = {"X": [f(4, 6, 8) if name == "softmax" else f(4, 6, 8, D)],
+               "SeqLen2": [lens2]}
+        if name == "pad":
+            ins["PadValue"] = [np.array([0.5], "float32")]
+        if name == "unpad":
+            ins["Length"] = [lens2]
+        cases["nested_" + name] = (op, ins, attrs, [("X", 0)])
+    return cases
+
+
+def run_rule_with_grads(op, ins, attrs, wrt, device, cots) -> tuple:
+    """``op``'s rule on copies of ``ins`` on ``device``: its outputs and,
+    for the float inputs ``wrt``, the gradient of sum(out * cot) over
+    the float outputs (autograd through the rule), as host arrays."""
+    from paddle_tpu_torch.core import registry
+    tins = {k: [torch.from_numpy(np.array(a)).to(device) for a in v]
+            for k, v in ins.items()}
+    leaves = []
+    for slot, j in wrt:
+        tins[slot][j] = tins[slot][j].requires_grad_(True)
+        leaves.append(tins[slot][j])
+    with torch.enable_grad():
+        outs = registry.get(op).lower(None, tins, attrs)
+        got = {k: v[0].detach().cpu().numpy() for k, v in outs.items()}
+        if not leaves:
+            return got, []
+        loss = sum((outs[k][0].float() * torch.from_numpy(c).to(device))
+                   .sum() for k, c in cots.items())
+        grads = torch.autograd.grad(loss, leaves)
+    return got, [g.cpu().numpy() for g in grads]
+
+
+def check_book_ops(dev, card: str) -> dict:
+    """Phase 16a: every case of :func:`book_op_cases` on the card against
+    the same rule on the CPU from the same inputs, forward and gradient:
+    integer outputs exactly, float ones within ``BOOK_OP_REL`` of
+    max|ref|; no hand-written kernel launches."""
+    before = kernel_launches()
+    out, types = {}, set()
+    for name, (op, ins, attrs, wrt) in book_op_cases().items():
+        types.add(op)
+        host, _ = run_rule_with_grads(op, ins, attrs, [], "cpu", {})
+        rs = np.random.RandomState(17)
+        cots = {k: rs.randn(*v.shape).astype("float32")
+                for k, v in sorted(host.items())
+                if np.issubdtype(v.dtype, np.floating)}
+        host, hgrads = run_rule_with_grads(op, ins, attrs, wrt, "cpu", cots)
+        got, ggrads = run_rule_with_grads(op, ins, attrs, wrt, dev, cots)
+        errs = {}
+        pairs = [(s, got[s], host[s]) for s in sorted(host)] + [
+            (f"{s}[{j}]@GRAD", g, h)
+            for (s, j), g, h in zip(wrt, ggrads, hgrads)]
+        for slot, g, h in pairs:
+            if g.shape != h.shape or g.dtype != h.dtype:
+                raise AssertionError(f"16a {name} {slot}: card {g.dtype} "
+                                     f"{g.shape}, CPU {h.dtype} {h.shape}")
+            if not np.issubdtype(h.dtype, np.floating):
+                if not np.array_equal(g, h):
+                    raise AssertionError(f"16a {name} {slot}: integer "
+                                         f"outputs differ card vs CPU")
+                errs[slot] = 0
+                continue
+            d = float(np.abs(g.astype(np.float64) - h).max()) if h.size else 0.
+            scale = float(np.abs(h).max()) if h.size else 0.
+            if not (np.isfinite(g).all() and d <= BOOK_OP_REL * scale):
+                raise AssertionError(f"16a {name} {slot}: max|card - CPU| "
+                                     f"{d} > {BOOK_OP_REL} * max|ref| "
+                                     f"{scale}")
+            errs[slot] = d / scale if scale else 0.0
+        out[name] = {"op": op, "max_rel_err": max(errs.values()),
+                     "by_slot": errs}
+        log(f"  16a {name} ({op}): worst max|card - CPU| / max|ref| "
+            f"{out[name]['max_rel_err']!r} over {sorted(errs)}")
+    moved = {k: v - before[k] for k, v in kernel_launches().items()
+             if v != before[k]}
+    if moved:
+        raise AssertionError(f"phase 16a launched kernels: {moved}")
+    log(f"  16a [{card}]: {len(out)} cases of {len(types)} op types, card "
+        f"vs CPU within {BOOK_OP_REL} of max|ref|, integers exact")
+    return {"cases": out, "op_types": sorted(types)}
+
+
+BOOK_CASES = {  # name: (build function, kwargs, batch)
+    "fit_a_line": ("build_fit_a_line", {}, 64),
+    "word2vec": ("build_word2vec", {}, 64),
+    "word2vec_sparse": ("build_word2vec", {"is_sparse": True}, 64),
+    "recommender": ("build_recommender", {}, 32),
+    "label_semantic_roles": ("build_label_semantic_roles", SRL, SRL_B),
+}
+
+
+def build_book(case: str, seed: int = 3):
+    """The port's book program ``case`` (models/book.py): (main,
+    startup, loss, sorted parameter names)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import book
+    fn, kw, _ = BOOK_CASES[case]
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = seed
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = getattr(book, fn)(**kw)
+    return main, startup, loss, sorted(p.name for p in main.all_parameters())
+
+
+def book_feed(case: str, seed: int) -> dict:
+    """One seeded batch of ``case`` at the widths of models/book.py's
+    defaults (SRL: the book's vocabularies, ragged lengths
+    SRL_SHORTEST..SRL_T with one full row)."""
+    rs = np.random.RandomState(seed)
+    B = BOOK_CASES[case][2]
+
+    def ids(hi, *shape):
+        return rs.randint(0, hi, shape).astype("int64")
+
+    if case == "fit_a_line":
+        x = rs.randn(B, 13).astype("float32")
+        w = np.arange(1, 14, dtype="float32") / 13.0
+        return {"x": x, "y": (x @ w)[:, None].astype("float32")}
+    if case.startswith("word2vec"):
+        return {n: ids(2000, B, 1) for n in ("firstw", "secondw", "thirdw",
+                                             "forthw", "nextw")}
+    if case == "recommender":
+        return {"user_id": ids(100, B, 1), "gender_id": ids(2, B, 1),
+                "age_id": ids(7, B, 1), "job_id": ids(21, B, 1),
+                "movie_id": ids(200, B, 1),
+                "category_id": ids(19, B, 4, 1),
+                "category_id@LEN": rs.randint(1, 5, B).astype("int64"),
+                "movie_title": ids(500, B, 10, 1),
+                "movie_title@LEN": rs.randint(3, 11, B).astype("int64"),
+                "score": rs.randint(1, 6, (B, 1)).astype("float32")}
+    lens = rs.randint(SRL_SHORTEST, SRL_T + 1, B).astype("int64")
+    lens[0] = SRL_T
+    d = {}
+    words = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data")
+    for n, hi in ([(w, SRL_WORD_DICT) for w in words]
+                  + [("verb_data", SRL_PRED_DICT),
+                     ("mark_data", SRL_MARK_DICT),
+                     ("target", SRL_LABEL_DICT)]):
+        d[n] = ids(hi, B, SRL_T, 1)
+        d[n + "@LEN"] = lens
+    return d
+
+
+def check_srl_lstms(fwd_calls: list, bwd_calls: list) -> dict:
+    """SRL's eight ``lstm`` ops and their grads of one card step, each
+    replayed on CPU copies of its own inputs (the plain K6/K7): Hidden
+    and Cell within ``K6_FWD_ATOL``, every gradient within
+    ``K7_GRAD_REL`` of max|ref| (phase 7's gates)."""
+    from paddle_tpu_torch.core import registry
+    opdef = registry.get("lstm")
+    e_f, r_b = 0.0, 0.0
+    for ins, attrs in fwd_calls:
+        card = opdef.lower(None, ins, attrs)
+        host = opdef.lower(None, {s: [v.cpu() for v in vs]
+                                  for s, vs in ins.items()}, attrs)
+        for slot in ("Hidden", "Cell"):
+            e_f = max(e_f, (card[slot][0].cpu() - host[slot][0]).abs()
+                      .max().item())
+    for ins, attrs in bwd_calls:
+        card = opdef.grad(None, ins, attrs)
+        host = opdef.grad(None, {s: [None if v is None else v.cpu()
+                                     for v in vs] for s, vs in ins.items()},
+                          attrs)
+        for slot, vals in host.items():
+            for g, h in zip(card[slot], vals):
+                if h is None:
+                    continue
+                d = (g.cpu() - h).abs().max().item()
+                r_b = max(r_b, d / max(h.abs().max().item(), 1e-30))
+    if not (e_f <= K6_FWD_ATOL and r_b <= K7_GRAD_REL):
+        raise AssertionError(
+            f"SRL's LSTMs on their own card inputs: K6 max|d| {e_f} "
+            f"(gate {K6_FWD_ATOL}), K7 max|d|/max|ref| {r_b} (gate "
+            f"{K7_GRAD_REL})")
+    return {"k6_max_abs_err": e_f, "k7_max_rel_err": r_b,
+            "fwd_calls": len(fwd_calls), "bwd_calls": len(bwd_calls)}
+
+
+def train_book(dev, card: str, case: str) -> dict:
+    """Phase 16b, one case: BOOK_STEPS SGD steps on the card and on the
+    CPU from one copied start (the CPU's startup): every loss within
+    ``BOOK_LOSS_RTOL``; SRL: K6 and K7 exactly ``depth`` launches a
+    step each on the card and none on the CPU, its eight LSTMs on
+    their own inputs at phase 7's gates, the CRF transition and the
+    LSTM weights card vs CPU, the frozen ``emb`` table unchanged; every
+    other case launches no hand-written kernel.  Then the step's wall
+    median (sync=True), a profiled step, the synchronizing calls a step
+    and the peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import rnn as R
+    srl = case == "label_semantic_roles"
+    main, startup, loss, params = build_book(case)
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    feed = book_feed(case, seed=160)
+    lstm_w = sorted(op.inputs["Weight"][0] for op in main.global_block.ops
+                    if op.type == "lstm")
+    runs, fwd_calls, bwd_calls = {}, [], []
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        exe = fluid.Executor(device)
+        losses, walls, per_step = [], [], []
+        if name == "gpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        lowering.grad_recomputes = 0
+        before = kernel_launches()
+        for step in range(BOOK_STEPS):
+            n0 = lstm_launches(R)
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if name == "gpu" and step == 0 and srl:
+                    stack.enter_context(captured_inputs("lstm", fwd_calls))
+                    stack.enter_context(captured_inputs("lstm", bwd_calls,
+                                                        grad=True))
+                (l,) = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, sync=True)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(l)))
+            per_step.append(tuple(b - a for a, b in zip(n0,
+                                                        lstm_launches(R))))
+        moved = {k: v - before[k] for k, v in kernel_launches().items()
+                 if v != before[k]}
+        runs[name] = dict(losses=losses, walls=walls, per_step=per_step,
+                          moved=moved, scope=scope, exe=exe,
+                          recomputes=lowering.grad_recomputes,
+                          final=scope.to_numpy(params))
+    cpu, gpu = runs["cpu"], runs["gpu"]
+    out = {"steps": BOOK_STEPS, "batch": BOOK_CASES[case][2],
+           "losses_gpu": gpu["losses"], "losses_cpu": cpu["losses"]}
+    rel = [abs(a - b) / abs(b) for a, b in zip(gpu["losses"], cpu["losses"])]
+    out["loss_rel_diff"] = max(rel)
+    if not (all(math.isfinite(x) for x in gpu["losses"])
+            and out["loss_rel_diff"] <= BOOK_LOSS_RTOL):
+        raise AssertionError(f"16b {case}: losses card {gpu['losses']} vs "
+                             f"CPU {cpu['losses']} (worst rel "
+                             f"{out['loss_rel_diff']} > {BOOK_LOSS_RTOL})")
+    if gpu["recomputes"] or cpu["recomputes"]:
+        raise AssertionError(f"16b {case}: a grad op re-ran its forward")
+    if cpu["moved"]:
+        raise AssertionError(f"16b {case}: kernels launched on the CPU: "
+                             f"{cpu['moved']}")
+    if srl:
+        depth = SRL["depth"]
+        if any(s != (depth, depth) for s in gpu["per_step"]) or \
+                set(gpu["moved"]) - {"K6", "K7"}:
+            raise AssertionError(
+                f"16b SRL: K6/K7 launches a step {gpu['per_step']} (want "
+                f"{depth} each; the eligibility gate must pass at B="
+                f"{SRL_B}, H={SRL['hidden_dim'] // 4}), other kernels "
+                f"{gpu['moved']}")
+        out["lstm_launches_per_step"] = list(gpu["per_step"][0])
+        out["lstm_on_path"] = check_srl_lstms(fwd_calls, bwd_calls)
+        del fwd_calls[:], bwd_calls[:]
+        crf = "crfw"
+        d = np.abs(gpu["final"][crf] - cpu["final"][crf]).max()
+        out["crf_transition_rel_diff"] = float(
+            d / np.abs(cpu["final"][crf]).max())
+        w_rel = {n: float(np.abs(gpu["final"][n] - cpu["final"][n]).max()
+                          / np.abs(cpu["final"][n]).max()) for n in lstm_w}
+        upd_rel = {n: float(np.abs(gpu["final"][n] - cpu["final"][n]).max()
+                            / np.abs(cpu["final"][n] - values[n]).max())
+                   for n in lstm_w}
+        out.update(lstm_weight_rel_diff=max(w_rel.values()),
+                   lstm_update_rel_diff=max(upd_rel.values()))
+        frozen = all(np.array_equal(r["final"]["emb"], values["emb"])
+                     for r in (cpu, gpu))
+        if not (out["crf_transition_rel_diff"] <= SRL_CRF_RTOL
+                and out["lstm_weight_rel_diff"] <= K7_GRAD_REL and frozen):
+            raise AssertionError(
+                f"16b SRL after {BOOK_STEPS} steps: crfw card vs CPU "
+                f"{out['crf_transition_rel_diff']} of max|ref| (gate "
+                f"{SRL_CRF_RTOL}), LSTM weights {w_rel} (gate "
+                f"{K7_GRAD_REL}), emb unchanged {frozen}")
+    elif gpu["moved"]:
+        raise AssertionError(f"16b {case}: hand-written kernels launched: "
+                             f"{gpu['moved']}")
+    exe, scope = gpu["exe"], gpu["scope"]
+    out["step_ms"] = gpu["walls"]
+    out["step_ms_median"] = float(np.median(gpu["walls"][1:]))
+    out["cpu_step_ms_median"] = float(np.median(cpu["walls"][1:]))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with counting_syncs() as syncs:
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    sync=True)
+    out["syncs_per_step"] = syncs["n"] / 2
+    out["sync_sites"] = syncs["where"]
+    with fluid.scope_guard(scope):
+        prof = profile_step(exe, main, feed, loss,
+                            (K6_KERNEL,) + K7_LAUNCHES if srl else ())
+    out["profile"] = {k: v for k, v in prof.items() if k != "top_kernels"}
+    out["top_kernels"] = prof.get("top_kernels", [])[:6]
+    log(f"  16b {case} [{card}]: B={out['batch']}, losses card "
+        f"{[round(x, 6) for x in gpu['losses']]} (worst rel vs CPU "
+        f"{out['loss_rel_diff']!r}); step ms median {out['step_ms_median']!r}"
+        f" (CPU {out['cpu_step_ms_median']!r}), busy "
+        f"{prof.get('device_busy_ms')!r} ms, idle share "
+        f"{prof.get('device_idle_share')!r}, kernels "
+        f"{prof.get('kernels_launched')}, syncs a step "
+        f"{out['syncs_per_step']!r} {syncs['where']}, peak "
+        f"{out['max_memory_allocated']} bytes")
+    if srl:
+        log(f"    SRL: K6/K7 {out['lstm_launches_per_step']} a step; on "
+            f"their own inputs {json.dumps(out['lstm_on_path'])}; crfw rel "
+            f"{out['crf_transition_rel_diff']!r}, LSTM weights rel "
+            f"{out['lstm_weight_rel_diff']!r} (of the update "
+            f"{out['lstm_update_rel_diff']!r}); K6/K7 in the profiled step "
+            f"{prof.get('focus_ms')}")
+    del runs
+    return out
+
+
+def time_srl_shapes(dev) -> dict:
+    """K6 and K7 at SRL's shape (B=10, T=64, H=128, ragged) against their
+    plain versions (phase 7's gates), by device time beside their bounds
+    and cuDNN's LSTM (TF32 off; CUDA events, a different function: full
+    lengths, input projection inside); ``linear_chain_crf`` forward +
+    autograd backward at SRL's shape by device time."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.kernels import rnn as R
+    B, T, H = SRL_B, SRL_T, SRL["hidden_dim"] // 4
+    x = lstm_inputs(dev, B, T, H, seed=161, lo=SRL_SHORTEST)
+    a, dhs, dcs = x["args"], x["dhs"], x["dcs"]
+    hs, cs = R.lstm_fused(*a)
+    ref_h, ref_c = R.lstm_ref(*a)
+    e_f = max((hs - ref_h).abs().max().item(), (cs - ref_c).abs().max().item())
+    grads = R.lstm_fused_grad(*a, hs, cs, dhs, dcs)
+    ref_g = R.lstm_grad_ref(*a, hs, cs, dhs, dcs)
+    r_b = max((g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+              for g, r in zip(grads, ref_g))
+    if not (e_f <= K6_FWD_ATOL and r_b <= K7_GRAD_REL):
+        raise AssertionError(f"K6/K7 at SRL's shape: {e_f} (gate "
+                             f"{K6_FWD_ATOL}), {r_b} (gate {K7_GRAD_REL})")
+    work = lstm_work(x)
+    # K6 and K7's three launches in one set of profiler sessions
+    k = device_ms_by_name(lambda _: (R.lstm_fused(*a), R.lstm_fused_grad(
+        *a, hs, cs, dhs, dcs)), [None], 20, (K6_KERNEL,) + K7_LAUNCHES)
+    k7 = {n: k[n] for n in K7_LAUNCHES}
+    work["fwd"]["ms"] = k[K6_KERNEL]
+    work["bwd"].update(ms=sum(k7.values()), launch_ms=k7)
+    cudnn = time_cudnn(dev, B, T, H, tf32=False)
+    for k in ("fwd", "bwd"):
+        work[k]["library_ms"] = cudnn[k]
+    work["fwd"]["max_abs_err"], work["bwd"]["max_rel_err"] = e_f, r_b
+    rs = np.random.RandomState(162)
+    C = SRL_LABEL_DICT
+    lens = torch.from_numpy(rs.randint(SRL_SHORTEST, T + 1, B)).to(dev)
+    em = torch.from_numpy(rs.randn(B, T, C).astype("float32")).to(dev)
+    tr = torch.from_numpy(rs.randn(C + 2, C).astype("float32")).to(dev)
+    lab = torch.from_numpy(rs.randint(0, C, (B, T, 1))).to(dev)
+    rule = registry.get("linear_chain_crf").lower
+
+    def crf(_):
+        e, t = em.requires_grad_(True), tr.requires_grad_(True)
+        ll = rule(None, {"Emission": [e], "Transition": [t], "Label": [lab],
+                         "Length": [lens]}, {})["LogLikelihood"][0]
+        return torch.autograd.grad(ll.sum(), (e, t))
+
+    # one call a profiler session: the host's post-processing of a
+    # call's ~6,000 profiler records takes about half a second
+    crf_ms = device_ms(crf, [None], 1)
+    crf_wall = time_ms(crf, [None], iters=3, warmup=1)
+    out = {"shape": [B, T, H], "lstm": work,
+           "crf_fwd_bwd_ms": crf_ms, "crf_fwd_bwd_wall_ms": crf_wall}
+    for k, r in work.items():
+        log(f"  SRL's shape B={B} T={T} H={H} {k}: kernel {r['ms']!r} ms "
+            f"(device), bound {r['bound_ms']!r} ms ({r['bound_by']}), cuDNN "
+            f"{r['library_ms']!r} ms (CUDA events)")
+    log(f"  linear_chain_crf forward + backward at B={B} T={T} C={C}: "
+        f"{crf_ms!r} ms device time, {crf_wall!r} ms wall")
+    return out
+
+
+def run_book(dev, card: str) -> dict:
+    """Phase 16 (module doc); each part's seconds go to ``seconds``."""
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+        return r
+
+    out = {"ops": part("16a", check_book_ops, dev, card)}
+    for case in BOOK_CASES:
+        out[case] = part(case, train_book, dev, card, case)
+    out["srl_shape"] = part("srl_shape", time_srl_shapes, dev)
+    out["seconds"] = seconds
+    log(f"  phase 16's parts, seconds: {json.dumps(seconds)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -6505,6 +7070,9 @@ def main() -> int:
     phase("15: the trainable control flow at machine translation's width")
     control_flow = run_control_flow(dev, card)
 
+    phase("16: the book models through Executor.run")
+    book = run_book(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -6588,6 +7156,7 @@ def main() -> int:
         rows.append(row)
     for i, (key, line) in enumerate((("fwd", 69), ("bwd", 91))):
         t = lstm_k["ragged"][key]   # the training path's ragged lengths
+        s = book["srl_shape"]["lstm"][key]   # SRL's B=10, T=64, H=128
         rows.append({
             "name": f"lstm_{key}", "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/lstm_{key}.cu",
@@ -6595,7 +7164,12 @@ def main() -> int:
             "launches": lstm_train["launches"][i],
             "max_abs_err": lstm_k["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # phase 16: launches a step of SRL at the book's width
+            "srl_launches": book["label_semantic_roles"][
+                "lstm_launches_per_step"][i],
+            "srl_ms": s["ms"], "srl_bound_ms": s["bound_ms"],
+            "srl_library_ms": s["library_ms"]})
     # K10 at the larger table's shape ([1e6, 10], Adam), one launch
     for name, key, line, i in (("sparse_gather", "gather", 176, 0),
                                ("sparse_update", "update_emb", 256, 1)):
@@ -6702,6 +7276,7 @@ def main() -> int:
                    "int8_serving": serving, "mt_beam": mt_beam,
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "run_steps": steps, "control_flow": control_flow,
+                   "book": book,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -35,6 +35,7 @@ from . import platform  # noqa: F401
 from . import ops  # noqa: F401  (registers the op rules)
 from . import clip, initializer, regularizer  # noqa: F401
 from . import layers, optimizer  # noqa: F401
+from . import nets  # noqa: F401
 from . import executor, framework  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.backward import append_backward  # noqa: F401
@@ -74,5 +75,5 @@ __all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "DataFeeder",
            "create_random_int_lodtensor", "decode",
            "default_main_program", "default_startup_program", "get_flags",
            "global_scope", "inference", "initializer", "io", "layers",
-           "optimizer", "parallel", "platform", "serving",
+           "nets", "optimizer", "parallel", "platform", "serving",
            "program_guard", "scope_guard", "set_flags", "unique_name"]

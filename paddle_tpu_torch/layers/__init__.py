@@ -27,6 +27,8 @@ from .control_flow import (  # noqa: F401
 )
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
+from . import nn_extras  # noqa: F401
+from .nn_extras import *  # noqa: F401,F403
 from .tensor import (  # noqa: F401
     assign,
     create_parameter,

@@ -2,7 +2,9 @@
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
 stacked LSTM, DeepFM, machine translation (training and beam search),
-the convolutional models and the fc/SGD drive call, copied unchanged
+the convolutional models, the book models and the fc/SGD drive call
+(with the ``sequence_*`` layers, their nested branches, ``sums`` and
+the CTC and CRF layers), copied unchanged
 (and ``square``, ``sigmoid``, ``tanh``, ``log`` and ``relu``, which the
 reference generates in ``layers/ops.py``): the same calls build the
 same program, byte for byte (``Program.serialize``).
@@ -649,8 +651,8 @@ def _propagate_lod(out, x):
 
 def _seq_op(op_type, input, attrs=None, out_shape=None, pool=False, name=None):
     """Sequence-op layer shim.  Nested (lod_level 2) inputs route their
-    inner [B, S] lengths through the op's "SeqLen2" slot (the port's
-    sequence_pool raises for it until nested batches are ported); pooling
+    inner [B, S] lengths through the op's "SeqLen2" slot (the op flattens
+    to [B*S, W, ...] internally, ops/sequence_ops.py _nestable); pooling
     then REMOVES the inner level, so the result is a level-1 sequence
     whose companion is the OUTER lengths."""
     helper = LayerHelper(op_type, name=name)
@@ -687,10 +689,266 @@ def sequence_pool(input, pool_type, name=None):
                    out_shape=out_shape, pool=True, name=name)
 
 
+def sequence_softmax(input, name=None):
+    return _seq_op("sequence_softmax", input, name=name)
+
+
+def sequence_reverse(x, name=None):
+    return _seq_op("sequence_reverse", x, name=name)
+
+
+def sequence_first_step(input):
+    out_shape = (None if getattr(input, "lod_level", 0) == 2
+                 else (input.shape[0],) + tuple(input.shape[2:]))
+    return _seq_op("sequence_first_step", input, out_shape=out_shape, pool=True)
+
+
 def sequence_last_step(input):
     out_shape = (None if getattr(input, "lod_level", 0) == 2
                  else (input.shape[0],) + tuple(input.shape[2:]))
     return _seq_op("sequence_last_step", input, out_shape=out_shape, pool=True)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out_shape = (x.shape[0], y.shape[1]) + tuple(x.shape[1:])
+    out = helper.create_variable_for_type_inference(x.dtype, shape=out_shape)
+    helper.append_op("sequence_expand", {"X": [x], "Y": [y]}, {"Out": [out]})
+    sl = seq_len_var(y)
+    if sl is not None:
+        _alias_len(out, sl)
+    return out
+
+
+def sequence_concat(input, name=None):
+    helper = LayerHelper("sequence_concat", name=name)
+    T = sum(v.shape[1] for v in input)
+    out_shape = (input[0].shape[0], T) + tuple(input[0].shape[2:])
+    out = helper.create_variable_for_type_inference(input[0].dtype, shape=out_shape)
+    helper.append_op("sequence_concat", {"X": input}, {"Out": [out]})
+    return out
+
+
+def _seq_op_with_len(op_type, input, ins_extra, attrs, out_shape, out_dtype,
+                     len_slot="OutLen", name=None):
+    """Sequence op emitting (Out, new length vector); the out var gets the
+    new lengths aliased as its @LEN companion."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        out_dtype or input.dtype, shape=out_shape or input.shape)
+    new_len = helper.create_variable_for_type_inference(
+        "int64", shape=(input.shape[0],), stop_gradient=True)
+    ins = {"X": [input], **ins_extra}
+    sl = seq_len_var(input)
+    if sl is not None:
+        ins.setdefault("SeqLen", [sl])
+    helper.append_op(op_type, ins, {"Out": [out], len_slot: [new_len]},
+                     attrs or {})
+    _alias_len(out, new_len)
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, param_attr=None, bias_attr=None, act=None,
+                  name=None):
+    """Context-window convolution (reference nn.py sequence_conv)."""
+    helper = LayerHelper("sequence_conv", bias_attr=bias_attr, act=act,
+                         name=name)
+    D = int(input.shape[-1])
+    w = helper.create_parameter(param_attr, [filter_size * D, num_filters],
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=(input.shape[0], input.shape[1], num_filters))
+    ins = {"X": [input], "Filter": [w]}
+    sl = seq_len_var(input)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op("sequence_conv", ins, {"Out": [out]},
+                     {"contextLength": filter_size,
+                      "contextStart": -(filter_size // 2),
+                      "contextStride": filter_stride})
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    final = helper.append_activation(pre_act)
+    if sl is not None:
+        _alias_len(final, sl)  # the RETURNED var carries the lengths
+    return final
+
+
+def sequence_slice(input, offset, length, name=None):
+    return _seq_op_with_len("sequence_slice", input,
+                            {"Offset": [offset], "Length": [length]}, {},
+                            input.shape, input.dtype, name=name)
+
+
+def sequence_erase(input, tokens, name=None):
+    return _seq_op_with_len("sequence_erase", input, {},
+                            {"tokens": list(tokens)}, input.shape,
+                            input.dtype, name=name)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    helper = LayerHelper("sequence_enumerate", name=name)
+    lead = (input.shape[0], input.shape[1])
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=lead + (win_size,))
+    ins = {"X": [input]}
+    sl = seq_len_var(input)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op("sequence_enumerate", ins, {"Out": [out]},
+                     {"win_size": win_size, "pad_value": pad_value})
+    if sl is not None:
+        _alias_len(out, sl)
+    return out
+
+
+def sequence_expand_as(x, y, name=None):
+    helper = LayerHelper("sequence_expand_as", name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, shape=(x.shape[0], y.shape[1]) + tuple(x.shape[1:]))
+    ins = {"X": [x], "Y": [y]}
+    sl = seq_len_var(y)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op("sequence_expand_as", ins, {"Out": [out]})
+    if sl is not None:
+        _alias_len(out, sl)
+    return out
+
+
+def sequence_pad(x, pad_value, maxlen=None, name=None):
+    """Returns (padded, lengths) like the reference (nn.py sequence_pad)."""
+    helper = LayerHelper("sequence_pad", name=name)
+    T = maxlen or x.shape[1]
+    out = helper.create_variable_for_type_inference(
+        x.dtype, shape=(x.shape[0], T) + tuple(x.shape[2:]))
+    lens = helper.create_variable_for_type_inference(
+        "int64", shape=(x.shape[0],), stop_gradient=True)
+    ins = {"X": [x], "PadValue": [pad_value]}
+    sl = seq_len_var(x)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op("sequence_pad", ins, {"Out": [out], "Length": [lens]},
+                     {"padded_length": maxlen or -1})
+    return out, lens
+
+
+def sequence_unpad(x, length, name=None):
+    return _seq_op_with_len("sequence_unpad", x, {"Length": [length]}, {},
+                            x.shape, x.dtype, name=name)
+
+
+def sequence_reshape(input, new_dim, name=None):
+    D = int(input.shape[-1])
+    T = int(input.shape[1]) * D // new_dim
+    return _seq_op_with_len("sequence_reshape", input, {},
+                            {"new_dim": new_dim},
+                            (input.shape[0], T, new_dim), input.dtype,
+                            name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """Lookahead convolution (reference nn.py row_conv)."""
+    helper = LayerHelper("row_conv", name=name)
+    D = int(input.shape[-1])
+    w = helper.create_parameter(param_attr, [future_context_size, D],
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    ins = {"X": [input], "Filter": [w]}
+    sl = seq_len_var(input)
+    if sl is not None:
+        ins["SeqLen"] = [sl]
+    helper.append_op("row_conv", ins, {"Out": [out]}, {})
+    if sl is not None:
+        _alias_len(out, sl)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# structured losses: CTC + linear-chain CRF (ops/ctc_crf_ops.py)
+# ---------------------------------------------------------------------------
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None, name=None):
+    """CTC loss (reference nn.py warpctc); returns [B,1] losses."""
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_variable_for_type_inference(
+        "float32", shape=(input.shape[0], 1))
+    ins = {"Logits": [input], "Label": [label]}
+    il = input_length if input_length is not None else seq_len_var(input)
+    ll = label_length if label_length is not None else seq_len_var(label)
+    if il is not None:
+        ins["LogitsLength"] = [il]
+    if ll is not None:
+        ins["LabelLength"] = [ll]
+    helper.append_op("warpctc", ins, {"Loss": [loss]},
+                     {"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """Greedy CTC decode: per-step argmax then ctc_align cleanup; returns
+    (decoded ids [B,T], lengths [B])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    am = helper.create_variable_for_type_inference(
+        "int64", shape=tuple(input.shape[:2]), stop_gradient=True)
+    helper.append_op("arg_max", {"X": [input]}, {"Out": [am]}, {"axis": -1})
+    out = helper.create_variable_for_type_inference(
+        "int64", shape=tuple(input.shape[:2]), stop_gradient=True)
+    out_len = helper.create_variable_for_type_inference(
+        "int64", shape=(input.shape[0],), stop_gradient=True)
+    ins = {"Input": [am]}
+    il = input_length if input_length is not None else seq_len_var(input)
+    if il is not None:
+        ins["InputLength"] = [il]
+    helper.append_op("ctc_align", ins,
+                     {"Output": [out], "OutputLength": [out_len]},
+                     {"blank": blank, "merge_repeated": True})
+    _alias_len(out, out_len)
+    return out, out_len
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None, name=None):
+    """Linear-chain CRF log-likelihood (reference nn.py linear_chain_crf);
+    creates the [C+2, C] transition parameter."""
+    helper = LayerHelper("linear_chain_crf", name=name)
+    C = int(input.shape[-1])
+    trans = helper.create_parameter(param_attr, [C + 2, C], "float32")
+    ll = helper.create_variable_for_type_inference(
+        "float32", shape=(input.shape[0], 1))
+    ins = {"Emission": [input], "Transition": [trans], "Label": [label]}
+    ln = length if length is not None else seq_len_var(input)
+    if ln is not None:
+        ins["Length"] = [ln]
+    helper.append_op("linear_chain_crf", ins, {"LogLikelihood": [ll]}, {})
+    return ll
+
+
+def crf_decoding(input, param_attr, length=None, name=None):
+    """Viterbi decode sharing the CRF transition parameter by name."""
+    helper = LayerHelper("crf_decoding", name=name)
+    trans_name = param_attr.name if hasattr(param_attr, "name") else str(param_attr)
+    trans = input.block.program.global_block.var(trans_name)
+    path = helper.create_variable_for_type_inference(
+        "int64", shape=tuple(input.shape[:2]), stop_gradient=True)
+    ins = {"Emission": [input], "Transition": [trans]}
+    ln = length if length is not None else seq_len_var(input)
+    if ln is not None:
+        ins["Length"] = [ln]
+    helper.append_op("crf_decoding", ins, {"ViterbiPath": [path]}, {})
+    return path
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(
+        input[0].dtype, shape=input[0].shape)
+    helper.append_op("sum", {"X": input}, {"Out": [out]})
+    if seq_len_var(input[0]) is not None:
+        _alias_len(out, seq_len_var(input[0]))
+    return out
 
 
 def _cmp_layer(op_type, x, y, cond=None, name=None):
@@ -710,10 +968,12 @@ __all__ = [
     "cast",
     "concat",
     "conv2d",
+    "crf_decoding",
     "cross_entropy",
+    "ctc_greedy_decoder",
+    "dropout",
     "dynamic_gru",
     "dynamic_lstm",
-    "dropout",
     "elementwise_add",
     "elementwise_div",
     "elementwise_min",
@@ -724,6 +984,7 @@ __all__ = [
     "fc",
     "gather",
     "layer_norm",
+    "linear_chain_crf",
     "log",
     "matmul",
     "mean",
@@ -732,11 +993,25 @@ __all__ = [
     "reduce_sum",
     "relu",
     "reshape",
+    "row_conv",
     "scale",
     "seq_len2_var",
     "seq_len_var",
+    "sequence_concat",
+    "sequence_conv",
+    "sequence_enumerate",
+    "sequence_erase",
+    "sequence_expand",
+    "sequence_expand_as",
+    "sequence_first_step",
     "sequence_last_step",
+    "sequence_pad",
     "sequence_pool",
+    "sequence_reshape",
+    "sequence_reverse",
+    "sequence_slice",
+    "sequence_softmax",
+    "sequence_unpad",
     "sigmoid",
     "sigmoid_cross_entropy_with_logits",
     "slice",
@@ -745,8 +1020,10 @@ __all__ = [
     "square",
     "square_error_cost",
     "squeeze",
+    "sums",
     "tanh",
     "topk",
     "transpose",
     "unsqueeze",
+    "warpctc",
 ]

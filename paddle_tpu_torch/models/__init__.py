@@ -1,5 +1,6 @@
 """Models of the port (``paddle_tpu/models``, in part)."""
 from . import (  # noqa: F401
+    book,
     deepfm,
     machine_translation,
     mnist,

@@ -4,7 +4,9 @@ from . import (  # noqa: F401
     array_ops,
     attention_ops,
     control_flow_ops,
+    ctc_crf_ops,
     math_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     quant_ops,

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register, register_grad
+from ..core.selected_rows import SelectedRows
 from ._util import torch_dtype
 
 
@@ -181,7 +182,18 @@ def _scale(ctx, ins, attrs):
 
 @register("sum")
 def _sum(ctx, ins, attrs):
+    """Elementwise sum.  Over ``SelectedRows`` gradients (a table looked
+    up more than once with ``is_sparse``) the sum is the rows and values
+    concatenated at the first input's height, duplicates merged later by
+    the consumer; a mix of sparse and dense inputs goes dense."""
     xs = ins["X"]
+    sparse = [x for x in xs if isinstance(x, SelectedRows)]
+    if sparse:
+        if len(sparse) == len(xs):
+            return {"Out": [SelectedRows(
+                torch.cat([s.rows for s in sparse]),
+                torch.cat([s.values for s in sparse]), sparse[0].height)]}
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

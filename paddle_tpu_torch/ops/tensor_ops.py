@@ -5,7 +5,7 @@ Transformer's, the stacked LSTM's and DeepFM's training programs and
 machine translation's beam search use: reshape, transpose,
 squeeze/unsqueeze, slice, concat, ``expand`` and ``gather`` (forward
 rules), ``lookup_table`` (its
-gradient dense, or a ``SelectedRows`` with ``is_sparse``), top_k,
+gradient dense, or a ``SelectedRows`` with ``is_sparse``), arg_max, top_k,
 assign, assign_value, fill_constant, fill_constant_batch_size_like,
 increment, the random initializers
 and dropout.  Random
@@ -172,6 +172,13 @@ def _assign(ctx, ins, attrs):
     """A copy: the sparse optimizers update tables in place, so an
     assigned value must not alias its source."""
     return {"Out": [ins["X"][0].clone()]}
+
+
+@register("arg_max", no_grad_slots=("X",))
+def _arg_max(ctx, ins, attrs):
+    """The first index of each maximum along ``axis``, int64 (the CTC
+    greedy decoder's per-step argmax)."""
+    return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
 @register("top_k", no_grad_slots=("X",))

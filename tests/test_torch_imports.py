@@ -53,7 +53,8 @@ PROGRAM_MODULES = [
     "serving/batcher.py", "serving/model_registry.py",
     "parallel/strategy.py", "parallel/parallel_executor.py",
     "lod_tensor.py", "data_feeder.py", "ops/array_ops.py",
-    "contrib/decoder.py",
+    "contrib/decoder.py", "ops/ctc_crf_ops.py", "ops/misc_ops.py",
+    "layers/nn_extras.py", "nets.py", "models/book.py",
 ]
 
 

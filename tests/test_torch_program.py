@@ -173,7 +173,7 @@ def test_unported_ops_raise():
             out = build()
         with tfluid.scope_guard(tfluid.Scope()):
             exe.run(startup)
-            exe.run(main, feed=feed, fetch_list=[out])
+            return exe.run(main, feed=feed, fetch_list=[out], sync=True)
 
     def scatter():
         helper = THelper("scatter")
@@ -192,12 +192,14 @@ def test_unported_ops_raise():
         run(scatter, {"x": np.zeros((2, 4), "float32"),
                       "idx": np.zeros((2,), "int64"),
                       "upd": np.zeros((2, 4), "float32")})
-    with pytest.raises(NotImplementedError, match="nested"):
-        run(lambda: tfluid.layers.sequence_pool(
-            tfluid.layers.data("w", [1], lod_level=2), "sum"),
-            {"w": np.zeros((2, 3, 4, 1), "float32"),
-             "w@LEN": np.array([3, 2], "int64"),
-             "w@LEN2": np.ones((2, 3), "int64")})
+    # a nested (lod_level 2) sequence_pool runs since the nested form
+    # was ported: each sentence's first word here (inner lengths 1)
+    w = np.arange(24, dtype="float32").reshape(2, 3, 4, 1)
+    got, = run(lambda: tfluid.layers.sequence_pool(
+        tfluid.layers.data("w", [1], lod_level=2), "sum"),
+        {"w": w, "w@LEN": np.array([3, 2], "int64"),
+         "w@LEN2": np.ones((2, 3), "int64")})
+    np.testing.assert_array_equal(got, w[:, :, 0])
     # a sparse embedding runs (its gradient is a SelectedRows)
     run(lambda: tfluid.layers.embedding(
         tfluid.layers.data("ids", [1], dtype="int64"), [10, 4],
