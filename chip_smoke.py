@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 14, 15, 16, 6 (each one that fails raises, and the script
+13a in bfloat16, 14, 15, 16, 17, 6 (each one that fails raises, and the script
 exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -404,6 +404,57 @@ exits non-zero; each phase's header gives its start in seconds):
    chip_smoke as c; from paddle_tpu_torch.kernels import _build; from
    paddle_tpu_torch.platform import get_device; _build.build_all();
    c.run_book(get_device(), c.nvidia_smi_line())"``.
+17. The refcounted decode plane at Transformer-base width (vocab 32000,
+   d_model 512, 8 heads, d_ffn 2048, 6 layers, max_seq_len 512,
+   ``init_params(seed=7)``), the bench's ``decode_prefix`` traffic
+   (``bench.py:1631-1830``).  17a: 64 greedy requests of 480 tokens
+   (416 shared, 64 unique; block 32, 16 slots, prefill bucket 512,
+   8 new tokens each), request 0 to completion first, then 63 at once
+   (submitted under the engine's lock, so the schedule is a function
+   of the traffic), prefix cache on and off: saved prefill tokens
+   exactly 63 x 416 and block hits 63 x 13, tokens equal under the
+   near-tie rule (a token may differ only where the truth run's logits
+   put the two within ``LOGITS_TOL``; counted; that stream is compared
+   no further), no leaked block, K4 exactly n_layer x decode steps in
+   each engine; TTFT, prefill ms and tokens/s both ways, and each
+   engine's wall attributed (phase and capacity attribution on; the
+   scheduler thread's host time in admission, the chain hash, prefill,
+   ``_register_prefix`` and decode steps); then the prefix-on engine
+   with an int8 cache (every hit's suffix prefill dequantizes the
+   gathered blocks) on the card and on the CPU with the same weights
+   and schedule: saved tokens and hits exact in both, decode steps and
+   prefills equal, the card's tokens equal the CPU's under the
+   near-tie rule; K4's device time a launch in a profiled prefix-on
+   run beside its bound at the run's own contexts.
+   17b: 24 greedy streams (prompt 16, 112 new tokens; block 16, 16
+   slots, buckets 16-128) through a 97-block pool, submitted under the
+   engine's lock, overcommit against full reservation, float32 and
+   int8 caches: at least one preemption and one resume, every stream
+   finishes by length, no leak, K4 n_layer x steps; float32 tokens
+   equal the reserved run's under the near-tie rule; int8 (whose
+   tokens depend on block history in the reference's design, so the
+   reserved run is no truth for it): the same overcommit run on the
+   CPU must take the card's decode steps, preemptions, resumes and
+   re-prefilled tokens exactly, and the card's tokens must equal the
+   CPU's under the near-tie rule
+   (``check_int8_overcommit_against_cpu``); the departures from the
+   reserved run are recorded, first tokens equal
+   (``check_int8_against_reserved``); slot occupancy over the loaded
+   window (up to the last admission sweep that found a queue) and the
+   re-prefilled tokens.
+   17c: the float32 overcommit leg with phase, memory, tenant and
+   capacity attribution on and one injected ``oom:decode_step``: each
+   request's three phases sum to its wall, the KV pool's attributed
+   bytes equal ``cache.nbytes`` and the ledger reconciles with
+   ``torch.cuda.memory_stats``, every tenant's resident KV returns to
+   0, ``oom_recovered`` is 1 and the tokens still equal the reserved
+   run's under the near-tie rule.  17d: on the overcommit engines' own
+   pools, ``_copy_block`` forks 8 blocks of every pool (the int8 scale
+   pools included), each copy bit-equal to its source and no other
+   block touched.  Alone: ``python3 -c "import chip_smoke as c; from
+   paddle_tpu_torch.kernels import _build; from paddle_tpu_torch.platform
+   import get_device; _build.build_all(); c.run_refcounted(get_device(),
+   c.nvidia_smi_line())"``.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -6974,6 +7025,743 @@ def run_book(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the refcounted decode plane at Transformer-base width
+# ---------------------------------------------------------------------------
+
+# the bench's decode_prefix traffic (bench.py:1631-1830) at Transformer-
+# base width with a 512-token context: 17a's shared prefix and 17b's
+# overcommit leg
+REFC = dict(FULL, max_seq_len=512)
+PFX_BS, PFX_SLOTS, PFX_N, PFX_SHARED, PFX_UNIQ = 32, 16, 64, 416, 64
+PFX_NEW, PFX_BUCKETS = 8, (512,)
+OC_BS, OC_SLOTS, OC_N, OC_PROMPT, OC_NEW = 16, 16, 24, 16, 112
+OC_POOL = 1 + (OC_N // 2) * (-(-(OC_PROMPT + OC_NEW) // OC_BS))   # 97
+OC_BUCKETS = (16, 32, 64, 128)
+OC_OOM_STEP = 40               # 17c: the injected out-of-memory step
+CHECK_FLAGS = ("phase_attribution", "memory_attribution",
+               "tenant_accounting", "capacity_attribution")
+ATTRIBUTION_FLAGS = ("phase_attribution", "capacity_attribution")  # 17a
+
+
+def near_tie_compare(truth, got, label) -> dict:
+    """Streams of ``got`` against ``truth`` (lists of (tokens, logits)):
+    tokens equal, except that a token may differ where the truth run's
+    logits put its token and the other within ``LOGITS_TOL`` (phase 4's
+    rule); such a tie is counted and that stream is compared no
+    further.  Any other difference raises."""
+    checked = ties = 0
+    for i, ((a, al), b) in enumerate(zip(truth, got)):
+        if len(a) != len(b):
+            raise AssertionError(f"{label}: stream {i} has {len(b)} "
+                                 f"tokens, the truth run {len(a)}")
+        for k, (x, y) in enumerate(zip(a, b)):
+            checked += 1
+            if x == y:
+                continue
+            gap = float(al[k][x] - al[k][y])
+            if gap > LOGITS_TOL:
+                raise AssertionError(
+                    f"{label}: stream {i} diverged at token {k}: {y} "
+                    f"against the truth run's {x} (gap {gap!r} > "
+                    f"{LOGITS_TOL})")
+            ties += 1
+            break
+    return {"tokens_checked": checked, "near_ties": ties}
+
+
+def serve_staged(engine, prompts, max_new) -> dict:
+    """17a's protocol (the bench's): request 0 runs to completion, so
+    its prefill registers the shared blocks, then the rest are offered
+    at once; a consumer thread a stream stamps its first token.  The
+    rest are submitted under the engine's lock, so its first admission
+    sweep sees them all and the schedule (which blocks each stream
+    gets, and when) is a function of the traffic alone."""
+    from paddle_tpu_torch.decode import SamplingParams
+    first = [None] * len(prompts)
+    t_sub = [0.0] * len(prompts)
+    errors = []
+
+    def consume(i, h):
+        try:
+            for _ in h:
+                if first[i] is None:
+                    first[i] = time.perf_counter()
+        except Exception as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+    t0 = time.perf_counter()
+    handles, threads = [], []
+
+    def offer(i, p):
+        t_sub[i] = time.perf_counter()
+        h = engine.submit(p, SamplingParams(max_new_tokens=max_new))
+        handles.append(h)
+        th = threading.Thread(target=consume, args=(i, h), daemon=True)
+        th.start()
+        threads.append(th)
+        return h, th
+    h, th = offer(0, prompts[0])
+    h.result(timeout=600)
+    th.join(timeout=60)
+    with engine._lock:
+        for i, p in enumerate(prompts[1:], 1):
+            offer(i, p)
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise TimeoutError("a decode stream did not finish")
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    results = [h.result(timeout=10) for h in handles]
+    n_tok = sum(r["n_tokens"] for r in results)
+    return {"handles": handles, "results": results, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_ms": [(f - s) * 1e3 for f, s in zip(first, t_sub)]}
+
+
+@contextlib.contextmanager
+def k4_contexts(lm, store: list):
+    """Record each decode step's context lengths (positions + 1 a
+    lane) while the caller serves: a wrapper on ``decode_logits``."""
+    orig = lm.decode_logits
+
+    def wrapped(kc, vc, tokens, positions, *a, **kw):
+        store.append((positions.cpu().numpy() + 1, kc.shape))
+        return orig(kc, vc, tokens, positions, *a, **kw)
+    lm.decode_logits = wrapped
+    try:
+        yield
+    finally:
+        del lm.decode_logits
+
+
+def k4_step_bound(cl, shape, quantized) -> dict:
+    """K4's bound for one launch over lanes of context ``cl``: each
+    lane's K and V rows read once (and, int8, their blocks' scale rows),
+    q read and the output written once; the QK and PV products."""
+    _, _, bs, H, D = shape
+    S = len(cl)
+    item = 1 if quantized else 4
+    rows = int(cl.sum())
+    nbytes = rows * H * D * item * 2 + 2 * S * H * D * 4 + S * 4
+    if quantized:
+        nbytes += int((-(-cl // bs)).sum()) * H * 4 * 2
+    return bound(nbytes, 2 * 2 * rows * H * D)
+
+
+def time_calls(obj, names, acc: dict) -> None:
+    """Add each call's host wall to ``acc[name]`` = [seconds, calls,
+    longest call's seconds]: a wrapper on each named method of ``obj``
+    (an instance attribute, which shadows the class's method)."""
+    for n in names:
+        orig = getattr(obj, n)
+
+        def wrapped(*a, _orig=orig, _n=n, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                s = acc.setdefault(_n, [0.0, 0, 0.0])
+                s[0] += dt
+                s[1] += 1
+                s[2] = max(s[2], dt)
+        setattr(obj, n, wrapped)
+
+
+def scheduler_breakdown(eng, acc: dict, wall: float) -> dict:
+    """Where a 17a engine's wall went: its scheduler thread's host time
+    in admission (the prefix match's chain hash inside it), in prefill
+    dispatches (``_register_prefix`` and its chain hash inside them) and
+    in decode steps; the rest of the wall (the thread waiting for
+    traffic); and the per-request phases and capacity components that
+    the engine's own hooks recorded (FLAGS_phase_attribution,
+    FLAGS_capacity_attribution)."""
+    z = eng.decodez()
+    spent = sum(acc.get(n, (0.0,))[0] for n in
+                ("_admissible_locked", "_prefill", "_decode_step"))
+    return {"host_s": {n.strip("_"): {"s": s, "calls": c, "max_s": m}
+                       for n, (s, c, m) in acc.items()},
+            "other_s": wall - spent,
+            "phases_mean_ms": {k: v["mean_ms"] for k, v in
+                               z["phases"]["phases"].items()},
+            "capacity_busy_ms": {k: v["busy_ms"] for k, v in
+                                 z["capacity"]["components"].items()}}
+
+
+def prefix_engine(lm, name, on, dtype="float32", capture=True):
+    """A 17a engine on ``lm``'s device (block 32, 16 slots, bucket 512)."""
+    from paddle_tpu_torch.decode import DecodeEngine
+    return DecodeEngine(lm, name=name, max_slots=PFX_SLOTS,
+                        block_tokens=PFX_BS, prefill_buckets=PFX_BUCKETS,
+                        max_queue=PFX_N + 4, capture_logits=capture,
+                        cache_dtype=dtype, prefix_cache=on, device=lm.device)
+
+
+def serve_prefix(eng, prompts, A, label) -> tuple:
+    """One 17a engine through the shared-prefix traffic: its record and
+    streams (tokens, logits), after its gates: no leaked block; K4
+    launched n_layer x decode steps on the card and never on the CPU;
+    with the prefix cache, saved prefill tokens 63 x 416 and block hits
+    63 x 13 exactly."""
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    A.decode_attention.launches = 0
+    res = serve_staged(eng, prompts, PFX_NEW)
+    launches = A.decode_attention.launches
+    steps = eng.stats.steps.value
+    on = eng.prefix is not None
+    rec = {"tokens_per_s": res["tokens_per_s"],
+           "wall_s": res["wall_s"],
+           "ttft_ms_mean": float(np.mean(res["ttft_ms"])),
+           "ttft_ms_p50": pctl(res["ttft_ms"], 0.5),
+           "prefill_ms_mean": eng.stats.prefill_ms.sum
+           / max(eng.stats.prefill_ms.count, 1),
+           "prefills": eng.stats.prefills.value,
+           "decode_steps": steps, "k4_launches": launches,
+           "leaked": eng.cache.allocator.leaked(
+               eng.prefix.parked_blocks if on else 0)}
+    if on:
+        ps = eng._pstats
+        rec.update(saved_prefill_tokens=ps.saved_prefill_tokens.value,
+                   prefix_hits=ps.prefix_hits.value,
+                   prefix_lookups=ps.prefix_lookups.value,
+                   prefix_inserts=ps.prefix_inserts.value,
+                   collisions=eng.prefix.collisions)
+    want = REFC["n_layer"] * steps if cuda else 0
+    if steps == 0 or launches != want or rec["leaked"] != 0:
+        raise AssertionError(f"{label}: K4 launched {launches} times over "
+                             f"{steps} decode steps (expected {want}), "
+                             f"{rec['leaked']} blocks leaked")
+    saved, hits = (PFX_N - 1) * PFX_SHARED, (PFX_N - 1) * (PFX_SHARED
+                                                           // PFX_BS)
+    if on and (rec["saved_prefill_tokens"] != saved
+               or rec["prefix_hits"] != hits):
+        raise AssertionError(f"{label}: saved {rec['saved_prefill_tokens']}"
+                             f" tokens and {rec['prefix_hits']} hits, "
+                             f"expected exactly {saved} and {hits}")
+    return rec, [(r["tokens"], h.logits)
+                 for r, h in zip(res["results"], res["handles"])]
+
+
+def run_prefix_int8(lm, cpu_lm, A, prompts, card) -> dict:
+    """17a, int8: the prefix-on engine with an int8 cache, so each hit's
+    suffix prefill dequantizes the gathered context per block, on the
+    card and on the CPU (the port's plain K4; the same weights and the
+    same deterministic schedule, so each stream meets the same block
+    history in both runs): saved tokens and hits exact in both, decode
+    steps and prefills equal, and the card's tokens equal the CPU's
+    under the near-tie rule."""
+    recs, runs = {}, {}
+    for where, m in (("card", lm), ("cpu", cpu_lm)):
+        eng = prefix_engine(m, f"smoke_prefix_int8_{where}", True, "int8",
+                            capture=where == "cpu")
+        try:
+            recs[where], runs[where] = serve_prefix(
+                eng, prompts, A, f"17a int8 {where}")
+        finally:
+            eng.close()
+    for k in ("decode_steps", "prefills"):
+        if recs["card"][k] != recs["cpu"][k]:
+            raise AssertionError(f"17a int8: {k} {recs['card'][k]} on the "
+                                 f"card, {recs['cpu'][k]} on the CPU")
+    out = {"card": recs["card"],
+           "cpu": {k: recs["cpu"][k] for k in ("wall_s", "decode_steps",
+                                               "prefills")},
+           "parity": near_tie_compare(runs["cpu"],
+                                      [t for t, _ in runs["card"]],
+                                      "17a int8 card vs CPU")}
+    log(f"  17a int8 [{card}]: {json.dumps(out)}")
+    return out
+
+
+def run_prefix_leg(dev, lm, cpu_lm, A, card) -> dict:
+    """17a: the shared-prefix traffic, prefix cache off and on (float32,
+    with each engine's wall attributed), then int8 with the cache on,
+    on the card against the CPU."""
+    from paddle_tpu_torch.core import flags
+    rng = np.random.RandomState(3)
+    shared = rng.randint(0, REFC["vocab"], PFX_SHARED).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(
+        0, REFC["vocab"], PFX_UNIQ).astype(np.int32)])
+        for _ in range(PFX_N)]
+    out, runs = {}, {}
+    saved = flags.get_flags(list(ATTRIBUTION_FLAGS))
+    flags.set_flags({k: True for k in ATTRIBUTION_FLAGS})
+    try:
+        for on in (False, True):
+            key = "prefix_on" if on else "prefix_off"
+            # both capture logits (the same readbacks in both timed
+            # runs); the truth run's (prefix off) judge near-ties
+            eng = prefix_engine(lm, f"smoke_{key}", on)
+            acc = {}
+            time_calls(eng, ("_admissible_locked", "_prefill",
+                             "_register_prefix", "_decode_step"), acc)
+            if on:
+                time_calls(eng.prefix, ("chain_keys",), acc)
+            try:
+                rec, runs[key] = serve_prefix(eng, prompts, A, f"17a {key}")
+                rec["scheduler"] = scheduler_breakdown(eng, acc,
+                                                       rec["wall_s"])
+            finally:
+                eng.close()
+            out[key] = rec
+            log(f"  17a {key} [{card}]: {json.dumps(rec)}")
+    finally:
+        flags.set_flags(saved)
+    out["parity"] = near_tie_compare(
+        runs["prefix_off"], [t for t, _ in runs["prefix_on"]],
+        "17a prefix on vs off")
+    log(f"  17a: saved {out['prefix_on']['saved_prefill_tokens']} prefill "
+        f"tokens and {out['prefix_on']['prefix_hits']} block hits "
+        f"exactly; prefix on = off under the near-tie rule: "
+        f"{json.dumps(out['parity'])}")
+    out["int8"] = run_prefix_int8(lm, cpu_lm, A, prompts, card)
+    # K4's device time inside the decode window, a fresh prefix-on
+    # engine under the profiler; contexts recorded a step
+    eng = prefix_engine(lm, "smoke_prefix_prof", True, capture=False)
+    ctx = []
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with k4_contexts(lm, ctx), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            serve_staged(eng, prompts, PFX_NEW)
+            torch.cuda.synchronize()
+    finally:
+        eng.close()
+    k4 = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and K4_KERNELS in e.name]
+    k4_ms = sum(e.time_range.end - e.time_range.start for e in k4) / 1e3
+    n = REFC["n_layer"] * len(ctx)
+    bounds = [k4_step_bound(cl, shape, False) for cl, shape in ctx]
+    bound_ms = sum(b["bound_ms"] for b in bounds) / max(len(bounds), 1)
+    live = [cl[cl > 1] for cl, _ in ctx]
+    out["k4"] = {"launches": n, "device_records": len(k4),
+                 "ms_per_launch": k4_ms / max(n, 1) if k4 else
+                 "not measured",
+                 "bound_ms_per_launch": bound_ms,
+                 "bound_by": bounds[0]["bound_by"] if bounds else None,
+                 "context_mean": float(np.mean(np.concatenate(live)))
+                 if live else 0.0,
+                 "live_lanes_mean": float(np.mean([len(x) for x in live]))}
+    log(f"  17a K4 in the profiled decode window [{card}]: "
+        f"{json.dumps(out['k4'])}")
+    out["prefill_paths"] = time_prefill_paths(dev, lm, prompts[1])
+    log(f"  17a prefill dispatches alone [{card}]: " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items() if kk != "wall_ms"}
+             if isinstance(v, dict) else v)
+         for k, v in out["prefill_paths"].items()}))
+    return out
+
+
+def time_prefill_paths(dev, lm, prompt) -> dict:
+    """17a's two prefill dispatches alone, recorded: the full prefill of
+    the 480-token prompt on the 512 bucket, and the suffix prefill of
+    its last 64 tokens over the 13 resident blocks (bucket 64): host
+    wall a call (synchronized, 20 calls after 3), and the device busy
+    time and kernel count of one profiled call each; with the host's
+    cost of the chain hash over the prompt (``PrefixCache.chain_keys``,
+    run by admission's ``match`` and by ``_register_prefix``)."""
+    from paddle_tpu_torch.decode import BlockAllocator, PagedKVCache
+    from paddle_tpu_torch.decode import PrefixCache
+    cfg = lm.config
+    MB = cfg.max_seq_len // PFX_BS
+    cache = PagedKVCache(cfg.n_layer, cfg.n_head, cfg.head_dim, MB + 1,
+                         PFX_BS, device=dev)
+    kc, vc = cache.state()
+    table = torch.arange(1, MB + 1, dtype=torch.int32, device=dev)
+    L, start = len(prompt), PFX_SHARED
+    full = torch.zeros((1, PFX_BUCKETS[0]), dtype=torch.int32, device=dev)
+    full[0, :L] = torch.from_numpy(prompt).to(dev)
+    sfx = torch.zeros((1, L - start), dtype=torch.int32, device=dev)
+    sfx[0] = torch.from_numpy(prompt[start:]).to(dev)
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    temp = torch.zeros((), device=dev)
+
+    def run_full():
+        return lm.prefill(kc, vc, full, torch.tensor(L, device=dev), table,
+                          z, temp, z)
+
+    def run_sfx():
+        return lm.prefill_suffix(kc, vc, sfx, torch.tensor(start, device=dev),
+                                 torch.tensor(L, device=dev), table, z, temp,
+                                 z)
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("prefill", run_full), ("prefill_suffix", run_sfx)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_call(fn, ())
+            out[name] = {"wall_ms_median": float(np.median(walls)),
+                         "wall_ms": walls,
+                         "device_busy_ms": prof.get("device_busy_ms"),
+                         "kernels_launched": prof.get("kernels_launched"),
+                         "top_kernels": prof.get("top_kernels", [])[:4]}
+    pc = PrefixCache(BlockAllocator(MB + 1), PFX_BS, model_key="smoke")
+    toks = [int(t) for t in prompt]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        pc.chain_keys(toks)
+    out["chain_keys_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    return out
+
+
+def record_resumes(eng) -> list:
+    """Log each resume's (rid, tokens kept at preemption): a wrapper on
+    the engine's partial prefill."""
+    seen = []
+    orig = eng._prefill_partial
+
+    def wrapped(i, slot, req, t0):
+        if req.resume_tokens is not None:
+            seen.append((req.rid, list(req.resume_tokens)))
+        return orig(i, slot, req, t0)
+    eng._prefill_partial = wrapped
+    return seen
+
+
+def occupancy_recorder(eng):
+    """Slot occupancy from the lane counters (FLAGS_phase_attribution):
+    over the whole run, and over the loaded window, which ends at the
+    last admission sweep that found a queue (a wrapper on the engine's
+    admission reads the counters there)."""
+    lat = eng.stats.latency()
+    start = (lat.live_slot_steps.value, lat.pad_slot_steps.value)
+    last = [start]
+    orig = eng._admissible_locked
+
+    def wrapped():
+        if eng._pending:
+            last[0] = (lat.live_slot_steps.value, lat.pad_slot_steps.value)
+        return orig()
+    eng._admissible_locked = wrapped
+
+    def finish() -> dict:
+        live, pad = (last[0][k] - start[k] for k in (0, 1))
+        whole_live = lat.live_slot_steps.value - start[0]
+        whole_pad = lat.pad_slot_steps.value - start[1]
+        return {"loaded_occupancy": live / max(live + pad, 1),
+                "loaded_lane_steps": live + pad,
+                "occupancy": whole_live / max(whole_live + whole_pad, 1)}
+    return finish
+
+
+def run_overcommit(lm, A, dtype, overcommit, name, prompts,
+                   hooks=False) -> dict:
+    """One 17b/17c run on ``lm``'s device: the 24 streams through the
+    97-block pool, all submitted under the engine's lock, so the
+    schedule (admissions, growth, preemptions) is a function of the
+    traffic alone.  The truth runs capture their logits: full
+    reservation, and every run on the CPU."""
+    from paddle_tpu_torch.decode import DecodeEngine, SamplingParams
+    from paddle_tpu_torch.distributed import faults
+    from paddle_tpu_torch.observability import memory, tenant
+    cuda = lm.device.type == "cuda"
+    eng = DecodeEngine(lm, name=name, max_slots=OC_SLOTS,
+                       block_tokens=OC_BS, num_blocks=OC_POOL,
+                       prefill_buckets=OC_BUCKETS, max_queue=OC_N + 4,
+                       capture_logits=not (overcommit and cuda),
+                       cache_dtype=dtype, overcommit=overcommit,
+                       device=lm.device)
+    resumes = record_resumes(eng) if overcommit else []
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        A.decode_attention.launches = 0
+        if hooks:
+            faults.inject(f"oom:decode_step:n={OC_OOM_STEP},times=1")
+        finish = occupancy_recorder(eng)
+        t0 = time.perf_counter()
+        with eng._lock:
+            hs = [eng.submit(p, SamplingParams(max_new_tokens=OC_NEW),
+                             tenant=f"t{i % 4}" if hooks else None)
+                  for i, p in enumerate(prompts)]
+        res = [h.result(timeout=600) for h in hs]
+        if not eng.drain(timeout=60):
+            raise AssertionError(f"{name}: the engine did not drain")
+        wall = time.perf_counter() - t0
+        occ = finish()
+        launches = A.decode_attention.launches
+        steps = eng.stats.steps.value
+        rec = {"wall_s": wall,
+               "tokens_per_s": sum(r["n_tokens"] for r in res) / wall,
+               "decode_steps": steps, "k4_launches": launches,
+               "leaked": eng.cache.allocator.leaked(),
+               "finish": sorted(set(r["finish"] for r in res)), **occ}
+        if overcommit:
+            ps = eng._pstats
+            rec.update(preempts=ps.preempts.value,
+                       resumes=ps.preempt_resumes.value,
+                       reprefill_tokens=ps.reprefill_tokens.value,
+                       resumed_streams=len({r for r, _ in resumes}))
+        if hooks:
+            rec["hooks"] = check_hooks(eng, memory, tenant)
+        elif overcommit and cuda:   # 17d, on the pools the streams used
+            rec["block_copy"] = check_block_copy(eng)
+    finally:
+        if hooks:
+            faults.clear()
+        eng.close()
+    want = REFC["n_layer"] * steps if cuda else 0
+    if steps == 0 or launches != want or rec["leaked"] != 0 or \
+            rec["finish"] != ["length"]:
+        raise AssertionError(f"{name}: K4 launched {launches} times over "
+                             f"{steps} decode steps (expected {want}), "
+                             f"{rec['leaked']} blocks leaked, finishes "
+                             f"{rec['finish']}")
+    if overcommit and (rec["preempts"] < 1 or rec["resumes"] < 1):
+        raise AssertionError(f"{name}: {rec['preempts']} preemptions, "
+                             f"{rec['resumes']} resumes (expected >= 1)")
+    streams = [(r["tokens"], h.logits) for r, h in zip(res, hs)]
+    return {"rec": rec, "streams": streams, "resumes": resumes}
+
+
+def check_hooks(eng, memory, tenant) -> dict:
+    """17c's gates on the hooks (module doc, phase 17c)."""
+    lat = eng.stats.latency()
+    samples = list(lat.phases._ring)
+    worst = 0.0
+    for s in samples:
+        if list(s["phases"]) != ["queue", "prefill", "decode"]:
+            raise AssertionError(f"17c: phases {list(s['phases'])}")
+        worst = max(worst, abs(sum(s["phases"].values()) - s["total_ms"]))
+    if len(samples) != OC_N or worst > 5e-3:
+        raise AssertionError(f"17c: {len(samples)} phase samples, the "
+                             f"phases sum to the wall within {worst} ms")
+    torch.cuda.synchronize()
+    led = memory.ledger(set_gauges=False)
+    in_use = int(torch.cuda.memory_stats(eng.device)[
+        "allocated_bytes.all.current"])
+    pool = led["pools"][f"decode_kv.{eng.name}"]
+    d = led["devices"][memory.device_key(eng.device)]
+    if pool["reserved"] != eng.cache.nbytes or \
+            d["attributed"] + d["unattributed_bytes"] != \
+            d["bytes_in_use"] or d["bytes_in_use"] != in_use:
+        raise AssertionError(f"17c: the ledger {d} (pool {pool['reserved']}"
+                             f", cache {eng.cache.nbytes}) does not "
+                             f"reconcile with memory_stats {in_use}")
+    resident = {t: v["resident_kv_bytes"]
+                for t, v in tenant.meter().snapshot()["tenants"].items()}
+    if any(resident.values()):
+        raise AssertionError(f"17c: resident KV bytes left {resident}")
+    from paddle_tpu_torch.observability import stats
+    rec_n = stats.default_registry().to_dict().get(
+        f"decode.{eng.name}.oom_recovered")
+    oom = memory.last_oom()
+    if rec_n != 1 or oom is None or \
+            oom["top_holders"][0]["pool"] != f"decode_kv.{eng.name}":
+        raise AssertionError(f"17c: oom_recovered {rec_n}, last OOM "
+                             f"{oom and oom['top_holders']}")
+    z = eng.decodez()
+    return {"phase_samples": len(samples), "phase_sum_worst_ms": worst,
+            "pool_bytes": pool["reserved"], "bytes_in_use": in_use,
+            "unattributed_bytes": d["unattributed_bytes"],
+            "tenants_resident_kv_bytes": resident, "oom_recovered": rec_n,
+            "oom_top_holder": oom["top_holders"][0],
+            "goodput": z["goodput"], "capacity": {
+                k: z["capacity"][k] for k in ("completed", "binding_phase")
+                if k in z["capacity"]}}
+
+
+def check_block_copy(eng, n=8) -> dict:
+    """17d: fork ``n`` blocks of every pool with ``_copy_block`` on the
+    card (after the streams ended): each copy bit-equal to its source,
+    scales included, every other block untouched."""
+    g = torch.Generator(device=eng.device).manual_seed(17)
+    for a in eng.cache.state():
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                  device=a.device, dtype=torch.int8))
+        else:
+            a.copy_(torch.rand(a.shape, generator=g, device=a.device)
+                    * 4 - 2)
+    before = [a.clone() for a in eng.cache.state()]
+    nb = eng.cache.num_blocks
+    src = list(range(1, 1 + n))
+    dst = list(range(nb - n, nb))
+    for s, d in zip(src, dst):
+        eng._copy_block(s, d)
+    torch.cuda.synchronize()
+    for a, b in zip(eng.cache.state(), before):
+        ai = a.view(torch.int8) if a.dtype == torch.int8 else \
+            a.view(torch.int32)
+        bi = b.view(torch.int8) if b.dtype == torch.int8 else \
+            b.view(torch.int32)
+        if not torch.equal(ai[:, dst], bi[:, src]):
+            raise AssertionError(f"17d: a forked block of a "
+                                 f"{a.dtype} pool differs from its source")
+        keep = [i for i in range(nb) if i not in dst]
+        if not torch.equal(ai[:, keep], bi[:, keep]):
+            raise AssertionError("17d: a block copy touched another block")
+    return {"blocks": n, "pools": len(before),
+            "dtypes": sorted({str(a.dtype) for a in before}),
+            "bit_equal": True}
+
+
+def run_overcommit_leg(lm, cpu_lm, A, card) -> dict:
+    """17b (both dtypes, int8 also on the CPU), 17c and 17d."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.observability import capacity, memory, tenant
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, REFC["vocab"], OC_PROMPT).astype(np.int32)
+               for _ in range(OC_N)]
+    out = {}
+    saved = flags.get_flags(list(CHECK_FLAGS) + ["memory_audit_interval_s"])
+    flags.set_flags({"phase_attribution": True})   # the lane counters
+    try:
+        truth = {}
+        for dtype in ("float32", "int8"):
+            full = run_overcommit(lm, A, dtype, False,
+                                  f"smoke_reserved_{dtype}", prompts)
+            oc = run_overcommit(lm, A, dtype, True,
+                                f"smoke_overcommit_{dtype}", prompts)
+            truth[dtype] = full["streams"]
+            got = [t for t, _ in oc["streams"]]
+            rec = {"reserved": full["rec"], "overcommit": oc["rec"]}
+            if dtype == "float32":
+                rec["parity"] = near_tie_compare(
+                    full["streams"], got, f"17b {dtype}")
+            else:
+                rec["against_reserved"] = check_int8_against_reserved(
+                    oc, full)
+                rec["parity"], rec["cpu"] = \
+                    check_int8_overcommit_against_cpu(cpu_lm, A, oc, prompts)
+            out[dtype] = rec
+            log(f"  17b {dtype} [{card}]: " + json.dumps(rec))
+        # 17c: the f32 overcommit leg with the hooks on and one OOM
+        flags.set_flags({k: True for k in CHECK_FLAGS})
+        flags.set_flags({"memory_audit_interval_s": 0.0})
+        hooked = run_overcommit(lm, A, "float32", True,
+                                "smoke_overcommit_hooks", prompts,
+                                hooks=True)
+        rec = hooked["rec"]
+        rec["parity"] = near_tie_compare(
+            truth["float32"], [t for t, _ in hooked["streams"]], "17c")
+        out["hooks"] = rec
+        log(f"  17c [{card}]: " + json.dumps(rec))
+    finally:
+        flags.set_flags(saved)
+        memory.reset()
+        tenant.reset()
+        capacity.reset()
+    return out
+
+
+def check_int8_overcommit_against_cpu(cpu_lm, A, oc, prompts) -> tuple:
+    """17b, int8, the gate: the same overcommit run on the CPU (the
+    port's plain K4 on the same weights and the same schedule, so each
+    stream meets the same block history, resumes included) must take
+    the card's decode steps, preemptions, resumes and re-prefilled
+    tokens exactly, and the card's tokens must equal the CPU's under
+    the near-tie rule."""
+    twin = run_overcommit(cpu_lm, A, "int8", True, "smoke_overcommit_cpu",
+                          prompts)
+    keys = ("decode_steps", "preempts", "resumes", "reprefill_tokens")
+    card = {k: oc["rec"][k] for k in keys}
+    cpu = {k: twin["rec"][k] for k in keys}
+    if card != cpu:
+        raise AssertionError(f"17b int8: the card's schedule {card} != the "
+                             f"CPU's {cpu}")
+    parity = near_tie_compare(twin["streams"],
+                              [t for t, _ in oc["streams"]],
+                              "17b int8 card vs CPU")
+    return parity, dict(cpu, wall_s=twin["rec"]["wall_s"])
+
+
+def check_int8_against_reserved(oc, full) -> dict:
+    """17b, int8, recorded beside the gate
+    (``check_int8_overcommit_against_cpu``): two properties of the reference's int8 cache, which the port keeps
+    (``ROADMAP.md`` queue 3), make a stream's tokens depend on its
+    blocks' history, so the overcommit run cannot be held to the
+    reserved run token for token: a block handed to a stream keeps its
+    last owner's scale, which the decode step's append takes as a floor
+    (``max(old, amax)``), and a resumed stream's re-prefill quantizes
+    its blocks once at their final scales where the uninterrupted
+    stream requantized them as each scale grew.  The first token of
+    every stream samples inside prefill on fresh float32 K/V, so it
+    must equal the reserved run's; the rest is reported: streams equal,
+    ending in a near-tie, or departing further (with the gap, and
+    whether it was resumed)."""
+    resumed = {rid for rid, _ in oc["resumes"]}
+    equal, ties, departed = 0, 0, []
+    for i, ((a, al), (b, _)) in enumerate(zip(full["streams"],
+                                              oc["streams"])):
+        if a[0] != b[0]:
+            raise AssertionError(f"17b int8: stream {i}'s first token "
+                                 f"{b[0]} != the reserved run's {a[0]}")
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            equal += 1
+        elif float(al[k][a[k]] - al[k][b[k]]) <= LOGITS_TOL:
+            ties += 1
+        else:
+            departed.append({"stream": i, "token": k,
+                             "gap": float(al[k][a[k]] - al[k][b[k]]),
+                             "resumed": i + 1 in resumed})
+    return {"first_tokens_equal": len(full["streams"]),
+            "streams_equal": equal, "streams_near_tie": ties,
+            "streams_departed": departed}
+
+
+def warm_up(dev, lm) -> None:
+    """Out of every timed window: the first calls of the prefill, the
+    suffix prefill and the decode step (the library's lazy loading), on
+    throwaway engines of both cache dtypes."""
+    from paddle_tpu_torch.decode import DecodeEngine
+    eng = DecodeEngine(lm, name="smoke_refc_warm", max_slots=PFX_SLOTS,
+                       block_tokens=PFX_BS, prefill_buckets=PFX_BUCKETS,
+                       prefix_cache=True, device=dev)
+    try:
+        w = np.full(480, 1, np.int32)
+        eng.generate(w, max_new_tokens=4)
+        w[416:] = 2                    # 17a's 13-block hit, suffix 64
+        eng.generate(w, max_new_tokens=4)
+    finally:
+        eng.close()
+    for dtype in ("float32", "int8"):
+        eng = DecodeEngine(lm, name=f"smoke_refc_warm_{dtype}",
+                           max_slots=OC_SLOTS, block_tokens=OC_BS,
+                           prefill_buckets=OC_BUCKETS, cache_dtype=dtype,
+                           overcommit=True, device=dev)
+        try:
+            eng.generate(np.arange(1, 1 + OC_PROMPT, dtype=np.int32),
+                         max_new_tokens=OC_BS + 2)
+        finally:
+            eng.close()
+
+
+def run_refcounted(dev, card: str) -> dict:
+    """Phase 17 (module doc)."""
+    from paddle_tpu_torch.decode import LMConfig, TransformerLM
+    from paddle_tpu_torch.kernels import attention as A
+    t0 = time.perf_counter()
+    lm = TransformerLM(LMConfig(**REFC), device=dev)
+    lm.init_params(seed=7)
+    # the int8 legs' truth: the same weights on the CPU
+    cpu_lm = TransformerLM(LMConfig(**REFC), device="cpu")
+    cpu_lm.init_params(seed=7)
+    warm_up(dev, lm)
+    out = {"warm_s": time.perf_counter() - t0,
+           "prefix": run_prefix_leg(dev, lm, cpu_lm, A, card)}
+    out["prefix_s"] = time.perf_counter() - t0
+    out["overcommit"] = run_overcommit_leg(lm, cpu_lm, A, card)
+    out["seconds"] = time.perf_counter() - t0
+    del lm, cpu_lm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -7073,6 +7861,9 @@ def main() -> int:
     phase("16: the book models through Executor.run")
     book = run_book(dev, card)
 
+    phase("17: the refcounted decode plane at Transformer-base width")
+    refc = run_refcounted(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -7093,6 +7884,24 @@ def main() -> int:
             "long_library_ms": k["long"]["library_ms"]})
         if dtype == "float32":   # the paged beam decode (phase 11b)
             rows[-1]["beam_launches"] = paged_beam["cow"]["k4_launches"]
+        # phase 17: K4 on shared prefix blocks (17a), on tables that grow
+        # and on re-prefilled, resumed streams (17b, 17c)
+        oc = refc["overcommit"]
+        rows[-1]["refcounted_launches"] = {
+            "overcommit": oc[dtype]["overcommit"]["k4_launches"],
+            "reserved": oc[dtype]["reserved"]["k4_launches"]}
+        if dtype == "float32":
+            rows[-1]["refcounted_launches"].update(
+                prefix_on=refc["prefix"]["prefix_on"]["k4_launches"],
+                prefix_off=refc["prefix"]["prefix_off"]["k4_launches"],
+                hooks=oc["hooks"]["k4_launches"])
+            rows[-1]["prefix_ms_per_launch"] = \
+                refc["prefix"]["k4"]["ms_per_launch"]
+            rows[-1]["prefix_bound_ms_per_launch"] = \
+                refc["prefix"]["k4"]["bound_ms_per_launch"]
+        else:
+            rows[-1]["refcounted_launches"]["prefix_on"] = \
+                refc["prefix"]["int8"]["card"]["k4_launches"]
     names = {"fwd": ("flash_attn_fwd", "flash_attn_fwd.cu", 226, 0),
              "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 459, 1),
              "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 507, 2)}
@@ -7276,7 +8085,7 @@ def main() -> int:
                    "int8_serving": serving, "mt_beam": mt_beam,
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "run_steps": steps, "control_flow": control_flow,
-                   "book": book,
+                   "book": book, "decode_refcounted": refc,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -9,7 +9,7 @@ paged decode attention as a hand-written CUDA kernel
 """
 from __future__ import annotations
 
-from .cache import BlockAllocator, PagedKVCache  # noqa: F401
+from .cache import BlockAllocator, PagedKVCache, PrefixCache  # noqa: F401
 from .model import (LMConfig, TransformerLM, load_lm,  # noqa: F401
                     save_lm)
 from .engine import (DecodeEngine, DecodeHandle,  # noqa: F401
@@ -19,7 +19,7 @@ from ..serving.batcher import (Draining, Overloaded,  # noqa: F401
                                RequestTooLong)
 
 __all__ = [
-    "BlockAllocator", "PagedKVCache",
+    "BlockAllocator", "PagedKVCache", "PrefixCache",
     "LMConfig", "TransformerLM", "save_lm", "load_lm",
     "DecodeEngine", "DecodeHandle", "DecodeRequest", "SamplingParams",
     "PagedBeamDecoder",

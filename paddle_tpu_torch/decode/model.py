@@ -10,6 +10,10 @@ weights as ``nn.Parameter``s; three methods share its layer math:
   sampled token + last-position logits, with every real position's K/V
   written into the request's cache blocks (padded positions go to the
   reserved trash block 0).
+- :meth:`TransformerLM.prefill_suffix` — a prefill whose leading
+  positions are already resident in the cache (prefix-cache hits, or a
+  preempted stream's re-prefill): only the suffix runs, attending to
+  the gathered context.
 - :meth:`TransformerLM.decode_step` — the continuous-batching hot
   dispatch: ``[S]`` last tokens at ``[S]`` positions, K/V appended to
   the cache, attention through
@@ -40,7 +44,8 @@ from torch import nn
 
 from ..kernels._hash import finalize, mul32, u32
 from ..kernels.attention import decode_attention
-from ..kernels.quant import QMAX, SCALE_EPS, kv_head_amax, kv_quantize
+from ..kernels.quant import (QMAX, SCALE_EPS, kv_dequantize, kv_head_amax,
+                             kv_quantize)
 from ..platform import get_device
 
 _LN_EPS = 1e-5
@@ -339,6 +344,76 @@ class TransformerLM(nn.Module):
                                    valid, bt)
             h = self._post_attn(layer, h, self._dense_attn(q, k, v, mask))
         last = h[0, torch.clamp_min(length.long() - 1, 0)]
+        logits = last @ self.out_proj
+        tok = _sample(logits[None], seed.reshape(1),
+                      torch.zeros(1, dtype=torch.int64, device=dev),
+                      temperature.reshape(1), top_k.reshape(1))[0]
+        return tok, logits
+
+    # -- suffix prefill (prefix-cache hits / preemption resume) ------------
+    def prefill_suffix(self, kc, vc, tokens, start, length, block_table,
+                       seed, temperature, top_k, ks=None, vs=None):
+        """tokens [1, Sb] (bucket-padded suffix), start [] int (how many
+        leading positions are already resident in the cache), length []
+        int (the whole real sequence; the suffix is positions
+        start..length-1), block_table [MB] int → (next_token [] int32,
+        logits [V]); the pools are written in place.
+
+        The resident prefix is not recomputed: the suffix's K/V is
+        written into the request's blocks first, then the whole context
+        is gathered once a layer ([MB, bs] → [MB*bs] rows) and attention
+        is a dense masked product of the Sb suffix queries against it (a
+        lane at absolute position ``pos`` sees context rows 0..pos).
+        With the int8 scale pools the gathered context, the suffix's own
+        rows included, is dequantized per block first.  Pad lanes write
+        into trash block 0 and attend to position 0 only; their output is
+        discarded.  Unwritten table slots name block 0 too, at flattened
+        positions past every real ``pos``, so the mask drops them.
+        Samples the first generated token like :meth:`prefill` (token
+        index 0)."""
+        cfg = self.config
+        dev = tokens.device
+        Sb = tokens.shape[1]
+        bs = kc.shape[2]
+        MB = block_table.shape[0]
+        H, Dh = cfg.n_head, cfg.head_dim
+        sc = float(1.0 / np.sqrt(Dh))
+        bt = block_table.long()
+        lane = torch.arange(Sb, device=dev)
+        n = length.long() - start.long()          # real suffix length
+        valid = lane < n
+        pos = start.long() + lane
+        safe_pos = torch.clamp_max(
+            torch.where(valid, pos, torch.zeros_like(pos)),
+            cfg.max_seq_len - 1)
+        slot = torch.clamp_max(safe_pos // bs, MB - 1)
+        blocks = torch.where(valid, bt[slot], torch.zeros_like(slot))
+        offsets = safe_pos % bs
+        tpos = torch.arange(MB * bs, device=dev)
+        mask = tpos[None, :] <= safe_pos[:, None]   # [Sb, MB*bs]
+        h = self._embed(tokens[0], safe_pos)
+        for i, layer in enumerate(self.layers):
+            q, k, v = self._qkv(layer, h)          # [Sb, H, Dh]
+            if ks is None:
+                self._scatter_kv(kc, i, blocks, offsets, k)
+                self._scatter_kv(vc, i, blocks, offsets, v)
+                ck = kc[i][bt].reshape(MB * bs, H, Dh)
+                cv = vc[i][bt].reshape(MB * bs, H, Dh)
+            else:
+                self._scatter_kv_q(kc, ks, i, blocks, offsets, k, slot,
+                                   valid, bt)
+                self._scatter_kv_q(vc, vs, i, blocks, offsets, v, slot,
+                                   valid, bt)
+                ck = kv_dequantize(kc[i][bt], ks[i][bt][:, None, :]
+                                   ).reshape(MB * bs, H, Dh)
+                cv = kv_dequantize(vc[i][bt], vs[i][bt][:, None, :]
+                                   ).reshape(MB * bs, H, Dh)
+            s = torch.einsum("qhd,khd->hqk", q.float(), ck.float()) * sc
+            s = s.masked_fill(~mask[None], NEG_INF)
+            w = torch.softmax(s, dim=-1)
+            ctx = torch.einsum("hqk,khd->qhd", w, cv.float())
+            h = self._post_attn(layer, h, ctx.to(h.dtype))
+        last = h[torch.clamp_min(n - 1, 0)]
         logits = last @ self.out_proj
         tok = _sample(logits[None], seed.reshape(1),
                       torch.zeros(1, dtype=torch.int64, device=dev),

@@ -96,8 +96,12 @@ def paged_attention_ref(q, k_cache, v_cache, block_tables, context_lens,
         sm_scale = float(1.0 / math.sqrt(q.shape[-1]))
     S, H, D = q.shape
     bs = k_cache.shape[1]
-    MB = block_tables.shape[1]
     bt = block_tables.long()
+    if q.device.type == "cpu" and S:
+        # table slots past every lane's context only add masked scores:
+        # gather the live ones (a host read, free on the CPU)
+        bt = bt[:, :max(1, -(-int(context_lens.max()) // bs))]
+    MB = bt.shape[1]
     k = k_cache[bt]                              # [S, MB, bs, H, D]
     v = v_cache[bt]
     if k_scale is not None:

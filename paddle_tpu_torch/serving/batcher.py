@@ -17,9 +17,14 @@ with a typed :class:`Overloaded`, and a sequence feed longer than
 
 ``Predictor.run`` returns host arrays, so the scheduler thread waits
 for each batch; the completion thread answers the futures while the
-next batch runs.  The reference's phase and capacity recorders, memory
-pools, tenant metering, trace spans and fault-injection sites are off
-by flag there and wait for the port's ``observability`` modules.
+next batch runs.
+
+The flag-gated recorders are the reference's: request phases
+(``FLAGS_phase_attribution``; the predictor's device work lands in
+``dispatch``, since ``run`` returns host arrays, and ``device`` is the
+wait in the completion queue), capacity, tenant metering, the staging
+pool in the MemoryLedger with OOM forensics, the ``serving::dispatch``
+trace span and the ``serving_dispatch`` fault-injection site.
 """
 from __future__ import annotations
 
@@ -33,7 +38,27 @@ import numpy as np
 
 from ..core import flags as _flags
 from ..core.types import np_dtype
+from ..distributed import faults as _faults
+from ..observability import capacity as _capacity
+from ..observability import memory as _memory
+from ..observability import phase as _phase
 from ..observability import stats as _obs_stats
+from ..observability import tenant as _tenant
+from ..observability import trace as _obs_trace
+
+# request lifecycle phases (FLAGS_phase_attribution; observability/
+# phase.py): consecutive monotonic stamps, so the five sum EXACTLY to
+# the request's end-to-end wall — a p99 regression names its phase
+#   queue     submit accepted -> its batch starts assembling
+#   assemble  coalesce + pad + feed build
+#   dispatch  Predictor.run (the device work and the readback; injected
+#             dispatch faults land here)
+#   device    dispatch return -> batch taken by the completion thread
+#   reply     taken -> this request's future completed
+SERVING_PHASES = ("queue", "assemble", "dispatch", "device", "reply")
+# capacity-tracked components: the phases that consume a worker
+# thread's wall ("queue" is waiting, not busy — it never saturates)
+SERVING_CAPACITY_COMPONENTS = ("assemble", "dispatch", "device", "reply")
 
 
 class Overloaded(RuntimeError):
@@ -169,13 +194,19 @@ class BucketLadder:
 
 
 class _Request:
-    __slots__ = ("feed", "rows", "future", "t_enq")
+    __slots__ = ("feed", "rows", "future", "t_enq", "tl", "tenant")
 
-    def __init__(self, feed: Dict[str, np.ndarray], rows: int):
+    def __init__(self, feed: Dict[str, np.ndarray], rows: int,
+                 tenant: Optional[str] = None):
         self.feed = feed
         self.rows = rows
+        self.tenant = tenant
         self.future: "Future" = Future()
         self.t_enq = time.monotonic()
+        # phase timeline, sharing the enqueue stamp (flag-gated; None
+        # keeps the flag-off path allocation-free)
+        self.tl = (_phase.PhaseTimeline(t0=self.t_enq)
+                   if _phase.enabled() else None)
 
 
 class BatcherStats:
@@ -190,6 +221,10 @@ class BatcherStats:
         self._lock = threading.Lock()
         # (t_done_monotonic, latency_ms) of recent completed requests
         self._recent: deque = deque(maxlen=self._WINDOW)
+        # per-request phase attribution (FLAGS_phase_attribution):
+        # created on first observe so a flag-off process never
+        # registers serving.<model>.phase.* series
+        self._phases: Optional[_phase.PhaseRecorder] = None
         self.requests = 0
         self.rows = 0
         self.shed = 0
@@ -250,10 +285,35 @@ class BatcherStats:
     def set_depth(self, rows: int) -> None:
         self._g_depth.set(rows)
 
+    def note_phases(self, tl, trace_id=None) -> None:
+        """Fold one finished request timeline into the per-phase
+        histograms + sample ring (completion thread)."""
+        with self._lock:
+            rec = self._phases
+            if rec is None:
+                rec = self._phases = _phase.PhaseRecorder(
+                    f"serving.{self.model}", SERVING_PHASES)
+        rec.observe(tl, trace_id=trace_id)
+
+    def phases(self) -> Optional[_phase.PhaseRecorder]:
+        with self._lock:
+            return self._phases
+
+    def capacity_tracker(self) -> "_capacity.CapacityTracker":
+        """Get-or-create this model's capacity tracker (callers gate on
+        ``_capacity.enabled()`` so a flag-off process never registers
+        ``serving.<model>.util.*`` series)."""
+        return _capacity.tracker(f"serving.{self.model}",
+                                 SERVING_CAPACITY_COMPONENTS)
+
+    def capacity(self) -> Optional["_capacity.CapacityTracker"]:
+        return _capacity.get(f"serving.{self.model}")
+
     def snapshot(self) -> dict:
         now = time.monotonic()
         with self._lock:
             recent = list(self._recent)
+            phases = self._phases
             out = {
                 "requests": self.requests, "rows": self.rows,
                 "shed": self.shed, "batches": self.batches,
@@ -271,6 +331,11 @@ class BatcherStats:
                 "p50_ms": round(_obs_stats.percentile_sorted(lats, 0.50), 3),
                 "p99_ms": round(_obs_stats.percentile_sorted(lats, 0.99), 3),
             })
+        if phases is not None:
+            out["phases"] = phases.snapshot()
+        cap = self.capacity()
+        if cap is not None:
+            out["capacity"] = cap.snapshot()
         return out
 
 
@@ -352,6 +417,14 @@ class DynamicBatcher:
         # order while the scheduler runs the next batch
         self._done_q: deque = deque()
         self._done_cv = threading.Condition()
+        # memory anatomy (FLAGS_memory_attribution): batch staging —
+        # queued request feeds plus batches awaiting completion — is a
+        # host-side byte holder; flag off, no pool, no series
+        self._mem_pool: Optional[str] = None
+        if _memory.enabled():
+            self._mem_pool = f"serving_staging.{name}"
+            _memory.pool(self._mem_pool, "host",
+                         self._mem_pool_snapshot)
         self._sched = threading.Thread(
             target=self._sched_loop, daemon=True,
             name=f"serving-sched-{name}")
@@ -361,10 +434,28 @@ class DynamicBatcher:
         self._sched.start()
         self._completer.start()
 
+    def _mem_pool_snapshot(self) -> dict:
+        """MemoryLedger callback: bytes staged in the request queue
+        plus batches dispatched but not yet completed (their request
+        feeds are held until the reply slices out)."""
+        with self._cv:
+            queued = sum(sum(a.nbytes for a in r.feed.values())
+                         for r in self._q)
+            q_reqs = len(self._q)
+        with self._done_cv:
+            inflight = [t[0] for t in self._done_q]
+        staged = sum(sum(a.nbytes for a in r.feed.values())
+                     for take in inflight for r in take)
+        return {"used": queued + staged, "queued_bytes": queued,
+                "inflight_bytes": staged, "queued_requests": q_reqs}
+
     # -- request side ------------------------------------------------------
-    def submit(self, feed: Dict[str, np.ndarray]) -> "Future":
+    def submit(self, feed: Dict[str, np.ndarray],
+               tenant: Optional[str] = None) -> "Future":
         """Enqueue one request; the Future resolves to the list of fetch
-        arrays (leading dim = this request's rows).  Raises
+        arrays (leading dim = this request's rows).  ``tenant`` is an
+        optional client-supplied id for per-tenant usage metering
+        (``FLAGS_tenant_accounting``; ignored when off).  Raises
         :class:`Overloaded` or :class:`RequestTooLong` (shed, never
         queued) or ``ValueError`` (a malformed feed, or more rows than
         the top bucket)."""
@@ -402,7 +493,7 @@ class DynamicBatcher:
             raise ValueError(
                 f"request of {rows} rows exceeds the top bucket "
                 f"{self.ladder.max}; split it client-side")
-        req = _Request(arrs, rows)
+        req = _Request(arrs, rows, tenant=tenant)
         with self._cv:
             if self._closed:
                 raise RuntimeError(f"batcher {self.name!r} is closed")
@@ -439,12 +530,15 @@ class DynamicBatcher:
             self.stats.set_depth(self._rows_queued)
             self._cv.notify_all()
         self.stats.note_submit(rows)
+        if _tenant.enabled():
+            _tenant.account(tenant, requests=1, rows=rows)
         return req.future
 
     def infer(self, feed: Dict[str, np.ndarray],
-              timeout: Optional[float] = None) -> List[np.ndarray]:
+              timeout: Optional[float] = None,
+              tenant: Optional[str] = None) -> List[np.ndarray]:
         """Blocking convenience over :meth:`submit`."""
-        return self.submit(feed).result(timeout=timeout)
+        return self.submit(feed, tenant=tenant).result(timeout=timeout)
 
     # -- scheduler ---------------------------------------------------------
     def _sched_loop(self) -> None:
@@ -485,18 +579,65 @@ class DynamicBatcher:
     def _dispatch(self, take: List[_Request], total: int) -> None:
         bucket = self.ladder.snap(total)
         t0 = time.monotonic()
+        stamped = any(r.tl is not None for r in take)
+        cap = (self.stats.capacity_tracker()
+               if _capacity.enabled() else None)
+        if stamped:
+            # one clock read stamps the whole batch: queue ends when
+            # its batch starts assembling
+            for r in take:
+                if r.tl is not None:
+                    r.tl.stamp("queue", t=t0)
+        trace_id = None
+        t_asm = t_disp = None
         try:
             feed = {}
             for n in self.predictor.feed_names:
                 a = (take[0].feed[n] if len(take) == 1
                      else np.concatenate([r.feed[n] for r in take], axis=0))
                 feed[n] = _pad_rows(a, bucket - total)
-            outs, err = self.predictor.run(feed), None
+            if stamped or cap is not None:
+                t_asm = time.monotonic()
+            if stamped:
+                for r in take:
+                    if r.tl is not None:
+                        r.tl.stamp("assemble", t=t_asm)
+            # chaos hooks: a `delay:serving_dispatch` rule sleeps HERE,
+            # inside the dispatch phase; an `oom:serving_dispatch` rule
+            # raises the injected out-of-memory error where a real
+            # device allocation failure would
+            _faults.event("serving_dispatch")
+            _faults.oom_fault("serving_dispatch")
+            with _obs_trace.start_span("serving::dispatch", cat="serving",
+                                       root=False,
+                                       tags={"model": self.name,
+                                             "bucket": bucket,
+                                             "rows": total}) as sp:
+                outs = self.predictor.run(feed)
+                trace_id = getattr(sp, "trace_id", None)
+            if stamped or cap is not None:
+                t_disp = time.monotonic()
+            if stamped:
+                for r in take:
+                    if r.tl is not None:
+                        r.tl.stamp("dispatch", t=t_disp)
+            err = None
         except Exception as e:
+            # OOM forensics: an out-of-memory error escaping the
+            # dispatch dumps the full ledger + top holders + event tail
+            # BEFORE the error reaches the request futures (no-op
+            # unless FLAGS_memory_attribution and an actual OOM)
+            _memory.oom_forensics(e, "serving_dispatch")
             outs, err = None, e
+        if cap is not None and t_disp is not None:
+            # the scheduler thread's busy legs: ONE span per batch
+            # (batch members share the wall — per-request would
+            # double-count), so windowed busy/wall is a utilization
+            cap.note("assemble", (t_asm - t0) * 1e3)
+            cap.note("dispatch", (t_disp - t_asm) * 1e3)
         self.stats.note_batch(total, bucket)
         with self._done_cv:
-            self._done_q.append((take, outs, err, t0))
+            self._done_q.append((take, outs, err, t0, trace_id, bucket))
             self._done_cv.notify()
 
     # -- completion --------------------------------------------------------
@@ -508,21 +649,49 @@ class DynamicBatcher:
                     if self._closed and not self._sched.is_alive():
                         return
                     self._done_cv.wait(timeout=0.2)
-                take, outs, err, t0 = self._done_q.popleft()
+                take, outs, err, t0, trace_id, bucket = \
+                    self._done_q.popleft()
+            now = time.monotonic()
             if err is not None:
-                now = time.monotonic()
                 for r in take:
                     r.future.set_exception(err)
                 self.stats.note_done(
                     len(take), [(now - r.t_enq) * 1e3 for r in take],
                     error=True)
             else:
+                cap = (self.stats.capacity_tracker()
+                       if _capacity.enabled() else None)
                 outs = [np.asarray(o) for o in outs]
+                t_mat = time.monotonic()
+                total = sum(r.rows for r in take)
+                if cap is not None:
+                    cap.note("device", (t_mat - now) * 1e3,
+                             bucket=bucket, work=total)
+                ten_on = _tenant.enabled()
+                dev_ms = (t_mat - now) * 1e3 if ten_on else 0.0
                 off = 0
                 for r in take:
+                    if r.tl is not None:
+                        r.tl.stamp("device", t=t_mat)
                     r.future.set_result([o[off:off + r.rows] for o in outs])
+                    if r.tl is not None:
+                        # per-request reply stamp: slicing + future
+                        # completion, the final leg of the wall
+                        r.tl.stamp("reply")
+                        self.stats.note_phases(r.tl, trace_id=trace_id)
                     off += r.rows
                 now = time.monotonic()
+                if cap is not None:
+                    cap.note("reply", (now - t_mat) * 1e3)
+                    cap.note_done(len(take))
+                if ten_on:
+                    # the shared batch's wall splits by row share, so
+                    # per-tenant device-ms sums to the measured wall
+                    for r in take:
+                        _tenant.account(
+                            r.tenant,
+                            device_ms=dev_ms * (r.rows / max(total, 1)),
+                            latency_ms=(now - r.t_enq) * 1e3)
                 self.stats.note_done(
                     len(take), [(now - r.t_enq) * 1e3 for r in take])
             batch_ms = (now - t0) * 1e3
@@ -558,6 +727,9 @@ class DynamicBatcher:
             self._done_cv.notify_all()
         self._sched.join(timeout=timeout)
         self._completer.join(timeout=timeout)
+        _capacity.unregister(f"serving.{self.stats.model}")
+        if self._mem_pool is not None:
+            _memory.unregister(self._mem_pool)
 
     def queue_rows(self) -> int:
         with self._cv:
@@ -565,4 +737,4 @@ class DynamicBatcher:
 
 
 __all__ = ["BatcherStats", "BucketLadder", "Draining", "DynamicBatcher",
-           "Overloaded", "RequestTooLong"]
+           "Overloaded", "RequestTooLong", "SERVING_PHASES"]

@@ -5,8 +5,8 @@ slots, mixed greedy and seeded top-k/temperature sampling) yields the
 same token stream per request from both engines, float32 and int8 KV
 caches.  Greedy streams equal the port's own full re-forward.  Plus the
 engine's lifecycle on the port: typed rejections, eos, cancel, drain,
-faults on the scheduler thread reaching the handles, and refusing what
-the slice does not port.
+faults on the scheduler thread reaching the handles, and refusing a KV
+dtype the port does not have.
 """
 import numpy as np
 import pytest
@@ -164,10 +164,9 @@ def test_fault_in_decode_step_reaches_every_handle():
 
 
 def test_unported_options_raise():
+    """A KV dtype the port has no kernel for is refused.  The prefix
+    cache and overcommit are ported (``test_torch_decode_prefix.py``)."""
     lm = T.TransformerLM(T.LMConfig(**TINY), device="cpu")
-    for kw in (dict(prefix_cache=True), dict(overcommit=True)):
-        with pytest.raises(NotImplementedError):
-            T.DecodeEngine(lm, name="tpar_unported", device="cpu", **kw)
     with pytest.raises(ValueError):
         T.DecodeEngine(lm, name="tpar_kvdtype", device="cpu",
                        cache_dtype="bfloat16")

@@ -86,6 +86,25 @@ def test_paged_attention_ref_masks_past_context_len():
     np.testing.assert_array_equal(_port(q, kp, vp, bt, None, None), clean)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_decode_attention_on_a_table_wider_than_every_context(quantized):
+    """On the CPU the plain version gathers only the table slots that
+    some lane's context reaches; with contexts of 1-9 tokens on a
+    16-slot table it still gives the JAX reference's full-table result."""
+    q, kc, vc, _, ks, vs = _inputs(16, quantized, seed=5)
+    cl = np.array([1, 5, 9], np.int32)
+    bt = np.random.RandomState(6).randint(0, N, (S, 16)).astype(np.int32)
+    scales = ({} if ks is None else
+              dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    ref = np.asarray(JA.paged_attention_xla(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        jnp.asarray(cl), **scales))
+    t = torch.from_numpy
+    got = TA.decode_attention(t(q), t(kc), t(vc), t(bt), t(cl), **(
+        {} if ks is None else dict(k_scale=t(ks), v_scale=t(vs)))).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
 def test_kv_quant_helpers_exact():
     rng = np.random.RandomState(1)
     rows = (rng.randn(5, 3, 16) * 2.0).astype(np.float32)

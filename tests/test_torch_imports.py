@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, and
 not ``chip_smoke.py``, imports JAX or the JAX package, and importing the
 port's decode plane, its Program stack (the copied pure-Python IR
-modules included) or its inference and serving planes loads neither.  ``chip_smoke.py`` refuses to report
+modules included), its inference and serving planes, or its
+observability, profiler and fault-injection modules loads neither.  ``chip_smoke.py`` refuses to report
 a result without a CUDA device."""
 import ast
 import os
@@ -58,6 +59,18 @@ PROGRAM_MODULES = [
 ]
 
 
+# the decode plane's and the serving batcher's hooks: the copied
+# observability modules, the ported memory ledger and profiler, and the
+# fault injector
+HOOK_MODULES = [
+    "observability/phase.py", "observability/tenant.py",
+    "observability/capacity.py", "observability/flight.py",
+    "observability/audit.py", "observability/step_stats.py",
+    "observability/trace.py", "observability/memory.py", "profiler.py",
+    "distributed/__init__.py", "distributed/faults.py",
+]
+
+
 def test_port_files_exist():
     files = _port_files()
     assert len(files) >= 51
@@ -67,7 +80,7 @@ def test_port_files_exist():
                 "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
                 "gru_bwd.cu", "tf32x3.cuh", "int8_fc.cu"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
-    for mod in PROGRAM_MODULES:
+    for mod in PROGRAM_MODULES + HOOK_MODULES:
         assert os.path.join(PORT, mod) in files, mod
 
 
@@ -94,8 +107,8 @@ def test_no_jax_or_paddle_tpu_import(path):
 
 def test_importing_the_port_loads_no_jax():
     mods = ", ".join(
-        "paddle_tpu_torch." + m[:-3].replace("/", ".")
-        for m in PROGRAM_MODULES)
+        "paddle_tpu_torch." + m[:-3].replace("/__init__", "")
+        .replace("/", ".") for m in PROGRAM_MODULES + HOOK_MODULES)
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.decode, "
             "paddle_tpu_torch.kernels.attention, "
             f"paddle_tpu_torch.kernels._build, {mods}\n"
