@@ -7,8 +7,8 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 14, 15, 16, 17, 6 (each one that fails raises, and the script
-exits non-zero; each phase's header gives its start in seconds):
+13a in bfloat16, 14, 15, 16, 17, 18, 6 (each one that fails raises, and the
+script exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
@@ -455,6 +455,43 @@ exits non-zero; each phase's header gives its start in seconds):
    paddle_tpu_torch.kernels import _build; from paddle_tpu_torch.platform
    import get_device; _build.build_all(); c.run_refcounted(get_device(),
    c.nvidia_smi_line())"``.
+18. The serving planes over the wire at full width, on loopback sockets:
+   a ``RegistryServer``, the port's debug server, and the transport
+   backend that ran printed (``native`` or ``python``).  18a: phase 4's
+   model and load (12 requests) behind a ``DecodeServer`` holding one
+   lease, float32 and int8 KV; a ``DecodeClient`` finds it through the
+   registry; after one warm-up generation each way, the load runs
+   in-process (``engine.submit``) and over the wire (``DECODE`` frames,
+   ``chunk_tokens=1``), each from 4 client threads streaming their
+   requests in turn, K4 exactly 6 x the engine's decode steps in each
+   run; every stream its budget's tokens and a ``length`` FIN; float32
+   greedy tokens under phase 4's near-tie rule against the re-forward
+   (both arms), int8 first tokens equal float32's; an over-long prompt
+   comes back as a typed ``RequestTooLong``; ``/decodez`` fetched over
+   HTTP equals ``engine.decodez()`` but for its times; then, float32, a
+   200-token stream in flight when SIGTERM arrives through
+   ``install_sigterm_drain``: the lease is gone, a straggler gets a
+   typed ``Draining``, the stream reaches its FIN with every token
+   (near-tie rule), and the signal reaches the previous handler after
+   the drain.  Printed: tokens/s, TTFT p50, time between tokens p50/p99
+   for both arms and the wire's differences.  18b: phase 10's int8
+   model and traffic (128 single-row requests, 4 threads, two in flight
+   each) through ``ModelManager`` in-process and through a
+   ``ModelServer`` on the same manager with a ``ServingClient`` a thread
+   over the registry (two pool threads keep its two requests in
+   flight), after one round of pairs over the wire as warm-up: K5
+   exactly 97 x the dispatches of each arm; the wire's int8 replies
+   against the in-process ones within sqrt(2) x the int8 error (the
+   RMS of the in-process int8 replies against float32
+   ``Predictor.run`` on 8 rows, phase 10's int8 gate), 8 float32
+   replies over the wire against ``Predictor.run`` of each row alone
+   within ``SERVE_F32_TOL``; ``/servingz`` over HTTP.  Printed: QPS,
+   p50/p99 and rows a dispatch of both arms, and the server's own time
+   a request (INFER in to reply built).
+   Alone: ``python3 -c "import chip_smoke as c; from
+   paddle_tpu_torch.kernels import _build; from paddle_tpu_torch.platform
+   import get_device; _build.build_all(); c.run_wire(get_device(),
+   c.nvidia_smi_line())"``.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -468,7 +505,8 @@ exits non-zero; each phase's header gives its start in seconds):
    (``run_steps_launches``, 432 each); K6 and K7 add their launches a
    step of SRL (``srl_launches``, 8) and their device times at SRL's
    shape beside its bound and cuDNN's (``srl_ms``, ``srl_bound_ms``,
-   ``srl_library_ms``).
+   ``srl_library_ms``); K4 and K5 add their launches behind the servers
+   of phase 18 (``wire_launches``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -7762,6 +7800,525 @@ def run_refcounted(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serving planes over the wire at full width
+# ---------------------------------------------------------------------------
+
+WIRE_CLIENTS = 4               # 18a: client threads, each streaming in turn
+WIRE_TTL = 2.0                 # the replicas' registry lease
+WIRE_DRAIN_NEW = 200           # 18a's drained stream: 20 + 200 of 256
+
+
+def untimed(x):
+    """``x`` without its wall-clock, latency and rate fields."""
+    if isinstance(x, dict):
+        return {k: untimed(v) for k, v in x.items()
+                if not (k.endswith(("_ms", "_s", "_ts")) or k == "qps")}
+    if isinstance(x, list):
+        return [untimed(v) for v in x]
+    return x
+
+
+def http_json(port: int, page: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{page}",
+                                timeout=30) as r:
+        return json.loads(r.read().decode("utf-8"))
+
+
+def engine_streams(eng):
+    """``open_stream`` over the engine itself (the in-process arm)."""
+    def open_stream(p, sp):
+        h = eng.submit(p, sp)
+
+        def gen():
+            yield from h
+            r = h.result(timeout=60)
+            return {"n_tokens": r["n_tokens"], "finish": r["finish"]}
+        return gen()
+    return open_stream
+
+
+def wire_streams(cli, model: str):
+    """``open_stream`` through a DecodeClient: DECODE frames, one token a
+    frame (``chunk_tokens=1``)."""
+    def open_stream(p, sp):
+        return cli.generate_stream(
+            model, p, max_new_tokens=sp.max_new_tokens,
+            temperature=sp.temperature, top_k=sp.top_k, seed=sp.seed,
+            eos_id=sp.eos_id, chunk_tokens=1)
+    return open_stream
+
+
+def stream_clients(open_stream, load) -> dict:
+    """WIRE_CLIENTS threads, thread k streaming requests k, k + 4, ... one
+    after another through ``open_stream(prompt, sampling)`` (a generator
+    of token ids returning the FIN dict).  TTFT from each open to its
+    first token, the gaps between its tokens, tokens/s over the wall."""
+    n = len(load)
+    toks, fins, ttft, gaps, errs = [None] * n, [None] * n, [None] * n, [], []
+    lock = threading.Lock()
+
+    def client(k):
+        for i in range(k, n, WIRE_CLIENTS):
+            p, sp = load[i]
+            got, stamps = [], []
+            t0 = time.perf_counter()
+            try:
+                gen = open_stream(p, sp)
+                while True:
+                    try:
+                        got.append(next(gen))
+                    except StopIteration as stop:
+                        fins[i] = stop.value
+                        break
+                    stamps.append(time.perf_counter())
+            except Exception as e:   # noqa: BLE001 - re-raised below
+                errs.append(f"request {i}: {e!r}")
+                return
+            toks[i] = got
+            ttft[i] = (stamps[0] - t0) * 1e3
+            with lock:
+                gaps.extend((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(WIRE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise TimeoutError("a client's streams did not finish")
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"streams failed: {errs[:3]}")
+    n_tok = sum(len(t) for t in toks)
+    return {"tokens": toks, "fins": fins, "n_tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_ms_p50": pctl(ttft, 0.5), "tbt_ms_p50": pctl(gaps, 0.5),
+            "tbt_ms_p99": pctl(gaps, 0.99), "tbt_samples": len(gaps)}
+
+
+def counted_streams(eng, open_stream, load, A, label: str) -> dict:
+    """:func:`stream_clients` with K4's count set to 0 just before and read
+    just after: it must equal n_layer x the engine's decode steps."""
+    steps0 = eng.stats.steps.value
+    A.decode_attention.launches = 0
+    res = stream_clients(open_stream, load)
+    launches = A.decode_attention.launches
+    steps = eng.stats.steps.value - steps0
+    want = eng.model.config.n_layer * steps
+    if steps == 0 or launches != want:
+        raise AssertionError(f"18a {label}: K4 launched {launches} times in "
+                             f"{steps} decode steps, expected {want}")
+    for (p, sp), t, f in zip(load, res["tokens"], res["fins"]):
+        if f is None or f["n_tokens"] != len(t) or \
+                len(t) != sp.max_new_tokens or f["finish"] != "length" or \
+                not all(0 <= x < FULL["vocab"] for x in t):
+            raise AssertionError(f"18a {label}: bad stream {len(t)} tokens, "
+                                 f"FIN {f}")
+    res.update(k4_launches=launches, decode_steps=steps)
+    return res
+
+
+def check_tokens_against_reforward(lm, load, streams, label: str) -> dict:
+    """Phase 4's near-tie rule on streamed tokens alone: each greedy
+    stream's token must be the re-forward's argmax, or within LOGITS_TOL
+    of it (a tie either token may win; teacher forcing continues with
+    the streamed token)."""
+    checked = ties = 0
+    for (p, sp), toks in zip(load, streams):
+        if sp.temperature > 0:
+            continue
+        seq = torch.tensor([list(p) + toks[:-1]], device=lm.device)
+        with torch.inference_mode():
+            ref = lm.full_logits(seq)[0, len(p) - 1:].float().cpu().numpy()
+        for t, tok in enumerate(toks):
+            checked += 1
+            best = int(ref[t].argmax())
+            if best != tok:
+                gap = float(ref[t, best] - ref[t, tok])
+                if gap > LOGITS_TOL:
+                    raise AssertionError(
+                        f"18a {label}: greedy token {t} is {tok}, the "
+                        f"re-forward's {best} (gap {gap})")
+                ties += 1
+    return {"greedy_tokens_checked": checked, "near_ties": ties}
+
+
+def drain_under_sigterm(srv, cli, model: str, eng, lm) -> dict:
+    """One stream in flight, SIGTERM through ``install_sigterm_drain``: the
+    lease goes first, a straggler gets the typed ``Draining``, the stream
+    reaches its FIN with every token, and the signal reaches the previous
+    handler after the drain."""
+    import signal
+    from paddle_tpu_torch.decode import Draining, SamplingParams
+    from paddle_tpu_torch.decode.client import DecodeClient
+    from paddle_tpu_torch.distributed import registry, transport
+    prompt = np.arange(1, 21, dtype=np.int32)
+    sp = SamplingParams(max_new_tokens=WIRE_DRAIN_NEW)
+    done, first = {}, threading.Event()
+
+    def long_stream():
+        try:
+            gen = wire_streams(cli, model)(prompt, sp)
+            toks = []
+            while True:
+                try:
+                    toks.append(next(gen))
+                except StopIteration as stop:
+                    done["fin"] = stop.value
+                    break
+                first.set()
+            done["tokens"] = toks
+        except Exception as e:   # noqa: BLE001 - checked below
+            done["error"] = repr(e)
+            first.set()
+
+    prev = signal.getsignal(signal.SIGTERM)
+    chained = []
+    signal.signal(signal.SIGTERM, lambda s, f: chained.append(s))
+    try:
+        t = threading.Thread(target=long_stream, daemon=True)
+        t.start()
+        if not first.wait(timeout=60) or "error" in done:
+            raise AssertionError(f"18a drain: the stream did not start: "
+                                 f"{done}")
+        srv.install_sigterm_drain(drain_timeout=120.0)
+        t_sig = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+        deadline = time.monotonic() + 30
+        while not srv.service.draining and time.monotonic() < deadline:
+            time.sleep(0.001)
+        if not srv.service.draining:
+            raise AssertionError("18a drain: SIGTERM did not start the drain")
+        leases = registry.fetch_snapshot(transport.RPCClient(0),
+                                         srv.registry_ep)["leases"]
+        if any(k.startswith(f"decode/{model}/") for k in leases):
+            raise AssertionError(f"18a drain: the lease outlived the "
+                                 f"drain's start: {sorted(leases)}")
+        straggler = None
+        try:
+            DecodeClient(endpoints=[srv.endpoint]).generate(
+                model, prompt[:8], max_new_tokens=2)
+        except Draining as e:
+            straggler = e.to_dict()
+        if straggler is None:
+            raise AssertionError("18a drain: a straggler was not refused "
+                                 "with Draining")
+        t.join(timeout=300)
+        fin, toks = done.get("fin"), done.get("tokens")
+        if fin is None or toks is None or len(toks) != WIRE_DRAIN_NEW or \
+                fin != {"n_tokens": WIRE_DRAIN_NEW, "finish": "length"}:
+            raise AssertionError(f"18a drain: the stream in flight ended "
+                                 f"with {done}")
+        deadline = time.monotonic() + 120
+        while (not chained or srv._started) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        if chained != [signal.SIGTERM] or srv._started:
+            raise AssertionError(f"18a drain: SIGTERM was not handed on "
+                                 f"after the drain ({chained})")
+        drain_s = time.perf_counter() - t_sig
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    parity = check_tokens_against_reforward(lm, [(prompt, sp)], [toks],
+                                            "drained stream")
+    return {"stream_tokens": len(toks), "fin": fin, "straggler": straggler,
+            "sigterm_to_closed_s": drain_s, "reforward": parity,
+            "engine_closed": eng._closed}
+
+
+def run_wire_decode(dev, card: str, reg_ep: str, http_port: int) -> dict:
+    """18a: phase 4's model and load through a DecodeServer found in the
+    registry by a DecodeClient, float32 and int8 KV (module doc)."""
+    from paddle_tpu_torch.decode import (DecodeClient, DecodeEngine,
+                                         DecodeServer, LMConfig,
+                                         RequestTooLong, TransformerLM)
+    from paddle_tpu_torch.kernels import attention as A
+    lm = TransformerLM(LMConfig(**FULL), device=dev)
+    lm.init_params(seed=7)
+    load = request_load(12, seed=0)
+    out, first = {}, None
+    for dtype in ("float32", "int8"):
+        model = f"wire_{dtype}"
+        eng = DecodeEngine(lm, name=model, max_slots=SLOTS,
+                           block_tokens=BLOCK_TOKENS, prefill_buckets=BUCKETS,
+                           cache_dtype=dtype, device=dev)
+        srv = DecodeServer(engines={model: eng}, registry_ep=reg_ep,
+                           replica_id="r0", lease_ttl=WIRE_TTL)
+        srv.start()
+        try:
+            cli = DecodeClient(registry_ep=reg_ep)
+            if cli.replicas(model) != [srv.endpoint]:
+                raise AssertionError(f"18a: the registry lists "
+                                     f"{cli.replicas(model)} for {model}")
+            # the same warm-up for both arms: one generation each way
+            eng.generate(np.arange(20, dtype=np.int32), max_new_tokens=4)
+            cli.generate(model, np.arange(20, dtype=np.int32),
+                         max_new_tokens=4)
+            arms = {"in_process": counted_streams(
+                eng, engine_streams(eng), load, A, f"{dtype} in-process")}
+            arms["wire"] = counted_streams(eng, wire_streams(cli, model),
+                                           load, A, f"{dtype} wire")
+            rec = {arm: {k: v for k, v in r.items()
+                         if k not in ("tokens", "fins")}
+                   for arm, r in arms.items()}
+            wire_toks = arms["wire"]["tokens"]
+            rec["streams_equal_in_process"] = sum(
+                a == b for a, b in zip(wire_toks,
+                                       arms["in_process"]["tokens"]))
+            if dtype == "float32":
+                rec["reforward"] = {arm: check_tokens_against_reforward(
+                    lm, load, arms[arm]["tokens"], f"{dtype} {arm}")
+                    for arm in arms}
+                first = [t[0] for t in wire_toks]
+            else:
+                # phase 4's int8 rule: the first token samples inside the
+                # prefill on fresh float32 K/V
+                got = [t[0] for t in wire_toks]
+                if got != first:
+                    raise AssertionError(f"18a int8: first tokens {got} != "
+                                         f"float32's {first}")
+                rec["first_tokens_equal_float32"] = len(got)
+            try:
+                cli.generate(model, np.zeros(BUCKETS[-1] + 1, np.int32),
+                             max_new_tokens=2)
+                raise AssertionError("18a: an over-long prompt was served")
+            except RequestTooLong as e:
+                rec["request_too_long"] = e.to_dict()
+            page = http_json(http_port, "/decodez")[model]
+            mine = json.loads(json.dumps(eng.decodez(), default=repr))
+            if untimed(page) != untimed(mine):
+                raise AssertionError(f"18a: /decodez {untimed(page)} != "
+                                     f"decodez() {untimed(mine)}")
+            rec["decodez"] = {k: page[k] for k in (
+                "tokens", "steps", "prefills", "joins", "leaves", "shed")}
+            w, p = rec["wire"], rec["in_process"]
+            rec["wire_cost"] = {
+                "tokens_per_s_ratio": w["tokens_per_s"] / p["tokens_per_s"],
+                "ttft_ms_p50_delta": w["ttft_ms_p50"] - p["ttft_ms_p50"],
+                "tbt_ms_p50_delta": w["tbt_ms_p50"] - p["tbt_ms_p50"],
+                "tbt_ms_p99_delta": w["tbt_ms_p99"] - p["tbt_ms_p99"]}
+            if dtype == "float32":
+                rec["drain"] = drain_under_sigterm(srv, cli, model, eng, lm)
+            out[dtype] = rec
+            log(f"  18a {dtype} [{card}]: " + json.dumps(
+                {k: v for k, v in rec.items() if k != "reforward"}))
+            if "reforward" in rec:
+                log(f"  18a {dtype} greedy tokens vs the re-forward: "
+                    f"{json.dumps(rec['reforward'])}")
+        finally:
+            srv.stop()
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def paired_clients(send_pair, rows) -> dict:
+    """Phase 10's traffic: SERVE_CLIENTS threads, thread k sending its
+    share of ``rows`` two at a time through ``send_pair(pair, k)`` (the
+    pair's replies, so up to 8 requests are in flight); each request's
+    latency from its pair's start."""
+    lat, outs, errs = {}, {}, []
+
+    def client(k):
+        mine = list(range(k, len(rows), SERVE_CLIENTS))
+        for j in range(0, len(mine), 2):
+            pair = mine[j:j + 2]
+            t = time.perf_counter()
+            try:
+                got = send_pair([rows[i] for i in pair], k)
+            except Exception as e:   # noqa: BLE001 - raised below
+                errs.append(f"{pair}: {e!r}")
+                return
+            for i, o in zip(pair, got):
+                outs[i] = o
+                lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errs or len(outs) != len(rows):
+        raise AssertionError(f"18b: {len(outs)} of {len(rows)} answered: "
+                             f"{errs[:3]}")
+    lats = sorted(lat.values())
+    return {"outs": outs, "wall_s": wall, "qps": len(rows) / wall,
+            "p50_ms": pctl(lats, 0.50), "p99_ms": pctl(lats, 0.99)}
+
+
+def counted_serving(mgr, send_pair, rows, Q, label: str) -> dict:
+    """:func:`paired_clients` with K5's count set to 0 just before and read
+    just after: 97 a dispatch of the int8 model."""
+    z0 = mgr.servingz()["models"]["int8@1"]
+    Q.int8_fc.launches = 0
+    res = paired_clients(send_pair, rows)
+    launches = Q.int8_fc.launches
+    z1 = mgr.servingz()["models"]["int8@1"]
+    batches = z1["batches"] - z0["batches"]
+    if batches == 0 or launches != INT8_LAUNCHES * batches:
+        raise AssertionError(f"18b {label}: K5 launched {launches} times in "
+                             f"{batches} dispatches, want {INT8_LAUNCHES} "
+                             f"a dispatch")
+    for i, o in res["outs"].items():
+        if o.shape != (1, SERVE_T, SERVE["tgt_vocab"]) or \
+                not np.isfinite(o).all():
+            raise AssertionError(f"18b {label}: reply {i} {o.shape}")
+    res.update(k5_launches=launches, dispatches=batches,
+               rows_a_dispatch=len(rows) / batches)
+    return res
+
+
+def rms_rel_replies(got: dict, want: dict) -> tuple:
+    """(RMS of got - want over RMS of want, replies bit-equal) over every
+    reply, one reply at a time (each sum of squares a BLAS dot)."""
+    sd = sw = 0.0
+    equal = 0
+    for i, w in want.items():
+        d = (got[i] - w).ravel()
+        sd += float(np.dot(d, d))
+        sw += float(np.dot(w.ravel(), w.ravel()))
+        equal += not d.any()
+    return math.sqrt(sd / sw), equal
+
+
+def run_wire_serving(dev, card: str, reg_ep: str, http_port: int) -> dict:
+    """18b: phase 10's int8 model and traffic in-process and through a
+    ModelServer found in the registry by ServingClients (module doc)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.kernels import quant as Q
+    from paddle_tpu_torch.serving import (ModelManager, ModelServer,
+                                          ServingClient)
+    from paddle_tpu_torch.serving.server import INFER
+    rows = serving_rows(SERVE_REQUESTS, SERVE_T, seed=17)
+    with tempfile.TemporaryDirectory() as d:
+        save_serving_model(d, SERVE_LAYERS, SERVE_T, dev)
+        mgr = ModelManager()
+        srv = ModelServer(manager=mgr, registry_ep=reg_ep, replica_id="r0",
+                          lease_ttl=WIRE_TTL)
+        # a blocking client keeps two requests in flight on two threads
+        pools = [ThreadPoolExecutor(2) for _ in range(SERVE_CLIENTS)]
+        try:
+            for name, int8 in (("int8", True), ("f32", False)):
+                srv.load(name, "1", predictor=int8_predictor(d, int8),
+                         buckets=SERVE_BUCKETS, activate=True,
+                         max_delay_ms=5.0, max_queue_rows=4096)
+            srv.start()
+            clients = [ServingClient(registry_ep=reg_ep)
+                       for _ in range(SERVE_CLIENTS)]
+            if clients[0].replicas("int8") != [srv.endpoint]:
+                raise AssertionError(f"18b: the registry lists "
+                                     f"{clients[0].replicas('int8')}")
+
+            def local_pair(pair, k):   # phase 10's: submit both, then wait
+                futs = [mgr.submit("int8", r) for r in pair]
+                return [f.result(timeout=600)[0] for f in futs]
+
+            def wire_pair(pair, k, model="int8"):
+                return list(pools[k].map(
+                    lambda r: clients[k].infer(model, r)[0], pair))
+
+            # the server's own time a request: INFER in, reply built
+            handled, handle = [], srv.service.handle
+
+            def timed_handle(msg_type, *a):
+                t = time.perf_counter()
+                try:
+                    return handle(msg_type, *a)
+                finally:
+                    if msg_type == INFER:
+                        handled.append((time.perf_counter() - t) * 1e3)
+
+            # one warm-up for both arms: a round of pairs over the wire
+            # (it opens every client's connections)
+            paired_clients(wire_pair, rows[:8])
+            arms = {"in_process": counted_serving(mgr, local_pair, rows, Q,
+                                                  "in-process")}
+            srv.service.handle = timed_handle
+            arms["wire"] = counted_serving(mgr, wire_pair, rows, Q, "wire")
+            del srv.service.handle
+            # phase 10's float32 rule on 8 rows over the wire: each reply
+            # against Predictor.run of its row alone
+            f32 = paired_clients(
+                lambda p, k: wire_pair(p, k, "f32"), rows[:8])["outs"]
+            pred = mgr._route("f32").predictor
+            worst, int8_err = 0.0, []
+            for i in range(8):
+                (want,) = pred.run(rows[i])
+                ratio = float(np.abs(f32[i] - want).max()
+                              / np.abs(want).max())
+                if not ratio <= SERVE_F32_TOL:
+                    raise AssertionError(f"18b f32 reply {i} over the wire "
+                                         f"vs its row alone: {ratio}")
+                worst = max(worst, ratio)
+                int8_err.append(rms_rel(arms["in_process"]["outs"][i], want))
+            # phase 10's int8 gate: the wire's replies against the
+            # in-process ones within sqrt(2) x the int8 error itself
+            bound = math.sqrt(2.0) * float(np.mean(int8_err))
+            err, equal = rms_rel_replies(arms["wire"]["outs"],
+                                         arms["in_process"]["outs"])
+            if not err <= bound:
+                raise AssertionError(f"18b int8: wire vs in-process RMS "
+                                     f"{err} > {bound}")
+            page = http_json(http_port, "/servingz")[srv.endpoint]
+            if page["active"] != {"int8": "1", "f32": "1"}:
+                raise AssertionError(f"18b: /servingz {page['active']}")
+            out = {arm: {k: v for k, v in r.items() if k != "outs"}
+                   for arm, r in arms.items()}
+            w, p = out["wire"], out["in_process"]
+            w.update(handler_ms_p50=pctl(handled, 0.5),
+                     handler_ms_p99=pctl(handled, 0.99))
+            out.update(
+                f32_reply_vs_alone_max_rel=worst,
+                int8_wire_vs_in_process_rms_rel=err, int8_rms_bound=bound,
+                replies_bit_equal=equal,
+                reply_bytes=int(arms["wire"]["outs"][0].nbytes),
+                wire_cost={"qps_ratio": w["qps"] / p["qps"],
+                           "p50_ms_delta": w["p50_ms"] - p["p50_ms"],
+                           "p99_ms_delta": w["p99_ms"] - p["p99_ms"],
+                           "client_minus_handler_ms_p50":
+                           w["p50_ms"] - w["handler_ms_p50"]})
+            log(f"  18b int8 [{card}]: " + json.dumps(out))
+        finally:
+            for pool in pools:
+                pool.shutdown()
+            srv.stop()
+            mgr.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_wire(dev, card: str) -> dict:
+    """Phase 18 (module doc)."""
+    from paddle_tpu_torch.distributed import transport
+    from paddle_tpu_torch.distributed.registry import RegistryServer
+    from paddle_tpu_torch.observability import debug_server
+    t0 = time.perf_counter()
+    backend = transport._backend()
+    log(f"  transport backend: {backend}")
+    reg = RegistryServer("127.0.0.1:0")
+    reg.start()
+    http = debug_server.start(port=0)
+    try:
+        reg_ep = f"127.0.0.1:{reg.port}"
+        out = {"transport_backend": backend,
+               "decode": run_wire_decode(dev, card, reg_ep, http.port)}
+        out["decode_s"] = time.perf_counter() - t0
+        out["serving"] = run_wire_serving(dev, card, reg_ep, http.port)
+    finally:
+        debug_server.stop()
+        reg.stop()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18: {out['seconds']:.1f} s (18a {out['decode_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -7864,6 +8421,9 @@ def main() -> int:
     phase("17: the refcounted decode plane at Transformer-base width")
     refc = run_refcounted(dev, card)
 
+    phase("18: the serving planes over the wire at full width")
+    wire = run_wire(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -7890,6 +8450,9 @@ def main() -> int:
         rows[-1]["refcounted_launches"] = {
             "overcommit": oc[dtype]["overcommit"]["k4_launches"],
             "reserved": oc[dtype]["reserved"]["k4_launches"]}
+        # phase 18a: behind a DecodeServer, over the wire
+        rows[-1]["wire_launches"] = wire["decode"][dtype]["wire"][
+            "k4_launches"]
         if dtype == "float32":
             rows[-1]["refcounted_launches"].update(
                 prefix_on=refc["prefix"]["prefix_on"]["k4_launches"],
@@ -8030,7 +8593,9 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "dispatch_ms": int8_k["dispatch_sum"]["ms"],
-        "dispatch_library_ms": int8_k["dispatch_sum"]["library_ms"]})
+        "dispatch_library_ms": int8_k["dispatch_sum"]["library_ms"],
+        # phase 18b: behind a ModelServer, over the wire
+        "wire_launches": wire["serving"]["wire"]["k5_launches"]})
     # K11: no kernel of its own, the ring over K1-K3 (its launches are
     # theirs in phase 13b's steps); at bench_ring_shard's shape, dropout
     # 0.1 as on the path; library: SDPA over the whole 16,384 tokens
@@ -8085,7 +8650,7 @@ def main() -> int:
                    "int8_serving": serving, "mt_beam": mt_beam,
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "run_steps": steps, "control_flow": control_flow,
-                   "book": book, "decode_refcounted": refc,
+                   "book": book, "decode_refcounted": refc, "wire": wire,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

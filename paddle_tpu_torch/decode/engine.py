@@ -86,6 +86,7 @@ from ..distributed import faults as _faults
 from ..kernels import quant as _quant_kernels
 from ..observability import audit as _audit
 from ..observability import capacity as _capacity
+from ..observability import debug_server as _debug_server
 from ..observability import memory as _memory
 from ..observability import phase as _phase
 from ..observability import stats as _obs_stats
@@ -538,6 +539,7 @@ class DecodeEngine:
                          audit=self._mem_pool_audit, device=self.device,
                          tensors=self.cache.state)
             _memory.maybe_start_sentinel()
+        _debug_server.register_decodez(name, self.decodez)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=f"decode-sched-{name}")
         self._thread.start()
@@ -798,6 +800,7 @@ class DecodeEngine:
                 self._seed(req),
                 np.float32(req.sampling.temperature),
                 np.int32(req.sampling.top_k)]
+        _debug_server.note_activity("decode")
         # chaos hook: `delay:decode_prefill` sleeps here, inside the
         # prefill phase / TTFT window
         _faults.event("decode_prefill")
@@ -865,6 +868,7 @@ class DecodeEngine:
         else:
             feed = [tokens, np.int32(L)] + sampling
             key, method = f"decode/{self.name}/prefill/{bucket}", "prefill"
+        _debug_server.note_activity("decode")
         _faults.event("decode_prefill")
         (tok, logits), _ = self._exe.run_callable(
             key, self._builder(method), feed, state=self.cache.state())
@@ -942,6 +946,7 @@ class DecodeEngine:
             topks[i] = slot.req.sampling.top_k
         if not live:
             return
+        _debug_server.note_activity("decode")
         # chaos hooks: `delay:decode_step` sleeps inside the decode
         # phase; `oom:decode_step` raises the injected out-of-memory
         # error exactly where a real allocation failure would surface,
@@ -1413,6 +1418,7 @@ class DecodeEngine:
         self._thread.join(timeout=timeout)
         if self._mem_pool is not None:
             _memory.unregister(self._mem_pool)
+        _debug_server.unregister_decodez(self.name)
         _capacity.unregister(f"decode.{self.name}")
 
 

@@ -1,10 +1,20 @@
 """Distributed planes of the PyTorch port.
 
-So far only :mod:`faults`, the chaos suite's fault injection (a copy of
-``paddle_tpu/distributed/faults.py``), whose hooks the decode engine and
-the serving batcher call.  The parameter-server stack, the transport
-and the supervisor are still to port.
-"""
-from . import faults  # noqa: F401
+- :mod:`faults` — the chaos suite's fault injection, whose hooks the
+  decode engine, the serving batcher and the transport call;
+- :mod:`serde` — the wire's binary form of dense tensors and
+  ``SelectedRows`` (byte for byte the reference's);
+- :mod:`transport` — the framed-TCP RPC client and server, on the
+  native C backend (``native/paddle_tpu_native.cc``) or stdlib sockets
+  (``FLAGS_rpc_transport``);
+- :mod:`registry` — TTL-lease discovery and the fleet health table the
+  serving and decode replicas announce into.
 
-__all__ = ["faults"]
+All are copies of the reference's modules (``serde`` converts torch
+tensors at the boundary).  The parameter-server stack (pserver, master,
+transpiler) and the supervisor are still to port.
+"""
+from . import faults, serde, transport  # noqa: F401
+from .transport import wait_server_ready  # noqa: F401
+
+__all__ = ["faults", "serde", "transport", "wait_server_ready"]

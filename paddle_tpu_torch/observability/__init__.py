@@ -1,20 +1,84 @@
 """Observability of the PyTorch port.
 
+The reference's runtime telemetry (``paddle_tpu/observability``), less
+its perf/numerics plane (``perf``) and its per-step scalar log
+(``runlog``), which are not ported yet (``/memz`` and ``/profilez``
+answer 501 until ``perf`` is).  All modules but ``memory`` are copies
+of the reference's; ``memory`` reconciles against
+``torch.cuda.memory_stats`` (its module doc).
+
 - :mod:`stats` — the metrics registry (counters, gauges, histograms);
+- :mod:`step_stats` — per-run step records (the flight recorder's tail);
+- :mod:`trace` — runtime spans and distributed trace contexts;
+- :mod:`flight` — the crash flight recorder;
 - :mod:`phase` — per-request latency-phase attribution
   (``FLAGS_phase_attribution``);
-- :mod:`tenant` — per-tenant usage metering (``FLAGS_tenant_accounting``);
+- :mod:`history` — metric history rings
+  (``FLAGS_metrics_history_interval_s``), served on ``/varz``;
 - :mod:`capacity` — phase-level utilization and capacity modeling
   (``FLAGS_capacity_attribution``);
+- :mod:`tenant` — per-tenant usage metering (``FLAGS_tenant_accounting``);
 - :mod:`memory` — the MemoryLedger: per-pool device-memory attribution,
   the allocation event ring, the leak sentinel and OOM forensics
   (``FLAGS_memory_attribution``);
-- :mod:`trace` — runtime spans and distributed trace contexts;
-- :mod:`flight` — the crash flight recorder;
+- :mod:`slo` — the declarative SLO watchdog (``FLAGS_slo_rules``);
+- :mod:`canary` — the golden canary prober (``FLAGS_canary_probe``);
 - :mod:`audit` — the cross-replica divergence sentinel's stream hashes;
-- :mod:`step_stats` — per-run step records (the flight recorder's tail).
+- :mod:`debug_server` — the opt-in (``FLAGS_debug_server_port``) HTTP
+  daemon: ``/metrics`` ``/healthz`` ``/statusz`` ``/stepz``
+  ``/servingz`` ``/decodez`` ``/quantz`` and the rest;
+- :mod:`health` — heartbeat-driven worker liveness
+  (HEALTHY/SUSPECT/DEAD), fed by the discovery registry's TTL leases;
+- :mod:`aggregate` — STATS_PULL RPC and the cross-worker merge into
+  per-worker-labeled ``fleet:*`` series.
 
-All but ``memory`` are copies of the reference's modules; ``memory``
-reconciles against ``torch.cuda.memory_stats`` (its module doc).
+Everything is gated by ``FLAGS_runtime_stats``; spans additionally
+require the profiler to be armed.
 """
-from . import stats  # noqa: F401
+from __future__ import annotations
+
+from . import (  # noqa: F401
+    aggregate,
+    audit,
+    canary,
+    capacity,
+    debug_server,
+    flight,
+    health,
+    history,
+    memory,
+    phase,
+    slo,
+    stats,
+    step_stats,
+    tenant,
+    trace,
+)
+from .aggregate import FleetAggregator  # noqa: F401
+from .health import HealthTable  # noqa: F401
+from .stats import (  # noqa: F401
+    StatsRegistry,
+    default_registry,
+    snapshot,
+    to_prometheus_text,
+)
+from .step_stats import StepStats, StepStatsRecorder  # noqa: F401
+from .trace import SpanContext, start_span, stitch_chrome_trace  # noqa: F401
+
+
+def enabled() -> bool:
+    """Is runtime telemetry collection on (``FLAGS_runtime_stats``)?"""
+    return trace.flags_on()
+
+
+def export(step_tail: int = 32) -> dict:
+    """One JSON-ready bundle: metrics snapshot + step-stats summary/tail,
+    the shape the debug server serves on ``/stepz``."""
+    return {"stats": stats.to_dict(),
+            "step_stats": step_stats.recorder().export(tail=step_tail)}
+
+
+def reset() -> None:
+    """Zero all metrics and drop the step ring."""
+    stats.reset()
+    step_stats.clear()

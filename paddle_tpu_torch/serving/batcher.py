@@ -40,6 +40,7 @@ from ..core import flags as _flags
 from ..core.types import np_dtype
 from ..distributed import faults as _faults
 from ..observability import capacity as _capacity
+from ..observability import debug_server as _debug_server
 from ..observability import memory as _memory
 from ..observability import phase as _phase
 from ..observability import stats as _obs_stats
@@ -579,6 +580,7 @@ class DynamicBatcher:
     def _dispatch(self, take: List[_Request], total: int) -> None:
         bucket = self.ladder.snap(total)
         t0 = time.monotonic()
+        _debug_server.note_activity("serving")
         stamped = any(r.tl is not None for r in take)
         cap = (self.stats.capacity_tracker()
                if _capacity.enabled() else None)

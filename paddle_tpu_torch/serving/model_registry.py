@@ -209,14 +209,14 @@ class ModelManager:
                 raise KeyError(f"no active version for model {name!r}")
             return self._models[(name, version)]
 
-    def serve_request(self, name: str, feed):
+    def serve_request(self, name: str, feed, tenant: Optional[str] = None):
         """Route and submit ONE request: ``(future, served_model)``.
         The ServedModel is the one the future will answer from: reply
         metadata (fetch names) must come from it, not from a re-route
         that a concurrent hot swap may have flipped."""
         sm = self._route(name)
         try:
-            return sm.batcher.submit(feed), sm
+            return sm.batcher.submit(feed, tenant=tenant), sm
         except RuntimeError as e:
             # lost the race with a hot swap: routed to the draining
             # version in the instant before its batcher closed; the
@@ -225,14 +225,16 @@ class ModelManager:
             if "closed" not in str(e):
                 raise
             sm = self._route(name)
-            return sm.batcher.submit(feed), sm
+            return sm.batcher.submit(feed, tenant=tenant), sm
 
-    def submit(self, name: str, feed):
-        return self.serve_request(name, feed)[0]
+    def submit(self, name: str, feed, tenant: Optional[str] = None):
+        return self.serve_request(name, feed, tenant=tenant)[0]
 
     def infer(self, name: str, feed,
-              timeout: Optional[float] = None) -> List[np.ndarray]:
-        return self.submit(name, feed).result(timeout=timeout)
+              timeout: Optional[float] = None,
+              tenant: Optional[str] = None) -> List[np.ndarray]:
+        return self.submit(name, feed,
+                           tenant=tenant).result(timeout=timeout)
 
     def fetch_names(self, name: str) -> List[str]:
         return list(self._route(name).predictor.fetch_names)

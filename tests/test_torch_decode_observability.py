@@ -222,8 +222,12 @@ def _engine(pkg, name, **kw):
 def _hooked_run(pkg, mods, name):
     eng = _engine(pkg, name)
     try:
-        hs = [eng.submit(p, pkg.SamplingParams(max_new_tokens=10), tenant=t)
-              for p, t in zip(PROMPTS, TENANTS)]
+        # submitted under the engine's lock, so the scheduler thread sees
+        # all prompts at once and the schedule depends on the traffic only
+        with eng._lock:
+            hs = [eng.submit(p, pkg.SamplingParams(max_new_tokens=10),
+                             tenant=t)
+                  for p, t in zip(PROMPTS, TENANTS)]
         res = [h.result(timeout=120) for h in hs]
         assert eng.drain(timeout=30)
         z = eng.decodez()
@@ -315,8 +319,9 @@ def _oom_run(pkg, mods, name):
     mods["faults"].inject("oom:decode_step:n=3,times=1")
     eng = _engine(pkg, name)
     try:
-        hs = [eng.submit(p, pkg.SamplingParams(max_new_tokens=10))
-              for p in PROMPTS]
+        with eng._lock:                  # one schedule, as in _hooked_run
+            hs = [eng.submit(p, pkg.SamplingParams(max_new_tokens=10))
+                  for p in PROMPTS]
         res = [h.result(timeout=120) for h in hs]
         rec = mods["memory"].last_oom()
         sc = f"decode.{name}"

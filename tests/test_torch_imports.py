@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, and
-not ``chip_smoke.py``, imports JAX or the JAX package, and importing the
-port's decode plane, its Program stack (the copied pure-Python IR
-modules included), its inference and serving planes, or its
-observability, profiler and fault-injection modules loads neither.  ``chip_smoke.py`` refuses to report
+not ``chip_smoke.py`` or ``tools/serve_torch.py``, imports JAX or the JAX
+package, and importing the port's decode plane, its Program stack (the
+copied pure-Python IR modules included), its inference and serving
+planes, its wire (serde, transport, registry, the servers and clients),
+or its observability, profiler and fault-injection modules loads
+neither.  ``chip_smoke.py`` refuses to report
 a result without a CUDA device."""
 import ast
 import os
@@ -21,7 +23,7 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 # measurement scripts
 SCRIPTS = [SMOKE] + [os.path.join(ROOT, f) for f in (
     "int8_dispatch_ab.py", "kernel_ab.py", "mma_rate.py",
-    "profiler_loss.py")]
+    "profiler_loss.py", os.path.join("tools", "serve_torch.py"))]
 
 
 def _port_files():
@@ -71,6 +73,18 @@ HOOK_MODULES = [
 ]
 
 
+# the serving planes' wire and the observability modules behind it
+WIRE_MODULES = [
+    "distributed/serde.py", "distributed/transport.py",
+    "distributed/registry.py", "data/__init__.py", "data/native.py",
+    "observability/__init__.py", "observability/health.py",
+    "observability/history.py", "observability/slo.py",
+    "observability/canary.py", "observability/aggregate.py",
+    "observability/debug_server.py", "decode/server.py",
+    "decode/client.py", "serving/server.py", "serving/client.py",
+]
+
+
 def test_port_files_exist():
     files = _port_files()
     assert len(files) >= 51
@@ -80,7 +94,7 @@ def test_port_files_exist():
                 "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
                 "gru_bwd.cu", "tf32x3.cuh", "int8_fc.cu"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
-    for mod in PROGRAM_MODULES + HOOK_MODULES:
+    for mod in PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES:
         assert os.path.join(PORT, mod) in files, mod
 
 
@@ -108,7 +122,8 @@ def test_no_jax_or_paddle_tpu_import(path):
 def test_importing_the_port_loads_no_jax():
     mods = ", ".join(
         "paddle_tpu_torch." + m[:-3].replace("/__init__", "")
-        .replace("/", ".") for m in PROGRAM_MODULES + HOOK_MODULES)
+        .replace("/", ".")
+        for m in PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES)
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.decode, "
             "paddle_tpu_torch.kernels.attention, "
             f"paddle_tpu_torch.kernels._build, {mods}\n"
