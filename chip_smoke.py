@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 14, 15, 16, 17, 18, 6 (each one that fails raises, and the
+13a in bfloat16, 14, 15, 16, 17, 18, 19, 6 (each one that fails raises, and the
 script exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -492,6 +492,48 @@ script exits non-zero; each phase's header gives its start in seconds):
    paddle_tpu_torch.kernels import _build; from paddle_tpu_torch.platform
    import get_device; _build.build_all(); c.run_wire(get_device(),
    c.nvidia_smi_line())"``.
+19. The run telemetry and the supervised decode fleet.  19a: phase 5's
+   Transformer-base (6+6 layers, B=32, T=256, float32) trains 12 steps
+   with ``FLAGS_perf_attribution``, ``FLAGS_run_log_dir`` and
+   ``FLAGS_numerics_check=warn`` on: K1-K3 exactly 18 launches a step
+   and no forward re-run; ``/profilez``, fetched over HTTP from the
+   port's debug server, holds one record for the step whose key is the
+   ``/stepz`` ring's ``program_key``, and its FLOPs (the cost walk,
+   ``observability/perf.py``) equal the hand count of the step
+   (``transformer_step_flops``: the FC products forward and both
+   gradients, and K1-K3's attention work) within ``FLOP_HAND_REL``;
+   its achieved GFLOP/s, ``frac_of_peak_flops``, ``frac_of_peak_hbm``
+   and ``bound`` are printed beside the card; ``/memz``'s
+   ``bytes_in_use`` for d0 equals ``torch.cuda.memory_stats(0)
+   ["allocated_bytes.all.current"]``; the run log's 12 losses are
+   bit-equal to the fetched ones and ``tools/runlog_report.py`` reads
+   the file with exit code 0; the step wall with the flags on and off
+   is printed.  19b: ``FLAGS_numerics_check=fatal`` on a step with a
+   NaN in ``tgt_mask`` (the same Transformer) and one with a NaN label
+   (DeepFM at the bench's shape, ``FLAGS_sparse_fused_kernel`` on, its
+   two K10 launches writing the tables in place): each raises
+   ``FloatingPointError`` naming the loss, and every tensor of the
+   scope, the embedding tables and moments included, and the
+   generator's state are bit-equal to their pre-step values; warn mode
+   gives the CPU's counters and named variables for the same feed
+   (DeepFM at B=64, a 2-layer Transformer at B=4, T=64).  19c: the
+   kernels and the native transport built here, a ``Supervisor`` runs
+   two decode replicas (``tests/torch_decode_replica_runner.py`` at
+   ``FULL`` width, float32, each pool 4 slots, block 16, 25 blocks) as
+   processes on the card; replica 1's first spawn is armed with
+   ``kill_after:decode_preempt``.  Four streams of 16 + 112 tokens go
+   to each at once: r0's are held to an uninterrupted full-reservation
+   engine here on the same seeded weights under phase 17's near-tie
+   rule; r1 dies at its first preemption, is respawned, and
+   ``/fleetz`` shows DEAD → REPLACING → STARTING → LIVE; the same four
+   streams to the replacement are held to the same truth; at the
+   SIGTERM drain each surviving replica reports no leaked block, a
+   preemption, and K4 exactly 6 launches a decode step.  The
+   kill-to-LIVE seconds are printed (the child's CUDA context and
+   kernel load included).  Alone: ``python3 -c "import chip_smoke as
+   c; from paddle_tpu_torch.kernels import _build; from
+   paddle_tpu_torch.platform import get_device; _build.build_all();
+   c.run_telemetry(get_device(), c.nvidia_smi_line())"``.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -506,7 +548,9 @@ script exits non-zero; each phase's header gives its start in seconds):
    step of SRL (``srl_launches``, 8) and their device times at SRL's
    shape beside its bound and cuDNN's (``srl_ms``, ``srl_bound_ms``,
    ``srl_library_ms``); K4 and K5 add their launches behind the servers
-   of phase 18 (``wire_launches``).
+   of phase 18 (``wire_launches``), K4 its launches in phase 19c's
+   supervised replicas (``supervised_launches``) and K1-K3 theirs in
+   19a's attributed steps (``attributed_launches``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -8319,6 +8363,478 @@ def run_wire(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the run telemetry and the supervised decode fleet
+# ---------------------------------------------------------------------------
+
+# 19a: the attributed step's FLOPs against the hand count (the walk also
+# prices the step's elementwise ops, layer norms, softmaxes and Adam,
+# which the hand count leaves out: a few GFLOP of ~3,300)
+FLOP_HAND_REL = 0.02
+TELEMETRY_OFF_STEPS = 8        # 19a: steps with the three flags off
+# 19c: two replicas of 4 slots, block 16, 25 blocks; 4 streams a replica
+# of 16 + 112 tokens (8 blocks each) must preempt
+CHAOS_N, CHAOS_PROMPT, CHAOS_NEW, CHAOS_SEED = 4, 16, 112, 7
+CHAOS_WIDTH = "full"           # the runner's FULL: this script's FULL
+CHAOS_RUNNER = os.path.join(HERE, "tests", "torch_decode_replica_runner.py")
+
+
+def transformer_step_flops(cfg: dict, B: int) -> float:
+    """An independent count of one Transformer training step's work
+    from its configuration: each FC product (2 flops a multiply-add)
+    forward and its two gradients (its weight's and its input's), the
+    output projection included, and K1-K3's attention work (``PERF.md``
+    §6: 4·D flops a (query, key) pair forward, 6·D + 8·D backward; the
+    decoder's self-attention causal, its lower triangle)."""
+    T, d, f = cfg["max_len"], cfg["d_model"], cfg["d_ffn"]
+    L, H, V = cfg["n_layer"], cfg["n_head"], cfg["tgt_vocab"]
+    N, D = B * T, d // H
+    enc = 4 * 2 * N * d * d + 2 * 2 * N * d * f
+    dec = 8 * 2 * N * d * d + 2 * 2 * N * d * f
+    fwd = L * (enc + dec) + 2 * N * d * V
+    pairs = L * (2 * B * H * T * T + B * H * T * (T + 1) // 2)
+    return float(3 * fwd + (4 + 14) * D * pairs)
+
+
+def telemetry_flags(fluid, on: bool, log_dir: str = "",
+                    numerics: str = "") -> None:
+    fluid.set_flags({"perf_attribution": on,
+                     "run_log_dir": log_dir if on else "",
+                     "numerics_check": numerics if on else ""})
+
+
+def numerics_counts() -> dict:
+    from paddle_tpu_torch.observability import stats
+    snap = stats.to_dict()
+    return {k: snap.get(f"numerics.{k}", 0)
+            for k in ("nan", "inf", "checked_steps")}
+
+
+def attributed_training(dev, card: str, port: int) -> dict:
+    """19a (module doc)."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.observability import perf, runlog
+    main, startup, loss, params = build_transformer(TRAIN)
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = train_feed(TRAIN_B, TRAIN["max_len"], TRAIN["tgt_vocab"], seed=11)
+    log_dir = os.path.join(OUT_DIR, "runlog_19a")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    perf.reset()
+    runlog.reset()
+    telemetry_flags(fluid, True, log_dir, "warn")
+    num0 = numerics_counts()
+    lowering.grad_recomputes = 0
+    reset_flash_launches(A)
+    losses, walls = [], []
+    try:
+        with fluid.scope_guard(scope):
+            for _ in range(TRAIN_STEPS):
+                t = time.perf_counter()
+                (l,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
+                walls.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(l))
+        launches, recomputes = flash_launches(A), lowering.grad_recomputes
+        pz = http_json(port, "/profilez")
+        stz = http_json(port, "/stepz")
+        mz = http_json(port, "/memz")
+        allocated = torch.cuda.memory_stats(0)["allocated_bytes.all.current"]
+        runlog.reset()                       # closes the writer
+    finally:
+        telemetry_flags(fluid, False)
+    num = {k: v - num0[k] for k, v in numerics_counts().items()}
+    want = (3 * TRAIN["n_layer"] * TRAIN_STEPS
+            if torch.device(dev).type == "cuda" else 0)
+    log(f"  {TRAIN_STEPS} attributed steps: launches K1/K2/K3 {launches} "
+        f"(expected {want} each), grad recomputes {recomputes}, numerics "
+        f"{num}")
+    if launches != (want,) * 3 or recomputes != 0:
+        raise AssertionError(f"flash launches {launches} (want {want} each)"
+                             f", grad recomputes {recomputes} (want 0)")
+    if num != {"nan": 0, "inf": 0, "checked_steps": TRAIN_STEPS}:
+        raise AssertionError(f"numerics sentinel counters {num}")
+    recs = [r for r in pz["records"] if r["steps"] > 0]
+    ring = [s["program_key"] for s in stz["step_stats"]["last"]]
+    if len(recs) != 1 or recs[0]["steps"] != TRAIN_STEPS or \
+            recs[0]["key"] != ring[-1]:
+        raise AssertionError(f"/profilez records {[(r['key'], r['steps']) for r in recs]}"
+                             f", /stepz keys {ring[-3:]}")
+    rec = recs[0]
+    hand = transformer_step_flops(TRAIN, TRAIN_B)
+    rel = (rec["flops"] - hand) / hand
+    log(f"  /profilez record {rec['key']} = /stepz's: flops "
+        f"{rec['flops']!r} against the hand count {hand!r} (rel "
+        f"{rel!r}, tolerance {FLOP_HAND_REL}), bytes "
+        f"{rec['bytes_accessed']!r}, memory {json.dumps(rec['memory'])}")
+    if abs(rel) > FLOP_HAND_REL:
+        raise AssertionError(f"attributed flops {rec['flops']} vs hand "
+                             f"count {hand}: rel {rel}")
+    roof = {k: rec.get(k) for k in ("wall_ms_p50", "achieved_gflops",
+                                    "frac_of_peak_flops", "achieved_gbps",
+                                    "frac_of_peak_hbm", "bound",
+                                    "intensity_flops_per_byte")}
+    log(f"  roofline [{card}; peaks {pz['platform_peaks']['device_kind']} "
+        f"{pz['platform_peaks']['flops']!r} FLOP/s, "
+        f"{pz['platform_peaks']['hbm_bytes_per_s']!r} B/s]: "
+        + json.dumps(roof))
+    d0 = mz["devices"][0]
+    log(f"  /memz d0 bytes_in_use {d0['bytes_in_use']}, "
+        f"memory_stats allocated_bytes.all.current {allocated}, peak "
+        f"{d0['peak_bytes_in_use']}, limit {d0['bytes_limit']}, host rss "
+        f"{mz['host_rss_bytes']}")
+    if d0["bytes_in_use"] != allocated:
+        raise AssertionError(f"/memz bytes_in_use {d0['bytes_in_use']} != "
+                             f"allocated {allocated}")
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+             if f.endswith(".jsonl")]
+    logged = [r["scalars"][loss.name] for r in runlog.RunLog.read(files[0])
+              if r.get("scalars")] if len(files) == 1 else []
+    if logged != losses:
+        raise AssertionError(f"run log losses {logged} != fetched {losses}")
+    rc = subprocess.run([sys.executable, os.path.join(HERE, "tools",
+                                                      "runlog_report.py"),
+                         files[0]], capture_output=True, text=True,
+                        timeout=120).returncode
+    if rc != 0:
+        raise AssertionError(f"tools/runlog_report.py exited {rc}")
+    off = []
+    with fluid.scope_guard(scope):
+        for _ in range(TELEMETRY_OFF_STEPS):
+            t = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], sync=True)
+            off.append((time.perf_counter() - t) * 1e3)
+    on_ms, off_ms = float(np.median(walls[2:])), float(np.median(off[2:]))
+    log(f"  step wall [{card}]: flags on {on_ms!r} ms (steps 3..12), off "
+        f"{off_ms!r} ms (steps 3..{TELEMETRY_OFF_STEPS}); run log "
+        f"{len(logged)} losses bit-equal, runlog_report rc {rc}")
+    return {"launches": launches, "record": rec, "hand_flops": hand,
+            "flops_rel_to_hand": rel, "roofline": roof,
+            "platform_peaks": pz["platform_peaks"],
+            "memz_d0": d0, "allocated": allocated, "numerics": num,
+            "losses": losses, "runlog_losses": len(logged),
+            "step_ms_flags_on": walls, "step_ms_flags_off": off,
+            "median_on_ms": on_ms, "median_off_ms": off_ms,
+            "exe": exe, "scope": scope, "main": main, "loss": loss}
+
+
+def device_state(scope) -> dict:
+    """Copies of every tensor of ``scope`` and its generator's state."""
+    from paddle_tpu_torch.core.executor import RNG_STATE_VAR
+    out = {n: v.clone() for n, v in scope.vars.items()
+           if isinstance(v, torch.Tensor)}
+    g = scope.vars.get(RNG_STATE_VAR)
+    if isinstance(g, torch.Generator):
+        out[RNG_STATE_VAR] = g.get_state()
+    return out
+
+
+def state_changes(before: dict, scope) -> list:
+    """The names whose tensors (or generator state) differ, bit for bit,
+    from ``before``."""
+    now = device_state(scope)
+    if now.keys() != before.keys():
+        return sorted(set(now) ^ set(before))
+    return [n for n in before
+            if not torch.equal(bits(before[n]), bits(now[n]))]
+
+
+def fatal_step(fluid, exe, main, loss, feed, scope, label: str) -> dict:
+    """One poisoned step with FLAGS_numerics_check=fatal: it must raise
+    FloatingPointError naming the loss, with every tensor of the scope
+    (and the generator) bit-equal to its pre-step value."""
+    before = device_state(scope)
+    fluid.set_flags({"numerics_check": "fatal"})
+    try:
+        with fluid.scope_guard(scope):
+            exe.run(main, feed=feed, fetch_list=[loss], sync=True)
+    except FloatingPointError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"{label}: the poisoned step did not raise")
+    finally:
+        fluid.set_flags({"numerics_check": ""})
+    changed = state_changes(before, scope)
+    named = msg.split("NaN in ")[1].split("]")[0].count("'") // 2
+    log(f"  {label}: FloatingPointError naming {named} variables "
+        f"({msg[:160]}...); {len(before)} scope tensors, changed {changed}")
+    if loss.name not in msg or changed:
+        raise AssertionError(f"{label}: message {msg[:300]}, changed "
+                             f"{changed}")
+    return {"named": named, "scope_tensors": len(before)}
+
+
+def warn_counts(fluid, main, loss, values, feed, device) -> dict:
+    """The sentinel's warn-mode counter deltas and named variables for
+    one step on ``device`` from ``values``."""
+    from paddle_tpu_torch.observability import flight
+    scope = fluid.Scope()
+    scope.load_numpy(values, device=device)
+    flight.clear_events()
+    fluid.set_flags({"numerics_check": "warn"})
+    n0 = numerics_counts()
+    try:
+        fluid.Executor(device).run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope, sync=True)
+    finally:
+        fluid.set_flags({"numerics_check": ""})
+    notes = [e for e in flight.events() if e["msg"] == "numerics_sentinel"]
+    return {"counts": {k: v - n0[k] for k, v in numerics_counts().items()},
+            "nan_vars": sorted(notes[-1]["nan_vars"]) if notes else [],
+            "inf_vars": sorted(notes[-1]["inf_vars"]) if notes else []}
+
+
+def warn_card_vs_cpu(fluid, dev, main, startup, loss, feed, label) -> dict:
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    card = warn_counts(fluid, main, loss, values, feed, dev)
+    cpu = warn_counts(fluid, main, loss, values, feed, "cpu")
+    log(f"  {label} warn, card {card['counts']} vs CPU {cpu['counts']}; "
+        f"{len(card['nan_vars'])} NaN variables named on the card, "
+        f"{len(cpu['nan_vars'])} on the CPU")
+    if card != cpu or not card["counts"]["nan"]:
+        raise AssertionError(f"{label}: warn mode card {card} vs CPU {cpu}")
+    return card
+
+
+def run_sentinel(dev, card: str, a: dict) -> dict:
+    """19b (module doc)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import sparse as S
+    out = {}
+    feed = train_feed(TRAIN_B, TRAIN["max_len"], TRAIN["tgt_vocab"], seed=12)
+    feed["tgt_mask"][0, 0] = np.nan
+    out["transformer_fatal"] = fatal_step(
+        fluid, a["exe"], a["main"], a["loss"], feed, a["scope"],
+        "Transformer-base fatal")
+    main, startup, loss, _ = build_deepfm()
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.set_flags({"sparse_fused_kernel": True})
+    try:
+        clean = deepfm_feed(DEEPFM_B, seed=0)
+        with fluid.scope_guard(scope):
+            exe.run(main, feed=clean, fetch_list=[loss], sync=True)
+        bad = deepfm_feed(DEEPFM_B, seed=1)
+        bad["label"][7, 0] = np.nan
+        k10 = S.rowwise_update.launches
+        out["deepfm_fatal"] = fatal_step(fluid, exe, main, loss, bad, scope,
+                                         "DeepFM fatal")
+        # the poisoned step's two K10 launches wrote the tables in place
+        out["deepfm_fatal"]["k10_launches"] = S.rowwise_update.launches - k10
+        if out["deepfm_fatal"]["k10_launches"] != 2:
+            raise AssertionError(f"K10 launched "
+                                 f"{out['deepfm_fatal']['k10_launches']} "
+                                 f"times in the poisoned step (want 2)")
+        small = deepfm_feed(DEEPFM_PARITY_B, seed=2)
+        small["label"][3, 0] = np.nan
+        out["deepfm_warn"] = warn_card_vs_cpu(fluid, dev, main, startup,
+                                              loss, small, "DeepFM")
+    finally:
+        fluid.set_flags({"sparse_fused_kernel": False})
+    del exe, scope
+    cfg = dict(TRAIN, n_layer=2, max_len=64, dropout=0.0)
+    main, startup, loss, _ = build_transformer(cfg)
+    small = train_feed(4, 64, cfg["tgt_vocab"], seed=5)
+    small["tgt_mask"][1, 2] = np.nan
+    out["transformer_warn"] = warn_card_vs_cpu(
+        fluid, dev, main, startup, loss, small, "2-layer Transformer")
+    return out
+
+
+def chaos_prompts() -> list:
+    rs = np.random.RandomState(19)
+    return [rs.randint(1, FULL["vocab"], CHAOS_PROMPT).astype(np.int32)
+            for _ in range(CHAOS_N)]
+
+
+def chaos_truth(dev, prompts) -> list:
+    """The uninterrupted full-reservation streams on the replicas'
+    weights, with their logits (the near-tie rule's truth)."""
+    from paddle_tpu_torch.decode import (DecodeEngine, LMConfig,
+                                         SamplingParams, TransformerLM)
+    lm = TransformerLM(LMConfig(**FULL), device=dev)
+    lm.init_params(seed=CHAOS_SEED)
+    eng = DecodeEngine(lm, name="smoke_chaos_truth", max_slots=CHAOS_N,
+                       block_tokens=16, prefill_buckets=(16,),
+                       capture_logits=True, device=dev)
+    try:
+        with eng._lock:
+            hs = [eng.submit(p, SamplingParams(max_new_tokens=CHAOS_NEW))
+                  for p in prompts]
+        res = [h.result(timeout=600) for h in hs]
+    finally:
+        eng.close()
+    return [(r["tokens"], h.logits) for r, h in zip(res, hs)]
+
+
+def chaos_streams(ep, prompts) -> tuple:
+    """The prompts streamed at once to one replica: (threads, results by
+    prompt, errors)."""
+    from paddle_tpu_torch.decode import DecodeClient
+    out, errs = [None] * len(prompts), []
+
+    def one(i):
+        try:
+            out[i] = DecodeClient(endpoints=[ep]).generate(
+                "lm", prompts[i], timeout=600,
+                max_new_tokens=CHAOS_NEW)["tokens"]
+        except Exception as e:      # noqa: BLE001 — counted
+            errs.append(repr(e))
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    return threads, out, errs
+
+
+def decode_endpoints(registry_ep: str) -> dict:
+    from paddle_tpu_torch.decode import server as dserver
+    from paddle_tpu_torch.distributed import registry, transport
+    snap = registry.fetch_snapshot(transport.RPCClient(0), registry_ep)
+    out = {}
+    for logical, lease in (snap.get("leases") or {}).items():
+        parsed = dserver.parse_replica_key(logical)
+        if parsed is not None and parsed[0] == "lm":
+            out[parsed[1]] = lease["endpoint"]
+    return out
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def run_chaos(dev, card: str, port: int) -> dict:
+    """19c (module doc)."""
+    from paddle_tpu_torch.decode import server as dserver
+    from paddle_tpu_torch.distributed import transport
+    from paddle_tpu_torch.distributed.supervisor import (LIVE, FleetSpec,
+                                                         RoleSpec,
+                                                         Supervisor)
+    from paddle_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    # built here once: each replica only loads the libraries
+    _build.build_all()
+    backend = transport._backend()
+    prompts = chaos_prompts()
+    truth = chaos_truth(dev, prompts)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chaos_", dir=OUT_DIR)
+    seed_file = os.path.join(work, "seed.json")
+    with open(seed_file, "w") as f:
+        json.dump({"seed": CHAOS_SEED}, f)
+    keys = [dserver.replica_key("lm", f"r{i}") for i in range(2)]
+    spec = FleetSpec(
+        roles={"decode": RoleSpec(
+            count=2, argv=[sys.executable, CHAOS_RUNNER],
+            env={"PADDLE_REGISTRY": "{registry}", "REPLICA_ID": "r{index}",
+                 "REPLICA_WIDTH": CHAOS_WIDTH, "REPLICA_DEVICE": str(dev),
+                 "REPLICA_SEED_FILE": seed_file,
+                 "REPLICA_REPORT": os.path.join(work, "{name}-{spawn}.json")},
+            env_once={1: {"FLAGS_fault_inject":
+                          "kill_after:decode_preempt"}},
+            logical=keys, health_role="DECODE", grace_s=60.0,
+            action_deadline_s=300.0)},
+        hysteresis=2, name="smoke_chaos")
+    sup = Supervisor(spec, poll_s=0.1, registry_poll_s=0.25).start()
+    out = {"transport_backend": backend}
+    try:
+        wait_for(lambda: sum(w.state == LIVE for w in sup.workers.values())
+                 == 2 and len(decode_endpoints(sup.registry_ep)) == 2,
+                 300, "two decode replicas LIVE and announced")
+        out["up_s"] = time.perf_counter() - t0
+        eps = decode_endpoints(sup.registry_ep)
+        th0, r0, e0 = chaos_streams(eps["r0"], prompts)
+        th1, r1, e1 = chaos_streams(eps["r1"], prompts)
+        wait_for(lambda: decode_endpoints(sup.registry_ep).get("r1")
+                 not in (None, eps["r1"]), 300, "r1 killed and respawned")
+        for t in th0 + th1:
+            t.join(timeout=600)
+        if e0 or None in r0:
+            raise AssertionError(f"r0's streams failed: {e0}")
+        if not e1:
+            raise AssertionError("the kill severed none of r1's streams")
+        out["r0"] = near_tie_compare(truth, r0, "19c r0")
+        wait_for(lambda: sup.workers["decode-1"].state == LIVE, 300,
+                 "the replacement LIVE")
+        new_ep = decode_endpoints(sup.registry_ep)["r1"]
+        th2, r2, e2 = chaos_streams(new_ep, prompts)
+        for t in th2:
+            t.join(timeout=600)
+        if e2 or None in r2:
+            raise AssertionError(f"the replacement's streams failed: {e2}")
+        out["r1_replacement"] = near_tie_compare(truth, r2,
+                                                 "19c r1 replacement")
+        fz = http_json(port, "/fleetz")["smoke_chaos"]
+        w1 = next(w for w in fz["workers"] if w["name"] == "decode-1")
+        hist = w1["history"]
+        states = [h["state"] for h in hist]
+        i = states.index("DEAD")
+        if states[i:i + 4] != ["DEAD", "REPLACING", "STARTING", "LIVE"]:
+            raise AssertionError(f"/fleetz decode-1 history {states}")
+        out["kill_to_live_s"] = hist[i + 3]["ts"] - hist[i]["ts"]
+        out["fleetz_decode1"] = states
+        out["r1_dead_rc"] = hist[i].get("rc")
+        out["severed_streams"] = len(e1)
+    finally:
+        sup.stop(grace_s=60.0)
+    reports = {}
+    for name in ("decode-0-0", "decode-1-1"):
+        with open(os.path.join(work, f"{name}.json")) as f:
+            rep = reports[name] = json.load(f)
+        want = (rep["n_layer"] * rep["decode_steps"]
+                if torch.device(dev).type == "cuda" else 0)
+        if rep["leaked"] != 0 or rep["decode_steps"] == 0 or \
+                rep["k4_launches"] != want or rep["preempts"] < 1:
+            raise AssertionError(f"{name}: {rep} (K4 launches want {want}, "
+                                 f"no leak, at least one preemption)")
+    if os.path.exists(os.path.join(work, "decode-1-0.json")):
+        raise AssertionError("the killed replica wrote a drain report")
+    out["reports"] = reports
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  19c [{card}]: transport {backend}; r0 {out['r0']}, the "
+        f"replacement {out['r1_replacement']}; {len(e1)} of r1's streams "
+        f"severed by the kill (rc {out['r1_dead_rc']}); /fleetz decode-1 "
+        f"{states}; kill to LIVE {out['kill_to_live_s']!r} s (the child's "
+        f"CUDA context and kernel load included); drain reports "
+        f"{json.dumps(reports)}")
+    return out
+
+
+def run_telemetry(dev, card: str) -> dict:
+    """Phase 19 (module doc)."""
+    from paddle_tpu_torch.observability import debug_server
+    t0 = time.perf_counter()
+    http = debug_server.start(port=0)
+    try:
+        a = attributed_training(dev, card, http.port)
+        out = {"attribution": {k: v for k, v in a.items()
+                               if k not in ("exe", "scope", "main", "loss")}}
+        out["attribution_s"] = time.perf_counter() - t0
+        out["sentinel"] = run_sentinel(dev, card, a)
+        del a
+        torch.cuda.empty_cache()
+        out["sentinel_s"] = time.perf_counter() - t0 - out["attribution_s"]
+        out["chaos"] = run_chaos(dev, card, http.port)
+    finally:
+        debug_server.stop()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19: {out['seconds']:.1f} s (19a {out['attribution_s']:.1f}"
+        f" s, 19b {out['sentinel_s']:.1f} s, 19c "
+        f"{out['chaos']['seconds']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -8424,6 +8940,9 @@ def main() -> int:
     phase("18: the serving planes over the wire at full width")
     wire = run_wire(dev, card)
 
+    phase("19: the run telemetry and the supervised decode fleet")
+    telemetry = run_telemetry(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -8453,6 +8972,10 @@ def main() -> int:
         # phase 18a: behind a DecodeServer, over the wire
         rows[-1]["wire_launches"] = wire["decode"][dtype]["wire"][
             "k4_launches"]
+        if dtype == "float32":   # phase 19c: in the supervised replicas
+            rows[-1]["supervised_launches"] = {
+                name: rep["k4_launches"] for name, rep in
+                telemetry["chaos"]["reports"].items()}
         if dtype == "float32":
             rows[-1]["refcounted_launches"].update(
                 prefix_on=refc["prefix"]["prefix_on"]["k4_launches"],
@@ -8476,6 +8999,8 @@ def main() -> int:
             "replaces": f"paddle_tpu/kernels/attention.py:{line}",
             "launches": train["launches"][i],
             "run_steps_launches": steps["c_run_steps"]["launches"][i],
+            # phase 19a: the attributed steps
+            "attributed_launches": telemetry["attribution"]["launches"][i],
             "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -8651,6 +9176,7 @@ def main() -> int:
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "run_steps": steps, "control_flow": control_flow,
                    "book": book, "decode_refcounted": refc, "wire": wire,
+                   "telemetry": telemetry,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

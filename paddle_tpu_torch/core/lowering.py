@@ -47,13 +47,17 @@ to the program, so a program the reference built runs unchanged:
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import quant as _quant_kernels
 from ..kernels import sparse as _sparse_kernels
+from ..observability import perf as _perf
+from ..observability import stats as _obs_stats
+from ..observability import trace as _obs_trace
 from ..ops.control_flow_ops import CONTROL_FLOW_OPS
 from . import registry
 from .program import EMPTY_VAR, Block, Program
@@ -147,6 +151,7 @@ def pair_grad_ops(block: Block, plan: BlockPlan) -> None:
 
 def analyze_block(program: Program, block_idx: int, feed_names: Sequence[str],
                   fetch_names: Sequence[str]) -> BlockPlan:
+    t0 = time.perf_counter_ns() if _obs_trace.flags_on() else None
     plan = BlockPlan(block_idx, tuple(feed_names), tuple(fetch_names))
     seen_reads = set()
     persist_written = set()
@@ -195,6 +200,12 @@ def analyze_block(program: Program, block_idx: int, feed_names: Sequence[str],
             plan.state_reads.append(n)
     pair_grad_ops(block, plan)
     plan_drops(block, plan)
+    if t0 is not None:
+        t1 = time.perf_counter_ns()
+        _obs_stats.scope("lowering").histogram("analyze_ms").observe(
+            (t1 - t0) / 1e6)
+        if _obs_trace.enabled():
+            _obs_trace.emit("lowering::analyze", t0, t1)
     return plan
 
 
@@ -306,8 +317,10 @@ def _recompute_grad(base, rule, ctx, ins, op) -> Dict:
 
 
 def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
-              plan: BlockPlan) -> Dict:
-    """Run every op in ``block`` through its rule, mutating env."""
+              plan: BlockPlan, trace: Optional[list] = None) -> Dict:
+    """Run every op in ``block`` through its rule, mutating env.  A
+    ``trace`` list gets each op's shapes as it ran
+    (``observability/perf.py: op_meta``, the perf plane's cost walk)."""
     tapes: Dict[int, tuple] = {}
     fusion = (_sparse_kernels.plan_lookup_fusion(block)
               if _sparse_kernels.enabled_for(ctx) else None)
@@ -320,6 +333,8 @@ def lower_ops(ctx: LowerContext, program: Program, block: Block, env: Dict,
                 or (int8_plan is not None and int8_plan.covers(pos)
                     and int8_plan.lower(pos, env))):
             _lower_op(ctx, program, block, op, pos, env, plan, tapes)
+        if trace is not None:
+            trace.append(_perf.op_meta(op, env))
         for n in plan.drops.get(pos, ()):
             env.pop(n, None)
     return env

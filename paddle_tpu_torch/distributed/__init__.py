@@ -8,13 +8,18 @@
   native C backend (``native/paddle_tpu_native.cc``) or stdlib sockets
   (``FLAGS_rpc_transport``);
 - :mod:`registry` — TTL-lease discovery and the fleet health table the
-  serving and decode replicas announce into.
+  serving and decode replicas announce into;
+- :mod:`supervisor` — the self-healing fleet supervisor, for stateless
+  roles (its module doc).
 
-All are copies of the reference's modules (``serde`` converts torch
-tensors at the boundary).  The parameter-server stack (pserver, master,
-transpiler) and the supervisor are still to port.
+All but ``supervisor`` are copies of the reference's modules (``serde``
+converts torch tensors at the boundary).  The parameter-server stack
+(pserver, master, transpiler) and the supervisor's rollback roles are
+still to port.
 """
-from . import faults, serde, transport  # noqa: F401
+from . import faults, serde, supervisor, transport  # noqa: F401
+from .supervisor import FleetSpec, RoleSpec, Supervisor  # noqa: F401
 from .transport import wait_server_ready  # noqa: F401
 
-__all__ = ["faults", "serde", "transport", "wait_server_ready"]
+__all__ = ["FleetSpec", "RoleSpec", "Supervisor", "faults", "serde",
+           "supervisor", "transport", "wait_server_ready"]

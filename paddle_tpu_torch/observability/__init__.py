@@ -1,16 +1,21 @@
 """Observability of the PyTorch port.
 
-The reference's runtime telemetry (``paddle_tpu/observability``), less
-its perf/numerics plane (``perf``) and its per-step scalar log
-(``runlog``), which are not ported yet (``/memz`` and ``/profilez``
-answer 501 until ``perf`` is).  All modules but ``memory`` are copies
-of the reference's; ``memory`` reconciles against
-``torch.cuda.memory_stats`` (its module doc).
+The reference's runtime telemetry (``paddle_tpu/observability``).  All
+modules but ``memory``, ``perf`` and ``runlog`` are copies of the
+reference's; ``memory`` reconciles against ``torch.cuda.memory_stats``,
+``perf`` prices each plan by a cost walk over its ops' shapes in place
+of XLA's cost analysis, and ``runlog`` waits on CUDA events for raw
+tensor fetches (their module docs).
 
 - :mod:`stats` — the metrics registry (counters, gauges, histograms);
 - :mod:`step_stats` — per-run step records (the flight recorder's tail);
 - :mod:`trace` — runtime spans and distributed trace contexts;
 - :mod:`flight` — the crash flight recorder;
+- :mod:`perf` — the perf attribution plane (``FLAGS_perf_attribution``):
+  per-plan cost/memory records, roofline positions against the card's
+  peaks, live device-memory gauges; served on ``/profilez`` + ``/memz``;
+- :mod:`runlog` — the append-only JSONL per-step scalar log
+  (``FLAGS_run_log_dir``); ``tools/runlog_report.py`` renders/compares;
 - :mod:`phase` — per-request latency-phase attribution
   (``FLAGS_phase_attribution``);
 - :mod:`history` — metric history rings
@@ -25,8 +30,8 @@ of the reference's; ``memory`` reconciles against
 - :mod:`canary` — the golden canary prober (``FLAGS_canary_probe``);
 - :mod:`audit` — the cross-replica divergence sentinel's stream hashes;
 - :mod:`debug_server` — the opt-in (``FLAGS_debug_server_port``) HTTP
-  daemon: ``/metrics`` ``/healthz`` ``/statusz`` ``/stepz``
-  ``/servingz`` ``/decodez`` ``/quantz`` and the rest;
+  daemon: ``/metrics`` ``/healthz`` ``/statusz`` ``/stepz`` ``/memz``
+  ``/profilez`` ``/servingz`` ``/decodez`` ``/quantz`` and the rest;
 - :mod:`health` — heartbeat-driven worker liveness
   (HEALTHY/SUSPECT/DEAD), fed by the discovery registry's TTL leases;
 - :mod:`aggregate` — STATS_PULL RPC and the cross-worker merge into
@@ -47,7 +52,9 @@ from . import (  # noqa: F401
     health,
     history,
     memory,
+    perf,
     phase,
+    runlog,
     slo,
     stats,
     step_stats,

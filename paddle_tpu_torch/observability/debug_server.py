@@ -23,9 +23,10 @@ Endpoints (all GET):
   queue depths, ...).
 - ``/stepz``    JSON ``observability.export()`` (metrics snapshot +
   step-stats summary/tail).
-- ``/memz`` and ``/profilez`` answer 501: they read the perf plane
-  (the reference's ``observability/perf.py``), which the port does not
-  have yet.  ``/allocz`` serves the memory ledger meanwhile.
+- ``/memz``     live device-memory snapshot (``torch.cuda.memory_stats``
+  and ``mem_get_info`` per card + host RSS); ``/profilez`` the per-plan
+  cost/memory attribution records with roofline positions
+  (:mod:`perf`).  Both JSON by default, ``?text=1`` human text.
 - ``/servingz`` the model-serving plane (``paddle_tpu_torch/serving``): per
   in-process ModelServer, the version router plus per-model QPS,
   queue-depth, batch-occupancy, shed and latency-percentile gauges.
@@ -357,13 +358,23 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/tracez":
                 self._reply(200, self._tracez(query), "application/json")
             elif path in ("/memz", "/profilez"):
-                # the perf plane (the reference's observability/perf.py)
-                # is not ported: say so rather than serve a stand-in
-                self._reply(501, json.dumps(
-                    {"error": f"{path} needs observability/perf.py, which "
-                              "the port does not have yet",
-                     "see": "/allocz"}) + "\n", "application/json")
-                return
+                # the perf plane (observability/perf.py): live
+                # device-memory stats and per-plan cost/memory
+                # attribution + rooflines.  JSON by default, ?text=1 for
+                # the human rendering (tools/dump_metrics.py --memz /
+                # --profilez is the operator CLI)
+                from urllib.parse import parse_qs
+                from . import perf as _perf
+                q = parse_qs(query)
+                text = q.get("text", ["0"])[0] not in ("0", "", "false")
+                if path == "/memz":
+                    body = (_perf.memz_text() if text
+                            else json.dumps(_perf.memz(), indent=2))
+                else:
+                    body = (_perf.profilez_text() if text
+                            else json.dumps(_perf.profilez(), indent=2))
+                self._reply(200, body,
+                            "text/plain" if text else "application/json")
             elif path == "/servingz":
                 # the serving-plane debug page: router state + per-model
                 # QPS / queue-depth / batch-occupancy / latency gauges
@@ -505,8 +516,7 @@ class _Handler(BaseHTTPRequestHandler):
                      "/metrics  /healthz  /statusz  /stepz",
                      "/tracez  (?raw=1 span snapshot, ?recent=1 flight "
                      "recorder)",
-                     "/memz  /profilez  (501: observability/perf.py "
-                     "is not ported)",
+                     "/memz  /profilez  (?text=1 human rendering)",
                      "/servingz  (model-server router + batching gauges)",
                      "/decodez  (decode engines: slots, paged cache, "
                      "queue)",

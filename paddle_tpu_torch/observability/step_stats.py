@@ -28,10 +28,13 @@ from .stats import percentile_sorted
 def approx_nbytes(v) -> int:
     """Bytes of a host/device array from metadata only — never syncs.
 
-    Works for numpy, jax.Array, SelectedRows (rows+values) and anything
-    else exposing nbytes or shape+dtype; returns 0 for unsized values.
+    Works for numpy, torch tensors, SelectedRows (rows+values) and
+    anything else exposing nbytes or shape+dtype; returns 0 for unsized
+    values.
     """
     try:
+        if hasattr(v, "element_size") and hasattr(v, "numel"):
+            return int(v.numel()) * int(v.element_size())   # a tensor
         sz = getattr(v, "size", None)  # numpy + jax fast path (metadata;
         dt = getattr(v, "dtype", None)  # jax .nbytes is ~6x slower)
         if sz is not None and dt is not None:

@@ -56,9 +56,32 @@ register("elementwise_div")(_ew(torch.div))
 register("elementwise_min")(_ew(torch.minimum))
 
 
+class _Relu(torch.autograd.Function):
+    """``torch.relu`` with the reference's gradient (``jax.nn.relu``'s):
+    the cotangent where x > 0, else 0.  torch's own passes it where its
+    output is NaN, so a NaN input would send NaN gradients on where the
+    reference sends 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device))
+
+
+def relu(x):
+    """relu (the reference's forward and gradient, :class:`_Relu`)."""
+    return _Relu.apply(x)
+
+
 @register("relu")
 def _relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+    return {"Out": [relu(ins["X"][0])]}
 
 
 @register("sigmoid")

@@ -28,6 +28,7 @@ from ..core import registry as _registry
 from ..core.registry import register, register_grad
 from ..kernels import rnn as _rnn
 from ..observability import stats as _obs_stats
+from .math_ops import relu
 
 
 def _stat_dtype(x):
@@ -539,7 +540,7 @@ def _fused_elemwise_activation(ctx, ins, attrs):
     def unary(name, a):
         if name == "scale":
             return a * attrs.get("scale", 1.0)
-        return {"relu": torch.relu, "sigmoid": torch.sigmoid,
+        return {"relu": relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh}[name](a)
 
     if functors[0].startswith("elementwise"):

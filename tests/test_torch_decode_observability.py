@@ -65,14 +65,21 @@ def flags():
     def set_both(**kw):
         JF.set_flags(kw)
         TF.set_flags(kw)
+
+    def clear_recorders():
+        # before the test too: a worker that ran other files first may
+        # have left events and records in either package's recorders
+        for mods in (J_MODS, T_MODS):
+            mods["tenant"].reset()
+            mods["capacity"].reset()
+            mods["memory"].reset()
+            mods["faults"].clear()
+            mods["flight"].clear_events()
+    clear_recorders()
     yield set_both
     for mods, old in ((J_MODS, saved[0]), (T_MODS, saved[1])):
         mods["flags"].set_flags(old)
-        mods["tenant"].reset()
-        mods["capacity"].reset()
-        mods["memory"].reset()
-        mods["faults"].clear()
-        mods["flight"].clear_events()
+    clear_recorders()
 
 
 def _drop(x, keys=("ts",)):
@@ -315,7 +322,19 @@ def test_is_oom_recognises_card_and_injected_errors():
     assert not TMem.is_oom(ValueError("out of range"))
 
 
+def _oom_counters(mods, name):
+    """The package's OOM counters: its engine's and ``memory.oom_dumps``."""
+    sc = f"decode.{name}"
+    return {k: v for k, v in
+            mods["memory"]._stats.default_registry().to_dict().items()
+            if k.startswith(sc + ".oom") or k == "memory.oom_dumps"}
+
+
 def _oom_run(pkg, mods, name):
+    # the counters are process-wide and outlive a test file: a worker
+    # that ran other files first may hold earlier OOM dumps, so the run
+    # is judged by what it added
+    before = _oom_counters(mods, name)
     mods["faults"].inject("oom:decode_step:n=3,times=1")
     eng = _engine(pkg, name)
     try:
@@ -324,10 +343,8 @@ def _oom_run(pkg, mods, name):
                   for p in PROMPTS]
         res = [h.result(timeout=120) for h in hs]
         rec = mods["memory"].last_oom()
-        sc = f"decode.{name}"
-        reg = {k: v for k, v in
-               mods["memory"]._stats.default_registry().to_dict().items()
-               if k.startswith(sc + ".oom") or k == "memory.oom_dumps"}
+        reg = {k: v - before.get(k, 0)
+               for k, v in _oom_counters(mods, name).items()}
         return ([r["tokens"] for r in res], [r["finish"] for r in res],
                 eng.decodez()["preemption"], reg,
                 rec["site"], rec["top_holders"][0]["pool"],

@@ -12,8 +12,8 @@ the CPU.
   engine's greedy tokens through a port ``DecodeServer``'s submit path;
 - the port's debug server gives the reference's JSON for the same state
   on ``/healthz``, ``/statusz``, ``/decodez``, ``/servingz`` and
-  ``/quantz``, serves ``observability.export()`` on ``/stepz`` and
-  answers 501 on ``/memz`` and ``/profilez``.
+  ``/quantz``, serves ``observability.export()`` on ``/stepz``, and
+  serves ``/memz`` and ``/profilez`` with the reference's keys.
 """
 import json
 import time
@@ -397,7 +397,7 @@ def test_servingz_matches_the_reference(debug_servers):
     assert cards["port"]["models"]["stub@1"]["requests"] == 4
 
 
-def test_stepz_serves_export_and_memz_answers_501(debug_servers):
+def test_stepz_serves_export_and_memz_profilez_serve(debug_servers):
     TObs.reset()
     TObs.stats.counter("executor.steps").inc()
     stz = _get(debug_servers["port"], "/stepz")
@@ -406,14 +406,19 @@ def test_stepz_serves_export_and_memz_answers_501(debug_servers):
     assert set(stz["step_stats"]) == set(TObs.export()["step_stats"])
     assert TObs.enabled() == JObs.enabled()
     for page in ("/memz", "/profilez"):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(debug_servers["port"], page)
-        assert ei.value.code == 501
-        assert "observability/perf.py" in ei.value.read().decode("utf-8")
+        got = _get(debug_servers["port"], page)
+        want = _get(debug_servers["ref"], page)
+        assert set(got) == set(want), page
+    mz = _get(debug_servers["port"], "/memz")
+    assert set(_get(debug_servers["ref"], "/memz")["devices"][0]) <= \
+        set(mz["devices"][0])
+    pz = _get(debug_servers["port"], "/profilez")
+    assert set(pz["platform_peaks"]) == set(
+        _get(debug_servers["ref"], "/profilez")["platform_peaks"])
     with pytest.raises(urllib.error.HTTPError) as ei:
         _get(debug_servers["port"], "/nope")
     assert ei.value.code == 404
-    # the exports the reference's package has, less perf and runlog
+    # the exports the reference's package has
     want = {n for n in dir(JObs) if not n.startswith("_")} - {
-        "perf", "runlog", "annotations"}
+        "annotations"}
     assert want <= {n for n in dir(TObs) if not n.startswith("_")}

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, and
-not ``chip_smoke.py`` or ``tools/serve_torch.py``, imports JAX or the JAX
+not ``chip_smoke.py``, ``tools/serve_torch.py``, ``tools/fleet_torch.py``
+or ``tests/torch_decode_replica_runner.py``, imports JAX or the JAX
 package, and importing the port's decode plane, its Program stack (the
 copied pure-Python IR modules included), its inference and serving
 planes, its wire (serde, transport, registry, the servers and clients),
-or its observability, profiler and fault-injection modules loads
-neither.  ``chip_smoke.py`` refuses to report
+its run telemetry (perf, runlog, platform peaks), its fleet supervisor
+and elastic controller, or its observability, profiler and
+fault-injection modules loads neither.  ``chip_smoke.py`` refuses to report
 a result without a CUDA device."""
 import ast
 import os
@@ -23,7 +25,9 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 # measurement scripts
 SCRIPTS = [SMOKE] + [os.path.join(ROOT, f) for f in (
     "int8_dispatch_ab.py", "kernel_ab.py", "mma_rate.py",
-    "profiler_loss.py", os.path.join("tools", "serve_torch.py"))]
+    "profiler_loss.py", os.path.join("tools", "serve_torch.py"),
+    os.path.join("tools", "fleet_torch.py"),
+    os.path.join("tests", "torch_decode_replica_runner.py"))]
 
 
 def _port_files():
@@ -85,6 +89,14 @@ WIRE_MODULES = [
 ]
 
 
+# the executor's run telemetry and the fleet supervisor
+TELEMETRY_MODULES = [
+    "platform.py", "observability/perf.py", "observability/runlog.py",
+    "checkpoint/__init__.py", "checkpoint/elastic.py",
+    "distributed/supervisor.py",
+]
+
+
 def test_port_files_exist():
     files = _port_files()
     assert len(files) >= 51
@@ -94,7 +106,8 @@ def test_port_files_exist():
                 "sparse_gather.cu", "sparse_update.cu", "gru_fwd.cu",
                 "gru_bwd.cu", "tf32x3.cuh", "int8_fc.cu"):
         assert os.path.exists(os.path.join(PORT, "kernels", "csrc", src))
-    for mod in PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES:
+    for mod in (PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES
+                + TELEMETRY_MODULES):
         assert os.path.join(PORT, mod) in files, mod
 
 
@@ -123,7 +136,8 @@ def test_importing_the_port_loads_no_jax():
     mods = ", ".join(
         "paddle_tpu_torch." + m[:-3].replace("/__init__", "")
         .replace("/", ".")
-        for m in PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES)
+        for m in (PROGRAM_MODULES + HOOK_MODULES + WIRE_MODULES
+                  + TELEMETRY_MODULES))
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.decode, "
             "paddle_tpu_torch.kernels.attention, "
             f"paddle_tpu_torch.kernels._build, {mods}\n"
