@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, in the order they run: 1, 2, 3, 3b (float32, then bfloat16), 3c,
 3d, 3e, 3f, 4, 5 (float32, then bfloat16), 7, 8, 9, 10, 11, 11b, 12, 13,
-13a in bfloat16, 14, 15, 16, 17, 18, 19, 6 (each one that fails raises, and the
+13a in bfloat16, 14, 15, 16, 17, 18, 19, 20, 6 (each one that fails raises, and the
 script exits non-zero; each phase's header gives its start in seconds):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA
@@ -534,6 +534,39 @@ script exits non-zero; each phase's header gives its start in seconds):
    c; from paddle_tpu_torch.kernels import _build; from
    paddle_tpu_torch.platform import get_device; _build.build_all();
    c.run_telemetry(get_device(), c.nvidia_smi_line())"``.
+20. The training rewrites: every optimizer, gradient clip, regularizer
+   and LR schedule, and the rest of math_ops and tensor_ops.  20a: each
+   of the 73 op types the slice ported (and ``elementwise_mul`` of a
+   SelectedRows by a 0-d tensor), forward and gradient, at small seeded
+   shapes holding the edge points (0 for abs and leaky_relu, each bound
+   of the clips, tied maxima, a zero in a product), on the card against
+   the CPU within ``REWRITE_OP_REL`` of max|ref|, the exact ops and
+   every integer output bit for bit, the worst error printed by type;
+   ``truncated_gaussian_random`` by its law on the card.  20b:
+   Transformer-base (phase 5's program and feed, built
+   ``with_optimizer=False``, then noam and Adam as
+   ``models/transformer.py:239-243``) under
+   ``GradientClipByGlobalNorm(1.0)``: the 2-layer step card vs CPU
+   (loss, the clipped gradients, the clip's factor), then 12 steps with
+   the clip on and 12 off, K1-K3 exactly 18 launches a step each and no
+   forward re-run, the step ms of each.  20c: DeepFM at the bench's
+   shape (1e6 rows, B=2048) under Adam with ``L2Decay(1e-4)``, and
+   again with ``GradientClipByGlobalNorm(5.0)``: a flag-on step at
+   B=64 card vs CPU, then 12 steps flag on (K9 1 and K10 2 launches a
+   step behind one sort) and 12 off from one start; the rows no id
+   looked up bit for bit unchanged, the tables flag on vs off within
+   ``DEEPFM_FLAG_TOL``.  20d: the stacked LSTM at its bench width under
+   RMSProp with ``exponential_decay``, ``GradientClipByValue(1.0)`` and
+   ``L1Decay(1e-5)``: a B=8 step card vs CPU, then 12 steps at B=128,
+   T=128 with K6/K7 exactly 3 launches each a step.  20e: Adamax,
+   DecayedAdagrad, Adadelta, Ftrl, LarsMomentum (``append_LARS``'s
+   rates fetched) and Momentum under ``ModelAverage``, 5 steps each of
+   ``models/mnist.py`` card vs CPU; ``ModelAverage.restore`` leaves
+   every parameter bit for bit as before ``apply``.  Alone:
+   ``python3 -c "import chip_smoke as c; from paddle_tpu_torch.kernels
+   import _build; from paddle_tpu_torch.platform import get_device;
+   _build.build_all(); c.run_rewrites(get_device(),
+   c.nvidia_smi_line())"``.
 6. (last) One JSON line listing each kernel: launches on the main path,
    max error, its time, the plain version's, the library call's and the
    bound; K4's row adds its launches in a paged beam decode and K8a's
@@ -550,7 +583,10 @@ script exits non-zero; each phase's header gives its start in seconds):
    ``srl_library_ms``); K4 and K5 add their launches behind the servers
    of phase 18 (``wire_launches``), K4 its launches in phase 19c's
    supervised replicas (``supervised_launches``) and K1-K3 theirs in
-   19a's attributed steps (``attributed_launches``).
+   19a's attributed steps (``attributed_launches``); K1-K3, K6/K7 and
+   K9/K10 add their launches under phase 20's rewrites
+   (``rewrites_launches``: 20b's clip on and off, 20d's steps, 20c's
+   two arms flag on).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -8835,6 +8871,842 @@ def run_telemetry(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the training rewrites (every optimizer, gradient clip,
+# regularizer and LR schedule; the rest of math_ops and tensor_ops)
+# ---------------------------------------------------------------------------
+
+# 20a: each new op type's outputs and gradients, card vs CPU from the
+# same inputs: max|d| <= REWRITE_OP_REL * max|ref| per output (float32
+# elementwise math, short reductions and scans in other orders); the
+# exact ops and every integer or boolean output bit for bit
+REWRITE_OP_REL = TRAIN_LOSS_TOL
+REWRITE_EXACT = ("sign", "floor", "round", "one_hot", "arg_min", "shape",
+                 "range")
+REWRITE_STEPS = 12             # 20b-20d: steps an arm (median of 3..12)
+REWRITE_OPT_STEPS = 5          # 20e: models/mnist.py steps an optimizer
+MNIST_B = 64
+# 20c-20e: parameters after their steps, card vs CPU: max|d| <=
+# REWRITE_UPDATE_TOL * max|update|, DEEPFM_TABLE_TOL's reason: the
+# adaptive steps (Adam, RMSProp, Adamax, Adadelta, Ftrl) divide by a
+# root of the gradients' squares, which magnifies their float32 noise
+# near g = 0
+REWRITE_UPDATE_TOL = DEEPFM_TABLE_TOL
+# 20e: each step's loss, card vs CPU, relative: the first step's is
+# TRAIN_LOSS_TOL's; the later ones carry the parameters' difference
+REWRITE_LOSS_REL = 1e-4
+# 20e: the parameters' update over 5 MNIST steps, card vs CPU, in
+# relative L2 (||d update|| / ||update||), as the ring's gradients are
+# held (RING_GRAD_L2): DecayedAdagrad's and Adadelta's first steps are
+# near lr * sign(g) (their accumulators start at 0), so an element whose
+# gradient is float32 noise around 0 can step either way, and after 5
+# steps through the convolutions one such element reached 1.9e-2 of
+# max|update| while the losses agreed to 1e-7
+REWRITE_UPDATE_L2 = 1e-2
+
+
+def rewrite_op_cases() -> dict:
+    """Phase 20a's cases: name -> (op type, {slot: [numpy arrays or
+    ("rows", rows, values, height) for a SelectedRows]}, attrs, [(slot,
+    j) float inputs to differentiate]): each of the 73 op types this
+    slice ported, at small seeded shapes holding the points where
+    torch's own gradients part from the reference's (0 for abs and
+    leaky_relu, each bound of the clips, ties of the max)."""
+    rs = np.random.RandomState(20)
+
+    def f(*shape):
+        return rs.randn(*shape).astype("float32")
+
+    def pos(*shape):
+        return np.abs(f(*shape)) + 0.25
+
+    edge = np.array([-1.0, 0.0, 0.5, 6.0, 1.0, -2.0, 2.0, 24.0, -0.5],
+                    "float32")
+    x = f(64, 256) * 3
+    x[:, :edge.size] = edge
+    y = f(64, 256)
+    y[:, :4] = x[:, :4]                          # elementwise_max ties
+    ties = f(64, 32)
+    ties[:, 1] = ties[:, 2] = ties.max(1)
+    ties[:, 3] = ties[:, 4] = ties.min(1)
+    prod = f(16, 8, 6)
+    prod[3, 2, 1] = 0.0
+    inf, nan = f(32, 16), f(32, 16)
+    inf[5, 3], nan[7, 2] = np.inf, np.nan
+    mx, my = f(32, 48) * 6, f(32, 48) * 2
+    my[np.abs(my) < 0.25] = 0.5
+    mo = f(8, 16, 6, 6)
+    mo[:, 1, :2] = mo[:, 0, :2]                   # tied maxout maxima
+    lr = np.array(0.05, "float32")
+    p, g = f(128, 64), f(128, 64)
+    rows = rs.randint(0, 500, 96).astype("int64")
+    rows[:8] = rows[8:16]                         # duplicates to merge
+    sparse = ("rows", rows, f(96, 64), 500)
+    cases = {}
+
+    def unary(name, xx=None, attrs=None, grad=True):
+        cases[name] = (name, {"X": [x if xx is None else xx]}, attrs or {},
+                       [("X", 0)] if grad else [])
+
+    for name in ("logsigmoid", "tanh_shrink", "exp", "abs", "sin", "cos",
+                 "softplus", "softsign", "relu6", "sign", "ceil", "floor",
+                 "round"):
+        unary(name)
+    for name in ("sqrt", "rsqrt", "reciprocal"):
+        unary(name, pos(64, 256))
+    unary("softshrink", attrs={"lambda": 0.5})
+    unary("leaky_relu", attrs={"alpha": 0.1})
+    unary("elu", attrs={"alpha": 0.7})
+    unary("swish", attrs={"beta": 1.5})
+    unary("hard_sigmoid", attrs={"slope": 0.25, "offset": 0.5})
+    unary("brelu", attrs={"t_min": 1.0, "t_max": 6.0})
+    unary("stanh", attrs={"scale_a": 0.67, "scale_b": 1.7159})
+    unary("hard_shrink", attrs={"threshold": 0.5})
+    unary("thresholded_relu", attrs={"threshold": 1.0})
+    unary("soft_relu", attrs={"threshold": 2.0})
+    unary("clip", attrs={"min": -1.0, "max": 2.0})
+    unary("clip_by_norm", attrs={"max_norm": 1.0})
+    unary("log_softmax", f(64, 32, 50), {"axis": -1})
+    unary("cumsum", f(16, 300), {"axis": 1, "reverse": True,
+                                 "exclusive": True})
+    unary("maxout", mo, {"groups": 2})
+    unary("squared_l2_norm", f(128, 64))
+    unary("norm", f(32, 64, 8), {"axis": 1, "epsilon": 1e-10})
+    for name, attrs in (("reduce_mean", {"dim": [0, 2]}),
+                        ("reduce_max", {"dim": [1]}),
+                        ("reduce_min", {"dim": [-1], "keep_dim": True})):
+        cases[name] = (name, {"X": [ties if name != "reduce_mean"
+                                    else prod]}, attrs, [("X", 0)])
+    cases["reduce_prod"] = ("reduce_prod", {"X": [prod]}, {"dim": [2]},
+                            [("X", 0)])
+    cases["elementwise_max"] = ("elementwise_max", {"X": [x], "Y": [y]}, {},
+                                [("X", 0), ("Y", 0)])
+    cases["elementwise_pow"] = ("elementwise_pow", {
+        "X": [pos(64, 256)], "Y": [f(64, 256)]}, {}, [("X", 0), ("Y", 0)])
+    cases["elementwise_mod"] = ("elementwise_mod", {"X": [mx], "Y": [my]},
+                                {}, [("X", 0), ("Y", 0)])
+    cases["elementwise_floordiv"] = ("elementwise_floordiv", {
+        "X": [mx.astype("int64")], "Y": [np.where(
+            my > 0, 3, -5).astype("int64")]}, {}, [])
+    cases["isfinite"] = ("isfinite", {"X": [f(32, 16), inf]}, {}, [])
+    cases["has_inf"] = ("has_inf", {"X": [inf]}, {}, [])
+    cases["has_nan"] = ("has_nan", {"X": [nan]}, {}, [])
+    cases["__global_norm_sq__"] = ("__global_norm_sq__", {"X": [sparse]},
+                                   {}, [])
+    cases["__global_norm_factor__"] = ("__global_norm_factor__", {
+        "X": [np.array(9.0, "float32")]}, {"clip_norm": 1.0}, [])
+    cases["clip_sparse"] = ("clip", {"X": [sparse]},
+                            {"min": -0.5, "max": 0.5}, [])
+    cases["elementwise_mul_sparse"] = ("elementwise_mul", {
+        "X": [sparse], "Y": [np.array(0.375, "float32")]}, {}, [])
+    # tensor_ops
+    cases["split"] = ("split", {"X": [f(32, 96, 4)]},
+                      {"axis": 1, "sections": [32, 48, 16]}, [("X", 0)])
+    cases["split_byref"] = ("split_byref", {"X": [f(32, 96)]},
+                            {"axis": 1, "num": 3}, [("X", 0)])
+    cases["stack"] = ("stack", {"X": [f(32, 64), f(32, 64), f(32, 64)]},
+                      {"axis": 1}, [("X", 0), ("X", 2)])
+    cases["reshape2"] = ("reshape2", {"X": [f(8, 16, 12)]},
+                         {"shape": [0, -1, 6]}, [("X", 0)])
+    cases["transpose2"] = ("transpose2", {"X": [f(8, 16, 12)]},
+                           {"axis": [2, 0, 1]}, [("X", 0)])
+    oh = rs.randint(-1, 11, (256, 1)).astype("int64")
+    cases["one_hot"] = ("one_hot", {"X": [oh]}, {"depth": 10}, [])
+    cases["shape"] = ("shape", {"Input": [f(4, 5, 6)]}, {}, [])
+    cases["range"] = ("range", {}, {"start": 3, "end": 1000, "step": 7,
+                                    "dtype": "int64"}, [])
+    cases["where"] = ("where", {"Condition": [f(64, 32) > 0],
+                                "X": [f(64, 32)], "Y": [f(64, 32)]}, {},
+                      [("X", 0), ("Y", 0)])
+    cases["fill"] = ("fill", {}, {"value": f(24).tolist(), "shape": [4, 6],
+                                  "dtype": "float32"}, [])
+    cases["fill_zeros_like"] = ("fill_zeros_like", {"X": [f(32, 16)]}, {},
+                                [("X", 0)])
+    cases["pad"] = ("pad", {"X": [f(16, 24, 8)]},
+                    {"paddings": [1, 2, 0, 3, 4, 0], "pad_value": -1.5},
+                    [("X", 0)])
+    cases["scatter"] = ("scatter", {
+        "X": [f(200, 16)], "Ids": [rs.randint(0, 200, 300).astype("int64")],
+        "Updates": [f(300, 16)]}, {"overwrite": False},
+        [("X", 0), ("Updates", 0)])
+    cases["scatter_overwrite"] = ("scatter", {
+        "X": [f(200, 16)], "Ids": [rs.permutation(200)[:64].astype("int64")],
+        "Updates": [f(64, 16)]}, {"overwrite": True},
+        [("X", 0), ("Updates", 0)])
+    cases["arg_min"] = ("arg_min", {"X": [ties]}, {"axis": 1}, [])
+    cases["extract_rows"] = ("extract_rows", {"X": [sparse]}, {}, [])
+    cases["print"] = ("print", {"In": [f(2, 3)]},
+                      {"message": "  20a print op:"}, [("In", 0)])
+    cases["sparse_decay"] = ("sparse_decay", {"Param": [f(500, 64)],
+                                              "Grad": [sparse]},
+                             {"coeff": 1e-4, "mode": "l2"}, [])
+    cases["sparse_decay_l1"] = ("sparse_decay", {"Param": [f(500, 64)],
+                                                 "Grad": [sparse]},
+                                {"coeff": 1e-5, "mode": "l1"}, [])
+    # optimizer_ops: forward (one update)
+    cases["decayed_adagrad"] = ("decayed_adagrad", {
+        "Param": [p], "Grad": [g], "Moment": [pos(128, 64)],
+        "LearningRate": [lr]}, {"decay": 0.9}, [])
+    cases["adamax"] = ("adamax", {
+        "Param": [p], "Grad": [g], "Moment": [f(128, 64)],
+        "InfNorm": [pos(128, 64)], "Beta1Pow": [np.array(0.81, "float32")],
+        "LearningRate": [lr]}, {}, [])
+    cases["adadelta"] = ("adadelta", {
+        "Param": [p], "Grad": [g], "AvgSquaredGrad": [pos(128, 64)],
+        "AvgSquaredUpdate": [pos(128, 64)], "LearningRate": [lr]},
+        {"rho": 0.9}, [])
+    cases["rmsprop"] = ("rmsprop", {
+        "Param": [p], "Grad": [g], "MeanSquare": [pos(128, 64) + 1.0],
+        "Moment": [f(128, 64)], "MeanGrad": [f(128, 64) * 0.1],
+        "LearningRate": [lr]}, {"momentum": 0.3, "centered": True}, [])
+    cases["ftrl"] = ("ftrl", {
+        "Param": [p], "Grad": [g], "SquaredAccumulator": [pos(128, 64)],
+        "LinearAccumulator": [f(128, 64)], "LearningRate": [lr]},
+        {"l1": 0.2, "l2": 0.1}, [])
+    cases["lars_momentum"] = ("lars_momentum", {
+        "Param": [p], "Grad": [g], "Velocity": [f(128, 64)],
+        "LearningRate": [lr]}, {"mu": 0.9, "lars_coeff": 0.01}, [])
+    cases["proximal_gd"] = ("proximal_gd", {
+        "Param": [p], "Grad": [g], "LearningRate": [lr]},
+        {"l1": 0.5, "l2": 0.1}, [])
+    cases["proximal_adagrad"] = ("proximal_adagrad", {
+        "Param": [p], "Grad": [g], "Moment": [pos(128, 64)],
+        "LearningRate": [lr]}, {"l1": 0.5, "l2": 0.1}, [])
+    cases["average_accumulates"] = ("average_accumulates", {
+        "param": [p], "in_sum_1": [f(128, 64)], "in_sum_2": [f(128, 64)],
+        "in_sum_3": [f(128, 64)],
+        "in_num_accumulates": [np.array([3], "int64")],
+        "in_old_num_accumulates": [np.array([2], "int64")],
+        "in_num_updates": [np.array([6], "int64")]},
+        {"average_window": 0.5, "min_average_window": 4,
+         "max_average_window": 10}, [])
+    return cases
+
+
+def rewrite_value(a, device):
+    """A case's input on ``device``: a tensor, or a SelectedRows from
+    ("rows", rows, values, height)."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    if isinstance(a, tuple) and a[0] == "rows":
+        return SelectedRows(torch.from_numpy(a[1]).to(device),
+                            torch.from_numpy(a[2]).to(device), a[3])
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def run_rewrite_rule(op, ins, attrs, wrt, device, cots) -> tuple:
+    """``op``'s rule in a context on ``device`` (its constants, its
+    device) on copies of ``ins``: each output (a SelectedRows as its
+    rows and values) and the gradient of sum(out * cot) over the float
+    outputs for the inputs ``wrt``, as host arrays."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    ctx = registry.LowerContext(device=torch.device(device))
+    tins = {k: [rewrite_value(a, device) for a in v] for k, v in ins.items()}
+    leaves = []
+    for slot, j in wrt:
+        tins[slot][j] = tins[slot][j].requires_grad_(True)
+        leaves.append(tins[slot][j])
+    with torch.enable_grad():
+        flat = {}
+        for k, vs in registry.get(op).lower(ctx, tins, attrs).items():
+            for j, v in enumerate(vs):
+                if isinstance(v, SelectedRows):
+                    flat[f"{k}[{j}].rows"] = v.rows
+                    flat[f"{k}[{j}].values"] = v.values
+                else:
+                    flat[f"{k}[{j}]"] = v
+        got = {k: v.detach().cpu().numpy() for k, v in flat.items()}
+        if not leaves:
+            return got, []
+        loss = sum((flat[k].float() * torch.from_numpy(c).to(device)).sum()
+                   for k, c in cots.items())
+        if not loss.requires_grad:      # a rounding: no gradient
+            return got, [np.zeros(tuple(x.shape), "float32") for x in leaves]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return got, [np.zeros(tuple(x.shape), "float32") if gr is None
+                 else gr.cpu().numpy() for gr, x in zip(grads, leaves)]
+
+
+def check_truncated_gaussian(dev) -> dict:
+    """truncated_gaussian_random on the card: shape, dtype, every value
+    inside mean +- 2 std, mean and std those of a normal truncated at
+    2 sigma (0.8796 sigma) within sampling error of 4e6 draws; the same
+    seed repeats."""
+    from paddle_tpu_torch.core import registry
+    attrs = {"shape": [2000, 2000], "mean": 0.5, "std": 2.0,
+             "dtype": "float32", "seed": 20}
+    rule = registry.get("truncated_gaussian_random").lower
+    a = rule(registry.LowerContext(device=dev), {}, attrs)["Out"][0]
+    b = rule(registry.LowerContext(device=dev), {}, attrs)["Out"][0]
+    sigma = 0.8796256610342398 * 2.0
+    m, s = float(a.double().mean()), float(a.double().std())
+    lo, hi = float(a.min()), float(a.max())
+    ok = (tuple(a.shape) == (2000, 2000) and a.dtype == torch.float32
+          and a.device.type == torch.device(dev).type and -3.5 < lo < -3.49 and 4.49 < hi < 4.5
+          and abs(m - 0.5) < 5 * sigma / 2000.0
+          and abs(s - sigma) < 0.002 * sigma and torch.equal(a, b))
+    if not ok:
+        raise AssertionError(f"20a truncated_gaussian_random: shape "
+                             f"{tuple(a.shape)} {a.dtype} on {a.device}, "
+                             f"range [{lo}, {hi}], mean {m}, std {s} "
+                             f"(want {sigma}), repeat {torch.equal(a, b)}")
+    return {"mean": m, "std": s, "min": lo, "max": hi, "want_std": sigma}
+
+
+def check_rewrite_ops(dev, card: str) -> dict:
+    """Phase 20a: every case of :func:`rewrite_op_cases` on the card
+    against the same rule on the CPU from the same inputs, forward and
+    gradient, within REWRITE_OP_REL of max|ref| (integer, boolean and
+    REWRITE_EXACT outputs bit for bit); truncated_gaussian_random by
+    its law; no hand-written kernel launches.  Prints the worst error
+    by type."""
+    before = kernel_launches()
+    by_type = {}
+    for name, (op, ins, attrs, wrt) in rewrite_op_cases().items():
+        host, _ = run_rewrite_rule(op, ins, attrs, [], "cpu", {})
+        rs = np.random.RandomState(21)
+        cots = {k: np.asarray(rs.randn(*v.shape), "float32")
+                for k, v in sorted(host.items())
+                if np.issubdtype(v.dtype, np.floating)}
+        host, hgrads = run_rewrite_rule(op, ins, attrs, wrt, "cpu", cots)
+        got, ggrads = run_rewrite_rule(op, ins, attrs, wrt, dev, cots)
+        pairs = [(s, got[s], host[s]) for s in sorted(host)] + [
+            (f"{s}[{j}]@GRAD", gg, h)
+            for (s, j), gg, h in zip(wrt, ggrads, hgrads)]
+        worst = 0.0
+        for slot, gv, h in pairs:
+            if gv.shape != h.shape or gv.dtype != h.dtype:
+                raise AssertionError(f"20a {name} {slot}: card {gv.dtype} "
+                                     f"{gv.shape}, CPU {h.dtype} {h.shape}")
+            if op in REWRITE_EXACT or not np.issubdtype(h.dtype,
+                                                       np.floating):
+                if not np.array_equal(gv, h, equal_nan=True):
+                    raise AssertionError(f"20a {name} {slot}: exact outputs "
+                                         f"differ card vs CPU")
+                continue
+            fin = np.isfinite(h)
+            if not np.array_equal(fin, np.isfinite(gv)):
+                raise AssertionError(f"20a {name} {slot}: non-finite "
+                                     f"values differ card vs CPU")
+            if not fin.any():
+                continue
+            d = float(np.abs(gv[fin].astype(np.float64) - h[fin]).max())
+            scale = float(np.abs(h[fin]).max())
+            if d > REWRITE_OP_REL * scale:
+                raise AssertionError(f"20a {name} {slot}: max|card - CPU| "
+                                     f"{d} > {REWRITE_OP_REL} * max|ref| "
+                                     f"{scale}")
+            worst = max(worst, d / scale if scale else 0.0)
+        by_type[op] = max(by_type.get(op, 0.0), worst)
+    by_type["truncated_gaussian_random"] = 0.0
+    law = check_truncated_gaussian(dev)
+    moved = {k: v - before[k] for k, v in kernel_launches().items()
+             if v != before[k]}
+    if moved:
+        raise AssertionError(f"phase 20a launched kernels: {moved}")
+    for op in sorted(by_type):
+        log(f"  20a {op}: worst max|card - CPU| / max|ref| {by_type[op]!r}")
+    log(f"  20a truncated_gaussian_random on the card: {json.dumps(law)}")
+    log(f"  20a [{card}]: {len(by_type) - 1} new op types and "
+        f"elementwise_mul's SelectedRows branch, card vs CPU within "
+        f"{REWRITE_OP_REL} of max|ref|, {len(REWRITE_EXACT)} exact ops and "
+        f"every integer output bit for bit")
+    return {"by_type": by_type, "truncated_gaussian": law,
+            "op_types": len(by_type)}
+
+
+def rewritten(build, clip=None, opt=None):
+    """``build()`` (a model's program without its optimizer, returning
+    its loss) under the rewrites: ``clip()`` as the global gradient clip
+    while ``opt()``'s optimizer minimizes the loss.  Returns (main,
+    startup, loss, sorted parameter names, the ops the clip and the
+    decay added)."""
+    from paddle_tpu_torch import clip as C
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 3
+    with program_guard(main, startup), unique_name.guard():
+        loss = build()
+        if clip is not None:
+            C.set_gradient_clip(clip())
+        try:
+            opt().minimize(loss)
+        finally:
+            C.set_gradient_clip(None)
+    tags = ("@CLIP", "@SQSUM", "@GLOBAL_NORM_SQ@", "@L2DECAY", "@L1DECAY",
+            "@REG", "@L1SIGN")
+    rewrite_ops = sum(1 for op in main.global_block.ops if any(
+        tag in n for names in op.outputs.values() for n in names
+        for tag in tags))
+    return (main, startup, loss, sorted(p.name for p in main.all_parameters()),
+            rewrite_ops)
+
+
+def transformer_rewrites(cfg, clip: bool):
+    """Transformer-base built ``with_optimizer=False``, then noam and Adam
+    as models/transformer.py:239-243, under a global-norm clip of 1.0
+    when ``clip``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    def build():
+        return transformer.build(**dict(cfg, with_optimizer=False))[1]
+
+    def opt():
+        lr = fluid.layers.learning_rate_scheduler.noam_decay(
+            cfg["d_model"], 4000)
+        return fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                                    epsilon=1e-9)
+
+    return rewritten(build, (lambda: fluid.clip.GradientClipByGlobalNorm(1.0))
+                     if clip else None, opt)
+
+
+def card_vs_cpu(main, startup, feed, fetch, dev, count=None) -> tuple:
+    """One step of ``main`` on the CPU and on the card from the same
+    copied start (the startup run on the CPU): (CPU fetches, card
+    fetches, start values, CPU and card scopes' values, launches of
+    ``count()`` on each)."""
+    import paddle_tpu_torch as fluid
+    init = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=init)
+    values = init.to_numpy()
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        scope = fluid.Scope()
+        scope.load_numpy(values, device=device)
+        n0 = count() if count else ()
+        res = fluid.Executor(device).run(main, feed=feed, fetch_list=fetch,
+                                         scope=scope, sync=True)
+        out[name] = [np.asarray(r) for r in res]
+        out[name + "_launches"] = tuple(
+            b - a for a, b in zip(n0, count() if count else ()))
+        out[name + "_state"] = scope.to_numpy()
+    return out, values
+
+
+def timed_steps(exe, main, feed, loss, scope, steps) -> dict:
+    """``steps`` steps of ``main`` (``sync=True``): losses and step ms,
+    the median of steps 3..``steps``."""
+    import paddle_tpu_torch as fluid
+    losses, step_ms = [], []
+    with fluid.scope_guard(scope):
+        for _ in range(steps):
+            t = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], sync=True)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(lv))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return {"losses": losses, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[2:]))}
+
+
+def run_transformer_clip(dev, card: str) -> dict:
+    """Phase 20b: Transformer-base under GradientClipByGlobalNorm(1.0):
+    the 2-layer step card vs CPU (loss, the clipped gradients, the
+    global norm's factor), then 12 steps at full width with the clip on
+    and 12 with it off, K1-K3 18 launches a step each and no forward
+    re-run in each arm."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import attention as A
+    cfg = dict(TRAIN, n_layer=2, max_len=64, dropout=0.0)
+    main, startup, loss, params, _ = transformer_rewrites(cfg, clip=True)
+    factor = [v.name for v in main.global_block.vars.values()
+              if v.name.endswith("@FACTOR")]
+    fetch = [loss.name] + factor + [p + "@GRAD@CLIP" for p in params]
+    on_card = torch.device(dev).type == "cuda"
+    res, _ = card_vs_cpu(main, startup, train_feed(4, 64, cfg["tgt_vocab"],
+                                                   seed=5), fetch, dev,
+                         lambda: flash_launches(A))
+    if res["gpu_launches"] != ((6, 6, 6) if on_card else (0, 0, 0)):
+        raise AssertionError(f"20b parity: K1-K3 launches "
+                             f"{res['gpu_launches']}, want 6 each")
+    l_cpu, l_gpu = float(res["cpu"][0]), float(res["gpu"][0])
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    f_cpu, f_gpu = float(res["cpu"][1]), float(res["gpu"][1])
+    f_rel = abs(f_gpu - f_cpu) / abs(f_cpu)
+    if loss_rel > TRAIN_LOSS_TOL or f_rel > TRAIN_GRAD_TOL:
+        raise AssertionError(f"20b parity: loss {l_gpu} vs {l_cpu}, clip "
+                             f"factor {f_gpu} vs {f_cpu}")
+    ratios = {}
+    for name, gv, h in zip(params, res["gpu"][2:], res["cpu"][2:]):
+        ratios[name] = ratio(gv, h)
+        if not np.isfinite(gv).all() or ratios[name] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"20b clipped gradient of {name}: "
+                                 f"{ratios[name]} > {TRAIN_GRAD_TOL}")
+    worst = max(ratios, key=ratios.get)
+    log(f"  20b 2-layer step, card vs CPU: loss rel {loss_rel!r}, global-"
+        f"norm factor {f_gpu!r} vs {f_cpu!r} (rel {f_rel!r}), {len(params)} "
+        f"clipped gradients, worst max|d|/max|ref| {ratios[worst]!r} "
+        f"({worst}; tolerance {TRAIN_GRAD_TOL})")
+    out = {"parity": {"loss_rel_diff": loss_rel, "factor_gpu": f_gpu,
+                      "factor_cpu": f_cpu, "factor_rel_diff": f_rel,
+                      "worst_grad_ratio": ratios[worst],
+                      "worst_grad_param": worst}}
+    feed = train_feed(TRAIN_B, TRAIN["max_len"], TRAIN["tgt_vocab"], seed=11)
+    for arm, clip in (("clip_on", True), ("clip_off", False)):
+        main, startup, loss, params, rewrite_ops = transformer_rewrites(
+            TRAIN, clip)
+        exe, scope = fluid.Executor(dev), fluid.Scope()
+        exe.run(startup, scope=scope)
+        lowering.grad_recomputes = 0
+        reset_flash_launches(A)
+        run = timed_steps(exe, main, feed, loss, scope, REWRITE_STEPS)
+        launches, recomputes = flash_launches(A), lowering.grad_recomputes
+        want = 3 * TRAIN["n_layer"] * REWRITE_STEPS if on_card else 0
+        if launches != (want,) * 3 or recomputes:
+            raise AssertionError(f"20b {arm}: K1-K3 launches {launches} "
+                                 f"(want {want} each), grad recomputes "
+                                 f"{recomputes}")
+        run.update(ops=len(main.global_block.ops), rewrite_ops=rewrite_ops,
+                   launches=launches, grad_recomputes=recomputes)
+        out[arm] = run
+        log(f"  20b {arm} [{card}]: {run['ops']} ops ({rewrite_ops} of the "
+            f"clip), step ms median {run['step_ms_median']!r} (steps 3.."
+            f"{REWRITE_STEPS}, all {[round(v, 2) for v in run['step_ms']]}),"
+            f" K1-K3 {launches}, loss {run['losses'][0]!r} -> "
+            f"{run['losses'][-1]!r}")
+        del exe, scope
+        torch.cuda.empty_cache()
+    return out
+
+
+def deepfm_rewrites(clip: bool):
+    """DeepFM at the bench's shape, Adam with L2Decay(1e-4) (the tables'
+    SelectedRows through sparse_decay) and, when ``clip``,
+    GradientClipByGlobalNorm(5.0) over them."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import deepfm
+
+    def build():
+        return deepfm.build(**dict(DEEPFM, with_optimizer=False))[1]
+
+    def opt():
+        return fluid.optimizer.Adam(
+            DEEPFM["lr"], regularization=fluid.regularizer.L2Decay(1e-4))
+
+    return rewritten(build, (lambda: fluid.clip.GradientClipByGlobalNorm(5.0))
+                     if clip else None, opt)
+
+
+def run_deepfm_rewrites(dev, card: str) -> dict:
+    """Phase 20c: both arms (decay; decay and clip): one flag-on step at
+    DEEPFM_PARITY_B card vs CPU (tables and moments within
+    DEEPFM_TABLE_TOL of max|update|, K9 1 / K10 2 / one sort), then
+    DEEPFM_STEPS steps flag on and off from one start at DEEPFM_B: K9
+    1 and K10 2 launches a step behind one sort, the rows no id looked
+    up bit for bit unchanged, the tables flag on vs off within
+    DEEPFM_FLAG_TOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import sparse as S
+    out = {}
+    on_card = torch.device(dev).type == "cuda"
+    for arm, clip in (("decay", False), ("decay_clip", True)):
+        main, startup, loss, params, rewrite_ops = deepfm_rewrites(clip)
+        fluid.set_flags({"sparse_fused_kernel": True})
+        try:
+            res, values = card_vs_cpu(
+                main, startup, deepfm_feed(DEEPFM_PARITY_B, seed=5),
+                [loss.name], dev, lambda: sparse_launches(S))
+        finally:
+            fluid.set_flags({"sparse_fused_kernel": False})
+        if res["gpu_launches"] != ((1, 2, 1) if on_card else (0, 0, 1)) \
+                or res["cpu_launches"] != (0, 0, 1):
+            raise AssertionError(f"20c {arm} parity: K9/K10/sorts card "
+                                 f"{res['gpu_launches']}, CPU "
+                                 f"{res['cpu_launches']}")
+        l_cpu, l_gpu = float(res["cpu"][0]), float(res["gpu"][0])
+        if abs(l_gpu - l_cpu) > TRAIN_LOSS_TOL * abs(l_cpu):
+            raise AssertionError(f"20c {arm}: loss {l_gpu} vs {l_cpu}")
+        state = table_state(values)
+        parity = {}
+        for name in state:
+            ref = res["cpu_state"][name]
+            got = res["gpu_state"][name]
+            if name in DEEPFM_TABLES:
+                parity[name] = ratio(got - values[name], ref - values[name])
+                tol = DEEPFM_TABLE_TOL
+            else:
+                parity[name] = ratio(got, ref)
+                tol = TRAIN_GRAD_TOL
+            if not np.isfinite(got).all() or parity[name] > tol:
+                raise AssertionError(f"20c {arm} {name} after a step: "
+                                     f"{parity[name]} > {tol}")
+        log(f"  20c {arm} step B={DEEPFM_PARITY_B}, card vs CPU: loss "
+            f"{l_gpu!r} vs {l_cpu!r}; tables and moments "
+            f"{json.dumps(parity)}")
+        exe = fluid.Executor(dev)
+        init = fluid.Scope()
+        exe.run(startup, scope=init)
+        start = init.to_numpy(state)
+        never = np.setdiff1d(np.arange(SPARSE_ROWS),
+                             deepfm_feed(DEEPFM_B, seed=0)["sparse"])
+        feed = deepfm_feed(DEEPFM_B, seed=0)
+        tables = {}
+        arm_out = {"parity": parity, "rewrite_ops": rewrite_ops,
+                   "ops": len(main.global_block.ops)}
+        try:
+            for flag in (True, False):
+                scope = copy_scope(init, dev)
+                fluid.set_flags({"sparse_fused_kernel": flag})
+                S.fused_gather.launches = S.rowwise_update.launches = 0
+                S.sorted_segments.launches = 0
+                run = timed_steps(exe, main, feed, loss, scope,
+                                  DEEPFM_STEPS)
+                launches = sparse_launches(S)
+                want = ((DEEPFM_STEPS * on_card, 2 * DEEPFM_STEPS * on_card,
+                         DEEPFM_STEPS) if flag else (0, 0, 0))
+                if launches != want:
+                    raise AssertionError(f"20c {arm} flag {flag}: K9/K10/"
+                                         f"sorts {launches}, want {want}")
+                tables[flag] = scope.to_numpy(state)
+                run["launches"] = launches
+                arm_out["fused" if flag else "masked_dense"] = run
+                log(f"  20c {arm} flag {'on' if flag else 'off'} [{card}]: "
+                    f"step ms median {run['step_ms_median']!r} (all "
+                    f"{[round(v, 2) for v in run['step_ms']]}), K9/K10/"
+                    f"sorts {launches}, loss {run['losses'][0]!r} -> "
+                    f"{run['losses'][-1]!r}")
+                del scope
+        finally:
+            fluid.set_flags({"sparse_fused_kernel": False})
+        # the tables and their moments (the powers are scalars)
+        moved = [n for n in state if start[n].ndim and not np.array_equal(
+            tables[True][n][never], start[n][never])]
+        if moved:
+            raise AssertionError(f"20c {arm}: rows never looked up changed "
+                                 f"in {moved}")
+        rtol, atol = DEEPFM_FLAG_TOL
+        diffs = {n: float(np.abs(tables[True][n] - tables[False][n]).max())
+                 for n in state}
+        for n in DEEPFM_TABLES:
+            if not np.allclose(tables[True][n], tables[False][n], rtol=rtol,
+                               atol=atol):
+                raise AssertionError(f"20c {arm} {n}: flag on vs off "
+                                     f"{diffs[n]}")
+        arm_out.update(flag_on_vs_off_max_abs=diffs,
+                       never_looked_up_rows=int(never.size))
+        log(f"  20c {arm}: {never.size} rows never looked up bit-unchanged "
+            f"in {[n for n in state if start[n].ndim]}; flag on vs off "
+            f"max|d| {json.dumps(diffs)}")
+        out[arm] = arm_out
+        del init, exe
+        torch.cuda.empty_cache()
+    return out
+
+
+def lstm_rewrites():
+    """The stacked LSTM at its bench width under RMSProp with an
+    exponential decay, GradientClipByValue(1.0) and L1Decay(1e-5)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import stacked_lstm
+
+    def build():
+        return stacked_lstm.build(**dict(LSTM_TRAIN,
+                                         with_optimizer=False))[1]
+
+    def opt():
+        lr = fluid.layers.learning_rate_scheduler.exponential_decay(
+            LSTM_TRAIN["lr"], decay_steps=4, decay_rate=0.9)
+        return fluid.optimizer.RMSProp(
+            lr, regularization=fluid.regularizer.L1Decay(1e-5))
+
+    return rewritten(build, lambda: fluid.clip.GradientClipByValue(1.0),
+                     opt)
+
+
+def run_lstm_rewrites(dev, card: str) -> dict:
+    """Phase 20d: a B=8, T=32 ragged step card vs CPU (loss, gradients,
+    the parameters after the RMSProp step), then 12 steps at B=128,
+    T=128 with K6/K7 3 launches each a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.kernels import rnn as R
+    main, startup, loss, params, rewrite_ops = lstm_rewrites()
+    feed = lstm_feed(8, 32, seed=5, shortest=1)
+    res, values = card_vs_cpu(main, startup, feed,
+                              [loss.name] + [p + "@GRAD" for p in params],
+                              dev, lambda: lstm_launches(R))
+    n = LSTM_TRAIN["stacked_num"] * (torch.device(dev).type == "cuda")
+    if res["gpu_launches"] != (n, n):
+        raise AssertionError(f"20d parity: K6/K7 {res['gpu_launches']}")
+    l_cpu, l_gpu = float(res["cpu"][0]), float(res["gpu"][0])
+    if abs(l_gpu - l_cpu) > TRAIN_LOSS_TOL * abs(l_cpu):
+        raise AssertionError(f"20d: loss {l_gpu} vs {l_cpu}")
+    worst = {"grad": 0.0, "update": 0.0}
+    for name, gv, h in zip(params, res["gpu"][1:], res["cpu"][1:]):
+        r = ratio(gv, h)
+        u = ratio(res["gpu_state"][name] - values[name],
+                  res["cpu_state"][name] - values[name])
+        if r > TRAIN_GRAD_TOL or u > REWRITE_UPDATE_TOL:
+            raise AssertionError(f"20d {name}: gradient {r}, update {u}")
+        worst = {"grad": max(worst["grad"], r),
+                 "update": max(worst["update"], u)}
+    log(f"  20d step B=8 T=32, card vs CPU: loss {l_gpu!r} vs {l_cpu!r}; "
+        f"worst gradient {worst['grad']!r} (tolerance {TRAIN_GRAD_TOL}), "
+        f"worst update {worst['update']!r} (tolerance "
+        f"{REWRITE_UPDATE_TOL})")
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    lowering.grad_recomputes = 0
+    R.lstm_fused.launches = R.lstm_fused_grad.launches = 0
+    run = timed_steps(exe, main, lstm_feed(LSTM_B, LSTM_T, seed=11,
+                                           shortest=LSTM_SHORTEST),
+                      loss, scope, REWRITE_STEPS)
+    launches, recomputes = lstm_launches(R), lowering.grad_recomputes
+    want = n * REWRITE_STEPS
+    if launches != (want, want) or recomputes:
+        raise AssertionError(f"20d: K6/K7 {launches} (want {want} each), "
+                             f"grad recomputes {recomputes}")
+    run.update(launches=launches, rewrite_ops=rewrite_ops,
+               parity={"loss_gpu": l_gpu, "loss_cpu": l_cpu, **worst})
+    log(f"  20d [{card}]: step ms median {run['step_ms_median']!r} (all "
+        f"{[round(v, 2) for v in run['step_ms']]}), K6/K7 {launches}, "
+        f"{rewrite_ops} clip/decay ops, loss {run['losses'][0]!r} -> "
+        f"{run['losses'][-1]!r}")
+    del exe, scope
+    torch.cuda.empty_cache()
+    return run
+
+
+def mnist_feed(seed: int) -> dict:
+    rs = np.random.RandomState(seed)
+    return {"pixel": rs.rand(MNIST_B, 1, 28, 28).astype("float32"),
+            "label": rs.randint(0, 10, (MNIST_B, 1)).astype("int64")}
+
+
+def mnist_optimizer(kind: str):
+    """models/mnist.py under ``kind``'s optimizer: (main, startup, loss,
+    params, extra fetch names, the ModelAverage or None)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.program import Program, program_guard
+    from paddle_tpu_torch.models import mnist
+    opts = {"adamax": lambda: fluid.optimizer.Adamax(1e-3),
+            "decayed_adagrad": lambda: fluid.optimizer.DecayedAdagrad(1e-2),
+            "adadelta": lambda: fluid.optimizer.Adadelta(1.0, rho=0.9),
+            "ftrl": lambda: fluid.optimizer.Ftrl(1e-2, l1=1e-4, l2=1e-4),
+            "lars_momentum": lambda: fluid.optimizer.LarsMomentum(
+                0.1, momentum=0.9),
+            "model_average": lambda: fluid.optimizer.Momentum(0.01, 0.9)}
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 3
+    extra, ma = [], None
+    with program_guard(main, startup), unique_name.guard():
+        _, loss, _ = mnist.build(with_optimizer=False)
+        _, params_grads = opts[kind]().minimize(loss)
+        if kind == "lars_momentum":
+            rates = fluid.layers.append_LARS(
+                params_grads, fluid.layers.fill_constant([1], "float32", 0.1),
+                5e-4)
+            extra = [v.name for v in rates]
+        if kind == "model_average":
+            ma = fluid.optimizer.ModelAverage(
+                0.5, min_average_window=2, max_average_window=3)
+    return (main, startup, loss, sorted(p.name for p in main.all_parameters()),
+            extra, ma)
+
+
+def run_mnist_optimizers(dev, card: str) -> dict:
+    """Phase 20e: Adamax, DecayedAdagrad, Adadelta, Ftrl, LarsMomentum
+    (with append_LARS's layer-wise rates fetched) and Momentum under
+    ModelAverage, each REWRITE_OPT_STEPS steps of models/mnist.py on
+    the card and on the CPU from one start: each step's loss within
+    REWRITE_LOSS_REL (the first within TRAIN_LOSS_TOL), the LARS rates
+    within TRAIN_GRAD_TOL, each parameter's update within
+    REWRITE_UPDATE_L2 in relative L2 (its max|d| / max|update| printed
+    beside); ModelAverage's applied averages card vs CPU within
+    REWRITE_UPDATE_TOL of max|ref|, and ``restore`` leaves every
+    parameter bit for bit as before ``apply``."""
+    import paddle_tpu_torch as fluid
+    out = {}
+    for kind in ("adamax", "decayed_adagrad", "adadelta", "ftrl",
+                 "lars_momentum", "model_average"):
+        main, startup, loss, params, extra, ma = mnist_optimizer(kind)
+        init = fluid.Scope()
+        fluid.Executor("cpu").run(startup, scope=init)
+        values = init.to_numpy()
+        runs = {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            exe, scope = fluid.Executor(device), fluid.Scope()
+            scope.load_numpy(values, device=device)
+            fetched = []
+            with fluid.scope_guard(scope):
+                for step in range(REWRITE_OPT_STEPS):
+                    fetched.append([np.asarray(v) for v in exe.run(
+                        main, feed=mnist_feed(step), fetch_list=[loss] + extra,
+                        sync=True)])
+                after = scope.to_numpy(params)
+                averaged = None
+                if ma is not None:
+                    before = {p: bits(scope.find_var(p)).clone()
+                              for p in params}
+                    with ma.apply(exe):
+                        averaged = scope.to_numpy(params)
+                    changed = [p for p in params if not torch.equal(
+                        bits(scope.find_var(p)), before[p])]
+                    if changed:
+                        raise AssertionError(f"20e ModelAverage.restore on "
+                                             f"{name}: {changed} not "
+                                             f"bit-equal")
+            runs[name] = (fetched, after, averaged)
+        (cf, ca, cavg), (gf, ga, gavg) = runs["cpu"], runs["gpu"]
+        losses = [(float(g[0]), float(c[0])) for g, c in zip(gf, cf)]
+        loss_rel = [abs(g - c) / abs(c) for g, c in losses]
+        if loss_rel[0] > TRAIN_LOSS_TOL or max(loss_rel) > REWRITE_LOSS_REL:
+            raise AssertionError(f"20e {kind}: losses card vs CPU {losses}")
+        lars = max((ratio(g[1 + i], c[1 + i]) for g, c in zip(gf, cf)
+                    for i in range(len(extra))), default=0.0)
+        if lars > TRAIN_GRAD_TOL:
+            raise AssertionError(f"20e {kind}: append_LARS rates {lars}")
+        upd = {p: ratio(ga[p] - values[p], ca[p] - values[p]) for p in params}
+        l2 = {p: float(np.linalg.norm((ga[p] - ca[p]).ravel())
+                       / max(np.linalg.norm((ca[p] - values[p]).ravel()),
+                             1e-30)) for p in params}
+        avg = ({p: ratio(gavg[p], cavg[p]) for p in params}
+               if ma is not None else {})
+        worst_u, worst_l2 = max(upd.values()), max(l2.values())
+        if worst_l2 > REWRITE_UPDATE_L2 or any(
+                v > REWRITE_UPDATE_TOL for v in avg.values()):
+            raise AssertionError(f"20e {kind}: updates (relative L2) {l2}, "
+                                 f"averages {avg}")
+        out[kind] = {"losses_gpu_cpu": losses, "worst_loss_rel": max(loss_rel),
+                     "worst_update_ratio": worst_u,
+                     "worst_update_rel_l2": worst_l2,
+                     "lars_rate_ratio": lars if extra else None,
+                     "average_ratio": max(avg.values()) if avg else None,
+                     "restore_bit_equal": True if ma is not None else None}
+        log(f"  20e {kind}: {REWRITE_OPT_STEPS} steps, worst loss rel "
+            f"{max(loss_rel)!r}, worst update relative L2 {worst_l2!r} "
+            f"(max|d|/max|update| {worst_u!r})"
+            + (f", append_LARS rates {lars!r}" if extra else "")
+            + (f", averages {max(avg.values())!r}, restore bit-equal"
+               if ma is not None else ""))
+    log(f"  20e [{card}]: 6 optimizers card vs CPU")
+    return out
+
+
+def run_rewrites(dev, card: str) -> dict:
+    """Phase 20 (module doc)."""
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+    for key, fn in (("ops", check_rewrite_ops),
+                    ("transformer_clip", run_transformer_clip),
+                    ("deepfm", run_deepfm_rewrites),
+                    ("lstm", run_lstm_rewrites),
+                    ("optimizers", run_mnist_optimizers)):
+        t = time.perf_counter()
+        out[key] = fn(dev, card)
+        secs[key] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    log(f"  phase 20: {out['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in secs.items()})})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -8943,6 +9815,9 @@ def main() -> int:
     phase("19: the run telemetry and the supervised decode fleet")
     telemetry = run_telemetry(dev, card)
 
+    phase("20: the training rewrites")
+    rewrites = run_rewrites(dev, card)
+
     phase("6: kernels")
     rows = []
     # K4 at the decode shape by device time (SDPA's too); the long
@@ -9001,6 +9876,11 @@ def main() -> int:
             "run_steps_launches": steps["c_run_steps"]["launches"][i],
             # phase 19a: the attributed steps
             "attributed_launches": telemetry["attribution"]["launches"][i],
+            # phase 20b: Transformer-base's steps with the global-norm
+            # clip on and off
+            "rewrites_launches": {
+                arm: rewrites["transformer_clip"][arm]["launches"][i]
+                for arm in ("clip_on", "clip_off")},
             "max_abs_err": flash["max_abs_err"][key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -9065,6 +9945,8 @@ def main() -> int:
             # phase 16: launches a step of SRL at the book's width
             "srl_launches": book["label_semantic_roles"][
                 "lstm_launches_per_step"][i],
+            # phase 20d: RMSProp, clip by value, L1 decay
+            "rewrites_launches": rewrites["lstm"]["launches"][i],
             "srl_ms": s["ms"], "srl_bound_ms": s["bound_ms"],
             "srl_library_ms": s["library_ms"]})
     # K10 at the larger table's shape ([1e6, 10], Adam), one launch
@@ -9076,6 +9958,11 @@ def main() -> int:
             "source": f"paddle_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": f"paddle_tpu/kernels/sparse.py:{line}",
             "launches": deepfm_train["fused"]["launches"][i],
+            # phase 20c: L2 decay (and the global-norm clip) over the
+            # tables' SelectedRows
+            "rewrites_launches": {
+                arm: rewrites["deepfm"][arm]["fused"]["launches"][i]
+                for arm in ("decay", "decay_clip")},
             "max_abs_err": sparse_k["max_abs_err"][key.split("_")[0]],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -9176,7 +10063,7 @@ def main() -> int:
                    "paged_beam": paged_beam, "conv": conv, "ring": ring,
                    "run_steps": steps, "control_flow": control_flow,
                    "book": book, "decode_refcounted": refc, "wire": wire,
-                   "telemetry": telemetry,
+                   "telemetry": telemetry, "rewrites": rewrites,
                    "profiler_losses": PROFILER_LOSSES,
                    "phase_starts_s": starts,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -33,9 +33,10 @@ from __future__ import annotations
 
 from . import platform  # noqa: F401
 from . import ops  # noqa: F401  (registers the op rules)
-from . import clip, initializer, regularizer  # noqa: F401
+from . import average, clip, initializer, regularizer  # noqa: F401
 from . import layers, optimizer  # noqa: F401
 from . import nets  # noqa: F401
+from .layers import learning_rate_scheduler as learning_rate_decay  # noqa: F401  (reference fluid.learning_rate_decay spelling)
 from . import executor, framework  # noqa: F401
 from .core import unique_name  # noqa: F401
 from .core.backward import append_backward  # noqa: F401
@@ -71,9 +72,10 @@ from .parallel import (  # noqa: F401
 __all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "DataFeeder",
            "ExecutionStrategy", "Executor", "LazyFetch", "LoDTensor",
            "LoDTensorArray", "ParallelExecutor", "Tensor", "ParamAttr", "Program",
-           "Scope", "append_backward", "contrib", "create_lod_tensor",
+           "Scope", "append_backward", "average", "clip", "contrib", "create_lod_tensor",
            "create_random_int_lodtensor", "decode",
            "default_main_program", "default_startup_program", "get_flags",
            "global_scope", "inference", "initializer", "io", "layers",
-           "nets", "optimizer", "parallel", "platform", "serving",
+           "learning_rate_decay", "nets", "optimizer", "parallel",
+           "platform", "regularizer", "serving",
            "program_guard", "scope_guard", "set_flags", "unique_name"]

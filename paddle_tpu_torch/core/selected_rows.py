@@ -126,20 +126,53 @@ def segment_sum_in_order(v, seg, pos, out):
     return out
 
 
-def merge_rows(sr: SelectedRows) -> SelectedRows:
+def _merge_plan(rows, height: int):
+    """The sort and segmentation of a row vector that
+    :func:`merge_rows` sums its values by: (order, seg, pos, merged
+    rows)."""
+    n = rows.shape[0]
+    r, order = torch.sort(rows, stable=True)
+    first, seg, pos = segment_starts(r)
+    out_rows = torch.full((n,), height, dtype=r.dtype, device=r.device)
+    out_rows[seg] = r    # every member of a group writes the same id
+    return order, seg, pos, out_rows
+
+
+def run_shared(memo, key, tensors, make):
+    """``make()``, made once a run for the same ``tensors``: with
+    ``memo`` (a run's ``LowerContext.run_memo``) the result is kept
+    under ``key`` and the tensors' memory (pointer, dtype, device, shape,
+    strides) while none of them has been written since (their version
+    counters, which views share); the tensors are kept alive with it so
+    no other tensor takes their memory this run."""
+    if memo is None:
+        return make()
+    full = (key,) + tuple((t.data_ptr(), t.dtype, t.device, tuple(t.shape),
+                           tuple(t.stride())) for t in tensors)
+    versions = tuple(t._version for t in tensors)
+    hit = memo.get(full)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    out = make()
+    memo[full] = (tuple(tensors), versions, out)
+    return out
+
+
+def merge_rows(sr: SelectedRows, memo=None) -> SelectedRows:
     """Sum duplicate rows (MergeAdd).  The result has the same length N;
     slot i holds the i-th unique row's sum, unused slots carry the
-    sentinel row id ``height`` and zeros."""
+    sentinel row id ``height`` and zeros.  With ``memo`` (a run's
+    ``LowerContext.run_memo``) the sort of one row vector is made once a
+    run (:func:`run_shared`), and its merges share one merged row
+    vector: the tables one id batch looks up merge behind one sort."""
     rows, vals = sr.rows, sr.values
-    n = rows.shape[0]
-    if n == 0 or sr.merged:
+    if rows.shape[0] == 0 or sr.merged:
         return sr
-    r, order = torch.sort(rows, stable=True)
-    v = vals[order]
-    first, seg, pos = segment_starts(r)
-    merged = segment_sum_in_order(v, seg, pos, torch.zeros_like(v))
-    out_rows = torch.full((n,), sr.height, dtype=r.dtype, device=r.device)
-    out_rows[seg] = r    # every member of a group writes the same id
+    order, seg, pos, out_rows = run_shared(
+        memo, ("merge_rows", sr.height), [rows],
+        lambda: _merge_plan(rows, sr.height))
+    merged = segment_sum_in_order(vals[order], seg, pos,
+                                  torch.zeros_like(vals))
     return SelectedRows(out_rows, merged, sr.height, merged=True)
 
 
@@ -193,6 +226,6 @@ def scatter_set_rows(dense, rows, values):
 
 
 __all__ = ["SelectedRows", "canonical_rows", "dense_grad_and_mask",
-           "gather_rows", "merge_rows", "prefer_dense_update",
+           "gather_rows", "merge_rows", "prefer_dense_update", "run_shared",
            "scatter_set_rows", "segment_starts", "segment_sum_in_order",
            "take_rows"]

@@ -47,8 +47,8 @@ import struct
 import torch
 
 from ..core import flags
-from ..core.selected_rows import (segment_starts, segment_sum_in_order,
-                                  take_rows)
+from ..core.selected_rows import (run_shared, segment_starts,
+                                  segment_sum_in_order, take_rows)
 from ..observability import stats as _obs_stats
 from . import _build
 
@@ -231,19 +231,10 @@ sorted_segments.launches = 0
 def _segments(rows, height: int, memo):
     """:func:`sorted_segments` of ``rows``, shared through ``memo`` (a
     dict that lives for one ``Executor.run``) with every other update of
-    the run whose rows are the same tensor memory, unwritten since (its
-    version counter, which views share), at the same height."""
-    if memo is None:
-        return sorted_segments(rows, height)
-    key = ("sorted_segments", rows.data_ptr(), rows.dtype, rows.device,
-           tuple(rows.shape), tuple(rows.stride()), height)
-    hit = memo.get(key)
-    if hit is not None and hit[1] == rows._version:
-        return hit[2]
-    segs = sorted_segments(rows, height)
-    # ``rows`` is kept alive so no other tensor takes its memory this run
-    memo[key] = (rows, rows._version, segs)
-    return segs
+    the run whose rows are the same tensor memory, unwritten since, at
+    the same height (``run_shared``)."""
+    return run_shared(memo, ("sorted_segments", height), [rows],
+                      lambda: sorted_segments(rows, height))
 
 
 def _f32(x, like):

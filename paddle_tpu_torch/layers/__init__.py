@@ -1,6 +1,7 @@
 """The layer DSL of the port: the layer functions the models, the
-decoders and the fc/SGD drive call (``paddle_tpu/layers``, in part)."""
-from . import control_flow, io, learning_rate_scheduler, nn, tensor  # noqa: F401
+decoders, the training rewrites and the fc/SGD drive call
+(``paddle_tpu/layers``, in part; ``detection`` is not ported)."""
+from . import control_flow, io, learning_rate_scheduler, nn, ops, tensor  # noqa: F401
 from .control_flow import (  # noqa: F401
     ConditionalBlock,
     DynamicRNN,
@@ -29,12 +30,17 @@ from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from . import nn_extras  # noqa: F401
 from .nn_extras import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
 from .tensor import (  # noqa: F401
+    argmin,
     assign,
+    create_global_var,
     create_parameter,
+    create_tensor,
     fill_constant,
     fill_constant_batch_size_like,
     increment,
     ones,
     zeros,
+    zeros_like,
 )

@@ -2,12 +2,12 @@
 
 The part of ``paddle_tpu/layers/nn.py`` that the Transformer, the
 stacked LSTM, DeepFM, machine translation (training and beam search),
-the convolutional models, the book models and the fc/SGD drive call
-(with the ``sequence_*`` layers, their nested branches, ``sums`` and
-the CTC and CRF layers), copied unchanged
-(and ``square``, ``sigmoid``, ``tanh``, ``log`` and ``relu``, which the
-reference generates in ``layers/ops.py``): the same calls build the
-same program, byte for byte (``Program.serialize``).
+the convolutional models, the book models, the training rewrites and
+the fc/SGD drive call (with the ``sequence_*`` layers, their nested
+branches, ``sums``, the CTC and CRF layers, the reductions, ``split``,
+``stack``, ``one_hot``, ``clip`` and ``l2_normalize``), copied
+unchanged: the same calls build the same program, byte for byte
+(``Program.serialize``).  The activations are ``layers/ops.py``'s.
 Padded sequences carry their ``<name>@LEN`` companion as in the
 reference.
 """
@@ -362,42 +362,37 @@ def concat(input, axis=0, name=None):
     return out
 
 
-def square(x, name=None, **attrs):
-    """square activation (the reference's generated ``layers/ops.py``
-    wrapper)."""
-    helper = LayerHelper("square", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
-    helper.append_op("square", {"X": [x]}, {"Out": [out]}, attrs)
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else len(input.shape) + dim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        sizes = [input.shape[dim] // num] * num
+    else:
+        sections = list(num_or_sections)
+        num = len(sections)
+        sizes = sections
+    outs = []
+    for s in sizes:
+        shp = list(input.shape)
+        shp[dim] = s
+        outs.append(helper.create_variable_for_type_inference(input.dtype, shape=tuple(shp)))
+    helper.append_op(
+        "split", {"X": [input]}, {"Out": outs},
+        {"axis": dim, "sections": sections, "num": 0 if sections else num},
+    )
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shp = list(xs[0].shape)
+    shp.insert(axis if axis >= 0 else len(shp) + axis + 1, len(xs))
+    out = helper.create_variable_for_type_inference(xs[0].dtype, shape=tuple(shp))
+    helper.append_op("stack", {"X": xs}, {"Y": [out]}, {"axis": axis})
     return out
-
-
-def _activation(op_type, x, name=None, **attrs):
-    """A unary activation layer (the reference's generated
-    ``layers/ops.py`` wrapper)."""
-    helper = LayerHelper(op_type, name=name)
-    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
-    helper.append_op(op_type, {"X": [x]}, {"Out": [out]}, attrs)
-    return out
-
-
-def sigmoid(x, name=None, **attrs):
-    """sigmoid activation (activation_op.cc functor)."""
-    return _activation("sigmoid", x, name, **attrs)
-
-
-def tanh(x, name=None, **attrs):
-    """tanh activation (activation_op.cc functor)."""
-    return _activation("tanh", x, name, **attrs)
-
-
-def log(x, name=None, **attrs):
-    """log activation (activation_op.cc functor)."""
-    return _activation("log", x, name, **attrs)
-
-
-def relu(x, name=None, **attrs):
-    """relu activation (activation_op.cc functor)."""
-    return _activation("relu", x, name, **attrs)
 
 
 def slice(input, axes, starts, ends):
@@ -495,6 +490,17 @@ def cast(x, dtype):
     return _unary("cast", x, attrs={"out_dtype": dtype}, out_dtype=dtype)
 
 
+def argmax(x, axis=-1):
+    shp = tuple(s for i, s in enumerate(x.shape) if i != (axis % len(x.shape)))
+    return _unary("arg_max", x, attrs={"axis": axis}, out_shape=shp, out_dtype="int64")
+
+
+def one_hot(input, depth):
+    shp = tuple(input.shape[:-1] if input.shape[-1] == 1 else input.shape) + (depth,)
+    return _unary("one_hot", input, attrs={"depth": depth}, out_shape=shp,
+                  out_dtype="float32")
+
+
 def _binary(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, act=act, name=name)
     shp = x.shape if len(x.shape) >= len(y.shape) else y.shape
@@ -519,8 +525,16 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_max", x, y, axis, act, name)
+
+
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_pow", x, y, axis, act, name)
 
 
 def _reduce_shape(x, dim, keep_dim):
@@ -547,6 +561,22 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_sum", input, dim, keep_dim, name)
 
 
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
 def mean(x, name=None):
     return _unary("mean", x, out_shape=())
 
@@ -559,6 +589,15 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
         {"scale": scale, "bias": bias, "bias_after_scale": bias_after_scale},
     )
     return helper.append_activation(out)
+
+
+def clip(x, min, max, name=None):
+    return _unary("clip", x, attrs={"min": min, "max": max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary("clip_by_norm", x, attrs={"max_norm": max_norm})
+
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
@@ -951,6 +990,17 @@ def sums(input, out=None):
     return out
 
 
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    norm = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(
+        "norm", {"X": [x]}, {"Out": [out], "Norm": [norm]},
+        {"axis": axis, "epsilon": epsilon},
+    )
+    return out
+
+
 def _cmp_layer(op_type, x, y, cond=None, name=None):
     """Shared comparison wrapper (``less_than``; ``cond=`` writes into
     an existing bool var)."""
@@ -964,8 +1014,11 @@ def _cmp_layer(op_type, x, y, cond=None, name=None):
 
 __all__ = [
     "accuracy",
+    "argmax",
     "batch_norm",
     "cast",
+    "clip",
+    "clip_by_norm",
     "concat",
     "conv2d",
     "crf_decoding",
@@ -976,22 +1029,28 @@ __all__ = [
     "dynamic_lstm",
     "elementwise_add",
     "elementwise_div",
+    "elementwise_max",
     "elementwise_min",
     "elementwise_mul",
+    "elementwise_pow",
     "elementwise_sub",
     "embedding",
     "expand",
     "fc",
     "gather",
+    "l2_normalize",
     "layer_norm",
     "linear_chain_crf",
-    "log",
     "matmul",
     "mean",
     "mul",
+    "one_hot",
     "pool2d",
+    "reduce_max",
+    "reduce_mean",
+    "reduce_min",
+    "reduce_prod",
     "reduce_sum",
-    "relu",
     "reshape",
     "row_conv",
     "scale",
@@ -1012,16 +1071,15 @@ __all__ = [
     "sequence_slice",
     "sequence_softmax",
     "sequence_unpad",
-    "sigmoid",
     "sigmoid_cross_entropy_with_logits",
     "slice",
     "softmax",
     "softmax_with_cross_entropy",
-    "square",
+    "split",
     "square_error_cost",
     "squeeze",
+    "stack",
     "sums",
-    "tanh",
     "topk",
     "transpose",
     "unsqueeze",

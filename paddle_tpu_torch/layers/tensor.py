@@ -1,6 +1,5 @@
-"""Tensor creation/assignment layers: the part of
-``paddle_tpu/layers/tensor.py`` the Transformer, machine translation
-and the control-flow programs use, copied unchanged."""
+"""Tensor creation/assignment layers: ``paddle_tpu/layers/tensor.py``,
+copied unchanged."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,6 +18,24 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     attr = attr or ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_global_variable(
+        shape=None, dtype=dtype, persistable=persistable,
+        name=name or helper.name)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        shape=shape, dtype=dtype, persistable=persistable,
+        name=name or helper.name)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
@@ -77,6 +94,13 @@ def ones(shape, dtype, force_cpu=False):
     return fill_constant(shape, dtype, 1.0)
 
 
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    out = out or helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op("fill_zeros_like", {"X": [x]}, {"Out": [out]})
+    return out
+
+
 def increment(x, value=1.0, in_place=True):
     helper = LayerHelper("increment")
     out = x if in_place else helper.create_variable_for_type_inference(
@@ -85,5 +109,20 @@ def increment(x, value=1.0, in_place=True):
     return out
 
 
-__all__ = ["assign", "cast", "create_parameter", "fill_constant", "fill_constant_batch_size_like",
-           "increment", "ones", "zeros"]
+def argmax(x, axis=0):
+    from .nn import argmax as _argmax
+    return _argmax(x, axis)
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    shp = tuple(s for i, s in enumerate(x.shape) if i != (axis % len(x.shape)))
+    out = helper.create_variable_for_type_inference("int64", shape=shp)
+    helper.append_op("arg_min", {"X": [x]}, {"Out": [out]}, {"axis": axis})
+    return out
+
+
+__all__ = ["argmax", "argmin", "assign", "cast", "create_global_var",
+           "create_parameter", "create_tensor", "fill_constant",
+           "fill_constant_batch_size_like", "increment", "ones", "zeros",
+           "zeros_like"]

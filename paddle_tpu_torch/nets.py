@@ -1,6 +1,6 @@
 """Composite network helpers: the part of ``paddle_tpu/nets.py`` whose
 ops the port registers (``simple_img_conv_pool``, ``img_conv_group``,
-``sequence_conv_pool``, ``scaled_dot_product_attention``), copied
+``sequence_conv_pool``, ``glu``, ``scaled_dot_product_attention``), copied
 unchanged: compositions over the layer DSL, no new ops."""
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ __all__ = [
     "simple_img_conv_pool",
     "img_conv_group",
     "sequence_conv_pool",
+    "glu",
     "scaled_dot_product_attention",
 ]
 
@@ -67,6 +68,12 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
     conv_out = layers.sequence_conv(input, num_filters, filter_size,
                                     param_attr=param_attr, act=act)
     return layers.sequence_pool(conv_out, pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    from .layers.ops import sigmoid
+    return layers.elementwise_mul(a, sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,

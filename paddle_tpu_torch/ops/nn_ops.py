@@ -1,5 +1,5 @@
 """Neural-net op rules: conv2d, depthwise_conv2d, pool2d, batch_norm,
-layer_norm, the losses, accuracy, the lstm and the gru, and the fused
+layer_norm, norm, the losses, accuracy, the lstm and the gru, and the fused
 ops of the inference passes (``fused_fc``, ``fusion_lstm``,
 ``fusion_gru``, ``fused_elemwise_activation``).
 
@@ -174,6 +174,18 @@ def _layer_norm(ctx, ins, attrs):
     lead = tuple(x.shape[:bna])
     return {"Y": [y.to(x.dtype)], "Mean": [mean.reshape(lead)],
             "Variance": [var.reshape(lead)]}
+
+
+@register("norm")
+def _norm(ctx, ins, attrs):
+    """norm_op.cc: x over its L2 norm along ``axis`` (``layers.
+    l2_normalize``); Norm is sqrt(sum(x^2) + epsilon), kept dims."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 1)
+    eps = attrs.get("epsilon", 1e-10)
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True)
+                      + eps)
+    return {"Out": [x / norm], "Norm": [norm]}
 
 
 def _squeeze_label(label):

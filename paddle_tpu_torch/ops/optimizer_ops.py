@@ -1,7 +1,11 @@
-"""Optimizer op rules: ``sgd``, ``momentum``, ``adam`` and ``adagrad``,
-dense and sparse.
+"""Optimizer op rules: every rule of ``paddle_tpu/ops/optimizer_ops.py``.
 
-The port of those rules of ``paddle_tpu/ops/optimizer_ops.py``.
+``sgd``, ``momentum``, ``adam`` and ``adagrad`` take dense and sparse
+gradients; ``decayed_adagrad``, ``adamax``, ``adadelta``, ``rmsprop``
+(centered too), ``ftrl``, ``lars_momentum``, ``proximal_gd`` and
+``proximal_adagrad`` take dense ones and refuse a ``SelectedRows``
+(:func:`_dense_only`), as the reference does; ``average_accumulates``
+keeps ``ModelAverage``'s sliding-window sums.
 ParamOut names the same variable as Param (and so for the moments);
 the executor writes the new values back into the scope's tensors.
 Hyper-parameters become 0-d tensors of the accumulator's dtype before
@@ -190,3 +194,193 @@ def _adagrad(ctx, ins, attrs):
     mom_new = mom + gf * gf
     p_new = p - (lr * gf / (torch.sqrt(mom_new) + eps)).to(p.dtype)
     return {"ParamOut": [p_new], "MomentOut": [mom_new]}
+
+
+def _dense_only(g, op):
+    if isinstance(g, SelectedRows):
+        raise NotImplementedError(
+            f"optimizer op {op!r} has no sparse (SelectedRows) update path; "
+            "use sgd/momentum/adam/adagrad for is_sparse embeddings")
+    return g
+
+
+@register("decayed_adagrad")
+def _decayed_adagrad(ctx, ins, attrs):
+    p, mom = ins["Param"][0], ins["Moment"][0]
+    g = _dense_only(ins["Grad"][0], "decayed_adagrad")
+    decay = _scalar(ctx, attrs.get("decay", 0.95), mom)
+    eps = _scalar(ctx, attrs.get("epsilon", 1e-6), mom)
+    gf = g.to(mom.dtype)
+    mom_new = decay * mom + (1 - decay) * gf * gf
+    p_new = p - (_lr(ins, mom.dtype) * gf
+                 / (torch.sqrt(mom_new) + eps)).to(p.dtype)
+    return {"ParamOut": [p_new], "MomentOut": [mom_new]}
+
+
+@register("adamax")
+def _adamax(ctx, ins, attrs):
+    p = ins["Param"][0]
+    g = _dense_only(ins["Grad"][0], "adamax")
+    m, inf = ins["Moment"][0], ins["InfNorm"][0]
+    b1p = ins["Beta1Pow"][0]
+    beta1 = _scalar(ctx, attrs.get("beta1", 0.9), m)
+    beta2 = _scalar(ctx, attrs.get("beta2", 0.999), m)
+    eps = _scalar(ctx, attrs.get("epsilon", 1e-8), m)
+    gf = g.to(m.dtype)
+    m_new = beta1 * m + (1 - beta1) * gf
+    inf_new = torch.maximum(beta2 * inf, torch.abs(gf))
+    lr = _lr(ins, m.dtype) / (1 - b1p.reshape(()))
+    p_new = p - (lr * m_new / (inf_new + eps)).to(p.dtype)
+    return {"ParamOut": [p_new], "MomentOut": [m_new],
+            "InfNormOut": [inf_new], "Beta1PowOut": [b1p * beta1]}
+
+
+@register("adadelta")
+def _adadelta(ctx, ins, attrs):
+    p = ins["Param"][0]
+    g = _dense_only(ins["Grad"][0], "adadelta")
+    avg_sq_g, avg_sq_u = ins["AvgSquaredGrad"][0], ins["AvgSquaredUpdate"][0]
+    rho = _scalar(ctx, attrs.get("rho", 0.95), avg_sq_g)
+    eps = _scalar(ctx, attrs.get("epsilon", 1e-6), avg_sq_g)
+    gf = g.to(avg_sq_g.dtype)
+    asg_new = rho * avg_sq_g + (1 - rho) * gf * gf
+    update = -torch.sqrt((avg_sq_u + eps) / (asg_new + eps)) * gf
+    asu_new = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": [(p.to(gf.dtype) + update).to(p.dtype)],
+            "AvgSquaredGradOut": [asg_new], "AvgSquaredUpdateOut": [asu_new]}
+
+
+@register("rmsprop")
+def _rmsprop(ctx, ins, attrs):
+    p = ins["Param"][0]
+    g = _dense_only(ins["Grad"][0], "rmsprop")
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    rho = _scalar(ctx, attrs.get("decay", 0.95), ms)
+    eps = _scalar(ctx, attrs.get("epsilon", 1e-6), ms)
+    momentum = _scalar(ctx, attrs.get("momentum", 0.0), ms)
+    gf = g.to(ms.dtype)
+    ms_new = rho * ms + (1 - rho) * gf * gf
+    out = {"MeanSquareOut": [ms_new]}
+    if attrs.get("centered", False):
+        mg = ins["MeanGrad"][0]
+        mg_new = rho * mg + (1 - rho) * gf
+        denom = ms_new - mg_new * mg_new + eps
+        out["MeanGradOut"] = [mg_new]
+    else:
+        denom = ms_new + eps
+    mom_new = momentum * mom + _lr(ins, ms.dtype) * gf * torch.rsqrt(denom)
+    out.update(ParamOut=[(p.to(gf.dtype) - mom_new).to(p.dtype)],
+               MomentOut=[mom_new])
+    return out
+
+
+@register("ftrl")
+def _ftrl(ctx, ins, attrs):
+    p = ins["Param"][0]
+    g = _dense_only(ins["Grad"][0], "ftrl")
+    sq_acc, lin_acc = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1 = _scalar(ctx, attrs.get("l1", 0.0), sq_acc)
+    l2 = _scalar(ctx, attrs.get("l2", 0.0), sq_acc)
+    lr_power = _scalar(ctx, attrs.get("lr_power", -0.5), sq_acc)
+    lr = _lr(ins, sq_acc.dtype)
+    gf = g.to(sq_acc.dtype)
+    new_sq = sq_acc + gf * gf
+    sigma = (torch.pow(new_sq, -lr_power) - torch.pow(sq_acc, -lr_power)) / lr
+    lin_new = lin_acc + gf - sigma * p.to(sq_acc.dtype)
+    x = torch.minimum(torch.maximum(lin_new, -l1), l1) - lin_new
+    y = torch.pow(new_sq, -lr_power) / lr + 2 * l2
+    return {"ParamOut": [(x / y).to(p.dtype)], "SquaredAccumOut": [new_sq],
+            "LinearAccumOut": [lin_new]}
+
+
+@register("lars_momentum")
+def _lars_momentum(ctx, ins, attrs):
+    p, v = ins["Param"][0], ins["Velocity"][0]
+    g = _dense_only(ins["Grad"][0], "lars_momentum")
+    mu = _scalar(ctx, attrs.get("mu", 0.9), v)
+    lars_coeff = attrs.get("lars_coeff", 1e-3)
+    lars_wd = attrs.get("lars_weight_decay", 5e-4)
+    lr = _lr(ins, v.dtype)
+    gf = g.to(v.dtype)
+    pf = p.to(v.dtype)
+    p_norm = torch.sqrt(torch.sum(pf * pf))
+    g_norm = torch.sqrt(torch.sum(gf * gf))
+    local_lr = lr * lars_coeff * p_norm / (g_norm + lars_wd * p_norm + 1e-12)
+    v_new = mu * v + local_lr * (gf + lars_wd * pf)
+    return {"ParamOut": [(pf - v_new).to(p.dtype)], "VelocityOut": [v_new]}
+
+
+@register("average_accumulates",
+          no_grad_slots=("param", "in_sum_1", "in_sum_2", "in_sum_3",
+                         "in_num_accumulates", "in_old_num_accumulates",
+                         "in_num_updates"))
+def _average_accumulates(ctx, ins, attrs):
+    """average_accumulates_op.h: sliding-window parameter sums for
+    ModelAverage.  sum_1 accumulates every step; every 16384 updates it
+    rolls into sum_2 (precision); when the window closes (num_accumulates
+    >= min(max_window, num_updates*window_rate)) everything rolls into
+    sum_3 and the window restarts.  All on the device: the window's
+    decisions are tensors, not host branches."""
+    k_max = 16384
+    param = ins["param"][0]
+    s1, s2, s3 = ins["in_sum_1"][0], ins["in_sum_2"][0], ins["in_sum_3"][0]
+    num_acc = ins["in_num_accumulates"][0].reshape(()).to(torch.int64)
+    old_acc = ins["in_old_num_accumulates"][0].reshape(()).to(torch.int64)
+    num_upd = ins["in_num_updates"][0].reshape(()).to(torch.int64)
+    window = float(attrs.get("average_window", 0.0))
+    max_w = int(attrs.get("max_average_window", 2 ** 62))
+    min_w = int(attrs.get("min_average_window", 10000))
+    zero = torch.zeros((), dtype=s1.dtype, device=s1.device)
+
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    s1 = s1 + param.to(s1.dtype)
+
+    roll_precision = (num_upd % k_max) == 0
+    s2 = torch.where(roll_precision, s2 + s1, s2)
+    s1 = torch.where(roll_precision, zero, s1)
+
+    close = (num_acc >= min_w) & (num_acc >= torch.clamp(
+        (num_upd.to(torch.float32) * window).to(torch.int64), max=max_w))
+    s3 = torch.where(close, s1 + s2 + s3 * 0, s3)
+    s1 = torch.where(close, zero, s1)
+    s2 = torch.where(close, zero, s2)
+    old_acc = torch.where(close, num_acc, old_acc)
+    num_acc = torch.where(close, torch.zeros_like(num_acc), num_acc)
+
+    return {"out_sum_1": [s1], "out_sum_2": [s2], "out_sum_3": [s3],
+            "out_num_accumulates": [num_acc.reshape(1)],
+            "out_old_num_accumulates": [old_acc.reshape(1)],
+            "out_num_updates": [num_upd.reshape(1)]}
+
+
+def _prox(prox_param, lr, l1, l2):
+    """Proximal step (proximal_gd_op.cc): soft-threshold by lr*l1 then
+    shrink by 1/(1+lr*l2)."""
+    return (torch.sign(prox_param)
+            * torch.clamp(torch.abs(prox_param) - lr * l1, min=0.0)
+            / (1.0 + lr * l2))
+
+
+@register("proximal_gd")
+def _proximal_gd(ctx, ins, attrs):
+    p = ins["Param"][0]
+    g = _dense_only(ins["Grad"][0], "proximal_gd")
+    lr = _lr(ins, torch.float32)
+    prox = p.to(torch.float32) - lr * g.to(torch.float32)
+    return {"ParamOut": [_prox(prox, lr, attrs.get("l1", 0.0),
+                               attrs.get("l2", 0.0)).to(p.dtype)]}
+
+
+@register("proximal_adagrad")
+def _proximal_adagrad(ctx, ins, attrs):
+    p, mom = ins["Param"][0], ins["Moment"][0]
+    g = _dense_only(ins["Grad"][0], "proximal_adagrad")
+    lr = _lr(ins, torch.float32)
+    gf = g.to(mom.dtype)
+    mom_out = mom + gf * gf
+    eff_lr = lr / torch.sqrt(mom_out + 1e-12)
+    prox = p.to(torch.float32) - eff_lr * gf
+    return {"ParamOut": [_prox(prox, eff_lr, attrs.get("l1", 0.0),
+                               attrs.get("l2", 0.0)).to(p.dtype)],
+            "MomentOut": [mom_out]}

@@ -1,15 +1,14 @@
-"""Tensor manipulation / creation op rules.
+"""Tensor manipulation / creation op rules: every rule of
+``paddle_tpu/ops/tensor_ops.py``.
 
-The port of the part of ``paddle_tpu/ops/tensor_ops.py`` that the
-Transformer's, the stacked LSTM's and DeepFM's training programs and
-machine translation's beam search use: reshape, transpose,
-squeeze/unsqueeze, slice, concat, ``expand`` and ``gather`` (forward
-rules), ``lookup_table`` (its
-gradient dense, or a ``SelectedRows`` with ``is_sparse``), arg_max, top_k,
-assign, assign_value, fill_constant, fill_constant_batch_size_like,
-increment, the random initializers
-and dropout.  Random
-ops draw from ``torch.Generator`` objects the context hands out
+reshape(2), transpose(2), squeeze/unsqueeze, concat, split(_byref),
+stack, slice, expand, pad, gather, scatter, ``lookup_table`` (its
+gradient dense, or a ``SelectedRows`` with ``is_sparse``),
+``sparse_decay`` (a regularizer's decay of a ``SelectedRows``
+gradient), ``extract_rows``, one_hot, shape, assign, assign_value,
+increment, the fills, ``range``, ``where``, arg_max/arg_min, top_k,
+``print``, the random initializers and dropout.  Random ops draw from
+``torch.Generator`` objects the context hands out
 (``core/registry.py``); they give other bits than the reference's
 threefry keys, so a comparison starts both from copied values.
 """
@@ -19,7 +18,8 @@ import numpy as np
 import torch
 
 from ..core.registry import register, register_grad
-from ..core.selected_rows import SelectedRows, take_rows
+from ..core.selected_rows import (SelectedRows, gather_rows, merge_rows,
+                                  take_rows)
 from ..core.types import np_dtype
 from ._util import torch_dtype
 
@@ -35,9 +35,15 @@ def _reshape(ctx, ins, attrs):
     return {"Out": [x.reshape(shape)]}
 
 
+register("reshape2")(_reshape)  # alias; reference reshape2 also outputs XShape
+
+
 @register("transpose")
 def _transpose(ctx, ins, attrs):
     return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
+
+
+register("transpose2")(_transpose)
 
 
 @register("squeeze")
@@ -148,6 +154,44 @@ def _gather_grad(ctx, ins, attrs):
     return {"X@GRAD": [dx.movedim(0, axis)]}
 
 
+@register("scatter", no_grad_slots=("Ids",))
+def _scatter(ctx, ins, attrs):
+    """``x.at[ids].set(updates)`` (``overwrite``) or ``.add``: rows of X
+    replaced by, or added to, the rows of Updates."""
+    x, ids, updates = ins["X"][0], ins["Ids"][0], ins["Updates"][0]
+    idx = (ids.long(),)
+    return {"Out": [x.index_put(idx, updates.to(x.dtype),
+                                accumulate=not attrs.get("overwrite",
+                                                         True))]}
+
+
+@register("sparse_decay", no_grad_slots=("Param", "Grad"))
+def _sparse_decay(ctx, ins, attrs):
+    """A regularizer's decay of a SelectedRows gradient: only the
+    touched rows decay (reference regularizer.py SelectedRows branch:
+    extract_rows + row gather + scale).  Rows are merged first so
+    duplicated lookups decay once, as the dense gradient's rows do; the
+    tables one id batch looks up share the merge's sort (the run's
+    memo, ``merge_rows``)."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m = merge_rows(g, getattr(ctx, "run_memo", None))
+    pr = gather_rows(p, m.rows).to(m.dtype)
+    coeff = attrs.get("coeff", 0.0)
+    vals = coeff * (torch.sign(pr) if attrs.get("mode", "l2") == "l1"
+                    else pr)
+    return {"Out": [SelectedRows(m.rows, vals, m.height, merged=True)]}
+
+
+@register("extract_rows", no_grad_slots=("X",))
+def _extract_rows(ctx, ins, attrs):
+    """extract_rows_op.cc: the row-id vector of a SelectedRows value,
+    as [N, 1]."""
+    x = ins["X"][0]
+    if not isinstance(x, SelectedRows):
+        raise TypeError("extract_rows expects a SelectedRows input")
+    return {"Out": [x.rows.reshape(-1, 1)]}
+
+
 @register_grad("expand")
 def _expand_grad(ctx, ins, attrs):
     """X-grad of the tile: the cotangent summed over the copies of each
@@ -167,6 +211,45 @@ def _concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
+@register("split")
+def _split(ctx, ins, attrs):
+    """split_op.cc: X cut along ``axis`` into ``sections`` (their sizes)
+    or ``num`` equal parts."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        sizes = list(sections)
+    else:
+        num = attrs.get("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of size {x.shape[axis]} "
+                             f"does not divide into {num} equal parts")
+        sizes = [x.shape[axis] // num] * num
+    return {"Out": list(torch.split(x, sizes, dim=axis))}
+
+
+register("split_byref")(_split)  # split_byref_op.cc: same math, by-ref out
+
+
+@register("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register("pad")
+def _pad(ctx, ins, attrs):
+    """``jnp.pad`` with a constant: ``paddings`` is the flat [before0,
+    after0, before1, after1, ...] list."""
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    flat = []
+    for i in reversed(range(x.dim())):   # F.pad lists the last axis first
+        flat += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(
+        x, flat, value=attrs.get("pad_value", 0.0))]}
+
+
 @register("assign")
 def _assign(ctx, ins, attrs):
     """A copy: the sparse optimizers update tables in place, so an
@@ -179,6 +262,73 @@ def _arg_max(ctx, ins, attrs):
     """The first index of each maximum along ``axis``, int64 (the CTC
     greedy decoder's per-step argmax)."""
     return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register("arg_min", no_grad_slots=("X",))
+def _arg_min(ctx, ins, attrs):
+    """The first index of each minimum along ``axis``, int64."""
+    return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register("one_hot", no_grad_slots=("X",))
+def _one_hot(ctx, ins, attrs):
+    """``jax.nn.one_hot``: a trailing [..., 1] dim is dropped; an id
+    outside [0, depth) gives a zero row."""
+    x = _ids(ins["X"][0])
+    depth = attrs["depth"]
+    hot = x.unsqueeze(-1) == torch.arange(depth, device=x.device)
+    return {"Out": [hot.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register("shape", no_grad_slots=("Input",))
+def _shape(ctx, ins, attrs):
+    """The input's shape as an int32 vector."""
+    x = ins["Input"][0]
+    return {"Out": [torch.tensor(tuple(x.shape), dtype=torch.int32,
+                                 device=x.device)]}
+
+
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register("fill")
+def _fill(ctx, ins, attrs):
+    """fill_op.cc: Out holds the literal ``value`` list (row-major) in
+    ``shape``."""
+    data = np.asarray(attrs["value"], np_dtype(attrs.get("dtype", "float32")))
+    return {"Out": [torch.from_numpy(data.reshape(attrs["shape"]))
+                    .to(ctx.device)]}
+
+
+@register("range", no_grad_slots=("Start", "End", "Step"))
+def _range(ctx, ins, attrs):
+    """``arange(start, end, step)`` from attrs; tensor bounds would give
+    a data-dependent shape, which the reference refuses too."""
+    if "Start" in ins:
+        raise NotImplementedError("dynamic range not supported under XLA; "
+                                  "use attrs")
+    return {"Out": [torch.arange(attrs["start"], attrs["end"], attrs["step"],
+                                 dtype=torch_dtype(attrs.get("dtype",
+                                                             "int64")),
+                                 device=ctx.device)]}
+
+
+@register("where", no_grad_slots=("Condition",))
+def _where(ctx, ins, attrs):
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
+
+
+@register("print")
+def _print(ctx, ins, attrs):
+    """print_op: the tensor printed on the host each time the op runs,
+    after ``message``, and passed through (a copy)."""
+    x = ins["In"][0]
+    print(attrs.get("message", "") + " {}".format(x.detach().cpu().numpy()),
+          flush=True)
+    return {"Out": [x.clone()]}
 
 
 @register("top_k", no_grad_slots=("X",))
@@ -259,6 +409,29 @@ def _uniform_random(ctx, ins, attrs):
 def _gaussian_random(ctx, ins, attrs):
     x = torch.randn(tuple(attrs["shape"]), generator=_generator(ctx, attrs),
                     device=ctx.device, dtype=torch.float32)
+    out = x * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register("truncated_gaussian_random", stateful=True)
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """A normal truncated to [-2, 2] standard deviations, drawn as
+    ``jax.random.truncated_normal`` draws it (inverse erf of a uniform
+    between erf(-2/sqrt2) and erf(2/sqrt2), clipped inside the bounds),
+    then scaled by ``std`` and shifted by ``mean``."""
+    gen = _generator(ctx, attrs)
+    shape = tuple(attrs["shape"])
+    root2 = torch.tensor(2.0, dtype=torch.float32).sqrt()
+    lower = torch.tensor(-2.0, dtype=torch.float32)
+    upper = torch.tensor(2.0, dtype=torch.float32)
+    a, b = torch.erf(lower / root2), torch.erf(upper / root2)
+    u = torch.rand(shape, generator=gen, device=ctx.device,
+                   dtype=torch.float32)
+    u = (u * (b - a) + a).to(ctx.device)
+    x = root2.to(ctx.device) * torch.erfinv(u)
+    inf = torch.tensor(float("inf"))
+    x = torch.clamp(x, torch.nextafter(lower, inf).item(),
+                    torch.nextafter(upper, -inf).item())
     out = x * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
     return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
 
